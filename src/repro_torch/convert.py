@@ -1,0 +1,23 @@
+"""Weights carried across from numpy (e.g. a JAX package's ``model.init`` or
+device matrix, converted with ``np.asarray``) into the port's tensors."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["params_from_numpy", "flat_from_numpy"]
+
+
+def params_from_numpy(params, device: str | torch.device = "cuda") -> list:
+    """A list of (W, b) numpy arrays -> a list of (W, b) float32 tensors."""
+    dev = resolve_device(device)
+    return [tuple(torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+                  for a in pair) for pair in params]
+
+
+def flat_from_numpy(matrix, device: str | torch.device = "cuda") -> torch.Tensor:
+    """An (n, d_pad) device matrix -> a float32 tensor on ``device``."""
+    return torch.tensor(np.asarray(matrix), dtype=torch.float32,
+                        device=resolve_device(device))

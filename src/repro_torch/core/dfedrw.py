@@ -1,0 +1,402 @@
+"""DFedRW and QDFedRW protocol engine (paper Alg. 1 / Alg. 2) in PyTorch.
+
+The port of the flat-buffer engine of ``repro.core.dfedrw``
+(``DFedRW._build_round_fn_flat``). The n federated client models live as
+ONE ``(n, d_pad)`` float32 matrix on the device (repro_torch.core.flatten),
+and one communication round runs, in the reference's order:
+
+  1. *Walk planning* (host, numpy): M Metropolis-Hastings chains with
+     straggler-dependent lengths K_m, and one ``rng.integers`` draw for the
+     (M, K, B) batch indices. Line for line the reference's planner, so one
+     ``cfg.seed`` gives the same plans and the same Eq. 18 bits.
+  2. *Chain SGD* (Eq. 10): the M chain models are M rows; each of the K
+     steps is one batched per-chain gradient, a masked step with the
+     globally decreasing step size eta^kbar and, for QDFedRW, the Eq. 13 hop
+     hand-off ``chain + deq(Q(stepped - chain))`` as ONE fused kernel call
+     (repro_torch.kernels.quantize).
+  3. *w^{t,last} scatter*: one winner election replays the sequential
+     (step, chain) write order; one row copy writes the winners.
+  4. *Aggregation* (Eq. 11 / Eq. 14): fp32 gathers and averages the
+     neighbor rows; QDFedRW quantizes each updated device's message once
+     (one kernel call) and lands it on every aggregator listing the sender
+     with one matrix product.
+
+Everything that depends only on the plan (winner election, scatter indices)
+is computed on the host and sent to the device once per round.
+
+Only the flat engine on the FNN is ported: ``engine="reference"`` and
+``chain_mode=True`` raise ``NotImplementedError`` (ROADMAP.md, queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.flatten import (
+    FlatSpec,
+    elect_writers,
+    flatten_tree,
+    make_flat_spec,
+    unflatten_tree,
+)
+from repro_torch.core.graph import Topology
+from repro_torch.core.quantization import QuantConfig, validate_wire_bits, wire_bits
+from repro_torch.core.walk import StragglerModel, WalkPlan, sample_walks
+from repro_torch.data.synthetic import FederatedDataset
+from repro_torch.device import resolve_device
+from repro_torch.kernels.quantize import payload_quantize_dequantize
+from repro_torch.models.fnn import SmallModel
+from repro_torch.optim.sgd import decreasing_lr
+
+# fp32 matrix products, as the JAX package computes them (no TF32).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ["DFedRWConfig", "DFedRWState", "DFedRW", "RoundMetrics",
+           "gamma_hat_from_traj"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DFedRWConfig:
+    m_chains: int = 5
+    k_walk: int = 5
+    agg_fraction: float = 0.25      # fraction of devices aggregating per round
+    n_agg: int = 5                  # |N_A(i)| cap
+    batch_size: int = 50
+    lr_r: float = 5.0
+    lr_q: float = 0.499
+    quant: QuantConfig = dataclasses.field(default_factory=lambda: QuantConfig(bits=32))
+    straggler: StragglerModel = dataclasses.field(default_factory=StragglerModel)
+    chain_mode: bool = False        # §VI-F LM mode: not ported yet
+    engine: str = "flat"            # only "flat" is ported
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class DFedRWState:
+    device_params: torch.Tensor     # (n, d_pad) float32 on the engine's device
+    round: int = 0
+    global_step: int = 0            # kbar counter
+    comm_bits_total: float = 0.0
+    comm_bits_busiest: float = 0.0
+    updated: np.ndarray | None = None  # (n,) bool: device has trained/aggregated
+
+
+@dataclasses.dataclass
+class RoundMetrics:
+    round: int
+    train_loss: float
+    comm_bits_round: float
+    comm_bits_busiest_round: float
+    gamma_hat: float
+
+
+def gamma_hat_from_traj(grad_sq_traj: torch.Tensor, walk_mask: torch.Tensor) -> torch.Tensor:
+    """Lemma-1 estimate ||g_last|| / ||g_first|| averaged over chains.
+
+    ``grad_sq_traj`` (K, M) squared gradient norms, ``walk_mask`` (M, K).
+    The first/last *active* step of each chain brackets the ratio; chains
+    whose mask is entirely False performed no step and are excluded."""
+    m, k = walk_mask.shape
+    mask = walk_mask.to(torch.int64)
+    active_steps = mask.sum(dim=1)                                 # (M,)
+    k_first = torch.argmax(mask, dim=1)                            # 0 if none
+    k_last = k - 1 - torch.argmax(mask.flip(1), dim=1)
+    chains = torch.arange(m, device=grad_sq_traj.device)
+    g0 = torch.sqrt(grad_sq_traj[k_first, chains] + 1e-12)
+    g_last = torch.sqrt(grad_sq_traj[k_last, chains] + 1e-12)
+    alive = active_steps > 0
+    ratios = torch.where(alive, g_last / g0, torch.zeros_like(g0))
+    return ratios.sum() / torch.clamp(alive.sum(), min=1)
+
+
+class DFedRW:
+    """Runner binding (model, dataset, topology, config) to one device."""
+
+    def __init__(
+        self,
+        model: SmallModel,
+        data: FederatedDataset,
+        topo: Topology,
+        cfg: DFedRWConfig,
+        device: str | torch.device = "cuda",
+    ):
+        if data.n_clients != topo.n:
+            raise ValueError("dataset clients must match graph size")
+        if cfg.engine != "flat":
+            raise NotImplementedError(
+                f"engine={cfg.engine!r}: the port has only the flat engine "
+                "(ROADMAP.md queue A, item 13: the reference engine)")
+        if cfg.chain_mode:
+            raise NotImplementedError(
+                "chain_mode: not ported yet (ROADMAP.md queue A, item 6: "
+                "LSTM chain mode)")
+        validate_wire_bits(cfg.quant.bits)
+        self.device = resolve_device(device)
+        self.model = model
+        self.data = data
+        self.topo = topo
+        self.cfg = cfg
+        self.rng = np.random.default_rng(cfg.seed)
+        # The dataset stays resident on the device; batches are gathers.
+        self._x = torch.as_tensor(data.x, device=self.device)
+        self._y = torch.as_tensor(data.y, device=self.device)
+        self.flat_spec: FlatSpec = make_flat_spec(
+            model.init(torch.Generator().manual_seed(0), "cpu"))
+
+        def loss_flat(vec, xb, yb):
+            return model.loss_fn(unflatten_tree(vec, self.flat_spec), (xb, yb))
+
+        # Per-chain gradients of the M chain rows: vmap(grad) as in the
+        # reference, which torch lowers to batched matrix products.
+        self._grad_fn = torch.func.vmap(torch.func.grad(loss_flat))
+        self._loss_fn = torch.func.vmap(loss_flat)
+
+    # ------------------------------------------------------------------ init
+    def state_from_params(self, params: list) -> DFedRWState:
+        """Every device starts from the same ``params`` (a list of (W, b))."""
+        vec = flatten_tree([(w.to(self.device), b.to(self.device)) for w, b in params],
+                           self.flat_spec)
+        return DFedRWState(
+            device_params=vec[None, :].repeat(self.topo.n, 1),
+            updated=np.zeros(self.topo.n, dtype=bool),
+        )
+
+    def init_state(self, key: torch.Generator) -> DFedRWState:
+        return self.state_from_params(self.model.init(key, self.device))
+
+    # ------------------------------------------------------------ the round
+    def _round_flat(self, device_flat, plan, bidx, agg, kbar0, bits, qseeds):
+        """One round of the flat engine (reference ``dfedrw.py:261-393``).
+        Returns (new device matrix, mean loss, gamma_hat) as device tensors."""
+        cfg, spec, dev = self.cfg, self.flat_spec, self.device
+        quant_on = bits < 32
+        n_dev = device_flat.shape[0]
+        m, k = plan.devices.shape
+
+        # Plan-only work on the host: the last-writer election over the
+        # step-major trajectory and the valid aggregators (torch has no
+        # dropping scatter, so losers and padded ids >= n are filtered out).
+        devs_flat = torch.from_numpy(plan.devices.T.reshape(-1).astype(np.int64))
+        mask_flat = torch.from_numpy(plan.mask.T.reshape(-1).copy())
+        _, wins = elect_writers(devs_flat, mask_flat, n_dev)
+        win_slots = torch.nonzero(wins).reshape(-1)
+        agg_devices, agg_rows, agg_w = agg
+        valid = np.nonzero(agg_devices < n_dev)[0]
+        # Everything the round indexes with goes to the device up front.
+        to = dict(device=dev)
+        walk_mask = torch.from_numpy(plan.mask.copy()).to(**to)
+        bidx_t = torch.from_numpy(np.ascontiguousarray(bidx.swapaxes(0, 1))).to(**to)
+        chain_ids = torch.from_numpy(plan.devices[:, 0].astype(np.int64)).to(**to)
+        devs_dev = devs_flat.to(**to)
+        wins_dev = wins.to(**to)
+        win_slots_dev = win_slots.to(**to)
+        win_devs_dev = devs_flat[win_slots].to(**to)
+        agg_dev_ids = torch.from_numpy(agg_devices[valid].astype(np.int64)).to(**to)
+        rows_dev = torch.from_numpy(agg_rows[valid].astype(np.int64)).to(**to)
+        w_dev = torch.from_numpy(agg_w[valid]).to(**to)
+
+        chain = device_flat[chain_ids]                        # (M, d_pad)
+        xb_all = self._x[bidx_t]                              # (K, M, B, ...)
+        yb_all = self._y[bidx_t]
+        traj, grad_sq = [], []
+        for step in range(k):
+            lr = decreasing_lr(kbar0 + step + 1, cfg.lr_r, cfg.lr_q)
+            grads = self._grad_fn(chain, xb_all[step], yb_all[step])   # (M, d_pad)
+            stepped = torch.where(walk_mask[:, step, None], chain - lr * grads, chain)
+            if quant_on:
+                # Eq. 13: the hand-off transmits Q(w^{k+1} - w^k), one wire
+                # tensor per leaf; the receiver's w^k + deq(Q(diff)) is fused
+                # into the same kernel pass.
+                stepped = payload_quantize_dequantize(
+                    stepped - chain, spec, per_message=False, bits=bits,
+                    s=cfg.quant.s, seed=qseeds[step], base=chain)
+            traj.append(stepped)
+            grad_sq.append(torch.sum(grads * grads, dim=1))
+            chain = stepped
+
+        traj2 = torch.stack(traj).reshape(k * m, spec.d_pad)  # step-major
+        dev_last = device_flat.index_copy(0, win_devs_dev, traj2[win_slots_dev])
+        gamma_hat = gamma_hat_from_traj(torch.stack(grad_sq), walk_mask)
+
+        if quant_on:
+            # Eq. 14 payload: one message Q(w_l^{t,last} - w_l) per
+            # walk-updated device; the aggregator weight matrix lands each
+            # message on every aggregator listing the sender.
+            base_rows = device_flat[devs_dev]                 # (K*M, d_pad)
+            diffs = torch.where(wins_dev[:, None], traj2 - base_rows, 0.0)
+            deq = payload_quantize_dequantize(
+                diffs, spec, per_message=True, bits=bits, s=cfg.quant.s,
+                seed=qseeds[k])
+            hits = rows_dev[:, :, None] == devs_dev[None, None, :]
+            w3 = (w_dev[:, :, None] * hits).sum(dim=1) * wins_dev[None, :]
+            upd = w3 @ deq                                    # (A, d_pad)
+            new_rows = device_flat[agg_dev_ids] + upd
+        else:
+            gathered = dev_last[rows_dev]                     # (A, n_agg, d_pad)
+            new_rows = torch.sum(w_dev[..., None] * gathered, dim=1)
+        new_device_flat = dev_last.index_copy_(0, agg_dev_ids, new_rows)
+
+        # Mean train loss over the round's final chain models, on their last
+        # batch (cheap monitoring signal).
+        losses = self._loss_fn(chain, xb_all[-1], yb_all[-1])
+        return new_device_flat, losses.mean(), gamma_hat
+
+    # ------------------------------------------------------------- host side
+    def _plan_round(self, state: DFedRWState) -> tuple[WalkPlan, np.ndarray, tuple]:
+        plan, bidx = self.plan_walks(state)
+        agg = self.plan_aggregation(plan)
+        return plan, bidx, agg
+
+    def plan_walks(self, state: DFedRWState) -> tuple[WalkPlan, np.ndarray]:
+        """Sample the round's M walk trajectories plus their per-step batch
+        indices, in the reference's protocol-rng draw order."""
+        cfg, rng, topo = self.cfg, self.rng, self.topo
+        plan = sample_walks(topo, cfg.m_chains, cfg.k_walk, rng,
+                            straggler=cfg.straggler)
+        # Per-step batches from the visited device's local data; a slow
+        # device contributes a partial update by tiling a sub-batch.
+        slow = cfg.straggler.slow_mask(topo.n)
+        b_slow = max(1, int(cfg.batch_size / max(cfg.straggler.slowdown, 1.0)))
+        flat_dev = plan.devices.reshape(-1)                       # (M*K,)
+        idx_mat = self.data.client_idx                            # (n, max_size)
+        cols = rng.integers(0, idx_mat.shape[1], size=(flat_dev.shape[0], cfg.batch_size))
+        bidx = idx_mat[flat_dev[:, None], cols]
+        if cfg.straggler.mode == "partial" and slow.any():
+            reps = int(np.ceil(cfg.batch_size / b_slow))
+            sub = idx_mat[flat_dev[:, None], cols[:, :b_slow]]
+            tiled = np.tile(sub, (1, reps))[:, : cfg.batch_size]
+            bidx = np.where(slow[flat_dev][:, None], tiled, bidx)
+        bidx = bidx.reshape(cfg.m_chains, cfg.k_walk, cfg.batch_size)
+        return plan, bidx
+
+    def plan_aggregation(self, plan: WalkPlan) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Build the round's (agg_devices, agg_rows, agg_weights): a uniform
+        draw of aggregators; per aggregator a random subset of <= n_agg
+        participating neighbors (itself included), weighted by data size.
+        Pad slots carry the aggregator's own id and zero weight."""
+        cfg, rng, topo = self.cfg, self.rng, self.topo
+        participants = np.unique(plan.devices[plan.mask])
+        sizes = self.data.client_sizes
+        n_aggregators = max(1, int(round(topo.n * cfg.agg_fraction)))
+        agg_devices = rng.choice(topo.n, size=n_aggregators, replace=False)
+        n_agg = cfg.n_agg
+        row_list, weight_list = [], []
+        part_set = set(participants.tolist())
+        for i in agg_devices:
+            nbrs = [j for j in topo.neighbors(i, include_self=True)
+                    if j in part_set or j == i]
+            rng.shuffle(nbrs)
+            nbrs = np.array(nbrs[:n_agg], dtype=np.int64)
+            pad = n_agg - len(nbrs)
+            w = sizes[nbrs].astype(np.float64)
+            w = w / max(w.sum(), 1.0)
+            if pad > 0:
+                nbrs = np.pad(nbrs, (0, pad), constant_values=i)
+                w = np.pad(w, (0, pad))
+            row_list.append(nbrs)
+            weight_list.append(w)
+        agg_rows = np.stack(row_list).astype(np.int32)
+        agg_w = np.stack(weight_list).astype(np.float32)
+        return (agg_devices.astype(np.int32), agg_rows, agg_w)
+
+    def _comm_cost_bits(
+        self, plan: WalkPlan, agg: tuple, d_params: int, bits: int | None = None,
+    ) -> tuple[float, float]:
+        """Eq. 18 comm accounting. Returns (total_bits, busiest_device_bits)."""
+        bits = self.cfg.quant.bits if bits is None else int(bits)
+        hop_bits = wire_bits(d_params, bits)
+        n = self.topo.n
+        # Walk hand-offs: each cross-device hop into an executed step sends
+        # params (or a quantized diff); the sender pays.
+        src = plan.devices[:, :-1]
+        dst = plan.devices[:, 1:]
+        live = plan.mask[:, 1:] & (src != dst)
+        per_dev = np.bincount(src[live].ravel(), minlength=n).astype(np.float64)
+        # Aggregation: each participating device l sends its (quantized diff)
+        # model to the aggregators that list it.
+        agg_devices, agg_rows, agg_w = agg
+        sends = (agg_w > 0) & (agg_rows != agg_devices[:, None])
+        per_dev += np.bincount(agg_rows[sends].ravel(), minlength=n)
+        per_dev *= hop_bits
+        return float(per_dev.sum()), float(per_dev.max())
+
+    # ------------------------------------------------------------------- run
+    def run_round(self, state: DFedRWState, key: torch.Generator
+                  ) -> tuple[DFedRWState, RoundMetrics]:
+        plan, bidx, agg = self._plan_round(state)
+        return self.execute_round(state, plan, bidx, agg, key)
+
+    def execute_round(
+        self,
+        state: DFedRWState,
+        plan: WalkPlan,
+        bidx: np.ndarray,
+        agg: tuple,
+        key: torch.Generator | None,
+        account_plan: WalkPlan | None = None,
+        bits: int | None = None,
+        qseeds=None,
+    ) -> tuple[DFedRWState, RoundMetrics]:
+        """Run one planned round and update the protocol state.
+
+        ``account_plan`` charges Eq. 18 comm for a different plan than the
+        one computed; ``bits`` overrides the config's wire width for this
+        round. ``qseeds`` is a (K+1, 2) array of uint32 seed words for the K
+        hop payloads and the one aggregation payload; when None (and the
+        round is quantized) they are drawn from the generator ``key``."""
+        cfg = self.cfg
+        bits_eff = validate_wire_bits(cfg.quant.bits if bits is None else int(bits))
+        if bits_eff < 32:
+            if qseeds is None:
+                if key is None:
+                    raise ValueError("a quantized round needs a generator or qseeds")
+                qseeds = torch.randint(0, 1 << 32, (cfg.k_walk + 1, 2),
+                                       generator=key, dtype=torch.int64)
+            qseeds = [(int(a), int(b)) for a, b in np.asarray(qseeds).tolist()]
+            if len(qseeds) != cfg.k_walk + 1:
+                raise ValueError(f"qseeds needs {cfg.k_walk + 1} rows, got {len(qseeds)}")
+        new_params, loss, gamma_hat = self._round_flat(
+            state.device_params, plan, bidx, agg, state.global_step, bits_eff, qseeds)
+        acct = plan if account_plan is None else account_plan
+        tot, busiest = self._comm_cost_bits(acct, agg, self.flat_spec.d, bits=bits_eff)
+        agg_devices = agg[0]
+        updated = (state.updated.copy() if state.updated is not None
+                   else np.zeros(self.topo.n, dtype=bool))
+        updated[np.unique(plan.devices[plan.mask])] = True
+        updated[agg_devices[agg_devices < self.topo.n]] = True
+        new_state = DFedRWState(
+            device_params=new_params,
+            round=state.round + 1,
+            global_step=state.global_step + cfg.k_walk,
+            comm_bits_total=state.comm_bits_total + tot,
+            comm_bits_busiest=state.comm_bits_busiest + busiest,
+            updated=updated,
+        )
+        metrics = RoundMetrics(
+            round=new_state.round,
+            train_loss=float(loss),
+            comm_bits_round=tot,
+            comm_bits_busiest_round=busiest,
+            gamma_hat=float(gamma_hat),
+        )
+        return new_state, metrics
+
+    # ------------------------------------------------------------- evaluate
+    @torch.no_grad()
+    def evaluate(self, state: DFedRWState, x_test, y_test, max_batch: int = 2048) -> dict:
+        """Accuracy/loss of the average over *participating* device models
+        (devices that never trained/aggregated still hold their init)."""
+        if state.updated is not None and state.updated.any():
+            sel = torch.from_numpy(np.nonzero(state.updated)[0]).to(self.device)
+        else:
+            sel = torch.arange(self.topo.n, device=self.device)
+        mean_params = unflatten_tree(state.device_params[sel].mean(dim=0), self.flat_spec)
+        x_test = torch.as_tensor(np.asarray(x_test[:max_batch]), device=self.device)
+        y_test = torch.as_tensor(np.asarray(y_test[:max_batch]), device=self.device)
+        logits = self.model.predict(mean_params, x_test)
+        acc = (logits.argmax(-1) == y_test).to(torch.float32).mean()
+        loss = self.model.loss_fn(mean_params, (x_test, y_test))
+        return {"accuracy": float(acc), "loss": float(loss)}

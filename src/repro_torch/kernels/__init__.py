@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels for the port's hot spots, each with a plain
+PyTorch version in the same module (the CPU path and the card's oracle):
+
+- quantize/: fused stochastic quantize -> dequantize (paper Eq. 12-14), the
+             communication hot spot of QDFedRW; CUDA C++ for sm_90a.
+"""

@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here is marked ``gpu`` and skips where there is no card (a CUDA
+kernel has no CPU mode); the decision is made inside a fixture, never at
+import. This file imports neither ``jax`` nor ``repro``, so it runs on a
+machine with the card alone:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Contracts: ``qdq_rows_rng`` equals its plain version bit for bit;
+``qdq_delta_rows_rng`` within 1 ulp (both fuse base + t*norm into one FMA).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.quantize import quantize as qk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(rows, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(rows, qk.LANES, generator=g) * 0.03
+    w[3] = 0.0                                      # an all-zero row: norm 0
+    w[0, :5] = 0.0                                  # sign(0) = 0
+    base = torch.randn(rows, qk.LANES, generator=g)
+    norm = w.double().pow(2).sum(1).sqrt().float()
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    s = torch.where(norm > 0, w.abs().amax(1) / safe / 3.0, torch.ones_like(norm))
+    return [t.to(device) for t in (w, base, s, norm)]
+
+
+def _ulps(a, b):
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+@pytest.mark.parametrize("rows", [1, 7, 1559 * 8])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_kernels_match_plain(cuda, bits, rows):
+    w, base, s, norm = _inputs(max(rows, 8), bits, cuda)
+    w, base, s, norm = w[:rows].contiguous(), base[:rows].contiguous(), s[:rows], norm[:rows]
+    seed = (0x1234, 0xABCDEF01)
+    qk.reset_launch_counts()
+    buf = w.clone()
+    got = qk.qdq_rows_rng(buf, seed, s, norm, bits=bits)
+    got_d = qk.qdq_delta_rows_rng(w.clone(), base, seed, s, norm, bits=bits)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf.data_ptr()          # written in place over w
+    assert qk.LAUNCHES == {"qdq_delta_rows_rng": 1, "qdq_rows_rng": 1}
+    assert torch.equal(got, qk.qdq_rows_rng_plain(w, seed, s, norm, bits=bits))
+    want_d = qk.qdq_delta_rows_rng_plain(w, base, seed, s, norm, bits=bits)
+    assert int(_ulps(got_d, want_d).max()) <= 1
+
+
+def test_kernel_rejects_misaligned_views(cuda):
+    w, base, s, norm = _inputs(16, 0, cuda)
+    flat = torch.zeros(16 * qk.LANES + 1, device=cuda)
+    shifted = flat[1:].view(16, qk.LANES)            # 4-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        qk.qdq_rows_rng(shifted, (1, 2), s, norm, bits=8)
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """Three QDFedRW rounds from the same weights and seed words on the CPU
+    (plain versions) and on the card (kernels): within the bits=8 engine
+    contract of tests/test_torch_dfedrw.py."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import DFedRW, DFedRWConfig, QuantConfig, make_topology
+    from repro_torch.core.heterogeneity import partition_similarity
+    from repro_torch.data import FederatedDataset, synthetic_image_classification
+    from repro_torch.models import make_fnn
+
+    x, y = synthetic_image_classification(n_samples=2000, seed=0, noise=1.0)
+    data = FederatedDataset.from_partition(
+        x, y, partition_similarity(y, 10, 50, np.random.default_rng(0)))
+    model = make_fnn((64,))
+    params = [tuple(t.numpy() for t in p)
+              for p in model.init(torch.Generator().manual_seed(3), "cpu")]
+    cfg = DFedRWConfig(m_chains=4, k_walk=3, batch_size=32, quant=QuantConfig(bits=8))
+    runs = []
+    for device in ("cpu", cuda):
+        r = DFedRW(model, data, make_topology("complete", 10), cfg, device=device)
+        runs.append([r, r.state_from_params(params_from_numpy(params, device=device))])
+    seeds = torch.Generator().manual_seed(11)
+    qk.reset_launch_counts()
+    for _ in range(3):
+        qseeds = torch.randint(0, 1 << 32, (cfg.k_walk + 1, 2), generator=seeds)
+        for run in runs:
+            r, state = run
+            plan, bidx = r.plan_walks(state)
+            run[1], _ = r.execute_round(state, plan, bidx, r.plan_aggregation(plan), None,
+                                        qseeds=qseeds)
+        a, b = runs[0][1].device_params, runs[1][1].device_params.cpu()
+        assert float((a - b).abs().max()) < 0.05 * float(a.abs().max()) + 1e-4
+    assert qk.LAUNCHES == {"qdq_delta_rows_rng": 9, "qdq_rows_rng": 3}

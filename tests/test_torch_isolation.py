@@ -1,0 +1,125 @@
+"""The port stands alone: no module of repro_torch (nor chip_smoke.py)
+imports ``jax`` or the JAX package ``repro``, and its entry points run on
+the card unless the caller asks for the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_GUARD = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top == "repro" or top.startswith("jax"):
+                raise ModuleNotFoundError(f"refused import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+""")
+
+
+def _run(body: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run([sys.executable, "-c", _GUARD + textwrap.dedent(body)],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax_and_runs_a_round():
+    proc = _run("""
+        import importlib, pkgutil, sys
+        import numpy as np
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert "repro_torch.core.dfedrw" in names and "repro_torch.launch.train" in names
+
+        import torch
+        from repro_torch.core import DFedRW, DFedRWConfig, QuantConfig, make_topology, train_loop
+        from repro_torch.core.heterogeneity import partition_similarity
+        from repro_torch.data import FederatedDataset, synthetic_image_classification
+        from repro_torch.models import make_fnn
+
+        x, y = synthetic_image_classification(n_samples=400, seed=0)
+        data = FederatedDataset.from_partition(
+            x, y, partition_similarity(y, 6, 50, np.random.default_rng(0)))
+        runner = DFedRW(make_fnn((16,)), data, make_topology("ring", 6),
+                        DFedRWConfig(m_chains=2, k_walk=2, quant=QuantConfig(bits=8)),
+                        device="cpu")
+        hist = train_loop(runner, 1, x[:64], y[:64])
+        assert np.isfinite(hist.train_loss[0])
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok", len(names))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py's imports stand alone too. Told that there is a card,
+    it imports the whole port before its first call to the card fails."""
+    proc = _run("""
+        import runpy, subprocess, sys
+        import torch
+        torch.cuda.is_available = lambda: True
+        sys.argv = ["chip_smoke.py"]
+        try:
+            runpy.run_path("chip_smoke.py", run_name="__main__")
+        except (SystemExit, OSError, RuntimeError, AssertionError,
+                subprocess.CalledProcessError):
+            pass
+        assert "repro_torch.core.dfedrw" in sys.modules
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the CUDA default is valid here")
+    import numpy as np
+
+    from repro_torch.convert import flat_from_numpy, params_from_numpy
+    from repro_torch.core import DFedRW, DFedRWConfig, make_topology
+    from repro_torch.core.heterogeneity import partition_similarity
+    from repro_torch.data import FederatedDataset, synthetic_image_classification
+    from repro_torch.launch.train import main
+    from repro_torch.models import make_fnn
+
+    x, y = synthetic_image_classification(n_samples=100, seed=0)
+    data = FederatedDataset.from_partition(
+        x, y, partition_similarity(y, 4, 50, np.random.default_rng(0)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DFedRW(make_fnn((8,)), data, make_topology("complete", 4), DFedRWConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy([(np.zeros((2, 2)), np.zeros(2))])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flat_from_numpy(np.zeros((2, 128)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["protocol", "--rounds", "1", "--devices", "4"])
+
+
+def test_only_cpu_tensors_take_the_plain_path():
+    """The plain version runs only because the tensor lies on the CPU; a
+    tensor on any device other than the CPU or a card is refused."""
+    from repro_torch.kernels.quantize import quantize as q
+
+    w = torch.zeros(2, q.LANES)
+    out = q.qdq_rows_rng(w, (0, 0), torch.ones(2), torch.ones(2), bits=8)
+    assert out is not w and out.device.type == "cpu"
+    meta = [t.to("meta") for t in (w, torch.ones(2), torch.ones(2))]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        q.qdq_rows_rng(meta[0], (0, 0), meta[1], meta[2], bits=8)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        q.qdq_delta_rows_rng(meta[0], torch.empty_like(meta[0]), (0, 0), meta[1], meta[2],
+                             bits=8)
