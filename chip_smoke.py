@@ -35,7 +35,7 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (on-chip-measurement table)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory bandwidth
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # Integer and float operations per element of one qdq pass, counted from
 # csrc/qdq_rows.cu: 18 for the counter hash, 14 for the grid arithmetic.
