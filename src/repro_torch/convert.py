@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "flat_from_numpy"]
+__all__ = ["params_from_numpy", "flat_from_numpy", "lm_params_from_numpy"]
 
 
 def params_from_numpy(params, device: str | torch.device = "cuda") -> list:
@@ -21,3 +21,17 @@ def flat_from_numpy(matrix, device: str | torch.device = "cuda") -> torch.Tensor
     """An (n, d_pad) device matrix -> a float32 tensor on ``device``."""
     return torch.tensor(np.asarray(matrix), dtype=torch.float32,
                         device=resolve_device(device))
+
+
+def lm_params_from_numpy(tree, device: str | torch.device = "cuda") -> dict:
+    """A language model's nested dict of numpy arrays (a JAX ``init_params``
+    pytree after ``jax.tree_util.tree_map(np.asarray, ...)``) -> the same
+    nested dict of float32 tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.tensor(np.asarray(node), dtype=torch.float32, device=dev)
+
+    return conv(tree)

@@ -8,13 +8,19 @@ machine with the card alone:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Contracts: ``qdq_rows_rng`` equals its plain version bit for bit;
-``qdq_delta_rows_rng`` within 1 ulp (both fuse base + t*norm into one FMA).
+``qdq_delta_rows_rng`` within 1 ulp (both fuse base + t*norm into one FMA);
+``ssd_scan`` within 2e-4 absolute and relative of ``ssd_chunked_plain``
+(float32 summed in another order, the tolerance tests/test_kernels_ssd.py
+holds the TPU kernel to).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.quantize import quantize as qk
+from repro_torch.kernels.ssd_scan import ssd_chunked
+from repro_torch.kernels.ssd_scan import ssd_scan as sk
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -101,3 +107,69 @@ def test_engine_on_card_matches_cpu(cuda):
         a, b = runs[0][1].device_params, runs[1][1].device_params.cpu()
         assert float((a - b).abs().max()) < 0.05 * float(a.abs().max()) + 1e-4
     assert qk.LAUNCHES == {"qdq_delta_rows_rng": 9, "qdq_rows_rng": 3}
+
+
+def _ssd_inputs(b, h, l, p, n, g, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, l, p, generator=gen) * 0.8
+    dt = torch.logaddexp(torch.randn(b, h, l, generator=gen), torch.zeros(()))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h))
+    bb = torch.randn(b, g, l, n, generator=gen) * 0.5
+    cc = torch.randn(b, g, l, n, generator=gen) * 0.5
+    return [t.to(device) for t in (x, dt, a_log, bb, cc)]
+
+
+@pytest.mark.parametrize("b,h,l,p,n,chunk,g", [
+    (2, 4, 512, 64, 128, 256, 4),      # the main path's P, N and chunk
+    (1, 8, 300, 32, 64, 128, 2),       # L not a chunk multiple, G < H
+    (2, 6, 96, 16, 16, 32, 1),         # chunk under one 64-row tile, G = 1
+])
+def test_ssd_scan_matches_plain(cuda, b, h, l, p, n, chunk, g):
+    x, dt, a_log, bb, cc = _ssd_inputs(b, h, l, p, n, g, cuda)
+    sk.reset_launch_counts()
+    got = ssd_chunked(x, dt, a_log, bb, cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_scan"] == 1          # a CUDA tensor never takes the plain path
+    want, _ = ssd_chunked_plain(x, dt, a_log, bb, cc, chunk)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_ssd_scan_takes_the_models_layout(cuda):
+    """(B,L,H,P) activations and (B,L,G,N) B/C passed as transposed views:
+    read by strides, and y comes back in (B,L,H,P) memory."""
+    x, dt, a_log, bb, cc = _ssd_inputs(2, 4, 200, 64, 128, 2, cuda)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (x, dt, bb, cc)]
+    sk.reset_launch_counts()
+    got = ssd_chunked(views[0], views[1], a_log, views[2], views[3], chunk=64)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_scan"] == 1
+    assert got.transpose(1, 2).is_contiguous()
+    want, _ = ssd_chunked_plain(x, dt, a_log, bb, cc, 64)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_mamba_smoke_on_card_matches_cpu(cuda):
+    """The SMOKE Mamba2 forward through the kernel on the card against the
+    plain route on the CPU, from the same weights: n_layers launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_smoke("mamba2-130m"), use_pallas_ssd=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 80), generator=torch.Generator().manual_seed(1))
+    want, _ = T.forward_train(cfg, params, tokens)
+    on_card = _to(params, cuda)
+    sk.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = T.forward_train(cfg, on_card, tokens.to(cuda))
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_scan"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)

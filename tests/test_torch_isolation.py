@@ -63,6 +63,35 @@ def test_port_imports_no_jax_and_runs_a_round():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_runs_mamba_smoke_without_jax():
+    """The Mamba2 slice, forward (kernel route) and decode, on the CPU with
+    JAX and the JAX package refused."""
+    proc = _run("""
+        import dataclasses, sys
+        import torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.kernels.ssd_scan import ssd_scan
+        from repro_torch.models import transformer as T
+
+        cfg = dataclasses.replace(get_smoke("mamba2-130m"), use_pallas_ssd=True)
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(1))
+        loss = T.loss_fn(cfg, params, {"tokens": tokens, "labels": tokens})
+        logits, _ = T.forward_train(cfg, params, tokens)
+        cache = T.init_cache(cfg, 2, 12, device="cpu")
+        for t in range(12):
+            step, cache = T.decode_step(cfg, params, cache, tokens[:, t:t + 1])
+        assert torch.isfinite(loss) and step.shape == (2, 1, cfg.vocab)
+        assert torch.allclose(step[:, 0], logits[:, -1], atol=2e-3, rtol=2e-3)
+        assert ssd_scan.LAUNCHES["ssd_scan"] == 0
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py's imports stand alone too. Told that there is a card,
     it imports the whole port before its first call to the card fails."""
@@ -77,6 +106,8 @@ def test_chip_smoke_imports_no_jax():
                 subprocess.CalledProcessError):
             pass
         assert "repro_torch.core.dfedrw" in sys.modules
+        assert "repro_torch.models.transformer" in sys.modules
+        assert "repro_torch.kernels.ssd_scan.ssd_scan" in sys.modules
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
@@ -108,6 +139,18 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["protocol", "--rounds", "1", "--devices", "4"])
 
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke("mamba2-130m")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_numpy({"embed": np.zeros((2, 2))})
+
 
 def test_only_cpu_tensors_take_the_plain_path():
     """The plain version runs only because the tensor lies on the CPU; a
@@ -123,3 +166,21 @@ def test_only_cpu_tensors_take_the_plain_path():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         q.qdq_delta_rows_rng(meta[0], torch.empty_like(meta[0]), (0, 0), meta[1], meta[2],
                              bits=8)
+
+
+def test_ssd_chunked_on_cpu_never_touches_the_kernel():
+    """A CPU tensor takes the plain version: the launch counter stays put and
+    nothing is built; the kernel's own wrapper refuses a CPU tensor."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+
+    gen = torch.Generator().manual_seed(0)
+    x, bb, cc = (torch.randn(1, 2, 20, 8, generator=gen), torch.randn(1, 1, 20, 4, generator=gen),
+                 torch.randn(1, 1, 20, 4, generator=gen))
+    dt, a_log = torch.rand(1, 2, 20, generator=gen), torch.zeros(2)
+    sk.reset_launch_counts()
+    y = ssd_chunked(x, dt, a_log, bb, cc, chunk=8)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    assert sk.LAUNCHES == {"ssd_scan": 0} and sk.BUILD_INFO == {}
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.ssd_scan(x, dt, a_log, bb, cc, chunk=8)
