@@ -24,8 +24,8 @@ or of the JAX package ``repro``. Phases, in order:
    K*rounds and rounds at bits=8;
 6. a profile of two rounds at bits=8 (device busy and idle share);
 7. the launcher, ``repro_torch.launch.train.main``, on the card;
-8. the Mamba2 slice (``configs.mamba2_130m``, ``use_pallas_ssd=True``, float32,
-   TF32 off), see :func:`mamba_phases`: the ``ssd_scan`` kernel against its
+8. the Mamba2 slice (``configs.mamba2_130m`` as the registry gives it,
+   float32, TF32 off), see :func:`mamba_phases`: the ``ssd_scan`` kernel against its
    plain version on layer 0's own inputs from a full-width forward, the
    SMOKE configuration on the CPU and the card, ``loss_fn`` at full width
    (8 x 2,048 tokens, 24 kernel launches a forward) and recurrent decode;
@@ -36,7 +36,6 @@ Both kernel sources are built at the start, one ``nvcc`` each, in parallel.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import math
 import os
@@ -151,10 +150,10 @@ def mamba_phases(smi):
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain, ssd_sequential_ref
     from repro_torch.models import transformer as T
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     tag = f"[{smi}]"
-    cfg = dataclasses.replace(get_arch("mamba2-130m"), use_pallas_ssd=True)
+    # The registry's config as a user gets it: the mixer sends every CUDA
+    # tensor to the kernel, whatever use_pallas_ssd says.
+    cfg = get_arch("mamba2-130m")
     s = cfg.ssm
     heads = s.expand * cfg.d_model // s.head_dim
     t0 = time.perf_counter()
@@ -210,8 +209,11 @@ def mamba_phases(smi):
     if not (ratio <= 1.0 and seq_ratio <= 1.0 and torch.isfinite(got).all()):
         _fail(f"ssd_scan disagrees with its plain version (ratio {ratio:.4f}) "
               f"or the sequential recurrence (ratio {seq_ratio:.4f})")
-    nc = -(-l // chunk)
-    flop = bsz * h * nc * (2 * chunk * chunk * n + 2 * chunk * chunk * p + 4 * chunk * n * p)
+    # The operations the function needs: C.B^T and (scores o L).xdt on the
+    # causal pairs j <= i of each chunk only (the upper triangle is zero),
+    # C.S_in and the state update on every row; each chunk at its own length.
+    lens = [min(chunk, l - k) for k in range(0, l, chunk)]
+    flop = bsz * h * sum(c * (c + 1) * (n + p) + 4 * c * n * p for c in lens)
     nbytes = 4 * (2 * bsz * h * l * p + bsz * h * l + 2 * bsz * g * l * n + h)
     bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -235,7 +237,7 @@ def mamba_phases(smi):
              "library_ms": None}
 
     # ------------------------------------------- SMOKE: the CPU and the card
-    small = dataclasses.replace(get_smoke("mamba2-130m"), use_pallas_ssd=True)
+    small = get_smoke("mamba2-130m")
     on_cpu = T.init_params(small, torch.Generator().manual_seed(2), device="cpu")
     on_card = _tree_to(on_cpu, "cuda")
     toks = torch.randint(0, small.vocab, (2, 80), generator=torch.Generator().manual_seed(3))

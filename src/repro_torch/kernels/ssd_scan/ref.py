@@ -7,9 +7,9 @@
   Alg. 1) of ``repro.models.layers.ssd_chunked_ref``, written in the
   kernel's ``(B, H, L, P)`` layout with B/C per group, as
   ``ssd_chunked_jnp`` adapts it. It is the CPU path of
-  :func:`repro_torch.kernels.ssd_scan.ssd_chunked`, the model's plain route
-  (``use_pallas_ssd=False``) and the oracle the kernel is held to on the
-  card. No path hands it a CUDA tensor in place of the kernel.
+  :func:`repro_torch.kernels.ssd_scan.ssd_chunked` and the oracle the
+  kernel is held to on the card. No path hands it a CUDA tensor in place
+  of the kernel.
 
 ``ssd_chunked_plain`` keeps the within-chunk prefix sum of the log-decay in
 float64, as the kernel does: |cum| reaches thousands when dt*|A| is large,

@@ -4,10 +4,10 @@ configuration carries across field by field.
 
 Fields that only steer XLA or a device mesh (``attn_logits_bf16``,
 ``attn_bp_axes``, ``attn_batch_parallel``) are kept for that equality and
-read by nothing here. ``use_pallas_ssd`` keeps its name and meaning: route
-the Mamba2 SSD scan through the hand-written kernel
-(``repro_torch.kernels.ssd_scan``), which on a CPU tensor is its plain
-version.
+read by nothing here. So is ``use_pallas_ssd``: the port's Mamba2 mixer
+always calls ``repro_torch.kernels.ssd_scan.ssd_chunked``, which launches
+the hand-written kernel on a CUDA tensor and takes its plain version on a
+CPU tensor.
 """
 from __future__ import annotations
 
@@ -78,8 +78,9 @@ class ArchConfig:
     norm_eps: float = 1e-5
     sliding_window: int = 0             # 0 = full attention
     tie_embeddings: bool = False
-    use_pallas_ssd: bool = False        # route SSD through the hand-written
-                                        # kernel (its plain version on the CPU)
+    use_pallas_ssd: bool = False        # kept equal to the reference's; the
+                                        # port reads it nowhere: the SSD always
+                                        # runs the kernel on the card
     attn_logits_bf16: bool = False      # beyond-paper perf option: keep the
                                         # (L x L) attention logits in bf16
                                         # (max-subtraction still exact),

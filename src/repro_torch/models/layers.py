@@ -4,8 +4,10 @@ Mamba2 SSD mixer (chunked full-sequence scan and O(1) recurrent decode).
 
 Plain functions over explicit parameter dicts, in the reference's layouts,
 so weights carry across unchanged. Nothing here was a Pallas kernel in the
-JAX package except the SSD scan, which ``mamba_train`` sends to
-``repro_torch.kernels.ssd_scan`` when ``cfg.use_pallas_ssd`` is set.
+JAX package except the SSD scan, which ``mamba_train`` always sends to
+``repro_torch.kernels.ssd_scan.ssd_chunked``: the tensors' device picks the
+route (the kernel on the card, its plain version on the CPU), and
+``cfg.use_pallas_ssd`` is read by nothing here.
 
 Precision: float32 throughout. The causal depthwise convolution is the
 reference's sum of shifted products, not ``F.conv1d`` (which cuDNN runs in
@@ -21,12 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 from repro_torch.models.config import ArchConfig
 
 __all__ = [
     "rms_norm",
-    "ssd_chunked_ref",
     "init_mamba",
     "mamba_train",
     "init_cache_mamba",
@@ -82,15 +82,6 @@ def _mamba_split(p, x, cfg):
     return z, xc, bc, cc, dt, n_h, d_in
 
 
-def ssd_chunked_ref(xh, dt, a_log, bb, cc, chunk: int):
-    """Chunked SSD in the model's layout: xh (B,L,H,P), dt (B,L,H)
-    post-softplus, a_log (H,), bb/cc (B,L,G,N). Returns y (B,L,H,P) and the
-    final state (B,H,P,N). The arithmetic is ``ssd_chunked_plain``'s."""
-    y, state = ssd_chunked_plain(xh.transpose(1, 2), dt.transpose(1, 2), a_log,
-                                 bb.transpose(1, 2), cc.transpose(1, 2), chunk)
-    return y.transpose(1, 2), state
-
-
 def mamba_train(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     s = cfg.ssm
     b, l, _ = x.shape
@@ -107,13 +98,10 @@ def mamba_train(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     cv = cc.reshape(b, l, s.n_groups, s.state_dim)
     dt_ = _softplus(dt.float() + p["dt_bias"])
     chunk = min(s.chunk, l)
-    if cfg.use_pallas_ssd:
-        # Transposed views: the kernel reads them by strides, no copy.
-        y = ssd_ops.ssd_chunked(xh.transpose(1, 2), dt_.transpose(1, 2), p["A_log"],
-                                bb.transpose(1, 2), cv.transpose(1, 2),
-                                chunk=chunk).transpose(1, 2)
-    else:
-        y, _ = ssd_chunked_ref(xh, dt_, p["A_log"], bb, cv, chunk)
+    # Transposed views: the kernel reads them by strides, no copy.
+    y = ssd_ops.ssd_chunked(xh.transpose(1, 2), dt_.transpose(1, 2), p["A_log"],
+                            bb.transpose(1, 2), cv.transpose(1, 2),
+                            chunk=chunk).transpose(1, 2)
     y = y + xh * p["D"].to(xh.dtype)[:, None]
     y = y.reshape(b, l, d_in)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)

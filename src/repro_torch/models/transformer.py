@@ -11,8 +11,9 @@ encoder-decoder and frontends raise ``NotImplementedError`` (``ROADMAP.md``
 A10).
 
 Public API: init_params / forward_train / loss_fn / init_cache /
-decode_step. Float32 throughout; on the card TF32 is switched off for both
-matmuls and cuDNN.
+decode_step. Float32 throughout: TF32 is switched off for matmuls and
+cuDNN once, when this module is imported, as ``repro_torch.core.dfedrw``
+does for the round engine.
 """
 from __future__ import annotations
 
@@ -21,6 +22,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
+
+# fp32 matrix products, as the JAX package computes them (no TF32).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "decode_step"]
 
@@ -33,12 +38,6 @@ def _check_supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: only the Mamba2 family (mamba blocks, no FFN, no "
             f"encoder or frontend) is ported; attention, MLA, MoE, dense FFN, "
             f"enc-dec and frontends are ROADMAP.md A10")
-
-
-def _full_fp32(t: torch.Tensor) -> None:
-    if t.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
 
 def _stack(trees: list):
@@ -86,7 +85,6 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     if frontend_embeds is not None:
         raise NotImplementedError("frontends are ROADMAP.md A10")
     x = params["embed"][tokens]
-    _full_fp32(x)
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
         for i in range(len(cfg.block_pattern)):
@@ -126,7 +124,6 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
     ``active`` (B,) bool freezes the cache of inactive rows."""
     _check_supported(cfg)
     x = params["embed"][token]
-    _full_fp32(x)
     new_slots = {f"slot{i}": [] for i in range(len(cfg.block_pattern))}
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)

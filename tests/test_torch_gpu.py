@@ -156,13 +156,12 @@ def _to(tree, device):
 
 def test_mamba_smoke_on_card_matches_cpu(cuda):
     """The SMOKE Mamba2 forward through the kernel on the card against the
-    plain route on the CPU, from the same weights: n_layers launches."""
-    import dataclasses
-
+    plain version on the CPU, from the same weights: n_layers launches with
+    the registry's config as it is (use_pallas_ssd=False)."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(get_smoke("mamba2-130m"), use_pallas_ssd=True)
+    cfg = get_smoke("mamba2-130m")
     params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.randint(0, cfg.vocab, (2, 80), generator=torch.Generator().manual_seed(1))
     want, _ = T.forward_train(cfg, params, tokens)

@@ -64,16 +64,16 @@ def test_port_imports_no_jax_and_runs_a_round():
 
 
 def test_port_runs_mamba_smoke_without_jax():
-    """The Mamba2 slice, forward (kernel route) and decode, on the CPU with
-    JAX and the JAX package refused."""
+    """The Mamba2 slice, forward and decode, on the CPU with JAX and the JAX
+    package refused."""
     proc = _run("""
-        import dataclasses, sys
+        import sys
         import torch
         from repro_torch.configs import get_smoke
         from repro_torch.kernels.ssd_scan import ssd_scan
         from repro_torch.models import transformer as T
 
-        cfg = dataclasses.replace(get_smoke("mamba2-130m"), use_pallas_ssd=True)
+        cfg = get_smoke("mamba2-130m")
         params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
         tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(1))
         loss = T.loss_fn(cfg, params, {"tokens": tokens, "labels": tokens})

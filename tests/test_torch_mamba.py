@@ -6,10 +6,12 @@ seed. Two configurations: the ``"ssm"`` shape of
 tests/test_decode_consistency.py and ``configs.mamba2_130m.SMOKE``.
 
 Contracts, with their tolerances (absolute and relative):
-- ``forward_train`` logits and ``loss_fn`` with ``use_pallas_ssd`` True
-  (the reference's Pallas kernel in interpret mode; the port's plain
-  version, since the tensors lie on the CPU) and False: 1e-4. Both are
-  float32; the SSD scan's prefix sums are float64 on the port's side;
+- ``forward_train`` logits and ``loss_fn`` against the reference with its
+  ``use_pallas_ssd`` True (its Pallas kernel in interpret mode) and False
+  (its plain chunked scan): 1e-4. The port reads the flag nowhere: its
+  mixer always calls ``ssd_chunked``, which takes the plain version here
+  because the tensors lie on the CPU. Both are float32; the SSD scan's
+  prefix sums are float64 on the port's side;
 - ``decode_step`` over 16 tokens against the reference's: 1e-4;
 - the port's own decode against its forward: 2e-3, the tolerance of
   tests/test_decode_consistency.py;
@@ -97,6 +99,21 @@ def test_forward_and_loss_match_jax(case, pallas):
     np.testing.assert_allclose(float(loss), float(j_loss), **TOL)
 
 
+@pytest.mark.parametrize("pallas", [True, False])
+def test_mixer_always_calls_ssd_chunked(monkeypatch, pallas):
+    """use_pallas_ssd picks no route in the port: the mixer hands the SSD to
+    ``ssd_chunked`` either way, so on the card it is always the kernel."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    cfg = _port_cfg(J_CASES["ssm"], use_pallas_ssd=pallas)
+    _, tp = _params("ssm")
+    calls = []
+    real = ops.ssd_chunked
+    monkeypatch.setattr(ops, "ssd_chunked", lambda *a, **k: calls.append(1) or real(*a, **k))
+    T.forward_train(cfg, tp, torch.from_numpy(_tokens(cfg)))
+    assert len(calls) == cfg.n_layers
+
+
 def _decode(step, cache, tokens):
     outs = []
     for t in range(tokens.shape[1]):
@@ -124,9 +141,9 @@ def test_decode_matches_jax(case):
 
 @pytest.mark.parametrize("case", list(J_CASES))
 def test_decode_matches_forward(case):
-    """The port's recurrent decode is the same model as its chunked forward
-    through the kernel route; an inactive row keeps its cache."""
-    cfg = _port_cfg(J_CASES[case], use_pallas_ssd=True)
+    """The port's recurrent decode is the same model as its chunked forward;
+    an inactive row keeps its cache."""
+    cfg = _port_cfg(J_CASES[case])
     _, tp = _params(case)
     tokens = torch.from_numpy(_tokens(cfg, seed=2))
     logits, _ = T.forward_train(cfg, tp, tokens)
