@@ -29,13 +29,27 @@ or of the JAX package ``repro``. Phases, in order:
    plain version on layer 0's own inputs from a full-width forward, the
    SMOKE configuration on the CPU and the card, ``loss_fn`` at full width
    (8 x 2,048 tokens, 24 kernel launches a forward) and recurrent decode;
-9. one JSON line of kernel numbers (all three kernels), and last the device
+9. the dense GQA slice (``configs.yi_6b`` as the registry gives it, float32,
+   TF32 off, after the Mamba2 state is freed), see :func:`dense_phases`: the
+   ``block_attn`` kernel against its plain version on layer 0's own q/k/v
+   of a full-width forward (B = 2, L = 4,096, 32 heads, 4 KV heads, hd 128)
+   and at small shapes (ragged L, MQA, hd 64 and 16, non-causal, window
+   512), timed beside its plain version and PyTorch's fp32
+   ``scaled_dot_product_attention`` (GQA on the first backend that takes
+   it, and the memory-efficient backend on K/V repeated to every head);
+   the SMOKE configuration on the CPU and
+   the card; ``loss_fn`` at full width (2 x 4,096 tokens, 32 kernel
+   launches a forward) with a profile; greedy decode at batch 8 against the
+   kernel forward;
+10. one JSON line of kernel numbers (all four kernels), and last the device
    line.
 
-Both kernel sources are built at the start, one ``nvcc`` each, in parallel.
+The three kernel sources are built at the start, one ``nvcc`` each, in
+parallel.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -43,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory bandwidth
@@ -65,6 +80,21 @@ SMOKE_TOL = 1e-4               # abs and rel: the SMOKE model on the CPU and on 
 DECODE_TOL = 2e-3              # abs and rel: decode vs forward (tests/test_decode_consistency.py)
 LM_BATCH, LM_SEQ, LM_FORWARDS = 8, 2048, 5
 PROMPT, GENERATE = 64, 32
+ATTN_REPLACES = "src/repro/kernels/block_attn/block_attn.py:32 _attn_kernel"
+ATTN_SOURCE = "src/repro_torch/kernels/block_attn/csrc/block_attn.cu"
+ATTN_TOL = 1e-4                # abs and rel: fp32, online vs materialized softmax
+YI_BATCH, YI_SEQ, YI_FORWARDS = 2, 4096, 3     # Yi-6B's published context length
+YI_DECODE_BATCH = 8
+# (B, Lq, Lk, H, KV, hd, causal, window): ragged L, MQA, hd 64 and 16,
+# non-causal, Lq != Lk, and the sliding window.
+ATTN_SMALL = [
+    (1, 1000, 1000, 8, 2, 128, True, 0),
+    (2, 333, 333, 8, 1, 128, True, 0),
+    (2, 256, 256, 4, 4, 64, True, 0),
+    (1, 300, 300, 8, 8, 128, False, 0),
+    (1, 77, 130, 4, 2, 16, False, 0),
+    (1, 2048, 2048, 8, 2, 128, True, 512),
+]
 
 
 def _ulps(a, b):
@@ -139,12 +169,156 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def _first_call(module, attr, run):
+    """Run ``run()`` with ``module.attr`` wrapped so that the arguments of
+    its first call are kept. Returns (args, kwargs, number of calls)."""
+    kept = []
+    real = getattr(module, attr)
+
+    def keep(*args, **kw):
+        kept.append((args, kw) if not kept else None)
+        return real(*args, **kw)
+
+    setattr(module, attr, keep)
+    try:
+        run()
+    finally:
+        setattr(module, attr, real)
+    return kept[0][0], kept[0][1], len(kept)
+
+
+def _smoke_phase(arch_id, km, tag):
+    """The SMOKE configuration on the CPU (plain versions) and on the card
+    (kernel module ``km``) from the same weights: a (2, 80) forward and 16
+    decode steps within SMOKE_TOL, and one launch a layer."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+
+    small = get_smoke(arch_id)
+    (name,) = km.LAUNCHES
+    on_cpu = T.init_params(small, torch.Generator().manual_seed(2), device="cpu")
+    on_card = _tree_to(on_cpu, "cuda")
+    toks = torch.randint(0, small.vocab, (2, 80), generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        want, _ = T.forward_train(small, on_cpu, toks)
+        km.reset_launch_counts()
+        got, _ = T.forward_train(small, on_card, toks.cuda())
+        launches = km.LAUNCHES[name]
+        caches = [T.init_cache(small, 2, 16, device="cpu"), T.init_cache(small, 2, 16)]
+        worst_dec = 0.0
+        for t in range(16):
+            lg_cpu, caches[0] = T.decode_step(small, on_cpu, caches[0], toks[:, t:t + 1])
+            lg_card, caches[1] = T.decode_step(small, on_card, caches[1], toks[:, t:t + 1].cuda())
+            worst_dec = max(worst_dec, _tol_ratio(lg_card.cpu(), lg_cpu, SMOKE_TOL))
+    fwd_ratio = _tol_ratio(got.cpu(), want, SMOKE_TOL)
+    print(f"{small.name} {tag}: forward (2, 80) cpu-vs-card max|d|="
+          f"{float((got.cpu() - want).abs().max()):.3e} ratio={fwd_ratio:.4f}; 16 decode steps "
+          f"ratio={worst_dec:.4f} (tol {SMOKE_TOL}); {name} launches={launches}")
+    if fwd_ratio > 1.0 or worst_dec > 1.0 or launches != small.n_layers:
+        _fail(f"the SMOKE {arch_id} model disagrees between the CPU and the card")
+
+
+def _forward_phase(cfg, params, batch, forwards, km, tag):
+    """The main path: ``loss_fn`` at full width, ``forwards`` times (ms per
+    forward, tokens/s, peak memory), which must launch the kernel of ``km``
+    once a layer; then one forward under the profiler. Returns the
+    launches."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    (name,) = km.LAUNCHES
+    bsz, seq = batch["tokens"].shape
+    torch.cuda.reset_peak_memory_stats()
+    stamps, losses = [], []
+    km.reset_launch_counts()
+    with torch.inference_mode():
+        for _ in range(forwards):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(T.loss_fn(cfg, params, batch))
+            torch.cuda.synchronize()
+            stamps.append((time.perf_counter() - t0) * 1e3)
+    launches = km.LAUNCHES[name]
+    peak = torch.cuda.max_memory_allocated()
+    fwd_ms = statistics.median(stamps)
+    losses = [float(x) for x in losses]
+    print(f"{cfg.name} main path {tag}: loss_fn on {bsz}x{seq} tokens: ms/forward "
+          f"median={fwd_ms:.3f} all={[round(x, 3) for x in stamps]} tokens/s="
+          f"{bsz * seq / fwd_ms * 1e3:.1f} loss={losses[0]:.6f} "
+          f"peak_memory_allocated={peak} bytes {name} launches={launches} "
+          f"(want {cfg.n_layers} x {forwards})")
+    if launches != cfg.n_layers * forwards or not all(math.isfinite(x) for x in losses):
+        _fail(f"main path: {launches} {name} launches in {forwards} forwards "
+              f"(want {cfg.n_layers * forwards}), losses {losses}")
+    with torch.inference_mode():
+        _profile(f"{cfg.name} loss_fn {bsz}x{seq} (1 forward) {tag}",
+                 lambda: T.loss_fn(cfg, params, batch))
+    return launches
+
+
+def _decode_phase(cfg, params, prompts, n_params, km, tag):
+    """Greedy decode at full width: PROMPT tokens of each prompt, then
+    GENERATE greedy tokens, through ``decode_step`` (ms per step beside the
+    weight-read bound), held against the kernel forward over the same
+    sequence within DECODE_TOL; then 4 steps under the profiler."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    (name,) = km.LAUNCHES
+    batch = prompts.shape[0]
+    seqs = [prompts]
+    step_ms, dec_logits = [], []
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, batch, PROMPT + GENERATE)
+        nxt = prompts[:, :1]
+        for t in range(PROMPT + GENERATE):
+            tok = prompts[:, t:t + 1] if t < PROMPT else nxt
+            if t >= PROMPT:
+                seqs.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = T.decode_step(cfg, params, cache, tok)
+            nxt = lg[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            dec_logits.append(lg[:, 0])
+        km.reset_launch_counts()
+        fwd_logits, _ = T.forward_train(cfg, params, torch.cat(seqs, dim=1))
+        launches = km.LAUNCHES[name]
+    dec = torch.stack(dec_logits, dim=1)
+    ratio = _tol_ratio(dec, fwd_logits, DECODE_TOL)
+    prompt_ratio = _tol_ratio(dec[:, :PROMPT], fwd_logits[:, :PROMPT], DECODE_TOL)
+    step_med = statistics.median(step_ms[2:])
+    weight_ms = 4 * n_params / HBM_BYTES_PER_S * 1e3
+    print(f"{cfg.name} decode {tag}: {batch} prompts x {PROMPT} tokens + {GENERATE} greedy: "
+          f"ms/step median={step_med:.3f} prompt={statistics.median(step_ms[2:PROMPT]):.3f} "
+          f"generate={statistics.median(step_ms[PROMPT:]):.3f} (weight-read bound "
+          f"{weight_ms:.3f} ms = {weight_ms / step_med:.3f} of it); decode vs kernel forward "
+          f"({launches} {name} launches) max|d|={float((dec - fwd_logits).abs().max()):.3e} "
+          f"ratio prompt={prompt_ratio:.4f} all {PROMPT + GENERATE}={ratio:.4f} "
+          f"(tol {DECODE_TOL})")
+    if ratio > 1.0 or not torch.isfinite(dec).all() or launches != cfg.n_layers:
+        _fail(f"decode disagrees with the kernel forward at {cfg.name}'s full width")
+
+    def decode_steps():
+        c = cache
+        for t in range(4):
+            _, c = T.decode_step(cfg, params, c, prompts[:, t:t + 1])
+
+    with torch.inference_mode():
+        _profile(f"{cfg.name} decode batch {batch} (4 steps) {tag}", decode_steps)
+
+
 def mamba_phases(smi):
     """The Mamba2 slice on the card. Returns the ``ssd_scan`` entry of the
     kernels line; a failed phase exits non-zero."""
     import torch
 
-    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.configs import get_arch
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain, ssd_sequential_ref
@@ -169,25 +343,14 @@ def mamba_phases(smi):
 
     # One forward whose first SSD call is kept: the kernel is then checked on
     # layer 0's own inputs, in the model's own strided layout.
-    captured = []
-    real = ssd_ops.ssd_chunked
-
-    def keep(*args, **kw):
-        captured.append((args, kw) if not captured else None)
-        return real(*args, **kw)
-
-    ssd_ops.ssd_chunked = keep
-    try:
-        with torch.inference_mode():
-            T.loss_fn(cfg, params, batch)
-    finally:
-        ssd_ops.ssd_chunked = real
+    with torch.inference_mode():
+        (x, dt, a_log, b, c), kw, calls = _first_call(
+            ssd_ops, "ssd_chunked", lambda: T.loss_fn(cfg, params, batch))
     torch.cuda.synchronize()
-    if len(captured) != cfg.n_layers:
-        _fail(f"the forward called ssd_chunked {len(captured)} times, want {cfg.n_layers}")
+    if calls != cfg.n_layers:
+        _fail(f"the forward called ssd_chunked {calls} times, want {cfg.n_layers}")
 
     # -------------------------------------------- ssd_scan vs plain version
-    (x, dt, a_log, b, c), kw = captured[0]
     chunk = kw["chunk"]
     bsz, h, l, p = x.shape
     g, n = b.shape[1], b.shape[3]
@@ -229,104 +392,162 @@ def mamba_phases(smi):
           f"(ops {flop} FLOP, {bound_ops_ms:.4f} ms at {FP32_OPS_PER_S:.0e}/s; bytes {nbytes}, "
           f"{bound_bytes_ms:.4f} ms) achieved {flop / ms / 1e9:.2f} TFLOP/s "
           f"= {bound_ms / ms:.3f} of the bound")
-    del captured, x, dt, b, c, got, want, seq, diff     # out of the main path's peak memory
+    del x, dt, b, c, got, want, seq, diff     # out of the main path's peak memory
     entry = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
              "replaces": SSD_REPLACES, "launches": None, "max_abs_err": max_abs,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
              "library_ms": None}
 
-    # ------------------------------------------- SMOKE: the CPU and the card
-    small = get_smoke("mamba2-130m")
-    on_cpu = T.init_params(small, torch.Generator().manual_seed(2), device="cpu")
-    on_card = _tree_to(on_cpu, "cuda")
-    toks = torch.randint(0, small.vocab, (2, 80), generator=torch.Generator().manual_seed(3))
-    with torch.inference_mode():
-        want, _ = T.forward_train(small, on_cpu, toks)
-        sk.reset_launch_counts()
-        got, _ = T.forward_train(small, on_card, toks.cuda())
-        smoke_launches = sk.LAUNCHES["ssd_scan"]
-        caches = [T.init_cache(small, 2, 16, device="cpu"), T.init_cache(small, 2, 16)]
-        worst_dec = 0.0
-        for t in range(16):
-            lg_cpu, caches[0] = T.decode_step(small, on_cpu, caches[0], toks[:, t:t + 1])
-            lg_card, caches[1] = T.decode_step(small, on_card, caches[1], toks[:, t:t + 1].cuda())
-            worst_dec = max(worst_dec, _tol_ratio(lg_card.cpu(), lg_cpu, SMOKE_TOL))
-    fwd_ratio = _tol_ratio(got.cpu(), want, SMOKE_TOL)
-    print(f"mamba2 smoke {tag}: forward (2, 80) cpu-vs-card max|d|="
-          f"{float((got.cpu() - want).abs().max()):.3e} ratio={fwd_ratio:.4f}; 16 decode steps "
-          f"ratio={worst_dec:.4f} (tol {SMOKE_TOL}); ssd_scan launches={smoke_launches}")
-    if fwd_ratio > 1.0 or worst_dec > 1.0 or smoke_launches != small.n_layers:
-        _fail("the SMOKE Mamba2 model disagrees between the CPU and the card")
-
-    # --------------------------------------- main path: loss_fn, full width
-    torch.cuda.reset_peak_memory_stats()
-    stamps, losses = [], []
-    sk.reset_launch_counts()
-    with torch.inference_mode():
-        for _ in range(LM_FORWARDS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses.append(T.loss_fn(cfg, params, batch))
-            torch.cuda.synchronize()
-            stamps.append((time.perf_counter() - t0) * 1e3)
-    launches = sk.LAUNCHES["ssd_scan"]
-    peak = torch.cuda.max_memory_allocated()
-    fwd_ms = statistics.median(stamps)
-    losses = [float(v) for v in losses]
-    print(f"mamba2 main path {tag}: loss_fn on {LM_BATCH}x{LM_SEQ} tokens: ms/forward "
-          f"median={fwd_ms:.3f} all={[round(v, 3) for v in stamps]} tokens/s="
-          f"{LM_BATCH * LM_SEQ / fwd_ms * 1e3:.1f} loss={losses[0]:.6f} "
-          f"peak_memory_allocated={peak} bytes ssd_scan launches={launches} "
-          f"(want {cfg.n_layers} x {LM_FORWARDS})")
-    if launches != cfg.n_layers * LM_FORWARDS or not all(math.isfinite(v) for v in losses):
-        _fail(f"main path: {launches} ssd_scan launches in {LM_FORWARDS} forwards "
-              f"(want {cfg.n_layers * LM_FORWARDS}), losses {losses}")
-    entry["launches"] = launches
-
-    # ---------------------------------------------- decode at full width
-    prompts = tokens[:, :PROMPT]
-    seqs = [prompts]
-    step_ms, dec_logits = [], []
-    with torch.inference_mode():
-        cache = T.init_cache(cfg, LM_BATCH, PROMPT + GENERATE)
-        nxt = prompts[:, :1]
-        for t in range(PROMPT + GENERATE):
-            tok = prompts[:, t:t + 1] if t < PROMPT else nxt
-            if t >= PROMPT:
-                seqs.append(tok)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lg, cache = T.decode_step(cfg, params, cache, tok)
-            nxt = lg[:, -1].argmax(-1, keepdim=True)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            dec_logits.append(lg[:, 0])
-        fed = torch.cat(seqs, dim=1)
-        fwd_logits, _ = T.forward_train(cfg, params, fed)
-    dec = torch.stack(dec_logits, dim=1)
-    dec_ratio = _tol_ratio(dec, fwd_logits, DECODE_TOL)
-    prompt_ratio = _tol_ratio(dec[:, :PROMPT], fwd_logits[:, :PROMPT], DECODE_TOL)
-    print(f"mamba2 decode {tag}: {LM_BATCH} prompts x {PROMPT} tokens + {GENERATE} greedy: "
-          f"ms/step median={statistics.median(step_ms[2:]):.3f} "
-          f"prompt={statistics.median(step_ms[2:PROMPT]):.3f} "
-          f"generate={statistics.median(step_ms[PROMPT:]):.3f}; decode vs kernel forward "
-          f"max|d|={float((dec - fwd_logits).abs().max()):.3e} ratio prompt={prompt_ratio:.4f} "
-          f"all {PROMPT + GENERATE}={dec_ratio:.4f} (tol {DECODE_TOL})")
-    if prompt_ratio > 1.0 or dec_ratio > 1.0 or not torch.isfinite(dec).all():
-        _fail("decode disagrees with the kernel forward at full width")
-
-    # ------------------------------------------------------------ profile
-    def decode_steps():
-        c = cache
-        for t in range(4):
-            _, c = T.decode_step(cfg, params, c, prompts[:, t:t + 1])
-
-    with torch.inference_mode():
-        _profile(f"mamba2 loss_fn {LM_BATCH}x{LM_SEQ} (1 forward) {tag}",
-                 lambda: T.loss_fn(cfg, params, batch))
-        _profile(f"mamba2 decode batch {LM_BATCH} (4 steps) {tag}", decode_steps)
+    _smoke_phase("mamba2-130m", sk, tag)
+    entry["launches"] = _forward_phase(cfg, params, batch, LM_FORWARDS, sk, tag)
+    _decode_phase(cfg, params, tokens[:, :PROMPT], n_params, sk, tag)
     return entry
+
+
+def _time_sdpa(q, k, v, want, backends=("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                                         "CUDNN_ATTENTION", "MATH")):
+    """PyTorch's one call for the same function, timed as a yardstick only
+    (the port never calls it): fp32 ``scaled_dot_product_attention`` with
+    ``is_causal`` (and ``enable_gqa`` when K/V have fewer heads than q), on
+    the first of ``backends`` that takes it. Returns (backend name, ms,
+    max |d| against the kernel), or Nones."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gqa = k.shape[2] != q.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    for name in backends:
+        backend = getattr(SDPBackend, name)
+
+        def call():
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=gqa)
+        try:
+            with warnings.catch_warnings():     # each refusal warns why, at length
+                warnings.simplefilter("ignore")
+                out = call().transpose(1, 2)
+        except RuntimeError:
+            continue
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        del out
+        ms = statistics.median(_time_ms(call, iters=5, warmup=1) for _ in range(3))
+        return name, ms, err
+    return None, None, None
+
+
+def dense_phases(smi):
+    """The dense GQA slice on the card at Yi-6B's full width. Returns the
+    ``block_attn`` entry of the kernels line; a failed phase exits non-zero."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.kernels.block_attn.ref import attention_pairs, block_attention_plain
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    cfg = get_arch("yi-6b")
+    hd = cfg.head_dim_
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"yi-6b {tag}: n_layers={cfg.n_layers} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} hd={hd} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"rope_theta={cfg.rope_theta} params={n_params} ({4 * n_params} bytes float32; "
+          f"param_count {cfg.param_count()}) init on the card {time.perf_counter() - t0:.2f}s")
+    tokens = torch.randint(0, cfg.vocab, (YI_BATCH, YI_SEQ + 1),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+    # One forward whose first attention call is kept: the kernel is then
+    # checked on layer 0's own q/k/v.
+    with torch.inference_mode():
+        (q, k, v), kw, calls = _first_call(attn_ops, "block_attention",
+                                           lambda: T.loss_fn(cfg, params, batch))
+    torch.cuda.synchronize()
+    if calls != cfg.n_layers:
+        _fail(f"the forward called block_attention {calls} times, want {cfg.n_layers}")
+
+    # ------------------------------------------ block_attn vs plain version
+    if kw != {"causal": True, "window": 0}:
+        _fail(f"layer 0 called block_attention with {kw}")
+    bsz, l, h, _ = q.shape
+    with torch.inference_mode():
+        got = ba.block_attn(q, k, v, causal=True)
+        want = block_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    ratio = _tol_ratio(got, want, ATTN_TOL)
+    print(f"block_attn {tag}: layer 0 q{tuple(q.shape)} k/v{tuple(k.shape)} strides "
+          f"{q.stride()}/{k.stride()} causal: vs plain max|d|={max_abs:.3e} "
+          f"|d|/(tol+tol|o|)={ratio:.4f} (tol {ATTN_TOL}); max|o|={float(want.abs().max()):.3e}")
+    if not (ratio <= 1.0 and torch.isfinite(got).all()):
+        _fail(f"block_attn disagrees with its plain version at Yi-6B's shapes (ratio {ratio:.4f})")
+    gen = torch.Generator("cuda").manual_seed(4)
+    for b_, lq, lk, h_, kv_, hd_, causal, window in ATTN_SMALL:
+        qs, ks, vs = (torch.randn(b_, n, heads, hd_, generator=gen, device="cuda")
+                      for n, heads in ((lq, h_), (lk, kv_), (lk, kv_)))
+        with torch.inference_mode():
+            o = ba.block_attn(qs, ks, vs, causal=causal, window=window)
+            ref = block_attention_plain(qs, ks, vs, causal=causal, window=window)
+        torch.cuda.synchronize()
+        r = _tol_ratio(o, ref, ATTN_TOL)
+        print(f"block_attn {tag}: B={b_} Lq={lq} Lk={lk} H={h_} KV={kv_} hd={hd_} "
+              f"causal={causal} window={window}: max|d|={float((o - ref).abs().max()):.3e} "
+              f"ratio={r:.4f}")
+        if not (r <= 1.0 and torch.isfinite(o).all()):
+            _fail(f"block_attn disagrees with its plain version at B={b_} Lq={lq} Lk={lk} "
+                  f"H={h_} KV={kv_} hd={hd_} causal={causal} window={window}")
+
+    # The function's work: 4 hd FLOP per allowed (i, j) pair, and one read
+    # of q, k, v and one write of o.
+    flop = 4 * hd * attention_pairs(l, l, causal=True) * bsz * h
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    with torch.inference_mode():
+        ms = statistics.median(_time_ms(lambda: ba.block_attn(q, k, v), iters=10)
+                               for _ in range(5))
+        plain_ms = statistics.median(_time_ms(lambda: block_attention_plain(q, k, v),
+                                              iters=3, warmup=1) for _ in range(3))
+        backend, library_ms, library_err = _time_sdpa(q, k, v, got)
+        # A fused fp32 yardstick beside it: the memory-efficient backend
+        # refuses fp32 GQA, so it gets K/V repeated to every query head
+        # (the repeat is not timed).
+        kx, vx = (t.repeat_interleave(h // k.shape[2], dim=2) for t in (k, v))
+        _, fused_ms, fused_err = _time_sdpa(q, kx, vx, got, ("EFFICIENT_ATTENTION",))
+        del kx, vx
+    print(f"block_attn {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(hd)} "
+          f"bytes a block, {bsz * h * -(-l // 64)} blocks")
+    print(f"block_attn {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+          f"(ops {flop} FLOP, {bound_ops_ms:.4f} ms at {FP32_OPS_PER_S:.0e}/s; bytes {nbytes}, "
+          f"{bound_bytes_ms:.4f} ms) achieved {flop / ms / 1e9:.2f} TFLOP/s "
+          f"= {bound_ms / ms:.3f} of the bound")
+    print(f"block_attn {tag}: library fp32 scaled_dot_product_attention(is_causal, enable_gqa) "
+          f"backend={backend} ms={library_ms} max|d| vs kernel={library_err}")
+    print(f"block_attn {tag}: fp32 scaled_dot_product_attention(is_causal) on K/V repeated "
+          f"to {h} heads, backend=EFFICIENT_ATTENTION ms={fused_ms} "
+          f"max|d| vs kernel={fused_err}")
+    del q, k, v, got, want
+    entry = {"name": "block_attn", "route": "cuda", "source": ATTN_SOURCE,
+             "replaces": ATTN_REPLACES, "launches": None, "max_abs_err": max_abs,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+             "library_ms": library_ms}
+
+    _smoke_phase("yi-6b", ba, tag)
+    entry["launches"] = _forward_phase(cfg, params, batch, YI_FORWARDS, ba, tag)
+    prompts = tokens[:, :YI_DECODE_BATCH // YI_BATCH * PROMPT].reshape(YI_DECODE_BATCH, PROMPT)
+    _decode_phase(cfg, params, prompts, n_params, ba, tag)
+    return entry
+
 
 
 def _leaves(tree):
@@ -352,6 +573,7 @@ def main() -> int:
     from repro_torch.core.heterogeneity import partition_similarity
     from repro_torch.data import FederatedDataset, synthetic_image_classification
     from repro_torch.kernels.quantize import ops, payload_side_info
+    from repro_torch.kernels.block_attn import block_attn as ba
     from repro_torch.kernels.quantize import quantize as qk
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.launch.train import main as launch_main
@@ -367,11 +589,11 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for done in [pool.submit(qk.build), pool.submit(sk.build)]:
+    with ThreadPoolExecutor(3) as pool:
+        for done in [pool.submit(qk.build), pool.submit(sk.build), pool.submit(ba.build)]:
             done.result()
-    print(f"build: both sources in parallel, {time.perf_counter() - t0:.2f}s wall")
-    for info in (qk.BUILD_INFO, sk.BUILD_INFO):
+    print(f"build: three sources in parallel, {time.perf_counter() - t0:.2f}s wall")
+    for info in (qk.BUILD_INFO, sk.BUILD_INFO, ba.BUILD_INFO):
         print(f"build: {info['seconds']:.2f}s {info['path']}")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -569,7 +791,11 @@ def main() -> int:
     for name in results:
         results[name]["launches"] = launches[name]
     ssd = mamba_phases(smi)
-    print(json.dumps({"kernels": [results["qdq_delta_rows_rng"], results["qdq_rows_rng"], ssd]}))
+    gc.collect()                         # the Mamba2 weights and caches go first
+    torch.cuda.empty_cache()
+    attn = dense_phases(smi)
+    print(json.dumps({"kernels": [results["qdq_delta_rows_rng"], results["qdq_rows_rng"],
+                                  ssd, attn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 Each ported module exposes ARCH (the assigned configuration) and SMOKE (a
 reduced variant of the same family).
 
-Only the Mamba2 family is ported; every other id raises
-``NotImplementedError`` (``ROADMAP.md`` A10).
+Ported: the Mamba2 family (``mamba2-130m``) and the dense GQA family
+(``yi-6b``, ``qwen2.5-32b``, ``qwen2-72b``, ``granite-34b``); every other id
+raises ``NotImplementedError`` (``ROADMAP.md`` A10).
 
 Usage: ``from repro_torch.configs import get_arch, get_smoke, ARCH_IDS``.
 """
@@ -26,7 +27,7 @@ ARCH_IDS = [
     "seamless-m4t-large-v2",
 ]
 
-_PORTED = {"mamba2-130m"}
+_PORTED = {"mamba2-130m", "yi-6b", "qwen2.5-32b", "qwen2-72b", "granite-34b"}
 
 
 def _load(arch_id: str):

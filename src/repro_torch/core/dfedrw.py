@@ -50,10 +50,6 @@ from repro_torch.kernels.quantize import payload_quantize_dequantize
 from repro_torch.models.fnn import SmallModel
 from repro_torch.optim.sgd import decreasing_lr
 
-# fp32 matrix products, as the JAX package computes them (no TF32).
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
 __all__ = ["DFedRWConfig", "DFedRWState", "DFedRW", "RoundMetrics",
            "gamma_hat_from_traj"]
 

@@ -29,13 +29,11 @@ beside this file (listed in ``.gitignore``) and bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels._build import build_library
 
 __all__ = [
     "LANES",
@@ -51,9 +49,6 @@ __all__ = [
 
 LANES = 128
 _SRC = Path(__file__).parent / "csrc" / "qdq_rows.cu"
-_BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches by name, counted where each wrapper launches its kernel.
 LAUNCHES = {"qdq_delta_rows_rng": 0, "qdq_rows_rng": 0}
@@ -74,32 +69,13 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("the CUDA toolkit (nvcc) was not found: set CUDA_HOME")
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so_path = _BUILD_DIR / f"libqdq_rows_{digest.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not so_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{log}")
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(str(so_path))
+    lib = build_library(_SRC, BUILD_INFO)
     ptr, i64, u32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32,
                           ctypes.c_int)
     lib.qdq_delta_rows_rng.argtypes = [ptr, ptr, ptr, ptr, i64, u32, u32, i32, ptr]
     lib.qdq_delta_rows_rng.restype = ctypes.c_int
     lib.qdq_rows_rng.argtypes = [ptr, ptr, ptr, i64, u32, u32, i32, ptr]
     lib.qdq_rows_rng.restype = ctypes.c_int
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, log=log, path=str(so_path))
     _lib = lib
     return lib
 

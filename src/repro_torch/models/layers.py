@@ -1,19 +1,29 @@
 """Layer primitives of the language-model zoo, the port of
-``repro.models.layers``, with what the Mamba2 family needs: RMSNorm and the
-Mamba2 SSD mixer (chunked full-sequence scan and O(1) recurrent decode).
+``repro.models.layers``, with what the Mamba2 and the dense GQA families
+need: RMSNorm, RoPE, GQA attention (QKV bias, MQA, sliding-window ring
+cache), the SwiGLU FFN, and the Mamba2 SSD mixer (chunked full-sequence
+scan and O(1) recurrent decode).
 
 Plain functions over explicit parameter dicts, in the reference's layouts,
-so weights carry across unchanged. Nothing here was a Pallas kernel in the
-JAX package except the SSD scan, which ``mamba_train`` always sends to
-``repro_torch.kernels.ssd_scan.ssd_chunked``: the tensors' device picks the
-route (the kernel on the card, its plain version on the CPU), and
-``cfg.use_pallas_ssd`` is read by nothing here.
+so weights carry across unchanged. Two things here were Pallas kernels in
+the JAX package, and each always goes to its kernel module, whose tensors'
+device picks the route (the kernel on the card, its plain version on the
+CPU): the SSD scan (``mamba_train`` -> ``kernels.ssd_scan.ssd_chunked``;
+``cfg.use_pallas_ssd`` is read by nothing here) and full-sequence
+attention (``attn_train`` -> ``kernels.block_attn.block_attention``, where
+the reference's ``attn_train`` materializes the softmax). Decode's
+one-token attention over the ring cache is plain torch, as the reference
+computes it outside any kernel.
 
-Precision: float32 throughout. The causal depthwise convolution is the
-reference's sum of shifted products, not ``F.conv1d`` (which cuDNN runs in
-TF32 by default on the card), and softplus is ``jax.nn.softplus``'s
-``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` switches to ``x`` above a
-threshold of 20).
+Precision: float32 throughout; ``cfg.attn_logits_bf16`` raises. The causal
+depthwise convolution is the reference's sum of shifted products, not
+``F.conv1d`` (which cuDNN runs in TF32 by default on the card), and
+softplus is ``jax.nn.softplus``'s ``max(x, 0) + log1p(exp(-|x|))``
+(``F.softplus`` switches to ``x`` above a threshold of 20).
+
+Random init draws on the generator's own device (``_dense``): a CUDA
+generator fills a full-width model on the card, a CPU generator draws on
+the host and moves the result.
 """
 from __future__ import annotations
 
@@ -22,11 +32,20 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.block_attn import ops as attn_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.config import ArchConfig
 
 __all__ = [
     "rms_norm",
+    "rope_freqs",
+    "apply_rope",
+    "init_attn",
+    "attn_train",
+    "attn_decode",
+    "init_cache_attn",
+    "init_ffn",
+    "ffn_apply",
     "init_mamba",
     "mamba_train",
     "init_cache_mamba",
@@ -46,10 +65,166 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _dense(gen: torch.Generator, shape, device, scale=None) -> torch.Tensor:
-    """normal * scale (1/sqrt(fan_in) by default), drawn on the CPU from
-    ``gen`` and moved to ``device``."""
+    """normal * scale (1/sqrt(fan_in) by default), drawn from ``gen`` on
+    the generator's own device and moved to ``device``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    return (scale * torch.randn(shape, generator=gen)).to(device)
+    return (scale * torch.randn(shape, generator=gen, device=gen.device)).to(device)
+
+
+# --------------------------------------------------------------------- RoPE
+def rope_freqs(positions: torch.Tensor, dim: int, theta: float):
+    """positions (...,) -> cos/sin (..., dim/2) in float32; the inverse
+    frequencies ``theta ** (arange(0, dim, 2) / dim)`` in float32, as the
+    reference computes them."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., L, n, dim); cos/sin (..., L, dim/2) broadcast over the heads;
+    rotate-half layout (the two halves of the head dimension)."""
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------ GQA attention
+def _check_attn(cfg: ArchConfig) -> None:
+    if cfg.attn_logits_bf16:
+        raise NotImplementedError("attn_logits_bf16: the port's LM path is float32 only")
+
+
+def init_attn(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    """The reference's shapes and scales; the draws are ``gen``'s, not
+    JAX's. QKV biases start at zero, as the reference's."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    p = {
+        "wq": _dense(gen, (d, h * hd), device),
+        "wk": _dense(gen, (d, kv * hd), device),
+        "wv": _dense(gen, (d, kv * hd), device),
+        "wo": _dense(gen, (h * hd, d), device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
+            p[name] = torch.zeros(width, dtype=torch.float32, device=device)
+    return p
+
+
+def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    b, l, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q.reshape(b, l, h, hd), k.reshape(b, l, kv, hd), v.reshape(b, l, kv, hd)
+
+
+def _sdpa(q, k, v, mask, n_rep: int):
+    """The reference's materialized attention for decode's one-token query:
+    q (B,Lq,H,hd), k/v (B,Lk,KV,hd); mask (B|1, 1, Lq, Lk) additive f32."""
+    b, lq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, lq, kv, n_rep, hd)
+    logits = torch.einsum("bqgrh,bkgh->bgrqk", qg, k).to(torch.float32)
+    logits = logits / math.sqrt(hd) + mask[:, :, None]
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bgrqk,bkgh->bqgrh", w, v)
+    return out.reshape(b, lq, h, hd)
+
+
+def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin,
+               kv_override: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence causal self-attention: q/k/v (B, L, heads, hd) after
+    RoPE go to ``block_attention`` as they are (K/V by group, no repeat),
+    which masks j > i and, when ``cfg.sliding_window > 0``, i - j >= window."""
+    _check_attn(cfg)
+    if kv_override is not None:
+        raise NotImplementedError("cross-attention (kv_override) belongs to the "
+                                  "encoder-decoder item of ROADMAP.md A10")
+    b, l, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = attn_ops.block_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    return out.reshape(b, l, cfg.n_heads * cfg.head_dim_) @ p["wo"]
+
+
+def init_cache_attn(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """Ring buffer of min(max_len, window) slots (max_len without a window)."""
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    return {
+        "k": torch.zeros(batch, size, kv, hd, dtype=dtype, device=device),
+        "v": torch.zeros(batch, size, kv, hd, dtype=dtype, device=device),
+    }
+
+
+def _slot_positions(pos, batch: int, device) -> torch.Tensor:
+    """Scalar or (B,) positions -> (B,) int32 per-row positions."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    if pos.dim() == 0:
+        pos = pos.expand(batch)
+    return pos
+
+
+def _ring_mask(pos: torch.Tensor, size: int) -> torch.Tensor:
+    """(B,1,1,S) additive mask of the written ring slots for per-row ``pos``:
+    all slots once wrapped, slot index <= pos while filling."""
+    idx = torch.arange(size, device=pos.device)
+    written = torch.where(pos >= size, torch.full_like(pos, size), pos + 1)
+    valid = idx[None, :] < written[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    return torch.where(valid, zero, zero - 1e30)[:, None, None, :]
+
+
+def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
+                active: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x (B,1,d); ``pos`` a scalar (every row in lockstep)
+    or (B,) per-row absolute positions. The new k/v go to ring slot
+    pos % size; ``active`` (B,) bool drops the write of inactive rows (the
+    reference sends it to slot ``size`` with ``mode="drop"``; torch would
+    raise on that index, so those rows write back what their slot held).
+    Returns new cache tensors; the given cache is not modified."""
+    _check_attn(cfg)
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    size = cache["k"].shape[1]
+    pos = _slot_positions(pos, b, x.device)
+    q, k, v = _qkv(p, x, cfg)
+    cos, sin = rope_freqs(pos[:, None], hd, cfg.rope_theta)     # (B, 1, hd/2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    rows = torch.arange(b, device=x.device)
+    slot = torch.remainder(pos, size).long()
+    k_new, v_new = k[:, 0], v[:, 0]
+    if active is not None:
+        keep = active[:, None, None]
+        k_new = torch.where(keep, k_new, cache["k"][rows, slot])
+        v_new = torch.where(keep, v_new, cache["v"][rows, slot])
+    ck = cache["k"].index_put((rows, slot), k_new)
+    cv = cache["v"].index_put((rows, slot), v_new)
+    out = _sdpa(q, ck, cv, _ring_mask(pos, size), h // kv)
+    return out.reshape(b, 1, h * hd) @ p["wo"], {"k": ck, "v": cv}
+
+
+# -------------------------------------------------------------- SwiGLU FFN
+def init_ffn(gen: torch.Generator, d: int, ff: int, device) -> dict:
+    return {
+        "w_gate": _dense(gen, (d, ff), device),
+        "w_up": _dense(gen, (d, ff), device),
+        "w_down": _dense(gen, (ff, d), device),
+    }
+
+
+def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
 # ------------------------------------------------------------------ Mamba2

@@ -1,19 +1,19 @@
 """Decoder LM over ``ArchConfig``, the port of ``repro.models.transformer``,
-for the Mamba2 family (``block_pattern=("mamba",)``, ``ffn_pattern=("none",)``).
+for the Mamba2 family (``block_pattern=("mamba",)``, ``ffn_pattern=("none",)``)
+and the dense GQA family (``"attn"`` slots with RoPE, optional QKV bias and
+sliding window, and a dense SwiGLU FFN: ``yi-6b``, ``qwen2.5-32b``,
+``qwen2-72b``, ``granite-34b``).
 
 Parameters are the reference's nested dict, blocks stacked along a leading
 ``n_blocks`` dimension, so a JAX ``init_params`` pytree carries across with
 ``repro_torch.convert.lm_params_from_numpy``. The stacked blocks are walked
 by a Python loop (PyTorch runs eagerly: the reference's ``remat`` and
 ``unroll`` steer XLA and have no counterpart here). Embeddings are tied when
-``cfg.tie_embeddings`` (head = embed.T). Attention, MLA, MoE, dense FFN,
-encoder-decoder and frontends raise ``NotImplementedError`` (``ROADMAP.md``
-A10).
+``cfg.tie_embeddings`` (head = embed.T). MLA, MoE, encoder-decoder and
+frontends raise ``NotImplementedError`` (``ROADMAP.md`` A10).
 
 Public API: init_params / forward_train / loss_fn / init_cache /
-decode_step. Float32 throughout: TF32 is switched off for matmuls and
-cuDNN once, when this module is imported, as ``repro_torch.core.dfedrw``
-does for the round engine.
+decode_step. Float32 throughout, with TF32 off (``repro_torch.device``).
 """
 from __future__ import annotations
 
@@ -23,21 +23,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
-# fp32 matrix products, as the JAX package computes them (no TF32).
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
 __all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "decode_step"]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    kinds = set(cfg.block_pattern)
-    ffns = {cfg.ffn_kind(i) for i in range(len(cfg.block_pattern))}
-    if kinds != {"mamba"} or ffns != {"none"} or cfg.enc_dec or cfg.frontend != "none":
+    for i, kind in enumerate(cfg.block_pattern):
+        fk = cfg.ffn_kind(i)
+        if kind == "attn" and cfg.attn_type != "gqa":
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.attn_type} attention is not ported (ROADMAP.md A10)")
+        if kind not in ("attn", "mamba") or fk not in ("dense", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: slot {i} is {kind} with a {fk} FFN; only GQA "
+                f"attention and Mamba2 slots with a dense or no FFN are ported; "
+                f"MLA, MoE, enc-dec and frontends are ROADMAP.md A10")
+    if cfg.enc_dec or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only the Mamba2 family (mamba blocks, no FFN, no "
-            f"encoder or frontend) is ported; attention, MLA, MoE, dense FFN, "
-            f"enc-dec and frontends are ROADMAP.md A10")
+            f"{cfg.name}: encoder-decoder models and frontends are ROADMAP.md A10")
 
 
 def _stack(trees: list):
@@ -52,30 +54,83 @@ def _index(tree, i: int):
     return tree[i]
 
 
+def _init_slot(gen: torch.Generator, cfg: ArchConfig, slot: int, dev) -> dict:
+    ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)  # noqa: E731
+    p = {"norm1": ones()}
+    if cfg.block_pattern[slot] == "attn":
+        p["mixer"] = L.init_attn(gen, cfg, dev)
+    else:
+        p["mixer"] = L.init_mamba(gen, cfg, dev)
+    if cfg.ffn_kind(slot) == "dense":
+        p["norm2"] = ones()
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dev)
+    return p
+
+
+def _into(stacked, tree, i: int) -> None:
+    """Copy one block's parameters into row ``i`` of the stacked ones."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _into(stacked[k], v, i)
+    else:
+        stacked[i].copy_(tree)
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
                 device: str | torch.device = "cuda") -> dict:
-    """Random init with the reference's shapes and scales, drawn from the
-    CPU generator ``gen`` (its draws are not JAX's bits). Blocks are stacked
-    along a leading n_blocks dim."""
+    """Random init with the reference's shapes and scales, drawn from
+    ``gen`` on the generator's own device (its draws are not JAX's bits): a
+    ``torch.Generator("cuda")`` fills a full-width model on the card, a CPU
+    generator draws on the host. Blocks are drawn one after another, in the
+    same order whatever the device, and written into tensors stacked along
+    a leading n_blocks dim, so at most one block exists twice."""
     _check_supported(cfg)
     if dtype != torch.float32:
         raise NotImplementedError("the port's LM path is float32 only")
     dev = resolve_device(device)
-    ones = lambda: torch.ones(cfg.d_model, dtype=dtype, device=dev)  # noqa: E731
-    blocks = [{f"slot{i}": {"norm1": ones(), "mixer": L.init_mamba(gen, cfg, dev)}
-               for i in range(len(cfg.block_pattern))} for _ in range(cfg.n_blocks)]
+
+    def block():
+        return {f"slot{i}": _init_slot(gen, cfg, i, dev)
+                for i in range(len(cfg.block_pattern))}
+
+    first = block()
+    stacked = _expand(first, cfg.n_blocks)
+    _into(stacked, first, 0)
+    del first
+    for blk in range(1, cfg.n_blocks):
+        _into(stacked, block(), blk)
     params = {
-        "embed": (0.02 * torch.randn(cfg.vocab, cfg.d_model, generator=gen)).to(dev),
-        "final_norm": ones(),
-        "blocks": _stack(blocks),
+        "embed": (0.02 * torch.randn(cfg.vocab, cfg.d_model, generator=gen,
+                                     device=gen.device)).to(dev),
+        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+        "blocks": stacked,
     }
     if not cfg.tie_embeddings:
-        params["head"] = (0.02 * torch.randn(cfg.d_model, cfg.vocab, generator=gen)).to(dev)
+        params["head"] = (0.02 * torch.randn(cfg.d_model, cfg.vocab, generator=gen,
+                                             device=gen.device)).to(dev)
     return params
+
+
+def _expand(tree, n: int):
+    """One block's tree -> an uninitialised tree stacked n deep."""
+    if isinstance(tree, dict):
+        return {k: _expand(v, n) for k, v in tree.items()}
+    return tree.new_empty((n, *tree.shape))
 
 
 def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin):
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    if cfg.block_pattern[slot] == "attn":
+        x = x + L.attn_train(p["mixer"], h, cfg, cos, sin)
+    else:
+        x = x + L.mamba_train(p["mixer"], h, cfg)
+    if cfg.ffn_kind(slot) == "dense":
+        x = x + L.ffn_apply(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
+    return x
 
 
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
@@ -85,11 +140,12 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     if frontend_embeds is not None:
         raise NotImplementedError("frontends are ROADMAP.md A10")
     x = params["embed"][tokens]
+    positions = torch.arange(x.shape[1], device=x.device)
+    cos, sin = L.rope_freqs(positions, cfg.head_dim_, cfg.rope_theta)
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
         for i in range(len(cfg.block_pattern)):
-            p = bp[f"slot{i}"]
-            x = x + L.mamba_train(p["mixer"], L.rms_norm(x, p["norm1"], cfg.norm_eps), cfg)
+            x = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(cfg, params), torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -104,38 +160,54 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
                device: str | torch.device = "cuda") -> dict:
-    """Stacked (n_blocks-leading) recurrent cache. A Mamba2 cache does not
-    grow with the context, so ``max_len`` is read by nothing (it sizes the
-    attention caches of the reference)."""
+    """Stacked (n_blocks-leading) cache: attention slots hold a ring buffer
+    of min(max_len, window) k/v slots, Mamba2 slots their recurrent state
+    (which ``max_len`` does not size)."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    one = lambda: L.init_cache_mamba(cfg, batch, dtype, dev)  # noqa: E731
+
+    def one(i):
+        if cfg.block_pattern[i] == "attn":
+            return L.init_cache_attn(cfg, batch, max_len, dtype, dev)
+        return L.init_cache_mamba(cfg, batch, dtype, dev)
+
     return {
-        "slots": {f"slot{i}": _stack([one() for _ in range(cfg.n_blocks)])
+        "slots": {f"slot{i}": _stack([one(i) for _ in range(cfg.n_blocks)])
                   for i in range(len(cfg.block_pattern))},
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
+                positions: torch.Tensor | None = None,
                 active: torch.Tensor | None = None):
-    """token (B, 1) int -> (logits (B, 1, V), new cache), every row at
-    cache["pos"], which advances by one (the reference's lockstep mode).
-    ``active`` (B,) bool freezes the cache of inactive rows."""
+    """token (B, 1) int -> (logits (B, 1, V), new cache).
+
+    Lockstep mode (``positions=None``): every row is at cache["pos"], which
+    advances by one. Slot mode: ``positions`` (B,) gives each row its own
+    absolute position and cache["pos"] is left untouched. ``active`` (B,)
+    bool freezes the cache of inactive rows."""
     _check_supported(cfg)
     x = params["embed"][token]
+    pos = cache["pos"] if positions is None else positions
     new_slots = {f"slot{i}": [] for i in range(len(cfg.block_pattern))}
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
-        for i in range(len(cfg.block_pattern)):
+        for i, kind in enumerate(cfg.block_pattern):
             p = bp[f"slot{i}"]
-            out, nc = L.mamba_decode(p["mixer"], L.rms_norm(x, p["norm1"], cfg.norm_eps),
-                                     _index(cache["slots"][f"slot{i}"], blk), cfg,
-                                     active=active)
+            hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+            c = _index(cache["slots"][f"slot{i}"], blk)
+            if kind == "attn":
+                out, nc = L.attn_decode(p["mixer"], hn, c, pos, cfg, active=active)
+            else:
+                out, nc = L.mamba_decode(p["mixer"], hn, c, cfg, active=active)
             x = x + out
             new_slots[f"slot{i}"].append(nc)
+            if cfg.ffn_kind(i) == "dense":
+                x = x + L.ffn_apply(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["slots"] = {k: _stack(v) for k, v in new_slots.items()}
-    new_cache["pos"] = cache["pos"] + 1
+    if positions is None:
+        new_cache["pos"] = cache["pos"] + 1
     return x @ _head(cfg, params), new_cache

@@ -11,12 +11,17 @@ Contracts: ``qdq_rows_rng`` equals its plain version bit for bit;
 ``qdq_delta_rows_rng`` within 1 ulp (both fuse base + t*norm into one FMA);
 ``ssd_scan`` within 2e-4 absolute and relative of ``ssd_chunked_plain``
 (float32 summed in another order, the tolerance tests/test_kernels_ssd.py
-holds the TPU kernel to).
+holds the TPU kernel to); ``block_attn`` within 1e-4 absolute and relative
+of ``block_attention_plain`` (float32, online against materialized
+softmax), and the SMOKE Yi model on the card within 2e-4 of the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.block_attn import block_attention
+from repro_torch.kernels.block_attn import block_attn as bk
+from repro_torch.kernels.block_attn.ref import block_attention_plain
 from repro_torch.kernels.quantize import quantize as qk
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.kernels.ssd_scan import ssd_scan as sk
@@ -172,3 +177,74 @@ def test_mamba_smoke_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert sk.LAUNCHES["ssd_scan"] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,kv,hd,causal,window", [
+    (1, 64, 64, 2, 2, 32, True, 0),
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 96, 96, 4, 1, 32, True, 0),         # MQA, L not a tile multiple
+    (2, 256, 256, 8, 8, 128, True, 0),      # hd = 128
+    (1, 100, 100, 2, 2, 32, True, 0),
+    (1, 64, 64, 2, 2, 32, False, 0),        # bidirectional
+    (1, 77, 130, 4, 2, 16, False, 0),       # Lq != Lk
+    (2, 300, 300, 8, 4, 128, True, 64),     # sliding window
+    (1, 40, 40, 2, 2, 24, True, 0),         # hd not a multiple of 16
+])
+def test_block_attn_matches_plain(cuda, b, lq, lk, h, kv, hd, causal, window):
+    gen = torch.Generator().manual_seed(lq + hd)
+    q, k, v = (torch.randn(b, n, heads, hd, generator=gen).to(cuda)
+               for n, heads in ((lq, h), (lk, kv), (lk, kv)))
+    bk.reset_launch_counts()
+    got = block_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["block_attn"] == 1        # a CUDA tensor never takes the plain path
+    want = block_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_block_attn_takes_strided_views(cuda):
+    """q/k/v as views of one fused (B, L, heads, hd) projection: read by
+    strides, no copy."""
+    gen = torch.Generator().manual_seed(1)
+    fused = torch.randn(2, 200, 8 + 2 + 2, 64, generator=gen).to(cuda)
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    assert not q.is_contiguous()
+    got = block_attention(q, k, v)
+    want = block_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_block_attn_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 8, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        block_attention(q, q, q)
+    q = torch.zeros(1, 8, 2, 32, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        block_attention(q.double(), q.double(), q.double())
+    w = torch.zeros(1, 8, 2, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="backward"):
+        block_attention(w, w, w)
+
+
+def test_dense_smoke_on_card_matches_cpu(cuda):
+    """The SMOKE Yi forward and decode through the kernel on the card
+    against the plain version on the CPU, from the same weights."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke("yi-6b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 80), generator=torch.Generator().manual_seed(1))
+    want, _ = T.forward_train(cfg, params, tokens)
+    on_card = _to(params, cuda)
+    bk.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = T.forward_train(cfg, on_card, tokens.to(cuda))
+        cache = T.init_cache(cfg, 2, 8)
+        for t in range(8):
+            step, cache = T.decode_step(cfg, on_card, cache, tokens[:, t:t + 1].to(cuda))
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["block_attn"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    want8, _ = T.forward_train(cfg, params, tokens[:, :8])
+    torch.testing.assert_close(step[:, 0].cpu(), want8[:, -1], atol=2e-3, rtol=2e-3)

@@ -92,6 +92,35 @@ def test_port_runs_mamba_smoke_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_runs_dense_smoke_without_jax():
+    """The dense GQA slice, forward and decode, on the CPU with JAX and the
+    JAX package refused."""
+    proc = _run("""
+        import sys
+        import torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.kernels.block_attn import block_attn
+        from repro_torch.models import transformer as T
+
+        cfg = get_smoke("qwen2.5-32b")
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(1))
+        loss = T.loss_fn(cfg, params, {"tokens": tokens, "labels": tokens})
+        logits, _ = T.forward_train(cfg, params, tokens)
+        cache = T.init_cache(cfg, 2, 12, device="cpu")
+        for t in range(12):
+            step, cache = T.decode_step(cfg, params, cache, tokens[:, t:t + 1])
+        assert torch.isfinite(loss) and step.shape == (2, 1, cfg.vocab)
+        assert torch.allclose(step[:, 0], logits[:, -1], atol=2e-3, rtol=2e-3)
+        assert block_attn.LAUNCHES["block_attn"] == 0 and block_attn.BUILD_INFO == {}
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py's imports stand alone too. Told that there is a card,
     it imports the whole port before its first call to the card fails."""
@@ -108,6 +137,7 @@ def test_chip_smoke_imports_no_jax():
         assert "repro_torch.core.dfedrw" in sys.modules
         assert "repro_torch.models.transformer" in sys.modules
         assert "repro_torch.kernels.ssd_scan.ssd_scan" in sys.modules
+        assert "repro_torch.kernels.block_attn.block_attn" in sys.modules
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
@@ -143,11 +173,12 @@ def test_entry_points_default_to_cuda():
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import transformer as T
 
-    cfg = get_smoke("mamba2-130m")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        T.init_params(cfg, torch.Generator())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        T.init_cache(cfg, 1, 8)
+    for arch_id in ("mamba2-130m", "yi-6b"):
+        cfg = get_smoke(arch_id)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.init_params(cfg, torch.Generator())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_params_from_numpy({"embed": np.zeros((2, 2))})
 
@@ -166,6 +197,22 @@ def test_only_cpu_tensors_take_the_plain_path():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         q.qdq_delta_rows_rng(meta[0], torch.empty_like(meta[0]), (0, 0), meta[1], meta[2],
                              bits=8)
+
+
+def test_block_attention_on_cpu_never_touches_the_kernel():
+    """A CPU tensor takes the plain version: the launch counter stays put and
+    nothing is built; the kernel's own wrapper refuses a CPU tensor."""
+    from repro_torch.kernels.block_attn import block_attention
+    from repro_torch.kernels.block_attn import block_attn as bk
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 20, heads, 8, generator=gen) for heads in (4, 2, 2))
+    bk.reset_launch_counts()
+    o = block_attention(q, k, v, window=5)
+    assert o.shape == q.shape and torch.isfinite(o).all()
+    assert bk.LAUNCHES == {"block_attn": 0} and bk.BUILD_INFO == {}
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.block_attn(q, k, v)
 
 
 def test_ssd_chunked_on_cpu_never_touches_the_kernel():
