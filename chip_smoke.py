@@ -14,22 +14,31 @@ or of the JAX package ``repro``. Phases, in order:
    information, at bits 2, 4 and 8: ``qdq_rows_rng`` with 0 differing
    elements, ``qdq_delta_rows_rng`` within 1 ulp; each kernel's time
    (CUDA events), its plain version's time and its bound;
-4. a small configuration run on the CPU and on the card from the same
+4. the quantize wire kernels, see :func:`wire_phase`: the six given-uniform
+   and int8 kernels against their plain versions on the aggregation
+   payload of phase 3 (R = 99,776 rows) at bits 2, 4 and 8, with 0
+   differing elements (``qdq_delta_rows`` within 1 ulp), timed; then the
+   quantize package's entry points on the card (``stochastic_quantize``,
+   ``stochastic_dequantize``, ``segment_quantize_dequantize`` with given
+   uniforms, ``quantize_rows`` -> ``dequantize_rows``), one launch of each
+   kernel, against the CPU; the segment side information twice, bit for
+   bit;
+5. a small configuration run on the CPU and on the card from the same
    weights and seed words, compared (fp32: rtol 1e-4; bits=8: within
    0.05 * scale + 1e-4, as tests/test_torch_dfedrw.py);
-5. the main path through ``train_loop``: QDFedRW (bits=8) and DFedRW
+6. the main path through ``train_loop``: QDFedRW (bits=8) and DFedRW
    (bits=32), 5 rounds each, at the paper's 3FNN (784-200-200-10), n=100
    devices on a complete graph, 60,000 samples, M=K=8, B=50; ms per round,
    loss, accuracy, peak memory and the kernel launch counts, which must be
-   K*rounds and rounds at bits=8;
-6. a profile of two rounds at bits=8 (device busy and idle share);
-7. the launcher, ``repro_torch.launch.train.main``, on the card;
-8. the Mamba2 slice (``configs.mamba2_130m`` as the registry gives it,
+   K*rounds and rounds at bits=8 (and none of the wire kernels);
+7. a profile of two rounds at bits=8 (device busy and idle share);
+8. the launcher, ``repro_torch.launch.train.main``, on the card;
+9. the Mamba2 slice (``configs.mamba2_130m`` as the registry gives it,
    float32, TF32 off), see :func:`mamba_phases`: the ``ssd_scan`` kernel against its
    plain version on layer 0's own inputs from a full-width forward, the
    SMOKE configuration on the CPU and the card, ``loss_fn`` at full width
    (8 x 2,048 tokens, 24 kernel launches a forward) and recurrent decode;
-9. the dense GQA slice (``configs.yi_6b`` as the registry gives it, float32,
+10. the dense GQA slice (``configs.yi_6b`` as the registry gives it, float32,
    TF32 off, after the Mamba2 state is freed), see :func:`dense_phases`: the
    ``block_attn`` kernel against its plain version on layer 0's own q/k/v
    of a full-width forward (B = 2, L = 4,096, 32 heads, 4 KV heads, hd 128)
@@ -41,7 +50,7 @@ or of the JAX package ``repro``. Phases, in order:
    the card; ``loss_fn`` at full width (2 x 4,096 tokens, 32 kernel
    launches a forward) with a profile; greedy decode at batch 8 against the
    kernel forward;
-10. one JSON line of kernel numbers (all four kernels), and last the device
+11. one JSON line of kernel numbers (all ten kernels), and last the device
    line.
 
 The three kernel sources are built at the start, one ``nvcc`` each, in
@@ -71,6 +80,30 @@ REPLACES = {
     "qdq_rows_rng": "src/repro/kernels/quantize/quantize.py:171 _qdq_rows_rng_kernel",
 }
 SOURCE = "src/repro_torch/kernels/quantize/csrc/qdq_rows.cu"
+WIRE_REPLACES = {
+    "qdq_delta_rows": "src/repro/kernels/quantize/quantize.py:115 _qdq_delta_rows_kernel",
+    "qdq_rows": "src/repro/kernels/quantize/quantize.py:99 _qdq_rows_kernel",
+    "quantize_rows": "src/repro/kernels/quantize/quantize.py:81 _quantize_rows_kernel",
+    "dequantize_rows": "src/repro/kernels/quantize/quantize.py:94 _dequantize_rows_kernel",
+    "quantize": "src/repro/kernels/quantize/quantize.py:41 _quantize_kernel",
+    "dequantize": "src/repro/kernels/quantize/quantize.py:53 _dequantize_kernel",
+}
+# Bytes each wire kernel must move: (float32 planes of 128 lanes read or
+# written per row, int8 planes per row, bytes per row of the (s, norm)
+# pair, bytes read once: the one float32 norm of quantize/dequantize).
+WIRE_TRAFFIC = {
+    "qdq_delta_rows": (4, 0, 8, 0),     # w, base, u in; out
+    "qdq_rows": (3, 0, 8, 0),           # w, u in; out
+    "quantize_rows": (2, 1, 8, 0),      # w, u in; int8 out
+    "dequantize_rows": (1, 1, 8, 0),    # int8 in; out
+    "quantize": (2, 1, 0, 4),
+    "dequantize": (1, 1, 0, 4),
+}
+# Float operations per element, counted from csrc/qdq_rows.cu: 13 for the
+# signed grid index, 2 more for deq (+ base in one FMA); 3 and 2 for the
+# dequantize kernels (convert and multiplies).
+WIRE_OPS = {"qdq_delta_rows": 15, "qdq_rows": 15, "quantize_rows": 13,
+            "dequantize_rows": 3, "quantize": 13, "dequantize": 2}
 ROUNDS = 5
 SPIN_CYCLES = 200_000_000      # ~0.1 s at the H100's clock: longer than queuing a timing loop
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:32 _ssd_kernel"
@@ -550,6 +583,181 @@ def dense_phases(smi):
 
 
 
+def _differs(got, want):
+    """(elements that differ, most ulps apart): float32 and bfloat16 by
+    their bits, int8 by value."""
+    import torch
+
+    if got.dtype == torch.int8:
+        d = (got.int() - want.int()).abs()
+    else:
+        bits_as = torch.int32 if got.dtype == torch.float32 else torch.int16
+        d = (got.view(bits_as).long() - want.view(bits_as).long()).abs()
+    return int((d > 0).sum()), int(d.max())
+
+
+def wire_phase(w2d, spec, n_msgs, tag):
+    """The six quantize wire kernels on the card, on the main path's own
+    Eq. 14 aggregation payload ``w2d`` (``n_msgs`` messages of ``spec``),
+    with ``payload_side_info``'s per-row (s, norm), uniforms and a base
+    drawn by ``torch.Generator("cuda")``; the fixed-s kernels on the same
+    elements as one tensor with one norm. Each against its plain version at
+    bits 2, 4 and 8 and timed; then the quantize package's entry points
+    with the counts from 0, against the CPU. Returns the six entries of the
+    kernels line; a failed check exits non-zero."""
+    import torch
+
+    from repro_torch.kernels.quantize import ops, payload_side_info
+    from repro_torch.kernels.quantize import quantize as qk
+
+    rows = w2d.shape[0]
+    gen = torch.Generator("cuda").manual_seed(5)
+    u = torch.rand(w2d.shape, generator=gen, device="cuda")
+    base = torch.randn(w2d.shape, generator=gen, device="cuda")
+    total = torch.sqrt(torch.sum(w2d * w2d))
+    bf16 = torch.bfloat16
+    entries = {}
+    for bits in (2, 4, 8):
+        s_rows, n_rows = payload_side_info(w2d.reshape(n_msgs, spec.d_pad), spec,
+                                           per_message=True, bits=bits)
+        fixed = 1.0 / ((1 << (bits - 1)) - 1)
+        q_rows = qk.quantize_rows_plain(w2d, u, s_rows, n_rows, bits=bits)
+        q_one = qk.quantize_plain(w2d, u, total, s=fixed, bits=bits)
+        # name: (kernel on a payload it may write over, plain version,
+        # ulps allowed, the same with a bfloat16 result or None)
+        cases = {
+            "qdq_delta_rows": (
+                lambda w: qk.qdq_delta_rows(w, base, u, s_rows, n_rows, bits=bits),
+                lambda: qk.qdq_delta_rows_plain(w2d, base, u, s_rows, n_rows, bits=bits),
+                1, None),
+            "qdq_rows": (
+                lambda w: qk.qdq_rows(w, u, s_rows, n_rows, bits=bits),
+                lambda: qk.qdq_rows_plain(w2d, u, s_rows, n_rows, bits=bits), 0, None),
+            "quantize_rows": (
+                lambda w: qk.quantize_rows(w, u, s_rows, n_rows, bits=bits),
+                lambda: qk.quantize_rows_plain(w2d, u, s_rows, n_rows, bits=bits), 0, None),
+            "dequantize_rows": (
+                lambda w: qk.dequantize_rows(q_rows, s_rows, n_rows),
+                lambda: qk.dequantize_rows_plain(q_rows, s_rows, n_rows), 0,
+                (lambda: qk.dequantize_rows(q_rows, s_rows, n_rows, out_dtype=bf16),
+                 lambda: qk.dequantize_rows_plain(q_rows, s_rows, n_rows, out_dtype=bf16))),
+            "quantize": (
+                lambda w: qk.quantize(w, u, total, s=fixed, bits=bits),
+                lambda: qk.quantize_plain(w2d, u, total, s=fixed, bits=bits), 0, None),
+            "dequantize": (
+                lambda w: qk.dequantize(q_one, total, s=fixed),
+                lambda: qk.dequantize_plain(q_one, total, s=fixed), 0,
+                (lambda: qk.dequantize(q_one, total, s=fixed, out_dtype=bf16),
+                 lambda: qk.dequantize_plain(q_one, total, s=fixed, out_dtype=bf16))),
+        }
+        for name, (kern, plain, limit, bf16_pair) in cases.items():
+            got = kern(w2d.clone())
+            want = plain()
+            torch.cuda.synchronize()
+            differs, max_ulps = _differs(got, want)
+            max_abs = float((got.float() - want.float()).abs().max())
+            bf16_note = ""
+            if bf16_pair is not None:
+                b_differs, _ = _differs(bf16_pair[0](), bf16_pair[1]())
+                bf16_note = f" bf16_differs={b_differs}"
+                differs_bf16 = b_differs
+            else:
+                differs_bf16 = 0
+            f32_planes, i8_planes, per_row, once = WIRE_TRAFFIC[name]
+            nbytes = rows * (f32_planes * LANES_BYTES + i8_planes * 128 + per_row) + once
+            bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops_ms = rows * 128 * WIRE_OPS[name] / FP32_OPS_PER_S * 1e3
+            scratch = w2d.clone()
+            ms = _time_ms(lambda: kern(scratch), iters=200)
+            plain_ms = _time_ms(plain, iters=20)
+            library_ms = None
+            if name == "dequantize":
+                # One PyTorch call for the same function: q * (s*norm), the
+                # scalar formed beforehand (the port never calls it).
+                sn = torch.tensor(fixed, dtype=torch.float32, device="cuda") * total
+                lib_differs, _ = _differs(torch.mul(q_one, sn), got)
+                library_ms = _time_ms(lambda: torch.mul(q_one, sn), iters=200)
+                bf16_note += f" library_ms={library_ms:.4f} library_differs={lib_differs}"
+            print(f"wire kernel {name:15s} {tag} R={rows} bits={bits}: differs={differs} "
+                  f"max_ulps={max_ulps} max|d|={max_abs:.3e}{bf16_note} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={max(bound_bytes_ms, bound_ops_ms):.4f} "
+                  f"(bytes {nbytes}, {bound_bytes_ms:.4f} ms; ops {bound_ops_ms:.4f} ms)")
+            ok = max_ulps <= limit and not differs_bf16
+            if not ok or not torch.isfinite(got.float()).all():
+                _fail(f"{name} at bits={bits} disagrees with its plain version "
+                      f"({differs} elements, max {max_ulps} ulps, allowed {limit}; "
+                      f"bfloat16 {differs_bf16})")
+            if bits == 8:
+                entries[name] = {
+                    "name": name, "route": "cuda", "source": SOURCE,
+                    "replaces": WIRE_REPLACES[name], "launches": None,
+                    "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                    "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+                    "library_ms": library_ms,
+                }
+
+    # ---------------------------- the quantize package's entry points
+    # One wire tensor per (message, leaf), as the Eq. 14 payload is laid out.
+    leaf = torch.as_tensor(spec.row_leaf_ids(), dtype=torch.int64, device="cuda")
+    msg = torch.arange(n_msgs, device="cuda").repeat_interleave(spec.rows)
+    seg_ids = msg * spec.n_leaves + leaf.repeat(n_msgs)
+    num = n_msgs * spec.n_leaves
+    s8, n8 = payload_side_info(w2d.reshape(n_msgs, spec.d_pad), spec, per_message=True, bits=8)
+    qk.reset_launch_counts()
+    q, norm = ops.stochastic_quantize(w2d, u, s=1 / 127, bits=8)
+    deq = ops.stochastic_dequantize(q, norm, s=1 / 127)
+    seg_out = ops.segment_quantize_dequantize(w2d, u, seg_ids, num, bits=8)
+    seg_base = ops.segment_quantize_dequantize(w2d, u, seg_ids, num, bits=8, base_rows=base)
+    wire = qk.dequantize_rows(qk.quantize_rows(w2d, u, s8, n8, bits=8), s8, n8)
+    torch.cuda.synchronize()
+    counts = {name: qk.LAUNCHES[name] for name in WIRE_REPLACES}
+    print(f"wire path {tag}: stochastic_quantize -> stochastic_dequantize, "
+          f"segment_quantize_dequantize(u_rows) with and without base ({num} segments), "
+          f"quantize_rows -> dequantize_rows on {rows} rows: launches={counts}")
+    if any(n != 1 for n in counts.values()):
+        _fail(f"the wire entry points launched {counts}, want one launch of each")
+    for name in counts:
+        entries[name]["launches"] = counts[name]
+
+    # The same entry points on the CPU (plain versions), same inputs.
+    w_cpu, u_cpu, base_cpu, seg_cpu = (t.cpu() for t in (w2d, u, base, seg_ids))
+    q_cpu, norm_cpu = ops.stochastic_quantize(w_cpu, u_cpu, s=1 / 127, bits=8)
+    norm_ulps = _differs(norm.cpu().reshape(1), norm_cpu.reshape(1))[1]
+    q_step = int((q.cpu().int() - q_cpu.int()).abs().max())
+    q_given = _differs(qk.quantize_plain(w_cpu, u_cpu, norm.cpu(), s=1 / 127, bits=8),
+                       q.cpu())[0]
+    deq_differs = _differs(deq.cpu(), ops.stochastic_dequantize(q.cpu(), norm.cpu(),
+                                                               s=1 / 127))[0]
+    s_cpu, n_cpu = ops.segment_side_info(w_cpu, seg_cpu, num, bits=8)
+    side = [ops.segment_side_info(w2d, seg_ids, num, bits=8) for _ in range(2)]
+    repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(*side))
+    side_ulps = max(_differs(side[0][i].cpu(), t)[1] for i, t in enumerate((s_cpu, n_cpu)))
+    # |card - CPU| over one grid cell s*norm (a segment of zeros has a cell
+    # of 0, where both must give 0)
+    cell = (s_cpu * n_cpu)[:, None] * (1 + 1e-5)
+    seg_worst = 0.0
+    for got, b in ((seg_out, None), (seg_base, base_cpu)):
+        d = (got.cpu() - ops.segment_quantize_dequantize(w_cpu, u_cpu, seg_cpu, num, bits=8,
+                                                         base_rows=b)).abs()
+        ratio = torch.where(d > 0, d / cell, torch.zeros_like(d))
+        seg_worst = max(seg_worst, float(ratio.max()))
+    fused = qk.qdq_rows_plain(w_cpu, u_cpu, s8.cpu(), n8.cpu(), bits=8)
+    wire_ok = torch.allclose(wire.cpu(), fused, rtol=1e-6, atol=1e-7)
+    print(f"wire path {tag}: card vs CPU: norm {norm_ulps} ulps, indices at most {q_step} "
+          f"apart ({q_given} differ given the card's norm), dequantize differs={deq_differs}; "
+          f"segment side information {side_ulps} ulps, identical in two card runs: {repeat}; "
+          f"segment |d| at most {seg_worst:.4f} grid cells; quantize_rows -> dequantize_rows "
+          f"vs qdq_rows (rtol 1e-6): {wire_ok}")
+    finite = all(torch.isfinite(t).all() for t in (deq, seg_out, seg_base, wire))
+    if not (norm_ulps <= 4 and q_step <= 1 and q_given == 0 and deq_differs == 0
+            and repeat and side_ulps <= 4 and seg_worst <= 1.0 and wire_ok and finite
+            and q.shape == w2d.shape and q.dtype == torch.int8):
+        _fail("the quantize wire entry points disagree between the card and the CPU")
+    return entries
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -691,6 +899,8 @@ def main() -> int:
                     "library_ms": None,
                 }
 
+    wire = wire_phase(agg_w, spec, k * m, f"[{smi}]")
+
     # --------------------------------------------- small CPU-vs-card check
     xs, ys = synthetic_image_classification(n_samples=2000, seed=0, noise=1.0)
     small = FederatedDataset.from_partition(
@@ -755,8 +965,9 @@ def main() -> int:
               f"test_loss={[round(t, 4) for _, _, t in log]}")
         print(f"main path bits={bits}: peak_memory_allocated={peak} bytes "
               f"launches={counts}")
-        want = ({"qdq_delta_rows_rng": k * ROUNDS, "qdq_rows_rng": ROUNDS} if bits < 32
-                else {"qdq_delta_rows_rng": 0, "qdq_rows_rng": 0})
+        want = dict.fromkeys(qk.LAUNCHES, 0)
+        if bits < 32:
+            want.update(qdq_delta_rows_rng=k * ROUNDS, qdq_rows_rng=ROUNDS)
         finite = all(np.isfinite(v) for row in log for v in row)
         if counts != want or not finite or len(hist.rounds) != ROUNDS:
             print(f"FAIL: main path bits={bits}: launches {counts} (want {want}), "
@@ -784,7 +995,7 @@ def main() -> int:
     launch_main(["protocol", "--algo", "dfedrw", "--rounds", "2", "--bits", "8"])
     torch.cuda.synchronize()
     print(f"launcher bits=8: launches={dict(qk.LAUNCHES)}")
-    if min(qk.LAUNCHES.values()) <= 0:
+    if min(qk.LAUNCHES["qdq_delta_rows_rng"], qk.LAUNCHES["qdq_rows_rng"]) <= 0:
         print("FAIL: the launcher did not go through both kernels", file=sys.stderr)
         return 1
 
@@ -795,7 +1006,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     attn = dense_phases(smi)
     print(json.dumps({"kernels": [results["qdq_delta_rows_rng"], results["qdq_rows_rng"],
-                                  ssd, attn]}))
+                                  *wire.values(), ssd, attn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -83,6 +83,13 @@ class FlatSpec:
         """128-lane rows per flattened model."""
         return self.d_pad // LANES
 
+    def row_leaf_ids(self) -> np.ndarray:
+        """(rows,) int32: which leaf each 128-lane row belongs to."""
+        ids = np.zeros(self.rows, dtype=np.int32)
+        for leaf, (off, psize) in enumerate(zip(self.offsets, self.padded_sizes)):
+            ids[off // LANES:(off + psize) // LANES] = leaf
+        return ids
+
 
 def make_flat_spec(template: Any) -> FlatSpec:
     """Build the codec from a single-model tree whose leaves have ``.shape``."""

@@ -7,8 +7,11 @@ machine with the card alone:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Contracts: ``qdq_rows_rng`` equals its plain version bit for bit;
-``qdq_delta_rows_rng`` within 1 ulp (both fuse base + t*norm into one FMA);
+Contracts: ``qdq_rows_rng`` and the wire kernels ``qdq_rows``,
+``quantize_rows``, ``dequantize_rows``, ``quantize`` and ``dequantize``
+equal their plain versions bit for bit (bfloat16 results too);
+``qdq_delta_rows_rng`` and ``qdq_delta_rows`` within 1 ulp (both fuse
+base + t*norm into one FMA);
 ``ssd_scan`` within 2e-4 absolute and relative of ``ssd_chunked_plain``
 (float32 summed in another order, the tolerance tests/test_kernels_ssd.py
 holds the TPU kernel to); ``block_attn`` within 1e-4 absolute and relative
@@ -50,7 +53,14 @@ def _inputs(rows, seed, device):
 
 
 def _ulps(a, b):
+    if a.dtype == torch.bfloat16:
+        return (a.view(torch.int16).long() - b.view(torch.int16).long()).abs()
     return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def _launched():
+    """The quantize kernels launched since the last reset, with their counts."""
+    return {name: n for name, n in qk.LAUNCHES.items() if n}
 
 
 @pytest.mark.parametrize("rows", [1, 7, 1559 * 8])
@@ -65,7 +75,7 @@ def test_kernels_match_plain(cuda, bits, rows):
     got_d = qk.qdq_delta_rows_rng(w.clone(), base, seed, s, norm, bits=bits)
     torch.cuda.synchronize()
     assert got.data_ptr() == buf.data_ptr()          # written in place over w
-    assert qk.LAUNCHES == {"qdq_delta_rows_rng": 1, "qdq_rows_rng": 1}
+    assert _launched() == {"qdq_delta_rows_rng": 1, "qdq_rows_rng": 1}
     assert torch.equal(got, qk.qdq_rows_rng_plain(w, seed, s, norm, bits=bits))
     want_d = qk.qdq_delta_rows_rng_plain(w, base, seed, s, norm, bits=bits)
     assert int(_ulps(got_d, want_d).max()) <= 1
@@ -77,6 +87,114 @@ def test_kernel_rejects_misaligned_views(cuda):
     shifted = flat[1:].view(16, qk.LANES)            # 4-byte offset
     with pytest.raises(ValueError, match="aligned"):
         qk.qdq_rows_rng(shifted, (1, 2), s, norm, bits=8)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 1559 * 8])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_wire_kernels_match_plain(cuda, bits, rows):
+    """The six given-uniform and int8 wire kernels against their plain
+    versions: 0 differing elements, qdq_delta_rows within 1 ulp (one FMA on
+    both sides), float32 and bfloat16 results."""
+    w, base, s, norm = _inputs(max(rows, 8), bits, cuda)
+    w, base, s, norm = w[:rows].contiguous(), base[:rows].contiguous(), s[:rows], norm[:rows]
+    u = torch.rand(w.shape, generator=torch.Generator(cuda).manual_seed(bits), device=cuda)
+    levels = (1 << (bits - 1)) - 1
+    total = torch.sqrt(torch.sum(w * w))
+    qk.reset_launch_counts()
+    for od in (torch.float32, torch.bfloat16):
+        buf = w.clone()
+        got = qk.qdq_delta_rows(buf, base, u, s, norm, bits=bits, out_dtype=od)
+        assert (got.data_ptr() == buf.data_ptr()) == (od == torch.float32)
+        want = qk.qdq_delta_rows_plain(w, base, u, s, norm, bits=bits, out_dtype=od)
+        assert got.dtype == od and int(_ulps(got, want).max()) <= 1
+        got = qk.qdq_rows(w.clone(), u, s, norm, bits=bits, out_dtype=od)
+        assert torch.equal(got, qk.qdq_rows_plain(w, u, s, norm, bits=bits, out_dtype=od))
+    q = qk.quantize_rows(w, u, s, norm, bits=bits)
+    assert q.dtype == torch.int8
+    assert torch.equal(q, qk.quantize_rows_plain(w, u, s, norm, bits=bits))
+    q7 = qk.quantize(w, u, total, s=1.0 / levels, bits=bits)
+    assert torch.equal(q7, qk.quantize_plain(w, u, total, s=1.0 / levels, bits=bits))
+    for od in (torch.float32, torch.bfloat16):
+        got = qk.dequantize_rows(q, s, norm, out_dtype=od)
+        assert torch.equal(got, qk.dequantize_rows_plain(q, s, norm, out_dtype=od))
+        got = qk.dequantize(q7, total, s=1.0 / levels, out_dtype=od)
+        assert torch.equal(got, qk.dequantize_plain(q7, total, s=1.0 / levels, out_dtype=od))
+    torch.cuda.synchronize()
+    assert _launched() == {"qdq_delta_rows": 2, "qdq_rows": 2, "quantize_rows": 1,
+                           "dequantize_rows": 2, "quantize": 1, "dequantize": 2}
+
+
+@pytest.mark.parametrize("s,bits", [(1 / 127, 8), (1 / 7, 4)])
+def test_quantize_kernel_multiplies_by_the_reciprocal(cuda, s, bits):
+    """Inputs where x/s and x*float32(1/s) give other indices: the kernel
+    takes the reciprocal, as its plain version and the reference do."""
+    gen = torch.Generator().manual_seed(1)
+    levels = (1 << (bits - 1)) - 1
+    sf = torch.tensor(s, dtype=torch.float32)
+    rs = torch.tensor(1.0) / sf
+    x = torch.rand(64 * qk.LANES, generator=gen) * levels * sf
+    q_div, q_mul = x / sf, x * rs
+    phi_div, phi_mul = q_div - q_div.floor(), q_mul - q_mul.floor()
+    u = torch.rand(x.shape, generator=gen)
+    differ = q_div != q_mul
+    u[differ] = torch.minimum(phi_div, phi_mul)[differ]
+    w, u = (t.reshape(-1, qk.LANES).to(cuda) for t in (x, u))
+    one = torch.ones((), device=cuda)
+    got = qk.quantize(w, u, one, s=s, bits=bits)
+    assert torch.equal(got, qk.quantize_plain(w, u, one, s=s, bits=bits))
+    by_division = torch.clamp(q_div.floor() + (u.cpu().reshape(-1) < phi_div), 0, levels)
+    assert int((by_division.to(torch.int8) != got.cpu().reshape(-1)).sum()) > 0
+
+
+def test_wire_kernels_reject_misaligned_views(cuda):
+    w, _, s, norm = _inputs(16, 0, cuda)
+    flat = torch.zeros(16 * qk.LANES + 1, device=cuda)
+    shifted = flat[1:].view(16, qk.LANES)            # 4-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        qk.qdq_rows(w.clone(), shifted, s, norm, bits=8)
+    with pytest.raises(ValueError, match="aligned"):
+        qk.quantize_rows(shifted, w, s, norm, bits=8)
+    q = torch.zeros(16 * qk.LANES + 1, dtype=torch.int8, device=cuda)[1:].view(16, qk.LANES)
+    with pytest.raises(ValueError, match="aligned"):
+        qk.dequantize_rows(q, s, norm)
+    with pytest.raises(ValueError, match="aligned"):
+        qk.dequantize(q, norm[:1], s=0.01)
+
+
+def test_wire_ops_on_card_match_cpu(cuda):
+    """stochastic_quantize -> stochastic_dequantize and
+    segment_quantize_dequantize(u_rows) on the card against the CPU, from
+    the same inputs: the norms within 4 ulps, every element within one grid
+    cell; the segment side information repeats bit for bit."""
+    from repro_torch.kernels.quantize import ops
+
+    gen = torch.Generator().manual_seed(7)
+    w = torch.randn(300, 77, generator=gen)
+    u = torch.rand(w.shape, generator=gen)
+    qk.reset_launch_counts()
+    q, norm = ops.stochastic_quantize(w.to(cuda), u.to(cuda), s=1 / 127, bits=8)
+    q_cpu, norm_cpu = ops.stochastic_quantize(w, u, s=1 / 127, bits=8)
+    assert int(_ulps(norm.cpu(), norm_cpu)) <= 4
+    assert int((q.cpu().int() - q_cpu.int()).abs().max()) <= 1
+    deq = ops.stochastic_dequantize(q, norm, s=1 / 127, out_dtype=torch.bfloat16)
+    assert deq.shape == w.shape and deq.dtype == torch.bfloat16
+    assert torch.equal(deq.cpu(), ops.stochastic_dequantize(q.cpu(), norm.cpu(), s=1 / 127,
+                                                            out_dtype=torch.bfloat16))
+    rows = torch.randn(40, qk.LANES, generator=gen) * 0.05
+    ur = torch.rand(rows.shape, generator=gen)
+    base = torch.randn(rows.shape, generator=gen)
+    seg = torch.arange(40) % 6
+    got = ops.segment_quantize_dequantize(rows.to(cuda), ur.to(cuda), seg.to(cuda), 7,
+                                          bits=4, base_rows=base.to(cuda))
+    want = ops.segment_quantize_dequantize(rows, ur, seg, 7, bits=4, base_rows=base)
+    s_rows, n_rows = ops.segment_side_info(rows, seg, 7, bits=4)
+    assert (got.cpu() - want).abs().le(s_rows[:, None] * n_rows[:, None] * (1 + 1e-5)).all()
+    first = ops.segment_side_info(rows.to(cuda), seg.to(cuda), 7, bits=4)
+    again = ops.segment_side_info(rows.to(cuda), seg.to(cuda), 7, bits=4)
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(first, again))
+    assert int(_ulps(first[1].cpu(), n_rows).max()) <= 4
+    torch.cuda.synchronize()
+    assert _launched() == {"qdq_delta_rows": 1, "quantize": 1, "dequantize": 1}
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -111,7 +229,7 @@ def test_engine_on_card_matches_cpu(cuda):
                                         qseeds=qseeds)
         a, b = runs[0][1].device_params, runs[1][1].device_params.cpu()
         assert float((a - b).abs().max()) < 0.05 * float(a.abs().max()) + 1e-4
-    assert qk.LAUNCHES == {"qdq_delta_rows_rng": 9, "qdq_rows_rng": 3}
+    assert _launched() == {"qdq_delta_rows_rng": 9, "qdq_rows_rng": 3}
 
 
 def _ssd_inputs(b, h, l, p, n, g, device, seed=0):

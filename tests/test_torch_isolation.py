@@ -231,3 +231,34 @@ def test_ssd_chunked_on_cpu_never_touches_the_kernel():
     assert sk.LAUNCHES == {"ssd_scan": 0} and sk.BUILD_INFO == {}
     with pytest.raises(ValueError, match="CUDA"):
         sk.ssd_scan(x, dt, a_log, bb, cc, chunk=8)
+
+
+def _wire_calls(q, device):
+    """Each of the six wire wrappers with (R, 128) operands on ``device``."""
+    w, u, base = (torch.full((2, q.LANES), v, device=device) for v in (0.5, 0.25, 1.0))
+    s, n = torch.full((2,), 0.1, device=device), torch.ones(2, device=device)
+    idx = torch.ones(2, q.LANES, dtype=torch.int8, device=device)
+    norm = torch.ones((), device=device)
+    return {
+        "qdq_delta_rows": lambda: q.qdq_delta_rows(w.clone(), base, u, s, n, bits=8),
+        "qdq_rows": lambda: q.qdq_rows(w.clone(), u, s, n, bits=8),
+        "quantize_rows": lambda: q.quantize_rows(w, u, s, n, bits=8),
+        "dequantize_rows": lambda: q.dequantize_rows(idx, s, n),
+        "quantize": lambda: q.quantize(w, u, norm, s=0.1, bits=8),
+        "dequantize": lambda: q.dequantize(idx, norm, s=0.1, out_dtype=torch.bfloat16),
+    }
+
+
+@pytest.mark.parametrize("name", ["qdq_delta_rows", "qdq_rows", "quantize_rows",
+                                  "dequantize_rows", "quantize", "dequantize"])
+def test_wire_wrappers_take_the_plain_path_only_on_the_cpu(name):
+    """A CPU tensor takes the plain version (no build, no launch); a tensor
+    on any device other than the CPU or a card is refused."""
+    from repro_torch.kernels.quantize import quantize as q
+
+    q.reset_launch_counts()
+    out = _wire_calls(q, "cpu")[name]()
+    assert out.device.type == "cpu" and out.shape == (2, q.LANES)
+    assert not any(q.LAUNCHES.values()) and name in q.LAUNCHES and q.BUILD_INFO == {}
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        _wire_calls(q, "meta")[name]()

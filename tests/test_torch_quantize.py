@@ -215,7 +215,8 @@ def test_wrappers_reject_bad_inputs_and_count_only_launches():
     n = torch.ones(4)
     reset_launch_counts()
     qdq_rows_rng(w.clone(), (1, 2), s, n, bits=8)      # CPU: plain version, no launch
-    assert LAUNCHES == {"qdq_delta_rows_rng": 0, "qdq_rows_rng": 0}
+    assert {"qdq_delta_rows_rng", "qdq_rows_rng"} <= set(LAUNCHES)
+    assert not any(LAUNCHES.values())
     with pytest.raises(ValueError, match="shape"):
         qdq_rows_rng(torch.zeros(4, 64), (1, 2), s, n, bits=8)
     with pytest.raises(ValueError, match="shape"):
