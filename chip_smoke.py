@@ -42,8 +42,11 @@ or of the JAX package ``repro``. Phases, in order:
    TF32 off, after the Mamba2 state is freed), see :func:`dense_phases`: the
    ``block_attn`` kernel against its plain version on layer 0's own q/k/v
    of a full-width forward (B = 2, L = 4,096, 32 heads, 4 KV heads, hd 128)
-   and at small shapes (ragged L, MQA, hd 64 and 16, non-causal, window
-   512), timed beside its plain version and PyTorch's fp32
+   and at small shapes (ragged L, MQA, hd 64, 18 and 16, non-causal, Lk
+   under one tile, windows of 17 and 512, a ragged last query tile, a K
+   view at an unaligned offset), its registers and spills, timed beside
+   its plain version, both of its bounds (3xTF32 on the tensor cores, the
+   float32 SIMT rate) and PyTorch's fp32
    ``scaled_dot_product_attention`` (GQA on the first backend that takes
    it, and the memory-efficient backend on K/V repeated to every head);
    the SMOKE configuration on the CPU and
@@ -71,6 +74,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory bandwidth
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 494.7e12      # H100 SXM dense TF32 on the tensor cores
 # Integer and float operations per element of one qdq pass, counted from
 # csrc/qdq_rows.cu: 18 for the counter hash, 14 for the grid arithmetic.
 OPS_PER_ELEMENT = 32
@@ -115,11 +119,14 @@ LM_BATCH, LM_SEQ, LM_FORWARDS = 8, 2048, 5
 PROMPT, GENERATE = 64, 32
 ATTN_REPLACES = "src/repro/kernels/block_attn/block_attn.py:32 _attn_kernel"
 ATTN_SOURCE = "src/repro_torch/kernels/block_attn/csrc/block_attn.cu"
-ATTN_TOL = 1e-4                # abs and rel: fp32, online vs materialized softmax
+ATTN_TOL = 1e-4                # abs and rel: 3xTF32 + online vs fp32 materialized softmax
+ATTN_TF32_PASSES = 3           # TF32 products the kernel runs for each product term
 YI_BATCH, YI_SEQ, YI_FORWARDS = 2, 4096, 3     # Yi-6B's published context length
 YI_DECODE_BATCH = 8
 # (B, Lq, Lk, H, KV, hd, causal, window): ragged L, MQA, hd 64 and 16,
-# non-causal, Lq != Lk, and the sliding window.
+# non-causal, Lq != Lk, and the sliding window; then hd 18 (rows not
+# 16-byte multiples: the kernel's 4-byte copies), Lk under one 64-key tile,
+# a window under one tile, and a 2-row ragged last 128-row query tile.
 ATTN_SMALL = [
     (1, 1000, 1000, 8, 2, 128, True, 0),
     (2, 333, 333, 8, 1, 128, True, 0),
@@ -127,6 +134,10 @@ ATTN_SMALL = [
     (1, 300, 300, 8, 8, 128, False, 0),
     (1, 77, 130, 4, 2, 16, False, 0),
     (1, 2048, 2048, 8, 2, 128, True, 512),
+    (2, 200, 200, 3, 3, 18, True, 0),
+    (1, 150, 40, 4, 2, 64, True, 0),
+    (1, 300, 300, 4, 1, 128, True, 17),
+    (2, 130, 130, 8, 2, 128, True, 0),
 ]
 
 
@@ -537,12 +548,31 @@ def dense_phases(smi):
         if not (r <= 1.0 and torch.isfinite(o).all()):
             _fail(f"block_attn disagrees with its plain version at B={b_} Lq={lq} Lk={lk} "
                   f"H={h_} KV={kv_} hd={hd_} causal={causal} window={window}")
+    # K one float into its storage (not 16-byte aligned): the 4-byte copies
+    # at hd 128, one launch.
+    qs, vs = (torch.randn(1, 500, n, hd, generator=gen, device="cuda") for n in (8, 2))
+    ks = torch.randn(500 * 2 * hd + 1, generator=gen, device="cuda")[1:].view(1, 500, 2, hd)
+    ba.reset_launch_counts()
+    with torch.inference_mode():
+        o = ba.block_attn(qs, ks, vs, causal=True)
+        ref = block_attention_plain(qs, ks, vs, causal=True)
+    torch.cuda.synchronize()
+    r = _tol_ratio(o, ref, ATTN_TOL)
+    print(f"block_attn {tag}: K at byte offset {ks.data_ptr() % 16} mod 16, B=1 L=500 H=8 KV=2 "
+          f"hd={hd}: max|d|={float((o - ref).abs().max()):.3e} ratio={r:.4f} "
+          f"launches={ba.LAUNCHES['block_attn']}")
+    if not (r <= 1.0 and torch.isfinite(o).all() and ba.LAUNCHES["block_attn"] == 1):
+        _fail("block_attn disagrees with its plain version on an unaligned K view")
+    del qs, ks, vs, o, ref
 
     # The function's work: 4 hd FLOP per allowed (i, j) pair, and one read
-    # of q, k, v and one write of o.
+    # of q, k, v and one write of o. The kernel runs each product as three
+    # TF32 products on the tensor cores: its bound is those at the TF32
+    # rate; the float32 SIMT bound (no tensor cores) is printed beside it.
     flop = 4 * hd * attention_pairs(l, l, causal=True) * bsz * h
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
+    bound_ops_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bound_simt_ms = flop / FP32_OPS_PER_S * 1e3
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
     with torch.inference_mode():
@@ -558,16 +588,22 @@ def dense_phases(smi):
         _, fused_ms, fused_err = _time_sdpa(q, kx, vx, got, ("EFFICIENT_ATTENTION",))
         del kx, vx
     print(f"block_attn {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(hd)} "
-          f"bytes a block, {bsz * h * -(-l // 64)} blocks")
+          f"bytes a block (of 232,448), {bsz * h * -(-l // ba.QUERY_TILE)} blocks")
+    for fn, regs, st, ld in _ptxas_report(ba.BUILD_INFO.get("log", "")):
+        print(f"block_attn {tag}: ptxas {fn}: {regs} registers, spill stores {st} bytes, "
+              f"spill loads {ld} bytes")
     print(f"block_attn {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-          f"(ops {flop} FLOP, {bound_ops_ms:.4f} ms at {FP32_OPS_PER_S:.0e}/s; bytes {nbytes}, "
-          f"{bound_bytes_ms:.4f} ms) achieved {flop / ms / 1e9:.2f} TFLOP/s "
-          f"= {bound_ms / ms:.3f} of the bound")
+          f"(3xTF32 bound: {ATTN_TF32_PASSES} x {flop} FLOP at {TF32_OPS_PER_S:.4g}/s = "
+          f"{bound_ops_ms:.4f} ms; float32 SIMT bound: {flop} FLOP at {FP32_OPS_PER_S:.0e}/s = "
+          f"{bound_simt_ms:.4f} ms; bytes {nbytes}, {bound_bytes_ms:.4f} ms) "
+          f"achieved {flop / ms / 1e9:.2f} TFLOP/s of the function "
+          f"= {bound_ms / ms:.3f} of the 3xTF32 bound, {bound_simt_ms / ms:.3f} of the SIMT one")
     print(f"block_attn {tag}: library fp32 scaled_dot_product_attention(is_causal, enable_gqa) "
           f"backend={backend} ms={library_ms} max|d| vs kernel={library_err}")
     print(f"block_attn {tag}: fp32 scaled_dot_product_attention(is_causal) on K/V repeated "
           f"to {h} heads, backend=EFFICIENT_ATTENTION ms={fused_ms} "
-          f"max|d| vs kernel={fused_err}")
+          f"max|d| vs kernel={fused_err}; kernel / fused = "
+          f"{ms / fused_ms if fused_ms else float('nan'):.3f}")
     del q, k, v, got, want
     entry = {"name": "block_attn", "route": "cuda", "source": ATTN_SOURCE,
              "replaces": ATTN_REPLACES, "launches": None, "max_abs_err": max_abs,
@@ -756,6 +792,26 @@ def wire_phase(w2d, spec, n_msgs, tag):
             and q.shape == w2d.shape and q.dtype == torch.int8):
         _fail("the quantize wire entry points disagree between the card and the CPU")
     return entries
+
+
+def _ptxas_report(log):
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    entry function of an ``-Xptxas -v`` report."""
+    import re
+
+    rows, name, spills = [], None, (None, None)
+    for line in log.splitlines():
+        hit = re.search(r"Compiling entry function '([^']+)'", line)
+        if hit:
+            name = hit.group(1)
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if hit:
+            spills = (int(hit.group(1)), int(hit.group(2)))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            rows.append((name, int(hit.group(1)), *spills))
+            name, spills = None, (None, None)
+    return rows
 
 
 def _leaves(tree):

@@ -1,21 +1,29 @@
 """Blockwise softmax attention as a CUDA C++ kernel for ``sm_90a``.
 
 :func:`block_attn` replaces the Pallas TPU kernel ``_attn_kernel``
-(``src/repro/kernels/block_attn/block_attn.py:32``): one block per (batch,
-head, 64-row query tile) loops over the 64-row K/V tiles up to the diagonal
-with an online softmax in registers; the design notes are in
-``csrc/block_attn.cu``. It takes CUDA float32 tensors only;
-:func:`repro_torch.kernels.block_attn.block_attention` is the entry point
-that sends a CPU tensor to the plain version instead.
+(``src/repro/kernels/block_attn/block_attn.py:32``). One block of 8 warps
+per (batch, head, 128-row query tile) loops over the 64-row K/V tiles up to
+the diagonal, with an online softmax in registers. Both products (Q K^T and
+P V) run on the tensor cores as ``mma.sync`` m16n8k8 TF32 tiles with a
+3xTF32 split (big + small operands, three products into one float32
+accumulator), which keeps float32-level error; the K/V tiles arrive through
+a two-stage ``cp.async`` ring. Its bound is the 3xTF32 operation count at
+the card's TF32 rate. The design notes (fragment and shared-memory layout,
+the ring, the split's accuracy) are in ``csrc/block_attn.cu``. It takes
+CUDA float32 tensors only; :func:`repro_torch.kernels.block_attn.block_attention`
+is the entry point that sends a CPU tensor to the plain version instead.
 
 The operands are ``(B, L, heads, hd)`` tensors, possibly strided views with
 the last dimension contiguous; K/V are read by group (``H % KV == 0``), and
-the output is allocated contiguous. There is no backward pass yet: inputs
-that require a gradient are refused. Each launch adds one to
-:data:`LAUNCHES`; nothing here synchronises.
+the output is allocated contiguous. Views whose rows are not 16-byte
+aligned (``hd`` not a multiple of 4, an odd offset) take the kernel's
+4-byte copies. There is no backward pass yet: inputs that require a
+gradient are refused. Each launch adds one to :data:`LAUNCHES`; nothing
+here synchronises.
 
 The shared library is built with ``nvcc`` at first use into ``_build/``
-beside this file (listed in ``.gitignore``) and bound with ``ctypes``.
+beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
+:data:`BUILD_INFO` keeps the ``-Xptxas -v`` report (registers, spills).
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ __all__ = ["LAUNCHES", "BUILD_INFO", "MAX_HEAD_DIM", "reset_launch_counts", "bui
 
 _SRC = Path(__file__).parent / "csrc" / "block_attn.cu"
 MAX_HEAD_DIM = 128
-MAX_QUERY_TILES = 65535        # the grid's y dimension, 64 query rows a tile
+QUERY_TILE = 128               # query rows of one block
+MAX_QUERY_TILES = 65535        # the grid's y dimension
 
 # Kernel launches, counted where the wrapper launches the kernel.
 LAUNCHES = {"block_attn": 0}
@@ -85,8 +94,8 @@ def _check(q, k, v, window):
         raise ValueError(f"heads {h} not divisible by KV heads {kv}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} outside 1..{MAX_HEAD_DIM}")
-    if -(-lq // 64) > MAX_QUERY_TILES:
-        raise ValueError(f"query length {lq} exceeds {MAX_QUERY_TILES} tiles of 64")
+    if -(-lq // QUERY_TILE) > MAX_QUERY_TILES:
+        raise ValueError(f"query length {lq} exceeds {MAX_QUERY_TILES} tiles of {QUERY_TILE}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in named.values()):

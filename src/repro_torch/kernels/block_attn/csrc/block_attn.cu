@@ -1,4 +1,5 @@
-// Blockwise softmax attention with an online softmax, float32, for sm_90a.
+// Blockwise softmax attention with an online softmax, float32 in and out,
+// on the tensor cores through a 3xTF32 split, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel`
 // (src/repro/kernels/block_attn/block_attn.py:32). For each batch b, query
@@ -10,54 +11,110 @@
 // the KV head of h (grouped-query attention). With window == 0 this is the
 // function `_attn_kernel` computes; the L x L scores never reach memory.
 //
-// Design, against what the TPU kernel relied on:
-//   * Sequential grid -> a loop in the block. The TPU kernel runs the KV
-//     axis as a sequential grid dimension with m, l and acc in VMEM scratch.
-//     Here one block owns one (b, h, 64-row query tile) and loops over the
-//     64-row K/V tiles itself, from the first tile the window reaches up to
-//     the diagonal; tiles above it are never loaded (block_attn.py:46-47).
-//     At B = 2, L = 4096, H = 32 that is 4,096 blocks. Query tiles run
-//     heaviest first (the last tile of the sequence has the most keys), so
-//     the short causal blocks fill the tail of the launch.
-//   * Shared memory. The Q tile, the K tile and the V tile sit in shared
-//     memory (Q and K rows padded by one float against bank conflicts); the
-//     64 x 64 probability tile reuses the K tile's space once the scores are
-//     in registers. 98,816 bytes at hd = 128: two blocks per SM.
-//   * Online softmax. Each thread keeps a 4 x 4 tile of scores, the running
-//     max m and normalizer l of its 4 rows, and a 4 x (hd / 16) tile of the
-//     (64, hd) accumulator, all float32 in registers (16 x 16 threads; the
-//     16 threads of a row are one half-warp, reduced by shuffles).
-//   * Masking before the exp. A masked score is never exponentiated: its
-//     probability is set to 0. m starts at -inf and a row that has seen no
-//     allowed key rescales by 0, so neither -inf nor a -1e30 sentinel goes
-//     through exp. A row that may attend no key writes 0 (the TPU kernel's
-//     max(l, 1e-30) guard gives the same).
-//   * Ragged lengths. Rows past Lq and keys past Lk load as 0 and are
-//     masked here, where the JAX wrapper pads to block multiples
-//     (ops.py:31-36).
+// Bound: operations. The function needs 4 hd FLOP per allowed (i, j) pair
+// (q.k, then p.v): 274,945,015,808 FLOP at Yi-6B's B = 2, L = 4096, H = 32,
+// hd = 128, causal. The split runs three TF32 products for each, so the
+// least time is 3 x that at the card's dense TF32 rate of 494.7 TFLOP/s,
+// 1.667 ms, against 301,989,888 bytes of q, k, v and o (0.090 ms at
+// 3.35 TB/s).
+//
+// Design:
+//   * Grid. One block of 8 warps owns one (b, h, 128-row query tile) and
+//     loops over the 64-row K/V tiles itself, from the first tile the
+//     window reaches up to the diagonal; tiles above it are never loaded
+//     (the TPU kernel's sequential KV grid axis, block_attn.py:46-47).
+//     Query tiles run heaviest first, so the short causal blocks fill the
+//     tail of the launch. A warp whose 16 rows see none of a tile's keys
+//     (above the diagonal, behind the window, past Lq) skips its products;
+//     only tiles on an edge (diagonal, window, Lk) test the mask.
+//   * Warps and fragments (FlashAttention-2 layout). Warp w owns query rows
+//     16w..16w+15 of the tile. Both products run on mma.sync m16n8k8 with
+//     TF32 operands and float32 accumulators: S = Q K^T as 8 n-tiles of
+//     8 keys (k-steps over hd), O += P V as hd/8 n-tiles (k-steps over the
+//     tile's 64 keys). Scores, the (16, hd) accumulator and each row's
+//     running max m and partial sum l stay in the accumulator fragments;
+//     lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8, and the
+//     row max reduces over the 4 lanes of a quad with two shuffles (l is
+//     summed over the quad once, at the end).
+//   * P without a barrier and without a shuffle. The accumulator of S holds
+//     keys 2t and 2t + 1 of each 8-key n-tile in lane (g, t), while the
+//     A operand of the next product wants k-indices t and t + 4. The sum
+//     over keys does not care about their order, so k-index t stands for
+//     key 2t and k-index t + 4 for key 2t + 1: P's A fragment is
+//     {c0, c2, c1, c3} of S's accumulator as it is, and V's B fragment reads
+//     rows 2t and 2t + 1 of the tile instead of t and t + 4. The sum over
+//     the head dimension in S is permuted the same way, per 16-column chunk
+//     (two k-steps): k-indices t and t + 4 are columns 4t and 4t + 1 of the
+//     first step, 4t + 2 and 4t + 3 of the second, so a lane loads its Q
+//     and K values for both steps with one 16-byte load a row.
+//   * 3xTF32 keeps float32 accuracy. Each operand x splits into big =
+//     rna(x) and small = rna(x - big) (x - big is exact in float32), rna
+//     being cvt.rna.tf32.f32: the magnitude rounded to 10 mantissa bits,
+//     ties away from zero. sm_90 has no instruction for that cvt (ptxas
+//     emulates it with NaN and infinity tests); for the finite values here
+//     an add and a mask give the same bits (`to_tf32`). A product is
+//     small.big + big.small + big.big, small terms first, into the one
+//     float32 accumulator, as CUTLASS's OpMultiplyAddFastF32. A product of
+//     two TF32 values is exact in float32, and the dropped small.small term
+//     and the rounding of small are ~2^-22 of |x y|: float32-level, where a
+//     single TF32 product errs by ~2^-11 (tests/test_torch_block_attn.py
+//     emulates both on the CPU).
+//   * Shared memory. The Q tile (128 rows) and a ring of 2 K/V stages (64
+//     rows each of K and V), hd padded to hd_p = 16, 32, 64 or 128 (zeros).
+//     Row strides: Q and K hd_p rounded up to 32, plus 16 (16 mod 32), so
+//     the 8 lanes of a quarter warp that load 16 bytes each (rows g and
+//     g + 1, columns 4t) hit 8 distinct 16-byte bank groups; V hd_p + 4
+//     (4 mod 8), so the 32 lanes loading V[2t][g] hit 32 distinct banks.
+//     Bytes a block: 215,040 at hd = 128 (of the 232,448 a block may take:
+//     one block of 8 warps an SM), 116,736 at hd = 64, 67,584 at 32 and
+//     59,392 at 16. Q stays in shared memory and its fragments are loaded
+//     and split at each k-step, which keeps the registers for the 64-float
+//     accumulator at hd = 128.
+//   * cp.async ring. The Q tile and each K/V tile arrive by cp.async, one
+//     commit group a tile: tile t + 1 is requested right after the barrier
+//     that makes tile t visible, so it loads while tile t is computed (one
+//     __syncthreads a tile). Rows past Lq or Lk and columns past hd are
+//     zero-filled by cp.async's src-size operand (0), with the source
+//     address clamped to a valid element and no branch around the copy.
+//     Copies are 16-byte cp.async.cg when hd and every stride are
+//     multiples of 4 floats and q, k, v are 16-byte aligned, else 4-byte
+//     cp.async.ca (for example hd = 18 or a view at an odd offset), decided
+//     once a launch.
+//   * Masking before the exp. A masked score becomes -inf and its
+//     probability is set to 0 by a select, never exponentiated; m starts at
+//     -inf and a row that has seen no allowed key rescales by 0, so
+//     neither -inf nor a -1e30 sentinel goes through exp. A row that may
+//     attend no key writes 0 (the TPU kernel's max(l, 1e-30) guard gives
+//     the same). Scores are scaled by scale * log2(e) and exponentiated
+//     with ex2.approx (2 ulp).
 //   * No repeat, no transposes. K and V are read by group and q, k, v, o by
 //     their (batch, seq, head) strides (the last dimension contiguous), so
-//     the model hands over (B, L, heads, hd) projections as they are; the
-//     JAX wrapper repeats K/V to every head (ops.py:24-27) and transposes
-//     three times (ops.py:28-30).
+//     the model hands over (B, L, heads, hd) projections as they are.
 //
-// Bound: operations. The function needs 4 hd FLOP per allowed (i, j) pair
-// (q.k, then p.v), 274,945,015,808 FLOP at Yi-6B's B = 2, L = 4096, H = 32,
-// hd = 128, causal: 4.104 ms at the card's 67 TFLOP/s float32 rate, against
-// 301,989,888 bytes of q, k, v and o (0.090 ms at 3.35 TB/s). This first
-// kernel runs plain fp32 FMAs from shared memory (no TF32, no mma.sync or
-// wgmma, no cp.async pipelining), one shared-memory load for every two
-// FMAs, so it sits well below that rate; it computes the diagonal tiles
-// whole, 1.5 % more pairs than the causal ones at L = 4096.
+// What holds it below the bound: mma.sync does not reach the dense TF32
+// rate (only wgmma does), and each warp splits every K and V value it
+// reads (5 integer and float instructions a value) beside its 3 MMAs.
+// Splitting each K/V tile once a block into big and small planes needs
+// 32-key tiles and a second barrier a tile to fit in shared memory, and
+// was slower in a trial. What a later PR could still do: wgmma (.tf32
+// wants both operands K-major, so V transposed in shared memory, and the
+// split B operands as planes in shared memory) with a TMA producer warp
+// and mbarriers in place of cp.async; K/V shared by the H/KV query heads
+// of a group (each K/V tile is read from L2 once per query head today); a
+// bf16 path with its own tolerance.
 #include <cmath>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kTile = 64;      // query rows and key rows of one tile
-constexpr int kPS = kTile + 1; // row stride of the probability tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQTile = 16 * kWarps;  // query rows of a block, 16 a warp
+constexpr int kKTile = 64;           // keys of a K/V tile
+constexpr int kStages = 2;           // K/V tiles in the cp.async ring
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
   const float* q;  // (B, Lq, H, hd) by strides sq
@@ -65,204 +122,320 @@ struct Args {
   const float* v;  // (B, Lk, KV, hd) by strides sv
   float* o;        // (B, Lq, H, hd) by strides so
   long long sq[3], sk[3], sv[3], so[3];  // batch, seq, head
-  int heads, heads_per_group, lq, lk, hd, causal, window;
-  float scale;
+  int heads, heads_per_group, lq, lk, hd, causal, window, vec16;
+  float scale_log2;  // 1/sqrt(hd) * log2(e)
 };
 
-// Floats of the K tile's space, which the probability tile reuses.
-__host__ __device__ constexpr int k_area(int hdp) {
-  return kTile * (hdp + 1 > kPS ? hdp + 1 : kPS);
-}
+// Row strides of the shared tiles, in floats, both multiples of 4 (16-byte
+// rows for cp.async). Q and K: 16 (mod 32), so the 8 lanes of a quarter
+// warp that load 16 bytes each (rows g, g + 1, columns 4t) hit 8 distinct
+// 16-byte bank groups. V: 4 (mod 8), so the 32 lanes that load V[2t][g]
+// (and V[2t + 1][g]) hit 32 distinct banks.
+__host__ __device__ constexpr int qk_stride(int hdp) { return (hdp + 31) / 32 * 32 + 16; }
+__host__ __device__ constexpr int v_stride(int hdp) { return hdp + 4; }
 
-// Shared memory of one block: the Q tile with rows of hd + 1 floats, the
-// K (then P) space, the V tile with rows of hd (hd padded to 16, 32, 64 or
-// 128).
 __host__ __device__ constexpr size_t smem_bytes(int hdp) {
-  return (static_cast<size_t>(kTile) * (hdp + 1) + k_area(hdp) +
-          static_cast<size_t>(kTile) * hdp) * sizeof(float);
+  return (static_cast<size_t>(kQTile + kStages * kKTile) * qk_stride(hdp) +
+          static_cast<size_t>(kStages * kKTile) * v_stride(hdp)) * sizeof(float);
 }
 
-// Rows [r0, r0 + kTile) of a (L, hd) operand with row stride `stride` into a
-// (kTile, ld) tile; zero past L and past hd.
-template <int kHD>
-__device__ __forceinline__ void load_tile(float* tile, int ld, const float* src,
-                                          long long stride, int r0, int len,
-                                          int hd) {
-  for (int i = threadIdx.x; i < kTile * kHD; i += kThreads) {
-    const int r = i / kHD, c = i % kHD;
-    float val = 0.0f;
-    if (r0 + r < len && c < hd) val = src[(r0 + r) * stride + c];
-    tile[r * ld + c] = val;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + rows) of a (len, hd) operand with row stride `stride` into
+// a (rows, kLd) tile by cp.async; zero past len and past hd (up to hd_p). The
+// source of a zero-filled copy is clamped to a valid element.
+template <int kHD, int kLd>
+__device__ __forceinline__ void load_rows(float* tile, const float* src,
+                                          long long stride, int r0, int rows,
+                                          int len, int hd, bool vec16) {
+  if (vec16) {
+    constexpr int kChunks = kHD / 4;
+    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const bool ok = r0 + r < len && c < hd;
+      const long long rr = min(r0 + r, len - 1);
+      cp_async16(tile + r * kLd + c, src + rr * stride + min(c, hd - 4), ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * kHD; i += kThreads) {
+      const int r = i / kHD, c = i % kHD;
+      const bool ok = r0 + r < len && c < hd;
+      const long long rr = min(r0 + r, len - 1);
+      cp_async4(tile + r * kLd + c, src + rr * stride + min(c, hd - 1), ok ? 4 : 0);
+    }
   }
 }
 
-template <int kPB>
-__global__ void __launch_bounds__(kThreads, 2) block_attn_kernel(Args a) {
-  constexpr int kHD = 16 * kPB;  // hd padded to the register tile
-  constexpr int kQS = kHD + 1;   // row stride of the Q and K tiles
-  extern __shared__ float smem[];
-  float* qs = smem;                   // (kTile, kQS)
-  float* ks = qs + kTile * kQS;       // (kTile, kQS); then P (kTile, kPS)
-  float* vs = ks + k_area(kHD);       // (kTile, kHD)
-  float* ps = ks;
+// cvt.rna.tf32.f32 of a finite x: the magnitude rounded to 10 mantissa
+// bits, ties away from zero, as bits. sm_90 has no instruction for that
+// cvt (ptxas emulates it with NaN and infinity tests, ~5 instructions);
+// for finite values these 2 give the same bits.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// x = big + small, both TF32 (round to nearest, ties away from zero).
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment split once into big and small, for several n-tiles:
+// mma(d, b0, b1) is d += a b in 3xTF32, small.big, big.small, then big.big.
+struct SplitA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ explicit SplitA(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(a[i], big[i], small[i]);
+  }
+  __device__ __forceinline__ void mma(float (&d)[4], float b0, float b1) const {
+    uint32_t bb0, bs0, bb1, bs1;
+    split(b0, bb0, bs0);
+    split(b1, bb1, bs1);
+    mma_tf32(d, small, bb0, bb1);
+    mma_tf32(d, big, bs0, bs1);
+    mma_tf32(d, big, bb0, bb1);
+  }
+};
+
+template <int kHD>
+__global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
+  constexpr int kLdQK = qk_stride(kHD), kLdV = v_stride(kHD);
+  constexpr int kN = kHD / 8;     // n-tiles of the output
+  constexpr int kKN = kKTile / 8; // n-tiles of S, k-steps of P V
+  constexpr int kStage = kKTile * (kLdQK + kLdV);  // floats of one K/V stage
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // (kQTile, kLdQK)
+  float* kv = qs + kQTile * kLdQK;    // kStages x [K (kKTile, kLdQK), V (kKTile, kLdV)]
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
   const int bi = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int g = h / a.heads_per_group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heaviest first
+  const int kvh = h / a.heads_per_group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQTile;  // heaviest first
   const float* qp = a.q + bi * a.sq[0] + h * a.sq[2];
-  const float* kp = a.k + bi * a.sk[0] + g * a.sk[2];
-  const float* vp = a.v + bi * a.sv[0] + g * a.sv[2];
+  const float* kp = a.k + bi * a.sk[0] + kvh * a.sk[2];
+  const float* vp = a.v + bi * a.sv[0] + kvh * a.sv[2];
   float* op = a.o + bi * a.so[0] + h * a.so[2];
+  const bool vec16 = a.vec16 != 0;
 
   // The key tiles this query tile reaches.
-  const int last_row = min(q0 + kTile, a.lq) - 1;
+  const int last_row = min(q0 + kQTile, a.lq) - 1;
   int k_end = a.lk;                               // exclusive
   if (a.causal) k_end = min(k_end, last_row + 1);
   int k_begin = 0;
   if (a.window > 0) k_begin = max(0, q0 - a.window + 1);
-  const int t_begin = k_begin / kTile;
-  const int t_end = (k_end + kTile - 1) / kTile;
+  const int t_begin = k_begin / kKTile;
+  const int t_end = (k_end + kKTile - 1) / kKTile;
 
-  load_tile<kHD>(qs, kQS, qp, a.sq[1], q0, a.lq, a.hd);
+  // This warp's rows.
+  const int wr0 = q0 + 16 * warp;
+  const int wr1 = min(wr0 + 15, a.lq - 1);
+  const int row_g = wr0 + g, row_g8 = wr0 + g + 8;
 
-  float acc[4][kPB];
-  float m[4], l[4];
+  float acc[kN][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
+  for (int j = 0; j < kN; ++j)
 #pragma unroll
-    for (int j = 0; j < kPB; ++j) acc[i][j] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};  // this lane's part of the row sums
+
+  // K/V tile `tile` into its stage of the ring, one commit group a tile
+  // (empty past the last tile, so the waits below count alike).
+  auto load_kv = [&](int tile) {
+    if (tile < t_end) {
+      float* dst = kv + ((tile - t_begin) % kStages) * kStage;
+      load_rows<kHD, kLdQK>(dst, kp, a.sk[1], tile * kKTile, kKTile, a.lk, a.hd, vec16);
+      load_rows<kHD, kLdV>(dst + kKTile * kLdQK, vp, a.sv[1], tile * kKTile, kKTile,
+                           a.lk, a.hd, vec16);
+    }
+    cp_async_commit();
+  };
+  if (t_begin < t_end) {
+    load_rows<kHD, kLdQK>(qs, qp, a.sq[1], q0, kQTile, a.lq, a.hd, vec16);  // with tile 0
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) load_kv(t_begin + i);
   }
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // every read of the previous K/P and V tiles is done
-    load_tile<kHD>(ks, kQS, kp, a.sk[1], k0, a.lk, a.hd);
-    load_tile<kHD>(vs, kHD, vp, a.sv[1], k0, a.lk, a.hd);
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int k0 = tile * kKTile;
+    cp_async_wait<kStages - 2>();
+    // Tile `tile` is visible to all, and every warp is done with the stage
+    // the next copy overwrites (the one tile `tile - 1` used).
     __syncthreads();
+    load_kv(tile + kStages - 1);
+    const bool skip = wr0 >= a.lq || (a.causal && k0 > wr1) ||
+                      (a.window > 0 && wr0 - (k0 + kKTile - 1) >= a.window);
+    if (skip) continue;  // warp-uniform
+    const bool edge = k0 + kKTile > a.lk || (a.causal && k0 + kKTile - 1 > wr0) ||
+                      (a.window > 0 && wr1 - k0 >= a.window);
+    const float* ks = kv + ((tile - t_begin) % kStages) * kStage;
+    const float* vs = ks + kKTile * kLdQK;
 
-    float s[4][4];
+    // S = Q K^T, 16 x kKTile for this warp, two k-steps a 16-column chunk:
+    // k-indices t and t + 4 of the first are columns 4t and 4t + 1, of the
+    // second 4t + 2 and 4t + 3, so each lane loads 16 bytes of a row.
+    float s[kKN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kKN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < kHD; ++c) {
-      float qv[4], kv[4];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * kQS + c];
+    for (int c = 0; c < kHD; c += 16) {
+      const float* qa = qs + (16 * warp + g) * kLdQK + c + 4 * t;
+      const float4 lo = *reinterpret_cast<const float4*>(qa);
+      const float4 hi = *reinterpret_cast<const float4*>(qa + 8 * kLdQK);
+      const float f0[4] = {lo.x, hi.x, lo.y, hi.y}, f1[4] = {lo.z, hi.z, lo.w, hi.w};
+      const SplitA q_even(f0), q_odd(f1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * kQS + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < kKN; ++j) {
+        const float4 kb =
+            *reinterpret_cast<const float4*>(ks + (8 * j + g) * kLdQK + c + 4 * t);
+        q_even.mma(s[j], kb.x, kb.y);
+        q_odd.mma(s[j], kb.z, kb.w);
+      }
     }
 
-    // Scale, mask, and the online-softmax update of each of the 4 rows.
-    float p[4][4];
+    // Scale, mask, and the online-softmax update of rows g and g + 8.
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[4];
-      float tile_max = -INFINITY;
+    for (int j = 0; j < kKN; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        ok[j] = col < a.lk && (!a.causal || col <= row) &&
-                (a.window <= 0 || row - col < a.window);
-        s[i][j] *= a.scale;
-        if (ok[j]) tile_max = fmaxf(tile_max, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * a.scale_log2;
+        if (edge) {
+          const int row = e < 2 ? row_g : row_g8;
+          const int col = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok = col < a.lk && (!a.causal || col <= row) &&
+                          (a.window <= 0 || row - col < a.window);
+          if (!ok) x = -INFINITY;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    float alpha[2];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-      const float m_new = fmaxf(m[i], tile_max);
-      // m[i] == -inf: nothing seen yet, acc and l are 0 and stay so.
-      const float alpha = m[i] == -INFINITY ? 0.0f : expf(m[i] - m_new);
-      float row_sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
-        row_sum += p[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[i] = l[i] * alpha + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kPB; ++j) acc[i][j] *= alpha;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // m == -inf: nothing seen yet, acc and l are 0 and stay so.
+      alpha[r] = m[r] == -INFINITY ? 0.0f : fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
     }
+#pragma unroll
+    for (int j = 0; j < kKN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // A masked score (-inf) is never exponentiated; an allowed one is
+        // finite and at most m, so m is finite too.
+        const float p = s[j][e] == -INFINITY ? 0.0f : fast_exp2(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 
-    __syncthreads();  // every read of the K tile is done: P takes its place
+    // O += P V: k-index t is key 2t, k-index t + 4 is key 2t + 1.
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < kKN; ++kk) {
+      const float pf[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+      const SplitA psplit(pf);
+      const float* vb = vs + (8 * kk + 2 * t) * kLdV + g;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty + 16 * i) * kPS + tx + 16 * j] = p[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pv[4], vv[kPB];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * kPS + c];
-#pragma unroll
-      for (int j = 0; j < kPB; ++j) vv[j] = vs[c * kHD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kPB; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int j = 0; j < kN; ++j) psplit.mma(acc[j], vb[8 * j], vb[kLdV + 8 * j]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r == 0 ? row_g : row_g8;
     if (row >= a.lq) continue;
+    const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < kPB; ++j) {
-      const int c = tx + 16 * j;
-      if (c < a.hd) op[row * a.so[1] + c] = l[i] > 0.0f ? acc[i][j] / l[i] : 0.0f;
-    }
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        if (c < a.hd) op[row * a.so[1] + c] = l[r] > 0.0f ? acc[j][2 * r + e] * inv : 0.0f;
+      }
   }
 }
 
-template <int kPB>
+template <int kHD>
 int launch(const Args& a, int batch, void* stream) {
-  const size_t bytes = smem_bytes(16 * kPB);
+  const size_t bytes = smem_bytes(kHD);
   cudaError_t err = cudaFuncSetAttribute(
-      block_attn_kernel<kPB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_attn_kernel<kHD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(block_attn_kernel<kPB>,
+  err = cudaFuncSetAttribute(block_attn_kernel<kHD>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch * a.heads, (a.lq + kTile - 1) / kTile);
-  block_attn_kernel<kPB><<<grid, kThreads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid(batch * a.heads, (a.lq + kQTile - 1) / kQTile);
+  block_attn_kernel<kHD><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-int hd_blocks(int hd) {
-  const int pb = (hd + 15) / 16;
-  return pb <= 1 ? 1 : pb <= 2 ? 2 : pb <= 4 ? 4 : 8;
-}
+int padded_hd(int hd) { return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 
 // Dynamic shared memory one launch asks for, in bytes.
 extern "C" long long block_attn_smem_bytes(int hd) {
-  return static_cast<long long>(smem_bytes(16 * hd_blocks(hd)));
+  return static_cast<long long>(smem_bytes(padded_hd(hd)));
 }
 
 // Returns the cudaError_t of cudaFuncSetAttribute or of the launch (0 =
 // success); never synchronises. Strides are in elements, (batch, seq, head)
 // for each operand; the head dimension's stride is 1. hd <= 128, H % KV == 0,
-// at most 65,535 query tiles.
+// at most 65,535 query tiles of 128 rows.
 extern "C" int block_attn(const float* q, const float* k, const float* v,
                           float* o, long long sq0, long long sq1, long long sq2,
                           long long sk0, long long sk1, long long sk2,
@@ -272,7 +445,7 @@ extern "C" int block_attn(const float* q, const float* k, const float* v,
                           int hd, int causal, int window, float scale,
                           void* stream) {
   if (hd < 1 || hd > 128 || kv_heads < 1 || heads % kv_heads != 0 ||
-      (lq + kTile - 1) / kTile > 65535)
+      (lq + kQTile - 1) / kQTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || heads == 0 || lq == 0) return 0;
   Args a;
@@ -283,11 +456,16 @@ extern "C" int block_attn(const float* q, const float* k, const float* v,
   a.so[0] = so0; a.so[1] = so1; a.so[2] = so2;
   a.heads = heads; a.heads_per_group = heads / kv_heads;
   a.lq = lq; a.lk = lk; a.hd = hd; a.causal = causal; a.window = window;
-  a.scale = scale;
-  switch (hd_blocks(hd)) {
-    case 1: return launch<1>(a, batch, stream);
-    case 2: return launch<2>(a, batch, stream);
-    case 4: return launch<4>(a, batch, stream);
-    default: return launch<8>(a, batch, stream);
+  a.scale_log2 = scale * kLog2e;
+  // 16-byte copies need every row start of q, k and v 16-byte aligned.
+  bool vec16 = hd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  for (long long s : {sq0, sq1, sq2, sk0, sk1, sk2, sv0, sv1, sv2})
+    vec16 = vec16 && s % 4 == 0;
+  a.vec16 = vec16 ? 1 : 0;
+  switch (padded_hd(hd)) {
+    case 16: return launch<16>(a, batch, stream);
+    case 32: return launch<32>(a, batch, stream);
+    case 64: return launch<64>(a, batch, stream);
+    default: return launch<128>(a, batch, stream);
   }
 }

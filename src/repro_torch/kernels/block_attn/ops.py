@@ -19,8 +19,8 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A CUDA tensor launches the hand-written kernel, which reads K/V by group
     and masks ragged lengths itself (no repeat, no padding), or raises. A
     CPU tensor takes the plain version; any other device is refused. The
-    kernel's 64-row tiles are its own: the reference's ``bq``/``bk`` and
-    ``interpret`` have no counterpart."""
+    kernel's tiles (128 query rows, 64 keys) are its own: the reference's
+    ``bq``/``bk`` and ``interpret`` have no counterpart."""
     if q.device.type == "cuda":
         return block_attn(q, k, v, causal=causal, window=window)
     if q.device.type != "cpu":

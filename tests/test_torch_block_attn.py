@@ -12,7 +12,15 @@ Tolerance 1e-5 absolute and relative: both sides are float32 and differ
 only in the order of the sums (online against materialized softmax) and in
 the scale (the kernel and the port multiply by 1/sqrt(hd), ``_sdpa``
 divides by sqrt(hd)): a few ulps, 2.4e-7 at most on these inputs.
+
+The card's kernel computes both products on the tensor cores with a 3xTF32
+split (csrc/block_attn.cu). :func:`_attention_tf32` emulates that
+arithmetic here, tile for tile as the kernel walks the keys, and the
+``tf32`` tests hold it to the kernel's own tolerance, 1e-4 absolute and
+relative, and show that one TF32 product a term does not meet it.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +34,7 @@ from repro_torch.kernels.block_attn import block_attn as bk
 from repro_torch.kernels.block_attn.ref import attention_pairs, block_attention_plain
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+KERNEL_TOL = 1e-4       # abs and rel: the card's kernel against the fp32 versions
 
 
 def _qkv(b, lq, lk, h, kv, hd, seed=0):
@@ -116,3 +125,126 @@ def test_other_devices_are_refused():
     q, k, v = (torch.from_numpy(a).to("meta") for a in _qkv(1, 8, 8, 2, 2, 8))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         block_attention(q, k, v)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on float32: the magnitude rounded to 10 mantissa
+    bits, ties away from zero, by adding half of the dropped 13 bits' unit
+    and clearing them."""
+    bits = x.view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores compute it from TF32 operands (a product of
+    two TF32 values is exact in float32, the sums are float32): one pass
+    big.big, or the kernel's three, small.big + big.small + big.big."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _attention_tf32(q, k, v, *, causal, window, passes, q_tile=128, k_tile=64):
+    """The kernel's arithmetic on CPU tensors: per (batch, head, 128-row
+    query tile) the 64-key tiles from the window's first to the diagonal,
+    scores scaled by log2(e)/sqrt(hd), masked to -inf before exp2, an
+    online softmax, and both products through :func:`_mm_tf32`."""
+    b, lq, h, hd = q.shape
+    lk, group = k.shape[1], h // k.shape[2]
+    scale_log2 = torch.tensor(1.0 / math.sqrt(hd) * math.log2(math.e), dtype=torch.float32)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        for hh in range(h):
+            qh, kh, vh = q[bi, :, hh], k[bi, :, hh // group], v[bi, :, hh // group]
+            for q0 in range(0, lq, q_tile):
+                rows = torch.arange(q0, min(q0 + q_tile, lq))
+                k_end = min(lk, int(rows[-1]) + 1) if causal else lk
+                k_begin = max(0, q0 - window + 1) if window > 0 else 0
+                m = torch.full((len(rows),), -math.inf)
+                l = torch.zeros(len(rows))
+                acc = torch.zeros(len(rows), hd)
+                for t in range(k_begin // k_tile, -(-k_end // k_tile)):
+                    cols = torch.arange(t * k_tile, min(t * k_tile + k_tile, lk))
+                    s = _mm_tf32(qh[rows], kh[cols].T, passes) * scale_log2
+                    ok = torch.ones(len(rows), len(cols), dtype=torch.bool)
+                    if causal:
+                        ok &= cols[None] <= rows[:, None]
+                    if window > 0:
+                        ok &= (rows[:, None] - cols[None]) < window
+                    s = s.masked_fill(~ok, -math.inf)
+                    m_new = torch.maximum(m, s.amax(1))
+                    alpha = torch.where(m == -math.inf, 0.0, torch.exp2(m - m_new))
+                    p = torch.where(s == -math.inf, 0.0, torch.exp2(s - m_new[:, None]))
+                    l = l * alpha + p.sum(1)
+                    m = m_new
+                    acc = acc * alpha[:, None] + _mm_tf32(p, vh[cols], passes)
+                out[bi, rows, hh] = torch.where(l[:, None] > 0, acc / l[:, None], 0.0)
+    return out
+
+
+def _tol_ratio(got, want):
+    """max |got - want| / (tol + tol |want|): at most 1 meets the tolerance."""
+    return float(((got - want).abs() / (KERNEL_TOL + KERNEL_TOL * want.abs())).max())
+
+
+def test_tf32_rounding_is_rna():
+    """Ties go away from zero on both signs; below a tie rounds down; the
+    split's big + small is within 2^-22 of x."""
+    tie, below = 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -23
+    x = torch.tensor([tie, -tie, below, -below, 3.0, 0.0], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, -1.0, 3.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal(4096).astype(np.float32))
+    big = _tf32(r)
+    small = _tf32(r - big)
+    assert torch.equal(_tf32(big), big) and torch.equal(_tf32(small), small)
+    assert bool(((r - (big + small)).abs() <= 2.0 ** -22 * r.abs()).all())
+
+
+# hd = 128 (Yi-6B's head width) at two lengths, plain causal and a sliding
+# window shorter than a query tile. q is drawn twice as wide as k and v, so
+# the scores have a standard deviation of about 1 (a trained model's
+# order): one TF32 product then errs by ~2^-11 of each score, several
+# times the tolerance in the output, while the split's error stays well
+# under it.
+TF32_CASES = [(256, 0), (512, 0), (256, 100), (512, 100)]
+
+
+def _tf32_inputs(l, seed):
+    q, k, v = _qkv(1, l, l, 4, 2, 128, seed=seed)
+    return q * 2.0, k, v
+
+
+@pytest.mark.parametrize("l,window", TF32_CASES)
+def test_tf32_split_meets_the_kernel_tolerance(l, window):
+    """The kernel's 3xTF32 arithmetic within 1e-4 of the JAX reference (the
+    Pallas kernel in interpret mode; the model's ``_sdpa`` for a window)
+    and of the fp32 plain version."""
+    arrays = _tf32_inputs(l, seed=11)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    if window == 0:
+        want = j_block_attention(*map(jnp.asarray, arrays), bq=64, bk=64, causal=True,
+                                 interpret=True)
+    else:
+        jq, jk, jv = map(jnp.asarray, arrays)
+        want = JL._sdpa(jq, jk, jv, JL._causal_mask(l, window), 2)
+    got = _attention_tf32(q, k, v, causal=True, window=window, passes=3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    plain = block_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, plain, atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.parametrize("l,window", TF32_CASES)
+def test_single_pass_tf32_breaks_the_kernel_tolerance(l, window):
+    """One TF32 product a term, on the same inputs, is more than twice the
+    tolerance away from the fp32 plain version: the test above can tell the
+    kernel's split from plain TF32."""
+    q, k, v = (torch.from_numpy(a) for a in _tf32_inputs(l, seed=11))
+    plain = block_attention_plain(q, k, v, causal=True, window=window)
+    one_pass = _attention_tf32(q, k, v, causal=True, window=window, passes=1)
+    three = _attention_tf32(q, k, v, causal=True, window=window, passes=3)
+    assert _tol_ratio(one_pass, plain) > 2.0
+    assert _tol_ratio(three, plain) < 0.5

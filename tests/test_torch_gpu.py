@@ -15,8 +15,9 @@ base + t*norm into one FMA);
 ``ssd_scan`` within 2e-4 absolute and relative of ``ssd_chunked_plain``
 (float32 summed in another order, the tolerance tests/test_kernels_ssd.py
 holds the TPU kernel to); ``block_attn`` within 1e-4 absolute and relative
-of ``block_attention_plain`` (float32, online against materialized
-softmax), and the SMOKE Yi model on the card within 2e-4 of the CPU.
+of ``block_attention_plain`` (3xTF32 tensor-core products and an online
+softmax against a materialized float32 softmax), and the SMOKE Yi model on
+the card within 2e-4 of the CPU.
 """
 import numpy as np
 import pytest
@@ -307,6 +308,11 @@ def test_mamba_smoke_on_card_matches_cpu(cuda):
     (1, 77, 130, 4, 2, 16, False, 0),       # Lq != Lk
     (2, 300, 300, 8, 4, 128, True, 64),     # sliding window
     (1, 40, 40, 2, 2, 24, True, 0),         # hd not a multiple of 16
+    (2, 200, 200, 3, 3, 18, True, 0),       # hd 18: rows not 16-byte multiples, 4-byte copies
+    (1, 150, 40, 4, 2, 64, True, 0),        # Lk shorter than one K/V tile
+    (1, 300, 300, 4, 1, 128, True, 17),     # window shorter than a tile
+    (2, 130, 130, 8, 2, 128, True, 0),      # a 2-row ragged last query tile of 128
+    (1, 100, 60, 2, 1, 32, False, 20),      # non-causal window: rows 79+ see no key
 ])
 def test_block_attn_matches_plain(cuda, b, lq, lk, h, kv, hd, causal, window):
     gen = torch.Generator().manual_seed(lq + hd)
@@ -328,6 +334,27 @@ def test_block_attn_takes_strided_views(cuda):
     q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
     assert not q.is_contiguous()
     got = block_attention(q, k, v)
+    want = block_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["fused_hd18", "k_shifted_one_float"])
+def test_block_attn_takes_unaligned_views(cuda, case):
+    """Views whose K rows are not 16-byte aligned take the kernel's 4-byte
+    copies: K at byte offset 216 of a fused hd-18 projection, or K one float
+    into its storage at hd 64 (q and v aligned)."""
+    gen = torch.Generator().manual_seed(2)
+    if case == "fused_hd18":
+        fused = torch.randn(2, 150, 3 + 1 + 1, 18, generator=gen).to(cuda)
+        q, k, v = fused[:, :, :3], fused[:, :, 3:4], fused[:, :, 4:]
+    else:
+        q, v = (torch.randn(2, 150, n, 64, generator=gen).to(cuda) for n in (4, 2))
+        k = torch.randn(2 * 150 * 2 * 64 + 1, generator=gen).to(cuda)[1:].view(2, 150, 2, 64)
+    assert k.data_ptr() % 16 != 0
+    bk.reset_launch_counts()
+    got = block_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["block_attn"] == 1
     want = block_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
