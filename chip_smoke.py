@@ -34,10 +34,17 @@ or of the JAX package ``repro``. Phases, in order:
 7. a profile of two rounds at bits=8 (device busy and idle share);
 8. the launcher, ``repro_torch.launch.train.main``, on the card;
 9. the Mamba2 slice (``configs.mamba2_130m`` as the registry gives it,
-   float32, TF32 off), see :func:`mamba_phases`: the ``ssd_scan`` kernel against its
-   plain version on layer 0's own inputs from a full-width forward, the
-   SMOKE configuration on the CPU and the card, ``loss_fn`` at full width
-   (8 x 2,048 tokens, 24 kernel launches a forward) and recurrent decode;
+   float32, TF32 off), see :func:`mamba_phases`: ``ssd_scan`` (four stage
+   kernels a call: ``chunk_cb``, ``chunk_state``, ``state_pass``,
+   ``chunk_scan``) against its plain version and the sequential recurrence
+   on layer 0's own inputs from a full-width forward, and against its plain
+   version at the small shapes of ``SSD_SMALL``; each stage's registers,
+   spills, shared memory, blocks and device ms (profiler), the scratch
+   bytes, its time beside its plain version and its bounds (3xTF32 on the
+   tensor cores, and the earlier per-head counts); the SMOKE configuration
+   on the CPU and the card, ``loss_fn`` at full width (8 x 2,048 tokens, 24
+   calls and 24 launches of each stage kernel a forward) and recurrent
+   decode;
 10. the dense GQA slice (``configs.yi_6b`` as the registry gives it, float32,
    TF32 off, after the Mamba2 state is freed), see :func:`dense_phases`: the
    ``block_attn`` kernel against its plain version on layer 0's own q/k/v
@@ -113,6 +120,24 @@ SPIN_CYCLES = 200_000_000      # ~0.1 s at the H100's clock: longer than queuing
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:32 _ssd_kernel"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_TOL = 2e-4                 # abs and rel: fp32 summed in another order (tests/test_kernels_ssd.py)
+SSD_TF32_PASSES = 3            # TF32 products the ssd_scan kernels run for each product term
+# (B, H, L, P, N, chunk, G): the shapes the chunk-parallel tiling can get
+# wrong: a chunk not a multiple of the 64-row tile, L under one chunk, one
+# whole chunk, P = 128, P = 18 (x rows not 16-byte multiples: 4-byte
+# copies), N = 48, N = 50 (the same for B and C), G = H; then G < H with a
+# ragged chunk, a chunk under one tile.
+SSD_SMALL = [
+    (1, 4, 330, 64, 128, 100, 2),
+    (2, 4, 90, 64, 128, 256, 1),
+    (1, 4, 256, 64, 128, 256, 4),
+    (1, 2, 300, 128, 128, 128, 1),
+    (2, 3, 200, 18, 64, 64, 3),
+    (1, 6, 260, 32, 48, 128, 2),
+    (1, 4, 200, 64, 50, 64, 2),
+    (2, 6, 300, 64, 128, 128, 6),
+    (1, 8, 300, 32, 64, 128, 2),
+    (2, 6, 96, 16, 16, 32, 1),
+]
 SMOKE_TOL = 1e-4               # abs and rel: the SMOKE model on the CPU and on the card
 DECODE_TOL = 2e-3              # abs and rel: decode vs forward (tests/test_decode_consistency.py)
 LM_BATCH, LM_SEQ, LM_FORWARDS = 8, 2048, 5
@@ -250,6 +275,7 @@ def _smoke_phase(arch_id, km, tag):
         km.reset_launch_counts()
         got, _ = T.forward_train(small, on_card, toks.cuda())
         launches = km.LAUNCHES[name]
+        stages = _stage_counts(km)
         caches = [T.init_cache(small, 2, 16, device="cpu"), T.init_cache(small, 2, 16)]
         worst_dec = 0.0
         for t in range(16):
@@ -259,9 +285,37 @@ def _smoke_phase(arch_id, km, tag):
     fwd_ratio = _tol_ratio(got.cpu(), want, SMOKE_TOL)
     print(f"{small.name} {tag}: forward (2, 80) cpu-vs-card max|d|="
           f"{float((got.cpu() - want).abs().max()):.3e} ratio={fwd_ratio:.4f}; 16 decode steps "
-          f"ratio={worst_dec:.4f} (tol {SMOKE_TOL}); {name} launches={launches}")
-    if fwd_ratio > 1.0 or worst_dec > 1.0 or launches != small.n_layers:
-        _fail(f"the SMOKE {arch_id} model disagrees between the CPU and the card")
+          f"ratio={worst_dec:.4f} (tol {SMOKE_TOL}); {name} launches={launches}"
+          f"{f' stage kernels {stages}' if stages else ''}")
+    if (fwd_ratio > 1.0 or worst_dec > 1.0 or launches != small.n_layers
+            or any(v != small.n_layers for v in stages.values())):
+        _fail(f"the SMOKE {arch_id} model disagrees between the CPU and the card, or "
+              f"launched {launches} calls and stage kernels {stages} in {small.n_layers} layers")
+
+
+def _stage_counts(km):
+    """The stage kernels' launch counts of a kernel module that launches
+    several kernels a call (``ssd_scan``'s four), else {}."""
+    return dict(getattr(km, "KERNEL_LAUNCHES", {}))
+
+
+def _kernel_device_ms(run, calls, names):
+    """Device ms per call of each kernel whose name contains one of
+    ``names``, from ``torch.profiler`` over ``run()`` (which makes ``calls``
+    calls); None for a name with no device time in the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(names, 0.0)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in ev.name:
+                    totals[name] += ev.time_range.elapsed_us()
+    return {k: (v / calls / 1e3 if v > 0 else None) for k, v in totals.items()}
 
 
 def _forward_phase(cfg, params, batch, forwards, km, tag):
@@ -286,6 +340,7 @@ def _forward_phase(cfg, params, batch, forwards, km, tag):
             torch.cuda.synchronize()
             stamps.append((time.perf_counter() - t0) * 1e3)
     launches = km.LAUNCHES[name]
+    stages = _stage_counts(km)
     peak = torch.cuda.max_memory_allocated()
     fwd_ms = statistics.median(stamps)
     losses = [float(x) for x in losses]
@@ -293,10 +348,12 @@ def _forward_phase(cfg, params, batch, forwards, km, tag):
           f"median={fwd_ms:.3f} all={[round(x, 3) for x in stamps]} tokens/s="
           f"{bsz * seq / fwd_ms * 1e3:.1f} loss={losses[0]:.6f} "
           f"peak_memory_allocated={peak} bytes {name} launches={launches} "
-          f"(want {cfg.n_layers} x {forwards})")
-    if launches != cfg.n_layers * forwards or not all(math.isfinite(x) for x in losses):
-        _fail(f"main path: {launches} {name} launches in {forwards} forwards "
-              f"(want {cfg.n_layers * forwards}), losses {losses}")
+          f"(want {cfg.n_layers} x {forwards}){f' stage kernels {stages}' if stages else ''}")
+    want = cfg.n_layers * forwards
+    if (launches != want or any(v != want for v in stages.values())
+            or not all(math.isfinite(x) for x in losses)):
+        _fail(f"main path: {launches} {name} launches and stage kernels {stages} in "
+              f"{forwards} forwards (want {want} of each), losses {losses}")
     with torch.inference_mode():
         _profile(f"{cfg.name} loss_fn {bsz}x{seq} (1 forward) {tag}",
                  lambda: T.loss_fn(cfg, params, batch))
@@ -333,6 +390,7 @@ def _decode_phase(cfg, params, prompts, n_params, km, tag):
         km.reset_launch_counts()
         fwd_logits, _ = T.forward_train(cfg, params, torch.cat(seqs, dim=1))
         launches = km.LAUNCHES[name]
+        stages = _stage_counts(km)
     dec = torch.stack(dec_logits, dim=1)
     ratio = _tol_ratio(dec, fwd_logits, DECODE_TOL)
     prompt_ratio = _tol_ratio(dec[:, :PROMPT], fwd_logits[:, :PROMPT], DECODE_TOL)
@@ -345,8 +403,10 @@ def _decode_phase(cfg, params, prompts, n_params, km, tag):
           f"({launches} {name} launches) max|d|={float((dec - fwd_logits).abs().max()):.3e} "
           f"ratio prompt={prompt_ratio:.4f} all {PROMPT + GENERATE}={ratio:.4f} "
           f"(tol {DECODE_TOL})")
-    if ratio > 1.0 or not torch.isfinite(dec).all() or launches != cfg.n_layers:
-        _fail(f"decode disagrees with the kernel forward at {cfg.name}'s full width")
+    if (ratio > 1.0 or not torch.isfinite(dec).all() or launches != cfg.n_layers
+            or any(v != cfg.n_layers for v in stages.values())):
+        _fail(f"decode disagrees with the kernel forward at {cfg.name}'s full width, or the "
+              f"forward launched {launches} calls and stage kernels {stages}")
 
     def decode_steps():
         c = cache
@@ -416,26 +476,77 @@ def mamba_phases(smi):
     if not (ratio <= 1.0 and seq_ratio <= 1.0 and torch.isfinite(got).all()):
         _fail(f"ssd_scan disagrees with its plain version (ratio {ratio:.4f}) "
               f"or the sequential recurrence (ratio {seq_ratio:.4f})")
-    # The operations the function needs: C.B^T and (scores o L).xdt on the
-    # causal pairs j <= i of each chunk only (the upper triangle is zero),
-    # C.S_in and the state update on every row; each chunk at its own length.
+    gen = torch.Generator("cuda").manual_seed(6)
+    for b_, h_, l_, p_, n_, chunk_, g_ in SSD_SMALL:
+        xs = torch.randn(b_, h_, l_, p_, generator=gen, device="cuda") * 0.8
+        dts = torch.nn.functional.softplus(torch.randn(b_, h_, l_, generator=gen, device="cuda"))
+        als = torch.log(torch.linspace(1.0, 16.0, h_, device="cuda"))
+        bs, cs = (torch.randn(b_, g_, l_, n_, generator=gen, device="cuda") * 0.5
+                  for _ in range(2))
+        sk.reset_launch_counts()
+        with torch.inference_mode():
+            ys = sk.ssd_scan(xs, dts, als, bs, cs, chunk=chunk_)
+            ref, _ = ssd_chunked_plain(xs, dts, als, bs, cs, chunk_)
+        torch.cuda.synchronize()
+        r = _tol_ratio(ys, ref, SSD_TOL)
+        stages = _stage_counts(sk)
+        print(f"ssd_scan {tag}: B={b_} H={h_} L={l_} P={p_} N={n_} chunk={chunk_} G={g_}: "
+              f"max|d|={float((ys - ref).abs().max()):.3e} ratio={r:.4f} stage kernels {stages}")
+        if not (r <= 1.0 and torch.isfinite(ys).all()
+                and all(v == 1 for v in stages.values())):
+            _fail(f"ssd_scan disagrees with its plain version at B={b_} H={h_} L={l_} P={p_} "
+                  f"N={n_} chunk={chunk_} G={g_} (ratio {r:.4f}), or launched {stages}")
+    del xs, dts, bs, cs, ys, ref
+
+    # The operations the function needs: C.B^T once per (batch, group,
+    # chunk) and (scores o L).xdt on the causal pairs j <= i of each chunk
+    # (the upper triangle is zero), C.S_in and the state update on every
+    # row; each chunk at its own length. The kernels run each product as
+    # three TF32 products on the tensor cores: the bound is those at the
+    # TF32 rate. Beside it, the earlier counts with C.B^T per head, at the
+    # float32 SIMT rate and at the 3xTF32 rate.
     lens = [min(chunk, l - k) for k in range(0, l, chunk)]
-    flop = bsz * h * sum(c * (c + 1) * (n + p) + 4 * c * n * p for c in lens)
+    flop = (bsz * g * sum(c_ * (c_ + 1) * n for c_ in lens)
+            + bsz * h * sum(c_ * (c_ + 1) * p + 4 * c_ * n * p for c_ in lens))
+    flop_per_head = bsz * h * sum(c_ * (c_ + 1) * (n + p) + 4 * c_ * n * p for c_ in lens)
     nbytes = 4 * (2 * bsz * h * l * p + bsz * h * l + 2 * bsz * g * l * n + h)
-    bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
+    bound_ops_ms = SSD_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    old_simt_ms = flop_per_head / FP32_OPS_PER_S * 1e3
+    old_tf32_ms = SSD_TF32_PASSES * flop_per_head / TF32_OPS_PER_S * 1e3
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     with torch.inference_mode():
         ms = statistics.median(_time_ms(lambda: sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk),
                                         iters=10) for _ in range(5))
         plain_ms = statistics.median(_time_ms(lambda: ssd_chunked_plain(x, dt, a_log, b, c, chunk),
                                               iters=3, warmup=1) for _ in range(3))
+
+        def five_calls():
+            for _ in range(5):
+                sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
+
+        stage_ms = _kernel_device_ms(five_calls, 5, [f"{s_}_kernel" for s_ in sk.STAGES])
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
-    print(f"ssd_scan {tag}: dynamic shared memory "
-          f"{sk.build().ssd_scan_smem_bytes(p, n, chunk)} bytes a block, {bsz * h} blocks")
+    report = sk.stage_report(bsz, h, g, l, p, n, chunk)
+    ptxas = _ptxas_report(sk.BUILD_INFO.get("log", ""))
+    for name in sk.STAGES:
+        shape = report[name]
+        dev = stage_ms[f"{name}_kernel"]
+        print(f"ssd_scan {tag}: stage {name}: {shape['smem_bytes']} bytes of dynamic shared "
+              f"memory a block, {shape['blocks']} blocks of {shape['threads']} threads; "
+              f"device ms a call (profiler) {'not measured' if dev is None else f'{dev:.4f}'}")
+        for fn, regs, st, ld in ptxas:
+            if f"{name}_kernel" in fn:
+                print(f"ssd_scan {tag}: ptxas {fn}: {regs} registers, spill stores {st} bytes, "
+                      f"spill loads {ld} bytes")
+    print(f"ssd_scan {tag}: scratch bytes {report['scratch_bytes']} "
+          f"({sum(report['scratch_bytes'].values())} in all, beside the function's {nbytes})")
     print(f"ssd_scan {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-          f"(ops {flop} FLOP, {bound_ops_ms:.4f} ms at {FP32_OPS_PER_S:.0e}/s; bytes {nbytes}, "
-          f"{bound_bytes_ms:.4f} ms) achieved {flop / ms / 1e9:.2f} TFLOP/s "
-          f"= {bound_ms / ms:.3f} of the bound")
+          f"(3xTF32 bound: {SSD_TF32_PASSES} x {flop} FLOP, C.B^T per group, at "
+          f"{TF32_OPS_PER_S:.4g}/s = {bound_ops_ms:.4f} ms; earlier bounds with C.B^T per "
+          f"head, {flop_per_head} FLOP: float32 SIMT {old_simt_ms:.4f} ms, 3xTF32 "
+          f"{old_tf32_ms:.4f} ms; bytes {nbytes}, {bound_bytes_ms:.4f} ms) achieved "
+          f"{flop / ms / 1e9:.2f} TFLOP/s of the function = {bound_ms / ms:.3f} of the bound, "
+          f"{old_simt_ms / ms:.3f} of the old SIMT one")
     del x, dt, b, c, got, want, seq, diff     # out of the main path's peak memory
     entry = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
              "replaces": SSD_REPLACES, "launches": None, "max_abs_err": max_abs,

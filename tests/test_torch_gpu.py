@@ -13,8 +13,9 @@ equal their plain versions bit for bit (bfloat16 results too);
 ``qdq_delta_rows_rng`` and ``qdq_delta_rows`` within 1 ulp (both fuse
 base + t*norm into one FMA);
 ``ssd_scan`` within 2e-4 absolute and relative of ``ssd_chunked_plain``
-(float32 summed in another order, the tolerance tests/test_kernels_ssd.py
-holds the TPU kernel to); ``block_attn`` within 1e-4 absolute and relative
+(3xTF32 tensor-core products in four chunk-parallel kernels, summed in
+another order; the tolerance tests/test_kernels_ssd.py holds the TPU
+kernel to), each of its four stage kernels launched once a call; ``block_attn`` within 1e-4 absolute and relative
 of ``block_attention_plain`` (3xTF32 tensor-core products and an online
 softmax against a materialized float32 softmax), and the SMOKE Yi model on
 the card within 2e-4 of the CPU.
@@ -247,6 +248,14 @@ def _ssd_inputs(b, h, l, p, n, g, device, seed=0):
     (2, 4, 512, 64, 128, 256, 4),      # the main path's P, N and chunk
     (1, 8, 300, 32, 64, 128, 2),       # L not a chunk multiple, G < H
     (2, 6, 96, 16, 16, 32, 1),         # chunk under one 64-row tile, G = 1
+    (1, 4, 330, 64, 128, 100, 2),      # chunk not a multiple of the 64-row tile
+    (2, 4, 90, 64, 128, 256, 1),       # L under one chunk
+    (1, 4, 256, 64, 128, 256, 4),      # a single whole chunk
+    (1, 2, 300, 128, 128, 128, 1),     # P = 128
+    (2, 3, 200, 18, 64, 64, 3),        # P = 18: x rows not 16-byte multiples
+    (1, 6, 260, 32, 48, 128, 2),       # N = 48
+    (1, 4, 200, 64, 50, 64, 2),        # N = 50: B/C rows not 16-byte multiples
+    (2, 6, 300, 64, 128, 128, 6),      # G = H
 ])
 def test_ssd_scan_matches_plain(cuda, b, h, l, p, n, chunk, g):
     x, dt, a_log, bb, cc = _ssd_inputs(b, h, l, p, n, g, cuda)
@@ -254,6 +263,7 @@ def test_ssd_scan_matches_plain(cuda, b, h, l, p, n, chunk, g):
     got = ssd_chunked(x, dt, a_log, bb, cc, chunk=chunk)
     torch.cuda.synchronize()
     assert sk.LAUNCHES["ssd_scan"] == 1          # a CUDA tensor never takes the plain path
+    assert sk.KERNEL_LAUNCHES == dict.fromkeys(sk.STAGES, 1)
     want, _ = ssd_chunked_plain(x, dt, a_log, bb, cc, chunk)
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
@@ -267,6 +277,7 @@ def test_ssd_scan_takes_the_models_layout(cuda):
     got = ssd_chunked(views[0], views[1], a_log, views[2], views[3], chunk=64)
     torch.cuda.synchronize()
     assert sk.LAUNCHES["ssd_scan"] == 1
+    assert sk.KERNEL_LAUNCHES == dict.fromkeys(sk.STAGES, 1)
     assert got.transpose(1, 2).is_contiguous()
     want, _ = ssd_chunked_plain(x, dt, a_log, bb, cc, 64)
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
@@ -295,6 +306,7 @@ def test_mamba_smoke_on_card_matches_cpu(cuda):
         got, _ = T.forward_train(cfg, on_card, tokens.to(cuda))
     torch.cuda.synchronize()
     assert sk.LAUNCHES["ssd_scan"] == cfg.n_layers
+    assert sk.KERNEL_LAUNCHES == dict.fromkeys(sk.STAGES, cfg.n_layers)
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
 
 
