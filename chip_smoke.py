@@ -33,7 +33,21 @@ or of the JAX package ``repro``. Phases, in order:
    K*rounds and rounds at bits=8 (and none of the wire kernels);
 7. a profile of two rounds at bits=8 (device busy and idle share);
 8. the launcher, ``repro_torch.launch.train.main``, on the card;
-9. the Mamba2 slice (``configs.mamba2_130m`` as the registry gives it,
+9. the baselines (§VI-B), see :func:`baselines_phase`: FedAvg, DFedAvg,
+   DFedAvgM and DSGD on a small configuration on the CPU and on the card;
+   then at the main path's setting (3FNN, n=100), bits 32 and 8, ms per
+   round, test accuracy and launch counts (one ``qdq_rows_rng`` a quantized
+   decentralized round); ``qdq_rows_rng`` against its plain version on
+   QDFedAvg's 779,500-row payload;
+10. LSTM chain mode (§VI-F) at the published width with the 50K
+   vocabulary, see :func:`lstm_phase`: d = 20,169,552, 64 devices (a 5.16
+   GB device matrix), M=10, K=3, bits 8 and 32; ms per round, idle share,
+   peak memory, chain starts and launch counts (K ``qdq_delta_rows_rng``
+   and one ``qdq_rows_rng`` a quantized round); both kernels against their
+   plain versions on that run's payloads (1,575,750 and 4,727,250 rows);
+   then the checkpoint phase, the trained params saved from the card and
+   loaded into a template on the card, bit for bit;
+11. the Mamba2 slice (``configs.mamba2_130m`` as the registry gives it,
    float32, TF32 off), see :func:`mamba_phases`: ``ssd_scan`` (four stage
    kernels a call: ``chunk_cb``, ``chunk_state``, ``state_pass``,
    ``chunk_scan``) against its plain version and the sequential recurrence
@@ -45,7 +59,7 @@ or of the JAX package ``repro``. Phases, in order:
    on the CPU and the card, ``loss_fn`` at full width (8 x 2,048 tokens, 24
    calls and 24 launches of each stage kernel a forward) and recurrent
    decode;
-10. the dense GQA slice (``configs.yi_6b`` as the registry gives it, float32,
+12. the dense GQA slice (``configs.yi_6b`` as the registry gives it, float32,
    TF32 off, after the Mamba2 state is freed), see :func:`dense_phases`: the
    ``block_attn`` kernel against its plain version on layer 0's own q/k/v
    of a full-width forward (B = 2, L = 4,096, 32 heads, 4 KV heads, hd 128)
@@ -60,8 +74,8 @@ or of the JAX package ``repro``. Phases, in order:
    the card; ``loss_fn`` at full width (2 x 4,096 tokens, 32 kernel
    launches a forward) with a profile; greedy decode at batch 8 against the
    kernel forward;
-11. one JSON line of kernel numbers (all ten kernels), and last the device
-   line.
+13. one JSON line of kernel numbers (all ten kernels; B1 and B2 with their
+   launches on each path), and last the device line.
 
 The three kernel sources are built at the start, one ``nvcc`` each, in
 parallel.
@@ -75,6 +89,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -116,6 +131,17 @@ WIRE_TRAFFIC = {
 WIRE_OPS = {"qdq_delta_rows": 15, "qdq_rows": 15, "quantize_rows": 13,
             "dequantize_rows": 3, "quantize": 13, "dequantize": 2}
 ROUNDS = 5
+# The baselines of §VI-B at the main path's setting: (label, class in
+# repro_torch.core.baselines, config fields).
+BASELINES = [
+    ("fedavg", "FedAvg", dict(n_selected=8, local_epochs=8)),
+    ("dfedavg", "DFedAvg", dict(n_selected=100, local_epochs=8, n_agg=5)),
+    ("dfedavgm", "DFedAvg", dict(n_selected=100, local_epochs=8, n_agg=5, momentum=0.9)),
+    ("dsgd", "DSGD", dict(n_selected=100, local_epochs=8, n_agg=5)),
+]
+BASELINE_ROUNDS = 5
+LSTM_VOCAB = 50_000            # the paper's §VI-F vocabulary
+LSTM_ROUNDS = 3
 SPIN_CYCLES = 200_000_000      # ~0.1 s at the H100's clock: longer than queuing a timing loop
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:32 _ssd_kernel"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
@@ -905,6 +931,301 @@ def wire_phase(w2d, spec, n_msgs, tag):
     return entries
 
 
+def _capture_first(captured, name, real):
+    """``real`` wrapped so that the arguments of its first call are kept
+    (tensors cloned) under ``captured[name]``."""
+    import torch
+
+    def call(*args, **kw):
+        if name not in captured:
+            captured[name] = ([a.clone() if torch.is_tensor(a) else a for a in args], kw)
+        return real(*args, **kw)
+    return call
+
+
+def _hold_kernel(name, args, bits, label):
+    """One counter-RNG qdq kernel on a payload captured from a path, with the
+    path's own side information and seed words: against its plain version
+    (0 differing elements for ``qdq_rows_rng``, <= 1 ulp for
+    ``qdq_delta_rows_rng``), timed beside its plain version and its bound.
+    These launches are not the path's. Prints one line and returns the
+    numbers; a disagreement exits non-zero."""
+    import torch
+
+    from repro_torch.kernels.quantize import quantize as qk
+
+    kern, plain = getattr(qk, name), getattr(qk, name + "_plain")
+    w2d, rest = args[0], args[1:]
+    rows = w2d.shape[0]
+    got = kern(w2d.clone(), *rest, bits=bits)
+    want = plain(w2d, *rest, bits=bits)
+    torch.cuda.synchronize()
+    differs, max_ulps = _differs(got, want)
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    limit = 1 if name == "qdq_delta_rows_rng" else 0
+    nbytes = rows * LANES_BYTES * (3 if name == "qdq_delta_rows_rng" else 2) + rows * 8
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = rows * 128 * OPS_PER_ELEMENT / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    scratch = w2d.clone()
+    ms = statistics.median(_time_ms(lambda: kern(scratch, *rest, bits=bits), iters=20)
+                           for _ in range(3))
+    del scratch
+    plain_ms = _time_ms(lambda: plain(w2d, *rest, bits=bits), iters=2, warmup=1)
+    print(f"kernel {name} at {label}: R={rows} ({rows * LANES_BYTES} payload bytes) "
+          f"bits={bits}: differs={differs} max_ulps={max_ulps} us={ms * 1e3:.2f} "
+          f"plain_ms={plain_ms:.4f} bound_us={bound_ms * 1e3:.2f} (bytes {nbytes}, "
+          f"{bound_bytes_ms * 1e3:.2f} us; ops {bound_ops_ms * 1e3:.2f} us) = "
+          f"{bound_ms / ms:.3f} of the bound")
+    if max_ulps > limit or not finite:
+        _fail(f"{name} disagrees with its plain version at {label} (max {max_ulps} ulps, "
+              f"allowed {limit}), or gave a non-finite value")
+    return {"rows": rows, "ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms}
+
+
+def baselines_phase(model, data, topo, xt, yt, tag):
+    """The paper's baselines (§VI-B) at the main path's setting: the 3FNN,
+    100 devices on a complete graph, the 60,000-sample data. First each
+    algorithm on a small configuration on the CPU and on the card from the
+    same weights and seed words (fp32: rtol 1e-4; bits=8: within 0.05 *
+    scale + 1e-4); then each at full size, bits 32 and 8, one warm-up
+    round and BASELINE_ROUNDS timed ones with the counts from 0: one
+    ``qdq_rows_rng`` launch a quantized decentralized round, none for
+    FedAvg, which sends unquantized models; two DFedAvg rounds at each
+    width under the profiler. QDFedAvg's first aggregation
+    payload (R = 500 messages x 1,559 rows) then holds the kernel against
+    its plain version. Returns the quantized rounds' launches by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BaselineConfig, QuantConfig, make_topology
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.heterogeneity import partition_similarity
+    from repro_torch.data import FederatedDataset, synthetic_image_classification
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.kernels.quantize import quantize as qk
+    from repro_torch.models import make_fnn
+
+    xs, ys = synthetic_image_classification(n_samples=2000, seed=0, noise=1.0)
+    small = FederatedDataset.from_partition(
+        xs, ys, partition_similarity(ys, 10, 50, np.random.default_rng(0)))
+    small_model = make_fnn((64,))
+    params = small_model.init(torch.Generator().manual_seed(3), "cpu")
+    for label, cls_name, fields in BASELINES:
+        small_fields = {**fields, "n_selected": min(fields["n_selected"], 10),
+                        "local_epochs": 3, "n_agg": 3}
+        for bits in (32, 8):
+            cfg = BaselineConfig(batch_size=32, quant=QuantConfig(bits=bits), **small_fields)
+            pair = [getattr(bl, cls_name)(small_model, small, make_topology("complete", 10),
+                                          cfg, device=d) for d in ("cpu", "cuda")]
+            states = [r.state_from_params(params) for r in pair]
+            seeds = torch.Generator().manual_seed(11)
+            worst = 0.0
+            for _ in range(3):
+                qseed = torch.randint(0, 1 << 32, (2,), generator=seeds)
+                for i, r in enumerate(pair):
+                    states[i], _ = r.run_round(states[i], None, qseed=qseed)
+                a, b = states[0].device_params, states[1].device_params.cpu()
+                diff = float((a - b).abs().max())
+                worst = max(worst, diff)
+                ok = (torch.allclose(b, a, rtol=1e-4, atol=1e-5) if bits == 32
+                      else diff < 0.05 * float(a.abs().max()) + 1e-4)
+                if not ok or not torch.isfinite(b).all():
+                    _fail(f"{label} bits={bits}: the CPU and the card disagree, "
+                          f"max|d|={diff:.3e}")
+            print(f"baselines {tag}: small cpu-vs-card {label} bits={bits}: "
+                  f"max|d matrix|={worst:.3e}")
+
+    captured, counts = {}, dict.fromkeys(qk.LAUNCHES, 0)
+    for label, cls_name, fields in BASELINES:
+        for bits in (32, 8):
+            cfg = BaselineConfig(batch_size=50, quant=QuantConfig(bits=bits), **fields)
+            runner = getattr(bl, cls_name)(model, data, topo, cfg)
+            key = torch.Generator().manual_seed(0)
+            state = runner.init_state(key)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            real = ops.qdq_rows_rng
+            if bits < 32 and label == "dfedavg":
+                ops.qdq_rows_rng = _capture_first(captured, "qdq_rows_rng", real)
+                payload_rows = cfg.n_selected * cfg.n_agg * runner.flat_spec.rows
+            qk.reset_launch_counts()
+            stamps, losses = [], []
+            try:
+                for _ in range(1 + BASELINE_ROUNDS):
+                    t0 = time.perf_counter()
+                    state, met = runner.run_round(state, key)
+                    torch.cuda.synchronize()
+                    stamps.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(met.train_loss)
+            finally:
+                ops.qdq_rows_rng = real
+            got = dict(qk.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            evald = runner.evaluate(state, xt, yt)
+            want = dict.fromkeys(qk.LAUNCHES, 0)
+            if bits < 32 and label != "fedavg":
+                want["qdq_rows_rng"] = 1 + BASELINE_ROUNDS
+            print(f"baselines {tag}: {label} bits={bits} {fields}: ms/round (run_round) "
+                  f"median={statistics.median(stamps[1:]):.3f} "
+                  f"all={[round(t, 3) for t in stamps[1:]]} (warm-up {stamps[0]:.3f}) "
+                  f"loss={[round(x, 5) for x in losses]} test_acc={evald['accuracy']:.4f} "
+                  f"peak_memory_allocated={peak} bytes launches={got}")
+            finite = all(math.isfinite(x) for x in losses + [evald["loss"]])
+            if got != want or not finite:
+                _fail(f"baselines {label} bits={bits}: launches {got} (want {want}), "
+                      f"finite={finite}")
+            for name, n in got.items():
+                counts[name] += n
+            if label == "dfedavg":
+
+                def two_rounds():
+                    nonlocal state
+                    for _ in range(2):
+                        state, _ = runner.run_round(state, key)
+
+                _profile(f"{label} bits={bits} (2 rounds) {tag}", two_rounds)
+            del runner, state
+
+    args, kw = captured["qdq_rows_rng"]
+    if args[0].shape[0] != payload_rows:
+        _fail(f"the QDFedAvg payload has {args[0].shape[0]} rows, want {payload_rows}")
+    _hold_kernel("qdq_rows_rng", args, kw["bits"], "QDFedAvg's aggregation payload")
+    del captured
+    return counts
+
+
+def lstm_phase(tag):
+    """The paper's language-model experiment (§VI-F) in chain mode at the
+    published width: ``LSTM(vocab=50_000)`` (embedding 128, 2 layers of
+    hidden 256, d = 20,169,552) on ``synthetic_token_stream`` at
+    ``benchmarks/fig13_language_model.py``'s shape with the full vocabulary,
+    64 devices on a complete graph, M = 10 chains, K = 3, B = 32, lr_r 0.5;
+    bits 8 and 32, one warm-up round and LSTM_ROUNDS timed ones with the
+    counts from 0: K ``qdq_delta_rows_rng`` launches and one
+    ``qdq_rows_rng`` launch a quantized round. One quantized round is
+    profiled. The first hop and aggregation payloads of the quantized run
+    then hold both kernels against their plain versions at these shapes.
+    Last, the checkpoint phase: the trained params saved from the card and
+    loaded into a template on the card, bit for bit. Returns the quantized
+    run's launches by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs.lstm_reddit import LSTM
+    from repro_torch.core import DFedRW, DFedRWConfig, QuantConfig, make_topology
+    from repro_torch.core.flatten import tree_leaves, unflatten_tree
+    from repro_torch.core.heterogeneity import Partition
+    from repro_torch.data import FederatedDataset, synthetic_token_stream
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.kernels.quantize import quantize as qk
+
+    n = 64
+    toks, nxt, client = synthetic_token_stream(n_clients=n, seq_len=12, seqs_per_client=48,
+                                               vocab=LSTM_VOCAB, client_vocab=60, seed=0)
+    idxs = [np.nonzero(client == c)[0] for c in range(n)]
+    data = FederatedDataset.from_partition(toks, nxt[:, -1], Partition(idxs, n))
+    topo = make_topology("complete", n)
+    model = LSTM(vocab=LSTM_VOCAB)
+    xt, yt = toks[:768], nxt[:768, -1]
+    captured, counts, params = {}, None, None
+    for bits in (8, 32):
+        cfg = DFedRWConfig(m_chains=10, k_walk=3, batch_size=32, chain_mode=True, lr_r=0.5,
+                           quant=QuantConfig(bits=bits))
+        runner = DFedRW(model, data, topo, cfg)
+        spec = runner.flat_spec
+        key = torch.Generator().manual_seed(0)
+        state = runner.init_state(key)
+        torch.cuda.synchronize()
+        print(f"lstm chain mode {tag}: {model.name} vocab={LSTM_VOCAB} d={spec.d} "
+              f"d_pad={spec.d_pad} rows={spec.rows} leaves={spec.shapes} devices={n} "
+              f"device matrix {state.device_params.numel() * 4} bytes; M={cfg.m_chains} "
+              f"K={cfg.k_walk} B={cfg.batch_size} bits={bits}")
+        torch.cuda.reset_peak_memory_stats()
+        real = (ops.qdq_delta_rows_rng, ops.qdq_rows_rng)
+        if bits < 32:
+            ops.qdq_delta_rows_rng = _capture_first(captured, "qdq_delta_rows_rng", real[0])
+            ops.qdq_rows_rng = _capture_first(captured, "qdq_rows_rng", real[1])
+        qk.reset_launch_counts()
+        stamps, losses, starts = [], [], [state.chain_starts.tolist()]
+        try:
+            for _ in range(1 + LSTM_ROUNDS):
+                t0 = time.perf_counter()
+                state, met = runner.run_round(state, key)
+                torch.cuda.synchronize()
+                stamps.append((time.perf_counter() - t0) * 1e3)
+                losses.append(met.train_loss)
+                starts.append(state.chain_starts.tolist())
+        finally:
+            ops.qdq_delta_rows_rng, ops.qdq_rows_rng = real
+        got = dict(qk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        evald = runner.evaluate(state, xt, yt)
+        want = dict.fromkeys(qk.LAUNCHES, 0)
+        if bits < 32:
+            want.update(qdq_delta_rows_rng=cfg.k_walk * (1 + LSTM_ROUNDS),
+                        qdq_rows_rng=1 + LSTM_ROUNDS)
+        print(f"lstm chain mode {tag} bits={bits}: ms/round (run_round) "
+              f"median={statistics.median(stamps[1:]):.3f} "
+              f"all={[round(t, 3) for t in stamps[1:]]} (warm-up {stamps[0]:.3f}) "
+              f"loss={[round(x, 5) for x in losses]} test_top1={evald['accuracy']:.4f} "
+              f"test_loss={evald['loss']:.4f} peak_memory_allocated={peak} bytes "
+              f"launches={got}")
+        print(f"lstm chain mode {tag} bits={bits}: chain starts by round {starts}")
+        finite = all(math.isfinite(x) for x in losses + [evald["loss"]])
+        if got != want or not finite:
+            _fail(f"lstm chain mode bits={bits}: launches {got} (want {want}), "
+                  f"finite={finite}, chain starts {starts}")
+        if bits < 32:
+            counts = got
+
+            def one_round():
+                nonlocal state
+                state, _ = runner.run_round(state, key)
+
+            _profile(f"lstm chain mode bits=8 (1 round) {tag}", one_round)
+        else:
+            params = unflatten_tree(state.device_params[0].clone(), spec)
+        del runner, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for name in ("qdq_delta_rows_rng", "qdq_rows_rng"):
+        args, kw = captured.pop(name)
+        _hold_kernel(name, args, kw["bits"], "the LSTM chain-mode payload")
+        del args
+
+    # ---------------------------------------------------------- checkpoint
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(zeros(v) for v in tree)
+        return torch.zeros_like(tree)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix="_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        path = save_checkpoint(ckpt, 1 + LSTM_ROUNDS, params, metrics={"vocab": LSTM_VOCAB})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back, meta = load_checkpoint(ckpt, zeros(params))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves(params), tree_leaves(back)))
+    same = all(b.device == a.device and b.dtype == a.dtype and torch.equal(a, b)
+               for a, b in pairs)
+    print(f"checkpoint {tag}: the LSTM's params ({len(pairs)} leaves) saved from the card "
+          f"in {save_s:.2f}s ({size} bytes), loaded into a template on the card in "
+          f"{load_s:.2f}s: bit-identical={same} meta={meta}")
+    if not same or meta["step"] != 1 + LSTM_ROUNDS:
+        _fail("the checkpoint did not restore the LSTM's params bit for bit")
+    return counts
+
+
 def _ptxas_report(log):
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an ``-Xptxas -v`` report."""
@@ -992,19 +1313,11 @@ def main() -> int:
     # One bits=8 round whose first hop and aggregation payloads are kept:
     # the kernels are then checked on the main path's own inputs.
     captured = {}
-
-    def keep(name, real):
-        def call(*args, **kw):
-            if name not in captured:
-                captured[name] = ([a.clone() if torch.is_tensor(a) else a for a in args], kw)
-            return real(*args, **kw)
-        return call
-
     runner = DFedRW(model, data, topo, config(8))
     spec = runner.flat_spec
     real = (ops.qdq_delta_rows_rng, ops.qdq_rows_rng)
-    ops.qdq_delta_rows_rng = keep("qdq_delta_rows_rng", real[0])
-    ops.qdq_rows_rng = keep("qdq_rows_rng", real[1])
+    ops.qdq_delta_rows_rng = _capture_first(captured, "qdq_delta_rows_rng", real[0])
+    ops.qdq_rows_rng = _capture_first(captured, "qdq_rows_rng", real[1])
     try:
         key = torch.Generator().manual_seed(0)
         runner.run_round(runner.init_state(key), key)
@@ -1166,8 +1479,20 @@ def main() -> int:
         print("FAIL: the launcher did not go through both kernels", file=sys.stderr)
         return 1
 
+    # ------------------------------------- baselines, LSTM chain mode, checkpoint
+    by_path = {"3fnn_dfedrw": launches,
+               "baselines": baselines_phase(model, data, topo, xt, yt, f"[{smi}]")}
+    del profile_runner, state, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["lstm_chain_mode"] = lstm_phase(f"[{smi}]")
+    gc.collect()                         # the LSTM's state goes before the LM phases
+    torch.cuda.empty_cache()
+
     for name in results:
-        results[name]["launches"] = launches[name]
+        results[name]["launches"] = sum(counts[name] for counts in by_path.values())
+        results[name]["launches_by_path"] = {path: counts[name]
+                                             for path, counts in by_path.items()}
     ssd = mamba_phases(smi)
     gc.collect()                         # the Mamba2 weights and caches go first
     torch.cuda.empty_cache()

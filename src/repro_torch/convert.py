@@ -23,15 +23,18 @@ def flat_from_numpy(matrix, device: str | torch.device = "cuda") -> torch.Tensor
                         device=resolve_device(device))
 
 
-def lm_params_from_numpy(tree, device: str | torch.device = "cuda") -> dict:
-    """A language model's nested dict of numpy arrays (a JAX ``init_params``
-    pytree after ``jax.tree_util.tree_map(np.asarray, ...)``) -> the same
-    nested dict of float32 tensors on ``device``."""
+def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """A language model's nested dict/list/tuple of numpy arrays (a JAX
+    ``init_params`` or LSTM ``init`` pytree after
+    ``jax.tree_util.tree_map(np.asarray, ...)``) -> the same nesting, each
+    list and tuple as it was, of float32 tensors on ``device``."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
         return torch.tensor(np.asarray(node), dtype=torch.float32, device=dev)
 
     return conv(tree)

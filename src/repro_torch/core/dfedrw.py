@@ -24,8 +24,11 @@ and one communication round runs, in the reference's order:
 Everything that depends only on the plan (winner election, scatter indices)
 is computed on the host and sent to the device once per round.
 
-Only the flat engine on the FNN is ported: ``engine="reference"`` and
-``chain_mode=True`` raise ``NotImplementedError`` (ROADMAP.md, queue A).
+``chain_mode=True`` is the paper's large-scale LM mode (§VI-F, the LSTM):
+the M chains persist across rounds (each starts where it ended) and the
+chain-end devices aggregate the M chain-end models. Only the flat engine
+is ported: ``engine="reference"`` raises ``NotImplementedError``
+(ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from repro_torch.kernels.quantize import payload_quantize_dequantize
 from repro_torch.models.fnn import SmallModel
 from repro_torch.optim.sgd import decreasing_lr
 
-__all__ = ["DFedRWConfig", "DFedRWState", "DFedRW", "RoundMetrics",
+__all__ = ["DFedRWConfig", "DFedRWState", "DFedRW", "FlatRunner", "RoundMetrics",
            "gamma_hat_from_traj"]
 
 
@@ -65,7 +68,8 @@ class DFedRWConfig:
     lr_q: float = 0.499
     quant: QuantConfig = dataclasses.field(default_factory=lambda: QuantConfig(bits=32))
     straggler: StragglerModel = dataclasses.field(default_factory=StragglerModel)
-    chain_mode: bool = False        # §VI-F LM mode: not ported yet
+    chain_mode: bool = False        # large-scale LM mode (§VI-F): aggregate the
+                                    # M chain-end models; chains persist across rounds
     engine: str = "flat"            # only "flat" is ported
     seed: int = 0
 
@@ -75,6 +79,7 @@ class DFedRWState:
     device_params: torch.Tensor     # (n, d_pad) float32 on the engine's device
     round: int = 0
     global_step: int = 0            # kbar counter
+    chain_starts: np.ndarray | None = None  # chain mode: i_m^{t,0}
     comm_bits_total: float = 0.0
     comm_bits_busiest: float = 0.0
     updated: np.ndarray | None = None  # (n,) bool: device has trained/aggregated
@@ -108,27 +113,16 @@ def gamma_hat_from_traj(grad_sq_traj: torch.Tensor, walk_mask: torch.Tensor) -> 
     return ratios.sum() / torch.clamp(alive.sum(), min=1)
 
 
-class DFedRW:
-    """Runner binding (model, dataset, topology, config) to one device."""
+class FlatRunner:
+    """What every runner on the flat buffer shares (DFedRW here, the
+    baselines in repro_torch.core.baselines): the model, dataset, topology,
+    config and protocol rng bound to one device, the dataset resident
+    there; the flat codec; per-row gradients and losses; evaluation."""
 
-    def __init__(
-        self,
-        model: SmallModel,
-        data: FederatedDataset,
-        topo: Topology,
-        cfg: DFedRWConfig,
-        device: str | torch.device = "cuda",
-    ):
+    def __init__(self, model: SmallModel, data: FederatedDataset, topo: Topology, cfg,
+                 device: str | torch.device = "cuda"):
         if data.n_clients != topo.n:
             raise ValueError("dataset clients must match graph size")
-        if cfg.engine != "flat":
-            raise NotImplementedError(
-                f"engine={cfg.engine!r}: the port has only the flat engine "
-                "(ROADMAP.md queue A, item 13: the reference engine)")
-        if cfg.chain_mode:
-            raise NotImplementedError(
-                "chain_mode: not ported yet (ROADMAP.md queue A, item 6: "
-                "LSTM chain mode)")
         validate_wire_bits(cfg.quant.bits)
         self.device = resolve_device(device)
         self.model = model
@@ -145,23 +139,70 @@ class DFedRW:
         def loss_flat(vec, xb, yb):
             return model.loss_fn(unflatten_tree(vec, self.flat_spec), (xb, yb))
 
-        # Per-chain gradients of the M chain rows: vmap(grad) as in the
-        # reference, which torch lowers to batched matrix products.
+        # Per-row gradients of the chain (or selected device) rows:
+        # vmap(grad) as in the reference, which torch lowers to batched
+        # matrix products.
         self._grad_fn = torch.func.vmap(torch.func.grad(loss_flat))
         self._loss_fn = torch.func.vmap(loss_flat)
 
-    # ------------------------------------------------------------------ init
-    def state_from_params(self, params: list) -> DFedRWState:
-        """Every device starts from the same ``params`` (a list of (W, b))."""
-        vec = flatten_tree([(w.to(self.device), b.to(self.device)) for w, b in params],
-                           self.flat_spec)
-        return DFedRWState(
-            device_params=vec[None, :].repeat(self.topo.n, 1),
-            updated=np.zeros(self.topo.n, dtype=bool),
-        )
+    def _replicated(self, params) -> torch.Tensor:
+        """The (n, d_pad) device matrix with every row the model tree
+        ``params``."""
+        vec = flatten_tree(params, self.flat_spec).to(self.device)
+        return vec[None, :].repeat(self.topo.n, 1)
+
+    def state_from_params(self, params) -> DFedRWState:
+        """Every device starts from the same ``params`` (the model's tree)."""
+        return DFedRWState(device_params=self._replicated(params),
+                           updated=np.zeros(self.topo.n, dtype=bool))
 
     def init_state(self, key: torch.Generator) -> DFedRWState:
         return self.state_from_params(self.model.init(key, self.device))
+
+    @torch.no_grad()
+    def evaluate(self, state: DFedRWState, x_test, y_test, max_batch: int = 2048) -> dict:
+        """Accuracy/loss of the average over *participating* device models
+        (devices that never trained/aggregated still hold their init)."""
+        if state.updated is not None and state.updated.any():
+            sel = torch.from_numpy(np.nonzero(state.updated)[0]).to(self.device)
+        else:
+            sel = torch.arange(self.topo.n, device=self.device)
+        mean_params = unflatten_tree(state.device_params[sel].mean(dim=0), self.flat_spec)
+        x_test = torch.as_tensor(np.asarray(x_test[:max_batch]), device=self.device)
+        y_test = torch.as_tensor(np.asarray(y_test[:max_batch]), device=self.device)
+        logits = self.model.predict(mean_params, x_test)
+        acc = (logits.argmax(-1) == y_test).to(torch.float32).mean()
+        loss = self.model.loss_fn(mean_params, (x_test, y_test))
+        return {"accuracy": float(acc), "loss": float(loss)}
+
+
+class DFedRW(FlatRunner):
+    """Runner binding (model, dataset, topology, config) to one device."""
+
+    def __init__(
+        self,
+        model: SmallModel,
+        data: FederatedDataset,
+        topo: Topology,
+        cfg: DFedRWConfig,
+        device: str | torch.device = "cuda",
+    ):
+        if cfg.engine != "flat":
+            raise NotImplementedError(
+                f"engine={cfg.engine!r}: the port has only the flat engine "
+                "(ROADMAP.md queue A, item 13: the reference engine)")
+        super().__init__(model, data, topo, cfg, device)
+
+    # ------------------------------------------------------------------ init
+    def state_from_params(self, params) -> DFedRWState:
+        """Every device starts from the same ``params`` (the model's tree).
+        In chain mode the M chain starts are drawn from the protocol rng
+        here, before any planning, as the reference's ``init_state`` does."""
+        starts = None
+        if self.cfg.chain_mode:
+            starts = self.rng.integers(0, self.topo.n, size=self.cfg.m_chains)
+        return DFedRWState(device_params=self._replicated(params), chain_starts=starts,
+                           updated=np.zeros(self.topo.n, dtype=bool))
 
     # ------------------------------------------------------------ the round
     def _round_flat(self, device_flat, plan, bidx, agg, kbar0, bits, qseeds):
@@ -251,7 +292,8 @@ class DFedRW:
         indices, in the reference's protocol-rng draw order."""
         cfg, rng, topo = self.cfg, self.rng, self.topo
         plan = sample_walks(topo, cfg.m_chains, cfg.k_walk, rng,
-                            straggler=cfg.straggler)
+                            straggler=cfg.straggler,
+                            start_devices=state.chain_starts if cfg.chain_mode else None)
         # Per-step batches from the visited device's local data; a slow
         # device contributes a partial update by tiling a sub-batch.
         slow = cfg.straggler.slow_mask(topo.n)
@@ -272,10 +314,29 @@ class DFedRW:
         """Build the round's (agg_devices, agg_rows, agg_weights): a uniform
         draw of aggregators; per aggregator a random subset of <= n_agg
         participating neighbors (itself included), weighted by data size.
-        Pad slots carry the aggregator's own id and zero weight."""
+        Pad slots carry the aggregator's own id and zero weight.
+
+        Chain mode (§VI-F): the aggregators are the unique chain-end
+        devices, padded to M rows with distinct ids >= n (which the round
+        drops); every row lists all M chain-end devices, weighted by data
+        size, and a chain that took no step has zero weight."""
         cfg, rng, topo = self.cfg, self.rng, self.topo
-        participants = np.unique(plan.devices[plan.mask])
         sizes = self.data.client_sizes
+        if cfg.chain_mode:
+            alive = plan.k_m > 0
+            agg_devices = np.unique(plan.last_device[alive])
+            rows = np.tile(plan.last_device, (len(agg_devices), 1))
+            w = sizes[plan.last_device].astype(np.float64) * alive
+            wsum = w.sum()
+            weights = np.tile(w / (wsum if wsum > 0 else 1.0), (len(agg_devices), 1))
+            pad = cfg.m_chains - len(agg_devices)
+            if pad > 0:
+                agg_devices = np.concatenate([agg_devices, topo.n + np.arange(pad)])
+                rows = np.pad(rows, ((0, pad), (0, 0)))
+                weights = np.pad(weights, ((0, pad), (0, 0)))
+            return (agg_devices.astype(np.int32), rows.astype(np.int32),
+                    weights.astype(np.float32))
+        participants = np.unique(plan.devices[plan.mask])
         n_aggregators = max(1, int(round(topo.n * cfg.agg_fraction)))
         agg_devices = rng.choice(topo.n, size=n_aggregators, replace=False)
         n_agg = cfg.n_agg
@@ -367,6 +428,7 @@ class DFedRW:
             device_params=new_params,
             round=state.round + 1,
             global_step=state.global_step + cfg.k_walk,
+            chain_starts=plan.last_device if cfg.chain_mode else None,
             comm_bits_total=state.comm_bits_total + tot,
             comm_bits_busiest=state.comm_bits_busiest + busiest,
             updated=updated,
@@ -379,20 +441,3 @@ class DFedRW:
             gamma_hat=float(gamma_hat),
         )
         return new_state, metrics
-
-    # ------------------------------------------------------------- evaluate
-    @torch.no_grad()
-    def evaluate(self, state: DFedRWState, x_test, y_test, max_batch: int = 2048) -> dict:
-        """Accuracy/loss of the average over *participating* device models
-        (devices that never trained/aggregated still hold their init)."""
-        if state.updated is not None and state.updated.any():
-            sel = torch.from_numpy(np.nonzero(state.updated)[0]).to(self.device)
-        else:
-            sel = torch.arange(self.topo.n, device=self.device)
-        mean_params = unflatten_tree(state.device_params[sel].mean(dim=0), self.flat_spec)
-        x_test = torch.as_tensor(np.asarray(x_test[:max_batch]), device=self.device)
-        y_test = torch.as_tensor(np.asarray(y_test[:max_batch]), device=self.device)
-        logits = self.model.predict(mean_params, x_test)
-        acc = (logits.argmax(-1) == y_test).to(torch.float32).mean()
-        loss = self.model.loss_fn(mean_params, (x_test, y_test))
-        return {"accuracy": float(acc), "loss": float(loss)}

@@ -13,8 +13,11 @@ per-leaf adaptive grids through per-row scale operands
 (repro_torch.kernels.quantize). Padding entries start at zero and stay
 exactly zero through the whole protocol.
 
-A tree is a nested list/tuple of tensors (the FNN's ``[(W, b), ...]``);
-``FlatSpec`` records its nesting and leaf shapes.
+A tree is a nested dict/list/tuple of tensors (the FNN's ``[(W, b), ...]``,
+the LSTM's ``{"cells": [(wx, wh, b), ...], "embed": ..., ...}``); dicts are
+walked in sorted-key order, as ``jax.tree_util`` walks them, so a leaf has
+the same segment of the flat vector in both packages. ``FlatSpec`` records
+the nesting and the leaf shapes.
 """
 from __future__ import annotations
 
@@ -39,19 +42,26 @@ LANES = 128
 
 
 def tree_leaves(tree: Any) -> list:
-    """Leaves of a nested list/tuple, depth first, in order."""
+    """Leaves of a nested dict/list/tuple, depth first; a dict's children
+    in sorted-key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
         return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
 
 
 def _structure(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _structure(tree[k]) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_structure(sub) for sub in tree)
     return None
 
 
 def _rebuild(structure: Any, leaves) -> Any:
+    if isinstance(structure, dict):
+        return {k: _rebuild(sub, leaves) for k, sub in structure.items()}
     if isinstance(structure, (list, tuple)):
         return type(structure)(_rebuild(sub, leaves) for sub in structure)
     return next(leaves)
@@ -122,11 +132,18 @@ def flatten_tree(tree: Any, spec: FlatSpec) -> torch.Tensor:
 
 def unflatten_tree(flat: torch.Tensor, spec: FlatSpec) -> Any:
     """Inverse of :func:`flatten_tree`; drops the padding entries. The leaves
-    are views of ``flat``."""
+    are views of ``flat``.
+
+    One split into the leaf segments: its gradient is one concatenation of
+    the leaves' gradients, where a slice per leaf would give each leaf's
+    gradient as a zero-filled tensor of the whole flat width to be summed
+    (nine of them at the LSTM's 20 M parameters a chain)."""
     bshape = tuple(flat.shape[:-1])
+    segs = torch.split(flat, list(spec.padded_sizes), dim=-1)
     leaves = [
-        flat[..., off:off + size].reshape(bshape + shape)
-        for shape, size, off in zip(spec.shapes, spec.sizes, spec.offsets)
+        (seg if size == psize else seg[..., :size]).reshape(bshape + shape)
+        for seg, shape, size, psize in zip(segs, spec.shapes, spec.sizes,
+                                           spec.padded_sizes)
     ]
     return _rebuild(spec.structure, iter(leaves))
 

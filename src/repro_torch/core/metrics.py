@@ -1,5 +1,5 @@
-"""Shared experiment loop and history records (the port of
-``repro.core.metrics``)."""
+"""Shared experiment loop, history records and the latency model of the
+paper's Table IV (the port of ``repro.core.metrics``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +8,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["History", "train_loop"]
+__all__ = ["History", "train_loop", "latency_fedavg", "latency_dfedrw"]
 
 
 @dataclasses.dataclass
@@ -63,3 +63,13 @@ def train_loop(
             if callback is not None:
                 callback(r, metrics, evald)
     return hist
+
+
+def latency_fedavg(k_epochs: int, t_p: float, t_c: float) -> float:
+    """Table IV: T_A = K*T_p + 2*T_c per round."""
+    return k_epochs * t_p + 2.0 * t_c
+
+
+def latency_dfedrw(k_epochs: int, t_p: float, t_c: float) -> float:
+    """Table IV: T_R = K*T_p + (K+1)*T_c per round (walk hand-offs serialize)."""
+    return k_epochs * t_p + (k_epochs + 1.0) * t_c

@@ -61,6 +61,10 @@ class QuantConfig:
     def levels(self) -> int:
         return (1 << (self.bits - 1)) - 1  # sign bit reserved
 
+    @property
+    def enabled(self) -> bool:
+        return self.bits < 32
+
 
 @dataclasses.dataclass
 class Quantized:

@@ -87,13 +87,19 @@ def sample_walks(
     k: int,
     rng: np.random.Generator,
     straggler: StragglerModel | None = None,
+    start_devices: np.ndarray | None = None,
 ) -> WalkPlan:
     """Sample M MH random-walk chains of (variable) length <= K.
 
-    Start devices are uniform over V (Alg. 1 line 3; chain mode's persisted
-    starts come with that slice). Chains step by inverse-CDF over the cached
-    transition rows: one uniform draw per step for all M chains."""
-    start = rng.integers(0, topo.n, size=m)
+    Start devices are uniform over V (Alg. 1 line 3) unless given: chain
+    mode (§VI-F) starts each chain where it ended, i_m^{t,0} =
+    i_m^{t-1,last}, and then draws no start. Chains step by inverse-CDF over
+    the cached transition rows: one uniform draw per step for all M
+    chains."""
+    if start_devices is None:
+        start = rng.integers(0, topo.n, size=m)
+    else:
+        start = np.asarray(start_devices, dtype=np.int64) % topo.n
     devices = np.zeros((m, k), dtype=np.int32)
     n = topo.n
     cur = start.astype(np.int64)

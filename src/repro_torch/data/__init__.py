@@ -1,3 +1,7 @@
-from repro_torch.data.synthetic import FederatedDataset, synthetic_image_classification
+from repro_torch.data.synthetic import (
+    FederatedDataset,
+    synthetic_image_classification,
+    synthetic_token_stream,
+)
 
-__all__ = ["synthetic_image_classification", "FederatedDataset"]
+__all__ = ["synthetic_image_classification", "synthetic_token_stream", "FederatedDataset"]

@@ -5,11 +5,10 @@ arrays in both packages).
 - `synthetic_image_classification`: class-conditional images with a fixed
   per-class template + Gaussian noise, 28x28 grayscale, 10 classes -- same
   shape/cardinality as MNIST.
+- `synthetic_token_stream`: per-client next-word sequences with a skewed
+  vocabulary, the stand-in for the paper's Reddit data (§VI-F).
 - `FederatedDataset`: the global arrays plus the dense per-client index
   matrix the round engine samples batches from.
-
-The Reddit stand-in (``synthetic_token_stream``) comes with the LSTM slice
-(ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["synthetic_image_classification", "FederatedDataset"]
+__all__ = ["synthetic_image_classification", "synthetic_token_stream", "FederatedDataset"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +65,43 @@ def synthetic_image_classification(
     y = rng.integers(0, n_classes, size=n_samples)
     x = templates[y] + noise * rng.normal(0.0, 1.0, size=(n_samples, h, w))
     return x.astype(np.float32), y.astype(np.int64)
+
+
+def synthetic_token_stream(
+    n_clients: int = 64,
+    seq_len: int = 20,
+    seqs_per_client: int = 64,
+    vocab: int = 1000,
+    client_vocab: int = 120,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-client LM data with vocabulary skew (natural Non-IID, like Reddit
+    users). Token t+1 = (a_c * t + b_c) mod client_vocab mapped into the
+    client's preferred vocab slice, + occasional global tokens — a learnable
+    structured sequence per client.
+
+    Returns (tokens, next_tokens, client_of_seq):
+      tokens      (n_clients*seqs_per_client, seq_len) int32
+      next        (n_clients*seqs_per_client, seq_len) int32
+      client_of   (n_clients*seqs_per_client,) int32
+    """
+    rng = np.random.default_rng(seed)
+    xs, ys, cs = [], [], []
+    for c in range(n_clients):
+        base = int(rng.integers(0, max(vocab - client_vocab, 1)))
+        a = int(rng.integers(1, 7))
+        b = int(rng.integers(0, client_vocab))
+        t0 = rng.integers(0, client_vocab, size=seqs_per_client)
+        seq = np.zeros((seqs_per_client, seq_len + 1), dtype=np.int64)
+        seq[:, 0] = t0
+        for t in range(seq_len):
+            seq[:, t + 1] = (a * seq[:, t] + b) % client_vocab
+        toks = (seq + base) % vocab
+        xs.append(toks[:, :-1])
+        ys.append(toks[:, 1:])
+        cs.append(np.full(seqs_per_client, c))
+    return (
+        np.concatenate(xs).astype(np.int32),
+        np.concatenate(ys).astype(np.int32),
+        np.concatenate(cs).astype(np.int32),
+    )

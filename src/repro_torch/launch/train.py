@@ -1,13 +1,17 @@
 """Training launcher (the port of ``repro.launch.train``).
 
-``protocol --algo dfedrw`` runs the paper's federated protocol
-(DFedRW/QDFedRW) on synthetic federated data, on the card unless
-``--device cpu`` is given. The baselines (``--algo fedavg|dfedavg|dsgd``)
-and the ``pod`` mode are not ported yet (ROADMAP.md, queue A).
+``protocol`` runs the paper's federated protocol (``--algo dfedrw``:
+DFedRW/QDFedRW) or one of its baselines (``--algo fedavg|dfedavg|dsgd``) on
+synthetic federated data, on the card unless ``--device cpu`` is given;
+``--checkpoint-dir`` saves the accuracy history at step ``--rounds``. The
+``pod`` mode and ``--obs``/``--trace`` are not ported yet (ROADMAP.md,
+queue A).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train protocol --algo dfedrw --rounds 100
   PYTHONPATH=src python -m repro_torch.launch.train protocol --bits 8 --device cpu --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train protocol --algo dfedavg --bits 8 \
+      --device cpu --rounds 2 --checkpoint-dir /tmp/ckpt
 """
 from __future__ import annotations
 
@@ -17,27 +21,33 @@ import numpy as np
 
 
 def protocol_main(args) -> None:
+    from repro_torch.checkpoint import save_checkpoint
     from repro_torch.core import (
-        DFedRW, DFedRWConfig, QuantConfig, StragglerModel, make_topology, train_loop,
+        DSGD, BaselineConfig, DFedAvg, DFedRW, DFedRWConfig, FedAvg, QuantConfig,
+        StragglerModel, make_topology, train_loop,
     )
     from repro_torch.core.heterogeneity import partition_similarity
     from repro_torch.data import FederatedDataset, synthetic_image_classification
     from repro_torch.models import make_fnn
 
-    if args.algo != "dfedrw":
-        raise NotImplementedError(
-            f"--algo {args.algo}: the baselines are not ported yet "
-            "(ROADMAP.md queue A, item 5: baselines)")
     x, y = synthetic_image_classification(n_samples=8000, seed=0, noise=2.0)
     xt, yt = synthetic_image_classification(n_samples=1000, seed=1, noise=2.0)
     part = partition_similarity(y, args.devices, args.u, np.random.default_rng(7))
     data = FederatedDataset.from_partition(x, y, part)
     topo = make_topology(args.topology, args.devices)
     model = make_fnn((200, 200))
-    runner = DFedRW(model, data, topo, DFedRWConfig(
-        m_chains=args.chains, k_walk=args.epochs,
-        straggler=StragglerModel(h_percent=args.h), quant=QuantConfig(bits=args.bits)),
-        device=args.device)
+    strag = StragglerModel(h_percent=args.h)
+    quant = QuantConfig(bits=args.bits)
+    if args.algo == "dfedrw":
+        runner = DFedRW(model, data, topo, DFedRWConfig(
+            m_chains=args.chains, k_walk=args.epochs, straggler=strag, quant=quant),
+            device=args.device)
+    else:
+        cls = {"fedavg": FedAvg, "dfedavg": DFedAvg, "dsgd": DSGD}[args.algo]
+        runner = cls(model, data, topo, BaselineConfig(
+            n_selected=args.devices if args.algo != "fedavg" else args.chains,
+            local_epochs=args.epochs, straggler=strag, quant=quant),
+            device=args.device)
 
     def cb(r, metrics, evald):
         print(f"round {r+1:4d}  loss={metrics.train_loss:.4f} "
@@ -46,6 +56,10 @@ def protocol_main(args) -> None:
     hist = train_loop(runner, args.rounds, xt, yt,
                       eval_every=max(args.rounds // 20, 1), callback=cb)
     print(f"final: {hist.final()}")
+    if args.checkpoint_dir:
+        save_checkpoint(args.checkpoint_dir, args.rounds,
+                        {"history_acc": np.array(hist.test_accuracy)})
+        print(f"checkpointed to {args.checkpoint_dir}")
 
 
 def main(argv=None) -> None:
@@ -64,6 +78,7 @@ def main(argv=None) -> None:
     p.add_argument("--topology", default="complete")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--checkpoint-dir", default=None)
     sub.add_parser("pod", help="not ported yet")
     args = ap.parse_args(argv)
     if args.mode == "pod":

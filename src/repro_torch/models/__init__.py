@@ -1,5 +1,7 @@
 from repro_torch.models import transformer
 from repro_torch.models.config import ArchConfig, MLAConfig, MoEConfig, SSMConfig
 from repro_torch.models.fnn import make_fnn
+from repro_torch.models.lstm_lm import make_lstm_lm
 
-__all__ = ["make_fnn", "transformer", "ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig"]
+__all__ = ["make_fnn", "make_lstm_lm", "transformer", "ArchConfig", "MLAConfig",
+           "MoEConfig", "SSMConfig"]

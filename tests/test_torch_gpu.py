@@ -18,7 +18,9 @@ another order; the tolerance tests/test_kernels_ssd.py holds the TPU
 kernel to), each of its four stage kernels launched once a call; ``block_attn`` within 1e-4 absolute and relative
 of ``block_attention_plain`` (3xTF32 tensor-core products and an online
 softmax against a materialized float32 softmax), and the SMOKE Yi model on
-the card within 2e-4 of the CPU.
+the card within 2e-4 of the CPU. QDFedAvg's rounds and quantized LSTM
+chain-mode rounds on the card stay within 0.05 * scale + 1e-4 of the CPU's
+(tests/test_flat_engine.py's bound).
 """
 import numpy as np
 import pytest
@@ -232,6 +234,75 @@ def test_engine_on_card_matches_cpu(cuda):
         a, b = runs[0][1].device_params, runs[1][1].device_params.cpu()
         assert float((a - b).abs().max()) < 0.05 * float(a.abs().max()) + 1e-4
     assert _launched() == {"qdq_delta_rows_rng": 9, "qdq_rows_rng": 3}
+
+
+def test_qdfedavg_on_card_matches_cpu(cuda):
+    """Three QDFedAvg rounds (DFedAvg at bits=8) from the same weights and
+    seed words on the CPU (plain version) and on the card: within the bits=8
+    contract of tests/test_torch_baselines.py, through one ``qdq_rows_rng``
+    launch a round and no other kernel."""
+    from repro_torch.core import BaselineConfig, DFedAvg, QuantConfig, make_topology
+    from repro_torch.core.heterogeneity import partition_similarity
+    from repro_torch.data import FederatedDataset, synthetic_image_classification
+    from repro_torch.models import make_fnn
+
+    x, y = synthetic_image_classification(n_samples=2000, seed=0, noise=1.0)
+    data = FederatedDataset.from_partition(
+        x, y, partition_similarity(y, 10, 50, np.random.default_rng(0)))
+    model = make_fnn((64,))
+    params = model.init(torch.Generator().manual_seed(3), "cpu")
+    cfg = BaselineConfig(n_selected=10, local_epochs=3, n_agg=3, batch_size=32,
+                         quant=QuantConfig(bits=8))
+    runs = []
+    for device in ("cpu", cuda):
+        r = DFedAvg(model, data, make_topology("complete", 10), cfg, device=device)
+        runs.append([r, r.state_from_params(params)])
+    seeds = torch.Generator().manual_seed(11)
+    qk.reset_launch_counts()
+    for _ in range(3):
+        qseed = torch.randint(0, 1 << 32, (2,), generator=seeds)
+        for run in runs:
+            run[1], _ = run[0].run_round(run[1], None, qseed=qseed)
+        a, b = runs[0][1].device_params, runs[1][1].device_params.cpu()
+        assert float((a - b).abs().max()) < 0.05 * float(a.abs().max()) + 1e-4
+    assert _launched() == {"qdq_rows_rng": 3}
+
+
+def test_chain_mode_round_on_card_matches_cpu(cuda):
+    """Two quantized chain-mode rounds of a small LSTM (§VI-F) on the CPU and
+    on the card from the same weights and seed words: the same chain starts,
+    the matrix within 0.05 * scale + 1e-4, and K hop launches and one
+    aggregation launch a round."""
+    from repro_torch.core import DFedRW, DFedRWConfig, QuantConfig, make_topology
+    from repro_torch.core.heterogeneity import Partition
+    from repro_torch.data import FederatedDataset, synthetic_token_stream
+    from repro_torch.models import make_lstm_lm
+
+    toks, nxt, client = synthetic_token_stream(n_clients=8, seq_len=6, seqs_per_client=16,
+                                               vocab=200, client_vocab=20, seed=0)
+    idxs = [np.nonzero(client == c)[0] for c in range(8)]
+    data = FederatedDataset.from_partition(toks, nxt[:, -1], Partition(idxs, 8))
+    model = make_lstm_lm(vocab=200, embed=32, hidden=64)
+    params = model.init(torch.Generator().manual_seed(3), "cpu")
+    cfg = DFedRWConfig(m_chains=4, k_walk=3, batch_size=8, lr_r=0.5, chain_mode=True,
+                       quant=QuantConfig(bits=8))
+    runs = []
+    for device in ("cpu", cuda):
+        r = DFedRW(model, data, make_topology("complete", 8), cfg, device=device)
+        runs.append([r, r.state_from_params(params)])
+    seeds = torch.Generator().manual_seed(11)
+    qk.reset_launch_counts()
+    for _ in range(2):
+        qseeds = torch.randint(0, 1 << 32, (cfg.k_walk + 1, 2), generator=seeds)
+        for run in runs:
+            r, state = run
+            plan, bidx = r.plan_walks(state)
+            run[1], _ = r.execute_round(state, plan, bidx, r.plan_aggregation(plan), None,
+                                        qseeds=qseeds)
+        np.testing.assert_array_equal(runs[0][1].chain_starts, runs[1][1].chain_starts)
+        a, b = runs[0][1].device_params, runs[1][1].device_params.cpu()
+        assert float((a - b).abs().max()) < 0.05 * float(a.abs().max()) + 1e-4
+    assert _launched() == {"qdq_delta_rows_rng": 6, "qdq_rows_rng": 2}
 
 
 def _ssd_inputs(b, h, l, p, n, g, device, seed=0):

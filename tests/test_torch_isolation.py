@@ -162,12 +162,19 @@ def test_entry_points_default_to_cuda():
         x, y, partition_similarity(y, 4, 50, np.random.default_rng(0)))
     with pytest.raises(RuntimeError, match="CUDA"):
         DFedRW(make_fnn((8,)), data, make_topology("complete", 4), DFedRWConfig())
+    from repro_torch.core import BaselineConfig, DFedAvg, FedAvg
+
+    for cls in (FedAvg, DFedAvg):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(make_fnn((8,)), data, make_topology("complete", 4), BaselineConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy([(np.zeros((2, 2)), np.zeros(2))])
     with pytest.raises(RuntimeError, match="CUDA"):
         flat_from_numpy(np.zeros((2, 128)))
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["protocol", "--rounds", "1", "--devices", "4"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["protocol", "--algo", "dsgd", "--rounds", "1", "--devices", "4"])
 
     from repro_torch.configs import get_smoke
     from repro_torch.convert import lm_params_from_numpy
