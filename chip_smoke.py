@@ -47,6 +47,22 @@ or of the JAX package ``repro``. Phases, in order:
    plain versions on that run's payloads (1,575,750 and 4,727,250 rows);
    then the checkpoint phase, the trained params saved from the card and
    loaded into a template on the card, bit for bit;
+10b. the virtual-time simulator (``repro_torch.sim``), see
+   :func:`sim_phases`: (a) ``straggler_tail`` on the CPU and the card from
+   the same weights and seed words (equal records, params within the bits-8
+   contract, K hop and one aggregation launch a window), then
+   ``congested_uplink`` under the adaptive controller with both kernels held
+   against their plain versions at every width it picked and at 2, 4, 6 and
+   8; (b) ``fleet_metro`` at n = 200 and 1,000, heap against fleet with
+   telemetry and causal traces (equal records and counters, byte-identical
+   ``tspan`` lines at n = 200); (c) the
+   acceptance-scale ``fleet_metro`` on the fleet engine at n = 100,000
+   (10,000 chains, 2 windows): ms a window split into host timeline,
+   engine and evaluation, the idle share of one profiled window, peak
+   memory, the launch counts, and both kernels held against their plain
+   versions on that run's payloads (70,000 and 560,000 rows); (d) record
+   and replay on the card, bit for bit; (e) ``straggler_tail`` partial
+   against drop at the scenario's defaults (n = 20, 40 windows);
 11. the Mamba2 slice (``configs.mamba2_130m`` as the registry gives it,
    float32, TF32 off), see :func:`mamba_phases`: ``ssd_scan`` (four stage
    kernels a call: ``chunk_cb``, ``chunk_state``, ``state_pass``,
@@ -142,6 +158,15 @@ BASELINES = [
 BASELINE_ROUNDS = 5
 LSTM_VOCAB = 50_000            # the paper's §VI-F vocabulary
 LSTM_ROUNDS = 3
+# The simulator (repro_torch.sim): windows of each of its phases, see
+# sim_phases. SIM_FLEET_N is the README's acceptance-scale fleet_metro run.
+SIM_WINDOWS = 3
+SIM_ADAPTIVE_WINDOWS = 6
+SIM_CROSS_N = (200, 1_000)
+SIM_FLEET_N = 100_000
+SIM_FLEET_WINDOWS = 2
+SIM_RECORD_FIELDS = ("round", "t_start", "t_compute_end", "t_end", "events", "k_planned",
+                     "k_done", "k_exec", "killed", "agg_latency_s", "resumed", "bits")
 SPIN_CYCLES = 200_000_000      # ~0.1 s at the H100's clock: longer than queuing a timing loop
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:32 _ssd_kernel"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
@@ -1226,6 +1251,327 @@ def lstm_phase(tag):
     return counts
 
 
+def _same_records(a, b, host=False):
+    """Two simulator results' window records equal field by field (the host
+    wall time too when ``host``)."""
+    import numpy as np
+
+    fields = SIM_RECORD_FIELDS + (("host_loop_s",) if host else ())
+    return len(a.records) == len(b.records) and all(
+        np.array_equal(np.asarray(getattr(ra, f)), np.asarray(getattr(rb, f)))
+        for ra, rb in zip(a.records, b.records) for f in fields)
+
+
+def _timed_method(obj, attr, sink):
+    """Shadow ``obj.attr`` with a wrapper that appends each call's wall
+    seconds, ending in a synchronize, to ``sink``; ``delattr`` undoes it."""
+    import torch
+
+    real = getattr(obj, attr)
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, attr, call)
+
+
+def _hold_at_widths(captured, spec, m, k, widths, label):
+    """Both counter-RNG kernels on a simulator path's captured hop and
+    aggregation payloads, at each wire width of ``widths``, with the side
+    information recomputed for that width."""
+    from repro_torch.kernels.quantize import payload_side_info
+
+    held = {}
+    for bits in widths:
+        for name, b, per_message in (("qdq_delta_rows_rng", m, False),
+                                     ("qdq_rows_rng", k * m, True)):
+            args, _ = captured[name]
+            s_rows, n_rows = payload_side_info(args[0].reshape(b, spec.d_pad), spec,
+                                               per_message=per_message, bits=bits)
+            held[(name, bits)] = _hold_kernel(name, (*args[:-2], s_rows, n_rows), bits,
+                                              f"{label} width {bits}")
+    return held
+
+
+def sim_phases(tag):
+    """The virtual-time simulator (``repro_torch.sim``) on the card, through
+    ``build_scenario(...).runner()`` and ``run``/``replay`` as a user calls
+    them, with the counts from 0 before each run:
+
+    (a) ``straggler_tail`` (n = 20, the 2NN, bits 8, SIM_WINDOWS windows) on
+        the CPU and the card from the same weights and seed words: equal
+        records and Eq. 18 bits, params within 0.05 * scale + 1e-4, K hop
+        and one aggregation launch a window; then ``congested_uplink`` with
+        ``bits="adaptive"`` (SIM_ADAPTIVE_WINDOWS windows), its hop and
+        aggregation payloads holding both kernels against their plain
+        versions at every width the controller picked and at every width of
+        ``DEFAULT_WIDTHS`` below 32 (6 included);
+    (b) ``fleet_metro`` at n = 200 and 1,000 on the heap and the fleet
+        engine with a telemetry recorder and causal traces: equal records,
+        counters and virtual-time spans, params within the bits-8 contract,
+        byte-identical ``tspan`` lines at n = 200 (at n = 1,000 the fleet's
+        tie order puts some same-instant sends in another queue order, as
+        in the JAX package);
+    (c) ``fleet_metro`` on the fleet engine at n = SIM_FLEET_N, bits 8,
+        SIM_FLEET_WINDOWS windows: ms a window split into host timeline,
+        engine (``execute_round``) and evaluation, one more window under the
+        profiler, peak memory, the launch counts (K + 1 a window), and both
+        kernels on that run's payloads against their plain versions, timed
+        beside their bounds;
+    (d) the n = 1,000 heap run of (b) recorded and replayed on the card:
+        params, records and history bit for bit;
+    (e) ``straggler_tail`` at its defaults (n = 20, 40 windows), policy
+        partial against drop: the accuracies.
+
+    Returns the launches of every simulator run on the card by kernel, and
+    the fleet payloads' kernel numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.kernels.quantize import quantize as qk
+    from repro_torch.obs import Recorder, VirtualClock
+    from repro_torch.sim import DEFAULT_WIDTHS, SimTrace, build_scenario
+
+    counts = dict.fromkeys(qk.LAUNCHES, 0)
+
+    def launches(windows_quantized, k, label):
+        got = dict(qk.LAUNCHES)
+        want = dict.fromkeys(qk.LAUNCHES, 0)
+        want.update(qdq_delta_rows_rng=k * windows_quantized, qdq_rows_rng=windows_quantized)
+        if got != want:
+            _fail(f"sim {label}: launches {got}, want {want}")
+        for name, n in got.items():
+            counts[name] += n
+        return got
+
+    def capture():
+        captured = {}
+        real = (ops.qdq_delta_rows_rng, ops.qdq_rows_rng)
+        ops.qdq_delta_rows_rng = _capture_first(captured, "qdq_delta_rows_rng", real[0])
+        ops.qdq_rows_rng = _capture_first(captured, "qdq_rows_rng", real[1])
+
+        def restore():
+            ops.qdq_delta_rows_rng, ops.qdq_rows_rng = real
+        return captured, restore
+
+    # ----------------------------------------------- (a) CPU against the card
+    setup = build_scenario("straggler_tail", n=20, seed=0, bits=8)
+    k = setup.cfg.k_walk
+    gen = torch.Generator().manual_seed(21)
+    qseeds = [torch.randint(0, 1 << 32, (k + 1, 2), generator=gen) for _ in range(SIM_WINDOWS)]
+    params = setup.model.init(torch.Generator().manual_seed(4), "cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        runner = setup.runner(device=dev)
+        qk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res[dev] = runner.run(SIM_WINDOWS, torch.Generator().manual_seed(0), setup.x_test,
+                              setup.y_test, eval_every=1, qseeds=qseeds,
+                              params=[(w.to(dev), b.to(dev)) for w, b in params])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            got = launches(SIM_WINDOWS, k, "straggler_tail")
+        wall = (time.perf_counter() - t0) * 1e3
+        print(f"sim {tag}: straggler_tail n=20 bits=8 {dev}: {SIM_WINDOWS} windows "
+              f"{wall:.1f} ms, acc={[round(a, 4) for a in res[dev].history.test_accuracy]} "
+              f"loss={[round(v, 5) for v in res[dev].history.train_loss]}"
+              + (f" launches={got}" if dev == "cuda" else ""))
+    a = res["cpu"].state.device_params
+    b = res["cuda"].state.device_params.cpu()
+    diff = float((a - b).abs().max())
+    if (not _same_records(res["cpu"], res["cuda"])
+            or res["cpu"].history.comm_bits != res["cuda"].history.comm_bits
+            or not diff < 0.05 * float(a.abs().max()) + 1e-4 or not torch.isfinite(b).all()):
+        _fail(f"sim straggler_tail: the CPU and the card disagree (max|d|={diff:.3e})")
+    print(f"sim {tag}: straggler_tail cpu-vs-card: records and Eq. 18 bits equal, "
+          f"max|d matrix|={diff:.3e}")
+
+    setup = build_scenario("congested_uplink", n=20, seed=0, bits="adaptive")
+    runner = setup.runner()
+    captured, restore = capture()
+    qk.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ares = runner.run(SIM_ADAPTIVE_WINDOWS, torch.Generator().manual_seed(0),
+                          setup.x_test, setup.y_test, eval_every=SIM_ADAPTIVE_WINDOWS)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    picked = [r.bits for r in ares.records]
+    quantized = sum(w < 32 for w in picked)
+    got = launches(quantized, setup.cfg.k_walk, "congested_uplink adaptive")
+    print(f"sim {tag}: congested_uplink n=20 bits=adaptive "
+          f"{setup.sim.bits_policy.widths}: widths by window {picked}, programs_run "
+          f"{runner.engine.programs_run}, {SIM_ADAPTIVE_WINDOWS} windows {wall:.1f} ms, "
+          f"acc={ares.history.test_accuracy[-1]:.4f} launches={got}")
+    if runner.engine.programs_run != tuple(sorted(set(picked))):
+        _fail("sim congested_uplink: programs_run disagrees with the windows' widths")
+    widths = sorted({w for w in (*DEFAULT_WIDTHS, *picked) if w < 32})
+    _hold_at_widths(captured, runner.engine.flat_spec, setup.cfg.m_chains, setup.cfg.k_walk,
+                    widths, "congested_uplink payload")
+    del captured, runner
+
+    # -------------------------------------- (b) heap against fleet, traced
+    # The fleet admits same-instant sends of one sender in (t_ready, chain)
+    # order, the heap in push order (the fleet's tie contract,
+    # docs/SIMULATOR.md): the JAX package's own heap and fleet write the
+    # same tspan lines at n = 200 and differ in the queue order of such ties
+    # at n = 1,000, with equal records. The uplink duration totals differ in
+    # float association (the fleet sums a window at a time).
+    for n in SIM_CROSS_N:
+        cross = {}
+        for engine in ("heap", "fleet"):
+            setup = build_scenario("fleet_metro", n=n, seed=0)
+            runner = setup.runner(engine=engine)
+            rec = Recorder(clock=VirtualClock(), trace=True)
+            runner.attach_obs(rec, trace=True)
+            qk.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = runner.run(2, torch.Generator().manual_seed(0), setup.x_test,
+                                setup.y_test, eval_every=2, record=engine == "heap")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            got = launches(2, setup.cfg.k_walk, f"fleet_metro n={n} {engine}")
+            tspans = [json.dumps(e) for e in rec.events if e["kind"] == "tspan"]
+            print(f"sim {tag}: fleet_metro n={n} {engine}: 2 windows {wall:.1f} ms "
+                  f"events={result.events_total} tspans={len(tspans)} "
+                  f"virtual_time={result.virtual_time_s!r} "
+                  f"acc={result.history.test_accuracy[-1]:.4f} launches={got}")
+            cross[engine] = (setup, result, tspans, rec.to_stream().summary)
+        (hsetup, hres, htsp, hsum), (_, fres, ftsp, fsum) = cross["heap"], cross["fleet"]
+        a, b = hres.state.device_params, fres.state.device_params
+        diff = float((a - b).abs().max())
+        spans = [name for name in hsum["spans"] if not name.startswith("sim/uplink")]
+        tied = len(set(htsp) - set(ftsp))
+        if (not _same_records(hres, fres) or not htsp or len(htsp) != len(ftsp)
+                or (n == SIM_CROSS_N[0] and htsp != ftsp)
+                or hsum["counters"] != fsum["counters"]
+                or any(hsum["spans"][k] != fsum["spans"][k] for k in spans)
+                or not diff < 0.05 * float(a.abs().max()) + 1e-4):
+            _fail(f"sim fleet_metro n={n}: heap and fleet disagree (max|d|={diff:.3e}, "
+                  f"{tied} tspan lines apart)")
+        print(f"sim {tag}: fleet_metro n={n} heap-vs-fleet: records, counters and "
+              f"virtual-time spans identical; {len(htsp)} tspan lines, byte-identical="
+              f"{htsp == ftsp}, {tied} apart by the fleet's tie order; params "
+              f"bit-identical={bool(torch.equal(a, b))} max|d|={diff:.3e}")
+
+    # ------------------------------------------------ (d) record and replay
+    runner = hsetup.runner(engine="heap")
+    qk.reset_launch_counts()
+    rep = runner.replay(SimTrace.from_lines(hres.trace.to_lines()),
+                        torch.Generator().manual_seed(0), hsetup.x_test, hsetup.y_test,
+                        eval_every=2)
+    torch.cuda.synchronize()
+    got = launches(2, hsetup.cfg.k_walk, "replay")
+    same = (torch.equal(rep.state.device_params, hres.state.device_params)
+            and _same_records(rep, hres, host=True)
+            and rep.history.train_loss == hres.history.train_loss
+            and rep.history.test_accuracy == hres.history.test_accuracy)
+    print(f"sim {tag}: record/replay on the card ({len(hres.trace.windows)} windows, "
+          f"{len(hres.trace.to_lines())} trace lines): bit-identical={same} launches={got}")
+    if not same:
+        _fail("sim: the replay on the card is not bit-identical to the run")
+    del cross, hres, fres, rep, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------- (c) the acceptance-scale fleet
+    t0 = time.perf_counter()
+    setup = build_scenario("fleet_metro", n=SIM_FLEET_N, seed=0, bits=8)
+    runner = setup.runner(engine="fleet")
+    cfg, eng = setup.cfg, runner.engine
+    print(f"sim {tag}: fleet_metro n={SIM_FLEET_N}: M={cfg.m_chains} K={cfg.k_walk} "
+          f"B={cfg.batch_size} d={eng.flat_spec.d} d_pad={eng.flat_spec.d_pad} "
+          f"rows={eng.flat_spec.rows} aggregators={max(1, round(SIM_FLEET_N * cfg.agg_fraction))} "
+          f"set-up {time.perf_counter() - t0:.2f}s")
+    engine_s, eval_s, init_s, stamps = [], [], [], []
+    _timed_method(eng, "execute_round", engine_s)
+    _timed_method(eng, "evaluate", eval_s)
+    _timed_method(runner, "init_state", init_s)
+
+    def stamp(r, metrics, evald, record):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    captured, restore = capture()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qk.reset_launch_counts()
+    t_run = time.perf_counter()
+    try:
+        result = runner.run(SIM_FLEET_WINDOWS, torch.Generator().manual_seed(0), setup.x_test,
+                            setup.y_test, eval_every=1, callback=stamp)
+    finally:
+        restore()
+        for obj, attr in ((eng, "execute_round"), (eng, "evaluate"), (runner, "init_state")):
+            delattr(obj, attr)
+    torch.cuda.synchronize()
+    got = launches(SIM_FLEET_WINDOWS, cfg.k_walk, f"fleet_metro n={SIM_FLEET_N}")
+    peak = torch.cuda.max_memory_allocated()
+    starts = [t_run + init_s[0]] + stamps[:-1]
+    walls = [(b - a) * 1e3 for a, b in zip(starts, stamps)]
+    for i, rec in enumerate(result.records):
+        e_ms, v_ms = engine_s[i] * 1e3, eval_s[i] * 1e3
+        print(f"sim {tag}: fleet_metro n={SIM_FLEET_N} window {rec.round}: ms={walls[i]:.1f} "
+              f"(host timeline {walls[i] - e_ms - v_ms:.1f}, of it the event sweeps "
+              f"{rec.host_loop_s * 1e3:.1f}; engine {e_ms:.1f}; evaluation {v_ms:.1f}) "
+              f"events={rec.events} truncated={rec.truncated_chains} "
+              f"killed={int(rec.killed.sum())} t_end={rec.t_end!r}")
+    print(f"sim {tag}: fleet_metro n={SIM_FLEET_N}: init {init_s[0] * 1e3:.1f} ms, "
+          f"ms/window median={statistics.median(walls):.1f} "
+          f"loss={[round(v, 5) for v in result.history.train_loss]} "
+          f"acc={[round(v, 4) for v in result.history.test_accuracy]} "
+          f"peak_memory_allocated={peak} bytes launches={got}")
+    if not all(math.isfinite(v) for v in result.history.train_loss):
+        _fail(f"sim fleet_metro n={SIM_FLEET_N}: a non-finite loss")
+    state = result.state
+    gen = torch.Generator().manual_seed(1)
+
+    def one_window():
+        nonlocal state
+        state, _, _ = runner.run_round(state, gen)
+
+    _profile(f"fleet_metro n={SIM_FLEET_N} (1 window) {tag}", one_window)
+    spec = eng.flat_spec
+    held = {}
+    for name, rows in (("qdq_delta_rows_rng", cfg.m_chains * spec.rows),
+                       ("qdq_rows_rng", cfg.k_walk * cfg.m_chains * spec.rows)):
+        args, kw = captured[name]
+        if args[0].shape[0] != rows:
+            _fail(f"sim fleet_metro: the {name} payload has {args[0].shape[0]} rows, want {rows}")
+        held[name] = _hold_kernel(name, args, kw["bits"], f"fleet_metro n={SIM_FLEET_N} payload")
+    del captured, runner, result, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ (e) partial against drop
+    accs = {}
+    for policy in ("partial", "drop"):
+        setup = build_scenario("straggler_tail", n=20, seed=0, policy=policy)
+        runner = setup.runner()
+        qk.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = runner.run(setup.rounds, torch.Generator().manual_seed(0), setup.x_test,
+                            setup.y_test, eval_every=10)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches(0, setup.cfg.k_walk, f"straggler_tail {policy}")
+        accs[policy] = result.history.test_accuracy[-1]
+        print(f"sim {tag}: straggler_tail n=20 policy={policy} {setup.rounds} windows: "
+              f"acc={[round(v, 4) for v in result.history.test_accuracy]} "
+              f"truncated={sum(r.truncated_chains for r in result.records)} "
+              f"dropped={sum(r.dropped_chains for r in result.records)} "
+              f"ms/window={wall / setup.rounds:.2f}")
+    print(f"sim {tag}: straggler_tail final accuracy partial={accs['partial']:.4f} "
+          f"drop={accs['drop']:.4f}")
+    return counts, held
+
+
 def _ptxas_report(log):
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an ``-Xptxas -v`` report."""
@@ -1488,11 +1834,16 @@ def main() -> int:
     by_path["lstm_chain_mode"] = lstm_phase(f"[{smi}]")
     gc.collect()                         # the LSTM's state goes before the LM phases
     torch.cuda.empty_cache()
+    by_path["simulator"], sim_held = sim_phases(f"[{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     for name in results:
         results[name]["launches"] = sum(counts[name] for counts in by_path.values())
         results[name]["launches_by_path"] = {path: counts[name]
                                              for path, counts in by_path.items()}
+        results[name]["fleet_metro_n100000"] = {
+            key: sim_held[name][key] for key in ("rows", "ms", "bound_ms", "plain_ms")}
     ssd = mamba_phases(smi)
     gc.collect()                         # the Mamba2 weights and caches go first
     torch.cuda.empty_cache()

@@ -24,6 +24,12 @@ and one communication round runs, in the reference's order:
 Everything that depends only on the plan (winner election, scatter indices)
 is computed on the host and sent to the device once per round.
 
+The virtual-time simulator (repro_torch.sim) drives the same round through
+three seams: ``plan_walks(state, topo=, m=)``, ``plan_aggregation(plan,
+topo=)`` (with the CSR branch for an implicit ``SparseTopology``) and
+``execute_round(..., account_plan=, bits=)``; ``attach_obs`` records the
+reference's ``engine/*`` spans and counters.
+
 ``chain_mode=True`` is the paper's large-scale LM mode (§VI-F, the LSTM):
 the M chains persist across rounds (each starts where it ended) and the
 chain-end devices aggregate the M chain-end models. Only the flat engine
@@ -192,6 +198,36 @@ class DFedRW(FlatRunner):
                 f"engine={cfg.engine!r}: the port has only the flat engine "
                 "(ROADMAP.md queue A, item 13: the reference engine)")
         super().__init__(model, data, topo, cfg, device)
+        self.obs = None             # optional repro_torch.obs.Recorder (attach_obs)
+        self._prepared: set[int] = {validate_wire_bits(cfg.quant.bits)}
+        self._programs_run: set[int] = set()
+
+    # ------------------------------------------------------- per-width table
+    # The reference keeps one compiled round program per wire width. The
+    # port runs eagerly and compiles nothing per width, so it has no trace or
+    # retrace count to report; it keeps the table's meaning: ``prepare_bits``
+    # validates up front every width a bits controller may ask for (a width
+    # outside it raises before any round runs), ``prepared_bits`` lists them,
+    # and ``programs_run`` is the set of widths whose rounds actually ran.
+    def prepare_bits(self, widths) -> None:
+        """Validate every wire width an adaptive bits-policy may request."""
+        for b in widths:
+            self._prepared.add(validate_wire_bits(int(b)))
+
+    @property
+    def prepared_bits(self) -> tuple[int, ...]:
+        return tuple(sorted(self._prepared))
+
+    @property
+    def programs_run(self) -> tuple[int, ...]:
+        """Distinct wire widths whose rounds have executed."""
+        return tuple(sorted(self._programs_run))
+
+    def attach_obs(self, rec) -> None:
+        """Attach a ``repro_torch.obs.Recorder``. Instrumentation is host-side
+        Python at round boundaries only, so attaching a recorder changes no
+        rng stream and no output bit."""
+        self.obs = rec
 
     # ------------------------------------------------------------------ init
     def state_from_params(self, params) -> DFedRWState:
@@ -287,15 +323,40 @@ class DFedRW(FlatRunner):
         agg = self.plan_aggregation(plan)
         return plan, bidx, agg
 
-    def plan_walks(self, state: DFedRWState) -> tuple[WalkPlan, np.ndarray]:
+    def plan_walks(
+        self, state: DFedRWState, topo: Topology | None = None,
+        m: int | None = None,
+    ) -> tuple[WalkPlan, np.ndarray]:
         """Sample the round's M walk trajectories plus their per-step batch
-        indices, in the reference's protocol-rng draw order."""
-        cfg, rng, topo = self.cfg, self.rng, self.topo
-        plan = sample_walks(topo, cfg.m_chains, cfg.k_walk, rng,
-                            straggler=cfg.straggler,
-                            start_devices=state.chain_starts if cfg.chain_mode else None)
-        # Per-step batches from the visited device's local data; a slow
-        # device contributes a partial update by tiling a sub-batch.
+        indices (one protocol-rng draw order shared by every engine and by
+        the virtual-time simulator — repro_torch.sim truncates the returned plan
+        before building the aggregation plan). ``topo`` overrides the bound
+        topology (time-varying graphs); ``m`` overrides the chain count —
+        the fully-asynchronous simulator samples fresh chains only into the
+        slots freed at the last trigger, so a partially-busy window plans
+        fewer than ``cfg.m_chains`` walks (m=None keeps the config count and
+        the draw order the synchronous engine uses)."""
+        cfg, rng = self.cfg, self.rng
+        topo = self.topo if topo is None else topo
+        m_chains = cfg.m_chains if m is None else int(m)
+        if m is not None and cfg.chain_mode:
+            raise ValueError("chain_mode chains persist by construction; "
+                             "partial refills are undefined")
+        plan = sample_walks(
+            topo,
+            m_chains,
+            cfg.k_walk,
+            rng,
+            straggler=cfg.straggler,
+            start_devices=state.chain_starts if cfg.chain_mode else None,
+        )
+        # Per-step batches from the visited device's local data. A slow device
+        # contributes a *partial* update (paper Table II row 4): it processes
+        # only batch_size/slowdown distinct samples within the global clock
+        # (realized by tiling a sub-batch, i.e. an unbiased smaller-batch
+        # gradient at unchanged shapes). One rng draw for the whole (M*K, B)
+        # column tensor; the dense (n, max_size) client index matrix turns it
+        # into global sample ids by fancy indexing.
         slow = cfg.straggler.slow_mask(topo.n)
         b_slow = max(1, int(cfg.batch_size / max(cfg.straggler.slowdown, 1.0)))
         flat_dev = plan.devices.reshape(-1)                       # (M*K,)
@@ -307,56 +368,103 @@ class DFedRW(FlatRunner):
             sub = idx_mat[flat_dev[:, None], cols[:, :b_slow]]
             tiled = np.tile(sub, (1, reps))[:, : cfg.batch_size]
             bidx = np.where(slow[flat_dev][:, None], tiled, bidx)
-        bidx = bidx.reshape(cfg.m_chains, cfg.k_walk, cfg.batch_size)
+        bidx = bidx.reshape(m_chains, cfg.k_walk, cfg.batch_size)
         return plan, bidx
 
-    def plan_aggregation(self, plan: WalkPlan) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Build the round's (agg_devices, agg_rows, agg_weights): a uniform
-        draw of aggregators; per aggregator a random subset of <= n_agg
-        participating neighbors (itself included), weighted by data size.
-        Pad slots carry the aggregator's own id and zero weight.
-
-        Chain mode (§VI-F): the aggregators are the unique chain-end
-        devices, padded to M rows with distinct ids >= n (which the round
-        drops); every row lists all M chain-end devices, weighted by data
-        size, and a chain that took no step has zero weight."""
-        cfg, rng, topo = self.cfg, self.rng, self.topo
+    def plan_aggregation(
+        self, plan: WalkPlan, topo: Topology | None = None
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Build the round's (agg_devices, agg_rows, agg_weights) from the
+        (possibly deadline-truncated) walk plan. Shapes are padded to fixed
+        sizes (pad slots use device id >= n and zero weight; the round
+        drops them) so every window of a run has the same shapes."""
+        cfg, rng = self.cfg, self.rng
+        topo = self.topo if topo is None else topo
+        participants = np.unique(plan.devices[plan.mask])
         sizes = self.data.client_sizes
         if cfg.chain_mode:
+            # §VI-F: N_A(i) = the other chains' end devices; aggregators are
+            # exactly the (unique) chain-end devices, padded to M rows.
+            # Zero-length chains (deadline/churn truncation to k_m = 0, or a
+            # dropped straggler — never produced by the synchronous planner,
+            # which floors k_m at 1) performed no step: their "end" device is
+            # just the start device holding stale params, so they neither
+            # aggregate nor contribute (zero weight).
             alive = plan.k_m > 0
             agg_devices = np.unique(plan.last_device[alive])
             rows = np.tile(plan.last_device, (len(agg_devices), 1))
             w = sizes[plan.last_device].astype(np.float64) * alive
             wsum = w.sum()
-            weights = np.tile(w / (wsum if wsum > 0 else 1.0), (len(agg_devices), 1))
+            weights = np.tile(w / (wsum if wsum > 0 else 1.0),
+                              (len(agg_devices), 1))
             pad = cfg.m_chains - len(agg_devices)
             if pad > 0:
+                # Distinct out-of-range ids (all pad slots are dropped).
                 agg_devices = np.concatenate([agg_devices, topo.n + np.arange(pad)])
                 rows = np.pad(rows, ((0, pad), (0, 0)))
                 weights = np.pad(weights, ((0, pad), (0, 0)))
-            return (agg_devices.astype(np.int32), rows.astype(np.int32),
-                    weights.astype(np.float32))
-        participants = np.unique(plan.devices[plan.mask])
-        n_aggregators = max(1, int(round(topo.n * cfg.agg_fraction)))
-        agg_devices = rng.choice(topo.n, size=n_aggregators, replace=False)
-        n_agg = cfg.n_agg
-        row_list, weight_list = [], []
-        part_set = set(participants.tolist())
-        for i in agg_devices:
-            nbrs = [j for j in topo.neighbors(i, include_self=True)
-                    if j in part_set or j == i]
-            rng.shuffle(nbrs)
-            nbrs = np.array(nbrs[:n_agg], dtype=np.int64)
-            pad = n_agg - len(nbrs)
-            w = sizes[nbrs].astype(np.float64)
-            w = w / max(w.sum(), 1.0)
-            if pad > 0:
-                nbrs = np.pad(nbrs, (0, pad), constant_values=i)
-                w = np.pad(w, (0, pad))
-            row_list.append(nbrs)
-            weight_list.append(w)
-        agg_rows = np.stack(row_list).astype(np.int32)
-        agg_w = np.stack(weight_list).astype(np.float32)
+        elif getattr(topo, "transition", None) is None:
+            # Implicit SparseTopology: same aggregation law as the dense
+            # branch below (uniform aggregator draw; per aggregator a uniform
+            # random subset of <= n_agg participating neighbors in uniform
+            # random order; size-weights normalized over the selection; pads
+            # carry the aggregator's own id and zero weight) realized as one
+            # CSR gather + lexsort instead of a per-aggregator Python loop.
+            # RNG consumption differs from the dense branch — the two
+            # representations are distinct planners, not stream twins.
+            n_aggregators = max(1, int(round(topo.n * cfg.agg_fraction)))
+            agg_devices = rng.choice(topo.n, size=n_aggregators, replace=False)
+            n_agg = cfg.n_agg
+            deg = topo.degrees[agg_devices]
+            total = int(deg.sum())
+            starts = np.cumsum(deg) - deg
+            offs = np.arange(total, dtype=np.int64) - np.repeat(starts, deg)
+            flat = topo.indices[np.repeat(topo.indptr[agg_devices], deg) + offs]
+            row_id = np.repeat(np.arange(n_aggregators, dtype=np.int64), deg)
+            # The aggregator itself is always a candidate (include_self=True).
+            flat = np.concatenate([flat, agg_devices])
+            row_id = np.concatenate(
+                [row_id, np.arange(n_aggregators, dtype=np.int64)])
+            is_part = np.zeros(topo.n, dtype=bool)
+            is_part[participants] = True
+            keep = is_part[flat] | (flat == agg_devices[row_id])
+            flat, row_id = flat[keep], row_id[keep]
+            keys = rng.random(flat.shape[0])
+            order = np.lexsort((keys, row_id))
+            flat, row_id = flat[order], row_id[order]
+            row_start = np.searchsorted(row_id, np.arange(n_aggregators))
+            rank = np.arange(flat.shape[0], dtype=np.int64) - row_start[row_id]
+            sel = rank < n_agg
+            s_row, s_dev, s_rank = row_id[sel], flat[sel], rank[sel]
+            rows = np.tile(agg_devices[:, None], (1, n_agg))
+            weights = np.zeros((n_aggregators, n_agg), dtype=np.float64)
+            rows[s_row, s_rank] = s_dev
+            w_flat = sizes[s_dev].astype(np.float64)
+            wsum = np.bincount(s_row, weights=w_flat, minlength=n_aggregators)
+            weights[s_row, s_rank] = w_flat / np.maximum(wsum, 1.0)[s_row]
+        else:
+            n_aggregators = max(1, int(round(topo.n * cfg.agg_fraction)))
+            agg_devices = rng.choice(topo.n, size=n_aggregators, replace=False)
+            n_agg = cfg.n_agg
+            row_list, weight_list = [], []
+            part_set = set(participants.tolist())
+            for i in agg_devices:
+                nbrs = [j for j in topo.neighbors(i, include_self=True)
+                        if j in part_set or j == i]
+                rng.shuffle(nbrs)
+                nbrs = np.array(nbrs[:n_agg], dtype=np.int64)
+                pad = n_agg - len(nbrs)
+                w = sizes[nbrs].astype(np.float64)
+                w = w / max(w.sum(), 1.0)
+                if pad > 0:
+                    nbrs = np.pad(nbrs, (0, pad), constant_values=i)
+                    w = np.pad(w, (0, pad))
+                row_list.append(nbrs)
+                weight_list.append(w)
+            rows = np.stack(row_list)
+            weights = np.stack(weight_list)
+        agg_rows = rows.astype(np.int32)
+        agg_w = weights.astype(np.float32)
         return (agg_devices.astype(np.int32), agg_rows, agg_w)
 
     def _comm_cost_bits(
@@ -383,7 +491,11 @@ class DFedRW(FlatRunner):
     # ------------------------------------------------------------------- run
     def run_round(self, state: DFedRWState, key: torch.Generator
                   ) -> tuple[DFedRWState, RoundMetrics]:
-        plan, bidx, agg = self._plan_round(state)
+        if self.obs is None:
+            plan, bidx, agg = self._plan_round(state)
+        else:
+            with self.obs.span("engine/plan"):
+                plan, bidx, agg = self._plan_round(state)
         return self.execute_round(state, plan, bidx, agg, key)
 
     def execute_round(
@@ -405,6 +517,8 @@ class DFedRW(FlatRunner):
         hop payloads and the one aggregation payload; when None (and the
         round is quantized) they are drawn from the generator ``key``."""
         cfg = self.cfg
+        obs = self.obs
+        t_obs = obs.clock.now() if obs is not None else 0.0
         bits_eff = validate_wire_bits(cfg.quant.bits if bits is None else int(bits))
         if bits_eff < 32:
             if qseeds is None:
@@ -417,6 +531,7 @@ class DFedRW(FlatRunner):
                 raise ValueError(f"qseeds needs {cfg.k_walk + 1} rows, got {len(qseeds)}")
         new_params, loss, gamma_hat = self._round_flat(
             state.device_params, plan, bidx, agg, state.global_step, bits_eff, qseeds)
+        self._programs_run.add(bits_eff)
         acct = plan if account_plan is None else account_plan
         tot, busiest = self._comm_cost_bits(acct, agg, self.flat_spec.d, bits=bits_eff)
         agg_devices = agg[0]
@@ -440,4 +555,12 @@ class DFedRW(FlatRunner):
             comm_bits_busiest_round=busiest,
             gamma_hat=float(gamma_hat),
         )
+        if obs is not None:
+            obs.record_span("engine/execute_round", t_obs, obs.clock.now())
+            obs.counter("engine/rounds")
+            obs.counter("engine/programs", 1, bits=bits_eff)
+            obs.counter("engine/comm_bits", tot, bits=bits_eff)
+            obs.counter("engine/comm_bits_busiest", busiest)
+            obs.counter("engine/steps_executed", int(plan.mask.sum()))
+            obs.flush()
         return new_state, metrics

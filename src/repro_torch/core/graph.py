@@ -1,11 +1,19 @@
 """Communication graphs for decentralized FL (paper §III-A, §III-D).
 
-The port's copy of the dense half of ``repro.core.graph``: the undirected
-device graph G = (V, E) with self-loops, the Metropolis-Hastings transition
-matrix (Eq. 7) and its spectral quantity lambda_P (Definition 4). Plain
-numpy, line for line the reference's arithmetic, so the same topology name
-and size give identical arrays. The implicit fleet-scale ``SparseTopology``
-belongs to the simulator slice and is not ported yet (ROADMAP.md, queue A).
+The port's copy of ``repro.core.graph``: the undirected device graph
+G = (V, E) with self-loops, the Metropolis-Hastings transition matrix
+(Eq. 7), its spectral quantity lambda_P (Definition 4) and the mixing-time
+bound (Lemma 2). Plain numpy, line for line the reference's arithmetic, so
+the same topology name and size give identical arrays.
+
+Two representations, one protocol: :class:`Topology` is dense (adjacency +
+materialized P, exact spectra, inverse-CDF walk sampling, honest up to a
+few thousand devices); :class:`SparseTopology` is the fleet-scale one (CSR
+neighbor lists only, the Eq. 7 kernel realized generatively: propose a
+uniform neighbor, accept with probability min{1, deg(i)/deg(j)}, mix in the
+lazy self-loop). ``lambda_p``/``mixing_time`` refuse dense
+eigendecompositions above ``DENSE_EIG_LIMIT``; :func:`lambda_p_power` is the
+matrix-free fallback.
 
 Topologies mirror §VI-C: complete, ring, and c-regular expander graphs.
 """
@@ -18,6 +26,7 @@ import numpy as np
 
 __all__ = [
     "Topology",
+    "SparseTopology",
     "complete_graph",
     "ring_graph",
     "expander_graph",
@@ -26,12 +35,16 @@ __all__ = [
     "is_connected",
     "metropolis_hastings_matrix",
     "lambda_p",
+    "lambda_p_power",
+    "mixing_time",
     "make_topology",
+    "make_sparse_topology",
     "DENSE_EIG_LIMIT",
 ]
 
 # Above this many devices a dense eigendecomposition / n x n matrix is an
-# O(n^2)-memory, O(n^3)-time trap: lambda_p raises instead of allocating.
+# O(n^2)-memory, O(n^3)-time trap: lambda_p/mixing_time raise and name the
+# power-iteration fallback instead of silently allocating.
 DENSE_EIG_LIMIT = 2048
 
 
@@ -71,6 +84,99 @@ class Topology:
     def neighbors(self, i: int, include_self: bool = False) -> np.ndarray:
         indptr, indices = self.csr_with_self if include_self else self.csr
         return indices[indptr[i]:indptr[i + 1]].copy()
+
+    def degree(self, i: int) -> int:
+        # Degree excludes the self-loop, matching deg(i) in Eq. 7.
+        return int(self.adjacency[i].sum()) - 1
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return self.adjacency.sum(axis=1) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseTopology:
+    """Implicit fleet-scale device graph: CSR neighbor lists, generative
+    Eq. 7 MH sampling, no materialized transition matrix.
+
+    ``indptr``/``indices`` exclude self-loops (every device implicitly has
+    one, as in §III-A); ``lazy`` is the identity mixture of
+    :func:`metropolis_hastings_matrix`. The realized chain kernel is
+
+        P(i, j) = (1 - lazy) * min{1/deg(i), 1/deg(j)}   for j ~ i, j != i
+
+    with the remaining mass on the self-loop — sampled in O(1) per step per
+    chain by uniform-neighbor proposal + min{1, deg(i)/deg(j)} acceptance,
+    identical in distribution to the dense matrix (tests/test_graph.py
+    checks the analytic row against :func:`metropolis_hastings_matrix`).
+
+    >>> topo = make_sparse_topology("ring", 6)
+    >>> topo.degrees.tolist()
+    [2, 2, 2, 2, 2, 2]
+    >>> sorted(topo.neighbors(0).tolist())
+    [1, 5]
+    """
+
+    name: str
+    n: int
+    indptr: np.ndarray             # (n+1,) int64 CSR row pointers (no self)
+    indices: np.ndarray            # (nnz,) int64 neighbor ids
+    lazy: float = 0.1
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    def degree(self, i: int) -> int:
+        return int(self.indptr[i + 1] - self.indptr[i])
+
+    def neighbors(self, i: int, include_self: bool = False) -> np.ndarray:
+        nbrs = self.indices[self.indptr[i]:self.indptr[i + 1]]
+        if include_self:
+            return np.sort(np.append(nbrs, i))
+        return nbrs.copy()
+
+    def sample_next(self, cur: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+        """One vectorized MH step for all chains at ``cur`` (three uniform
+        draws per chain per step: lazy gate, neighbor proposal, acceptance).
+        Isolated devices (degree 0) self-loop with probability 1."""
+        cur = np.asarray(cur, dtype=np.int64)
+        m = cur.shape[0]
+        u_lazy = rng.random(m)
+        u_prop = rng.random(m)
+        u_acc = rng.random(m)
+        deg = self.degrees
+        d_cur = deg[cur]
+        safe_deg = np.maximum(d_cur, 1)
+        offs = np.minimum((u_prop * safe_deg).astype(np.int64), safe_deg - 1)
+        prop = self.indices[self.indptr[cur] + offs]
+        accept = u_acc * deg[prop] < d_cur          # u < deg(i)/deg(j)
+        move = (u_lazy >= self.lazy) & (d_cur > 0) & accept
+        return np.where(move, prop, cur)
+
+    def mh_matvec(self, x: np.ndarray) -> np.ndarray:
+        """y = P x for the implicit MH kernel (CSR edge weights + diagonal),
+        the matrix-free operator behind :meth:`lambda_p_estimate`."""
+        w, diag = self._edge_weights
+        y = diag * x
+        rows = np.repeat(np.arange(self.n), self.degrees)
+        np.add.at(y, rows, w * x[self.indices])
+        return y
+
+    @functools.cached_property
+    def _edge_weights(self) -> tuple[np.ndarray, np.ndarray]:
+        deg = np.maximum(self.degrees, 1)
+        rows = np.repeat(np.arange(self.n), self.degrees)
+        w = (1.0 - self.lazy) * np.minimum(1.0 / deg[rows],
+                                           1.0 / deg[self.indices])
+        diag = 1.0 - np.bincount(rows, weights=w, minlength=self.n)
+        return w, diag
+
+    def lambda_p_estimate(self, iters: int = 300, seed: int = 0) -> float:
+        """Definition 4 via matrix-free power iteration (no n x n matrix)."""
+        return lambda_p_power(self.mh_matvec, n=self.n, iters=iters,
+                              seed=seed)
 
 
 def _with_self_loops(adj: np.ndarray) -> np.ndarray:
@@ -187,6 +293,69 @@ def lambda_p(P: np.ndarray, *, dense_limit: int = DENSE_EIG_LIMIT) -> float:
     return float((second + 1.0) / 2.0)
 
 
+def lambda_p_power(P, *, n: int | None = None, iters: int = 300,
+                   seed: int = 0, tol: float = 1e-10) -> float:
+    """Definition 4 via power iteration on the deflated operator, matrix-free.
+
+    ``P`` is either a dense doubly-stochastic matrix or a callable
+    ``x -> P @ x`` (pass ``n`` for the callable form). The uniform Perron
+    vector is deflated analytically — B x = P x - mean(x) — and the
+    iteration runs on B^2, whose dominant eigenvalue is
+    max{|lambda_2|, |lambda_n|}^2 >= 0 regardless of the sign of lambda_n
+    (a plain B-iteration oscillates when lambda_n < 0 dominates)."""
+    if callable(P):
+        if n is None:
+            raise ValueError("lambda_p_power: pass n= with a callable operator")
+        matvec = P
+    else:
+        n = P.shape[0]
+        matvec = lambda x: P @ x
+    if n < 2:
+        return 0.5
+    rng = np.random.default_rng([seed, 97])
+    x = rng.standard_normal(n)
+    x -= x.mean()
+    x /= np.linalg.norm(x)
+    second_sq = 0.0
+    for _ in range(iters):
+        y = matvec(x)
+        y -= y.mean()
+        y = matvec(y)
+        y -= y.mean()
+        norm = np.linalg.norm(y)
+        if norm < 1e-300:
+            second_sq = 0.0
+            break
+        y /= norm
+        prev, second_sq = second_sq, float(norm)
+        x = y
+        if abs(second_sq - prev) <= tol * max(second_sq, 1.0):
+            break
+    second = float(np.sqrt(max(second_sq, 0.0)))
+    return (min(second, 1.0) + 1.0) / 2.0
+
+
+def mixing_time(P: np.ndarray, zeta: float = 1.0, eps: float = 1e-2,
+                *, method: str = "dense",
+                dense_limit: int = DENSE_EIG_LIMIT) -> int:
+    """Smallest tau with zeta * lambda_P^tau <= eps (Lemma 2 bound).
+
+    ``method="dense"`` uses the exact eigendecomposition and inherits the
+    ``dense_limit`` guard of :func:`lambda_p`; ``method="power"`` uses the
+    matrix-free estimate of :func:`lambda_p_power` at any size."""
+    if method == "dense":
+        lp = lambda_p(P, dense_limit=dense_limit)
+    elif method == "power":
+        lp = lambda_p_power(P)
+    else:
+        raise ValueError(f"mixing_time: unknown method {method!r} "
+                         "(expected 'dense' or 'power')")
+    if lp <= 0.0:
+        return 1
+    tau = int(np.ceil(np.log(eps / zeta) / np.log(lp)))
+    return max(tau, 1)
+
+
 _BUILDERS = {
     "complete": lambda n, **kw: complete_graph(n),
     "ring": lambda n, **kw: ring_graph(n),
@@ -205,3 +374,120 @@ def make_topology(name: str, n: int, **kwargs) -> Topology:
     adj = _BUILDERS[name](n, **kwargs)
     P = metropolis_hastings_matrix(adj)
     return Topology(name=name, adjacency=adj, transition=P, lambda_p=lambda_p(P), n=n)
+
+
+# --------------------------------------------------------------------------
+# Generative (implicit) topologies: build CSR neighbor lists directly from
+# edge arrays, never touching an n x n matrix. All builders are O(n + |E|).
+# --------------------------------------------------------------------------
+
+def _csr_from_edges(n: int, src: np.ndarray, dst: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetrize, dedupe, drop self-edges, and pack (src, dst) into CSR
+    with each row's neighbor list sorted ascending."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    all_src = np.concatenate([src, dst])
+    all_dst = np.concatenate([dst, src])
+    key = all_src * n + all_dst
+    uniq = np.unique(key)
+    rows = uniq // n
+    cols = uniq % n
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return indptr, cols
+
+
+def _sparse_ring_edges(n: int) -> tuple[np.ndarray, np.ndarray]:
+    i = np.arange(n, dtype=np.int64)
+    return i, (i + 1) % n
+
+
+def _sparse_expander_edges(n: int, c: int, seed: int
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """Ring backbone + (c - 2) random circulant shifts: connected, near-regular,
+    the same construction as the dense ``expander_graph`` recipe."""
+    i = np.arange(n, dtype=np.int64)
+    src = [i]
+    dst = [(i + 1) % n]
+    rng = np.random.default_rng([seed, 11])
+    shifts: set[int] = set()
+    while len(shifts) < max(c - 2, 0) and len(shifts) < max(n - 3, 0):
+        s = int(rng.integers(2, n - 1))
+        if s in shifts or (n - s) in shifts:
+            continue
+        shifts.add(s)
+        src.append(i)
+        dst.append((i + s) % n)
+    return np.concatenate(src), np.concatenate(dst)
+
+
+def _sparse_metro_edges(n: int, devices_per_cell: int, cells_per_metro: int,
+                        seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """Hierarchical fleet graph: per-cell ring + one random chord per device,
+    cell gateways (device 0 of each cell) ringed within a metro, metro
+    gateways ringed across the fleet. Max degree ~6, connected, and aligned
+    with the hierarchical link model's device->cell->metro->backbone tiers."""
+    dpc = max(int(devices_per_cell), 2)
+    i = np.arange(n, dtype=np.int64)
+    cell = i // dpc
+    n_cells = int(cell[-1]) + 1 if n else 0
+    src_l, dst_l = [], []
+    # Intra-cell ring.
+    start = cell * dpc
+    size = np.minimum(start + dpc, n) - start
+    nxt = start + (i - start + 1) % np.maximum(size, 1)
+    keep = size > 1
+    src_l.append(i[keep]); dst_l.append(nxt[keep])
+    # Intra-cell random chords (skip size-<=2 cells where a chord is a dup).
+    rng = np.random.default_rng([seed, 13])
+    offs = rng.integers(2, np.maximum(size, 3))
+    chord = start + (i - start + offs) % np.maximum(size, 1)
+    keep = size > 2
+    src_l.append(i[keep]); dst_l.append(chord[keep])
+    # Cell-gateway ring within each metro.
+    cells = np.arange(n_cells, dtype=np.int64)
+    metro = cells // max(cells_per_metro, 1)
+    n_metros = int(metro[-1]) + 1 if n_cells else 0
+    m_start = metro * cells_per_metro
+    m_size = np.minimum(m_start + cells_per_metro, n_cells) - m_start
+    nxt_cell = m_start + (cells - m_start + 1) % np.maximum(m_size, 1)
+    keep = m_size > 1
+    src_l.append(cells[keep] * dpc); dst_l.append(nxt_cell[keep] * dpc)
+    # Metro-gateway ring across the fleet.
+    if n_metros > 1:
+        metros = np.arange(n_metros, dtype=np.int64)
+        src_l.append(metros * cells_per_metro * dpc)
+        dst_l.append(((metros + 1) % n_metros) * cells_per_metro * dpc)
+    return np.concatenate(src_l), np.concatenate(dst_l)
+
+
+_SPARSE_BUILDERS = {
+    "ring": lambda n, **kw: _sparse_ring_edges(n),
+    "expander3": lambda n, **kw: _sparse_expander_edges(
+        n, 3, kw.get("seed", 0)),
+    "expander5": lambda n, **kw: _sparse_expander_edges(
+        n, 5, kw.get("seed", 0)),
+    "metro": lambda n, **kw: _sparse_metro_edges(
+        n, kw.get("devices_per_cell", 100), kw.get("cells_per_metro", 32),
+        kw.get("seed", 0)),
+}
+
+
+def make_sparse_topology(name: str, n: int, lazy: float = 0.1,
+                         **kwargs) -> SparseTopology:
+    """Build an implicit CSR topology without materializing any n x n array.
+
+    Same MH chain law as ``make_topology`` (Eq. 7 with the default lazy=0.1
+    identity mixture) but realized generatively; see :class:`SparseTopology`."""
+    if n < 2:
+        raise ValueError("make_sparse_topology: need n >= 2")
+    if name not in _SPARSE_BUILDERS:
+        raise ValueError(
+            f"unknown sparse topology {name!r}; have {sorted(_SPARSE_BUILDERS)}")
+    src, dst = _SPARSE_BUILDERS[name](n, **kwargs)
+    indptr, indices = _csr_from_edges(n, src, dst)
+    return SparseTopology(name=name, n=n, indptr=indptr, indices=indices,
+                          lazy=lazy)

@@ -476,3 +476,33 @@ def test_dense_smoke_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
     want8, _ = T.forward_train(cfg, params, tokens[:, :8])
     torch.testing.assert_close(step[:, 0].cpu(), want8[:, -1], atol=2e-3, rtol=2e-3)
+
+
+def test_simulator_on_card_matches_cpu(cuda):
+    """The heap simulator on ``congested_uplink`` (n=12, bits 8, overlap
+    windows) on the CPU and the card from the same weights and seed words:
+    equal records and Eq. 18 bits, params within 0.05 * scale + 1e-4, K hop
+    launches and one aggregation launch a window on the card."""
+    from repro_torch.sim import build_scenario
+
+    setup = build_scenario("congested_uplink", n=12, seed=0, bits=8)
+    k, windows = setup.cfg.k_walk, 3
+    gen = torch.Generator().manual_seed(5)
+    qseeds = [torch.randint(0, 1 << 32, (k + 1, 2), generator=gen) for _ in range(windows)]
+    params = setup.model.init(torch.Generator().manual_seed(2), "cpu")
+    res = {}
+    for dev in ("cpu", cuda):
+        qk.reset_launch_counts()
+        res[str(dev)] = setup.runner(device=dev).run(
+            windows, torch.Generator().manual_seed(0), setup.x_test, setup.y_test,
+            eval_every=1, qseeds=qseeds, params=[(w.to(dev), b.to(dev)) for w, b in params])
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES["qdq_delta_rows_rng"] == k * windows
+    assert qk.LAUNCHES["qdq_rows_rng"] == windows
+    a, b = res["cpu"], res[str(cuda)]
+    for ra, rb in zip(a.records, b.records):
+        for f in ("t_end", "events", "k_done", "k_exec", "killed", "resumed", "bits"):
+            assert np.array_equal(np.asarray(getattr(ra, f)), np.asarray(getattr(rb, f))), f
+    assert a.history.comm_bits == b.history.comm_bits
+    want, got = a.state.device_params, b.state.device_params.cpu()
+    assert float((want - got).abs().max()) < 0.05 * float(want.abs().max()) + 1e-4

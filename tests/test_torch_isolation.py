@@ -121,6 +121,53 @@ def test_port_runs_dense_smoke_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_runs_the_simulator_without_jax():
+    """The simulator slice (sim, obs, launch.sim) on the CPU with JAX and the
+    JAX package refused: a scenario with telemetry and a recorded trace on
+    each engine, and the launcher."""
+    proc = _run("""
+        import contextlib, io, os, sys, tempfile
+        import torch
+        import repro_torch.launch.sim as launcher
+        import repro_torch.obs as obs
+        import repro_torch.sim as sim
+        for engine in ("heap", "fleet"):
+            setup = sim.build_scenario("fleet_metro", n=40, seed=0)
+            runner = setup.runner(engine=engine, device="cpu")
+            rec = obs.Recorder(clock=obs.VirtualClock(), trace=True)
+            runner.attach_obs(rec)
+            res = runner.run(2, torch.Generator().manual_seed(0), setup.x_test,
+                             setup.y_test, eval_every=2, record=True)
+            assert len(res.trace.windows) == 2 and res.history.rounds == [2]
+            assert rec.to_stream().summary["counters"]["sim/windows"] == 2
+        path = os.path.join(tempfile.mkdtemp(), "t.jsonl")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launcher.main(["--scenario", "straggler_tail", "--device", "cpu",
+                           "--rounds", "1", "--n", "8", "--record", path])
+        assert "final:" in buf.getvalue()
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_simulator_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the CUDA default is valid here")
+    from repro_torch.launch.sim import main
+    from repro_torch.sim import build_scenario
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--scenario", "straggler_tail", "--rounds", "1"])
+    setup = build_scenario("fleet_metro", n=20)
+    for engine in ("heap", "fleet"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            setup.runner(engine=engine)
+
+
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py's imports stand alone too. Told that there is a card,
     it imports the whole port before its first call to the card fails."""
