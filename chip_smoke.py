@@ -90,15 +90,36 @@ or of the JAX package ``repro``. Phases, in order:
    the card; ``loss_fn`` at full width (2 x 4,096 tokens, 32 kernel
    launches a forward) with a profile; greedy decode at batch 8 against the
    kernel forward;
-13. one JSON line of kernel numbers (all ten kernels; B1 and B2 with their
-   launches on each path), and last the device line.
+13. the slices that MoE and the vision stub open, each freeing the one
+   before it: (a) ``internvl2-1b`` at full width and depth (24 layers,
+   0.63 B parameters) with the vision stub, see :func:`vlm_phase`: SMOKE
+   on the CPU and the card, layer 0's own attention (n_rep 7) against the
+   plain version, ``loss_fn`` on 4 x (256 stub embeddings + 1,792 tokens)
+   with 24 ``block_attn`` calls a forward and a profile, text decode of 8
+   prompts against the kernel forward; (b) ``grok-1-314b`` at full width
+   with its depth cut 64 -> 2 (11.45 B parameters), see
+   :func:`grok_phase`: SMOKE on the CPU and the card with equal routing,
+   layer 0 (n_rep 6), ``loss_fn`` on 2 x 2,048 tokens with each MoE
+   layer's aux loss, load by row and expert and dropped choices, 2 calls a
+   forward, decode at ``capacity_factor = e / k``; (c) ``jamba-1.5-large-
+   398b`` SMOKE on the CPU and the card (one ``ssd_scan`` and one
+   ``block_attn`` call a forward, equal routing); (d) the telemetry path,
+   see :func:`obs_phase`: ``launch.train --obs --trace`` on the card beside
+   the run without it, rendered with the port's ``render_report``, and the
+   traced ``fleet_metro`` stream of 10b with ``render_critical``;
+14. one JSON line of kernel numbers (all ten kernels; B1 and B2 with their
+   launches on each path, ``ssd_scan`` and ``block_attn`` with theirs on
+   each LM path), and last the device line.
 
 The three kernel sources are built at the start, one ``nvcc`` each, in
 parallel.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -202,7 +223,8 @@ YI_DECODE_BATCH = 8
 # (B, Lq, Lk, H, KV, hd, causal, window): ragged L, MQA, hd 64 and 16,
 # non-causal, Lq != Lk, and the sliding window; then hd 18 (rows not
 # 16-byte multiples: the kernel's 4-byte copies), Lk under one 64-key tile,
-# a window under one tile, and a 2-row ragged last 128-row query tile.
+# a window under one tile, a 2-row ragged last 128-row query tile, and the
+# head ratios of Grok-1 (n_rep 6 at hd 128) and InternVL2 (n_rep 7 at hd 64).
 ATTN_SMALL = [
     (1, 1000, 1000, 8, 2, 128, True, 0),
     (2, 333, 333, 8, 1, 128, True, 0),
@@ -214,7 +236,14 @@ ATTN_SMALL = [
     (1, 150, 40, 4, 2, 64, True, 0),
     (1, 300, 300, 4, 1, 128, True, 17),
     (2, 130, 130, 8, 2, 128, True, 0),
+    (1, 300, 300, 12, 2, 128, True, 0),
+    (2, 257, 257, 14, 2, 64, True, 0),
 ]
+# InternVL2-1B: 4 rows of 256 stub embeddings + 1,792 text tokens (L = 2,048).
+VLM_BATCH, VLM_TEXT, VLM_FORWARDS = 4, 1792, 3
+# Grok-1 at full width with its depth cut 64 -> 2 (three layers would be
+# 65.5 GB of float32 weights alone).
+GROK_DEPTH, GROK_BATCH, GROK_SEQ, GROK_FORWARDS = 2, 2, 2048, 3
 
 
 def _ulps(a, b):
@@ -307,26 +336,65 @@ def _first_call(module, attr, run):
     return kept[0][0], kept[0][1], len(kept)
 
 
-def _smoke_phase(arch_id, km, tag):
+@contextlib.contextmanager
+def _routing():
+    """Keep the output of every ``layers.moe_route`` call made inside: one
+    (gate_vals, gate_idx, slot, keep, cap, aux) a MoE slot, in order."""
+    from repro_torch.models import layers as L
+
+    kept, real = [], L.moe_route
+
+    def keep(p, x, cfg):
+        out = real(p, x, cfg)
+        kept.append(out)
+        return out
+
+    L.moe_route = keep
+    try:
+        yield kept
+    finally:
+        L.moe_route = real
+
+
+def _kernel_calls(cfg):
+    """Calls a forward makes of each LM kernel: one ``block_attention`` an
+    attention slot, one ``ssd_scan`` (four stage kernels) a Mamba2 slot."""
+    return {"block_attn": cfg.n_blocks * sum(k == "attn" for k in cfg.block_pattern),
+            "ssd_scan": cfg.n_blocks * sum(k == "mamba" for k in cfg.block_pattern)}
+
+
+def _smoke_phase(arch_id, tag):
     """The SMOKE configuration on the CPU (plain versions) and on the card
-    (kernel module ``km``) from the same weights: a (2, 80) forward and 16
-    decode steps within SMOKE_TOL, and one launch a layer."""
+    from the same weights: a (2, 80) forward (after the vision stub's
+    embeddings, where the model has one) and its aux loss, and 16 decode
+    steps, within SMOKE_TOL; every MoE slot routes every token to the same
+    experts and drops the same choices on both; one kernel call an
+    attention or Mamba2 slot. Returns the card forward's calls by kernel."""
     import torch
 
     from repro_torch.configs import get_smoke
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
     from repro_torch.models import transformer as T
 
     small = get_smoke(arch_id)
-    (name,) = km.LAUNCHES
     on_cpu = T.init_params(small, torch.Generator().manual_seed(2), device="cpu")
     on_card = _tree_to(on_cpu, "cuda")
-    toks = torch.randint(0, small.vocab, (2, 80), generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, small.vocab, (2, 80), generator=gen)
+    emb = (torch.randn(2, small.frontend_tokens, small.d_model, generator=gen)
+           if small.frontend == "vision" else None)
     with torch.inference_mode():
-        want, _ = T.forward_train(small, on_cpu, toks)
-        km.reset_launch_counts()
-        got, _ = T.forward_train(small, on_card, toks.cuda())
-        launches = km.LAUNCHES[name]
-        stages = _stage_counts(km)
+        with _routing() as on_cpu_routes:
+            want, want_aux = T.forward_train(small, on_cpu, toks, emb)
+        ba.reset_launch_counts()
+        sk.reset_launch_counts()
+        with _routing() as on_card_routes:
+            got, got_aux = T.forward_train(small, on_card, toks.cuda(),
+                                           None if emb is None else emb.cuda())
+        torch.cuda.synchronize()
+        launches = {"block_attn": ba.LAUNCHES["block_attn"], "ssd_scan": sk.LAUNCHES["ssd_scan"]}
+        stages = _stage_counts(sk)
         caches = [T.init_cache(small, 2, 16, device="cpu"), T.init_cache(small, 2, 16)]
         worst_dec = 0.0
         for t in range(16):
@@ -334,14 +402,30 @@ def _smoke_phase(arch_id, km, tag):
             lg_card, caches[1] = T.decode_step(small, on_card, caches[1], toks[:, t:t + 1].cuda())
             worst_dec = max(worst_dec, _tol_ratio(lg_card.cpu(), lg_cpu, SMOKE_TOL))
     fwd_ratio = _tol_ratio(got.cpu(), want, SMOKE_TOL)
-    print(f"{small.name} {tag}: forward (2, 80) cpu-vs-card max|d|="
+    aux_ratio = _tol_ratio(got_aux.cpu(), want_aux, SMOKE_TOL)
+    choices = sum(r[1].numel() for r in on_cpu_routes)
+    same = sum(int((a[1] == b[1].cpu()).sum()) for a, b in zip(on_cpu_routes, on_card_routes))
+    same_drops = all(torch.equal(a[3], b[3].cpu()) for a, b in zip(on_cpu_routes, on_card_routes))
+    share = same / choices if choices else 1.0
+    want_calls = _kernel_calls(small)
+    routing = (f"; {len(on_cpu_routes)} MoE slots: equal gate_idx share={share:.6f} of "
+               f"{choices}, same drops={same_drops} "
+               f"({sum(int((~r[3]).sum()) for r in on_cpu_routes)} dropped), aux cpu="
+               f"{float(want_aux):.8f} card={float(got_aux):.8f} ratio={aux_ratio:.4f}"
+               if choices else "")
+    print(f"{small.name} {tag}: forward (2, 80){' after 2 x ' + str(small.frontend_tokens) if emb is not None else ''}"
+          f"{' stub embeddings' if emb is not None else ''} cpu-vs-card max|d|="
           f"{float((got.cpu() - want).abs().max()):.3e} ratio={fwd_ratio:.4f}; 16 decode steps "
-          f"ratio={worst_dec:.4f} (tol {SMOKE_TOL}); {name} launches={launches}"
-          f"{f' stage kernels {stages}' if stages else ''}")
-    if (fwd_ratio > 1.0 or worst_dec > 1.0 or launches != small.n_layers
-            or any(v != small.n_layers for v in stages.values())):
-        _fail(f"the SMOKE {arch_id} model disagrees between the CPU and the card, or "
-              f"launched {launches} calls and stage kernels {stages} in {small.n_layers} layers")
+          f"ratio={worst_dec:.4f} (tol {SMOKE_TOL}); calls {launches} (want {want_calls})"
+          f"{f' stage kernels {stages}' if launches['ssd_scan'] else ''}{routing}")
+    if (fwd_ratio > 1.0 or worst_dec > 1.0 or aux_ratio > 1.0 or share != 1.0
+            or not same_drops or len(on_cpu_routes) != len(on_card_routes)
+            or launches != want_calls
+            or any(v != want_calls["ssd_scan"] for v in stages.values())):
+        _fail(f"the SMOKE {arch_id} model disagrees between the CPU and the card (routing "
+              f"share {share}), or launched {launches} calls and stage kernels {stages} "
+              f"(want {want_calls})")
+    return launches
 
 
 def _stage_counts(km):
@@ -380,6 +464,7 @@ def _forward_phase(cfg, params, batch, forwards, km, tag):
 
     (name,) = km.LAUNCHES
     bsz, seq = batch["tokens"].shape
+    n_front = batch["embeds"].shape[1] if "embeds" in batch else 0
     torch.cuda.reset_peak_memory_stats()
     stamps, losses = [], []
     km.reset_launch_counts()
@@ -395,12 +480,14 @@ def _forward_phase(cfg, params, batch, forwards, km, tag):
     peak = torch.cuda.max_memory_allocated()
     fwd_ms = statistics.median(stamps)
     losses = [float(x) for x in losses]
-    print(f"{cfg.name} main path {tag}: loss_fn on {bsz}x{seq} tokens: ms/forward "
+    front = f" after {n_front} stub embeddings a row (counted in tokens/s)" if n_front else ""
+    print(f"{cfg.name} main path {tag}: loss_fn on {bsz}x{seq} tokens{front}: ms/forward "
           f"median={fwd_ms:.3f} all={[round(x, 3) for x in stamps]} tokens/s="
-          f"{bsz * seq / fwd_ms * 1e3:.1f} loss={losses[0]:.6f} "
+          f"{bsz * (n_front + seq) / fwd_ms * 1e3:.1f} loss={losses[0]:.6f} "
           f"peak_memory_allocated={peak} bytes {name} launches={launches} "
-          f"(want {cfg.n_layers} x {forwards}){f' stage kernels {stages}' if stages else ''}")
-    want = cfg.n_layers * forwards
+          f"(want {_kernel_calls(cfg)[name]} x {forwards})"
+          f"{f' stage kernels {stages}' if stages else ''}")
+    want = _kernel_calls(cfg)[name] * forwards
     if (launches != want or any(v != want for v in stages.values())
             or not all(math.isfinite(x) for x in losses)):
         _fail(f"main path: {launches} {name} launches and stage kernels {stages} in "
@@ -454,8 +541,9 @@ def _decode_phase(cfg, params, prompts, n_params, km, tag):
           f"({launches} {name} launches) max|d|={float((dec - fwd_logits).abs().max()):.3e} "
           f"ratio prompt={prompt_ratio:.4f} all {PROMPT + GENERATE}={ratio:.4f} "
           f"(tol {DECODE_TOL})")
-    if (ratio > 1.0 or not torch.isfinite(dec).all() or launches != cfg.n_layers
-            or any(v != cfg.n_layers for v in stages.values())):
+    want = _kernel_calls(cfg)[name]
+    if (ratio > 1.0 or not torch.isfinite(dec).all() or launches != want
+            or any(v != want for v in stages.values())):
         _fail(f"decode disagrees with the kernel forward at {cfg.name}'s full width, or the "
               f"forward launched {launches} calls and stage kernels {stages}")
 
@@ -605,7 +693,7 @@ def mamba_phases(smi):
              "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
              "library_ms": None}
 
-    _smoke_phase("mamba2-130m", sk, tag)
+    _smoke_phase("mamba2-130m", tag)
     entry["launches"] = _forward_phase(cfg, params, batch, LM_FORWARDS, sk, tag)
     _decode_phase(cfg, params, tokens[:, :PROMPT], n_params, sk, tag)
     return entry
@@ -652,49 +740,20 @@ def dense_phases(smi):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels.block_attn import block_attn as ba
-    from repro_torch.kernels.block_attn import ops as attn_ops
     from repro_torch.kernels.block_attn.ref import attention_pairs, block_attention_plain
-    from repro_torch.models import transformer as T
 
     tag = f"[{smi}]"
     cfg = get_arch("yi-6b")
     hd = cfg.head_dim_
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"yi-6b {tag}: n_layers={cfg.n_layers} d_model={cfg.d_model} heads={cfg.n_heads} "
-          f"kv_heads={cfg.n_kv_heads} hd={hd} d_ff={cfg.d_ff} vocab={cfg.vocab} "
-          f"rope_theta={cfg.rope_theta} params={n_params} ({4 * n_params} bytes float32; "
-          f"param_count {cfg.param_count()}) init on the card {time.perf_counter() - t0:.2f}s")
+    params, n_params = _init_on_card(cfg, tag)
     tokens = torch.randint(0, cfg.vocab, (YI_BATCH, YI_SEQ + 1),
                            generator=torch.Generator().manual_seed(1)).cuda()
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
-    # One forward whose first attention call is kept: the kernel is then
-    # checked on layer 0's own q/k/v.
-    with torch.inference_mode():
-        (q, k, v), kw, calls = _first_call(attn_ops, "block_attention",
-                                           lambda: T.loss_fn(cfg, params, batch))
-    torch.cuda.synchronize()
-    if calls != cfg.n_layers:
-        _fail(f"the forward called block_attention {calls} times, want {cfg.n_layers}")
-
     # ------------------------------------------ block_attn vs plain version
-    if kw != {"causal": True, "window": 0}:
-        _fail(f"layer 0 called block_attention with {kw}")
+    q, k, v, got, want = _hold_layer0_attention(cfg, params, batch, tag)
     bsz, l, h, _ = q.shape
-    with torch.inference_mode():
-        got = ba.block_attn(q, k, v, causal=True)
-        want = block_attention_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
     max_abs = float((got - want).abs().max())
-    ratio = _tol_ratio(got, want, ATTN_TOL)
-    print(f"block_attn {tag}: layer 0 q{tuple(q.shape)} k/v{tuple(k.shape)} strides "
-          f"{q.stride()}/{k.stride()} causal: vs plain max|d|={max_abs:.3e} "
-          f"|d|/(tol+tol|o|)={ratio:.4f} (tol {ATTN_TOL}); max|o|={float(want.abs().max()):.3e}")
-    if not (ratio <= 1.0 and torch.isfinite(got).all()):
-        _fail(f"block_attn disagrees with its plain version at Yi-6B's shapes (ratio {ratio:.4f})")
     gen = torch.Generator("cuda").manual_seed(4)
     for b_, lq, lk, h_, kv_, hd_, causal, window in ATTN_SMALL:
         qs, ks, vs = (torch.randn(b_, n, heads, hd_, generator=gen, device="cuda")
@@ -773,11 +832,214 @@ def dense_phases(smi):
              "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
              "library_ms": library_ms}
 
-    _smoke_phase("yi-6b", ba, tag)
+    _smoke_phase("yi-6b", tag)
     entry["launches"] = _forward_phase(cfg, params, batch, YI_FORWARDS, ba, tag)
     prompts = tokens[:, :YI_DECODE_BATCH // YI_BATCH * PROMPT].reshape(YI_DECODE_BATCH, PROMPT)
     _decode_phase(cfg, params, prompts, n_params, ba, tag)
     return entry
+
+
+
+def _hold_layer0_attention(cfg, params, batch, tag):
+    """One ``loss_fn`` whose first ``block_attention`` call is kept: the
+    forward must call it once an attention slot, and the kernel on layer 0's
+    own q/k/v must agree with its plain version within ATTN_TOL; its time at
+    that shape beside the plain version's. Returns (q, k, v, kernel output,
+    plain output)."""
+    import torch
+
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.kernels.block_attn.ref import block_attention_plain
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        (q, k, v), kw, calls = _first_call(attn_ops, "block_attention",
+                                           lambda: T.loss_fn(cfg, params, batch))
+        want_calls = _kernel_calls(cfg)["block_attn"]
+        if calls != want_calls or kw != {"causal": True, "window": cfg.sliding_window}:
+            _fail(f"{cfg.name}: the forward called block_attention {calls} times (want "
+                  f"{want_calls}), layer 0 with {kw}")
+        got = ba.block_attn(q, k, v, causal=True)
+        want = block_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ratio = _tol_ratio(got, want, ATTN_TOL)
+        ms = statistics.median(_time_ms(lambda: ba.block_attn(q, k, v), iters=10)
+                               for _ in range(3))
+        plain_ms = _time_ms(lambda: block_attention_plain(q, k, v), iters=2, warmup=1)
+    print(f"block_attn {tag}: {cfg.name} layer 0 q{tuple(q.shape)} k/v{tuple(k.shape)} "
+          f"strides {q.stride()}/{k.stride()} n_rep {q.shape[2] // k.shape[2]} causal: vs "
+          f"plain max|d|={float((got - want).abs().max()):.3e} ratio={ratio:.4f} (tol "
+          f"{ATTN_TOL}); max|o|={float(want.abs().max()):.3e}; ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f}; {calls} calls a forward")
+    if not (ratio <= 1.0 and torch.isfinite(got).all()):
+        _fail(f"block_attn disagrees with its plain version on {cfg.name}'s layer 0 "
+              f"(ratio {ratio:.4f})")
+    return q, k, v, got, want
+
+
+def _init_on_card(cfg, tag, note=""):
+    """Random weights drawn on the card from a seed. Returns (params,
+    parameter count)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    moe = "" if cfg.moe is None else (
+        f" experts={cfg.moe.n_experts} top_k={cfg.moe.top_k} d_expert={cfg.moe.d_expert} "
+        f"capacity_factor={cfg.moe.capacity_factor}")
+    print(f"{cfg.name} {tag}: n_layers={cfg.n_layers}{note} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads} kv_heads={cfg.n_kv_heads} hd={cfg.head_dim_} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} qkv_bias={cfg.qkv_bias} frontend={cfg.frontend}{moe} "
+          f"params={n_params} ({4 * n_params} bytes float32; param_count "
+          f"{cfg.param_count()}) init on the card {time.perf_counter() - t0:.2f}s "
+          f"memory_allocated={torch.cuda.memory_allocated()} bytes")
+    return params, n_params
+
+
+def vlm_phase(smi):
+    """(a) InternVL2-1B (``configs.internvl2_1b``) at full width and depth,
+    random weights: the SMOKE configuration on the CPU and the card, then
+    ``loss_fn`` on VLM_BATCH rows of the vision stub's 256 embeddings drawn
+    N(0, 1) (as the reference's ``pod_main`` draws them) and VLM_TEXT text
+    tokens, held as the Yi-6B path is (layer 0 against the plain version,
+    24 calls a forward), and text decode of 8 prompts against the kernel
+    forward. Returns the ``block_attn`` calls of the main path."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+
+    tag = f"[{smi}]"
+    _smoke_phase("internvl2-1b", tag)
+    cfg = get_arch("internvl2-1b")
+    params, n_params = _init_on_card(cfg, tag)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (VLM_BATCH, VLM_TEXT + 1), generator=gen)
+    embeds = torch.randn(VLM_BATCH, cfg.frontend_tokens, cfg.d_model, generator=gen)
+    batch = {"tokens": tokens[:, :-1].cuda(), "labels": tokens[:, 1:].cuda(),
+             "embeds": embeds.cuda()}
+    _hold_layer0_attention(cfg, params, batch, tag)
+    launches = _forward_phase(cfg, params, batch, VLM_FORWARDS, ba, tag)
+    per_row = YI_DECODE_BATCH // VLM_BATCH * PROMPT
+    prompts = tokens[:, :per_row].reshape(YI_DECODE_BATCH, PROMPT).cuda()
+    _decode_phase(cfg, params, prompts, n_params, ba, tag)
+    return launches
+
+
+def grok_phase(smi):
+    """(b) Grok-1 (``configs.grok_1_314b``) at full width with its depth cut
+    to GROK_DEPTH layers, random weights: the SMOKE configuration on the CPU
+    and the card; ``loss_fn`` on GROK_BATCH x GROK_SEQ tokens with each MoE
+    layer's aux loss, load per row and expert, and dropped choices (at
+    capacity factor 1 the expected load equals the capacity, so choices
+    drop); layer 0's attention (n_rep 6) against the plain version; decode
+    of 8 prompts against the kernel forward at ``capacity_factor = e / k``,
+    where the forward drops nothing either. Returns the ``block_attn``
+    calls of the main path."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    _smoke_phase("grok-1-314b", tag)
+    full = get_arch("grok-1-314b")
+    cfg = dataclasses.replace(full, n_layers=GROK_DEPTH)
+    params, n_params = _init_on_card(
+        cfg, tag, f" (of {full.n_layers}; {full.param_count()} parameters at full depth)")
+    tokens = torch.randint(0, cfg.vocab, (GROK_BATCH, GROK_SEQ + 1),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens[:, :-1].cuda(), "labels": tokens[:, 1:].cuda()}
+    _hold_layer0_attention(cfg, params, batch, tag)
+
+    mo = cfg.moe
+    with torch.inference_mode(), _routing() as routes:
+        loss = T.loss_fn(cfg, params, batch)
+        torch.cuda.synchronize()
+    for layer, (_, gate_idx, _, keep, cap, aux) in enumerate(routes):
+        load = F.one_hot(gate_idx, mo.n_experts).sum(dim=(1, 2))     # (rows, experts)
+        print(f"{cfg.name} {tag}: MoE layer {layer}: aux={float(aux):.8f} cap={cap} "
+              f"(expected load {GROK_SEQ * mo.top_k // mo.n_experts} a row and expert) "
+              f"load by row and expert {load.tolist()} dropped choices "
+              f"{int((~keep).sum())} of {keep.numel()}")
+    if len(routes) != GROK_DEPTH or not math.isfinite(float(loss)):
+        _fail(f"{cfg.name}: {len(routes)} MoE layers routed, loss {float(loss)}")
+    print(f"{cfg.name} {tag}: loss_fn={float(loss):.6f} aux total="
+          f"{sum(float(r[5]) for r in routes):.8f}")
+    launches = _forward_phase(cfg, params, batch, GROK_FORWARDS, ba, tag)
+    no_drops = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+    print(f"{cfg.name} {tag}: decode against the forward at capacity_factor = "
+          f"{mo.n_experts}/{mo.top_k} = {no_drops.moe.capacity_factor}: the forward's "
+          f"capacity is at least its length, so it drops nothing, as decode (one token "
+          f"a group, capacity 8) never does; at capacity factor 1 they differ by design")
+    prompts = tokens[:, :YI_DECODE_BATCH // GROK_BATCH * PROMPT].reshape(
+        YI_DECODE_BATCH, PROMPT).cuda()
+    _decode_phase(no_drops, params, prompts, n_params, ba, tag)
+    return launches
+
+
+def obs_phase(tag, fleet_stream):
+    """(d) The telemetry path on the card: ``launch.train protocol --obs P
+    --trace`` beside the same run without ``--obs`` (same final line), the
+    stream read back with the port's ``ObsStream`` and rendered with its
+    ``render_report``; then the traced ``fleet_metro`` stream of
+    :func:`sim_phases` rendered with ``render_critical`` and
+    ``render_report`` (the critical-path section and the straggler league)."""
+    import torch
+
+    from repro_torch.kernels.quantize import quantize as qk
+    from repro_torch.launch.train import main as launch_main
+    from repro_torch.obs import ObsStream, critical_paths, render_critical, render_report
+
+    argv = ["protocol", "--algo", "dfedrw", "--rounds", "2", "--bits", "8"]
+    finals = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_obs.jsonl")
+        for extra in ([], ["--obs", path, "--trace"]):
+            buf = io.StringIO()
+            qk.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                launch_main(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            finals.append([line for line in buf.getvalue().splitlines()
+                           if line.startswith("final:")])
+            print(f"obs {tag}: launch.train {' '.join(argv + extra[:1] + extra[2:])}: "
+                  f"{wall:.2f}s {finals[-1]} launches={dict(qk.LAUNCHES)}")
+            if min(qk.LAUNCHES["qdq_delta_rows_rng"], qk.LAUNCHES["qdq_rows_rng"]) <= 0:
+                _fail("the launcher did not go through both qdq kernels")
+        stream = ObsStream.load(path)
+    report = render_report(stream)
+    for line in report.splitlines():
+        print(f"obs {tag}: report | {line}")
+    header = stream.header
+    if (not finals[0] or finals[0] != finals[1] or header.get("trace") is not True
+            or header["provenance"]["backend"] != "cuda"
+            or "communication by wire width" not in report
+            or "engine/execute_round" not in report):
+        _fail(f"the --obs --trace run: final lines {finals}, header {header}")
+
+    crit = render_critical(fleet_stream)
+    for line in crit:
+        print(f"obs {tag}: fleet_metro critical | {line}")
+    full = render_report(fleet_stream)
+    if (len(critical_paths(fleet_stream)) != 2 or not crit
+            or not crit[0].startswith("critical path")
+            or not any(line.startswith("straggler league") for line in crit)
+            or "\n".join(crit) not in full):
+        _fail("the traced fleet_metro stream lacks its critical-path section or "
+              "straggler league")
+    print(f"obs {tag}: fleet_metro report {len(full.splitlines())} lines, critical path of "
+          f"{len(critical_paths(fleet_stream))} windows")
 
 
 
@@ -1326,8 +1588,9 @@ def sim_phases(tag):
     (e) ``straggler_tail`` at its defaults (n = 20, 40 windows), policy
         partial against drop: the accuracies.
 
-    Returns the launches of every simulator run on the card by kernel, and
-    the fleet payloads' kernel numbers."""
+    Returns the launches of every simulator run on the card by kernel, the
+    fleet payloads' kernel numbers, and the traced n = 200 fleet run's
+    telemetry stream (for :func:`obs_phase`)."""
     import numpy as np
     import torch
 
@@ -1442,7 +1705,10 @@ def sim_phases(tag):
                   f"events={result.events_total} tspans={len(tspans)} "
                   f"virtual_time={result.virtual_time_s!r} "
                   f"acc={result.history.test_accuracy[-1]:.4f} launches={got}")
-            cross[engine] = (setup, result, tspans, rec.to_stream().summary)
+            stream = rec.to_stream()
+            cross[engine] = (setup, result, tspans, stream.summary)
+            if n == SIM_CROSS_N[0] and engine == "fleet":
+                traced = stream                  # rendered by obs_phase
         (hsetup, hres, htsp, hsum), (_, fres, ftsp, fsum) = cross["heap"], cross["fleet"]
         a, b = hres.state.device_params, fres.state.device_params
         diff = float((a - b).abs().max())
@@ -1569,7 +1835,7 @@ def sim_phases(tag):
               f"ms/window={wall / setup.rounds:.2f}")
     print(f"sim {tag}: straggler_tail final accuracy partial={accs['partial']:.4f} "
           f"drop={accs['drop']:.4f}")
-    return counts, held
+    return counts, held, traced
 
 
 def _ptxas_report(log):
@@ -1834,7 +2100,7 @@ def main() -> int:
     by_path["lstm_chain_mode"] = lstm_phase(f"[{smi}]")
     gc.collect()                         # the LSTM's state goes before the LM phases
     torch.cuda.empty_cache()
-    by_path["simulator"], sim_held = sim_phases(f"[{smi}]")
+    by_path["simulator"], sim_held, fleet_stream = sim_phases(f"[{smi}]")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1848,6 +2114,21 @@ def main() -> int:
     gc.collect()                         # the Mamba2 weights and caches go first
     torch.cuda.empty_cache()
     attn = dense_phases(smi)
+    gc.collect()                         # Yi-6B's weights go before InternVL2's
+    torch.cuda.empty_cache()
+    attn_by_path = {"yi-6b": attn["launches"], "internvl2-1b": vlm_phase(smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_by_path["grok-1-314b (depth 2)"] = grok_phase(smi)
+    gc.collect()                         # Grok's 45.8 GB go before the rest
+    torch.cuda.empty_cache()
+    jamba = _smoke_phase("jamba-1.5-large-398b", f"[{smi}]")   # (c) both LM kernels
+    attn_by_path["jamba-smoke"] = jamba["block_attn"]
+    ssd_by_path = {"mamba2-130m": ssd["launches"], "jamba-smoke": jamba["ssd_scan"]}
+    for entry, paths in ((attn, attn_by_path), (ssd, ssd_by_path)):
+        entry["launches"] = sum(paths.values())
+        entry["launches_by_path"] = paths
+    obs_phase(f"[{smi}]", fleet_stream)
     print(json.dumps({"kernels": [results["qdq_delta_rows_rng"], results["qdq_rows_rng"],
                                   *wire.values(), ssd, attn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

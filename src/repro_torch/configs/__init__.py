@@ -2,9 +2,13 @@
 Each ported module exposes ARCH (the assigned configuration) and SMOKE (a
 reduced variant of the same family).
 
-Ported: the Mamba2 family (``mamba2-130m``) and the dense GQA family
-(``yi-6b``, ``qwen2.5-32b``, ``qwen2-72b``, ``granite-34b``); every other id
-raises ``NotImplementedError`` (``ROADMAP.md`` A10).
+Ported: the Mamba2 family (``mamba2-130m``), the dense GQA family
+(``yi-6b``, ``qwen2.5-32b``, ``qwen2-72b``, ``granite-34b``), the vision
+stub (``internvl2-1b``) and the MoE models (``grok-1-314b``, and
+``jamba-1.5-large-398b``, which mixes Mamba2 and attention slots). MLA
+(``deepseek-v2-lite-16b``) and the encoder-decoder
+(``seamless-m4t-large-v2``) raise ``NotImplementedError`` (``ROADMAP.md``
+A10).
 
 Usage: ``from repro_torch.configs import get_arch, get_smoke, ARCH_IDS``.
 """
@@ -27,7 +31,8 @@ ARCH_IDS = [
     "seamless-m4t-large-v2",
 ]
 
-_PORTED = {"mamba2-130m", "yi-6b", "qwen2.5-32b", "qwen2-72b", "granite-34b"}
+_PORTED = {"mamba2-130m", "yi-6b", "qwen2.5-32b", "qwen2-72b", "granite-34b",
+           "internvl2-1b", "grok-1-314b", "jamba-1.5-large-398b"}
 
 
 def _load(arch_id: str):

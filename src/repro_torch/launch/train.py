@@ -3,13 +3,17 @@
 ``protocol`` runs the paper's federated protocol (``--algo dfedrw``:
 DFedRW/QDFedRW) or one of its baselines (``--algo fedavg|dfedavg|dsgd``) on
 synthetic federated data, on the card unless ``--device cpu`` is given;
-``--checkpoint-dir`` saves the accuracy history at step ``--rounds``. The
-``pod`` mode and ``--obs``/``--trace`` are not ported yet (ROADMAP.md,
-queue A).
+``--checkpoint-dir`` saves the accuracy history at step ``--rounds``.
+``--obs PATH`` records a ``repro_torch.obs`` telemetry stream of a
+``dfedrw`` run (per-round engine spans and Eq. 18 bits on the wall clock);
+``--trace`` marks it trace-capable, as the reference does. The ``pod`` mode
+is not ported yet (ROADMAP.md, queue A, item 11).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train protocol --algo dfedrw --rounds 100
   PYTHONPATH=src python -m repro_torch.launch.train protocol --bits 8 --device cpu --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train protocol --bits 8 --device cpu --rounds 2 \
+      --obs /tmp/obs.jsonl --trace
   PYTHONPATH=src python -m repro_torch.launch.train protocol --algo dfedavg --bits 8 \
       --device cpu --rounds 2 --checkpoint-dir /tmp/ckpt
 """
@@ -49,6 +53,21 @@ def protocol_main(args) -> None:
             local_epochs=args.epochs, straggler=strag, quant=quant),
             device=args.device)
 
+    rec = None
+    if args.trace and not args.obs:
+        raise SystemExit("--trace requires --obs (it augments the obs "
+                         "stream with tspan events)")
+    if args.obs:
+        if not hasattr(runner, "attach_obs"):
+            raise SystemExit(f"--obs: --algo {args.algo} exposes no telemetry "
+                             f"hooks (supported: dfedrw)")
+        from repro_torch.obs import Recorder
+        # wall clock: per-round engine spans + Eq. 18 bits. --trace marks the
+        # stream trace-capable; the protocol engine itself emits no tspans
+        # (causal span trees come from the simulator's timelines).
+        rec = Recorder(trace=args.trace)
+        runner.attach_obs(rec)
+
     def cb(r, metrics, evald):
         print(f"round {r+1:4d}  loss={metrics.train_loss:.4f} "
               f"acc={evald['accuracy']:.4f} busiest_mb={metrics.comm_bits_busiest_round/8e6:.2f}")
@@ -56,6 +75,12 @@ def protocol_main(args) -> None:
     hist = train_loop(runner, args.rounds, xt, yt,
                       eval_every=max(args.rounds // 20, 1), callback=cb)
     print(f"final: {hist.final()}")
+    if rec is not None:
+        from repro_torch.obs import provenance
+        rec.save(args.obs, provenance=provenance(config=vars(args), device=args.device),
+                 workload="train", algo=args.algo)
+        print(f"obs: wrote {args.obs} "
+              f"(report: python tools/obs_report.py {args.obs})")
     if args.checkpoint_dir:
         save_checkpoint(args.checkpoint_dir, args.rounds,
                         {"history_acc": np.array(hist.test_accuracy)})
@@ -79,6 +104,12 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--obs", default="",
+                   help="record a repro_torch.obs telemetry stream (JSONL) here")
+    p.add_argument("--trace", action="store_true",
+                   help="with --obs: mark the stream trace-capable (schema v2); the "
+                        "protocol engine emits no causal spans: use the simulator "
+                        "(launch.sim --trace) for causal span trees")
     sub.add_parser("pod", help="not ported yet")
     args = ap.parse_args(argv)
     if args.mode == "pod":

@@ -1,8 +1,9 @@
 """Layer primitives of the language-model zoo, the port of
-``repro.models.layers``, with what the Mamba2 and the dense GQA families
+``repro.models.layers``, with what the Mamba2, dense GQA and MoE families
 need: RMSNorm, RoPE, GQA attention (QKV bias, MQA, sliding-window ring
-cache), the SwiGLU FFN, and the Mamba2 SSD mixer (chunked full-sequence
-scan and O(1) recurrent decode).
+cache), the SwiGLU FFN, the top-k mixture of SwiGLU experts with capacity
+(``moe_apply``), and the Mamba2 SSD mixer (chunked full-sequence scan and
+O(1) recurrent decode).
 
 Plain functions over explicit parameter dicts, in the reference's layouts,
 so weights carry across unchanged. Two things here were Pallas kernels in
@@ -46,6 +47,9 @@ __all__ = [
     "init_cache_attn",
     "init_ffn",
     "ffn_apply",
+    "init_moe",
+    "moe_route",
+    "moe_apply",
     "init_mamba",
     "mamba_train",
     "init_cache_mamba",
@@ -68,7 +72,8 @@ def _dense(gen: torch.Generator, shape, device, scale=None) -> torch.Tensor:
     """normal * scale (1/sqrt(fan_in) by default), drawn from ``gen`` on
     the generator's own device and moved to ``device``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    return (scale * torch.randn(shape, generator=gen, device=gen.device)).to(device)
+    # Scaled in place: one full-size temporary less (a Grok expert leaf is 6.4 GB).
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(device)
 
 
 # --------------------------------------------------------------------- RoPE
@@ -225,6 +230,104 @@ def init_ffn(gen: torch.Generator, d: int, ff: int, device) -> dict:
 
 def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# --------------------------------------------------------------------- MoE
+def init_moe(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    """The reference's leaves in its order (router, w_gate, w_up, w_down,
+    then the shared experts' FFN), shapes and scales; the draws are
+    ``gen``'s, not JAX's. The expert weights are scaled by 1/sqrt of their
+    leading (expert) dimension, as the reference's ``_dense`` does."""
+    mo = cfg.moe
+    d = cfg.d_model
+    de = mo.d_expert or cfg.d_ff
+    p = {
+        "router": _dense(gen, (d, mo.n_experts), device),
+        "w_gate": _dense(gen, (mo.n_experts, d, de), device),
+        "w_up": _dense(gen, (mo.n_experts, d, de), device),
+        "w_down": _dense(gen, (mo.n_experts, de, d), device),
+    }
+    if mo.n_shared > 0:
+        p["shared"] = init_ffn(gen, d, mo.n_shared * de, device)
+    return p
+
+
+def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """The router of ``moe_apply`` over dispatch groups x (b, l, d), as the
+    reference computes it: float32 logits, softmax, the top-k (ties to the
+    lower expert index, as ``jax.lax.top_k``: a stable descending sort, since
+    ``torch.topk`` orders ties arbitrarily on the card), renormalised with
+    a 1e-9 clip, and the Switch aux loss
+    ``e * sum(mean(probs) * mean(onehot(top1))) * router_aux_weight``.
+
+    Each choice's slot in its expert is the number of earlier choices of
+    that expert in its group, counted token-major with the choice rank
+    inside (the reference's cumsum over ``(b, l * k, e)``); a slot at or past
+    ``cap = max(8, int(l * top_k * capacity_factor / e))`` is dropped and
+    keeps a zero gate.
+
+    Returns (gate_vals (b, l, k) with dropped choices zeroed, gate_idx
+    (b, l, k), slot (b, l, k), keep (b, l, k) bool, cap, aux)."""
+    mo = cfg.moe
+    b, l, _ = x.shape
+    e, k = mo.n_experts, mo.top_k
+    cap = max(8, int(l * k * mo.capacity_factor / e))
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)          # (b, l, e)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[..., :k], gate_idx[..., :k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce) * mo.router_aux_weight
+
+    sel = F.one_hot(gate_idx, e)                                     # (b, l, k, e)
+    flat = sel.reshape(b, l * k, e)
+    slot = ((flat.cumsum(1) - flat).reshape(b, l, k, e) * sel).sum(-1)
+    keep = slot < cap
+    return gate_vals * keep, gate_idx, slot, keep, cap, aux
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k dispatch with capacity, the reference's ``moe_apply``. x (B, L, d)
+    -> (out, aux loss). The routing is :func:`moe_route`'s.
+
+    Dispatch is by index where the reference multiplies one-hot tensors:
+    each kept choice copies its token into slot ``slot`` of its expert's
+    buffer, (b, e, min(cap, l), d), and the output gathers it back, scaled
+    by the gate. The copies are exact, as the one-hot products are (one
+    non-zero term each), and the slots from ``l`` on, which no choice can
+    reach (a token picks an expert once), are not computed. The expert
+    SwiGLU is batched products over the experts (the reference computes it
+    outside any kernel too). Shared experts go through ``ffn_apply``.
+
+    The dispatch groups are the batch rows, or rows of ``group_size`` tokens
+    when that divides L and is shorter."""
+    b0, l0, d0 = x.shape
+    gs = cfg.moe.group_size
+    if gs and l0 > gs and l0 % gs == 0:
+        x = x.reshape(b0 * (l0 // gs), gs, d0)
+    b, l, d = x.shape
+    e = cfg.moe.n_experts
+    gate_vals, gate_idx, slot, keep, cap, aux = moe_route(p, x, cfg)
+    width = min(cap, l)
+    # Row of each kept choice in the flattened (b, e, width) buffer; dropped
+    # choices write to one spare row past the end, which nothing reads.
+    spare = b * e * width
+    rows = (torch.arange(b, device=x.device)[:, None, None] * e + gate_idx) * width + slot
+    rows = torch.where(keep, rows, spare)
+    k = rows.shape[-1]
+    xe = x.new_zeros(spare + 1, d)
+    xe.index_copy_(0, rows.reshape(-1), x.unsqueeze(2).expand(b, l, k, d).reshape(-1, d))
+    xe = xe[:spare].view(b, e, width, d)
+    h = F.silu(torch.einsum("becd,edf->becf", xe, p["w_gate"]))
+    h = h * torch.einsum("becd,edf->becf", xe, p["w_up"])
+    ye = torch.einsum("becf,efd->becd", h, p["w_down"]).reshape(spare, d)
+    picked = ye[torch.where(keep, rows, 0)]                          # (b, l, k, d)
+    out = (picked * gate_vals.to(x.dtype)[..., None]).sum(2)
+    if "shared" in p:
+        out = out + ffn_apply(p["shared"], x)
+    return out.reshape(b0, l0, d0), aux
 
 
 # ------------------------------------------------------------------ Mamba2

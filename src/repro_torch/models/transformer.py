@@ -1,16 +1,19 @@
 """Decoder LM over ``ArchConfig``, the port of ``repro.models.transformer``,
-for the Mamba2 family (``block_pattern=("mamba",)``, ``ffn_pattern=("none",)``)
-and the dense GQA family (``"attn"`` slots with RoPE, optional QKV bias and
+for the Mamba2 family (``block_pattern=("mamba",)``, ``ffn_pattern=("none",)``),
+the dense GQA family (``"attn"`` slots with RoPE, optional QKV bias and
 sliding window, and a dense SwiGLU FFN: ``yi-6b``, ``qwen2.5-32b``,
-``qwen2-72b``, ``granite-34b``).
+``qwen2-72b``, ``granite-34b``), MoE FFN slots (``grok-1-314b``, and
+``jamba-1.5-large-398b``, whose blocks mix Mamba2 and attention slots) and
+the vision stub (``internvl2-1b``: the caller's patch embeddings go before
+the tokens, ``frontend_embeds``).
 
 Parameters are the reference's nested dict, blocks stacked along a leading
 ``n_blocks`` dimension, so a JAX ``init_params`` pytree carries across with
 ``repro_torch.convert.lm_params_from_numpy``. The stacked blocks are walked
 by a Python loop (PyTorch runs eagerly: the reference's ``remat`` and
 ``unroll`` steer XLA and have no counterpart here). Embeddings are tied when
-``cfg.tie_embeddings`` (head = embed.T). MLA, MoE, encoder-decoder and
-frontends raise ``NotImplementedError`` (``ROADMAP.md`` A10).
+``cfg.tie_embeddings`` (head = embed.T). MLA, the encoder-decoder and the
+audio frontend raise ``NotImplementedError`` (``ROADMAP.md`` A10).
 
 Public API: init_params / forward_train / loss_fn / init_cache /
 decode_step. Float32 throughout, with TF32 off (``repro_torch.device``).
@@ -28,18 +31,16 @@ __all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "decode_step
 
 def _check_supported(cfg: ArchConfig) -> None:
     for i, kind in enumerate(cfg.block_pattern):
-        fk = cfg.ffn_kind(i)
         if kind == "attn" and cfg.attn_type != "gqa":
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.attn_type} attention is not ported (ROADMAP.md A10)")
-        if kind not in ("attn", "mamba") or fk not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: slot {i} is {kind} with a {fk} FFN; only GQA "
-                f"attention and Mamba2 slots with a dense or no FFN are ported; "
-                f"MLA, MoE, enc-dec and frontends are ROADMAP.md A10")
-    if cfg.enc_dec or cfg.frontend != "none":
+        if kind not in ("attn", "mamba"):
+            raise NotImplementedError(f"{cfg.name}: slot {i} is {kind!r}; only GQA "
+                                      f"attention and Mamba2 slots are ported")
+    if cfg.enc_dec or cfg.frontend not in ("none", "vision"):
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models and frontends are ROADMAP.md A10")
+            f"{cfg.name}: encoder-decoder models and the audio frontend are "
+            f"ROADMAP.md A10")
 
 
 def _stack(trees: list):
@@ -61,8 +62,12 @@ def _init_slot(gen: torch.Generator, cfg: ArchConfig, slot: int, dev) -> dict:
         p["mixer"] = L.init_attn(gen, cfg, dev)
     else:
         p["mixer"] = L.init_mamba(gen, cfg, dev)
-    if cfg.ffn_kind(slot) == "dense":
+    fk = cfg.ffn_kind(slot)
+    if fk != "none":
         p["norm2"] = ones()
+    if fk == "moe":
+        p["ffn"] = L.init_moe(gen, cfg, dev)
+    elif fk == "dense":
         p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dev)
     return p
 
@@ -122,36 +127,58 @@ def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int):
+    """The slot's FFN on the residual x -> (x + ffn(norm2(x)), aux)."""
+    fk = cfg.ffn_kind(slot)
+    if fk == "none":
+        return x, None
+    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    if fk == "moe":
+        h, aux = L.moe_apply(p["ffn"], h, cfg)
+        return x + h, aux
+    return x + L.ffn_apply(p["ffn"], h), None
+
+
 def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin):
+    """One slot of a block -> (x, aux loss of its MoE FFN, or None)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.block_pattern[slot] == "attn":
         x = x + L.attn_train(p["mixer"], h, cfg, cos, sin)
     else:
         x = x + L.mamba_train(p["mixer"], h, cfg)
-    if cfg.ffn_kind(slot) == "dense":
-        x = x + L.ffn_apply(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
-    return x
+    return _ffn(p, x, cfg, slot)
 
 
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                   frontend_embeds: torch.Tensor | None = None):
-    """tokens (B, S) int -> (logits (B, S, V), aux loss 0)."""
+    """tokens (B, S) int -> (logits (B, S, V), aux loss: the sum of the MoE
+    slots' over every block, 0 without them). ``frontend_embeds`` (B, F, d),
+    the vision stub's patch embeddings, go before the tokens; RoPE runs over
+    all F + S positions, and the first F are cut after the final norm."""
     _check_supported(cfg)
-    if frontend_embeds is not None:
-        raise NotImplementedError("frontends are ROADMAP.md A10")
     x = params["embed"][tokens]
+    n_front = 0
+    if frontend_embeds is not None:
+        n_front = frontend_embeds.shape[1]
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = L.rope_freqs(positions, cfg.head_dim_, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
         for i in range(len(cfg.block_pattern)):
-            x = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin)
+            x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin)
+            if a is not None:
+                aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ _head(cfg, params), torch.zeros((), dtype=torch.float32, device=x.device)
+    if n_front:
+        x = x[:, n_front:]
+    return x @ _head(cfg, params), aux
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    """batch: {"tokens": (B,S), "labels": (B,S)} -> mean next-token NLL + aux."""
+    """batch: {"tokens": (B,S), "labels": (B,S), optional "embeds": (B,F,d)}
+    -> mean next-token NLL + aux."""
     logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("embeds"))
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
@@ -203,8 +230,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
                 out, nc = L.mamba_decode(p["mixer"], hn, c, cfg, active=active)
             x = x + out
             new_slots[f"slot{i}"].append(nc)
-            if cfg.ffn_kind(i) == "dense":
-                x = x + L.ffn_apply(p["ffn"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
+            x, _ = _ffn(p, x, cfg, i)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["slots"] = {k: _stack(v) for k, v in new_slots.items()}

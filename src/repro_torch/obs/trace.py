@@ -28,9 +28,8 @@ At fleet scale (``m_chains * k_walk > TRACE_COARSE_LIMIT``) per-step spans
 would dominate the stream, so emission coarsens to one envelope span per
 chain per window whose attrs carry the per-kind totals (``sgd_s``,
 ``transfer_s``, ``queue_s``, ``churn_s``); the coarsening is flagged as
-``trace_coarse`` in the stream header and understood by the critical-path
-renderer (``repro.obs.critical``; the port reads its streams with the JAX
-package's tools until that renderer is ported).
+``trace_coarse`` in the stream header and understood by
+``repro_torch.obs.critical``.
 """
 from __future__ import annotations
 

@@ -121,6 +121,45 @@ def test_port_runs_dense_smoke_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_runs_moe_smoke_and_renders_a_report_without_jax():
+    """The MoE slice (a Grok SMOKE forward and decode) and the renderers (a
+    traced simulator stream rendered with its critical path) on the CPU
+    with JAX and the JAX package refused."""
+    proc = _run("""
+        import sys
+        import torch
+        import repro_torch.obs as obs
+        from repro_torch.configs import get_smoke
+        from repro_torch.models import transformer as T
+        from repro_torch.sim import build_scenario
+
+        cfg = get_smoke("grok-1-314b")
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(1))
+        logits, aux = T.forward_train(cfg, params, tokens)
+        loss = T.loss_fn(cfg, params, {"tokens": tokens, "labels": tokens})
+        cache = T.init_cache(cfg, 2, 12, device="cpu")
+        step, cache = T.decode_step(cfg, params, cache, tokens[:, :1])
+        assert torch.isfinite(loss) and float(aux) > 0 and logits.shape == (2, 12, cfg.vocab)
+        assert step.shape == (2, 1, cfg.vocab)
+
+        setup = build_scenario("fleet_metro", n=20, seed=0)
+        runner = setup.runner(engine="fleet", device="cpu")
+        rec = obs.Recorder(clock=obs.VirtualClock(), trace=True)
+        runner.attach_obs(rec, trace=True)
+        runner.run(2, torch.Generator().manual_seed(0), setup.x_test, setup.y_test,
+                   eval_every=2)
+        text = obs.render_report(rec.to_stream())
+        assert "critical path" in text and "straggler league" in text
+        assert obs.render_prometheus(rec.to_stream())
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
 def test_port_runs_the_simulator_without_jax():
     """The simulator slice (sim, obs, launch.sim) on the CPU with JAX and the
     JAX package refused: a scenario with telemetry and a recorded trace on
@@ -227,7 +266,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import transformer as T
 
-    for arch_id in ("mamba2-130m", "yi-6b"):
+    for arch_id in ("mamba2-130m", "yi-6b", "grok-1-314b"):
         cfg = get_smoke(arch_id)
         with pytest.raises(RuntimeError, match="CUDA"):
             T.init_params(cfg, torch.Generator())

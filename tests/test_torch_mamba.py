@@ -165,11 +165,13 @@ def test_registry_matches_jax():
         mine, ref = get("mamba2-130m"), j_get("mamba2-130m")
         assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
         assert mine == _port_cfg(ref)
-    ported = {"mamba2-130m", "yi-6b", "qwen2.5-32b", "qwen2-72b", "granite-34b"}
+    ported = {"mamba2-130m", "yi-6b", "qwen2.5-32b", "qwen2-72b", "granite-34b",
+              "internvl2-1b", "grok-1-314b", "jamba-1.5-large-398b"}
     for arch_id in configs.ARCH_IDS:
         if arch_id not in ported:
             with pytest.raises(NotImplementedError, match="A10"):
                 configs.get_arch(arch_id)
+    assert set(configs.ARCH_IDS) - ported == {"deepseek-v2-lite-16b", "seamless-m4t-large-v2"}
     with pytest.raises(KeyError):
         configs.get_arch("no-such-model")
 
@@ -182,7 +184,8 @@ def test_param_count_matches_jax(arch_id):
 
 def test_ported_model_has_jax_shapes():
     """init_params draws from a torch.Generator with the reference's shapes;
-    families not yet ported (here MoE) raise, naming the roadmap item."""
+    families not yet ported (MLA, the encoder-decoder, the audio frontend)
+    raise, naming the roadmap item."""
     cfg = configs.get_smoke("mamba2-130m")
     mine = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     ref = JT.init_params(j_mamba.SMOKE, jax.random.PRNGKey(0), jnp.float32)
@@ -194,8 +197,13 @@ def test_ported_model_has_jax_shapes():
         assert tuple(node.shape) == leaf.shape and node.dtype == torch.float32
     count = lambda t: sum(map(count, t.values())) if isinstance(t, dict) else 1  # noqa: E731
     assert count(mine) == len(flat)
-    moe = _port_cfg(JArch(name="d", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-                          d_ff=128, vocab=64, ffn_pattern=("moe",),
-                          moe=JMoE(n_experts=4, top_k=2)))
-    with pytest.raises(NotImplementedError, match="A10"):
-        T.init_params(moe, torch.Generator(), device="cpu")
+    base = JArch(name="d", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                 vocab=64, ffn_pattern=("moe",), moe=JMoE(n_experts=4, top_k=2))
+    unported = [
+        _port_cfg(base, attn_type="mla", mla=MLAConfig()),
+        _port_cfg(base, enc_dec=True, n_enc_layers=2, frontend="audio"),
+        _port_cfg(base, frontend="audio"),
+    ]
+    for cfg in unported:
+        with pytest.raises(NotImplementedError, match="A10"):
+            T.init_params(cfg, torch.Generator(), device="cpu")
