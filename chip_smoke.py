@@ -106,10 +106,27 @@ or of the JAX package ``repro``. Phases, in order:
    ``block_attn`` call a forward, equal routing); (d) the telemetry path,
    see :func:`obs_phase`: ``launch.train --obs --trace`` on the card beside
    the run without it, rendered with the port's ``render_report``, and the
-   traced ``fleet_metro`` stream of 10b with ``render_critical``;
+   traced ``fleet_metro`` stream of 10b with ``render_critical``; (e)
+   ``seamless-m4t-large-v2`` at full width and depth (24 + 24 layers,
+   2.03 B parameters), see :func:`seamless_phase`: SMOKE on the CPU and the
+   card, ``block_attn`` held against its plain version on layer 0's own
+   inputs in each mode the encoder-decoder calls it in (non-causal encoder,
+   causal decoder, cross-attention, the encoder and cross calls at 1,000
+   frames, decode's cross call at Lq = 1), each timed beside fp32
+   ``scaled_dot_product_attention``; ``loss_fn`` on 4 x 1,024 tokens over
+   4 x 1,024 stub frames (72 calls a forward), decode of 8 prompts over the
+   encoder's output against the kernel forward (24 launches a step), and
+   the share of a step spent recomputing the cross K/V; (f)
+   ``deepseek-v2-lite-16b`` at full width and depth (27 layers, 16.21 B
+   parameters, 64.84 GB), last, see :func:`deepseek_phase`: SMOKE on the
+   CPU and the card with equal routing, MLA layer 0 on the card against the
+   CPU, each MoE layer's aux, load and drops, ``loss_fn`` on 2 x 2,048
+   tokens (no kernel: MLA is plain torch, as in the reference), decode at
+   ``capacity_factor = e / k``;
 14. one JSON line of kernel numbers (all ten kernels; B1 and B2 with their
    launches on each path, ``ssd_scan`` and ``block_attn`` with theirs on
-   each LM path), and last the device line.
+   each LM path, ``block_attn`` with each encoder-decoder mode), and last
+   the device line.
 
 The three kernel sources are built at the start, one ``nvcc`` each, in
 parallel.
@@ -212,6 +229,11 @@ SSD_SMALL = [
 ]
 SMOKE_TOL = 1e-4               # abs and rel: the SMOKE model on the CPU and on the card
 DECODE_TOL = 2e-3              # abs and rel: decode vs forward (tests/test_decode_consistency.py)
+# A routing flip between decode and the forward (ROADMAP.md C) is taken as
+# the card's own choice only where the k-th and (k+1)-th router
+# probabilities are this close in both runs: a near-tie that the two GEMM
+# shapes' summation orders split either way.
+FLIP_GAP = 1e-5
 LM_BATCH, LM_SEQ, LM_FORWARDS = 8, 2048, 5
 PROMPT, GENERATE = 64, 32
 ATTN_REPLACES = "src/repro/kernels/block_attn/block_attn.py:32 _attn_kernel"
@@ -244,6 +266,13 @@ VLM_BATCH, VLM_TEXT, VLM_FORWARDS = 4, 1792, 3
 # Grok-1 at full width with its depth cut 64 -> 2 (three layers would be
 # 65.5 GB of float32 weights alone).
 GROK_DEPTH, GROK_BATCH, GROK_SEQ, GROK_FORWARDS = 2, 2, 2048, 3
+# SeamlessM4T-Large-v2 at full width and depth: 4 rows of the config's 1,024
+# stub frames through the encoder and 1,024 text tokens through the decoder;
+# the ragged frame count B10 is also held at.
+SEAMLESS_BATCH, SEAMLESS_TEXT, SEAMLESS_FORWARDS = 4, 1024, 3
+RAGGED_FRAMES = 1000
+# DeepSeek-V2-Lite at full width and depth (64.84 GB of float32 weights).
+DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_FORWARDS = 2, 2048, 3
 
 
 def _ulps(a, b):
@@ -318,35 +347,52 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def _first_call(module, attr, run):
+def _kept_calls(module, attr, run, keep=(0,)):
     """Run ``run()`` with ``module.attr`` wrapped so that the arguments of
-    its first call are kept. Returns (args, kwargs, number of calls)."""
-    kept = []
+    the calls numbered in ``keep`` (from 0) are kept. Returns ({number:
+    (args, kwargs)}, number of calls)."""
+    kept, count = {}, [0]
     real = getattr(module, attr)
 
-    def keep(*args, **kw):
-        kept.append((args, kw) if not kept else None)
+    def spy(*args, **kw):
+        if count[0] in keep:
+            kept[count[0]] = (args, kw)
+        count[0] += 1
         return real(*args, **kw)
 
-    setattr(module, attr, keep)
+    setattr(module, attr, spy)
     try:
         run()
     finally:
         setattr(module, attr, real)
-    return kept[0][0], kept[0][1], len(kept)
+    return kept, count[0]
+
+
+def _first_call(module, attr, run):
+    """The arguments of the first call of ``module.attr`` in ``run()``:
+    (args, kwargs, number of calls)."""
+    kept, calls = _kept_calls(module, attr, run)
+    return (*kept[0], calls)
 
 
 @contextlib.contextmanager
 def _routing():
     """Keep the output of every ``layers.moe_route`` call made inside: one
-    (gate_vals, gate_idx, slot, keep, cap, aux) a MoE slot, in order."""
+    (gate_vals, gate_idx, slot, keep, cap, aux, gap) a MoE slot, in order,
+    where ``gap`` (b, l) is each token's k-th minus (k+1)-th router
+    probability, recomputed beside the call."""
+    import torch
+
     from repro_torch.models import layers as L
 
     kept, real = [], L.moe_route
 
     def keep(p, x, cfg):
         out = real(p, x, cfg)
-        kept.append(out)
+        top = torch.sort(torch.softmax(x.float() @ p["router"], dim=-1), dim=-1,
+                         descending=True).values
+        k = cfg.moe.top_k
+        kept.append((*out, top[..., k - 1] - top[..., k]))
         return out
 
     L.moe_route = keep
@@ -357,19 +403,25 @@ def _routing():
 
 
 def _kernel_calls(cfg):
-    """Calls a forward makes of each LM kernel: one ``block_attention`` an
-    attention slot, one ``ssd_scan`` (four stage kernels) a Mamba2 slot."""
-    return {"block_attn": cfg.n_blocks * sum(k == "attn" for k in cfg.block_pattern),
+    """Calls a forward makes of each LM kernel: one ``block_attention`` a
+    GQA attention slot (MLA attends in plain torch), plus, in an
+    encoder-decoder, one an encoder layer and one a cross layer; one
+    ``ssd_scan`` (four stage kernels) a Mamba2 slot."""
+    gqa = sum(k == "attn" for k in cfg.block_pattern) if cfg.attn_type == "gqa" else 0
+    attn = cfg.n_blocks * gqa + (cfg.n_enc_layers + cfg.n_blocks if cfg.enc_dec else 0)
+    return {"block_attn": attn,
             "ssd_scan": cfg.n_blocks * sum(k == "mamba" for k in cfg.block_pattern)}
 
 
 def _smoke_phase(arch_id, tag):
     """The SMOKE configuration on the CPU (plain versions) and on the card
     from the same weights: a (2, 80) forward (after the vision stub's
-    embeddings, where the model has one) and its aux loss, and 16 decode
-    steps, within SMOKE_TOL; every MoE slot routes every token to the same
-    experts and drops the same choices on both; one kernel call an
-    attention or Mamba2 slot. Returns the card forward's calls by kernel."""
+    embeddings, or over the audio stub's frames in the encoder, where the
+    model has one) and its aux loss, and 16 decode steps (an
+    encoder-decoder's over the encoder's output), within SMOKE_TOL; every
+    MoE slot routes every token to the same experts and drops the same
+    choices on both; the kernel calls of :func:`_kernel_calls`. Returns the
+    card forward's calls by kernel."""
     import torch
 
     from repro_torch.configs import get_smoke
@@ -383,7 +435,7 @@ def _smoke_phase(arch_id, tag):
     gen = torch.Generator().manual_seed(3)
     toks = torch.randint(0, small.vocab, (2, 80), generator=gen)
     emb = (torch.randn(2, small.frontend_tokens, small.d_model, generator=gen)
-           if small.frontend == "vision" else None)
+           if small.frontend != "none" else None)
     with torch.inference_mode():
         with _routing() as on_cpu_routes:
             want, want_aux = T.forward_train(small, on_cpu, toks, emb)
@@ -396,6 +448,9 @@ def _smoke_phase(arch_id, tag):
         launches = {"block_attn": ba.LAUNCHES["block_attn"], "ssd_scan": sk.LAUNCHES["ssd_scan"]}
         stages = _stage_counts(sk)
         caches = [T.init_cache(small, 2, 16, device="cpu"), T.init_cache(small, 2, 16)]
+        if small.enc_dec:
+            caches[0]["enc_out"] = T._run_encoder(small, on_cpu, emb)
+            caches[1]["enc_out"] = T._run_encoder(small, on_card, emb.cuda())
         worst_dec = 0.0
         for t in range(16):
             lg_cpu, caches[0] = T.decode_step(small, on_cpu, caches[0], toks[:, t:t + 1])
@@ -413,8 +468,9 @@ def _smoke_phase(arch_id, tag):
                f"({sum(int((~r[3]).sum()) for r in on_cpu_routes)} dropped), aux cpu="
                f"{float(want_aux):.8f} card={float(got_aux):.8f} ratio={aux_ratio:.4f}"
                if choices else "")
-    print(f"{small.name} {tag}: forward (2, 80){' after 2 x ' + str(small.frontend_tokens) if emb is not None else ''}"
-          f"{' stub embeddings' if emb is not None else ''} cpu-vs-card max|d|="
+    front = ("" if emb is None else f" over 2 x {small.frontend_tokens} stub frames in the encoder"
+             if small.enc_dec else f" after 2 x {small.frontend_tokens} stub embeddings")
+    print(f"{small.name} {tag}: forward (2, 80){front} cpu-vs-card max|d|="
           f"{float((got.cpu() - want).abs().max()):.3e} ratio={fwd_ratio:.4f}; 16 decode steps "
           f"ratio={worst_dec:.4f} (tol {SMOKE_TOL}); calls {launches} (want {want_calls})"
           f"{f' stage kernels {stages}' if launches['ssd_scan'] else ''}{routing}")
@@ -426,6 +482,26 @@ def _smoke_phase(arch_id, tag):
               f"share {share}), or launched {launches} calls and stage kernels {stages} "
               f"(want {want_calls})")
     return launches
+
+
+def _first_flips(dec_routes, fwd_routes, seq):
+    """Each row's first (position, layer) where a decode step's MoE routing
+    (one list of :func:`_routing` entries a step) chose other experts than
+    the forward's at that position, with both runs' k-th/(k+1)-th gaps
+    there. Returns {row: (position, layer, forward gap, decode gap)}."""
+    import torch
+
+    flips = {}
+    for t in range(seq):
+        for layer, fwd in enumerate(fwd_routes):
+            f_idx, f_gap = fwd[1], fwd[6]
+            d_idx, d_gap = dec_routes[t][layer][1], dec_routes[t][layer][6]
+            differ = (torch.sort(f_idx[:, t], -1).values
+                      != torch.sort(d_idx[:, 0], -1).values).any(-1)
+            for row in differ.nonzero().flatten().tolist():
+                if row not in flips:
+                    flips[row] = (t, layer, float(f_gap[row, t]), float(d_gap[row, 0]))
+    return flips
 
 
 def _stage_counts(km):
@@ -480,7 +556,9 @@ def _forward_phase(cfg, params, batch, forwards, km, tag):
     peak = torch.cuda.max_memory_allocated()
     fwd_ms = statistics.median(stamps)
     losses = [float(x) for x in losses]
-    front = f" after {n_front} stub embeddings a row (counted in tokens/s)" if n_front else ""
+    front = (f" {'with' if cfg.enc_dec else 'after'} {n_front} stub "
+             f"{'frames a row through the encoder' if cfg.enc_dec else 'embeddings a row'} "
+             f"(counted in tokens/s)" if n_front else "")
     print(f"{cfg.name} main path {tag}: loss_fn on {bsz}x{seq} tokens{front}: ms/forward "
           f"median={fwd_ms:.3f} all={[round(x, 3) for x in stamps]} tokens/s="
           f"{bsz * (n_front + seq) / fwd_ms * 1e3:.1f} loss={losses[0]:.6f} "
@@ -498,11 +576,15 @@ def _forward_phase(cfg, params, batch, forwards, km, tag):
     return launches
 
 
-def _decode_phase(cfg, params, prompts, n_params, km, tag):
+def _decode_phase(cfg, params, prompts, n_params, km, tag, embeds=None, step_flop=None):
     """Greedy decode at full width: PROMPT tokens of each prompt, then
     GENERATE greedy tokens, through ``decode_step`` (ms per step beside the
-    weight-read bound), held against the kernel forward over the same
-    sequence within DECODE_TOL; then 4 steps under the profiler."""
+    weight-read bound and, given ``step_flop``, the float32 compute bound),
+    held against the kernel forward over the same sequence within
+    DECODE_TOL; then 4 steps under the profiler. An encoder-decoder's cache
+    holds ``_run_encoder`` over ``embeds``, and its steps must launch the
+    kernel once a cross layer. Returns the medians of the step (ms) and the
+    steps' kernel launches."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -512,40 +594,74 @@ def _decode_phase(cfg, params, prompts, n_params, km, tag):
     seqs = [prompts]
     step_ms, dec_logits = [], []
     with torch.inference_mode():
-        cache = T.init_cache(cfg, batch, PROMPT + GENERATE)
+        if cfg.enc_dec:
+            cache = T.init_cache(cfg, batch, PROMPT + GENERATE, enc_len=embeds.shape[1])
+            cache["enc_out"] = T._run_encoder(cfg, params, embeds)
+        else:
+            cache = T.init_cache(cfg, batch, PROMPT + GENERATE)
         nxt = prompts[:, :1]
+        km.reset_launch_counts()
+        dec_routes = []
         for t in range(PROMPT + GENERATE):
             tok = prompts[:, t:t + 1] if t < PROMPT else nxt
             if t >= PROMPT:
                 seqs.append(tok)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            lg, cache = T.decode_step(cfg, params, cache, tok)
+            with _routing() as routes:
+                lg, cache = T.decode_step(cfg, params, cache, tok)
             nxt = lg[:, -1].argmax(-1, keepdim=True)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             dec_logits.append(lg[:, 0])
+            dec_routes.append(routes)
+        step_launches = km.LAUNCHES[name]
         km.reset_launch_counts()
-        fwd_logits, _ = T.forward_train(cfg, params, torch.cat(seqs, dim=1))
+        with _routing() as fwd_routes:
+            fwd_logits, _ = T.forward_train(cfg, params, torch.cat(seqs, dim=1),
+                                            embeds if cfg.enc_dec else None)
         launches = km.LAUNCHES[name]
         stages = _stage_counts(km)
     dec = torch.stack(dec_logits, dim=1)
-    ratio = _tol_ratio(dec, fwd_logits, DECODE_TOL)
-    prompt_ratio = _tol_ratio(dec[:, :PROMPT], fwd_logits[:, :PROMPT], DECODE_TOL)
+    # MoE routing flips (ROADMAP.md C): a row is held up to its first
+    # position whose routing differs from the forward's, and each such flip
+    # must be a near-tie of the router in both runs.
+    seq = PROMPT + GENERATE
+    flips = _first_flips(dec_routes, fwd_routes, seq) if fwd_routes else {}
+    held = torch.arange(seq, device=dec.device)[None, :] < torch.tensor(
+        [flips.get(r, (seq,))[0] for r in range(batch)], device=dec.device)[:, None]
+    near_ties = all(max(f[2], f[3]) < FLIP_GAP for f in flips.values())
+    diff = torch.where(held[..., None], dec - fwd_logits, torch.zeros_like(dec))
+    ratio = _tol_ratio(diff + fwd_logits, fwd_logits, DECODE_TOL)
+    prompt_ratio = _tol_ratio(diff[:, :PROMPT] + fwd_logits[:, :PROMPT],
+                              fwd_logits[:, :PROMPT], DECODE_TOL)
     step_med = statistics.median(step_ms[2:])
+    gen_med = statistics.median(step_ms[PROMPT:])
     weight_ms = 4 * n_params / HBM_BYTES_PER_S * 1e3
+    compute = ("" if step_flop is None else
+               f"; float32 compute bound {step_flop:.4g} FLOP at {FP32_OPS_PER_S:.0e}/s = "
+               f"{step_flop / FP32_OPS_PER_S * 1e3:.3f} ms")
+    want_steps = (cfg.n_blocks if cfg.enc_dec and name == "block_attn" else 0) * len(step_ms)
     print(f"{cfg.name} decode {tag}: {batch} prompts x {PROMPT} tokens + {GENERATE} greedy: "
           f"ms/step median={step_med:.3f} prompt={statistics.median(step_ms[2:PROMPT]):.3f} "
-          f"generate={statistics.median(step_ms[PROMPT:]):.3f} (weight-read bound "
-          f"{weight_ms:.3f} ms = {weight_ms / step_med:.3f} of it); decode vs kernel forward "
-          f"({launches} {name} launches) max|d|={float((dec - fwd_logits).abs().max()):.3e} "
-          f"ratio prompt={prompt_ratio:.4f} all {PROMPT + GENERATE}={ratio:.4f} "
-          f"(tol {DECODE_TOL})")
+          f"generate={gen_med:.3f} (weight-read bound "
+          f"{weight_ms:.3f} ms = {weight_ms / step_med:.3f} of it{compute}); {step_launches} "
+          f"{name} launches in {len(step_ms)} steps (want {want_steps}); decode vs kernel "
+          f"forward ({launches} {name} launches) max|d|={float(diff.abs().max()):.3e} "
+          f"ratio prompt={prompt_ratio:.4f} all {seq}={ratio:.4f} (tol {DECODE_TOL}) over "
+          f"{int(held.sum())} of {held.numel()} (row, position) pairs")
+    for row, (t, layer, f_gap, d_gap) in sorted(flips.items()):
+        print(f"{cfg.name} decode {tag}: routing flip in row {row} at position {t}, MoE layer "
+              f"{layer}: k-th minus (k+1)-th router probability {f_gap:.3e} in the forward, "
+              f"{d_gap:.3e} in decode (a near-tie below {FLIP_GAP}: {max(f_gap, d_gap) < FLIP_GAP}); "
+              f"the row is held before it, max|d| from there "
+              f"{float((dec - fwd_logits)[row, t:].abs().max()):.3e}")
     want = _kernel_calls(cfg)[name]
-    if (ratio > 1.0 or not torch.isfinite(dec).all() or launches != want
-            or any(v != want for v in stages.values())):
-        _fail(f"decode disagrees with the kernel forward at {cfg.name}'s full width, or the "
-              f"forward launched {launches} calls and stage kernels {stages}")
+    if (ratio > 1.0 or not torch.isfinite(dec).all() or launches != want or not near_ties
+            or step_launches != want_steps or any(v != want for v in stages.values())):
+        _fail(f"decode disagrees with the kernel forward at {cfg.name}'s full width (routing "
+              f"flips {flips}), or the forward launched {launches} calls and stage kernels "
+              f"{stages}, the steps {step_launches} (want {want_steps})")
 
     def decode_steps():
         c = cache
@@ -554,6 +670,7 @@ def _decode_phase(cfg, params, prompts, n_params, km, tag):
 
     with torch.inference_mode():
         _profile(f"{cfg.name} decode batch {batch} (4 steps) {tag}", decode_steps)
+    return {"step_ms": step_med, "generate_ms": gen_med, "launches": step_launches}
 
 
 def mamba_phases(smi):
@@ -700,12 +817,12 @@ def mamba_phases(smi):
 
 
 def _time_sdpa(q, k, v, want, backends=("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
-                                         "CUDNN_ATTENTION", "MATH")):
+                                         "CUDNN_ATTENTION", "MATH"), causal=True):
     """PyTorch's one call for the same function, timed as a yardstick only
     (the port never calls it): fp32 ``scaled_dot_product_attention`` with
-    ``is_causal`` (and ``enable_gqa`` when K/V have fewer heads than q), on
-    the first of ``backends`` that takes it. Returns (backend name, ms,
-    max |d| against the kernel), or Nones."""
+    ``is_causal=causal`` (and ``enable_gqa`` when K/V have fewer heads than
+    q), on the first of ``backends`` that takes it. Returns (backend name,
+    ms, max |d| against the kernel), or Nones."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -717,7 +834,7 @@ def _time_sdpa(q, k, v, want, backends=("FLASH_ATTENTION", "EFFICIENT_ATTENTION"
 
         def call():
             with sdpa_kernel(backend):
-                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                       enable_gqa=gqa)
         try:
             with warnings.catch_warnings():     # each refusal warns why, at length
@@ -963,7 +1080,7 @@ def grok_phase(smi):
     with torch.inference_mode(), _routing() as routes:
         loss = T.loss_fn(cfg, params, batch)
         torch.cuda.synchronize()
-    for layer, (_, gate_idx, _, keep, cap, aux) in enumerate(routes):
+    for layer, (_, gate_idx, _, keep, cap, aux, _) in enumerate(routes):
         load = F.one_hot(gate_idx, mo.n_experts).sum(dim=(1, 2))     # (rows, experts)
         print(f"{cfg.name} {tag}: MoE layer {layer}: aux={float(aux):.8f} cap={cap} "
               f"(expected load {GROK_SEQ * mo.top_k // mo.n_experts} a row and expert) "
@@ -981,6 +1098,252 @@ def grok_phase(smi):
           f"capacity is at least its length, so it drops nothing, as decode (one token "
           f"a group, capacity 8) never does; at capacity factor 1 they differ by design")
     prompts = tokens[:, :YI_DECODE_BATCH // GROK_BATCH * PROMPT].reshape(
+        YI_DECODE_BATCH, PROMPT).cuda()
+    _decode_phase(no_drops, params, prompts, n_params, ba, tag)
+    return launches
+
+
+def _hold_attn_mode(label, q, k, v, causal, tag):
+    """``block_attn`` on one call's own q/k/v against its plain version
+    within ATTN_TOL, timed beside the plain version and fp32
+    ``scaled_dot_product_attention`` on the same shapes (the library
+    yardstick), with its bound: the larger of the 3xTF32 products over the
+    pairs the mask allows and the bytes (q, k, v read once, o written
+    once). Returns the mode's entry of the kernels line."""
+    import torch
+
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn.ref import attention_pairs, block_attention_plain
+
+    bsz, lq, h, hd = q.shape
+    lk = k.shape[1]
+    with torch.inference_mode():
+        got = ba.block_attn(q, k, v, causal=causal)
+        want = block_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ratio = _tol_ratio(got, want, ATTN_TOL)
+        ms = statistics.median(_time_ms(lambda: ba.block_attn(q, k, v, causal=causal),
+                                        iters=10) for _ in range(3))
+        plain_ms = _time_ms(lambda: block_attention_plain(q, k, v, causal=causal),
+                            iters=2, warmup=1)
+        backend, library_ms, library_err = _time_sdpa(q, k, v, got, causal=causal)
+    flop = 4 * hd * attention_pairs(lq, lk, causal=causal) * bsz * h
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ops_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    max_abs = float((got - want).abs().max())
+    print(f"block_attn {tag}: {label} q{tuple(q.shape)} k/v{tuple(k.shape)} causal={causal}: "
+          f"vs plain max|d|={max_abs:.3e} ratio={ratio:.4f} (tol {ATTN_TOL}); ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (3xTF32: {ATTN_TF32_PASSES} x "
+          f"{flop} FLOP = {bound_ops_ms:.4f} ms; bytes {nbytes} = {bound_bytes_ms:.4f} ms) "
+          f"= {bound_ms / ms:.3f} of it; library fp32 scaled_dot_product_attention "
+          f"backend={backend} ms={library_ms} max|d| vs kernel={library_err}")
+    if not (ratio <= 1.0 and torch.isfinite(got).all()):
+        _fail(f"block_attn disagrees with its plain version on {label} (ratio {ratio:.4f})")
+    return {"q": list(q.shape), "kv": list(k.shape), "causal": causal, "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+            "library_ms": library_ms, "library_backend": backend}
+
+
+def seamless_phase(smi):
+    """(e) SeamlessM4T-Large-v2 (``configs.seamless_m4t_large_v2``) at full
+    width and depth, random weights, the audio stub's frames drawn N(0, 1):
+    the SMOKE configuration on the CPU and the card; ``block_attn`` in the
+    modes the encoder-decoder opens, each on layer 0's own inputs from a
+    full-width forward (the encoder's non-causal call, the decoder's causal
+    call, the cross call; the encoder and cross calls again at
+    RAGGED_FRAMES frames; decode's cross call at Lq = 1), see
+    :func:`_hold_attn_mode`; ``loss_fn`` on SEAMLESS_BATCH x SEAMLESS_TEXT
+    tokens over as many rows of 1,024 frames (72 calls a forward: 24 of
+    each mode); decode of 8 prompts over the encoder's output against the
+    kernel forward, with the step's float32 FLOP and the time of the cross
+    layers' K/V projections, which every step recomputes as the reference
+    does. Returns (the forward's launches, the decode steps' launches, the
+    modes' entries)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    _smoke_phase("seamless-m4t-large-v2", tag)
+    cfg = get_arch("seamless-m4t-large-v2")
+    params, n_params = _init_on_card(cfg, tag)
+    gen = torch.Generator().manual_seed(1)
+    frames = cfg.frontend_tokens
+    tokens = torch.randint(0, cfg.vocab, (SEAMLESS_BATCH, SEAMLESS_TEXT + 1), generator=gen)
+    embeds = torch.randn(SEAMLESS_BATCH, frames, cfg.d_model, generator=gen).cuda()
+    batch = {"tokens": tokens[:, :-1].cuda(), "labels": tokens[:, 1:].cuda(), "embeds": embeds}
+    n_enc = cfg.n_enc_layers
+    want_calls = _kernel_calls(cfg)["block_attn"]
+
+    def layer0(run_batch):
+        kept, calls = _kept_calls(attn_ops, "block_attention",
+                                  lambda: T.loss_fn(cfg, params, run_batch),
+                                  keep=(0, n_enc, n_enc + 1))
+        kws = [kept[i][1] for i in (0, n_enc, n_enc + 1)]
+        if calls != want_calls or kws != [{"causal": False, "window": 0},
+                                          {"causal": True, "window": 0},
+                                          {"causal": False, "window": 0}]:
+            _fail(f"{cfg.name}: the forward called block_attention {calls} times (want "
+                  f"{want_calls}), layer 0 with {kws}")
+        return [kept[i][0] for i in (0, n_enc, n_enc + 1)]
+
+    with torch.inference_mode():
+        enc, dec, cross = layer0(batch)
+        ragged = {**batch, "embeds": embeds[:, :RAGGED_FRAMES]}
+        r_enc, _, r_cross = layer0(ragged)
+    modes = {"encoder": _hold_attn_mode("encoder layer 0 (non-causal)", *enc, False, tag),
+             "decoder": _hold_attn_mode("decoder layer 0 (causal)", *dec, True, tag),
+             "cross": _hold_attn_mode("cross layer 0", *cross, False, tag),
+             "encoder_ragged": _hold_attn_mode(f"encoder layer 0 at {RAGGED_FRAMES} frames",
+                                               *r_enc, False, tag),
+             "cross_ragged": _hold_attn_mode(f"cross layer 0 at {RAGGED_FRAMES} frames",
+                                             *r_cross, False, tag)}
+    del enc, dec, cross, r_enc, r_cross, ragged
+    print(f"{cfg.name} {tag}: block_attention calls a forward: {n_enc} encoder (non-causal, "
+          f"Lq = Lk = {frames}), {cfg.n_blocks} decoder (causal, Lq = Lk = {SEAMLESS_TEXT}), "
+          f"{cfg.n_blocks} cross (non-causal, Lq = {SEAMLESS_TEXT}, Lk = {frames})")
+    launches = _forward_phase(cfg, params, batch, SEAMLESS_FORWARDS, ba, tag)
+
+    per_row = YI_DECODE_BATCH // SEAMLESS_BATCH * PROMPT
+    prompts = tokens[:, :per_row].reshape(YI_DECODE_BATCH, PROMPT).cuda()
+    dec_embeds = embeds.repeat_interleave(YI_DECODE_BATCH // SEAMLESS_BATCH, dim=0)
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, YI_DECODE_BATCH, PROMPT + GENERATE, enc_len=frames)
+        cache["enc_out"] = T._run_encoder(cfg, params, dec_embeds)
+        kept, calls = _kept_calls(attn_ops, "block_attention",
+                                  lambda: T.decode_step(cfg, params, cache, prompts[:, :1]))
+    if calls != cfg.n_blocks or kept[0][1] != {"causal": False, "window": 0}:
+        _fail(f"{cfg.name}: a decode step called block_attention {calls} times (want "
+              f"{cfg.n_blocks}), the first with {kept[0][1]}")
+    modes["decode_cross"] = _hold_attn_mode("decode cross layer 0 (Lq = 1)", *kept[0][0],
+                                            False, tag)
+    # A step's float32 work: the decoder's weights (blocks, cross layers,
+    # head) once a row; every cross layer's K/V projections of the whole
+    # encoder output; attention over the encoder frames and the cache.
+    d, hd, h = cfg.d_model, cfg.head_dim_, cfg.n_heads
+    dec_weights = sum(t.numel() for part in ("blocks", "cross", "head")
+                      for t in _leaves(params[part]))
+    kv_flop = cfg.n_blocks * 2 * (2 * YI_DECODE_BATCH * frames * d * d)
+    attn_flop = 4 * hd * h * YI_DECODE_BATCH * cfg.n_blocks * (frames + PROMPT + GENERATE)
+    step_flop = 2 * YI_DECODE_BATCH * dec_weights + kv_flop + attn_flop
+    cross_wk, cross_wv = params["cross"]["mixer"]["wk"], params["cross"]["mixer"]["wv"]
+    enc_out = cache["enc_out"]
+    del kept, cache
+
+    def cross_kv():
+        for i in range(cfg.n_blocks):
+            enc_out @ cross_wk[i]
+            enc_out @ cross_wv[i]
+
+    with torch.inference_mode():
+        kv_ms = statistics.median(_time_ms(cross_kv, iters=3, warmup=1) for _ in range(3))
+    decode = _decode_phase(cfg, params, prompts, n_params, ba, tag, embeds=dec_embeds,
+                           step_flop=step_flop)
+    print(f"{cfg.name} decode {tag}: the cross layers' K/V projections of the encoder output "
+          f"({cfg.n_blocks} x 2 products of ({YI_DECODE_BATCH * frames} x {d}) @ ({d} x {d}), "
+          f"{kv_flop} FLOP, recomputed every step as the reference does) take {kv_ms:.3f} ms "
+          f"= {kv_ms / decode['generate_ms']:.3f} of the generate step's "
+          f"{decode['generate_ms']:.3f} ms")
+    return launches, decode["launches"], modes
+
+
+def _deepseek_forward_flop(cfg, bsz, seq):
+    """The float32 FLOP of one DeepSeek forward as the port computes it:
+    every projection (the absorbed w_uk/w_uv per token and head too), the
+    latent attention over all L^2 pairs as the reference materializes them,
+    the router, the expert slots at the forward's capacity and the shared
+    experts, and the head."""
+    m, mo = cfg.mla, cfg.moe
+    d, h, tokens = cfg.d_model, cfg.n_heads, bsz * seq
+    mixer = (d * h * (m.qk_nope_dim + m.qk_rope_dim) + d * (m.kv_lora_rank + m.qk_rope_dim)
+             + m.kv_lora_rank * h * (m.qk_nope_dim + m.v_head_dim) + h * m.v_head_dim * d)
+    attn = 2 * bsz * h * seq * seq * (2 * m.kv_lora_rank + m.qk_rope_dim)
+    width = min(max(8, int(seq * mo.top_k * mo.capacity_factor / mo.n_experts)), seq)
+    experts = 2 * bsz * mo.n_experts * width * 3 * d * mo.d_expert
+    shared = 2 * tokens * 3 * d * mo.n_shared * mo.d_expert
+    layer = 2 * tokens * mixer + attn + 2 * tokens * d * mo.n_experts + experts + shared
+    return cfg.n_layers * layer + 2 * tokens * d * cfg.vocab
+
+
+def deepseek_phase(smi):
+    """(f) DeepSeek-V2-Lite (``configs.deepseek_v2_lite_16b``) at full width
+    and depth, random weights, run last, when every earlier phase's tensors
+    are freed (64.84 GB of float32 weights): the SMOKE configuration on the
+    CPU and the card (equal routing, no kernel: MLA attends in plain torch);
+    MLA layer 0 of a full-width forward on the card against the same layer
+    on the CPU (plain torch on the host), within SMOKE_TOL; each MoE layer's
+    aux loss, capacity, load and drops; ``loss_fn`` on DEEPSEEK_BATCH x
+    DEEPSEEK_SEQ tokens (no ``block_attn`` launch); decode at
+    ``capacity_factor = e / k`` against the forward. Returns the forward's
+    ``block_attn`` launches (0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    launches = _smoke_phase("deepseek-v2-lite-16b", tag)
+    if launches["block_attn"]:
+        _fail(f"the DeepSeek SMOKE forward launched block_attn {launches['block_attn']} times")
+    cfg = get_arch("deepseek-v2-lite-16b")
+    print(f"{cfg.name} {tag}: before init memory_allocated={torch.cuda.memory_allocated()} "
+          f"bytes (the earlier phases freed)")
+    params, n_params = _init_on_card(cfg, tag, f" mla={cfg.mla}")
+    tokens = torch.randint(0, cfg.vocab, (DEEPSEEK_BATCH, DEEPSEEK_SEQ + 1),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens[:, :-1].cuda(), "labels": tokens[:, 1:].cuda()}
+
+    mo = cfg.moe
+    with torch.inference_mode(), _routing() as routes:
+        (p, h, _, cos, sin), _, calls = _first_call(
+            L, "mla_train", lambda: T.loss_fn(cfg, params, batch))
+        torch.cuda.synchronize()
+    if calls != cfg.n_layers or len(routes) != cfg.n_layers:
+        _fail(f"{cfg.name}: {calls} mla_train calls and {len(routes)} MoE layers a forward "
+              f"(want {cfg.n_layers})")
+    drops = []
+    for layer, (_, gate_idx, _, keep, cap, aux, _) in enumerate(routes):
+        load = F.one_hot(gate_idx, mo.n_experts).sum(dim=(1, 2))     # (rows, experts)
+        drops.append(int((~keep).sum()))
+        print(f"{cfg.name} {tag}: MoE layer {layer}: aux={float(aux):.8f} cap={cap} (expected "
+              f"load {DEEPSEEK_SEQ * mo.top_k // mo.n_experts}) load by row and expert "
+              f"min={int(load.min())} max={int(load.max())} dropped choices {drops[-1]} of "
+              f"{keep.numel()}")
+    print(f"{cfg.name} {tag}: aux total={sum(float(r[5]) for r in routes):.8f} dropped "
+          f"{sum(drops)} of {cfg.n_layers * routes[0][3].numel()} choices")
+    del routes
+    with torch.inference_mode():
+        got = L.mla_train(p, h, cfg, cos, sin)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = L.mla_train(_tree_to(p, "cpu"), h.cpu(), cfg, cos.cpu(), sin.cpu())
+        cpu_s = time.perf_counter() - t0
+        ms = statistics.median(_time_ms(lambda: L.mla_train(p, h, cfg, cos, sin), iters=3)
+                               for _ in range(3))
+    ratio = _tol_ratio(got.cpu(), want, SMOKE_TOL)
+    print(f"{cfg.name} {tag}: MLA layer 0 on x{tuple(h.shape)} (rank {cfg.mla.kv_lora_rank}, "
+          f"scale 1/sqrt({cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim})): card vs CPU max|d|="
+          f"{float((got.cpu() - want).abs().max()):.3e} ratio={ratio:.4f} (tol {SMOKE_TOL}); "
+          f"max|y|={float(want.abs().max()):.3e}; card ms={ms:.3f}, CPU {cpu_s:.2f}s")
+    if not (ratio <= 1.0 and torch.isfinite(got).all()):
+        _fail(f"{cfg.name}: MLA layer 0 disagrees between the card and the CPU")
+    del p, h, cos, sin, got, want
+    flop = _deepseek_forward_flop(cfg, DEEPSEEK_BATCH, DEEPSEEK_SEQ)
+    print(f"{cfg.name} {tag}: a forward's float32 work {flop:.4g} FLOP (latent attention over "
+          f"all L^2 pairs, expert slots at capacity {mo.capacity_factor})")
+    launches = _forward_phase(cfg, params, batch, DEEPSEEK_FORWARDS, ba, tag)
+    no_drops = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+    prompts = tokens[:, :YI_DECODE_BATCH // DEEPSEEK_BATCH * PROMPT].reshape(
         YI_DECODE_BATCH, PROMPT).cuda()
     _decode_phase(no_drops, params, prompts, n_params, ba, tag)
     return launches
@@ -2125,10 +2488,18 @@ def main() -> int:
     jamba = _smoke_phase("jamba-1.5-large-398b", f"[{smi}]")   # (c) both LM kernels
     attn_by_path["jamba-smoke"] = jamba["block_attn"]
     ssd_by_path = {"mamba2-130m": ssd["launches"], "jamba-smoke": jamba["ssd_scan"]}
+    fwd, steps, attn["modes"] = seamless_phase(smi)                 # (e)
+    attn_by_path["seamless-m4t-large-v2"] = fwd
+    attn_by_path["seamless-m4t-large-v2 decode"] = steps
+    gc.collect()                         # Seamless's 8.14 GB go before DeepSeek's 64.84 GB
+    torch.cuda.empty_cache()
+    obs_phase(f"[{smi}]", fleet_stream)
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_by_path["deepseek-v2-lite-16b"] = deepseek_phase(smi)    # (f), last: the largest
     for entry, paths in ((attn, attn_by_path), (ssd, ssd_by_path)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
-    obs_phase(f"[{smi}]", fleet_stream)
     print(json.dumps({"kernels": [results["qdq_delta_rows_rng"], results["qdq_rows_rng"],
                                   *wire.values(), ssd, attn]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

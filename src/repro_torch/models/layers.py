@@ -1,9 +1,10 @@
 """Layer primitives of the language-model zoo, the port of
-``repro.models.layers``, with what the Mamba2, dense GQA and MoE families
-need: RMSNorm, RoPE, GQA attention (QKV bias, MQA, sliding-window ring
-cache), the SwiGLU FFN, the top-k mixture of SwiGLU experts with capacity
-(``moe_apply``), and the Mamba2 SSD mixer (chunked full-sequence scan and
-O(1) recurrent decode).
+``repro.models.layers``: RMSNorm, RoPE, GQA attention (QKV bias, MQA,
+sliding-window ring cache; non-causal for an encoder, and cross-attention
+over an encoder's output), MLA (DeepSeek's compressed-KV attention in the
+reference's absorbed form), the SwiGLU FFN, the top-k mixture of SwiGLU
+experts with capacity (``moe_apply``), and the Mamba2 SSD mixer (chunked
+full-sequence scan and O(1) recurrent decode).
 
 Plain functions over explicit parameter dicts, in the reference's layouts,
 so weights carry across unchanged. Two things here were Pallas kernels in
@@ -12,9 +13,10 @@ device picks the route (the kernel on the card, its plain version on the
 CPU): the SSD scan (``mamba_train`` -> ``kernels.ssd_scan.ssd_chunked``;
 ``cfg.use_pallas_ssd`` is read by nothing here) and full-sequence
 attention (``attn_train`` -> ``kernels.block_attn.block_attention``, where
-the reference's ``attn_train`` materializes the softmax). Decode's
-one-token attention over the ring cache is plain torch, as the reference
-computes it outside any kernel.
+the reference's ``attn_train`` materializes the softmax; the causal,
+non-causal and cross-attention calls alike). Decode's one-token attention
+over the ring cache and MLA's latent attention are plain torch, as the
+reference computes them outside any kernel.
 
 Precision: float32 throughout; ``cfg.attn_logits_bf16`` raises. The causal
 depthwise convolution is the reference's sum of shifted products, not
@@ -45,6 +47,10 @@ __all__ = [
     "attn_train",
     "attn_decode",
     "init_cache_attn",
+    "init_mla",
+    "mla_train",
+    "init_cache_mla",
+    "mla_decode",
     "init_ffn",
     "ffn_apply",
     "init_moe",
@@ -144,21 +150,32 @@ def _sdpa(q, k, v, mask, n_rep: int):
     return out.reshape(b, lq, h, hd)
 
 
-def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin,
+def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin, causal: bool = True,
                kv_override: torch.Tensor | None = None) -> torch.Tensor:
-    """Full-sequence causal self-attention: q/k/v (B, L, heads, hd) after
-    RoPE go to ``block_attention`` as they are (K/V by group, no repeat),
-    which masks j > i and, when ``cfg.sliding_window > 0``, i - j >= window."""
+    """Full-sequence attention through ``block_attention``, with q/k/v
+    (B, L, heads, hd) as they are (K/V by group, no repeat).
+
+    Self-attention (``kv_override=None``) runs RoPE on q and k; ``causal``
+    masks j > i and, with ``cfg.sliding_window > 0``, i - j >= window;
+    ``causal=False`` (an encoder) masks nothing. Cross-attention takes its
+    keys and values from ``kv_override`` (B, Lk, d), an encoder's output:
+    no RoPE, no QKV bias and no mask, as the reference's."""
     _check_attn(cfg)
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention (kv_override) belongs to the "
-                                  "encoder-decoder item of ROADMAP.md A10")
     b, l, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = attn_ops.block_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    return out.reshape(b, l, cfg.n_heads * cfg.head_dim_) @ p["wo"]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if kv_override is None:
+        q, k, v = _qkv(p, x, cfg)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        window = cfg.sliding_window if causal else 0
+    else:
+        lk = kv_override.shape[1]
+        q = (x @ p["wq"]).reshape(b, l, h, hd)
+        k = (kv_override @ p["wk"]).reshape(b, lk, kv, hd)
+        v = (kv_override @ p["wv"]).reshape(b, lk, kv, hd)
+        causal, window = False, 0
+    out = attn_ops.block_attention(q, k, v, causal=causal, window=window)
+    return out.reshape(b, l, h * hd) @ p["wo"]
 
 
 def init_cache_attn(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:
@@ -217,6 +234,113 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
     cv = cache["v"].index_put((rows, slot), v_new)
     out = _sdpa(q, ck, cv, _ring_mask(pos, size), h // kv)
     return out.reshape(b, 1, h * hd) @ p["wo"], {"k": ck, "v": cv}
+
+
+# ------------------------------------------------------------ MLA attention
+def init_mla(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    """The reference's leaves, shapes and scales; the draws are ``gen``'s."""
+    d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
+    return {
+        "wq": _dense(gen, (d, h * (m.qk_nope_dim + m.qk_rope_dim)), device),
+        "w_dkv": _dense(gen, (d, m.kv_lora_rank + m.qk_rope_dim), device),
+        "w_uk": _dense(gen, (m.kv_lora_rank, h * m.qk_nope_dim), device),
+        "w_uv": _dense(gen, (m.kv_lora_rank, h * m.v_head_dim), device),
+        "wo": _dense(gen, (h * m.v_head_dim, d), device),
+        "kv_norm": torch.ones(m.kv_lora_rank, dtype=torch.float32, device=device),
+    }
+
+
+def _mla_qkv(p, x, cfg, cos, sin):
+    """x (b, l, d) -> q_nope (b, l, h, nope), q_rope (b, l, h, rope) after
+    RoPE, c_kv (b, l, rank) after its RMS norm, and k_rope (b, l, rope):
+    one RoPE key shared by every head."""
+    b, l, _ = x.shape
+    h, m = cfg.n_heads, cfg.mla
+    q = (x @ p["wq"]).reshape(b, l, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv, k_rope = torch.split(x @ p["w_dkv"], [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg):
+    """Latent-space attention, the reference's absorbed form: w_uk goes
+    into the query (q_lat = q_nope . w_uk), the scores are q_lat . c_kv +
+    q_rope . k_rope over the compressed cache, scaled by 1/sqrt(nope +
+    rope), and the context stays in latent space until w_uv and wo. The
+    softmax is float32 over the materialized (B, H, Lq, Lk) scores, with
+    the additive ``mask`` (B|1, 1, Lq|1, Lk); the scaling and the mask are
+    applied in place (the same float32 operations, one score-sized
+    temporary fewer)."""
+    b, lq, h, _ = q_nope.shape
+    m = cfg.mla
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    scores = torch.einsum("bqhr,bkr->bhqk", q_lat, c_kv)
+    scores.add_(torch.einsum("bqhn,bkn->bhqk", q_rope, k_rope))
+    logits = scores.float().mul_(1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)).add_(mask)
+    w = torch.softmax(logits, dim=-1).to(c_kv.dtype)
+    del scores, logits
+    ctx = torch.einsum("bhqk,bkr->bqhr", w, c_kv)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+    return out.reshape(b, lq, h * m.v_head_dim) @ p["wo"]
+
+
+def _causal_mask(l: int, window: int, device) -> torch.Tensor:
+    """(1, 1, L, L) additive float32 mask: 0 where j <= i (and i - j <
+    window when window > 0), -1e30 elsewhere, as the reference's."""
+    i = torch.arange(l, device=device)[:, None]
+    j = torch.arange(l, device=device)[None, :]
+    ok = j <= i
+    if window > 0:
+        ok &= (i - j) < window
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, zero - 1e30)[None, None]
+
+
+def mla_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin) -> torch.Tensor:
+    """Full-sequence causal MLA (sliding window when the config has one);
+    ``cos``/``sin`` at ``cfg.mla.qk_rope_dim``."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, cos, sin)
+    mask = _causal_mask(x.shape[1], cfg.sliding_window, x.device)
+    return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg)
+
+
+def init_cache_mla(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """Ring buffer of the compressed cache: c_kv (B, S, rank) and the
+    shared RoPE key k_rope (B, S, rope), S = min(max_len, window)."""
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros(batch, size, m.kv_lora_rank, dtype=dtype, device=device),
+        "k_rope": torch.zeros(batch, size, m.qk_rope_dim, dtype=dtype, device=device),
+    }
+
+
+def mla_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
+               active: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """One-token MLA decode; ``pos`` and ``active`` as in :func:`attn_decode`
+    (inactive rows write back what their slot held). Returns new cache
+    tensors; the given cache is not modified."""
+    b = x.shape[0]
+    size = cache["c_kv"].shape[1]
+    pos = _slot_positions(pos, b, x.device)
+    cos, sin = rope_freqs(pos[:, None], cfg.mla.qk_rope_dim, cfg.rope_theta)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, cos, sin)
+    rows = torch.arange(b, device=x.device)
+    slot = torch.remainder(pos, size).long()
+    c_new, r_new = c_kv[:, 0], k_rope[:, 0]
+    if active is not None:
+        keep = active[:, None]
+        c_new = torch.where(keep, c_new, cache["c_kv"][rows, slot])
+        r_new = torch.where(keep, r_new, cache["k_rope"][rows, slot])
+    cc = cache["c_kv"].index_put((rows, slot), c_new)
+    cr = cache["k_rope"].index_put((rows, slot), r_new)
+    y = _mla_attend(p, q_nope, q_rope, cc, cr, _ring_mask(pos, size), cfg)
+    return y, {"c_kv": cc, "k_rope": cr}
 
 
 # -------------------------------------------------------------- SwiGLU FFN

@@ -1,22 +1,29 @@
-"""Decoder LM over ``ArchConfig``, the port of ``repro.models.transformer``,
-for the Mamba2 family (``block_pattern=("mamba",)``, ``ffn_pattern=("none",)``),
-the dense GQA family (``"attn"`` slots with RoPE, optional QKV bias and
-sliding window, and a dense SwiGLU FFN: ``yi-6b``, ``qwen2.5-32b``,
-``qwen2-72b``, ``granite-34b``), MoE FFN slots (``grok-1-314b``, and
-``jamba-1.5-large-398b``, whose blocks mix Mamba2 and attention slots) and
-the vision stub (``internvl2-1b``: the caller's patch embeddings go before
-the tokens, ``frontend_embeds``).
+"""Decoder and encoder-decoder LM over ``ArchConfig``, the port of
+``repro.models.transformer``, for every family of the registry: Mamba2
+(``block_pattern=("mamba",)``, ``ffn_pattern=("none",)``), dense GQA
+(``"attn"`` slots with RoPE, optional QKV bias and sliding window, and a
+dense SwiGLU FFN: ``yi-6b``, ``qwen2.5-32b``, ``qwen2-72b``,
+``granite-34b``), MoE FFN slots (``grok-1-314b``, and
+``jamba-1.5-large-398b``, whose blocks mix Mamba2 and attention slots), MLA
+attention slots (``attn_type="mla"``: ``deepseek-v2-lite-16b``, with MoE
+and shared experts), the encoder-decoder (``enc_dec``:
+``seamless-m4t-large-v2``, a non-causal encoder over the audio stub's
+frames and a cross-attention layer after every decoder block) and the
+vision stub (``internvl2-1b``: the caller's patch embeddings go before the
+tokens, ``frontend_embeds``; an audio frontend without ``enc_dec`` does the
+same, as the reference's).
 
 Parameters are the reference's nested dict, blocks stacked along a leading
-``n_blocks`` dimension, so a JAX ``init_params`` pytree carries across with
-``repro_torch.convert.lm_params_from_numpy``. The stacked blocks are walked
-by a Python loop (PyTorch runs eagerly: the reference's ``remat`` and
-``unroll`` steer XLA and have no counterpart here). Embeddings are tied when
-``cfg.tie_embeddings`` (head = embed.T). MLA, the encoder-decoder and the
-audio frontend raise ``NotImplementedError`` (``ROADMAP.md`` A10).
+``n_blocks`` dimension (the encoder's along ``n_enc_layers``, the cross
+layers' along ``n_blocks``), so a JAX ``init_params`` pytree carries across
+with ``repro_torch.convert.lm_params_from_numpy``. The stacked layers are
+walked by a Python loop (PyTorch runs eagerly: the reference's ``remat``
+and ``unroll`` steer XLA and have no counterpart here). Embeddings are tied
+when ``cfg.tie_embeddings`` (head = embed.T).
 
 Public API: init_params / forward_train / loss_fn / init_cache /
-decode_step. Float32 throughout, with TF32 off (``repro_torch.device``).
+decode_step, and ``_run_encoder`` under the reference's name. Float32
+throughout, with TF32 off (``repro_torch.device``).
 """
 from __future__ import annotations
 
@@ -31,16 +38,13 @@ __all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "decode_step
 
 def _check_supported(cfg: ArchConfig) -> None:
     for i, kind in enumerate(cfg.block_pattern):
-        if kind == "attn" and cfg.attn_type != "gqa":
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.attn_type} attention is not ported (ROADMAP.md A10)")
         if kind not in ("attn", "mamba"):
-            raise NotImplementedError(f"{cfg.name}: slot {i} is {kind!r}; only GQA "
-                                      f"attention and Mamba2 slots are ported")
-    if cfg.enc_dec or cfg.frontend not in ("none", "vision"):
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models and the audio frontend are "
-            f"ROADMAP.md A10")
+            raise ValueError(f"{cfg.name}: slot {i} is {kind!r}; slots are 'attn' or 'mamba'")
+    if cfg.attn_type not in ("gqa", "mla"):
+        raise ValueError(f"{cfg.name}: attn_type {cfg.attn_type!r} is not 'gqa' or 'mla'")
+    if cfg.frontend not in ("none", "vision", "audio"):
+        raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} is not 'none', "
+                         f"'vision' or 'audio'")
 
 
 def _stack(trees: list):
@@ -58,10 +62,12 @@ def _index(tree, i: int):
 def _init_slot(gen: torch.Generator, cfg: ArchConfig, slot: int, dev) -> dict:
     ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)  # noqa: E731
     p = {"norm1": ones()}
-    if cfg.block_pattern[slot] == "attn":
-        p["mixer"] = L.init_attn(gen, cfg, dev)
-    else:
+    if cfg.block_pattern[slot] == "mamba":
         p["mixer"] = L.init_mamba(gen, cfg, dev)
+    elif cfg.attn_type == "mla":
+        p["mixer"] = L.init_mla(gen, cfg, dev)
+    else:
+        p["mixer"] = L.init_attn(gen, cfg, dev)
     fk = cfg.ffn_kind(slot)
     if fk != "none":
         p["norm2"] = ones()
@@ -72,8 +78,22 @@ def _init_slot(gen: torch.Generator, cfg: ArchConfig, slot: int, dev) -> dict:
     return p
 
 
+def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig, dev) -> dict:
+    """An encoder layer: GQA self-attention (non-causal at run time) and a
+    dense SwiGLU FFN, each behind its RMS norm."""
+    ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)  # noqa: E731
+    return {"norm1": ones(), "norm2": ones(), "mixer": L.init_attn(gen, cfg, dev),
+            "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, dev)}
+
+
+def _init_cross_layer(gen: torch.Generator, cfg: ArchConfig, dev) -> dict:
+    """A decoder block's cross-attention over the encoder's output."""
+    return {"norm": torch.ones(cfg.d_model, dtype=torch.float32, device=dev),
+            "mixer": L.init_attn(gen, cfg, dev)}
+
+
 def _into(stacked, tree, i: int) -> None:
-    """Copy one block's parameters into row ``i`` of the stacked ones."""
+    """Copy one layer's parameters into row ``i`` of the stacked ones."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             _into(stacked[k], v, i)
@@ -81,46 +101,57 @@ def _into(stacked, tree, i: int) -> None:
         stacked[i].copy_(tree)
 
 
+def _expand(tree, n: int):
+    """One layer's tree -> an uninitialised tree stacked n deep."""
+    if isinstance(tree, dict):
+        return {k: _expand(v, n) for k, v in tree.items()}
+    return tree.new_empty((n, *tree.shape))
+
+
+def _init_stacked(make, n: int):
+    """``make()`` called n times, one after another, each result written
+    into tensors stacked along a leading dim of n: at most one layer
+    exists twice."""
+    first = make()
+    stacked = _expand(first, n)
+    _into(stacked, first, 0)
+    del first
+    for i in range(1, n):
+        _into(stacked, make(), i)
+    return stacked
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
                 device: str | torch.device = "cuda") -> dict:
-    """Random init with the reference's shapes and scales, drawn from
+    """Random init with the reference's tree, shapes and scales, drawn from
     ``gen`` on the generator's own device (its draws are not JAX's bits): a
     ``torch.Generator("cuda")`` fills a full-width model on the card, a CPU
-    generator draws on the host. Blocks are drawn one after another, in the
-    same order whatever the device, and written into tensors stacked along
-    a leading n_blocks dim, so at most one block exists twice."""
+    generator draws on the host. The blocks are drawn first, one after
+    another, in the same order whatever the device, then the embedding and
+    the head, then the encoder layers and the cross layers of an
+    encoder-decoder; each stack is written layer by layer into its tensors."""
     _check_supported(cfg)
     if dtype != torch.float32:
         raise NotImplementedError("the port's LM path is float32 only")
     dev = resolve_device(device)
-
-    def block():
-        return {f"slot{i}": _init_slot(gen, cfg, i, dev)
-                for i in range(len(cfg.block_pattern))}
-
-    first = block()
-    stacked = _expand(first, cfg.n_blocks)
-    _into(stacked, first, 0)
-    del first
-    for blk in range(1, cfg.n_blocks):
-        _into(stacked, block(), blk)
+    blocks = _init_stacked(lambda: {f"slot{i}": _init_slot(gen, cfg, i, dev)
+                                    for i in range(len(cfg.block_pattern))}, cfg.n_blocks)
     params = {
         "embed": (0.02 * torch.randn(cfg.vocab, cfg.d_model, generator=gen,
                                      device=gen.device)).to(dev),
         "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-        "blocks": stacked,
+        "blocks": blocks,
     }
     if not cfg.tie_embeddings:
         params["head"] = (0.02 * torch.randn(cfg.d_model, cfg.vocab, generator=gen,
                                              device=gen.device)).to(dev)
+    if cfg.enc_dec:
+        params["encoder"] = _init_stacked(lambda: _init_enc_layer(gen, cfg, dev),
+                                          cfg.n_enc_layers)
+        params["cross"] = _init_stacked(lambda: _init_cross_layer(gen, cfg, dev),
+                                        cfg.n_blocks)
+        params["enc_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=dev)
     return params
-
-
-def _expand(tree, n: int):
-    """One block's tree -> an uninitialised tree stacked n deep."""
-    if isinstance(tree, dict):
-        return {k: _expand(v, n) for k, v in tree.items()}
-    return tree.new_empty((n, *tree.shape))
 
 
 def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
@@ -142,27 +173,61 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int):
 def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin):
     """One slot of a block -> (x, aux loss of its MoE FFN, or None)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    if cfg.block_pattern[slot] == "attn":
-        x = x + L.attn_train(p["mixer"], h, cfg, cos, sin)
-    else:
+    if cfg.block_pattern[slot] == "mamba":
         x = x + L.mamba_train(p["mixer"], h, cfg)
+    elif cfg.attn_type == "mla":
+        x = x + L.mla_train(p["mixer"], h, cfg, cos, sin)
+    else:
+        x = x + L.attn_train(p["mixer"], h, cfg, cos, sin)
     return _ffn(p, x, cfg, slot)
+
+
+def _cross(cp: dict, x: torch.Tensor, cfg: ArchConfig, enc_out: torch.Tensor) -> torch.Tensor:
+    """A decoder block's cross layer: x + attention over ``enc_out``."""
+    hn = L.rms_norm(x, cp["norm"], cfg.norm_eps)
+    return x + L.attn_train(cp["mixer"], hn, cfg, None, None, kv_override=enc_out)
+
+
+def _run_encoder(cfg: ArchConfig, params: dict, embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings (B, F, d): per layer, non-causal
+    self-attention with RoPE over positions 0..F-1 and a SwiGLU FFN, each
+    behind its norm and added to the residual; then ``enc_norm``."""
+    cos, sin = L.rope_freqs(torch.arange(embeds.shape[1], device=embeds.device),
+                            cfg.head_dim_, cfg.rope_theta)
+    h = embeds
+    for i in range(cfg.n_enc_layers):
+        lp = _index(params["encoder"], i)
+        hn = L.rms_norm(h, lp["norm1"], cfg.norm_eps)
+        h = h + L.attn_train(lp["mixer"], hn, cfg, cos, sin, causal=False)
+        h = h + L.ffn_apply(lp["ffn"], L.rms_norm(h, lp["norm2"], cfg.norm_eps))
+    return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                   frontend_embeds: torch.Tensor | None = None):
     """tokens (B, S) int -> (logits (B, S, V), aux loss: the sum of the MoE
-    slots' over every block, 0 without them). ``frontend_embeds`` (B, F, d),
-    the vision stub's patch embeddings, go before the tokens; RoPE runs over
-    all F + S positions, and the first F are cut after the final norm."""
+    slots' over every block, 0 without them).
+
+    ``frontend_embeds`` (B, F, d) are the stub frontend's: with ``enc_dec``
+    they are the encoder's input, the text keeps positions 0..S-1 and every
+    block ends with a cross layer over the encoder's output; otherwise (the
+    vision stub, or audio without an encoder) they go before the tokens,
+    RoPE runs over all F + S positions and the first F are cut after the
+    final norm. RoPE is built at ``cfg.mla.qk_rope_dim`` for MLA, at the
+    head dim otherwise."""
     _check_supported(cfg)
     x = params["embed"][tokens]
-    n_front = 0
-    if frontend_embeds is not None:
+    n_front, enc_out = 0, None
+    if cfg.enc_dec:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs frontend_embeds")
+        enc_out = _run_encoder(cfg, params, frontend_embeds.to(x.dtype))
+    elif frontend_embeds is not None:
         n_front = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
-    cos, sin = L.rope_freqs(positions, cfg.head_dim_, cfg.rope_theta)
+    rope_dim = cfg.mla.qk_rope_dim if cfg.attn_type == "mla" else cfg.head_dim_
+    cos, sin = L.rope_freqs(positions, rope_dim, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in range(cfg.n_blocks):
         bp = _index(params["blocks"], blk)
@@ -170,6 +235,8 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin)
             if a is not None:
                 aux = aux + a
+        if enc_out is not None:
+            x = _cross(_index(params["cross"], blk), x, cfg, enc_out)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_front:
         x = x[:, n_front:]
@@ -186,23 +253,32 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
-               device: str | torch.device = "cuda") -> dict:
+               device: str | torch.device = "cuda", enc_len: int = 0) -> dict:
     """Stacked (n_blocks-leading) cache: attention slots hold a ring buffer
-    of min(max_len, window) k/v slots, Mamba2 slots their recurrent state
-    (which ``max_len`` does not size)."""
+    of min(max_len, window) k/v slots (MLA: its compressed c_kv and k_rope),
+    Mamba2 slots their recurrent state (which ``max_len`` does not size).
+    An encoder-decoder also holds ``enc_out`` (B, enc_len or
+    frontend_tokens, d), zeros until the caller puts the encoder's output
+    there."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
     def one(i):
-        if cfg.block_pattern[i] == "attn":
-            return L.init_cache_attn(cfg, batch, max_len, dtype, dev)
-        return L.init_cache_mamba(cfg, batch, dtype, dev)
+        if cfg.block_pattern[i] == "mamba":
+            return L.init_cache_mamba(cfg, batch, dtype, dev)
+        if cfg.attn_type == "mla":
+            return L.init_cache_mla(cfg, batch, max_len, dtype, dev)
+        return L.init_cache_attn(cfg, batch, max_len, dtype, dev)
 
-    return {
+    cache = {
         "slots": {f"slot{i}": _stack([one(i) for _ in range(cfg.n_blocks)])
                   for i in range(len(cfg.block_pattern))},
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
+    if cfg.enc_dec:
+        cache["enc_out"] = torch.zeros(batch, enc_len or cfg.frontend_tokens, cfg.d_model,
+                                       dtype=dtype, device=dev)
+    return cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
@@ -213,7 +289,9 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
     Lockstep mode (``positions=None``): every row is at cache["pos"], which
     advances by one. Slot mode: ``positions`` (B,) gives each row its own
     absolute position and cache["pos"] is left untouched. ``active`` (B,)
-    bool freezes the cache of inactive rows."""
+    bool freezes the cache of inactive rows. An encoder-decoder's cross
+    layers attend ``cache["enc_out"]``, its K/V projected anew every step,
+    as the reference does."""
     _check_supported(cfg)
     x = params["embed"][token]
     pos = cache["pos"] if positions is None else positions
@@ -224,13 +302,17 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
             p = bp[f"slot{i}"]
             hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
             c = _index(cache["slots"][f"slot{i}"], blk)
-            if kind == "attn":
-                out, nc = L.attn_decode(p["mixer"], hn, c, pos, cfg, active=active)
-            else:
+            if kind == "mamba":
                 out, nc = L.mamba_decode(p["mixer"], hn, c, cfg, active=active)
+            elif cfg.attn_type == "mla":
+                out, nc = L.mla_decode(p["mixer"], hn, c, pos, cfg, active=active)
+            else:
+                out, nc = L.attn_decode(p["mixer"], hn, c, pos, cfg, active=active)
             x = x + out
             new_slots[f"slot{i}"].append(nc)
             x, _ = _ffn(p, x, cfg, i)
+        if cfg.enc_dec:
+            x = _cross(_index(params["cross"], blk), x, cfg, cache["enc_out"])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["slots"] = {k: _stack(v) for k, v in new_slots.items()}

@@ -223,18 +223,29 @@ def test_attn_train_always_calls_block_attention(monkeypatch, over):
 
 
 def test_unported_attention_options_raise():
+    """``attn_logits_bf16`` still raises (the LM path is float32); the
+    cross-attention path (``kv_override``) is ported and equals the
+    reference's: q from x, k/v from the override, no RoPE, no QKV bias."""
+    from repro.models import layers as JL
     from repro_torch.models import layers as L
 
     cfg = _port_cfg(J_CASES["mqa"], attn_logits_bf16=True)
-    _, tp = _params("mqa")
+    jp, tp = _params("dense-gqa-bias")
     with pytest.raises(NotImplementedError, match="float32"):
-        T.forward_train(cfg, tp, torch.from_numpy(_tokens(cfg)))
-    base = _port_cfg(J_CASES["mqa"])
+        T.forward_train(cfg, _params("mqa")[1], torch.from_numpy(_tokens(cfg)))
+    jcfg = J_CASES["dense-gqa-bias"]
+    base = _port_cfg(jcfg)
     mixer = {k: v[0] for k, v in tp["blocks"]["slot0"]["mixer"].items()}
-    x = torch.zeros(1, 4, base.d_model)
-    cos, sin = L.rope_freqs(torch.arange(4), base.head_dim_, base.rope_theta)
-    with pytest.raises(NotImplementedError, match="A10"):
-        L.attn_train(mixer, x, base, cos, sin, kv_override=x)
+    j_mixer = {k: v[0] for k, v in jp["blocks"]["slot0"]["mixer"].items()}
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 4, base.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 7, base.d_model)).astype(np.float32)
+    got = L.attn_train(mixer, torch.from_numpy(x), base, None, None,
+                       kv_override=torch.from_numpy(enc))
+    want = JL.attn_train(j_mixer, jnp.asarray(x), jcfg, None, None,
+                         kv_override=jnp.asarray(enc))
+    assert got.shape == (2, 4, base.d_model)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 def test_rope_matches_jax():

@@ -17,8 +17,9 @@ base + t*norm into one FMA);
 another order; the tolerance tests/test_kernels_ssd.py holds the TPU
 kernel to), each of its four stage kernels launched once a call; ``block_attn`` within 1e-4 absolute and relative
 of ``block_attention_plain`` (3xTF32 tensor-core products and an online
-softmax against a materialized float32 softmax), and the SMOKE Yi model on
-the card within 2e-4 of the CPU. QDFedAvg's rounds and quantized LSTM
+softmax against a materialized float32 softmax; also non-causal over 1,000
+frames, as cross-attention and at Lq = 1), and the SMOKE Yi, DeepSeek (MLA)
+and Seamless (encoder-decoder) models on the card within 2e-4 of the CPU. QDFedAvg's rounds and quantized LSTM
 chain-mode rounds on the card stay within 0.05 * scale + 1e-4 of the CPU's
 (tests/test_flat_engine.py's bound).
 """
@@ -396,6 +397,9 @@ def test_mamba_smoke_on_card_matches_cpu(cuda):
     (1, 300, 300, 4, 1, 128, True, 17),     # window shorter than a tile
     (2, 130, 130, 8, 2, 128, True, 0),      # a 2-row ragged last query tile of 128
     (1, 100, 60, 2, 1, 32, False, 20),      # non-causal window: rows 79+ see no key
+    (2, 1000, 1000, 16, 16, 64, False, 0),  # an encoder over 1,000 frames (ragged)
+    (2, 96, 1000, 16, 16, 64, False, 0),    # cross-attention over them
+    (8, 1, 1024, 16, 16, 64, False, 0),     # decode's cross-attention, Lq = 1
 ])
 def test_block_attn_matches_plain(cuda, b, lq, lk, h, kv, hd, causal, window):
     gen = torch.Generator().manual_seed(lq + hd)
@@ -506,3 +510,35 @@ def test_simulator_on_card_matches_cpu(cuda):
     assert a.history.comm_bits == b.history.comm_bits
     want, got = a.state.device_params, b.state.device_params.cpu()
     assert float((want - got).abs().max()) < 0.05 * float(want.abs().max()) + 1e-4
+
+
+@pytest.mark.parametrize("arch_id", ["deepseek-v2-lite-16b", "seamless-m4t-large-v2"])
+def test_mla_and_encdec_smoke_on_card_match_cpu(cuda, arch_id):
+    """The SMOKE DeepSeek (MLA in plain torch: no kernel) and Seamless (three
+    ``block_attn`` launches a block: encoder, decoder, cross) forwards and
+    decodes on the card against the CPU, from the same weights."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke(arch_id)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=gen)
+    emb = torch.randn(2, cfg.frontend_tokens, cfg.d_model, generator=gen) if cfg.enc_dec else None
+    want, _ = T.forward_train(cfg, params, tokens, emb)
+    on_card = _to(params, cuda)
+    card_emb = None if emb is None else emb.to(cuda)
+    bk.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = T.forward_train(cfg, on_card, tokens.to(cuda), card_emb)
+        torch.cuda.synchronize()
+        assert bk.LAUNCHES["block_attn"] == (3 * cfg.n_layers if cfg.enc_dec else 0)
+        cache = T.init_cache(cfg, 2, 8)
+        if cfg.enc_dec:
+            cache["enc_out"] = T._run_encoder(cfg, on_card, card_emb)
+        for t in range(8):
+            step, cache = T.decode_step(cfg, on_card, cache, tokens[:, t:t + 1].to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-4)
+    # Over 8 tokens a MoE forward's capacity (at least 8) drops nothing either.
+    want8, _ = T.forward_train(cfg, params, tokens[:, :8], emb)
+    torch.testing.assert_close(step[:, 0].cpu(), want8[:, -1], atol=2e-3, rtol=2e-3)

@@ -160,6 +160,46 @@ def test_port_runs_moe_smoke_and_renders_a_report_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_runs_mla_and_encdec_smoke_without_jax():
+    """The two families ported last, through the registry's config modules
+    (``configs.deepseek_v2_lite_16b``, ``configs.seamless_m4t_large_v2``):
+    MLA with MoE and the encoder-decoder over stub frames, forward and
+    decode, on the CPU with JAX and the JAX package refused."""
+    proc = _run("""
+        import sys
+        import torch
+        from repro_torch.configs import get_arch, get_smoke
+        from repro_torch.kernels.block_attn import block_attn
+        from repro_torch.models import transformer as T
+
+        assert "repro_torch.configs.deepseek_v2_lite_16b" not in sys.modules
+        for arch_id in ("deepseek-v2-lite-16b", "seamless-m4t-large-v2"):
+            assert get_arch(arch_id).name == arch_id
+            cfg = get_smoke(arch_id)
+            gen = torch.Generator().manual_seed(1)
+            params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+            tokens = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+            emb = torch.randn(2, cfg.frontend_tokens, cfg.d_model, generator=gen)
+            emb = emb if cfg.enc_dec else None
+            logits, aux = T.forward_train(cfg, params, tokens, emb)
+            cache = T.init_cache(cfg, 2, 12, device="cpu")
+            if cfg.enc_dec:
+                cache["enc_out"] = T._run_encoder(cfg, params, emb)
+            for t in range(12):
+                step, cache = T.decode_step(cfg, params, cache, tokens[:, t:t + 1])
+            assert torch.isfinite(logits).all() and step.shape == (2, 1, cfg.vocab)
+            if not cfg.enc_dec:
+                assert float(aux) > 0
+        assert "repro_torch.configs.seamless_m4t_large_v2" in sys.modules
+        assert block_attn.LAUNCHES["block_attn"] == 0 and block_attn.BUILD_INFO == {}
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
 def test_port_runs_the_simulator_without_jax():
     """The simulator slice (sim, obs, launch.sim) on the CPU with JAX and the
     JAX package refused: a scenario with telemetry and a recorded trace on
@@ -266,7 +306,8 @@ def test_entry_points_default_to_cuda():
     from repro_torch.convert import lm_params_from_numpy
     from repro_torch.models import transformer as T
 
-    for arch_id in ("mamba2-130m", "yi-6b", "grok-1-314b"):
+    for arch_id in ("mamba2-130m", "yi-6b", "grok-1-314b", "deepseek-v2-lite-16b",
+                    "seamless-m4t-large-v2"):
         cfg = get_smoke(arch_id)
         with pytest.raises(RuntimeError, match="CUDA"):
             T.init_params(cfg, torch.Generator())

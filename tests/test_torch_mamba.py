@@ -29,7 +29,8 @@ import jax.numpy as jnp
 from repro import configs as j_configs
 from repro.configs import mamba2_130m as j_mamba
 from repro.models import transformer as JT
-from repro.models.config import ArchConfig as JArch, MoEConfig as JMoE, SSMConfig as JSSM
+from repro.models.config import (ArchConfig as JArch, MLAConfig as JMLA, MoEConfig as JMoE,
+                                 SSMConfig as JSSM)
 
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_numpy
@@ -159,19 +160,15 @@ def test_decode_matches_forward(case):
 
 
 def test_registry_matches_jax():
+    """Every one of the ten ids loads, ARCH and SMOKE, field for field the
+    reference's configuration."""
     assert configs.ARCH_IDS == j_configs.ARCH_IDS
-    for get, j_get in ((configs.get_arch, j_configs.get_arch),
-                       (configs.get_smoke, j_configs.get_smoke)):
-        mine, ref = get("mamba2-130m"), j_get("mamba2-130m")
-        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
-        assert mine == _port_cfg(ref)
-    ported = {"mamba2-130m", "yi-6b", "qwen2.5-32b", "qwen2-72b", "granite-34b",
-              "internvl2-1b", "grok-1-314b", "jamba-1.5-large-398b"}
     for arch_id in configs.ARCH_IDS:
-        if arch_id not in ported:
-            with pytest.raises(NotImplementedError, match="A10"):
-                configs.get_arch(arch_id)
-    assert set(configs.ARCH_IDS) - ported == {"deepseek-v2-lite-16b", "seamless-m4t-large-v2"}
+        for get, j_get in ((configs.get_arch, j_configs.get_arch),
+                           (configs.get_smoke, j_configs.get_smoke)):
+            mine, ref = get(arch_id), j_get(arch_id)
+            assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+            assert mine == _port_cfg(ref)
     with pytest.raises(KeyError):
         configs.get_arch("no-such-model")
 
@@ -183,27 +180,43 @@ def test_param_count_matches_jax(arch_id):
 
 
 def test_ported_model_has_jax_shapes():
-    """init_params draws from a torch.Generator with the reference's shapes;
-    families not yet ported (MLA, the encoder-decoder, the audio frontend)
-    raise, naming the roadmap item."""
+    """init_params draws from a torch.Generator with the reference's shapes,
+    for the Mamba2 SMOKE model and for the families ported last: MLA, the
+    encoder-decoder with the audio frontend, and a lone audio frontend,
+    whose frames go before the tokens as the reference's forward does."""
+    def check(mine, ref):
+        flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+        for path, leaf in flat:
+            node = mine
+            for key in path:
+                node = node[key.key]
+            assert tuple(node.shape) == leaf.shape and node.dtype == torch.float32
+        count = lambda t: sum(map(count, t.values())) if isinstance(t, dict) else 1  # noqa: E731
+        assert count(mine) == len(flat)
+
     cfg = configs.get_smoke("mamba2-130m")
-    mine = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    ref = JT.init_params(j_mamba.SMOKE, jax.random.PRNGKey(0), jnp.float32)
-    flat = jax.tree_util.tree_flatten_with_path(ref)[0]
-    for path, leaf in flat:
-        node = mine
-        for key in path:
-            node = node[key.key]
-        assert tuple(node.shape) == leaf.shape and node.dtype == torch.float32
-    count = lambda t: sum(map(count, t.values())) if isinstance(t, dict) else 1  # noqa: E731
-    assert count(mine) == len(flat)
+    check(T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+          JT.init_params(j_mamba.SMOKE, jax.random.PRNGKey(0), jnp.float32))
     base = JArch(name="d", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                  vocab=64, ffn_pattern=("moe",), moe=JMoE(n_experts=4, top_k=2))
-    unported = [
-        _port_cfg(base, attn_type="mla", mla=MLAConfig()),
-        _port_cfg(base, enc_dec=True, n_enc_layers=2, frontend="audio"),
-        _port_cfg(base, frontend="audio"),
+    lately = [
+        dataclasses.replace(base, attn_type="mla", mla=JMLA(kv_lora_rank=32, qk_nope_dim=16,
+                                                            qk_rope_dim=8, v_head_dim=16)),
+        dataclasses.replace(base, enc_dec=True, n_enc_layers=2, frontend="audio"),
+        dataclasses.replace(base, frontend="audio", frontend_tokens=5),
     ]
-    for cfg in unported:
-        with pytest.raises(NotImplementedError, match="A10"):
-            T.init_params(cfg, torch.Generator(), device="cpu")
+    for jcfg in lately:
+        ref = JT.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+        check(T.init_params(_port_cfg(jcfg), torch.Generator().manual_seed(0), device="cpu"),
+              ref)
+    jcfg = lately[-1]
+    ref = jax.tree_util.tree_map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(1),
+                                                            jnp.float32))
+    tokens = np.random.default_rng(0).integers(0, 64, (2, 7)).astype(np.int32)
+    emb = np.random.default_rng(1).standard_normal((2, 5, 64)).astype(np.float32)
+    want, _ = JT.forward_train(jcfg, jax.tree_util.tree_map(jnp.asarray, ref),
+                               jnp.asarray(tokens), jnp.asarray(emb), remat=False)
+    got, _ = T.forward_train(_port_cfg(jcfg), lm_params_from_numpy(ref, device="cpu"),
+                             torch.from_numpy(tokens), torch.from_numpy(emb))
+    assert got.shape == (2, 7, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
