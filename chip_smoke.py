@@ -116,7 +116,26 @@ or of the JAX package ``repro``. Phases, in order:
    ``scaled_dot_product_attention``; ``loss_fn`` on 4 x 1,024 tokens over
    4 x 1,024 stub frames (72 calls a forward), decode of 8 prompts over the
    encoder's output against the kernel forward (24 launches a step), and
-   the share of a step spent recomputing the cross K/V; (f)
+   the share of a step spent recomputing the cross K/V; then training,
+   see :func:`backward_phase`, :func:`train_smoke_phase` and
+   :func:`pod_phase`: (g) the backward kernels (B10's ``attn_bwd_dkdv`` and
+   ``attn_bwd_dq``, B9's ``bwd_dstate`` and ``bwd_chunk``) against autograd
+   through their plain versions, gradient by gradient within GRAD_TOL of
+   its largest magnitude, at Yi-6B's layer 0 (causal
+   GQA), Seamless's encoder, decoder and cross shapes (Lk 1,000) and a
+   window of 64, and at mamba2-130m's layer, a ragged L and G = 4; each
+   timed beside its plain version's backward and fp32 SDPA's (B10), with
+   its float32 SIMT bound; (h) the SMOKE ``mamba2``, ``yi-6b``,
+   ``seamless``, ``jamba`` and ``deepseek`` trained on the CPU and on the
+   card from the same weights and batches: one gradient and three
+   ``make_train_step`` steps (TRAIN_TOL; MoE routing equal), the kernels'
+   forward launched twice a layer (remat) and their backward once; (i)
+   ``launch.train pod`` at full width and depth through ``launch_main``:
+   ``mamba2-130m`` at 8 x 2,048 and ``seamless-m4t-large-v2`` at 2 x 1,024
+   over its 1,024 stub frames, POD_STEPS steps each: ms a step, training
+   tokens/s, peak memory, a profiled step, the launches a step (B9 48
+   forward and 24 backward, B10 144 and 72) and layer 0's backward call on
+   its own inputs against the plain version; (f)
    ``deepseek-v2-lite-16b`` at full width and depth (27 layers, 16.21 B
    parameters, 64.84 GB), last, see :func:`deepseek_phase`: SMOKE on the
    CPU and the card with equal routing, MLA layer 0 on the card against the
@@ -125,8 +144,11 @@ or of the JAX package ``repro``. Phases, in order:
    ``capacity_factor = e / k``;
 14. one JSON line of kernel numbers (all ten kernels; B1 and B2 with their
    launches on each path, ``ssd_scan`` and ``block_attn`` with theirs on
-   each LM path, ``block_attn`` with each encoder-decoder mode), and last
-   the device line.
+   each LM path, training's included, ``block_attn`` with each
+   encoder-decoder mode; ``ssd_scan`` and ``block_attn`` with a
+   ``backward`` object: its kernels' ms, bound, plain and library ms at the
+   main shape, its launches on each training path and every case of (g)),
+   and last the device line.
 
 The three kernel sources are built at the start, one ``nvcc`` each, in
 parallel.
@@ -273,6 +295,38 @@ SEAMLESS_BATCH, SEAMLESS_TEXT, SEAMLESS_FORWARDS = 4, 1024, 3
 RAGGED_FRAMES = 1000
 # DeepSeek-V2-Lite at full width and depth (64.84 GB of float32 weights).
 DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_FORWARDS = 2, 2048, 3
+# Training. The backward kernels are held against autograd through the
+# plain versions gradient by gradient, max|d| / max|want|: each gradient is
+# a sum over the sequence whose float32 terms cancel, so its error scales
+# with the terms, not with the element.
+GRAD_TOL = 2e-4
+ATTN_BWD_PRODUCTS = 5          # S, dP, dV, dK, dQ: 2 hd FLOP each per allowed pair
+# FLOP per state element a position that B9's gradient needs: S recomputed 3,
+# dC 2, dB 2, dxdt 2, G 3 (the kernels run 19, csrc/ssd_scan.cu).
+SSD_BWD_FLOP_PER_NP = 12
+# (label, B, Lq, Lk, H, KV, hd, causal, window)
+BWD_ATTN_CASES = [
+    ("yi-6b layer 0", 2, 4096, 4096, 32, 4, 128, True, 0),
+    ("seamless encoder", 2, 1024, 1024, 16, 16, 64, False, 0),
+    ("seamless decoder", 2, 1024, 1024, 16, 16, 64, True, 0),
+    ("seamless cross Lk 1000", 2, 1024, 1000, 16, 16, 64, False, 0),
+    ("window 64", 2, 300, 300, 8, 2, 64, True, 64),
+]
+# (label, B, H, L, P, N, chunk, G)
+BWD_SSD_CASES = [
+    ("mamba2-130m layer", 8, 24, 2048, 64, 128, 256, 1),
+    ("ragged L 1000", 2, 24, 1000, 64, 128, 256, 1),
+    ("G 4", 2, 8, 512, 64, 128, 256, 4),
+]
+TRAIN_ARCHS = ("mamba2-130m", "yi-6b", "seamless-m4t-large-v2", "jamba-1.5-large-398b",
+               "deepseek-v2-lite-16b")
+TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS = 64, 3
+TRAIN_LOSS_TOL = 1e-4          # relative: the SMOKE loss on the CPU and on the card
+TRAIN_TOL = 2e-4               # max|d| / max|want| of each gradient, parameter, velocity leaf
+# train pod at full width and depth: (arch, --batch, --seq); POD_STEPS steps
+# each (the first warms up, the last runs under the profiler).
+POD_RUNS = [("mamba2-130m", 8, 2048), ("seamless-m4t-large-v2", 2, 1024)]
+POD_STEPS = 4
 
 
 def _ulps(a, b):
@@ -2201,6 +2255,420 @@ def sim_phases(tag):
     return counts, held, traced
 
 
+# ------------------------------------------------------------- training
+def _normwise(got, want):
+    """max |got - want| / max |want| (0 for an all-zero ``want``)."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    return err / scale if scale > 0 else err
+
+
+def _grads_agree(names, got, want, tag, label):
+    """Each gradient of ``got`` within GRAD_TOL of ``want``, normwise;
+    prints one line and fails the run otherwise. Returns the largest
+    absolute difference."""
+    import torch
+
+    parts, worst, bad = [], 0.0, []
+    for name, g, w in zip(names, got, want):
+        r = _normwise(g, w)
+        worst = max(worst, float((g - w).abs().max()) if w.numel() else 0.0)
+        parts.append(f"{name} {r:.2e}")
+        if not (r <= GRAD_TOL and bool(torch.isfinite(g).all())):
+            bad.append(name)
+    print(f"{label} {tag}: max|d|/max|want| {', '.join(parts)} (tol {GRAD_TOL:g})")
+    if bad:
+        _fail(f"{label}: {bad} disagree with autograd through the plain version")
+    return worst
+
+
+def _bwd_attn_case(label, q, k, v, causal, window, tag):
+    """B10's backward on (q, k, v) against autograd through the plain
+    version (upstream gradient N(0, 1)); the two kernels timed alone beside
+    the plain version's backward and fp32 SDPA's (memory-efficient backend,
+    K/V repeated to every query head); its bound from the five products on
+    the pairs the mask allows. Returns the case's entry."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn.ref import attention_pairs, block_attention_plain
+
+    bsz, lq, h, hd = q.shape
+    lk, kv = k.shape[1], k.shape[2]
+    gen = torch.Generator("cuda").manual_seed(lq + lk)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    ba.reset_launch_counts()
+    got = torch.autograd.grad(ba.block_attn(*ins, causal=causal, window=window), ins, do)
+    torch.cuda.synchronize()
+    counts = dict(ba.BWD_LAUNCHES)
+    o_plain = block_attention_plain(*ins, causal=causal, window=window)
+    want = torch.autograd.grad(o_plain, ins, do, retain_graph=True)
+    max_abs = _grads_agree(("dq", "dk", "dv"), got, want, tag, f"block_attn backward {label}")
+    if counts != {"attn_bwd_dkdv": 1, "attn_bwd_dq": 1}:
+        _fail(f"block_attn backward {label}: launched {counts}")
+    with torch.no_grad():
+        o, lse = ba.block_attn_forward(q, k, v, causal=causal, window=window, with_lse=True)
+    ms = statistics.median(_time_ms(
+        lambda: ba.block_attn_backward(q, k, v, o, lse, do, causal=causal, window=window),
+        iters=5, warmup=1) for _ in range(3))
+    plain_ms = _time_ms(lambda: torch.autograd.grad(o_plain, ins, do, retain_graph=True),
+                        iters=2, warmup=1)
+    del o_plain, want, got
+    # The library's backward alone: fp32 SDPA on K/V repeated to H heads.
+    qt, kt, vt = (t.detach().repeat_interleave(h // t.shape[2], dim=2).transpose(1, 2)
+                  .requires_grad_() for t in (q, k, v))
+    mask = None
+    if window > 0:
+        i = torch.arange(lq, device="cuda")[:, None]
+        j = torch.arange(lk, device="cuda")[None, :]
+        mask = (j <= i) & (i - j < window) if causal else (i - j < window)
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                   is_causal=causal and mask is None)
+            do_t = do.transpose(1, 2)
+            library_ms = statistics.median(_time_ms(
+                lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
+                iters=5, warmup=1) for _ in range(3))
+    except RuntimeError as err:
+        print(f"block_attn backward {label} {tag}: fp32 SDPA refused ({str(err)[:80]})")
+        library_ms = None
+    del qt, kt, vt, mask
+    pairs = attention_pairs(lq, lk, causal=causal, window=window) * bsz * h
+    flop = ATTN_BWD_PRODUCTS * 2 * hd * pairs
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * q.numel() + lse.numel())
+    bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
+    bound_tf32_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    print(f"block_attn backward {label} {tag}: q{tuple(q.shape)} k/v{tuple(k.shape)} "
+          f"causal={causal} window={window}: ms={ms:.4f} (attn_bwd_dkdv + attn_bwd_dq) "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms} (fp32 SDPA backward, "
+          f"EFFICIENT_ATTENTION, K/V repeated to {h} heads) bound_ms={bound_ms:.4f} "
+          f"(float32 SIMT, the rate the kernels run at: {ATTN_BWD_PRODUCTS} products x 2 hd x "
+          f"{pairs} pairs = {flop} FLOP at {FP32_OPS_PER_S:.0e}/s = {bound_ops_ms:.4f} ms; "
+          f"3xTF32 on the tensor cores {bound_tf32_ms:.4f} ms; bytes {nbytes} = "
+          f"{bound_bytes_ms:.4f} ms) = {bound_ms / ms:.3f} of it")
+    return {"q": list(q.shape), "kv": list(k.shape), "causal": causal, "window": window,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+def _ssd_bwd_case(label, bsz, h, l, p, n, chunk, g, tag):
+    """B9's backward at (B, H, L, P, N, chunk, G), operands in the model's
+    (B, L, H, P) layout as transposed views, against autograd through
+    ``ssd_chunked_plain``; the two kernels timed alone beside the plain
+    version's backward; its bound from the recurrences' FLOP at the float32
+    SIMT rate and the bytes. Returns the case's entry."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+
+    gen = torch.Generator("cuda").manual_seed(l + p)
+    x = (torch.randn(bsz, l, h, p, generator=gen, device="cuda") * 0.8).transpose(1, 2)
+    dt = torch.nn.functional.softplus(torch.randn(bsz, l, h, generator=gen,
+                                                  device="cuda")).transpose(1, 2)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    b, c = ((torch.randn(bsz, l, g, n, generator=gen, device="cuda") * 0.5).transpose(1, 2)
+            for _ in range(2))
+    dy = torch.randn(bsz, h, l, p, generator=gen, device="cuda")
+    ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+    sk.reset_launch_counts()
+    got = torch.autograd.grad(sk.ssd_scan(*ins, chunk=chunk), ins, dy)
+    torch.cuda.synchronize()
+    counts = dict(sk.BWD_LAUNCHES)
+    y_plain = ssd_chunked_plain(*ins, chunk)[0]
+    want = torch.autograd.grad(y_plain, ins, dy, retain_graph=True)
+    max_abs = _grads_agree(("dx", "ddt", "da_log", "db", "dc"), got, want, tag,
+                           f"ssd_scan backward {label}")
+    if counts != {"bwd_dstate": 1, "bwd_chunk": 1}:
+        _fail(f"ssd_scan backward {label}: launched {counts}")
+    with torch.no_grad():
+        _, states = sk.ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)
+    ms = statistics.median(_time_ms(
+        lambda: sk.ssd_scan_backward(x, dt, a_log, b, c, states, dy, chunk=chunk),
+        iters=5, warmup=1) for _ in range(3))
+    plain_ms = _time_ms(lambda: torch.autograd.grad(y_plain, ins, dy, retain_graph=True),
+                        iters=2, warmup=1)
+    del y_plain, want, got, states
+    flop = SSD_BWD_FLOP_PER_NP * n * p * bsz * h * l
+    nbytes = 4 * (3 * bsz * h * l * p + 2 * bsz * h * l + 4 * bsz * g * l * n + 2 * h)
+    bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(bound_ops_ms, bound_bytes_ms)
+    print(f"ssd_scan backward {label} {tag}: x{(bsz, h, l, p)} B/C{(bsz, g, l, n)} "
+          f"chunk={chunk}: ms={ms:.4f} (bwd_dstate + bwd_chunk) plain_ms={plain_ms:.4f} "
+          f"library_ms=None (no one call computes the scan's gradient) bound_ms={bound_ms:.4f} "
+          f"(float32 SIMT: {SSD_BWD_FLOP_PER_NP} N P FLOP a position = {flop} FLOP at "
+          f"{FP32_OPS_PER_S:.0e}/s = {bound_ops_ms:.4f} ms; bytes {nbytes} = "
+          f"{bound_bytes_ms:.4f} ms) = {bound_ms / ms:.3f} of it")
+    return {"x": [bsz, h, l, p], "bc": [bsz, g, l, n], "chunk": chunk, "max_abs_err": max_abs,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def backward_phase(smi):
+    """(g) The backward kernels against autograd through their plain
+    versions on the card, timed: B10 in BWD_ATTN_CASES, B9 in
+    BWD_SSD_CASES. Returns ({label: entry} of B10, of B9)."""
+    import torch
+
+    tag = f"[{smi}]"
+    attn, ssd = {}, {}
+    for label, bsz, lq, lk, h, kv, hd, causal, window in BWD_ATTN_CASES:
+        gen = torch.Generator("cuda").manual_seed(hd + lq)
+        q, k, v = (torch.randn(bsz, n_, heads, hd, generator=gen, device="cuda")
+                   for n_, heads in ((lq, h), (lk, kv), (lk, kv)))
+        attn[label] = _bwd_attn_case(label, q, k, v, causal, window, tag)
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, *shape in BWD_SSD_CASES:
+        ssd[label] = _ssd_bwd_case(label, *shape, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return attn, ssd
+
+
+def _train_grads(cfg, params, batch):
+    """(loss, gradient leaves) of ``T.loss_fn`` with remat, the leaves in
+    ``_leaves`` order."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    leaves = list(_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = T.loss_fn(cfg, params, batch, remat=True)
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def train_smoke_phase(arch_id, tag):
+    """(h) The SMOKE configuration's training on the CPU (plain versions)
+    and on the card (the kernels, forward and backward) from the same
+    weights and batches: one gradient, then TRAIN_SMOKE_STEPS steps of
+    ``dist.make_train_step``; losses within TRAIN_LOSS_TOL (relative), the
+    gradient and the parameters and velocity after the steps within
+    TRAIN_TOL of each leaf's largest magnitude. A MoE model is compared
+    where every MoE slot routed every token alike on both (the gradient
+    pass must; the steps are compared up to the first that does not).
+    Returns the card gradient pass's launches by kernel."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.dist import make_train_step
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import momentum_init
+
+    small = get_smoke(arch_id)
+    on_cpu = T.init_params(small, torch.Generator().manual_seed(7), device="cpu")
+    on_card = _tree_to(on_cpu, "cuda")
+    gen = torch.Generator().manual_seed(8)
+
+    def batch():
+        toks = torch.randint(0, small.vocab, (2, TRAIN_SMOKE_SEQ + 1), generator=gen)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if small.frontend != "none":
+            out["embeds"] = torch.randn(2, small.frontend_tokens, small.d_model, generator=gen)
+        return out
+
+    def to(b, device):
+        return {k: v.to(device) for k, v in b.items()}
+
+    one = batch()
+    with _routing() as r_cpu:
+        loss_cpu, g_cpu = _train_grads(small, on_cpu, one)
+    ba.reset_launch_counts()
+    sk.reset_launch_counts()
+    with _routing() as r_card:
+        loss_card, g_card = _train_grads(small, on_card, to(one, "cuda"))
+    torch.cuda.synchronize()
+    launches = {"block_attn": ba.LAUNCHES["block_attn"], "ssd_scan": sk.LAUNCHES["ssd_scan"],
+                **ba.BWD_LAUNCHES, **sk.BWD_LAUNCHES}
+    calls = _kernel_calls(small)
+    want = {"block_attn": 2 * calls["block_attn"], "ssd_scan": 2 * calls["ssd_scan"],
+            "attn_bwd_dkdv": calls["block_attn"], "attn_bwd_dq": calls["block_attn"],
+            "bwd_dstate": calls["ssd_scan"], "bwd_chunk": calls["ssd_scan"]}
+    same = all(torch.equal(a[1], b[1].cpu()) and torch.equal(a[3], b[3].cpu())
+               for a, b in zip(r_cpu, r_card)) and len(r_cpu) == len(r_card)
+    loss_r = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    names = list(_leaf_names(on_cpu))
+    grad_r, grad_leaf = _worst_leaf(g_card, g_cpu, names)
+    print(f"{small.name} train {tag}: one gradient on 2x{TRAIN_SMOKE_SEQ} tokens, cpu-vs-card "
+          f"loss {float(loss_cpu):.7f} / {float(loss_card):.7f} rel {loss_r:.2e} (tol "
+          f"{TRAIN_LOSS_TOL}), worst leaf {grad_leaf} max|d|/max|want| {grad_r:.2e} (TRAIN_TOL "
+          f"{TRAIN_TOL}) over {len(g_cpu)} leaves; {len(r_cpu)} MoE routings, equal={same}; "
+          f"launches {launches} (want {want}: forward twice with remat)")
+    if not (same and loss_r <= TRAIN_LOSS_TOL and grad_r <= TRAIN_TOL and launches == want
+            and all(bool(torch.isfinite(g).all()) for g in g_card)):
+        _fail(f"SMOKE {arch_id}: the card's gradient disagrees with the CPU's, its routing "
+              f"differs, or it launched {launches} (want {want})")
+    del g_cpu, g_card
+
+    steps = make_train_step(small, lr_r=20.0)
+    vel = [momentum_init(on_cpu).velocity, momentum_init(on_card).velocity]
+    losses, compared = [], 0
+    for step in range(TRAIN_SMOKE_STEPS):
+        b = batch()
+        with _routing() as r_cpu:
+            on_cpu, vel[0], l_cpu = steps(on_cpu, vel[0], b, step)
+        with _routing() as r_card:
+            on_card, vel[1], l_card = steps(on_card, vel[1], to(b, "cuda"), step)
+        losses.append((float(l_cpu), float(l_card)))
+        if not all(torch.equal(a[1], c[1].cpu()) for a, c in zip(r_cpu, r_card)):
+            break
+        compared += 1
+    loss_r = max(abs(c - w) / abs(w) for w, c in losses[:compared]) if compared else 0.0
+    param = _worst_leaf(list(_leaves(on_card)), list(_leaves(on_cpu)), names)
+    velocity = _worst_leaf(list(_leaves(vel[1])), list(_leaves(vel[0])), names)
+    print(f"{small.name} train {tag}: {TRAIN_SMOKE_STEPS} make_train_step steps (lr_r 20), "
+          f"losses cpu/card {[(round(a, 6), round(c, 6)) for a, c in losses]}; routing equal "
+          f"in {compared} of them; worst loss rel {loss_r:.2e}; worst params leaf {param[1]} "
+          f"{param[0]:.2e}, velocity leaf {velocity[1]} {velocity[0]:.2e} (TRAIN_TOL {TRAIN_TOL})")
+    finite = all(math.isfinite(c) for _, c in losses)
+    if not finite or loss_r > TRAIN_LOSS_TOL or (
+            compared == TRAIN_SMOKE_STEPS and max(param[0], velocity[0]) > TRAIN_TOL):
+        _fail(f"SMOKE {arch_id}: the card's training steps disagree with the CPU's")
+    return launches
+
+
+def pod_phase(arch_id, bsz, seq, steps, tag):
+    """(i) ``launch.train pod`` at full width through ``launch_main``, on
+    the card: ``steps`` steps of ``dist.make_train_step`` with remat, float32,
+    TF32 off. Each step is timed (host clock, synchronized) and its kernel
+    launches counted (the forward's twice a layer with remat, the backward's
+    once); the last step runs under the profiler; the backward of layer 0's
+    kernel call (the last backward call of the first step) is held on its
+    own captured inputs and upstream gradient against autograd through the
+    plain version. Returns ({kernel: launches counted over the steps},
+    the step's numbers)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import steps as dist_steps
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn.ref import block_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+    from repro_torch.launch.train import main as launch_main
+
+    cfg = get_arch(arch_id)
+    calls = _kernel_calls(cfg)
+    want = {"block_attn": 2 * calls["block_attn"], "ssd_scan": 2 * calls["ssd_scan"],
+            "attn_bwd_dkdv": calls["block_attn"], "attn_bwd_dq": calls["block_attn"],
+            "bwd_dstate": calls["ssd_scan"], "bwd_chunk": calls["ssd_scan"]}
+    record = {"ms": [], "loss": [], "launches": [], "bwd_args": {}}
+    real_make, real_attn_bwd, real_ssd_bwd = (dist_steps.make_train_step,
+                                              ba.block_attn_backward, sk.ssd_scan_backward)
+
+    def keep_last(name, real):
+        def spy(*args, **kw):
+            if not record["ms"]:                    # the first step's calls
+                record["bwd_args"][name] = (args, kw)
+            return real(*args, **kw)
+        return spy
+
+    def timed_make(cfg_, **kw):
+        step_fn = real_make(cfg_, **kw)
+
+        def timed(params, vel, batch, step):
+            out = None
+
+            def run():
+                nonlocal out
+                out = step_fn(params, vel, batch, step)
+
+            ba.reset_launch_counts()
+            sk.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == steps - 1:
+                _profile(f"{cfg_.name} train step {bsz}x{seq} {tag}", run)
+            else:
+                run()
+            torch.cuda.synchronize()
+            record["ms"].append((time.perf_counter() - t0) * 1e3)
+            record["loss"].append(float(out[2]))
+            record["launches"].append({"block_attn": ba.LAUNCHES["block_attn"],
+                                       "ssd_scan": sk.LAUNCHES["ssd_scan"],
+                                       **ba.BWD_LAUNCHES, **sk.BWD_LAUNCHES})
+            return out
+
+        return timed
+
+    dist_steps.make_train_step = timed_make
+    ba.block_attn_backward = keep_last("block_attn", real_attn_bwd)
+    sk.ssd_scan_backward = keep_last("ssd_scan", real_ssd_bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        launch_main(["pod", "--arch", arch_id, "--batch", str(bsz), "--seq", str(seq),
+                     "--steps", str(steps)])
+    finally:
+        dist_steps.make_train_step = real_make
+        ba.block_attn_backward, sk.ssd_scan_backward = real_attn_bwd, real_ssd_bwd
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_front = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    step_ms = statistics.median(record["ms"][1:-1])     # warm-up and profiled steps out
+    tokens = bsz * (seq + n_front)
+    print(f"{cfg.name} train pod {tag}: --batch {bsz} --seq {seq} --steps {steps} "
+          f"(n_layers {cfg.n_layers}{f', {cfg.n_enc_layers} encoder layers over {n_front} stub frames' if cfg.enc_dec else ''}; "
+          f"remat, float32, TF32 off): ms/step median of steps 1..{steps - 2}={step_ms:.2f} "
+          f"all={[round(x, 2) for x in record['ms']]} training tokens/s="
+          f"{tokens / step_ms * 1e3:.1f} ({bsz}x{seq} text{f' + {bsz}x{n_front} frames' if n_front else ''} a step) "
+          f"losses={[round(x, 5) for x in record['loss']]} peak_memory_allocated={peak} bytes; "
+          f"launcher wall {wall:.1f}s (init and first-step warm-up included); launches a step "
+          f"{record['launches'][0]} (want {want})")
+    if (not all(math.isfinite(x) for x in record["loss"])
+            or any(lc != want for lc in record["launches"])):
+        _fail(f"train pod {arch_id}: losses {record['loss']} or launches {record['launches']} "
+              f"(want {want} a step)")
+    # Layer 0's backward call on its own inputs and upstream gradient.
+    for name, (args, kw) in record["bwd_args"].items():
+        if name == "block_attn":
+            q, k, v, o, lse, do = args
+            got = real_attn_bwd(q, k, v, o, lse, do, **kw)
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            want_g = torch.autograd.grad(block_attention_plain(ins[0], ins[1], ins[2], **kw),
+                                         ins, do)
+            label = (f"layer 0 (the last backward call) q{tuple(q.shape)} k/v{tuple(k.shape)} "
+                     f"{kw}")
+            _grads_agree(("dq", "dk", "dv"), got, want_g, tag,
+                         f"{cfg.name} train pod block_attn backward {label}")
+        else:
+            x, dt, a_log, b, c, states, dy = args
+            got = real_ssd_bwd(x, dt, a_log, b, c, states, dy, **kw)
+            ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
+            want_g = torch.autograd.grad(ssd_chunked_plain(*ins, kw["chunk"])[0], ins, dy)
+            _grads_agree(("dx", "ddt", "da_log", "db", "dc"), got, want_g, tag,
+                         f"{cfg.name} train pod ssd_scan backward layer 0 x{tuple(x.shape)} "
+                         f"chunk {kw['chunk']}")
+        del got, want_g, ins
+    counted = {k: sum(lc[k] for lc in record["launches"]) for k in want}
+    record.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted, {"ms_per_step": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+                  "peak_bytes": peak}
+
+
 def _ptxas_report(log):
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an ``-Xptxas -v`` report."""
@@ -2227,6 +2695,20 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _leaf_names(tree, prefix=""):
+    """The paths of ``_leaves(tree)``, in the same order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_names(v, f"{prefix}/{k}")
+    else:
+        yield prefix
+
+
+def _worst_leaf(got, want, names):
+    """(the largest max|d|/max|want| over the leaves, that leaf's name)."""
+    return max((_normwise(g.cpu(), w), n) for g, w, n in zip(got, want, names))
 
 
 def main() -> int:
@@ -2493,6 +2975,40 @@ def main() -> int:
     attn_by_path["seamless-m4t-large-v2 decode"] = steps
     gc.collect()                         # Seamless's 8.14 GB go before DeepSeek's 64.84 GB
     torch.cuda.empty_cache()
+    bwd_attn, bwd_ssd = backward_phase(smi)                          # (g)
+    train_launches = {arch: train_smoke_phase(arch, f"[{smi}]") for arch in TRAIN_ARCHS}  # (h)
+    pods = {arch: pod_phase(arch, b_, s_, POD_STEPS, f"[{smi}]")   # (i)
+            for arch, b_, s_ in POD_RUNS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_by_path = {"attn": {}, "ssd": {}}
+    for arch, counts in train_launches.items():
+        for kernel, paths, by_path, bwd in (("block_attn", attn_by_path, bwd_by_path["attn"],
+                                             "attn_bwd_dkdv"),
+                                            ("ssd_scan", ssd_by_path, bwd_by_path["ssd"],
+                                             "bwd_dstate")):
+            if counts[kernel]:
+                paths[f"{arch} train smoke"] = counts[kernel]
+                by_path[f"{arch} train smoke"] = counts[bwd]
+    for arch, (counted, _) in pods.items():
+        for kernel, paths, by_path, bwd in (("block_attn", attn_by_path, bwd_by_path["attn"],
+                                             "attn_bwd_dkdv"),
+                                            ("ssd_scan", ssd_by_path, bwd_by_path["ssd"],
+                                             "bwd_dstate")):
+            if counted[kernel]:
+                paths[f"{arch} train pod"] = counted[kernel]
+                by_path[f"{arch} train pod"] = counted[bwd]
+    for entry, cases, main_case, by_path, kernels in (
+            (attn, bwd_attn, "yi-6b layer 0", bwd_by_path["attn"], "attn_bwd_dkdv, attn_bwd_dq"),
+            (ssd, bwd_ssd, "mamba2-130m layer", bwd_by_path["ssd"], "bwd_dstate, bwd_chunk")):
+        main = cases[main_case]
+        entry["backward"] = {
+            "kernels": kernels, "shape": main_case,
+            **{key: main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+            "launches": sum(by_path.values()), "launches_by_path": by_path, "cases": cases}
+    entry_train = {arch: stats for arch, (_, stats) in pods.items()}
+    print(f"train pod summary [{smi}]: {json.dumps(entry_train)}")
     obs_phase(f"[{smi}]", fleet_stream)
     gc.collect()
     torch.cuda.empty_cache()

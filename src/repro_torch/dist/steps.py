@@ -1,0 +1,50 @@
+"""The training step of one pod, the port of ``repro.dist.steps.make_train_step``.
+
+``step_fn(params, vel, batch, step)`` takes the gradient of ``T.loss_fn``
+(autograd; on the card through the backward kernels of ``block_attn`` and
+``ssd_scan``), the paper's decreasing learning rate ``decreasing_lr(step +
+1, r=lr_r)`` and a heavy-ball momentum step (``optim.momentum_sgd``), as the
+reference's ``jax.value_and_grad`` followed by ``momentum_sgd``.
+
+There is no mesh and no ``p_specs``: the model, its gradients and its
+velocity live on one device, so the builder returns the step alone.
+Sharding, and the federated step built on this one's pieces
+(``make_fed_train_step``), are ROADMAP.md queue A, item 11.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ArchConfig
+from repro_torch.optim.sgd import decreasing_lr, momentum_sgd
+
+__all__ = ["make_train_step"]
+
+
+def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
+                    remat: bool = True):
+    """step_fn(params, vel, batch, step) -> (params, vel, loss).
+
+    ``vel`` is a zeros-like mirror of ``params`` (``optim.momentum_init``).
+    Both are updated in place and returned; ``loss`` is the detached scalar
+    of this step's batch, before the update. ``remat`` recomputes each block
+    in the backward pass (memory, not numbers)."""
+
+    def step_fn(params: dict, vel: dict, batch: dict, step: int):
+        leaves, spec = tree_flatten(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = T.loss_fn(cfg, params, batch, remat=remat)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        lr = decreasing_lr(int(step) + 1, r=lr_r)
+        params, vel = momentum_sgd(params, vel, tree_unflatten(list(grads), spec), lr, beta)
+        return params, vel, loss.detach()
+
+    return step_fn

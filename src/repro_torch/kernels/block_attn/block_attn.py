@@ -17,9 +17,19 @@ The operands are ``(B, L, heads, hd)`` tensors, possibly strided views with
 the last dimension contiguous; K/V are read by group (``H % KV == 0``), and
 the output is allocated contiguous. Views whose rows are not 16-byte
 aligned (``hd`` not a multiple of 4, an odd offset) take the kernel's
-4-byte copies. There is no backward pass yet: inputs that require a
-gradient are refused. Each launch adds one to :data:`LAUNCHES`; nothing
-here synchronises.
+4-byte copies. Each launch adds one to :data:`LAUNCHES`; nothing here
+synchronises.
+
+Training: when a gradient is wanted (grad mode on and an input that
+requires one), :func:`block_attn` goes through :class:`BlockAttnFunction`.
+Its forward is the same kernel, which then also writes each row's
+log-sum-exp (B, H, Lq); its backward is two more kernels of the same
+source, ``attn_bwd_dkdv`` (dK and dV, summed over the query heads of each
+KV group inside one block: no atomics) and ``attn_bwd_dq``, which recompute
+the probabilities from that log-sum-exp in float32 SIMT arithmetic
+(design and bound in ``csrc/block_attn.cu``). Each backward launch adds one
+to :data:`BWD_LAUNCHES`. No path differentiates the plain version for a
+CUDA tensor.
 
 The shared library is built with ``nvcc`` at first use into ``_build/``
 beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
@@ -35,8 +45,9 @@ import torch
 
 from repro_torch.kernels._build import build_library
 
-__all__ = ["LAUNCHES", "BUILD_INFO", "MAX_HEAD_DIM", "reset_launch_counts", "build",
-           "block_attn"]
+__all__ = ["LAUNCHES", "BWD_LAUNCHES", "BUILD_INFO", "MAX_HEAD_DIM", "reset_launch_counts",
+           "build", "block_attn", "block_attn_forward", "block_attn_backward",
+           "BlockAttnFunction"]
 
 _SRC = Path(__file__).parent / "csrc" / "block_attn.cu"
 MAX_HEAD_DIM = 128
@@ -45,6 +56,7 @@ MAX_QUERY_TILES = 65535        # the grid's y dimension
 
 # Kernel launches, counted where the wrapper launches the kernel.
 LAUNCHES = {"block_attn": 0}
+BWD_LAUNCHES = {"attn_bwd_dkdv": 0, "attn_bwd_dq": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -52,6 +64,8 @@ BUILD_INFO: dict = {}
 
 def reset_launch_counts() -> None:
     LAUNCHES["block_attn"] = 0
+    for name in BWD_LAUNCHES:
+        BWD_LAUNCHES[name] = 0
 
 
 def build() -> ctypes.CDLL:
@@ -64,10 +78,16 @@ def build() -> ctypes.CDLL:
     lib = build_library(_SRC, BUILD_INFO)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.block_attn.argtypes = ([ptr] * 4 + [i64] * 12 + [i32] * 8
-                               + [ctypes.c_float, ptr])
+                               + [ptr, ctypes.c_float, ptr])
     lib.block_attn.restype = ctypes.c_int
     lib.block_attn_smem_bytes.argtypes = [i32]
     lib.block_attn_smem_bytes.restype = ctypes.c_longlong
+    for name in BWD_LAUNCHES:
+        fn = getattr(lib, f"block_{name}")
+        fn.argtypes = [ptr, ptr, ptr, ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
+    lib.block_attn_bwd_smem_bytes.argtypes = [i32, i32]
+    lib.block_attn_bwd_smem_bytes.restype = ctypes.c_longlong
     _lib = lib
     return lib
 
@@ -98,30 +118,95 @@ def _check(q, k, v, window):
         raise ValueError(f"query length {lq} exceeds {MAX_QUERY_TILES} tiles of {QUERY_TILE}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in named.values()):
-        raise RuntimeError("block_attn has no backward pass yet (ROADMAP.md B10): "
-                           "call it under torch.no_grad() or inference_mode()")
 
 
-def block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Lq, H, hd), k/v (B, Lk, KV, hd) with H % KV == 0, all float32
-    on one card -> o (B, Lq, H, hd), contiguous. Any Lq and Lk: the kernel
-    masks the ragged last tiles itself."""
+def block_attn_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0, with_lse: bool = False):
+    """The forward kernel on checked operands -> (o, lse): o (B, Lq, H, hd)
+    contiguous; lse (B, H, Lq) float32, each row's natural log-sum-exp of
+    its scaled, masked scores (-inf for a row that attends no key), or None
+    when ``with_lse`` is False (the kernel then writes none)."""
     _check(q, k, v, window)
     bsz, lq, h, hd = q.shape
     lk, kv = k.shape[1], k.shape[2]
     o = q.new_empty(bsz, lq, h, hd)
+    lse = q.new_empty(bsz, h, lq) if with_lse else None
     lib = build()
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         err = lib.block_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                              *strides, bsz, h, kv, lq, lk, hd, int(causal), int(window),
+                             lse.data_ptr() if lse is not None else None,
                              1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(
             f"block_attn launch failed with cudaError_t {err} (dynamic shared "
             f"memory {lib.block_attn_smem_bytes(hd)} bytes)")
     LAUNCHES["block_attn"] += 1
-    return o
+    return o, lse
+
+
+def block_attn_backward(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
+    """The two backward kernels -> (dq, dk, dv), contiguous; ``o`` and
+    ``lse`` are the forward's, ``do`` the gradient of ``o``. dK and dV sum over the H/KV query heads of each
+    group. A failed launch raises."""
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    _check(q, k, v, window)
+    bsz, lq, h, hd = q.shape
+    lk, kv = k.shape[1], k.shape[2]
+    if tuple(do.shape) != tuple(o.shape) or tuple(lse.shape) != (bsz, h, lq):
+        raise ValueError(f"do {tuple(do.shape)} and lse {tuple(lse.shape)} do not match "
+                         f"o {tuple(o.shape)}")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    dq, dk, dv = (t.new_empty(t.shape) for t in (q, k, v))
+    lib = build()
+    ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv)))
+    strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
+                                         for i in range(3)))
+    dims = (ctypes.c_int * 8)(bsz, h, kv, lq, lk, hd, int(causal), int(window))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        for i, name in enumerate(BWD_LAUNCHES):
+            err = getattr(lib, f"block_{name}")(ptrs, strides, dims,
+                                                1.0 / math.sqrt(hd), stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"block_attn's {name} kernel failed with cudaError_t {err} (dynamic "
+                    f"shared memory {lib.block_attn_bwd_smem_bytes(i, hd)} bytes)")
+            BWD_LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+class BlockAttnFunction(torch.autograd.Function):
+    """Blockwise attention with its gradient from the backward kernels:
+    the forward keeps q, k, v, o and the log-sum-exp; the backward launches
+    ``attn_bwd_dkdv`` and ``attn_bwd_dq``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = block_attn_forward(q, k, v, causal=causal, window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = block_attn_backward(q, k, v, o, lse, do, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B, Lq, H, hd), k/v (B, Lk, KV, hd) with H % KV == 0, all float32
+    on one card -> o (B, Lq, H, hd), contiguous. Any Lq and Lk: the kernel
+    masks the ragged last tiles itself. When a gradient is wanted the call
+    goes through :class:`BlockAttnFunction` (the backward kernels)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _check(q, k, v, window)
+        return BlockAttnFunction.apply(q, k, v, causal, window)
+    return block_attn_forward(q, k, v, causal=causal, window=window)[0]

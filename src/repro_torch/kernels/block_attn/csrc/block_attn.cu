@@ -121,6 +121,7 @@ struct Args {
   const float* k;  // (B, Lk, KV, hd) by strides sk
   const float* v;  // (B, Lk, KV, hd) by strides sv
   float* o;        // (B, Lq, H, hd) by strides so
+  float* lse;      // (B, H, Lq) contiguous, or null: the rows' log-sum-exp
   long long sq[3], sk[3], sv[3], so[3];  // batch, seq, head
   int heads, heads_per_group, lq, lk, hd, causal, window, vec16;
   float scale_log2;  // 1/sqrt(hd) * log2(e)
@@ -232,7 +233,9 @@ struct SplitA {
   }
 };
 
-template <int kHD>
+// kLse: write each row's log-sum-exp (the training path). A template
+// parameter, so the inference path compiles as if the write were not there.
+template <int kHD, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
   constexpr int kLdQK = qk_stride(kHD), kLdV = v_stride(kHD);
   constexpr int kN = kHD / 8;     // n-tiles of the output
@@ -394,6 +397,11 @@ __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
   for (int r = 0; r < 2; ++r) {
     const int row = r == 0 ? row_g : row_g8;
     if (row >= a.lq) continue;
+    // The natural log-sum-exp of the row's scaled scores, for the backward
+    // pass: (m + log2 l) ln 2; -inf for a row that may attend no key.
+    if (kLse && t == 0)
+      a.lse[(static_cast<long long>(bi) * a.heads + h) * a.lq + row] =
+          l[r] > 0.0f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : -INFINITY;
     const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
 #pragma unroll
     for (int j = 0; j < kN; ++j)
@@ -405,25 +413,335 @@ __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
   }
 }
 
-template <int kHD>
+template <int kHD, bool kLse>
 int launch(const Args& a, int batch, void* stream) {
   const size_t bytes = smem_bytes(kHD);
   cudaError_t err = cudaFuncSetAttribute(
-      block_attn_kernel<kHD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_attn_kernel<kHD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(block_attn_kernel<kHD>,
+  err = cudaFuncSetAttribute(block_attn_kernel<kHD, kLse>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(batch * a.heads, (a.lq + kQTile - 1) / kQTile);
-  block_attn_kernel<kHD><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  block_attn_kernel<kHD, kLse><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int padded_hd(int hd) { return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+
+// ------------------------------------------------------------------ backward
+//
+// The gradient of the function above, for training: FlashAttention-2's
+// backward (Dao 2023, Alg. 2) in two kernels, launched in order, that
+// recompute P_ij = exp(scale q_i.k_j - lse_i) from the log-sum-exp the
+// forward wrote, and each compute D_i = rowsum(dO_i o O_i) for the rows they
+// read. With dP = dO V^T and dS = P o (dP - D):
+//   dV_j = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i,  dQ_i = scale sum_j dS_ij k_j.
+//   * attn_bwd_dkdv: one block per (b, KV head, 64-key tile) keeps its K and
+//     V tile in shared memory and walks the query heads of its group and
+//     the 64-row query tiles that reach the keys (causal: from the key
+//     tile's diagonal on; window: up to the last key + window), so dK and
+//     dV sum over the H/KV heads of the group inside one block, in a fixed
+//     order: no atomics, no repeat.
+//   * attn_bwd_dq: one block per (b, query head, 64-row query tile) keeps its
+//     Q and dO tile and walks the key tiles its rows reach, as the forward.
+// The mask is the forward's, element by element (causal by absolute index,
+// window, Lq and Lk ragged); a row that attends no key has lse = -inf and
+// P = 0, so its dQ is 0 and it adds nothing to dK and dV.
+//
+// Bound: operations. Five products of 2 hd FLOP per allowed (i, j) pair
+// (S, dP, dV, dK, dQ; the kernels recompute S and dP once more, seven in
+// all): 2.5 x the forward's count, 687,362,539,520 FLOP at Yi-6B's layer.
+// This first version runs them as plain float32 FMAs (SIMT), 4 x 4 elements
+// of a 64 x 64 tile a thread, operands from shared memory with an odd row
+// stride (hd_p + 1), so its bound is the card's 67 TFLOP/s float32 rate
+// (10.26 ms at Yi-6B's layer), not the tensor cores'; it takes 54.05 ms
+// there (chip_smoke.py, H100 at 700 W): two scalar shared-memory loads an
+// FMA pair, one block of 8 warps an SM at hd 128. What a later PR could do:
+// the forward's 3xTF32 mma.sync fragments for the five products.
+constexpr int kBT = 64;          // rows of a backward tile (queries or keys)
+constexpr int kBThreads = 256;   // 16 x 16 threads, 4 x 4 elements of a tile each
+
+struct BwdArgs {
+  const float *q, *k, *v, *o, *dout, *lse;  // lse (B, H, Lq) contiguous
+  float *dq, *dk, *dv;
+  long long sq[3], sk[3], sv[3], so[3], sdo[3], sdq[3], sdk[3], sdv[3];
+  int heads, heads_per_group, lq, lk, hd, causal, window;
+  float scale, scale_log2;
+};
+
+__host__ __device__ constexpr size_t bwd_smem_bytes(int hdp, int tiles, bool p_tile) {
+  return (static_cast<size_t>(tiles) * kBT * (hdp + 1) +
+          static_cast<size_t>(p_tile ? 2 : 1) * kBT * (kBT + 1) + 2 * kBT) * sizeof(float);
+}
+
+__device__ __forceinline__ bool allowed(const BwdArgs& a, int i, int j) {
+  return i < a.lq && j < a.lk && (!a.causal || j <= i) && (a.window <= 0 || i - j < a.window);
+}
+
+// Rows [r0, r0 + 64) of a (len, hd) operand with row stride `stride` into a
+// (64, kHD + 1) tile; zero past len and past hd.
+template <int kHD>
+__device__ __forceinline__ void load_tile(float* tile, const float* src, long long stride,
+                                          int r0, int len, int hd) {
+  for (int i = threadIdx.x; i < kBT * kHD; i += kBThreads) {
+    const int r = i / kHD, c = i % kHD;
+    tile[r * (kHD + 1) + c] =
+        r0 + r < len && c < hd ? src[static_cast<long long>(r0 + r) * stride + c] : 0.0f;
+  }
+}
+
+// D_i = sum_c dO_ic O_ic and lse_i log2(e) of the rows [q0, q0 + 64) of one
+// (b, h) into d_s and lse_s (-inf past Lq); warp w takes rows w, w + 8, ...
+__device__ __forceinline__ void row_terms(const BwdArgs& a, int bi, int h, int q0,
+                                          float* d_s, float* lse_s) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const float* op = a.o + bi * a.so[0] + h * a.so[2];
+  const float* dp = a.dout + bi * a.sdo[0] + h * a.sdo[2];
+  for (int r = warp; r < kBT; r += kBThreads / 32) {
+    const int i = q0 + r;
+    float acc = 0.0f;
+    if (i < a.lq)
+      for (int c = lane; c < a.hd; c += 32) acc = fmaf(dp[i * a.sdo[1] + c], op[i * a.so[1] + c], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      d_s[r] = acc;
+      lse_s[r] = i < a.lq
+          ? a.lse[(static_cast<long long>(bi) * a.heads + h) * a.lq + i] * kLog2e : -INFINITY;
+    }
+  }
+}
+
+// The (64, 64) tile of queries [q0, q0 + 64) x keys [k0, k0 + 64): thread
+// (ty, tx) takes rows ty + 16 m and columns tx + 16 n, and writes P (when
+// p_s is not null) and dS = P (dP - D) to [query][key] tiles of row stride 65.
+template <int kHD>
+__device__ __forceinline__ void score_tile(const BwdArgs& a, const float* qs, const float* dos,
+                                           const float* ks, const float* vs,
+                                           const float* d_s, const float* lse_s,
+                                           int q0, int k0, float* p_s, float* ds_s) {
+  constexpr int kLd = kHD + 1;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) s[m][n] = dp[m][n] = 0.0f;
+#pragma unroll 4
+  for (int c = 0; c < kHD; ++c) {
+    float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      qa[m] = qs[(ty + 16 * m) * kLd + c];
+      da[m] = dos[(ty + 16 * m) * kLd + c];
+      kb[m] = ks[(tx + 16 * m) * kLd + c];
+      vb[m] = vs[(tx + 16 * m) * kLd + c];
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        s[m][n] = fmaf(qa[m], kb[n], s[m][n]);
+        dp[m][n] = fmaf(da[m], vb[n], dp[m][n]);
+      }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int r = ty + 16 * m, col = tx + 16 * n;
+      float p = 0.0f;
+      if (allowed(a, q0 + r, k0 + col) && lse_s[r] != -INFINITY)
+        p = exp2f(s[m][n] * a.scale_log2 - lse_s[r]);
+      if (p_s != nullptr) p_s[r * (kBT + 1) + col] = p;
+      ds_s[r * (kBT + 1) + col] = p * (dp[m][n] - d_s[r]);
+    }
+}
+
+template <int kHD>
+__global__ void __launch_bounds__(kBThreads, 1) attn_bwd_dkdv_kernel(BwdArgs a) {
+  constexpr int kLd = kHD + 1, kLdP = kBT + 1, kNC = kHD / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + kBT * kLd;
+  float* qs = vs + kBT * kLd;
+  float* dos = qs + kBT * kLd;
+  float* p_s = dos + kBT * kLd;
+  float* ds_s = p_s + kBT * kLdP;
+  float* d_s = ds_s + kBT * kLdP;
+  float* lse_s = d_s + kBT;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int kv_heads = a.heads / a.heads_per_group;
+  const int bi = blockIdx.x / kv_heads, kvh = blockIdx.x % kv_heads;
+  const int k0 = blockIdx.y * kBT;
+  load_tile<kHD>(ks, a.k + bi * a.sk[0] + kvh * a.sk[2], a.sk[1], k0, a.lk, a.hd);
+  load_tile<kHD>(vs, a.v + bi * a.sv[0] + kvh * a.sv[2], a.sv[1], k0, a.lk, a.hd);
+  float dk[4][kNC], dv[4][kNC];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < kNC; ++n) dk[m][n] = dv[m][n] = 0.0f;
+  // The query rows that reach keys [k0, k_last].
+  const int k_last = min(k0 + kBT, a.lk) - 1;
+  const int i_lo = a.causal ? k0 : 0;
+  const int i_hi = a.window > 0 ? min(a.lq, k_last + a.window) : a.lq;  // exclusive
+  for (int r = 0; r < a.heads_per_group; ++r) {
+    const int h = kvh * a.heads_per_group + r;
+    const float* qp = a.q + bi * a.sq[0] + h * a.sq[2];
+    const float* dop = a.dout + bi * a.sdo[0] + h * a.sdo[2];
+    for (int q0 = i_lo / kBT * kBT; q0 < i_hi; q0 += kBT) {
+      __syncthreads();  // every thread is done with the last tile's qs, dos, p_s, ds_s
+      load_tile<kHD>(qs, qp, a.sq[1], q0, a.lq, a.hd);
+      load_tile<kHD>(dos, dop, a.sdo[1], q0, a.lq, a.hd);
+      row_terms(a, bi, h, q0, d_s, lse_s);
+      __syncthreads();
+      score_tile<kHD>(a, qs, dos, ks, vs, d_s, lse_s, q0, k0, p_s, ds_s);
+      __syncthreads();
+      // Key rows ty + 16 m, columns tx + 16 n.
+#pragma unroll 4
+      for (int i = 0; i < kBT; ++i) {
+        float pv[4], sv[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          pv[m] = p_s[i * kLdP + ty + 16 * m];
+          sv[m] = ds_s[i * kLdP + ty + 16 * m];
+        }
+#pragma unroll
+        for (int n = 0; n < kNC; ++n) {
+          const float dov = dos[i * kLd + tx + 16 * n], qv = qs[i * kLd + tx + 16 * n];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            dv[m][n] = fmaf(pv[m], dov, dv[m][n]);
+            dk[m][n] = fmaf(sv[m], qv, dk[m][n]);
+          }
+        }
+      }
+    }
+  }
+  float* dkp = a.dk + bi * a.sdk[0] + kvh * a.sdk[2];
+  float* dvp = a.dv + bi * a.sdv[0] + kvh * a.sdv[2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int j = k0 + ty + 16 * m;
+    if (j >= a.lk) continue;
+#pragma unroll
+    for (int n = 0; n < kNC; ++n) {
+      const int c = tx + 16 * n;
+      if (c < a.hd) {
+        dkp[j * a.sdk[1] + c] = dk[m][n] * a.scale;
+        dvp[j * a.sdv[1] + c] = dv[m][n];
+      }
+    }
+  }
+}
+
+template <int kHD>
+__global__ void __launch_bounds__(kBThreads, 1) attn_bwd_dq_kernel(BwdArgs a) {
+  constexpr int kLd = kHD + 1, kLdP = kBT + 1, kNC = kHD / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* dos = qs + kBT * kLd;
+  float* ks = dos + kBT * kLd;
+  float* vs = ks + kBT * kLd;
+  float* ds_s = vs + kBT * kLd;
+  float* d_s = ds_s + kBT * kLdP;
+  float* lse_s = d_s + kBT;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int bi = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int kvh = h / a.heads_per_group;
+  const int q0 = blockIdx.y * kBT;
+  load_tile<kHD>(qs, a.q + bi * a.sq[0] + h * a.sq[2], a.sq[1], q0, a.lq, a.hd);
+  load_tile<kHD>(dos, a.dout + bi * a.sdo[0] + h * a.sdo[2], a.sdo[1], q0, a.lq, a.hd);
+  row_terms(a, bi, h, q0, d_s, lse_s);
+  const float* kp = a.k + bi * a.sk[0] + kvh * a.sk[2];
+  const float* vp = a.v + bi * a.sv[0] + kvh * a.sv[2];
+  float dq[4][kNC];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int n = 0; n < kNC; ++n) dq[m][n] = 0.0f;
+  // The keys rows [q0, q_last] reach.
+  const int q_last = min(q0 + kBT, a.lq) - 1;
+  const int j_hi = a.causal ? min(a.lk, q_last + 1) : a.lk;  // exclusive
+  const int j_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  for (int k0 = j_lo / kBT * kBT; k0 < j_hi; k0 += kBT) {
+    __syncthreads();  // every thread is done with the last tile's ks, ds_s
+    load_tile<kHD>(ks, kp, a.sk[1], k0, a.lk, a.hd);
+    load_tile<kHD>(vs, vp, a.sv[1], k0, a.lk, a.hd);
+    __syncthreads();
+    score_tile<kHD>(a, qs, dos, ks, vs, d_s, lse_s, q0, k0, nullptr, ds_s);
+    __syncthreads();
+    // Query rows ty + 16 m, columns tx + 16 n.
+#pragma unroll 4
+    for (int j = 0; j < kBT; ++j) {
+      float sv[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) sv[m] = ds_s[(ty + 16 * m) * kLdP + j];
+#pragma unroll
+      for (int n = 0; n < kNC; ++n) {
+        const float kv = ks[j * kLd + tx + 16 * n];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) dq[m][n] = fmaf(sv[m], kv, dq[m][n]);
+      }
+    }
+  }
+  float* dqp = a.dq + bi * a.sdq[0] + h * a.sdq[2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int i = q0 + ty + 16 * m;
+    if (i >= a.lq) continue;
+#pragma unroll
+    for (int n = 0; n < kNC; ++n) {
+      const int c = tx + 16 * n;
+      if (c < a.hd) dqp[i * a.sdq[1] + c] = dq[m][n] * a.scale;
+    }
+  }
+}
+
+template <typename Kernel>
+int launch_bwd(Kernel kernel, dim3 grid, size_t bytes, const BwdArgs& a, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kBThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ptrs: q, k, v, o, dout, lse, dq, dk, dv; strides (batch, seq, head) of
+// q, k, v, o, dout, dq, dk, dv; dims: batch, heads, kv_heads, lq, lk, hd,
+// causal, window. False when the sizes are not taken.
+bool make_bwd_args(BwdArgs& a, int& batch, void* const* ptrs, const long long* strides,
+                   const int* dims, float scale) {
+  batch = dims[0];
+  const int heads = dims[1], kv_heads = dims[2];
+  if (dims[5] < 1 || dims[5] > 128 || kv_heads < 1 || heads % kv_heads != 0 || batch < 0 ||
+      dims[3] < 0 || dims[4] < 1 || (dims[3] + kBT - 1) / kBT > 65535 ||
+      (dims[4] + kBT - 1) / kBT > 65535)
+    return false;
+  a.q = static_cast<const float*>(ptrs[0]);
+  a.k = static_cast<const float*>(ptrs[1]);
+  a.v = static_cast<const float*>(ptrs[2]);
+  a.o = static_cast<const float*>(ptrs[3]);
+  a.dout = static_cast<const float*>(ptrs[4]);
+  a.lse = static_cast<const float*>(ptrs[5]);
+  a.dq = static_cast<float*>(ptrs[6]);
+  a.dk = static_cast<float*>(ptrs[7]);
+  a.dv = static_cast<float*>(ptrs[8]);
+  long long* dst[8] = {a.sq, a.sk, a.sv, a.so, a.sdo, a.sdq, a.sdk, a.sdv};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  a.heads = heads; a.heads_per_group = heads / kv_heads;
+  a.lq = dims[3]; a.lk = dims[4]; a.hd = dims[5]; a.causal = dims[6]; a.window = dims[7];
+  a.scale = scale;
+  a.scale_log2 = scale * kLog2e;
+  return true;
+}
 
 }  // namespace
 
@@ -435,21 +753,22 @@ extern "C" long long block_attn_smem_bytes(int hd) {
 // Returns the cudaError_t of cudaFuncSetAttribute or of the launch (0 =
 // success); never synchronises. Strides are in elements, (batch, seq, head)
 // for each operand; the head dimension's stride is 1. hd <= 128, H % KV == 0,
-// at most 65,535 query tiles of 128 rows.
+// at most 65,535 query tiles of 128 rows. `lse` (B, H, Lq) receives each
+// row's natural log-sum-exp when it is not null (the training path).
 extern "C" int block_attn(const float* q, const float* k, const float* v,
                           float* o, long long sq0, long long sq1, long long sq2,
                           long long sk0, long long sk1, long long sk2,
                           long long sv0, long long sv1, long long sv2,
                           long long so0, long long so1, long long so2,
                           int batch, int heads, int kv_heads, int lq, int lk,
-                          int hd, int causal, int window, float scale,
+                          int hd, int causal, int window, float* lse, float scale,
                           void* stream) {
   if (hd < 1 || hd > 128 || kv_heads < 1 || heads % kv_heads != 0 ||
       (lq + kQTile - 1) / kQTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || heads == 0 || lq == 0) return 0;
   Args a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
   a.sq[0] = sq0; a.sq[1] = sq1; a.sq[2] = sq2;
   a.sk[0] = sk0; a.sk[1] = sk1; a.sk[2] = sk2;
   a.sv[0] = sv0; a.sv[1] = sv1; a.sv[2] = sv2;
@@ -463,9 +782,55 @@ extern "C" int block_attn(const float* q, const float* k, const float* v,
     vec16 = vec16 && s % 4 == 0;
   a.vec16 = vec16 ? 1 : 0;
   switch (padded_hd(hd)) {
-    case 16: return launch<16>(a, batch, stream);
-    case 32: return launch<32>(a, batch, stream);
-    case 64: return launch<64>(a, batch, stream);
-    default: return launch<128>(a, batch, stream);
+    case 16: return lse ? launch<16, true>(a, batch, stream) : launch<16, false>(a, batch, stream);
+    case 32: return lse ? launch<32, true>(a, batch, stream) : launch<32, false>(a, batch, stream);
+    case 64: return lse ? launch<64, true>(a, batch, stream) : launch<64, false>(a, batch, stream);
+    default:
+      return lse ? launch<128, true>(a, batch, stream) : launch<128, false>(a, batch, stream);
+  }
+}
+
+// Dynamic shared memory of a backward launch, in bytes: kernel 0 is
+// attn_bwd_dkdv, 1 attn_bwd_dq.
+extern "C" long long block_attn_bwd_smem_bytes(int kernel, int hd) {
+  return static_cast<long long>(bwd_smem_bytes(padded_hd(hd), 4, kernel == 0));
+}
+
+// dK and dV (B, Lk, KV, hd), written whole. Launch before or after
+// block_attn_bwd_dq, on the stream of the forward; never synchronises.
+extern "C" int block_attn_bwd_dkdv(void* const* ptrs, const long long* strides, const int* dims,
+                                   float scale, void* stream) {
+  BwdArgs a;
+  int batch;
+  if (!make_bwd_args(a, batch, ptrs, strides, dims, scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  const dim3 grid(batch * (a.heads / a.heads_per_group), (a.lk + kBT - 1) / kBT);
+  const int hdp = padded_hd(a.hd);
+  const size_t bytes = bwd_smem_bytes(hdp, 4, true);
+  switch (hdp) {
+    case 16: return launch_bwd(attn_bwd_dkdv_kernel<16>, grid, bytes, a, stream);
+    case 32: return launch_bwd(attn_bwd_dkdv_kernel<32>, grid, bytes, a, stream);
+    case 64: return launch_bwd(attn_bwd_dkdv_kernel<64>, grid, bytes, a, stream);
+    default: return launch_bwd(attn_bwd_dkdv_kernel<128>, grid, bytes, a, stream);
+  }
+}
+
+// dQ (B, Lq, H, hd), written whole.
+extern "C" int block_attn_bwd_dq(void* const* ptrs, const long long* strides, const int* dims,
+                                 float scale, void* stream) {
+  BwdArgs a;
+  int batch;
+  if (!make_bwd_args(a, batch, ptrs, strides, dims, scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || a.lq == 0) return 0;
+  const dim3 grid(batch * a.heads, (a.lq + kBT - 1) / kBT);
+  const int hdp = padded_hd(a.hd);
+  const size_t bytes = bwd_smem_bytes(hdp, 4, false);
+  switch (hdp) {
+    case 16: return launch_bwd(attn_bwd_dq_kernel<16>, grid, bytes, a, stream);
+    case 32: return launch_bwd(attn_bwd_dq_kernel<32>, grid, bytes, a, stream);
+    case 64: return launch_bwd(attn_bwd_dq_kernel<64>, grid, bytes, a, stream);
+    default: return launch_bwd(attn_bwd_dq_kernel<128>, grid, bytes, a, stream);
   }
 }

@@ -734,6 +734,395 @@ bool make_args(Args& a, void* const* ptrs, const long long* strides, const int* 
   return true;
 }
 
+
+// ------------------------------------------------------------------ backward
+//
+// The gradient of the scan, for training, in two kernels launched in order.
+// With G_t = dL/dS_t (N x P), the state's gradient, the reverse recurrence
+//   G_t = C_t dy_t^T + alpha_{t+1} G_{t+1},  alpha_t = exp(dt_t A)
+// gives every input's gradient position by position:
+//   dC_t = S_t dy_t,  dB_t = G_t xdt_t,  dxdt_t = G_t^T B_t,
+//   dx_t = dxdt_t dt_t,  ddt_t = dxdt_t . x_t + A ddA_t,  dA_log = A sum_t ddA_t dt_t,
+// where ddA_r, the gradient of the log-decay dt_r A, is the gradient of every
+// later prefix sum cum_s (s >= r). That is dcum_s = C_s.dC_s - B_s.dB_s (the
+// pairs (s, j) of y minus the pairs (i, s)), so ddA_r = sum_{s >= r} dcum_s:
+// within a chunk a running sum from its end, plus X_c = <G_exit_c, S_last_c>,
+// the pairs that straddle the chunk's end (every later dcum at once). The
+// pair (s, s), (C_s.B_s)(xdt_s.dy_s), is in both of dcum_s's terms and
+// cancels. Where alpha is small it is most of each, and the float32
+// rounding of S, G and the dC and dB rows would survive the cancellation
+// into the running sum; so the kernels leave it out of both and sum
+//   dcum_s = alpha_s C_s^T S_{s-1} dy_s - B_s^T (alpha_{s+1} G_{s+1}) xdt_s
+// from the state before each step's update.
+//   1. bwd_dstate  G_exit_c = alpha_{c1} G_{c1} at each chunk's end c1 - 1, by the
+//                  reverse recurrence over the whole sequence: per (batch,
+//                  head, 8 state columns), one thread a state row, elementwise
+//                  (no reduction); into a float32 scratch (B, H, nc, N, P).
+//   2. bwd_chunk   per (batch, head, chunk): a forward sweep that recomputes
+//                  S_t from the entering state the forward kernels left in
+//                  their `states` scratch (dC_t, dcum's first term), X_c, then
+//                  a reverse sweep of G_t from G_exit_c (dB_t, dxdt_t, dx_t,
+//                  dcum's second term, ddt_t).
+// Both recurrences multiply by alpha step by step, so no exp of a difference
+// of prefix sums is taken and their cancellation (the forward's reason for
+// float64 prefix sums) does not arise; dcum's sums over the block, the
+// running sums of ddA and the dA_log partial are float64. dB and dC are
+// summed over the H/G heads of a group, and dA_log over batches and chunks,
+// by float32 atomicAdd into outputs the caller zeroes: the order of those
+// sums varies from run to run.
+//
+// Layout of bwd_chunk: warp w holds state rows 16w .. 16w + 15 and lane l
+// columns l, l + 32, ... (kPL of them): 16 kPL elements of S or G a thread
+// in registers. A step's sums over p (dC, dB) are 16 row sums across the
+// warp's lanes, reduced by a halving butterfly (16 values, 15 shuffles and
+// one more); its sum over n (dxdt) is partial per warp, kept in shared memory
+// for a tile of kBwdT steps and summed across the warps after it. A step's
+// term of dcum is a scalar a thread, summed over the warp by shuffles and
+// over the 8 warps after the tile.
+//
+// Bound: operations. Per (batch, head, position) and state element, the
+// gradient needs 12 FLOP (S: a multiply and an FMA; dC, dB, dxdt: an FMA
+// each; G: an FMA and a multiply): 12 N P FLOP, 38,654,705,664 at
+// mamba2-130m's layer (8, 24, 2,048, 64; N 128), 0.5769 ms at 67 TFLOP/s
+// float32 (no tensor cores), against 338,690,240 bytes read and written
+// once (x, dt, B, C, dy, A_log; dx, ddt, dB, dC, dA_log): 0.1011 ms. The
+// kernels run 19 (bwd_dstate's 3 compute G a second time; dcum's two terms
+// are an FMA each). They are bound by each step's dependent chain and its
+// shuffles, with 1,536 blocks of 8 warps at three blocks an SM, not by
+// either (chip_smoke.py prints the time beside the bound).
+constexpr int kBwdStateThreads = 128;  // one state row a thread (N <= 128)
+constexpr int kBwdStateCols = 8;       // state columns of a bwd_dstate block
+constexpr int kBwdStateT = 64;         // positions staged at once in bwd_dstate
+constexpr int kBwdThreads = 256;       // 8 warps x 16 state rows
+constexpr int kBwdT = 16;              // positions staged at once in bwd_chunk
+constexpr int kMaxN = 128;
+
+struct BwdArgs {
+  const float *x, *dt, *a_log, *b, *c, *dy;
+  const float* states;  // the forward's (B, H, nc, Np, Pp): S entering each chunk
+  float* gexit;         // scratch (B, H, nc, N, P)
+  float *dx, *ddt, *da_log, *db, *dc;  // da_log, db, dc zeroed by the caller
+  long long sx[3], sdt[3], sb[3], sc[3], sdy[3], sdx[3], sddt[3], sdb[3], sdc[3];
+  int batch, heads, groups, seqlen, p, n, chunk, hpg, nc, np, pp;
+};
+
+// 16 row partials v[k] of a warp -> their sums over the 32 lanes: lanes
+// 2k and 2k + 1 end with row k's sum in v[0].
+__device__ __forceinline__ void reduce16(float (&v)[16], int lane) {
+#pragma unroll
+  for (int half = 8; half >= 1; half >>= 1) {
+    const bool up = (lane & (2 * half)) != 0;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const float send = up ? v[k] : v[k + half];
+      const float keep = up ? v[k + half] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * half);
+    }
+  }
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+__global__ void __launch_bounds__(kBwdStateThreads) bwd_dstate_kernel(BwdArgs a) {
+  __shared__ float cs[kBwdStateT][kMaxN];
+  __shared__ float dys[kBwdStateT][kBwdStateCols];
+  __shared__ float als[kBwdStateT];
+  const int bh = blockIdx.x, bi = bh / a.heads, h = bh % a.heads, g = h / a.hpg;
+  const int p0 = blockIdx.y * kBwdStateCols;
+  const int n = threadIdx.x;
+  const float A = -expf(a.a_log[h]);
+  const float* cp = a.c + bi * a.sc[0] + g * a.sc[1];
+  const float* dyp = a.dy + bi * a.sdy[0] + h * a.sdy[1];
+  const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1];
+  float* ge = a.gexit + static_cast<long long>(bh) * a.nc * a.n * a.p;
+  float carry[kBwdStateCols];
+#pragma unroll
+  for (int j = 0; j < kBwdStateCols; ++j) carry[j] = 0.0f;
+  for (int t1 = a.seqlen; t1 > 0; t1 -= kBwdStateT) {
+    const int t0 = max(0, t1 - kBwdStateT), cnt = t1 - t0;
+    __syncthreads();  // every thread is done with the last tile
+    for (int i = threadIdx.x; i < cnt * a.n; i += kBwdStateThreads) {
+      const int r = i / a.n, k = i % a.n;
+      cs[r][k] = cp[(t0 + r) * a.sc[2] + k];
+    }
+    for (int i = threadIdx.x; i < cnt * kBwdStateCols; i += kBwdStateThreads) {
+      const int r = i / kBwdStateCols, j = i % kBwdStateCols;
+      dys[r][j] = p0 + j < a.p ? dyp[(t0 + r) * a.sdy[2] + p0 + j] : 0.0f;
+    }
+    for (int r = threadIdx.x; r < cnt; r += kBwdStateThreads)
+      als[r] = expf(dtp[(t0 + r) * a.sdt[2]] * A);
+    __syncthreads();
+    if (n < a.n) {
+      for (int r = cnt - 1; r >= 0; --r) {
+        const int t = t0 + r;
+        if ((t + 1) % a.chunk == 0 || t == a.seqlen - 1) {  // the last row of its chunk
+          float* dst = ge + (static_cast<long long>(t / a.chunk) * a.n + n) * a.p + p0;
+#pragma unroll
+          for (int j = 0; j < kBwdStateCols; ++j)
+            if (p0 + j < a.p) dst[j] = carry[j];
+        }
+        const float cn = cs[r][n], al = als[r];
+#pragma unroll
+        for (int j = 0; j < kBwdStateCols; ++j) carry[j] = al * fmaf(cn, dys[r][j], carry[j]);
+      }
+    }
+  }
+}
+
+// Shared memory of bwd_chunk, in floats from the base: B, C (kBwdT, 128);
+// x, dy (kBwdT, 32 kPL); dt, alpha, the x.dxdt sums (kBwdT); row results
+// (kBwdT, 128); dxdt partials (kBwdT, 8, 32 kPL); dcum's warp partials
+// (kBwdT, 8); then in float64 dcum's first term for the chunk's rows
+// (chunk), dcum (kBwdT) and X partials (8).
+__host__ __device__ constexpr size_t bwd_chunk_floats(int kpw) {
+  return static_cast<size_t>(kBwdT) * (3 * kMaxN + 2 * kpw + 3 + 8 * kpw + 8);
+}
+size_t bwd_chunk_smem(int pp, int chunk) {
+  const int kpw = pp <= 32 ? 32 : pp <= 64 ? 64 : 128;
+  return (bwd_chunk_floats(kpw) + 1) / 2 * 2 * sizeof(float) +
+         (static_cast<size_t>(chunk) + kBwdT + 8) * sizeof(double);
+}
+
+template <int kPL>
+__global__ void __launch_bounds__(kBwdThreads) bwd_chunk_kernel(BwdArgs a) {
+  constexpr int kPW = 32 * kPL;
+  extern __shared__ __align__(16) double smem_bwd[];
+  float* bs = reinterpret_cast<float*>(smem_bwd);       // (kBwdT, 128)
+  float* cs = bs + kBwdT * kMaxN;                         // (kBwdT, 128)
+  float* xs = cs + kBwdT * kMaxN;                         // (kBwdT, kPW)
+  float* dys = xs + kBwdT * kPW;                          // (kBwdT, kPW)
+  float* dts = dys + kBwdT * kPW;                         // (kBwdT)
+  float* als = dts + kBwdT;                               // (kBwdT)
+  float* xdx = als + kBwdT;                               // (kBwdT)
+  float* rows = xdx + kBwdT;                              // (kBwdT, 128)
+  float* red = rows + kBwdT * kMaxN;                      // (kBwdT, 8, kPW)
+  float* offp = red + kBwdT * 8 * kPW;                    // (kBwdT, 8)
+  double* cdd = smem_bwd + (bwd_chunk_floats(kPW) + 1) / 2;  // (chunk)
+  double* dcum = cdd + a.chunk;                           // (kBwdT)
+  double* xsum = dcum + kBwdT;                            // (8)
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int bhs = a.batch * a.heads;
+  const int bh = blockIdx.x % bhs, ci = blockIdx.x / bhs;
+  const int bi = bh / a.heads, h = bh % a.heads, g = h / a.hpg;
+  const long long c0 = static_cast<long long>(ci) * a.chunk;
+  const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
+  const float A = -expf(a.a_log[h]);
+  const float* xp = a.x + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
+  const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
+  const float* bp = a.b + bi * a.sb[0] + g * a.sb[1] + c0 * a.sb[2];
+  const float* cp = a.c + bi * a.sc[0] + g * a.sc[1] + c0 * a.sc[2];
+  const float* dyp = a.dy + bi * a.sdy[0] + h * a.sdy[1] + c0 * a.sdy[2];
+  float* dxp = a.dx + bi * a.sdx[0] + h * a.sdx[1] + c0 * a.sdx[2];
+  float* ddtp = a.ddt + bi * a.sddt[0] + h * a.sddt[1] + c0 * a.sddt[2];
+  float* dbp = a.db + bi * a.sdb[0] + g * a.sdb[1] + c0 * a.sdb[2];
+  float* dcp = a.dc + bi * a.sdc[0] + g * a.sdc[1] + c0 * a.sdc[2];
+
+  // Positions [t0, t0 + cnt) of the chunk into shared memory; zero past N and P.
+  auto stage = [&](int t0, int cnt) {
+    for (int i = threadIdx.x; i < cnt * kMaxN; i += kBwdThreads) {
+      const int r = i / kMaxN, k = i % kMaxN;
+      const bool ok = k < a.n;
+      bs[i] = ok ? bp[(t0 + r) * a.sb[2] + k] : 0.0f;
+      cs[i] = ok ? cp[(t0 + r) * a.sc[2] + k] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < cnt * kPW; i += kBwdThreads) {
+      const int r = i / kPW, k = i % kPW;
+      const bool ok = k < a.p;
+      xs[i] = ok ? xp[(t0 + r) * a.sx[2] + k] : 0.0f;
+      dys[i] = ok ? dyp[(t0 + r) * a.sdy[2] + k] : 0.0f;
+    }
+    for (int r = threadIdx.x; r < cnt; r += kBwdThreads) {
+      const float d = dtp[(t0 + r) * a.sdt[2]];
+      dts[r] = d;
+      als[r] = expf(d * A);
+    }
+  };
+
+  // The entering state, S[k][j] = S[16 warp + k][lane + 32 j].
+  float S[16][kPL];
+  const float* st = a.states + (static_cast<long long>(bh) * a.nc + ci) * a.np * a.pp;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+#pragma unroll
+    for (int j = 0; j < kPL; ++j) {
+      const int n = 16 * warp + k, p = lane + 32 * j;
+      S[k][j] = n < a.n && p < a.p ? st[n * a.pp + p] : 0.0f;
+    }
+
+  // A thread's part of a step's dcum term -> the warp's, into offp[r][warp].
+  auto warp_part = [&](float part, int r) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (lane == 0) offp[r * 8 + warp] = part;
+  };
+  auto block_part = [&](int r) {
+    double sum = 0.0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) sum += offp[r * 8 + w];
+    return sum;
+  };
+
+  // Forward sweep: S_t, dC_t = S_t dy_t, alpha_t C_t^T S_{t-1} dy_t.
+  for (int t0 = 0; t0 < len; t0 += kBwdT) {
+    const int cnt = min(kBwdT, len - t0);
+    __syncthreads();
+    stage(t0, cnt);
+    __syncthreads();
+    for (int r = 0; r < cnt; ++r) {
+      const float al = als[r], dtv = dts[r];
+      float xdt[kPL], dyv[kPL];
+#pragma unroll
+      for (int j = 0; j < kPL; ++j) {
+        xdt[j] = xs[r * kPW + lane + 32 * j] * dtv;
+        dyv[j] = dys[r * kPW + lane + 32 * j];
+      }
+      float v[16], part = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const float bn = bs[r * kMaxN + 16 * warp + k], cn = cs[r * kMaxN + 16 * warp + k];
+        float sum = 0.0f, prev = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kPL; ++j) {
+          const float decayed = al * S[k][j];
+          prev = fmaf(decayed, dyv[j], prev);
+          S[k][j] = fmaf(bn, xdt[j], decayed);
+          sum = fmaf(S[k][j], dyv[j], sum);
+        }
+        v[k] = sum;
+        part = fmaf(cn, prev, part);
+      }
+      reduce16(v, lane);
+      if ((lane & 1) == 0) rows[r * kMaxN + 16 * warp + lane / 2] = v[0];
+      warp_part(part, r);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < cnt * a.n; i += kBwdThreads) {
+      const int r = i / a.n, k = i % a.n;
+      atomicAdd(dcp + (t0 + r) * a.sdc[2] + k, rows[r * kMaxN + k]);
+    }
+    for (int r = threadIdx.x; r < cnt; r += kBwdThreads) cdd[t0 + r] = block_part(r);
+  }
+
+  // X = <G_exit, S_last>; S becomes the carried G.
+  const float* ge = a.gexit + (static_cast<long long>(bh) * a.nc + ci) * a.n * a.p;
+  float xpart = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+#pragma unroll
+    for (int j = 0; j < kPL; ++j) {
+      const int n = 16 * warp + k, p = lane + 32 * j;
+      const float gv = n < a.n && p < a.p ? ge[n * a.p + p] : 0.0f;
+      xpart = fmaf(gv, S[k][j], xpart);
+      S[k][j] = gv;
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) xpart += __shfl_xor_sync(0xffffffffu, xpart, off);
+  if (lane == 0) xsum[warp] = xpart;
+  __syncthreads();
+  double acc = 0.0, da = 0.0;  // thread 0's: the running ddA and sum ddA dt
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kBwdThreads / 32; ++w) acc += xsum[w];
+
+  // Reverse sweep: G_t, dB_t = G_t xdt_t, dxdt_t = G_t^T B_t.
+  for (int t1 = len; t1 > 0; t1 -= kBwdT) {
+    const int t0 = max(0, t1 - kBwdT), cnt = t1 - t0;
+    __syncthreads();
+    stage(t0, cnt);
+    __syncthreads();
+    for (int r = cnt - 1; r >= 0; --r) {
+      const float al = als[r], dtv = dts[r];
+      float xdt[kPL], dyv[kPL], u[kPL];
+#pragma unroll
+      for (int j = 0; j < kPL; ++j) {
+        xdt[j] = xs[r * kPW + lane + 32 * j] * dtv;
+        dyv[j] = dys[r * kPW + lane + 32 * j];
+        u[j] = 0.0f;
+      }
+      float v[16], part = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const float cn = cs[r * kMaxN + 16 * warp + k], bn = bs[r * kMaxN + 16 * warp + k];
+        float sum = 0.0f, later = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kPL; ++j) {
+          later = fmaf(S[k][j], xdt[j], later);  // S holds alpha_{t+1} G_{t+1}
+          const float gk = fmaf(cn, dyv[j], S[k][j]);
+          sum = fmaf(gk, xdt[j], sum);
+          u[j] = fmaf(gk, bn, u[j]);
+          S[k][j] = al * gk;
+        }
+        v[k] = sum;
+        part = fmaf(bn, later, part);
+      }
+      reduce16(v, lane);
+      if ((lane & 1) == 0) rows[r * kMaxN + 16 * warp + lane / 2] = v[0];
+#pragma unroll
+      for (int j = 0; j < kPL; ++j) red[(r * 8 + warp) * kPW + lane + 32 * j] = u[j];
+      warp_part(part, r);
+    }
+    __syncthreads();
+    // dxdt over the warps -> dx; x.dxdt partials in red[r][0].
+    for (int i = threadIdx.x; i < cnt * a.p; i += kBwdThreads) {
+      const int r = i / a.p, k = i % a.p;
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) sum += red[(r * 8 + w) * kPW + k];
+      dxp[(t0 + r) * a.sdx[2] + k] = sum * dts[r];
+      red[r * 8 * kPW + k] = sum * xs[r * kPW + k];
+    }
+    for (int i = threadIdx.x; i < cnt * a.n; i += kBwdThreads) {
+      const int r = i / a.n, k = i % a.n;
+      atomicAdd(dbp + (t0 + r) * a.sdb[2] + k, rows[r * kMaxN + k]);
+    }
+    __syncthreads();
+    for (int r = warp; r < cnt; r += kBwdThreads / 32) {
+      float sx = 0.0f;
+      for (int k = lane; k < a.p; k += 32) sx += red[r * 8 * kPW + k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sx += __shfl_xor_sync(0xffffffffu, sx, off);
+      if (lane == 0) {
+        xdx[r] = sx;
+        dcum[r] = cdd[t0 + r] - block_part(r);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int r = cnt - 1; r >= 0; --r) {
+        acc += dcum[r];
+        ddtp[(t0 + r) * a.sddt[2]] = xdx[r] + static_cast<float>(acc * A);
+        da += acc * dts[r];
+      }
+    }
+  }
+  if (threadIdx.x == 0 && len > 0) atomicAdd(a.da_log + h, static_cast<float>(da * A));
+}
+
+// ptrs: x, dt, a_log, b, c, dy, states, gexit, dx, ddt, da_log, db, dc;
+// strides (batch, head or group, seq) of x, dt, b, c, dy, dx, ddt, db, dc.
+bool make_bwd_args(BwdArgs& a, void* const* ptrs, const long long* strides, const int* dims) {
+  Args f;
+  if (!set_sizes(f, dims) || f.n > kMaxN) return false;
+  a.batch = f.batch; a.heads = f.heads; a.groups = f.groups; a.seqlen = f.seqlen;
+  a.p = f.p; a.n = f.n; a.chunk = f.chunk; a.hpg = f.hpg; a.nc = f.nc; a.np = f.np; a.pp = f.pp;
+  a.x = static_cast<const float*>(ptrs[0]);
+  a.dt = static_cast<const float*>(ptrs[1]);
+  a.a_log = static_cast<const float*>(ptrs[2]);
+  a.b = static_cast<const float*>(ptrs[3]);
+  a.c = static_cast<const float*>(ptrs[4]);
+  a.dy = static_cast<const float*>(ptrs[5]);
+  a.states = static_cast<const float*>(ptrs[6]);
+  a.gexit = static_cast<float*>(ptrs[7]);
+  a.dx = static_cast<float*>(ptrs[8]);
+  a.ddt = static_cast<float*>(ptrs[9]);
+  a.da_log = static_cast<float*>(ptrs[10]);
+  a.db = static_cast<float*>(ptrs[11]);
+  a.dc = static_cast<float*>(ptrs[12]);
+  long long* dst[9] = {a.sx, a.sdt, a.sb, a.sc, a.sdy, a.sdx, a.sddt, a.sdb, a.sdc};
+  for (int t = 0; t < 9; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  return true;
+}
+
 }  // namespace
 
 // Elements of the three scratches, (C B^T, states, decay), into out[3];
@@ -801,4 +1190,65 @@ extern "C" int ssd_chunk_scan(void* const* ptrs, const long long* strides, const
     case 64: return launch(chunk_scan_kernel<64>, 3, a, stream);
     default: return launch(chunk_scan_kernel<128>, 3, a, stream);
   }
+}
+
+// Backward kernel 0 (bwd_dstate) or 1 (bwd_chunk): dynamic shared memory
+// bytes a block, blocks and threads a block into out[3]; the scratch
+// elements of G_exit into out[3] as well for kernel 0 (out has 4 entries).
+extern "C" int ssd_bwd_shape(int kernel, const int* dims, long long* out) {
+  Args f;
+  if (kernel < 0 || kernel > 1 || !set_sizes(f, dims) || f.n > kMaxN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long bh = static_cast<long long>(f.batch) * f.heads;
+  if (kernel == 0) {
+    out[0] = 0;
+    out[1] = bh * ((f.p + kBwdStateCols - 1) / kBwdStateCols);
+    out[2] = kBwdStateThreads;
+  } else {
+    out[0] = static_cast<long long>(bwd_chunk_smem(f.pp, f.chunk));
+    out[1] = bh * f.nc;
+    out[2] = kBwdThreads;
+  }
+  out[3] = bh * f.nc * f.n * f.p;
+  return 0;
+}
+
+// G_exit of every chunk into the scratch. Launch first, on the stream of the
+// forward; never synchronises.
+extern "C" int ssd_bwd_dstate(void* const* ptrs, const long long* strides, const int* dims,
+                              void* stream) {
+  BwdArgs a;
+  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long bh = static_cast<long long>(a.batch) * a.heads;
+  if (bh == 0 || a.seqlen == 0) return 0;
+  if (bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(bh), (a.p + kBwdStateCols - 1) / kBwdStateCols);
+  bwd_dstate_kernel<<<grid, kBwdStateThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Kernel>
+int launch_bwd_chunk(Kernel kernel, const BwdArgs& a, void* stream) {
+  const long long blocks = static_cast<long long>(a.batch) * a.heads * a.nc;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = bwd_chunk_smem(a.pp, a.chunk);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dx, ddt (written whole), and dB, dC, dA_log added into zeroed outputs.
+// Launch after ssd_bwd_dstate.
+extern "C" int ssd_bwd_chunk(void* const* ptrs, const long long* strides, const int* dims,
+                             void* stream) {
+  BwdArgs a;
+  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.seqlen == 0) return 0;
+  if (a.p <= 32) return launch_bwd_chunk(bwd_chunk_kernel<1>, a, stream);
+  if (a.p <= 64) return launch_bwd_chunk(bwd_chunk_kernel<2>, a, stream);
+  return launch_bwd_chunk(bwd_chunk_kernel<4>, a, stream);
 }

@@ -22,7 +22,19 @@ outputs transposed, without copies; ``y`` is allocated in the layout of
 chunk states, the chunk decays; sizes in :func:`stage_report`). Each call
 adds one to :data:`LAUNCHES` and each stage kernel one to
 :data:`KERNEL_LAUNCHES` where it launches; nothing here synchronises.
-There is no backward pass yet: inputs that require a gradient are refused.
+
+Training: when a gradient is wanted (grad mode on and an input that
+requires one), :func:`ssd_scan` goes through :class:`SSDScanFunction`,
+whose forward is the four stage kernels and keeps their ``states`` scratch
+(the state entering each chunk, (B, H, nc, Np, Pp) float32), and whose
+backward is two more kernels of the same source, launched in order
+(:data:`BWD_STAGES`): ``bwd_dstate`` (the state's gradient at each chunk's
+end, by the reverse recurrence) and ``bwd_chunk`` (every input's gradient,
+chunk-parallel; design and bound in ``csrc/ssd_scan.cu``). dB, dC and
+dA_log are sums over heads, batches and chunks taken with float32 atomics,
+so their order varies from run to run. Each backward launch adds one to
+:data:`BWD_LAUNCHES`. No path differentiates the plain version for a CUDA
+tensor. The backward takes N <= 128.
 
 The shared library is built with ``nvcc`` at first use into ``_build/``
 beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
@@ -37,17 +49,22 @@ import torch
 
 from repro_torch.kernels._build import build_library
 
-__all__ = ["LAUNCHES", "KERNEL_LAUNCHES", "STAGES", "BUILD_INFO", "reset_launch_counts",
-           "build", "stage_report", "ssd_scan"]
+__all__ = ["LAUNCHES", "KERNEL_LAUNCHES", "BWD_LAUNCHES", "STAGES", "BWD_STAGES",
+           "BUILD_INFO", "reset_launch_counts", "build", "stage_report", "ssd_scan",
+           "ssd_scan_forward", "ssd_scan_backward", "SSDScanFunction"]
 
 _SRC = Path(__file__).parent / "csrc" / "ssd_scan.cu"
 MAX_HEAD_DIM = 128
 STAGES = ("chunk_cb", "chunk_state", "state_pass", "chunk_scan")
+BWD_STAGES = ("bwd_dstate", "bwd_chunk")
+MAX_BWD_STATE_DIM = 128
 
 # Calls of the entry point, counted where it launches its kernels.
 LAUNCHES = {"ssd_scan": 0}
 # Launches of each stage kernel, counted where the wrapper launches it.
 KERNEL_LAUNCHES = dict.fromkeys(STAGES, 0)
+# Launches of each backward kernel, counted where the wrapper launches it.
+BWD_LAUNCHES = dict.fromkeys(BWD_STAGES, 0)
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -57,6 +74,8 @@ def reset_launch_counts() -> None:
     LAUNCHES["ssd_scan"] = 0
     for name in STAGES:
         KERNEL_LAUNCHES[name] = 0
+    for name in BWD_STAGES:
+        BWD_LAUNCHES[name] = 0
 
 
 def build() -> ctypes.CDLL:
@@ -76,6 +95,12 @@ def build() -> ctypes.CDLL:
     lib.ssd_stage_shape.restype = ctypes.c_int
     lib.ssd_scratch_elems.argtypes = [ptr, ptr]
     lib.ssd_scratch_elems.restype = ctypes.c_int
+    for name in BWD_STAGES:
+        fn = getattr(lib, f"ssd_{name}")
+        fn.argtypes = [ptr, ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+    lib.ssd_bwd_shape.argtypes = [ctypes.c_int, ptr, ptr]
+    lib.ssd_bwd_shape.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -132,17 +157,13 @@ def _check(x, dt, a_log, b, c, chunk):
             raise ValueError(f"{name}'s last dimension must be contiguous")
     if not a_log.is_contiguous():
         raise ValueError("a_log must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in named.values()):
-        raise RuntimeError("ssd_scan has no backward pass yet (ROADMAP.md B9): "
-                           "call it under torch.no_grad() or inference_mode()")
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *, chunk: int) -> torch.Tensor:
-    """x (B,H,L,P), dt (B,H,L) post-softplus, a_log (H,), b/c (B,G,L,N) with
-    H % G == 0, all float32 on one card -> y (B,H,L,P). Any L: the kernels
-    mask the ragged last chunk themselves. ``y`` is a (B,H,L,P) view of
-    (B,L,H,P) memory when ``x`` is one, else contiguous."""
+def ssd_scan_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                     b: torch.Tensor, c: torch.Tensor, *, chunk: int):
+    """The four stage kernels on checked operands -> (y, states): ``y`` as
+    :func:`ssd_scan` returns it, ``states`` the (B, H, nc, Np, Pp) scratch
+    of the state entering each chunk (what the backward recomputes from)."""
     _check(x, dt, a_log, b, c, chunk)
     bsz, h, l, p = x.shape
     g, n = b.shape[1], b.shape[3]
@@ -152,7 +173,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         y = x.new_empty(bsz, h, l, p)
     if y.numel() == 0:
         LAUNCHES["ssd_scan"] += 1
-        return y
+        return y, x.new_empty(0)
     lib = build()
     dims = _dims(bsz, h, g, l, p, n, chunk)
     elems = (ctypes.c_longlong * 3)()
@@ -175,4 +196,82 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                                    f"{err} (dynamic shared memory a block: {shapes})")
             KERNEL_LAUNCHES[name] += 1
     LAUNCHES["ssd_scan"] += 1
-    return y
+    return y, states
+
+
+def ssd_scan_backward(x, dt, a_log, b, c, states, dy, *, chunk: int):
+    """The two backward kernels -> (dx, ddt, da_log, db, dc), the gradients
+    of the loss with respect to the operands of :func:`ssd_scan_forward`,
+    given ``dy`` and the forward's ``states``. dx is laid out as x, the rest
+    contiguous; db and dc sum over the heads of each group. A failed launch
+    raises."""
+    _check(x, dt, a_log, b, c, chunk)
+    bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[3]
+    if n > MAX_BWD_STATE_DIM:
+        raise ValueError(f"the backward takes state dim <= {MAX_BWD_STATE_DIM}, got {n}")
+    if dy.stride(3) != 1:
+        dy = dy.contiguous()
+    if x.stride(2) > x.stride(1):
+        dx = x.new_empty(bsz, l, h, p).transpose(1, 2)
+    else:
+        dx = x.new_empty(bsz, h, l, p)
+    ddt = x.new_empty(bsz, h, l)
+    da_log = torch.zeros_like(a_log)
+    db = x.new_zeros(bsz, g, l, n)
+    dc = x.new_zeros(bsz, g, l, n)
+    if dx.numel() == 0:
+        return dx, ddt, da_log, db, dc
+    lib = build()
+    dims = _dims(bsz, h, g, l, p, n, chunk)
+    shape = (ctypes.c_longlong * 4)()
+    if lib.ssd_bwd_shape(0, dims, shape) != 0:
+        raise ValueError(f"ssd_scan's backward does not take {tuple(dims)}")
+    gexit = x.new_empty(shape[3])
+    ptrs = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in (
+        x, dt, a_log, b, c, dy, states, gexit, dx, ddt, da_log, db, dc)))
+    strides = (ctypes.c_longlong * 27)(*(t.stride(i) for t in (x, dt, b, c, dy, dx, ddt,
+                                                               db, dc) for i in range(3)))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        for i, name in enumerate(BWD_STAGES):
+            err = getattr(lib, f"ssd_{name}")(ptrs, strides, dims, stream)
+            if err != 0:
+                lib.ssd_bwd_shape(i, dims, shape)
+                raise RuntimeError(f"ssd_scan's {name} kernel failed with cudaError_t "
+                                   f"{err} (dynamic shared memory {shape[0]} bytes x "
+                                   f"{shape[1]} blocks)")
+            BWD_LAUNCHES[name] += 1
+    return dx, ddt, da_log, db, dc
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """The SSD scan with its gradient from the backward kernels: the forward
+    keeps the operands and the entering states; the backward launches
+    ``bwd_dstate`` and ``bwd_chunk``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, chunk: int):
+        y, states = ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)
+        ctx.save_for_backward(x, dt, a_log, b, c, states)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, a_log, b, c, states = ctx.saved_tensors
+        return (*ssd_scan_backward(x, dt, a_log, b, c, states, dy, chunk=ctx.chunk), None)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """x (B,H,L,P), dt (B,H,L) post-softplus, a_log (H,), b/c (B,G,L,N) with
+    H % G == 0, all float32 on one card -> y (B,H,L,P). Any L: the kernels
+    mask the ragged last chunk themselves. ``y`` is a (B,H,L,P) view of
+    (B,L,H,P) memory when ``x`` is one, else contiguous. When a gradient is
+    wanted the call goes through :class:`SSDScanFunction` (the backward
+    kernels)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a_log, b, c)):
+        _check(x, dt, a_log, b, c, chunk)
+        return SSDScanFunction.apply(x, dt, a_log, b, c, chunk)
+    return ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)[0]

@@ -6,8 +6,17 @@ synthetic federated data, on the card unless ``--device cpu`` is given;
 ``--checkpoint-dir`` saves the accuracy history at step ``--rounds``.
 ``--obs PATH`` records a ``repro_torch.obs`` telemetry stream of a
 ``dfedrw`` run (per-round engine spans and Eq. 18 bits on the wall clock);
-``--trace`` marks it trace-capable, as the reference does. The ``pod`` mode
-is not ported yet (ROADMAP.md, queue A, item 11).
+``--trace`` marks it trace-capable, as the reference does.
+
+``pod`` trains one LM of the registry (``--arch``, ``--smoke`` for its
+SMOKE configuration) for ``--steps`` steps of ``dist.make_train_step``
+(gradient, ``decreasing_lr(step + 1, r=--lr_r)``, momentum SGD at 0.9,
+remat) on batches of ``--batch`` x ``--seq`` tokens drawn from
+``np.random.default_rng(0)`` as the reference's ``pod_main`` draws them (and
+stub frontend embeddings N(0, 1) for a model with a frontend), from weights
+drawn on the device by a seeded generator. It prints a ``step i loss=...``
+line a step, then ``done``. ``pod --fed`` (the DFedRW pod deployment) is
+not ported yet (ROADMAP.md A11: distribution).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train protocol --algo dfedrw --rounds 100
@@ -16,10 +25,15 @@ Examples:
       --obs /tmp/obs.jsonl --trace
   PYTHONPATH=src python -m repro_torch.launch.train protocol --algo dfedavg --bits 8 \
       --device cpu --rounds 2 --checkpoint-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train pod --arch mamba2-130m --smoke \
+      --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train pod --arch mamba2-130m --batch 8 \
+      --seq 2048 --steps 3
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -87,6 +101,43 @@ def protocol_main(args) -> None:
         print(f"checkpointed to {args.checkpoint_dir}")
 
 
+def pod_main(args) -> None:
+    import torch
+
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.device import resolve_device
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import momentum_init
+
+    if args.fed:
+        raise NotImplementedError(
+            "pod --fed (the DFedRW pod deployment) is not ported yet "
+            "(ROADMAP.md A11: distribution)")
+    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(0)
+    b, s = args.batch, args.seq
+
+    def make_batch():
+        toks = rng.integers(0, cfg.vocab, size=(b, s + 1))
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:], device=dev)}
+        if cfg.frontend != "none":
+            batch["embeds"] = torch.as_tensor(rng.normal(
+                size=(b, cfg.frontend_tokens, cfg.d_model)), dtype=torch.float32, device=dev)
+        return batch
+
+    step_fn = make_train_step(cfg, lr_r=args.lr_r)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    vel = momentum_init(params).velocity
+    for step in range(args.steps):
+        t0 = time.time()
+        params, vel, loss = step_fn(params, vel, make_batch(), step)
+        print(f"step {step:3d} loss={float(loss):.4f} ({time.time()-t0:.2f}s)")
+    print("done")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -110,12 +161,19 @@ def main(argv=None) -> None:
                    help="with --obs: mark the stream trace-capable (schema v2); the "
                         "protocol engine emits no causal spans: use the simulator "
                         "(launch.sim --trace) for causal span trees")
-    sub.add_parser("pod", help="not ported yet")
+    q = sub.add_parser("pod", help="train one LM of the registry on one device")
+    q.add_argument("--arch", required=True)
+    q.add_argument("--smoke", action="store_true")
+    q.add_argument("--steps", type=int, default=10)
+    q.add_argument("--batch", type=int, default=4)
+    q.add_argument("--seq", type=int, default=64)
+    q.add_argument("--lr_r", type=float, default=100.0)
+    q.add_argument("--fed", action="store_true",
+                   help="DFedRW pod deployment: not ported yet (ROADMAP.md A11)")
+    q.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mode == "pod":
-        raise NotImplementedError(
-            "pod mode is not ported yet (ROADMAP.md queue A, item 11: distribution)")
-    protocol_main(args)
+    (protocol_main if args.mode == "protocol" else pod_main)(args)
 
 
 if __name__ == "__main__":

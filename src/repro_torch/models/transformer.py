@@ -17,9 +17,13 @@ Parameters are the reference's nested dict, blocks stacked along a leading
 ``n_blocks`` dimension (the encoder's along ``n_enc_layers``, the cross
 layers' along ``n_blocks``), so a JAX ``init_params`` pytree carries across
 with ``repro_torch.convert.lm_params_from_numpy``. The stacked layers are
-walked by a Python loop (PyTorch runs eagerly: the reference's ``remat``
-and ``unroll`` steer XLA and have no counterpart here). Embeddings are tied
-when ``cfg.tie_embeddings`` (head = embed.T).
+walked by a Python loop (PyTorch runs eagerly: the reference's ``unroll``
+steers XLA and has no counterpart here). ``remat=True``, the reference's
+default, recomputes each block (with its cross layer) and each encoder
+layer in the backward pass (``torch.utils.checkpoint``, non-reentrant):
+it changes the memory a gradient takes, not the numbers, and does nothing
+when no gradient is taken. Embeddings are tied when ``cfg.tie_embeddings``
+(head = embed.T).
 
 Public API: init_params / forward_train / loss_fn / init_cache /
 decode_step, and ``_run_encoder`` under the reference's name. Float32
@@ -28,6 +32,7 @@ throughout, with TF32 off (``repro_torch.device``).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -53,10 +58,15 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def _index(tree, i: int):
+def _unstack(tree, n: int) -> list:
+    """A tree stacked n deep -> n trees of views (``torch.unbind`` a leaf).
+    Its gradient is one stack of the layers' gradients, where indexing each
+    layer out would give each layer a zero-filled gradient of the whole
+    stack to add up."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _init_slot(gen: torch.Generator, cfg: ArchConfig, slot: int, dev) -> dict:
@@ -188,23 +198,49 @@ def _cross(cp: dict, x: torch.Tensor, cfg: ArchConfig, enc_out: torch.Tensor) ->
     return x + L.attn_train(cp["mixer"], hn, cfg, None, None, kv_override=enc_out)
 
 
-def _run_encoder(cfg: ArchConfig, params: dict, embeds: torch.Tensor) -> torch.Tensor:
+def _remat(fn, remat: bool, *args):
+    """fn(*args), recomputed in the backward pass when ``remat`` and a
+    gradient is being taken; a plain call otherwise."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _enc_layer(cfg: ArchConfig, lp: dict, h: torch.Tensor, cos, sin) -> torch.Tensor:
+    hn = L.rms_norm(h, lp["norm1"], cfg.norm_eps)
+    h = h + L.attn_train(lp["mixer"], hn, cfg, cos, sin, causal=False)
+    return h + L.ffn_apply(lp["ffn"], L.rms_norm(h, lp["norm2"], cfg.norm_eps))
+
+
+def _run_encoder(cfg: ArchConfig, params: dict, embeds: torch.Tensor,
+                 remat: bool = True) -> torch.Tensor:
     """The encoder over frame embeddings (B, F, d): per layer, non-causal
     self-attention with RoPE over positions 0..F-1 and a SwiGLU FFN, each
-    behind its norm and added to the residual; then ``enc_norm``."""
+    behind its norm and added to the residual; then ``enc_norm``. With
+    ``remat`` each layer is recomputed in the backward pass."""
     cos, sin = L.rope_freqs(torch.arange(embeds.shape[1], device=embeds.device),
                             cfg.head_dim_, cfg.rope_theta)
     h = embeds
-    for i in range(cfg.n_enc_layers):
-        lp = _index(params["encoder"], i)
-        hn = L.rms_norm(h, lp["norm1"], cfg.norm_eps)
-        h = h + L.attn_train(lp["mixer"], hn, cfg, cos, sin, causal=False)
-        h = h + L.ffn_apply(lp["ffn"], L.rms_norm(h, lp["norm2"], cfg.norm_eps))
+    for lp in _unstack(params["encoder"], cfg.n_enc_layers):
+        h = _remat(lambda lp, h: _enc_layer(cfg, lp, h, cos, sin), remat, lp, h)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
+def _block(cfg: ArchConfig, bp: dict, cp: dict | None, x: torch.Tensor, cos, sin,
+           enc_out: torch.Tensor | None):
+    """One block's slots, then its cross layer -> (x, aux of its MoE slots)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(len(cfg.block_pattern)):
+        x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin)
+        if a is not None:
+            aux = aux + a
+    if cp is not None:
+        x = _cross(cp, x, cfg, enc_out)
+    return x, aux
+
+
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-                  frontend_embeds: torch.Tensor | None = None):
+                  frontend_embeds: torch.Tensor | None = None, remat: bool = True):
     """tokens (B, S) int -> (logits (B, S, V), aux loss: the sum of the MoE
     slots' over every block, 0 without them).
 
@@ -214,14 +250,15 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     vision stub, or audio without an encoder) they go before the tokens,
     RoPE runs over all F + S positions and the first F are cut after the
     final norm. RoPE is built at ``cfg.mla.qk_rope_dim`` for MLA, at the
-    head dim otherwise."""
+    head dim otherwise. ``remat`` recomputes each block (with its cross
+    layer) and each encoder layer in the backward pass."""
     _check_supported(cfg)
     x = params["embed"][tokens]
     n_front, enc_out = 0, None
     if cfg.enc_dec:
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs frontend_embeds")
-        enc_out = _run_encoder(cfg, params, frontend_embeds.to(x.dtype))
+        enc_out = _run_encoder(cfg, params, frontend_embeds.to(x.dtype), remat)
     elif frontend_embeds is not None:
         n_front = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
@@ -229,24 +266,22 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     rope_dim = cfg.mla.qk_rope_dim if cfg.attn_type == "mla" else cfg.head_dim_
     cos, sin = L.rope_freqs(positions, rope_dim, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in range(cfg.n_blocks):
-        bp = _index(params["blocks"], blk)
-        for i in range(len(cfg.block_pattern)):
-            x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin)
-            if a is not None:
-                aux = aux + a
-        if enc_out is not None:
-            x = _cross(_index(params["cross"], blk), x, cfg, enc_out)
+    crosses = (_unstack(params["cross"], cfg.n_blocks) if enc_out is not None
+               else [None] * cfg.n_blocks)
+    for bp, cp in zip(_unstack(params["blocks"], cfg.n_blocks), crosses):
+        x, a = _remat(lambda bp, cp, x, enc_out: _block(cfg, bp, cp, x, cos, sin, enc_out),
+                      remat, bp, cp, x, enc_out)
+        aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_front:
         x = x[:, n_front:]
     return x @ _head(cfg, params), aux
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, remat: bool = True) -> torch.Tensor:
     """batch: {"tokens": (B,S), "labels": (B,S), optional "embeds": (B,F,d)}
     -> mean next-token NLL + aux."""
-    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("embeds"))
+    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("embeds"), remat)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     return nll.mean() + aux
@@ -296,12 +331,13 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
     x = params["embed"][token]
     pos = cache["pos"] if positions is None else positions
     new_slots = {f"slot{i}": [] for i in range(len(cfg.block_pattern))}
-    for blk in range(cfg.n_blocks):
-        bp = _index(params["blocks"], blk)
+    slots = {k: _unstack(v, cfg.n_blocks) for k, v in cache["slots"].items()}
+    crosses = _unstack(params["cross"], cfg.n_blocks) if cfg.enc_dec else None
+    for blk, bp in enumerate(_unstack(params["blocks"], cfg.n_blocks)):
         for i, kind in enumerate(cfg.block_pattern):
             p = bp[f"slot{i}"]
             hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-            c = _index(cache["slots"][f"slot{i}"], blk)
+            c = slots[f"slot{i}"][blk]
             if kind == "mamba":
                 out, nc = L.mamba_decode(p["mixer"], hn, c, cfg, active=active)
             elif cfg.attn_type == "mla":
@@ -312,7 +348,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
             new_slots[f"slot{i}"].append(nc)
             x, _ = _ffn(p, x, cfg, i)
         if cfg.enc_dec:
-            x = _cross(_index(params["cross"], blk), x, cfg, cache["enc_out"])
+            x = _cross(crosses[blk], x, cfg, cache["enc_out"])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     new_cache = dict(cache)
     new_cache["slots"] = {k: _stack(v) for k, v in new_slots.items()}

@@ -170,4 +170,4 @@ def test_launcher_cpu_round(capsys):
     out = capsys.readouterr().out
     assert "round    1" in out and "final:" in out
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["pod"])
+        main(["pod", "--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--fed"])

@@ -200,6 +200,41 @@ def test_port_runs_mla_and_encdec_smoke_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_trains_without_jax():
+    """The training slice (``dist``, ``optim``, ``launch.train pod``) on the
+    CPU with imports of jax and repro refused."""
+    proc = _run("""
+        import sys
+        import torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.dist import make_train_step
+        from repro_torch.launch.train import main
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import adamw_init, adamw_update, momentum_init
+
+        cfg = get_smoke("seamless-m4t-large-v2")
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        vel = momentum_init(params).velocity
+        gen = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen),
+                 "labels": torch.randint(0, cfg.vocab, (2, 16), generator=gen),
+                 "embeds": torch.randn(2, cfg.frontend_tokens, cfg.d_model, generator=gen)}
+        params, vel, loss = make_train_step(cfg)(params, vel, batch, 0)
+        assert torch.isfinite(loss)
+        new, state = adamw_update({"w": torch.zeros(2)}, {"w": torch.ones(2)},
+                                  adamw_init({"w": torch.zeros(2)}), 0.1)
+        assert int(state["count"]) == 1
+        main(["pod", "--arch", "jamba-1.5-large-398b", "--smoke", "--device", "cpu",
+              "--steps", "1", "--batch", "1", "--seq", "32"])
+        assert "repro_torch.dist.steps" in sys.modules and "repro_torch.optim.sgd" in sys.modules
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ok" in proc.stdout and "done" in proc.stdout
+
+
 def test_port_runs_the_simulator_without_jax():
     """The simulator slice (sim, obs, launch.sim) on the CPU with JAX and the
     JAX package refused: a scenario with telemetry and a recorded trace on
@@ -301,6 +336,8 @@ def test_entry_points_default_to_cuda():
         main(["protocol", "--rounds", "1", "--devices", "4"])
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["protocol", "--algo", "dsgd", "--rounds", "1", "--devices", "4"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["pod", "--arch", "mamba2-130m", "--smoke", "--steps", "1"])
 
     from repro_torch.configs import get_smoke
     from repro_torch.convert import lm_params_from_numpy
