@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --backward-ab OTHER   # B9b and B10b against OTHER's, in turns
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; exits
 non-zero without them, and on any failed phase. It imports nothing of JAX
@@ -118,14 +119,18 @@ or of the JAX package ``repro``. Phases, in order:
    encoder's output against the kernel forward (24 launches a step), and
    the share of a step spent recomputing the cross K/V; then training,
    see :func:`backward_phase`, :func:`train_smoke_phase` and
-   :func:`pod_phase`: (g) the backward kernels (B10's ``attn_bwd_dkdv`` and
-   ``attn_bwd_dq``, B9's ``bwd_dstate`` and ``bwd_chunk``) against autograd
-   through their plain versions, gradient by gradient within GRAD_TOL of
-   its largest magnitude, at Yi-6B's layer 0 (causal
-   GQA), Seamless's encoder, decoder and cross shapes (Lk 1,000) and a
-   window of 64, and at mamba2-130m's layer, a ragged L and G = 4; each
-   timed beside its plain version's backward and fp32 SDPA's (B10), with
-   its float32 SIMT bound; (h) the SMOKE ``mamba2``, ``yi-6b``,
+   :func:`pod_phase`: (g) the backward kernels (B10's two on 3xTF32
+   ``mma.sync``, ``attn_bwd_dot`` and ``attn_bwd_dkdvq``, dQ by atomics;
+   B9's six in the chunked matrix form, ``bwd_chunk_cb``,
+   ``bwd_chunk_state``, ``bwd_state_pass``, ``bwd_chunk_dc``,
+   ``bwd_chunk_db`` and ``bwd_ddt``) against autograd through their plain
+   versions, gradient by gradient within GRAD_TOL of its largest
+   magnitude, at Yi-6B's layer 0 (causal GQA), Seamless's encoder,
+   decoder and cross shapes (Lk 1,000) and a window of 64, and at
+   mamba2-130m's layer, a ragged L, G = 4 and dt |A| of 10-15 a step
+   (|cum| in the thousands); each timed beside its plain version's
+   backward and fp32 SDPA's (B10), each kernel's profiler ms, with its
+   3xTF32 bound and the float32 SIMT one beside it; (h) the SMOKE ``mamba2``, ``yi-6b``,
    ``seamless``, ``jamba`` and ``deepseek`` trained on the CPU and on the
    card from the same weights and batches: one gradient and three
    ``make_train_step`` steps (TRAIN_TOL; MoE routing equal), the kernels'
@@ -134,7 +139,8 @@ or of the JAX package ``repro``. Phases, in order:
    ``mamba2-130m`` at 8 x 2,048 and ``seamless-m4t-large-v2`` at 2 x 1,024
    over its 1,024 stub frames, POD_STEPS steps each: ms a step, training
    tokens/s, peak memory, a profiled step, the launches a step (B9 48
-   forward and 24 backward, B10 144 and 72) and layer 0's backward call on
+   forward calls and 24 backward, 6 kernels each; B10 144 and 72, 2
+   kernels each) and layer 0's backward call on
    its own inputs against the plain version; (f)
    ``deepseek-v2-lite-16b`` at full width and depth (27 layers, 16.21 B
    parameters, 64.84 GB), last, see :func:`deepseek_phase`: SMOKE on the
@@ -156,6 +162,7 @@ parallel.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import io
@@ -301,8 +308,9 @@ DEEPSEEK_BATCH, DEEPSEEK_SEQ, DEEPSEEK_FORWARDS = 2, 2048, 3
 # with the terms, not with the element.
 GRAD_TOL = 2e-4
 ATTN_BWD_PRODUCTS = 5          # S, dP, dV, dK, dQ: 2 hd FLOP each per allowed pair
-# FLOP per state element a position that B9's gradient needs: S recomputed 3,
-# dC 2, dB 2, dxdt 2, G 3 (the kernels run 19, csrc/ssd_scan.cu).
+# FLOP per state element a position that B9's gradient needs in its
+# recurrent form: S recomputed 3, dC 2, dB 2, dxdt 2, G 3; the bound at the
+# float32 SIMT rate beside the chunked form's at 3xTF32 (_ssd_bwd_flop).
 SSD_BWD_FLOP_PER_NP = 12
 # (label, B, Lq, Lk, H, KV, hd, causal, window)
 BWD_ATTN_CASES = [
@@ -312,12 +320,18 @@ BWD_ATTN_CASES = [
     ("seamless cross Lk 1000", 2, 1024, 1000, 16, 16, 64, False, 0),
     ("window 64", 2, 300, 300, 8, 2, 64, True, 64),
 ]
-# (label, B, H, L, P, N, chunk, G)
+# (label, B, H, L, P, N, chunk, G, dt |A| a step from 10 to 15: |cum| in
+# the thousands, L underflowing a few positions off the diagonal)
 BWD_SSD_CASES = [
-    ("mamba2-130m layer", 8, 24, 2048, 64, 128, 256, 1),
-    ("ragged L 1000", 2, 24, 1000, 64, 128, 256, 1),
-    ("G 4", 2, 8, 512, 64, 128, 256, 4),
+    ("mamba2-130m layer", 8, 24, 2048, 64, 128, 256, 1, False),
+    ("ragged L 1000", 2, 24, 1000, 64, 128, 256, 1, False),
+    ("G 4", 2, 8, 512, 64, 128, 256, 4, False),
+    ("large |cum|", 2, 24, 1024, 64, 128, 256, 1, True),
 ]
+# B9's backward kernels, as the profiler names them, and their BWD_STAGES names.
+SSD_BWD_KERNELS = {"chunk_cb_kernel": "bwd_chunk_cb", "chunk_state_kernel": "bwd_chunk_state",
+                   "bwd_state_pass": "bwd_state_pass", "bwd_chunk_dc": "bwd_chunk_dc",
+                   "bwd_chunk_db": "bwd_chunk_db", "bwd_ddt": "bwd_ddt"}
 TRAIN_ARCHS = ("mamba2-130m", "yi-6b", "seamless-m4t-large-v2", "jamba-1.5-large-398b",
                "deepseek-v2-lite-16b")
 TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS = 64, 3
@@ -564,23 +578,32 @@ def _stage_counts(km):
     return dict(getattr(km, "KERNEL_LAUNCHES", {}))
 
 
-def _kernel_device_ms(run, calls, names):
-    """Device ms per call of each kernel whose name contains one of
-    ``names``, from ``torch.profiler`` over ``run()`` (which makes ``calls``
-    calls); None for a name with no device time in the trace."""
+def _kernel_device_ms(run, names, tries=3):
+    """Device ms a launch of each kernel whose name contains one of
+    ``names``, from ``torch.profiler`` over ``run()``: the mean over the
+    launches the trace holds (it can miss the first ones), the run repeated
+    once when it holds none of them; None for a name with no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    totals = dict.fromkeys(names, 0.0)
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            for name in names:
-                if name in ev.name:
-                    totals[name] += ev.time_range.elapsed_us()
-    return {k: (v / calls / 1e3 if v > 0 else None) for k, v in totals.items()}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        totals, counts, seen = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0), {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                seen[ev.name] = seen.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+                for name in names:
+                    if name in ev.name:
+                        totals[name] += ev.time_range.elapsed_us()
+                        counts[name] += 1
+        if any(counts.values()):
+            break
+        top = sorted(seen.items(), key=lambda kv: -kv[1])[:4]
+        print(f"profiler: none of {names} in the trace; its largest device items "
+              f"{[(n[:60], round(us, 1)) for n, us in top]}")
+    return {k: (totals[k] / counts[k] / 1e3 if counts[k] else None) for k in names}
 
 
 def _forward_phase(cfg, params, batch, forwards, km, tag):
@@ -834,7 +857,7 @@ def mamba_phases(smi):
             for _ in range(5):
                 sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
 
-        stage_ms = _kernel_device_ms(five_calls, 5, [f"{s_}_kernel" for s_ in sk.STAGES])
+        stage_ms = _kernel_device_ms(five_calls, [f"{s_}_kernel" for s_ in sk.STAGES])
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
     report = sk.stage_report(bsz, h, g, l, p, n, chunk)
     ptxas = _ptxas_report(sk.BUILD_INFO.get("log", ""))
@@ -2282,12 +2305,25 @@ def _grads_agree(names, got, want, tag, label):
     return worst
 
 
-def _bwd_attn_case(label, q, k, v, causal, window, tag):
-    """B10's backward on (q, k, v) against autograd through the plain
-    version (upstream gradient N(0, 1)); the two kernels timed alone beside
-    the plain version's backward and fp32 SDPA's (memory-efficient backend,
-    K/V repeated to every query head); its bound from the five products on
-    the pairs the mask allows. Returns the case's entry."""
+def _bwd_attn_inputs(bsz, lq, lk, h, kv, hd):
+    """(q, k, v, dO) of a BWD_ATTN_CASES case on the card, N(0, 1) from
+    seeds of its shape."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(hd + lq)
+    q, k, v = (torch.randn(bsz, n_, heads, hd, generator=gen, device="cuda")
+               for n_, heads in ((lq, h), (lk, kv), (lk, kv)))
+    gen = torch.Generator("cuda").manual_seed(lq + lk)
+    return q, k, v, torch.randn(q.shape, generator=gen, device="cuda")
+
+
+def _bwd_attn_case(label, q, k, v, do, causal, window, tag):
+    """B10's backward on (q, k, v) with upstream gradient ``do`` against
+    autograd through the plain version; the backward kernels timed alone
+    beside the plain version's backward and fp32 SDPA's (memory-efficient
+    backend, K/V repeated to every query head), each kernel's profiler ms;
+    its bound from the five products on the pairs the mask allows, at
+    3xTF32. Returns the case's entry."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2297,8 +2333,6 @@ def _bwd_attn_case(label, q, k, v, causal, window, tag):
 
     bsz, lq, h, hd = q.shape
     lk, kv = k.shape[1], k.shape[2]
-    gen = torch.Generator("cuda").manual_seed(lq + lk)
-    do = torch.randn(q.shape, generator=gen, device="cuda")
     ins = [t.detach().requires_grad_() for t in (q, k, v)]
     ba.reset_launch_counts()
     got = torch.autograd.grad(ba.block_attn(*ins, causal=causal, window=window), ins, do)
@@ -2307,13 +2341,16 @@ def _bwd_attn_case(label, q, k, v, causal, window, tag):
     o_plain = block_attention_plain(*ins, causal=causal, window=window)
     want = torch.autograd.grad(o_plain, ins, do, retain_graph=True)
     max_abs = _grads_agree(("dq", "dk", "dv"), got, want, tag, f"block_attn backward {label}")
-    if counts != {"attn_bwd_dkdv": 1, "attn_bwd_dq": 1}:
+    if counts != dict.fromkeys(ba.BWD_LAUNCHES, 1):
         _fail(f"block_attn backward {label}: launched {counts}")
     with torch.no_grad():
         o, lse = ba.block_attn_forward(q, k, v, causal=causal, window=window, with_lse=True)
-    ms = statistics.median(_time_ms(
-        lambda: ba.block_attn_backward(q, k, v, o, lse, do, causal=causal, window=window),
-        iters=5, warmup=1) for _ in range(3))
+
+    def backward():
+        return ba.block_attn_backward(q, k, v, o, lse, do, causal=causal, window=window)
+
+    ms = statistics.median(_time_ms(backward, iters=5, warmup=1) for _ in range(3))
+    kernel_ms = _kernel_device_ms(lambda: [backward() for _ in range(3)], list(ba.BWD_LAUNCHES))
     plain_ms = _time_ms(lambda: torch.autograd.grad(o_plain, ins, do, retain_graph=True),
                         iters=2, warmup=1)
     del o_plain, want, got
@@ -2341,43 +2378,79 @@ def _bwd_attn_case(label, q, k, v, causal, window, tag):
     pairs = attention_pairs(lq, lk, causal=causal, window=window) * bsz * h
     flop = ATTN_BWD_PRODUCTS * 2 * hd * pairs
     nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * q.numel() + lse.numel())
-    bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
-    bound_tf32_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bound_ops_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bound_simt_ms = flop / FP32_OPS_PER_S * 1e3
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
     print(f"block_attn backward {label} {tag}: q{tuple(q.shape)} k/v{tuple(k.shape)} "
-          f"causal={causal} window={window}: ms={ms:.4f} (attn_bwd_dkdv + attn_bwd_dq) "
-          f"plain_ms={plain_ms:.4f} library_ms={library_ms} (fp32 SDPA backward, "
-          f"EFFICIENT_ATTENTION, K/V repeated to {h} heads) bound_ms={bound_ms:.4f} "
-          f"(float32 SIMT, the rate the kernels run at: {ATTN_BWD_PRODUCTS} products x 2 hd x "
-          f"{pairs} pairs = {flop} FLOP at {FP32_OPS_PER_S:.0e}/s = {bound_ops_ms:.4f} ms; "
-          f"3xTF32 on the tensor cores {bound_tf32_ms:.4f} ms; bytes {nbytes} = "
+          f"causal={causal} window={window}: ms={ms:.4f} ({' + '.join(ba.BWD_LAUNCHES)}; "
+          f"profiler ms each {_fmt_ms(kernel_ms)}; attn_bwd_dkdvq "
+          f"{ba.build().block_attn_bwd_smem_bytes(1, hd)} bytes of shared memory a block) "
+          f"plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms} (fp32 SDPA backward, EFFICIENT_ATTENTION, K/V repeated to "
+          f"{h} heads) bound_ms={bound_ms:.4f} (3xTF32 on the tensor cores, the kernels' "
+          f"arithmetic: {ATTN_TF32_PASSES} x {ATTN_BWD_PRODUCTS} products x 2 hd x {pairs} "
+          f"pairs = {ATTN_TF32_PASSES} x {flop} FLOP at {TF32_OPS_PER_S:.4g}/s = "
+          f"{bound_ops_ms:.4f} ms; float32 SIMT {bound_simt_ms:.4f} ms; bytes {nbytes} = "
           f"{bound_bytes_ms:.4f} ms) = {bound_ms / ms:.3f} of it")
     return {"q": list(q.shape), "kv": list(k.shape), "causal": causal, "window": window,
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "kernel_ms": kernel_ms}
 
 
-def _ssd_bwd_case(label, bsz, h, l, p, n, chunk, g, tag):
-    """B9's backward at (B, H, L, P, N, chunk, G), operands in the model's
-    (B, L, H, P) layout as transposed views, against autograd through
-    ``ssd_chunked_plain``; the two kernels timed alone beside the plain
-    version's backward; its bound from the recurrences' FLOP at the float32
-    SIMT rate and the bytes. Returns the case's entry."""
+def _fmt_ms(kernel_ms):
+    return ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} none"
+                     for k, v in kernel_ms.items())
+
+
+def _ssd_bwd_flop(bsz, h, l, p, n, chunk, g):
+    """(FLOP of B9's gradient in the chunked matrix form, the products
+    counted): per (batch, head) chunk of length c, dS^loc, B G_c, dy S_c^T
+    and xdt G_c^T at 2 c N P each, and R, (CB o L)^T dy, R B and R^T C on the
+    c (c + 1) / 2 causal pairs at 2 P, 2 P, 2 N and 2 N; C B^T once per
+    (batch, group) chunk on the causal pairs, 2 N."""
+    lens = [min(chunk, l - c0) for c0 in range(0, l, chunk)]
+    per_head = sum(8 * c * n * p + 4 * (c * (c + 1) // 2) * (p + n) for c in lens)
+    per_group = sum(2 * (c * (c + 1) // 2) * n for c in lens)
+    return (bsz * h * per_head + bsz * g * per_group,
+            "dS^loc, B G_c, dy S_c^T, xdt G_c^T (2 c N P each), R and (CB o L)^T dy "
+            "(2 P a causal pair), R B and R^T C (2 N a pair), C B^T per group (2 N a pair)")
+
+
+def _ssd_bwd_inputs(bsz, h, l, p, n, g, large):
+    """(x, dt, A_log, B, C, dy) of a BWD_SSD_CASES case on the card, from a
+    seed of its shape; x, dt, B and C in the model's (B, L, heads, .)
+    layout as transposed views (``large``: dt |A| from 10 to 15 a step)."""
     import torch
-
-    from repro_torch.kernels.ssd_scan import ssd_scan as sk
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 
     gen = torch.Generator("cuda").manual_seed(l + p)
     x = (torch.randn(bsz, l, h, p, generator=gen, device="cuda") * 0.8).transpose(1, 2)
     dt = torch.nn.functional.softplus(torch.randn(bsz, l, h, generator=gen,
                                                   device="cuda")).transpose(1, 2)
     a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    if large:
+        dt = ((10.0 + 5.0 * torch.rand(bsz, l, h, generator=gen, device="cuda"))
+              / torch.exp(a_log)).transpose(1, 2)
     b, c = ((torch.randn(bsz, l, g, n, generator=gen, device="cuda") * 0.5).transpose(1, 2)
             for _ in range(2))
-    dy = torch.randn(bsz, h, l, p, generator=gen, device="cuda")
+    return x, dt, a_log, b, c, torch.randn(bsz, h, l, p, generator=gen, device="cuda")
+
+
+def _ssd_bwd_case(label, bsz, h, l, p, n, chunk, g, large, tag):
+    """B9's backward at (B, H, L, P, N, chunk, G) on
+    :func:`_ssd_bwd_inputs`, against autograd through
+    ``ssd_chunked_plain``; the six
+    kernels timed alone beside the plain version's backward, each kernel's
+    profiler ms; its bound the smaller of the chunked form's FLOP at 3xTF32
+    and the recurrent form's at the float32 SIMT rate, beside the bytes.
+    Returns the case's entry."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+
+    x, dt, a_log, b, c, dy = _ssd_bwd_inputs(bsz, h, l, p, n, g, large)
     ins = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c)]
     sk.reset_launch_counts()
     got = torch.autograd.grad(sk.ssd_scan(*ins, chunk=chunk), ins, dy)
@@ -2387,31 +2460,47 @@ def _ssd_bwd_case(label, bsz, h, l, p, n, chunk, g, tag):
     want = torch.autograd.grad(y_plain, ins, dy, retain_graph=True)
     max_abs = _grads_agree(("dx", "ddt", "da_log", "db", "dc"), got, want, tag,
                            f"ssd_scan backward {label}")
-    if counts != {"bwd_dstate": 1, "bwd_chunk": 1}:
+    if counts != dict.fromkeys(sk.BWD_STAGES, 1):
         _fail(f"ssd_scan backward {label}: launched {counts}")
     with torch.no_grad():
         _, states = sk.ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)
-    ms = statistics.median(_time_ms(
-        lambda: sk.ssd_scan_backward(x, dt, a_log, b, c, states, dy, chunk=chunk),
-        iters=5, warmup=1) for _ in range(3))
+
+    def backward():
+        return sk.ssd_scan_backward(x, dt, a_log, b, c, states, dy, chunk=chunk)
+
+    ms = statistics.median(_time_ms(backward, iters=5, warmup=1) for _ in range(3))
+    kernel_ms = _kernel_device_ms(lambda: [backward() for _ in range(3)], list(SSD_BWD_KERNELS))
+    kernel_ms = {SSD_BWD_KERNELS[k]: v for k, v in kernel_ms.items()}
+    shape, dims = (ctypes.c_longlong * 3)(), (ctypes.c_int * 7)(bsz, h, g, l, p, n, chunk)
+    shapes = []
+    for i, name in enumerate(sk.BWD_STAGES):
+        sk.build().ssd_bwd_shape(i, dims, shape)
+        shapes.append(f"{name} {shape[0]} B x {shape[1]} blocks of {shape[2]}")
     plain_ms = _time_ms(lambda: torch.autograd.grad(y_plain, ins, dy, retain_graph=True),
                         iters=2, warmup=1)
     del y_plain, want, got, states
-    flop = SSD_BWD_FLOP_PER_NP * n * p * bsz * h * l
+    flop_rec = SSD_BWD_FLOP_PER_NP * n * p * bsz * h * l
+    flop, counted = _ssd_bwd_flop(bsz, h, l, p, n, chunk, g)
     nbytes = 4 * (3 * bsz * h * l * p + 2 * bsz * h * l + 4 * bsz * g * l * n + 2 * h)
-    bound_ops_ms = flop / FP32_OPS_PER_S * 1e3
+    bound_tf32_ms = SSD_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bound_simt_ms = flop_rec / FP32_OPS_PER_S * 1e3
+    bound_ops_ms = min(bound_tf32_ms, bound_simt_ms)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
     print(f"ssd_scan backward {label} {tag}: x{(bsz, h, l, p)} B/C{(bsz, g, l, n)} "
-          f"chunk={chunk}: ms={ms:.4f} (bwd_dstate + bwd_chunk) plain_ms={plain_ms:.4f} "
-          f"library_ms=None (no one call computes the scan's gradient) bound_ms={bound_ms:.4f} "
-          f"(float32 SIMT: {SSD_BWD_FLOP_PER_NP} N P FLOP a position = {flop} FLOP at "
-          f"{FP32_OPS_PER_S:.0e}/s = {bound_ops_ms:.4f} ms; bytes {nbytes} = "
-          f"{bound_bytes_ms:.4f} ms) = {bound_ms / ms:.3f} of it")
-    return {"x": [bsz, h, l, p], "bc": [bsz, g, l, n], "chunk": chunk, "max_abs_err": max_abs,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          f"chunk={chunk}{' dt|A| 10-15' if large else ''}: ms={ms:.4f} "
+          f"({' + '.join(sk.BWD_STAGES)}; profiler ms each {_fmt_ms(kernel_ms)}; "
+          f"shared memory a block: {', '.join(shapes)}) "
+          f"plain_ms={plain_ms:.4f} library_ms=None (no one call computes the scan's gradient) "
+          f"bound_ms={bound_ms:.4f} (the smaller of: the chunked form at 3xTF32, "
+          f"{SSD_TF32_PASSES} x {flop} FLOP at {TF32_OPS_PER_S:.4g}/s = {bound_tf32_ms:.4f} ms, "
+          f"counting {counted}; the recurrent form at float32 SIMT, {SSD_BWD_FLOP_PER_NP} N P "
+          f"FLOP a position = {flop_rec} FLOP at {FP32_OPS_PER_S:.4g}/s = {bound_simt_ms:.4f} "
+          f"ms; bytes {nbytes} = {bound_bytes_ms:.4f} ms) = {bound_ms / ms:.3f} of it")
+    return {"x": [bsz, h, l, p], "bc": [bsz, g, l, n], "chunk": chunk, "large_cum": large,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-            "library_ms": None}
+            "library_ms": None, "kernel_ms": kernel_ms}
 
 
 def backward_phase(smi):
@@ -2423,11 +2512,9 @@ def backward_phase(smi):
     tag = f"[{smi}]"
     attn, ssd = {}, {}
     for label, bsz, lq, lk, h, kv, hd, causal, window in BWD_ATTN_CASES:
-        gen = torch.Generator("cuda").manual_seed(hd + lq)
-        q, k, v = (torch.randn(bsz, n_, heads, hd, generator=gen, device="cuda")
-                   for n_, heads in ((lq, h), (lk, kv), (lk, kv)))
-        attn[label] = _bwd_attn_case(label, q, k, v, causal, window, tag)
-        del q, k, v
+        q, k, v, do = _bwd_attn_inputs(bsz, lq, lk, h, kv, hd)
+        attn[label] = _bwd_attn_case(label, q, k, v, do, causal, window, tag)
+        del q, k, v, do
         gc.collect()
         torch.cuda.empty_cache()
     for label, *shape in BWD_SSD_CASES:
@@ -2500,8 +2587,8 @@ def train_smoke_phase(arch_id, tag):
                 **ba.BWD_LAUNCHES, **sk.BWD_LAUNCHES}
     calls = _kernel_calls(small)
     want = {"block_attn": 2 * calls["block_attn"], "ssd_scan": 2 * calls["ssd_scan"],
-            "attn_bwd_dkdv": calls["block_attn"], "attn_bwd_dq": calls["block_attn"],
-            "bwd_dstate": calls["ssd_scan"], "bwd_chunk": calls["ssd_scan"]}
+            **dict.fromkeys(ba.BWD_LAUNCHES, calls["block_attn"]),
+            **dict.fromkeys(sk.BWD_STAGES, calls["ssd_scan"])}
     same = all(torch.equal(a[1], b[1].cpu()) and torch.equal(a[3], b[3].cpu())
                for a, b in zip(r_cpu, r_card)) and len(r_cpu) == len(r_card)
     loss_r = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
@@ -2568,8 +2655,8 @@ def pod_phase(arch_id, bsz, seq, steps, tag):
     cfg = get_arch(arch_id)
     calls = _kernel_calls(cfg)
     want = {"block_attn": 2 * calls["block_attn"], "ssd_scan": 2 * calls["ssd_scan"],
-            "attn_bwd_dkdv": calls["block_attn"], "attn_bwd_dq": calls["block_attn"],
-            "bwd_dstate": calls["ssd_scan"], "bwd_chunk": calls["ssd_scan"]}
+            **dict.fromkeys(ba.BWD_LAUNCHES, calls["block_attn"]),
+            **dict.fromkeys(sk.BWD_STAGES, calls["ssd_scan"])}
     record = {"ms": [], "loss": [], "launches": [], "bwd_args": {}}
     real_make, real_attn_bwd, real_ssd_bwd = (dist_steps.make_train_step,
                                               ba.block_attn_backward, sk.ssd_scan_backward)
@@ -2718,7 +2805,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        print(f"chip_smoke: no src/repro_torch beside this script (looked in {src}); run it "
+              "from the root of a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, src)
     from repro_torch.convert import params_from_numpy
     from repro_torch.core import (
         DFedRW, DFedRWConfig, QuantConfig, make_topology, train_loop,
@@ -2984,28 +3076,28 @@ def main() -> int:
     bwd_by_path = {"attn": {}, "ssd": {}}
     for arch, counts in train_launches.items():
         for kernel, paths, by_path, bwd in (("block_attn", attn_by_path, bwd_by_path["attn"],
-                                             "attn_bwd_dkdv"),
+                                             "attn_bwd_dkdvq"),
                                             ("ssd_scan", ssd_by_path, bwd_by_path["ssd"],
-                                             "bwd_dstate")):
+                                             "bwd_chunk_dc")):
             if counts[kernel]:
                 paths[f"{arch} train smoke"] = counts[kernel]
                 by_path[f"{arch} train smoke"] = counts[bwd]
     for arch, (counted, _) in pods.items():
         for kernel, paths, by_path, bwd in (("block_attn", attn_by_path, bwd_by_path["attn"],
-                                             "attn_bwd_dkdv"),
+                                             "attn_bwd_dkdvq"),
                                             ("ssd_scan", ssd_by_path, bwd_by_path["ssd"],
-                                             "bwd_dstate")):
+                                             "bwd_chunk_dc")):
             if counted[kernel]:
                 paths[f"{arch} train pod"] = counted[kernel]
                 by_path[f"{arch} train pod"] = counted[bwd]
     for entry, cases, main_case, by_path, kernels in (
-            (attn, bwd_attn, "yi-6b layer 0", bwd_by_path["attn"], "attn_bwd_dkdv, attn_bwd_dq"),
-            (ssd, bwd_ssd, "mamba2-130m layer", bwd_by_path["ssd"], "bwd_dstate, bwd_chunk")):
+            (attn, bwd_attn, "yi-6b layer 0", bwd_by_path["attn"], ", ".join(ba.BWD_LAUNCHES)),
+            (ssd, bwd_ssd, "mamba2-130m layer", bwd_by_path["ssd"], ", ".join(sk.BWD_STAGES))):
         main = cases[main_case]
         entry["backward"] = {
             "kernels": kernels, "shape": main_case,
             **{key: main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
+                                          "bound_by", "library_ms", "kernel_ms")},
             "launches": sum(by_path.values()), "launches_by_path": by_path, "cases": cases}
     entry_train = {arch: stats for arch, (_, stats) in pods.items()}
     print(f"train pod summary [{smi}]: {json.dumps(entry_train)}")
@@ -3024,5 +3116,65 @@ def main() -> int:
     return 0
 
 
+# (label, B, Lq, Lk, H, KV, hd, causal) and (label, B, H, L, P, N, chunk, G) of
+# the before-and-after timing: BWD_ATTN_CASES's first four, BWD_SSD_CASES's first three.
+AB_ATTN = [case[:8] for case in BWD_ATTN_CASES[:4]]
+AB_SSD = [case[:8] for case in BWD_SSD_CASES[:3]]
+
+
+def time_backward(src):
+    """``--time-backward SRC``: the ms a call of ``block_attn_backward`` and
+    ``ssd_scan_backward`` as the package under SRC (this checkout's or
+    another's ``src``) has them, at AB_ATTN and AB_SSD, on the inputs that
+    phase (g) checks (:func:`_bwd_attn_inputs`, :func:`_ssd_bwd_inputs`);
+    one JSON line. Both functions take the same arguments in every checkout
+    that has them."""
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+
+    out = {"src": src, "attn": {}, "ssd": {}}
+    for label, bsz, lq, lk, h, kv, hd, causal in AB_ATTN:
+        q, k, v, do = _bwd_attn_inputs(bsz, lq, lk, h, kv, hd)
+        o, lse = ba.block_attn_forward(q, k, v, causal=causal, with_lse=True)
+        out["attn"][label] = statistics.median(_time_ms(
+            lambda: ba.block_attn_backward(q, k, v, o, lse, do, causal=causal), iters=5,
+            warmup=1) for _ in range(3))
+        del q, k, v, do, o, lse
+    for label, bsz, h, l, p, n, chunk, g in AB_SSD:
+        x, dt, a_log, b, c, dy = _ssd_bwd_inputs(bsz, h, l, p, n, g, False)
+        _, states = sk.ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)
+        out["ssd"][label] = statistics.median(_time_ms(
+            lambda: sk.ssd_scan_backward(x, dt, a_log, b, c, states, dy, chunk=chunk), iters=5,
+            warmup=1) for _ in range(3))
+        del x, dt, a_log, b, c, dy, states
+    print(json.dumps(out))
+    return 0
+
+
+def backward_ab(other):
+    """``--backward-ab OTHER``: :func:`time_backward` of OTHER's ``src`` (a
+    ``git archive`` of another commit) and of this checkout's, in turns
+    (other, this, this, other), each in a process of its own, on one card;
+    prints the card and the four JSON lines."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    order = [os.path.join(other, "src"), os.path.join(here, "src"),
+             os.path.join(here, "src"), os.path.join(other, "src")]
+    for src in order:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-backward", src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-2000:], file=sys.stderr)
+            return 1
+        print(proc.stdout.strip().splitlines()[-1])
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-backward"]:
+        sys.exit(time_backward(sys.argv[2]))
+    if sys.argv[1:2] == ["--backward-ab"]:
+        sys.exit(backward_ab(sys.argv[2]))
     sys.exit(main())

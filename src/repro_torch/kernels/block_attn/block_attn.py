@@ -24,12 +24,16 @@ Training: when a gradient is wanted (grad mode on and an input that
 requires one), :func:`block_attn` goes through :class:`BlockAttnFunction`.
 Its forward is the same kernel, which then also writes each row's
 log-sum-exp (B, H, Lq); its backward is two more kernels of the same
-source, ``attn_bwd_dkdv`` (dK and dV, summed over the query heads of each
-KV group inside one block: no atomics) and ``attn_bwd_dq``, which recompute
-the probabilities from that log-sum-exp in float32 SIMT arithmetic
-(design and bound in ``csrc/block_attn.cu``). Each backward launch adds one
-to :data:`BWD_LAUNCHES`. No path differentiates the plain version for a
-CUDA tensor.
+source, FlashAttention-2's backward on the same 3xTF32 ``mma.sync``
+fragments: ``attn_bwd_dot`` (D = rowsum(dO o O) and the log-sum-exp in
+units of log2, once a row, into a (B, H, Lq, 2) scratch) and
+``attn_bwd_dkdvq`` (per key tile, dK and dV with the keys in the
+accumulators' rows, so that P^T and dS^T feed the next products from
+registers, summed over the query heads of each KV group inside one block;
+and each query tile's dQ added to a zeroed dq by float32 atomics, whose
+order varies from run to run; design and bound in ``csrc/block_attn.cu``).
+Each backward launch adds one to :data:`BWD_LAUNCHES`. No path
+differentiates the plain version for a CUDA tensor.
 
 The shared library is built with ``nvcc`` at first use into ``_build/``
 beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
@@ -56,7 +60,8 @@ MAX_QUERY_TILES = 65535        # the grid's y dimension
 
 # Kernel launches, counted where the wrapper launches the kernel.
 LAUNCHES = {"block_attn": 0}
-BWD_LAUNCHES = {"attn_bwd_dkdv": 0, "attn_bwd_dq": 0}
+# The backward kernels, in launch order.
+BWD_LAUNCHES = {"attn_bwd_dot": 0, "attn_bwd_dkdvq": 0}
 
 _lib = None
 BUILD_INFO: dict = {}
@@ -149,8 +154,9 @@ def block_attn_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def block_attn_backward(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
     """The two backward kernels -> (dq, dk, dv), contiguous; ``o`` and
-    ``lse`` are the forward's, ``do`` the gradient of ``o``. dK and dV sum over the H/KV query heads of each
-    group. A failed launch raises."""
+    ``lse`` are the forward's, ``do`` the gradient of ``o``. dK and dV sum
+    over the H/KV query heads of each group; dq is summed by float32
+    atomics (its last bits vary from run to run). A failed launch raises."""
     if do.stride(3) != 1:
         do = do.contiguous()
     _check(q, k, v, window)
@@ -161,9 +167,12 @@ def block_attn_backward(q, k, v, o, lse, do, *, causal: bool = True, window: int
                          f"o {tuple(o.shape)}")
     if not lse.is_contiguous():
         raise ValueError("lse must be contiguous")
-    dq, dk, dv = (t.new_empty(t.shape) for t in (q, k, v))
+    dq = q.new_zeros(q.shape)                      # the kernel adds into it
+    dk, dv = k.new_empty(k.shape), v.new_empty(v.shape)
+    rows = q.new_empty(bsz, h, lq, 2)             # lse log2(e), D = rowsum(dO o O)
     lib = build()
-    ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv)))
+    ptrs = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
+                                                           rows)))
     strides = (ctypes.c_longlong * 24)(*(t.stride(i) for t in (q, k, v, o, do, dq, dk, dv)
                                          for i in range(3)))
     dims = (ctypes.c_int * 8)(bsz, h, kv, lq, lk, hd, int(causal), int(window))
@@ -183,7 +192,7 @@ def block_attn_backward(q, k, v, o, lse, do, *, causal: bool = True, window: int
 class BlockAttnFunction(torch.autograd.Function):
     """Blockwise attention with its gradient from the backward kernels:
     the forward keeps q, k, v, o and the log-sum-exp; the backward launches
-    ``attn_bwd_dkdv`` and ``attn_bwd_dq``."""
+    ``attn_bwd_dot`` and ``attn_bwd_dkdvq``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):

@@ -439,290 +439,439 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // The gradient of the function above, for training: FlashAttention-2's
 // backward (Dao 2023, Alg. 2) in two kernels, launched in order, that
 // recompute P_ij = exp(scale q_i.k_j - lse_i) from the log-sum-exp the
-// forward wrote, and each compute D_i = rowsum(dO_i o O_i) for the rows they
-// read. With dP = dO V^T and dS = P o (dP - D):
+// forward wrote. With D_i = rowsum(dO_i o O_i), dP = dO V^T and
+// dS = P o (dP - D):
 //   dV_j = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i,  dQ_i = scale sum_j dS_ij k_j.
-//   * attn_bwd_dkdv: one block per (b, KV head, 64-key tile) keeps its K and
-//     V tile in shared memory and walks the query heads of its group and
-//     the 64-row query tiles that reach the keys (causal: from the key
-//     tile's diagonal on; window: up to the last key + window), so dK and
-//     dV sum over the H/KV heads of the group inside one block, in a fixed
-//     order: no atomics, no repeat.
-//   * attn_bwd_dq: one block per (b, query head, 64-row query tile) keeps its
-//     Q and dO tile and walks the key tiles its rows reach, as the forward.
-// The mask is the forward's, element by element (causal by absolute index,
-// window, Lq and Lk ragged); a row that attends no key has lse = -inf and
-// P = 0, so its dQ is 0 and it adds nothing to dK and dV.
+//   * attn_bwd_dot: D_i once a row, and lse_i log2(e), into a (B, H, Lq, 2)
+//     float32 scratch: one warp a row, coalesced float32 FMAs (a row's dot
+//     product, 2 hd FLOP; no matrix product).
+//   * attn_bwd_dkdvq: one block per (b, KV head, key tile of kFix rows)
+//     keeps its K and V tile in shared memory and streams 32-row tiles of
+//     Q and dO of every query head of its group that reach the keys
+//     (causal: from the tile's diagonal on; window: up to the last key +
+//     window) through a 2-stage cp.async ring, each with its rows' (lse
+//     log2(e), D). Warp w owns key rows 16w .. 16w + 15: S^T = K Q^T and
+//     dP^T = V dO^T put the keys in the accumulators' M rows, so P^T and
+//     dS^T = P^T o (dP^T - D) sit in the accumulator layout and are the A
+//     operands of dV += P^T dO and dK += dS^T Q as they stand (the
+//     forward's k-index permutation: k-index t is column 2t, t + 4 is
+//     2t + 1, and the B operand's rows are read at 2t and 2t + 1). dK and
+//     dV sum over the H/KV heads of the group inside the block, in a fixed
+//     order. dS^T also goes to shared memory, and after a barrier the warps
+//     compute the tile's dQ = dS K over the block's keys (each warp 16 rows
+//     by kHD / 8 / (kWarps / 2) n-tiles) and add it to dq with float32
+//     atomics (a float2 a lane where dq's rows allow).
+//   dQ by atomics, FlashAttention-2's own choice, computes the five
+//   products the function needs. A deterministic pair (this kernel without
+//   dQ, and a dq kernel of its own that recomputes S and dP from the query
+//   side, seven products) took 19.8 ms at Yi-6B's layer 0 against 15.1 ms
+//   for this kernel, and 0.71-0.72 against 0.52 ms at Seamless's encoder
+//   and cross shapes (chip_smoke.py (g), H100 at 700 W). The
+//   order of dq's adds varies from run to run: dq differs between runs by
+//   float32 rounding, ~1e-7 of its magnitude, which GRAD_TOL (2e-4 of each
+//   gradient's largest magnitude) covers; dK and dV are deterministic.
+// Every product runs on mma.sync m16n8k8 with the forward's 3xTF32 split
+// (SplitA for A operands; split_b, small unrounded, for B operands):
+// float32-level error. dK and dV add each query tile's products, summed in
+// a zeroed accumulator, with one float32 add (accumulate). The mask is
+// the forward's, element by element on the tiles that cross an edge
+// (diagonal, window, Lq, Lk); a row that attends no key has lse = -inf and
+// P = 0, so its dQ is 0 and it adds nothing to dK and dV (never NaN).
+//
+// Shared tiles are swizzled: row r keeps its 16-byte group q at q ^ swz(r),
+// with a row stride that is a multiple of 32 floats. Each tile is read in
+// three patterns, 16-byte loads at (row g, columns 4t..4t + 3) for the
+// score products' operands, scalar loads at (rows 2t and 2t + 1, column g)
+// for dV's and dK's B operands and at (rows t and t + 4, column g) for
+// dQ's; the swizzle keeps all three free of bank conflicts, where one
+// padded stride serves only one of them. hd is padded to hd_p = 16, 32, 64
+// or 128 (zeros); rows of 16 and 32 floats take a 32-float stride. The dS
+// tile has a row stride of kFix + 4 (4 mod 32), so its (g, t) reads and
+// the accumulator-layout writes are conflict-free.
+//
+// Tiles: at hd 128, 8 warps and 128-key tiles (214,016 B of shared
+// memory, one block an SM; 128 accumulator floats a thread for dK and
+// dV); at hd <= 64, 4 warps and 64-key tiles (74,752 B at hd 64). Key
+// tiles run heaviest first when causal (the first reach the most queries).
 //
 // Bound: operations. Five products of 2 hd FLOP per allowed (i, j) pair
-// (S, dP, dV, dK, dQ; the kernels recompute S and dP once more, seven in
-// all): 2.5 x the forward's count, 687,362,539,520 FLOP at Yi-6B's layer.
-// This first version runs them as plain float32 FMAs (SIMT), 4 x 4 elements
-// of a 64 x 64 tile a thread, operands from shared memory with an odd row
-// stride (hd_p + 1), so its bound is the card's 67 TFLOP/s float32 rate
-// (10.26 ms at Yi-6B's layer), not the tensor cores'; it takes 54.05 ms
-// there (chip_smoke.py, H100 at 700 W): two scalar shared-memory loads an
-// FMA pair, one block of 8 warps an SM at hd 128. What a later PR could do:
-// the forward's 3xTF32 mma.sync fragments for the five products.
-constexpr int kBT = 64;          // rows of a backward tile (queries or keys)
-constexpr int kBThreads = 256;   // 16 x 16 threads, 4 x 4 elements of a tile each
-
+// (S, dP, dV, dK, dQ): 2.5 x the forward's count, 687,362,539,520 FLOP at
+// Yi-6B's layer 0; at 3 passes of the dense TF32 rate, 4.168 ms (float32
+// SIMT 10.26 ms; bytes 0.18 ms). What holds it below: as the forward,
+// each B value is split where it is read (3 instructions beside 3 MMAs),
+// mma.sync does not reach the dense TF32 rate (only wgmma does), and one
+// block of 8 warps an SM at hd 128 (registers and shared memory) leaves
+// little to hide the latency of two barriers a query tile.
 struct BwdArgs {
   const float *q, *k, *v, *o, *dout, *lse;  // lse (B, H, Lq) contiguous
   float *dq, *dk, *dv;
+  float* rows;  // scratch (B, H, Lq, 2): lse log2(e), D
   long long sq[3], sk[3], sv[3], so[3], sdo[3], sdq[3], sdk[3], sdv[3];
-  int heads, heads_per_group, lq, lk, hd, causal, window;
+  int batch, heads, heads_per_group, lq, lk, hd, causal, window, vec16;
+  int dq8;  // dq's rows take float2 atomics (8-byte aligned pairs)
   float scale, scale_log2;
 };
 
-__host__ __device__ constexpr size_t bwd_smem_bytes(int hdp, int tiles, bool p_tile) {
-  return (static_cast<size_t>(tiles) * kBT * (hdp + 1) +
-          static_cast<size_t>(p_tile ? 2 : 1) * kBT * (kBT + 1) + 2 * kBT) * sizeof(float);
+// x = big + small for a B operand: big = rna(x); small = x - big (exact)
+// goes to the tensor core as it is, which reads a .tf32 operand's top 19
+// bits, so it enters truncated: within 2^-10 |small| <= 2^-21 |x|, as
+// csrc/ssd_scan.cu splits. Three instructions a value where rounding small
+// too takes five; B values are split where they are read, A values once
+// for several n-tiles (SplitA, rounded).
+__device__ __forceinline__ void split_b(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a b in 3xTF32 for a split A fragment and a B fragment (b0, b1).
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&big)[4],
+                                     const uint32_t (&small)[4], float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_b(b0, bb0, bs0);
+  split_b(b1, bb1, bs1);
+  mma_tf32(d, small, bb0, bb1);
+  mma_tf32(d, big, bs0, bs1);
+  mma_tf32(d, big, bb0, bb1);
 }
 
 __device__ __forceinline__ bool allowed(const BwdArgs& a, int i, int j) {
   return i < a.lq && j < a.lk && (!a.causal || j <= i) && (a.window <= 0 || i - j < a.window);
 }
 
-// Rows [r0, r0 + 64) of a (len, hd) operand with row stride `stride` into a
-// (64, kHD + 1) tile; zero past len and past hd.
-template <int kHD>
-__device__ __forceinline__ void load_tile(float* tile, const float* src, long long stride,
-                                          int r0, int len, int hd) {
-  for (int i = threadIdx.x; i < kBT * kHD; i += kBThreads) {
-    const int r = i / kHD, c = i % kHD;
-    tile[r * (kHD + 1) + c] =
-        r0 + r < len && c < hd ? src[static_cast<long long>(r0 + r) * stride + c] : 0.0f;
-  }
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
 }
 
-// D_i = sum_c dO_ic O_ic and lse_i log2(e) of the rows [q0, q0 + 64) of one
-// (b, h) into d_s and lse_s (-inf past Lq); warp w takes rows w, w + 8, ...
-__device__ __forceinline__ void row_terms(const BwdArgs& a, int bi, int h, int q0,
-                                          float* d_s, float* lse_s) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const float* op = a.o + bi * a.so[0] + h * a.so[2];
-  const float* dp = a.dout + bi * a.sdo[0] + h * a.sdo[2];
-  for (int r = warp; r < kBT; r += kBThreads / 32) {
-    const int i = q0 + r;
-    float acc = 0.0f;
-    if (i < a.lq)
-      for (int c = lane; c < a.hd; c += 32) acc = fmaf(dp[i * a.sdo[1] + c], op[i * a.so[1] + c], acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      d_s[r] = acc;
-      lse_s[r] = i < a.lq
-          ? a.lse[(static_cast<long long>(bi) * a.heads + h) * a.lq + i] * kLog2e : -INFINITY;
+// The swizzle of row r: 16-byte group q of the row is kept at q ^ swz(r).
+// Rows 2m and 2m + 1 differ in bit 2 (16-byte loads of rows g and g + 1 hit
+// the two halves of the banks); rows 0, 2, 4, 6 (and 1, 3, 5, 7) differ in
+// bits 1-2 (scalar loads of rows 2t at columns g hit 32 banks).
+__device__ __forceinline__ int swz(int r) { return (((r >> 1) & 3) << 1) ^ ((r & 1) << 2); }
+
+// The offset of column c in a row whose swizzle is s.
+__device__ __forceinline__ int sw_col(int c, int s) { return (((c >> 2) ^ s) << 2) | (c & 3); }
+
+// Rows [r0, r0 + rows) of a (len, hd) operand with row stride `stride` into
+// a swizzled (rows, kLd) tile by cp.async; zero past len and past hd (up to
+// kHD). The source of a zero-filled copy is clamped to a valid element.
+template <int kHD, int kLd, int kThreads>
+__device__ __forceinline__ void load_swz(float* tile, const float* src, long long stride,
+                                         int r0, int rows, int len, int hd, bool vec16) {
+  if (vec16) {
+    constexpr int kChunks = kHD / 4;
+    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const bool ok = r0 + r < len && c < hd;
+      const long long rr = max(0, min(r0 + r, len - 1));
+      cp_async16(tile + r * kLd + sw_col(c, swz(r)), src + rr * stride + min(c, hd - 4),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * kHD; i += kThreads) {
+      const int r = i / kHD, c = i % kHD;
+      const bool ok = r0 + r < len && c < hd;
+      const long long rr = max(0, min(r0 + r, len - 1));
+      cp_async4(tile + r * kLd + sw_col(c, swz(r)), src + rr * stride + min(c, hd - 1),
+                ok ? 4 : 0);
     }
   }
 }
 
-// The (64, 64) tile of queries [q0, q0 + 64) x keys [k0, k0 + 64): thread
-// (ty, tx) takes rows ty + 16 m and columns tx + 16 n, and writes P (when
-// p_s is not null) and dS = P (dP - D) to [query][key] tiles of row stride 65.
-template <int kHD>
-__device__ __forceinline__ void score_tile(const BwdArgs& a, const float* qs, const float* dos,
-                                           const float* ks, const float* vs,
-                                           const float* d_s, const float* lse_s,
-                                           int q0, int k0, float* p_s, float* ds_s) {
-  constexpr int kLd = kHD + 1;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[4][4], dp[4][4];
+// 16 bytes of row `row` (swizzle s) at column c, a multiple of 4.
+template <int kLd>
+__device__ __forceinline__ float4 ld4(const float* tile, int row, int c, int s) {
+  return *reinterpret_cast<const float4*>(tile + row * kLd + sw_col(c, s));
+}
+
+// acc[j] += A B^T over kHD columns for the warp's 16 rows of `fix` (rows
+// fr, fr + 8, swizzle sg) against the 8 rows 8j + g of `str`: the score
+// products, two k-steps a 16-column chunk as in the forward.
+template <int kHD, int kLd, int kNT>
+__device__ __forceinline__ void scores(float (&acc)[kNT][4], const float* fix, int fr,
+                                       const float* str, int g, int t, int sg) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) s[m][n] = dp[m][n] = 0.0f;
-#pragma unroll 4
-  for (int c = 0; c < kHD; ++c) {
-    float qa[4], da[4], kb[4], vb[4];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      qa[m] = qs[(ty + 16 * m) * kLd + c];
-      da[m] = dos[(ty + 16 * m) * kLd + c];
-      kb[m] = ks[(tx + 16 * m) * kLd + c];
-      vb[m] = vs[(tx + 16 * m) * kLd + c];
+  for (int c = 0; c < kHD; c += 16) {
+    const float4 lo = ld4<kLd>(fix, fr, c + 4 * t, sg);
+    const float4 hi = ld4<kLd>(fix, fr + 8, c + 4 * t, sg);
+    const float f0[4] = {lo.x, hi.x, lo.y, hi.y}, f1[4] = {lo.z, hi.z, lo.w, hi.w};
+    const SplitA a_even(f0), a_odd(f1);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const float4 b = ld4<kLd>(str, 8 * j + g, c + 4 * t, sg);
+      mma3(acc[j], a_even.big, a_even.small, b.x, b.y);
+      mma3(acc[j], a_odd.big, a_odd.small, b.z, b.w);
     }
+  }
+}
+
+// out[j] += X B over the kKN k-steps of X, a 16 x (8 kKN) score tile in the
+// accumulator layout, against B = rows [0, 8 kKN) of `str` (swizzled), hd
+// columns 8j + g: k-index t of step kk is row 8kk + 2t, t + 4 is 8kk + 2t + 1.
+// Each n-tile's products over this tile are summed in a zeroed accumulator
+// and added to out[j] with one float32 add: carried in the accumulator
+// itself over every query row of a group (dK and dV sum 32,768 at Yi-6B's
+// layer 0), the tensor core's float32 sums drifted 2.1e-4 of dK's largest
+// magnitude from autograd through the plain version.
+template <int kKN, int kN, int kLd>
+__device__ __forceinline__ void accumulate(float (&out)[kN][4], const float (&x)[kKN][4],
+                                           const float* str, int g, int t) {
+  const int s0 = swz(2 * t), s1 = swz(2 * t + 1);
+  uint32_t big[kKN][4], small[kKN][4];
 #pragma unroll
-    for (int m = 0; m < 4; ++m)
+  for (int kk = 0; kk < kKN; ++kk) {
+    const float xf[4] = {x[kk][0], x[kk][2], x[kk][1], x[kk][3]};
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        s[m][n] = fmaf(qa[m], kb[n], s[m][n]);
-        dp[m][n] = fmaf(da[m], vb[n], dp[m][n]);
-      }
+    for (int i = 0; i < 4; ++i) split(xf[i], big[kk][i], small[kk][i]);
   }
 #pragma unroll
-  for (int m = 0; m < 4; ++m)
+  for (int j = 0; j < kN; ++j) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int r = ty + 16 * m, col = tx + 16 * n;
-      float p = 0.0f;
-      if (allowed(a, q0 + r, k0 + col) && lse_s[r] != -INFINITY)
-        p = exp2f(s[m][n] * a.scale_log2 - lse_s[r]);
-      if (p_s != nullptr) p_s[r * (kBT + 1) + col] = p;
-      ds_s[r * (kBT + 1) + col] = p * (dp[m][n] - d_s[r]);
+    for (int kk = 0; kk < kKN; ++kk) {
+      const float* r0 = str + (8 * kk + 2 * t) * kLd;
+      mma3(part, big[kk], small[kk], r0[sw_col(8 * j + g, s0)],
+           r0[kLd + sw_col(8 * j + g, s1)]);
     }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[j][e] += part[e];
+  }
+}
+
+__global__ void __launch_bounds__(256) attn_bwd_dot_kernel(BwdArgs a) {
+  const long long row = blockIdx.x * 8LL + threadIdx.x / 32;  // (b, h, i), i fastest
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(a.batch) * a.heads * a.lq) return;
+  const int i = static_cast<int>(row % a.lq);
+  const long long bh = row / a.lq;
+  const int h = static_cast<int>(bh % a.heads), bi = static_cast<int>(bh / a.heads);
+  const float* op = a.o + bi * a.so[0] + i * a.so[1] + h * a.so[2];
+  const float* dp = a.dout + bi * a.sdo[0] + i * a.sdo[1] + h * a.sdo[2];
+  float acc = 0.0f;
+  for (int c = lane; c < a.hd; c += 32) acc = fmaf(dp[c], op[c], acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    a.rows[2 * row] = a.lse[row] * kLog2e;  // -inf stays -inf
+    a.rows[2 * row + 1] = acc;
+  }
 }
 
 template <int kHD>
-__global__ void __launch_bounds__(kBThreads, 1) attn_bwd_dkdv_kernel(BwdArgs a) {
-  constexpr int kLd = kHD + 1, kLdP = kBT + 1, kNC = kHD / 16;
+struct BwdShape {
+  static constexpr int kWarps = kHD == 128 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kFix = 16 * kWarps;          // keys of a block
+  static constexpr int kStr = 32;                   // query rows of a streamed tile
+  static constexpr int kLd = kHD < 32 ? 32 : kHD;   // row stride in floats, swizzled
+  static constexpr int kLdS = kFix + 4;             // row stride of the dS tile
+  static constexpr int kStage = 2 * kStr * kLd + 2 * kStr;  // Q, dO, (lse2, D) a row
+  static constexpr size_t kSmem =
+      (static_cast<size_t>(2) * kFix * kLd + static_cast<size_t>(kStages) * kStage +
+       static_cast<size_t>(kStr) * kLdS) * sizeof(float);
+};
+
+template <int kHD>
+__global__ void __launch_bounds__(BwdShape<kHD>::kThreads, 1) attn_bwd_dkdvq_kernel(BwdArgs a) {
+  using Sh = BwdShape<kHD>;
+  constexpr int kLd = Sh::kLd, kFix = Sh::kFix, kStr = Sh::kStr, kThr = Sh::kThreads;
+  constexpr int kLdS = Sh::kLdS;
+  constexpr int kSN = kStr / 8;
+  constexpr int kN = kHD / 8;
+  constexpr int kMT = kStr / 16, kGroups = Sh::kWarps / kMT, kNPer = kN / kGroups;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
-  float* vs = ks + kBT * kLd;
-  float* qs = vs + kBT * kLd;
-  float* dos = qs + kBT * kLd;
-  float* p_s = dos + kBT * kLd;
-  float* ds_s = p_s + kBT * kLdP;
-  float* d_s = ds_s + kBT * kLdP;
-  float* lse_s = d_s + kBT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float* vs = ks + kFix * kLd;
+  float* ring = vs + kFix * kLd;
+  float* dss = ring + kStages * Sh::kStage;  // (kStr, kLdS): the tile's dS, [query][key]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4, sg = swz(g);
   const int kv_heads = a.heads / a.heads_per_group;
   const int bi = blockIdx.x / kv_heads, kvh = blockIdx.x % kv_heads;
-  const int k0 = blockIdx.y * kBT;
-  load_tile<kHD>(ks, a.k + bi * a.sk[0] + kvh * a.sk[2], a.sk[1], k0, a.lk, a.hd);
-  load_tile<kHD>(vs, a.v + bi * a.sv[0] + kvh * a.sv[2], a.sv[1], k0, a.lk, a.hd);
-  float dk[4][kNC], dv[4][kNC];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < kNC; ++n) dk[m][n] = dv[m][n] = 0.0f;
-  // The query rows that reach keys [k0, k_last].
-  const int k_last = min(k0 + kBT, a.lk) - 1;
+  const int k0 = blockIdx.y * kFix;
+  const bool vec16 = a.vec16 != 0;
+  const int k_last = min(k0 + kFix, a.lk) - 1;
   const int i_lo = a.causal ? k0 : 0;
-  const int i_hi = a.window > 0 ? min(a.lq, k_last + a.window) : a.lq;  // exclusive
-  for (int r = 0; r < a.heads_per_group; ++r) {
-    const int h = kvh * a.heads_per_group + r;
-    const float* qp = a.q + bi * a.sq[0] + h * a.sq[2];
-    const float* dop = a.dout + bi * a.sdo[0] + h * a.sdo[2];
-    for (int q0 = i_lo / kBT * kBT; q0 < i_hi; q0 += kBT) {
-      __syncthreads();  // every thread is done with the last tile's qs, dos, p_s, ds_s
-      load_tile<kHD>(qs, qp, a.sq[1], q0, a.lq, a.hd);
-      load_tile<kHD>(dos, dop, a.sdo[1], q0, a.lq, a.hd);
-      row_terms(a, bi, h, q0, d_s, lse_s);
-      __syncthreads();
-      score_tile<kHD>(a, qs, dos, ks, vs, d_s, lse_s, q0, k0, p_s, ds_s);
-      __syncthreads();
-      // Key rows ty + 16 m, columns tx + 16 n.
-#pragma unroll 4
-      for (int i = 0; i < kBT; ++i) {
-        float pv[4], sv[4];
+  const int i_hi = a.window > 0 ? min(a.lq, k_last + a.window) : a.lq;
+  const int q_first = i_lo / kStr * kStr;
+  const int n_q = i_hi > i_lo ? (i_hi - q_first + kStr - 1) / kStr : 0;
+  const int steps = a.heads_per_group * n_q;
+
+  auto load_step = [&](int s) {
+    if (s < steps) {
+      const int h = kvh * a.heads_per_group + s / n_q, q0 = q_first + (s % n_q) * kStr;
+      float* dst = ring + (s % kStages) * Sh::kStage;
+      load_swz<kHD, kLd, kThr>(dst, a.q + bi * a.sq[0] + h * a.sq[2], a.sq[1], q0, kStr,
+                               a.lq, a.hd, vec16);
+      load_swz<kHD, kLd, kThr>(dst + kStr * kLd, a.dout + bi * a.sdo[0] + h * a.sdo[2],
+                               a.sdo[1], q0, kStr, a.lq, a.hd, vec16);
+      float* rd = dst + 2 * kStr * kLd;
+      const float* src = a.rows + 2 * (static_cast<long long>(bi) * a.heads + h) * a.lq;
+      for (int i = threadIdx.x; i < kStr; i += kThr)
+        cp_async8(rd + 2 * i, src + 2 * max(0, min(q0 + i, a.lq - 1)), q0 + i < a.lq ? 8 : 0);
+    }
+    cp_async_commit();
+  };
+  load_swz<kHD, kLd, kThr>(ks, a.k + bi * a.sk[0] + kvh * a.sk[2], a.sk[1], k0, kFix, a.lk,
+                           a.hd, vec16);
+  load_swz<kHD, kLd, kThr>(vs, a.v + bi * a.sv[0] + kvh * a.sv[2], a.sv[1], k0, kFix, a.lk,
+                           a.hd, vec16);
+  load_step(0);
+
+  float dk[kN][4], dv[kN][4];
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          pv[m] = p_s[i * kLdP + ty + 16 * m];
-          sv[m] = ds_s[i * kLdP + ty + 16 * m];
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
+  const int fr = 16 * warp + g;
+  const int kw0 = k0 + 16 * warp, kw1 = kw0 + 15;
+  const int mt = warp % kMT, ng = warp / kMT;
+  const int st0 = swz(t), st4 = swz(t + 4);
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();
+    load_step(s + 1);
+    const int h = kvh * a.heads_per_group + s / n_q, q0 = q_first + (s % n_q) * kStr;
+    const bool skip = kw0 >= a.lk || (a.causal && q0 + kStr - 1 < kw0) ||
+                      (a.window > 0 && q0 - kw1 >= a.window);
+    const bool edge = kw1 >= a.lk || q0 + kStr > a.lq || (a.causal && kw1 > q0) ||
+                      (a.window > 0 && q0 + kStr - 1 - kw0 >= a.window);
+    const float* qs = ring + (s % kStages) * Sh::kStage;
+    const float* dos = qs + kStr * kLd;
+    const float* rd = dos + kStr * kLd;
+    // S^T = K Q^T and dP^T = V dO^T (keys in rows, queries in columns),
+    // then P^T and dS^T in place: column 8n + 2t + (e & 1) is query q0 + that.
+    float st[kSN][4], dpt[kSN][4];
+    if (!skip) {
+      scores<kHD, kLd, kSN>(st, ks, fr, qs, g, t, sg);
+      scores<kHD, kLd, kSN>(dpt, vs, fr, dos, g, t, sg);
+#pragma unroll
+      for (int n = 0; n < kSN; ++n) {
+        const float4 ld = *reinterpret_cast<const float4*>(rd + 2 * (8 * n + 2 * t));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse2 = e & 1 ? ld.z : ld.x, dd = e & 1 ? ld.w : ld.y;
+          bool ok = lse2 != -INFINITY;
+          if (edge) ok = ok && allowed(a, q0 + 8 * n + 2 * t + (e & 1), kw0 + g + 8 * (e >> 1));
+          const float p = ok ? fast_exp2(fmaf(st[n][e], a.scale_log2, -lse2)) : 0.0f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - dd);
         }
+      }
+    }
+    // dS^T into dss as [query][key] (zeros from a warp that skips), then
+    // dV += P^T dO and dK += dS^T Q.
 #pragma unroll
-        for (int n = 0; n < kNC; ++n) {
-          const float dov = dos[i * kLd + tx + 16 * n], qv = qs[i * kLd + tx + 16 * n];
+    for (int n = 0; n < kSN; ++n)
 #pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            dv[m][n] = fmaf(pv[m], dov, dv[m][n]);
-            dk[m][n] = fmaf(sv[m], qv, dk[m][n]);
-          }
+      for (int e = 0; e < 4; ++e)
+        dss[(8 * n + 2 * t + (e & 1)) * kLdS + fr + 8 * (e >> 1)] = skip ? 0.0f : dpt[n][e];
+    if (!skip) {
+      accumulate<kSN, kN, kLd>(dv, st, dos, g, t);
+      accumulate<kSN, kN, kLd>(dk, dpt, qs, g, t);
+    }
+    __syncthreads();  // dS of every warp in dss
+    // dQ of rows q0 + 16 mt .. + 15 of head h, n-tiles ng kNPer ..: dS K over
+    // the block's keys, A = dS at (row g, column t), B = K at (rows t and
+    // t + 4, column g); added to dq by atomics.
+    float part[kNPer][4];
+#pragma unroll
+    for (int j = 0; j < kNPer; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < kFix; k += 8) {
+      const float* da = dss + (16 * mt + g) * kLdS + k + t;
+      const float af[4] = {da[0], da[8 * kLdS], da[4], da[8 * kLdS + 4]};
+      const SplitA as(af);
+      const float* kr0 = ks + (k + t) * kLd;
+      const float* kr4 = ks + (k + t + 4) * kLd;
+#pragma unroll
+      for (int jj = 0; jj < kNPer; ++jj) {
+        const int c = 8 * (ng * kNPer + jj) + g;
+        mma3(part[jj], as.big, as.small, kr0[sw_col(c, st0)], kr4[sw_col(c, st4)]);
+      }
+    }
+    float* dqp = a.dq + bi * a.sdq[0] + h * a.sdq[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + 16 * mt + g + 8 * r;
+      if (i >= a.lq) continue;
+#pragma unroll
+      for (int jj = 0; jj < kNPer; ++jj) {
+        const int c = 8 * (ng * kNPer + jj) + 2 * t;
+        float* dst = dqp + i * a.sdq[1] + c;
+        const float x0 = part[jj][2 * r] * a.scale, x1 = part[jj][2 * r + 1] * a.scale;
+        if (c + 1 < a.hd && a.dq8) {
+          atomicAdd(reinterpret_cast<float2*>(dst), make_float2(x0, x1));
+        } else {
+          if (c < a.hd) atomicAdd(dst, x0);
+          if (c + 1 < a.hd) atomicAdd(dst + 1, x1);
         }
       }
     }
   }
+
   float* dkp = a.dk + bi * a.sdk[0] + kvh * a.sdk[2];
   float* dvp = a.dv + bi * a.sdv[0] + kvh * a.sdv[2];
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int j = k0 + ty + 16 * m;
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + fr + 8 * r;
     if (j >= a.lk) continue;
 #pragma unroll
-    for (int n = 0; n < kNC; ++n) {
-      const int c = tx + 16 * n;
-      if (c < a.hd) {
-        dkp[j * a.sdk[1] + c] = dk[m][n] * a.scale;
-        dvp[j * a.sdv[1] + c] = dv[m][n];
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c < a.hd) {
+          dkp[j * a.sdk[1] + c] = dk[n][2 * r + e] * a.scale;
+          dvp[j * a.sdv[1] + c] = dv[n][2 * r + e];
+        }
       }
-    }
-  }
-}
-
-template <int kHD>
-__global__ void __launch_bounds__(kBThreads, 1) attn_bwd_dq_kernel(BwdArgs a) {
-  constexpr int kLd = kHD + 1, kLdP = kBT + 1, kNC = kHD / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = qs + kBT * kLd;
-  float* ks = dos + kBT * kLd;
-  float* vs = ks + kBT * kLd;
-  float* ds_s = vs + kBT * kLd;
-  float* d_s = ds_s + kBT * kLdP;
-  float* lse_s = d_s + kBT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int bi = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int kvh = h / a.heads_per_group;
-  const int q0 = blockIdx.y * kBT;
-  load_tile<kHD>(qs, a.q + bi * a.sq[0] + h * a.sq[2], a.sq[1], q0, a.lq, a.hd);
-  load_tile<kHD>(dos, a.dout + bi * a.sdo[0] + h * a.sdo[2], a.sdo[1], q0, a.lq, a.hd);
-  row_terms(a, bi, h, q0, d_s, lse_s);
-  const float* kp = a.k + bi * a.sk[0] + kvh * a.sk[2];
-  const float* vp = a.v + bi * a.sv[0] + kvh * a.sv[2];
-  float dq[4][kNC];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < kNC; ++n) dq[m][n] = 0.0f;
-  // The keys rows [q0, q_last] reach.
-  const int q_last = min(q0 + kBT, a.lq) - 1;
-  const int j_hi = a.causal ? min(a.lk, q_last + 1) : a.lk;  // exclusive
-  const int j_lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  for (int k0 = j_lo / kBT * kBT; k0 < j_hi; k0 += kBT) {
-    __syncthreads();  // every thread is done with the last tile's ks, ds_s
-    load_tile<kHD>(ks, kp, a.sk[1], k0, a.lk, a.hd);
-    load_tile<kHD>(vs, vp, a.sv[1], k0, a.lk, a.hd);
-    __syncthreads();
-    score_tile<kHD>(a, qs, dos, ks, vs, d_s, lse_s, q0, k0, nullptr, ds_s);
-    __syncthreads();
-    // Query rows ty + 16 m, columns tx + 16 n.
-#pragma unroll 4
-    for (int j = 0; j < kBT; ++j) {
-      float sv[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) sv[m] = ds_s[(ty + 16 * m) * kLdP + j];
-#pragma unroll
-      for (int n = 0; n < kNC; ++n) {
-        const float kv = ks[j * kLd + tx + 16 * n];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) dq[m][n] = fmaf(sv[m], kv, dq[m][n]);
-      }
-    }
-  }
-  float* dqp = a.dq + bi * a.sdq[0] + h * a.sdq[2];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int i = q0 + ty + 16 * m;
-    if (i >= a.lq) continue;
-#pragma unroll
-    for (int n = 0; n < kNC; ++n) {
-      const int c = tx + 16 * n;
-      if (c < a.hd) dqp[i * a.sdq[1] + c] = dq[m][n] * a.scale;
-    }
   }
 }
 
 template <typename Kernel>
-int launch_bwd(Kernel kernel, dim3 grid, size_t bytes, const BwdArgs& a, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kBThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+int launch_bwd(Kernel kernel, dim3 grid, int threads, size_t bytes, const BwdArgs& a,
+               void* stream) {
+  if (bytes > 0) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, threads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: q, k, v, o, dout, lse, dq, dk, dv; strides (batch, seq, head) of
-// q, k, v, o, dout, dq, dk, dv; dims: batch, heads, kv_heads, lq, lk, hd,
+// Dynamic shared memory of backward kernel `kernel` (0 dot, 1 dkdvq) at
+// padded head dim hdp, in bytes.
+size_t bwd_smem(int kernel, int hdp) {
+  if (kernel == 0) return 0;
+  switch (hdp) {
+    case 16: return BwdShape<16>::kSmem;
+    case 32: return BwdShape<32>::kSmem;
+    case 64: return BwdShape<64>::kSmem;
+    default: return BwdShape<128>::kSmem;
+  }
+}
+
+// ptrs: q, k, v, o, dout, lse, dq, dk, dv, rows; strides (batch, seq, head)
+// of q, k, v, o, dout, dq, dk, dv; dims: batch, heads, kv_heads, lq, lk, hd,
 // causal, window. False when the sizes are not taken.
-bool make_bwd_args(BwdArgs& a, int& batch, void* const* ptrs, const long long* strides,
-                   const int* dims, float scale) {
-  batch = dims[0];
-  const int heads = dims[1], kv_heads = dims[2];
+bool make_bwd_args(BwdArgs& a, void* const* ptrs, const long long* strides, const int* dims,
+                   float scale) {
+  const int batch = dims[0], heads = dims[1], kv_heads = dims[2];
   if (dims[5] < 1 || dims[5] > 128 || kv_heads < 1 || heads % kv_heads != 0 || batch < 0 ||
-      dims[3] < 0 || dims[4] < 1 || (dims[3] + kBT - 1) / kBT > 65535 ||
-      (dims[4] + kBT - 1) / kBT > 65535)
+      dims[3] < 0 || dims[4] < 1 || (dims[3] + 63) / 64 > 65535 || (dims[4] + 63) / 64 > 65535)
     return false;
   a.q = static_cast<const float*>(ptrs[0]);
   a.k = static_cast<const float*>(ptrs[1]);
@@ -733,14 +882,32 @@ bool make_bwd_args(BwdArgs& a, int& batch, void* const* ptrs, const long long* s
   a.dq = static_cast<float*>(ptrs[6]);
   a.dk = static_cast<float*>(ptrs[7]);
   a.dv = static_cast<float*>(ptrs[8]);
+  a.rows = static_cast<float*>(ptrs[9]);
   long long* dst[8] = {a.sq, a.sk, a.sv, a.so, a.sdo, a.sdq, a.sdk, a.sdv};
   for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
-  a.heads = heads; a.heads_per_group = heads / kv_heads;
+  a.batch = batch; a.heads = heads; a.heads_per_group = heads / kv_heads;
   a.lq = dims[3]; a.lk = dims[4]; a.hd = dims[5]; a.causal = dims[6]; a.window = dims[7];
   a.scale = scale;
   a.scale_log2 = scale * kLog2e;
+  // 16-byte copies need every row start of q, k, v and dout 16-byte aligned.
+  bool vec16 = a.hd % 4 == 0 && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+               aligned16(a.dout);
+  const long long* const copied[4] = {a.sq, a.sk, a.sv, a.sdo};
+  for (const long long* s : copied)
+    for (int i = 0; i < 3; ++i) vec16 = vec16 && s[i] % 4 == 0;
+  a.vec16 = vec16 ? 1 : 0;
+  bool dq8 = a.hd % 2 == 0 && (reinterpret_cast<uintptr_t>(a.dq) & 7u) == 0;
+  for (int i = 0; i < 3; ++i) dq8 = dq8 && a.sdq[i] % 2 == 0;
+  a.dq8 = dq8 ? 1 : 0;
   return true;
+}
+
+template <int kHD>
+int launch_dkdvq(const BwdArgs& a, void* stream) {
+  using Sh = BwdShape<kHD>;
+  const dim3 grid(a.batch * (a.heads / a.heads_per_group), (a.lk + Sh::kFix - 1) / Sh::kFix);
+  return launch_bwd(attn_bwd_dkdvq_kernel<kHD>, grid, Sh::kThreads, Sh::kSmem, a, stream);
 }
 
 }  // namespace
@@ -791,46 +958,37 @@ extern "C" int block_attn(const float* q, const float* k, const float* v,
 }
 
 // Dynamic shared memory of a backward launch, in bytes: kernel 0 is
-// attn_bwd_dkdv, 1 attn_bwd_dq.
+// attn_bwd_dot, 1 attn_bwd_dkdvq.
 extern "C" long long block_attn_bwd_smem_bytes(int kernel, int hd) {
-  return static_cast<long long>(bwd_smem_bytes(padded_hd(hd), 4, kernel == 0));
+  return static_cast<long long>(bwd_smem(kernel, padded_hd(hd)));
 }
 
-// dK and dV (B, Lk, KV, hd), written whole. Launch before or after
-// block_attn_bwd_dq, on the stream of the forward; never synchronises.
-extern "C" int block_attn_bwd_dkdv(void* const* ptrs, const long long* strides, const int* dims,
-                                   float scale, void* stream) {
+// The two backward kernels, launched in this order on the stream of the
+// forward; each returns the cudaError_t of cudaFuncSetAttribute or of its
+// launch (0 = success) and never synchronises. attn_bwd_dot writes the rows
+// scratch (B, H, Lq, 2); attn_bwd_dkdvq writes dK and dV (B, Lk, KV, hd)
+// whole and adds dQ into a zeroed, contiguous (B, Lq, H, hd) dq.
+extern "C" int block_attn_bwd_dot(void* const* ptrs, const long long* strides, const int* dims,
+                                  float scale, void* stream) {
   BwdArgs a;
-  int batch;
-  if (!make_bwd_args(a, batch, ptrs, strides, dims, scale))
+  if (!make_bwd_args(a, ptrs, strides, dims, scale))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0) return 0;
-  const dim3 grid(batch * (a.heads / a.heads_per_group), (a.lk + kBT - 1) / kBT);
-  const int hdp = padded_hd(a.hd);
-  const size_t bytes = bwd_smem_bytes(hdp, 4, true);
-  switch (hdp) {
-    case 16: return launch_bwd(attn_bwd_dkdv_kernel<16>, grid, bytes, a, stream);
-    case 32: return launch_bwd(attn_bwd_dkdv_kernel<32>, grid, bytes, a, stream);
-    case 64: return launch_bwd(attn_bwd_dkdv_kernel<64>, grid, bytes, a, stream);
-    default: return launch_bwd(attn_bwd_dkdv_kernel<128>, grid, bytes, a, stream);
-  }
+  const long long blocks = (static_cast<long long>(a.batch) * a.heads * a.lq + 7) / 8;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(attn_bwd_dot_kernel, dim3(static_cast<unsigned>(blocks)), 256, 0, a, stream);
 }
 
-// dQ (B, Lq, H, hd), written whole.
-extern "C" int block_attn_bwd_dq(void* const* ptrs, const long long* strides, const int* dims,
-                                 float scale, void* stream) {
+extern "C" int block_attn_bwd_dkdvq(void* const* ptrs, const long long* strides, const int* dims,
+                                    float scale, void* stream) {
   BwdArgs a;
-  int batch;
-  if (!make_bwd_args(a, batch, ptrs, strides, dims, scale))
+  if (!make_bwd_args(a, ptrs, strides, dims, scale))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || a.lq == 0) return 0;
-  const dim3 grid(batch * a.heads, (a.lq + kBT - 1) / kBT);
-  const int hdp = padded_hd(a.hd);
-  const size_t bytes = bwd_smem_bytes(hdp, 4, false);
-  switch (hdp) {
-    case 16: return launch_bwd(attn_bwd_dq_kernel<16>, grid, bytes, a, stream);
-    case 32: return launch_bwd(attn_bwd_dq_kernel<32>, grid, bytes, a, stream);
-    case 64: return launch_bwd(attn_bwd_dq_kernel<64>, grid, bytes, a, stream);
-    default: return launch_bwd(attn_bwd_dq_kernel<128>, grid, bytes, a, stream);
+  if (a.batch == 0) return 0;
+  switch (padded_hd(a.hd)) {
+    case 16: return launch_dkdvq<16>(a, stream);
+    case 32: return launch_dkdvq<32>(a, stream);
+    case 64: return launch_dkdvq<64>(a, stream);
+    default: return launch_dkdvq<128>(a, stream);
   }
 }

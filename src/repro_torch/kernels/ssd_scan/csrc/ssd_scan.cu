@@ -389,7 +389,9 @@ __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
 
 // Stage 2: dS_c rows [128 ns, 128 ns + 128) for one (batch, head, chunk),
 // and exp(cum_last). Blocks: (chunk, batch x head, N slice), slices fastest.
-template <int kPP>
+// kGrad: the backward's dS^loc_c = (C o exp(cum))^T dy, the caller passing
+// C as B and dy as x; the weight of position j is then exp(cum_j).
+template <int kPP, bool kGrad>
 __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
   constexpr int kNT = kPP / 8;
   constexpr int kLdB = ld_tg(kStateRows), kLdX = ld_tg(kPP);
@@ -431,8 +433,11 @@ __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
   load(0);
   chunk_cum<kStateThreads>(cum, carry, dts, dtp, a.sdt[2], len, len, A);
   const double last = cum[len - 1];
-  for (int j = threadIdx.x; j < nj * kStateJ; j += kStateThreads)
-    w[j] = j < len ? dts[j] * exp2f(static_cast<float>(last - cum[j])) : 0.0f;
+  for (int j = threadIdx.x; j < nj * kStateJ; j += kStateThreads) {
+    const float wj = kGrad ? exp2f(static_cast<float>(cum[j]))
+                           : dts[j] * exp2f(static_cast<float>(last - cum[j]));
+    w[j] = j < len ? wj : 0.0f;
+  }
   if (ns == 0 && threadIdx.x == 0)
     a.decay[static_cast<long long>(bh) * a.nc + ci] = exp2f(static_cast<float>(last));
 
@@ -737,373 +742,697 @@ bool make_args(Args& a, void* const* ptrs, const long long* strides, const int* 
 
 // ------------------------------------------------------------------ backward
 //
-// The gradient of the scan, for training, in two kernels launched in order.
-// With G_t = dL/dS_t (N x P), the state's gradient, the reverse recurrence
-//   G_t = C_t dy_t^T + alpha_{t+1} G_{t+1},  alpha_t = exp(dt_t A)
-// gives every input's gradient position by position:
-//   dC_t = S_t dy_t,  dB_t = G_t xdt_t,  dxdt_t = G_t^T B_t,
-//   dx_t = dxdt_t dt_t,  ddt_t = dxdt_t . x_t + A ddA_t,  dA_log = A sum_t ddA_t dt_t,
-// where ddA_r, the gradient of the log-decay dt_r A, is the gradient of every
-// later prefix sum cum_s (s >= r). That is dcum_s = C_s.dC_s - B_s.dB_s (the
-// pairs (s, j) of y minus the pairs (i, s)), so ddA_r = sum_{s >= r} dcum_s:
-// within a chunk a running sum from its end, plus X_c = <G_exit_c, S_last_c>,
-// the pairs that straddle the chunk's end (every later dcum at once). The
-// pair (s, s), (C_s.B_s)(xdt_s.dy_s), is in both of dcum_s's terms and
-// cancels. Where alpha is small it is most of each, and the float32
-// rounding of S, G and the dC and dB rows would survive the cancellation
-// into the running sum; so the kernels leave it out of both and sum
-//   dcum_s = alpha_s C_s^T S_{s-1} dy_s - B_s^T (alpha_{s+1} G_{s+1}) xdt_s
-// from the state before each step's update.
-//   1. bwd_dstate  G_exit_c = alpha_{c1} G_{c1} at each chunk's end c1 - 1, by the
-//                  reverse recurrence over the whole sequence: per (batch,
-//                  head, 8 state columns), one thread a state row, elementwise
-//                  (no reduction); into a float32 scratch (B, H, nc, N, P).
-//   2. bwd_chunk   per (batch, head, chunk): a forward sweep that recomputes
-//                  S_t from the entering state the forward kernels left in
-//                  their `states` scratch (dC_t, dcum's first term), X_c, then
-//                  a reverse sweep of G_t from G_exit_c (dB_t, dxdt_t, dx_t,
-//                  dcum's second term, ddt_t).
-// Both recurrences multiply by alpha step by step, so no exp of a difference
-// of prefix sums is taken and their cancellation (the forward's reason for
-// float64 prefix sums) does not arise; dcum's sums over the block, the
-// running sums of ddA and the dA_log partial are float64. dB and dC are
-// summed over the H/G heads of a group, and dA_log over batches and chunks,
-// by float32 atomicAdd into outputs the caller zeroes: the order of those
-// sums varies from run to run.
+// The gradient of the scan, for training, in the Mamba2 authors' chunked
+// matrix form, mirroring the four forward stages. Within chunk c, with
+// positions i, j, L_ij = exp(cum_i - cum_j) (j <= i), w_j = exp(cum_last -
+// cum_j), CB = C B^T, xdt = x dt, S_c the state entering the chunk (the
+// forward's `states` scratch) and G_c = dloss/dS_{c+1}, the state's gradient
+// at the chunk's end:
+//   1. bwd_chunk_cb    the forward's chunk_cb into its scratch again (C B^T
+//                      per group, lower tiles).
+//   2. bwd_chunk_state dS^loc_c = (C o exp(cum))^T dy per (batch, head,
+//                      chunk): the forward's chunk_state on C and dy, with
+//                      exp(cum_j) in place of w_j; and exp(cum_last).
+//   3. bwd_state_pass  G_{nc-1} = 0, G_{c-1} = exp(cum_last_c) G_c + dS^loc_c,
+//                      in place, in reverse order over the chunks: the one
+//                      sequential part, elementwise, nc steps.
+//   4. bwd_chunk_dc    per (batch, head, chunk, 64-row tile of i), with
+//                      R = (dy xdt^T) o L: dC = R B + diag(exp cum) dy S_c^T,
+//                      and the terms of dcum_i the rows hold,
+//                      sum_{j<i} M_ij + y^off_i.dy_i, M = R o CB.
+//   5. bwd_chunk_db    per (batch, head, chunk, 64-row tile of j):
+//                      dB = R^T C + diag(w) xdt G_c^T, dxdt = (CB o L)^T dy +
+//                      (B o w) G_c, dx = dxdt dt, and the column terms
+//                      sum_{i>j} M_ij, u_j = w_j B_j^T G_c xdt_j, dxdt_j.x_j.
+//   6. bwd_ddt         per (batch, head, chunk): ddA_r, the gradient of the
+//                      log-decay a_r = dt_r A, is the reverse cumulative sum
+//                      of dcum_s = sum_{j<s} M_sj - sum_{i>s} M_is +
+//                      y^off_s.dy_s, plus the state terms summed from r on,
+//                      exp(cum_last) <G_c, S_c> + sum_{j<r} u_j (no terms
+//                      that cancel); ddt_r = dxdt_r.x_r + A ddA_r and the
+//                      chunk's part of dA_log = A sum_r ddA_r dt_r, float64.
+// M = R o CB is strictly lower: the pair (s, s), which dcum_s would hold
+// twice with opposite signs, never enters. The prefix and reverse sums are
+// float64 block scans; each cum difference is rounded to float32 once, as
+// the forward does (chunk_cum). Every product runs on mma.sync m16n8k8 in
+// 3xTF32 (SplitA, SplitB), as the forward stages; in stages 4 and 5 the
+// masked score tile (R, R^T, (CB o L)^T) is formed in the accumulator layout
+// and is the A operand of the next product as it stands (k-index t for
+// column 2t, t + 4 for 2t + 1, the B operand's rows read at 2t and 2t + 1).
+// Shared row strides: 4 (mod 32) for tiles read at (row g, column t) and at
+// (row 2t, column g), 8 (mod 32) for float2 reads at (row g, column 2t).
 //
-// Layout of bwd_chunk: warp w holds state rows 16w .. 16w + 15 and lane l
-// columns l, l + 32, ... (kPL of them): 16 kPL elements of S or G a thread
-// in registers. A step's sums over p (dC, dB) are 16 row sums across the
-// warp's lanes, reduced by a halving butterfly (16 values, 15 shuffles and
-// one more); its sum over n (dxdt) is partial per warp, kept in shared memory
-// for a tile of kBwdT steps and summed across the warps after it. A step's
-// term of dcum is a scalar a thread, summed over the warp by shuffles and
-// over the 8 warps after the tile.
+// dB and dC are summed over the H/G heads of a group by float32 atomicAdd
+// into outputs the caller zeroes, so their order varies from run to run
+// (per-head partials and a fixed-order pass would cost 2 B H L N floats of
+// scratch, 403 MB at mamba2-130m's layer; not measured). dA_log's parts are
+// one float64 a (batch, head, chunk), summed by the caller.
 //
-// Bound: operations. Per (batch, head, position) and state element, the
-// gradient needs 12 FLOP (S: a multiply and an FMA; dC, dB, dxdt: an FMA
-// each; G: an FMA and a multiply): 12 N P FLOP, 38,654,705,664 at
-// mamba2-130m's layer (8, 24, 2,048, 64; N 128), 0.5769 ms at 67 TFLOP/s
-// float32 (no tensor cores), against 338,690,240 bytes read and written
-// once (x, dt, B, C, dy, A_log; dx, ddt, dB, dC, dA_log): 0.1011 ms. The
-// kernels run 19 (bwd_dstate's 3 compute G a second time; dcum's two terms
-// are an FMA each). They are bound by each step's dependent chain and its
-// shuffles, with 1,536 blocks of 8 warps at three blocks an SM, not by
-// either (chip_smoke.py prints the time beside the bound).
-constexpr int kBwdStateThreads = 128;  // one state row a thread (N <= 128)
-constexpr int kBwdStateCols = 8;       // state columns of a bwd_dstate block
-constexpr int kBwdStateT = 64;         // positions staged at once in bwd_dstate
-constexpr int kBwdThreads = 256;       // 8 warps x 16 state rows
-constexpr int kBwdT = 16;              // positions staged at once in bwd_chunk
-constexpr int kMaxN = 128;
+// Bound: operations. At mamba2-130m's layer (8, 24, 2,048, 64; N 128,
+// chunk 256) the chunked form needs dS^loc (2 C N P a chunk), dxdt's two
+// products, dC's two and dB's two (the C x C ones on the C(C+1)/2 causal
+// pairs), R, and C B^T once per group: chip_smoke.py counts them; at 3
+// passes of the dense TF32 rate, ~0.4 ms. The recurrent form's 12 N P
+// float32 FLOP a position (0.577 ms at the SIMT rate) is the other bound.
+constexpr int kBwdThreads = 128;  // 4 warps x 16 rows = one 64-row tile
+constexpr int kBwdK = 32;         // chunk positions a ring stage of bwd_chunk_dc/db
+constexpr int kMaxN = 128;        // the backward takes N <= 128
+constexpr int kMaxNT = kMaxN / 8; // n-tiles over N
+constexpr int kDdtThreads = 256;
 
 struct BwdArgs {
   const float *x, *dt, *a_log, *b, *c, *dy;
-  const float* states;  // the forward's (B, H, nc, Np, Pp): S entering each chunk
-  float* gexit;         // scratch (B, H, nc, N, P)
-  float *dx, *ddt, *da_log, *db, *dc;  // da_log, db, dc zeroed by the caller
+  const float* states;   // the forward's (B, H, nc, Np, Pp): S entering each chunk
+  float* cb;             // scratch (B, G, nc, Cp, Cp): C B^T, lower tiles
+  float* gstates;        // scratch (B, H, nc, Np, Pp): dS^loc_c, then G_c
+  float* decay;          // scratch (B, H, nc): exp(cum_last)
+  float* rowterms;       // scratch (B, H, nc, Cp): sum_{j<i} M_ij + y^off_i.dy_i
+  float* colterms;       // scratch (B, H, nc, Cp, 3): sum_{i>j} M_ij, u_j, dxdt_j.x_j
+  double* dalog;         // scratch (B, H, nc): A sum_r ddA_r dt_r of each chunk
+  float *dx, *ddt, *db, *dc;  // db, dc zeroed by the caller
   long long sx[3], sdt[3], sb[3], sc[3], sdy[3], sdx[3], sddt[3], sdb[3], sdc[3];
-  int batch, heads, groups, seqlen, p, n, chunk, hpg, nc, np, pp;
+  int batch, heads, groups, seqlen, p, n, chunk, hpg, nc, ntile, cpad, np, pp;
+  int x16, bc16, dy16;
 };
 
-// 16 row partials v[k] of a warp -> their sums over the 32 lanes: lanes
-// 2k and 2k + 1 end with row k's sum in v[0].
-__device__ __forceinline__ void reduce16(float (&v)[16], int lane) {
-#pragma unroll
-  for (int half = 8; half >= 1; half >>= 1) {
-    const bool up = (lane & (2 * half)) != 0;
-#pragma unroll
-    for (int k = 0; k < half; ++k) {
-      const float send = up ? v[k] : v[k + half];
-      const float keep = up ? v[k + half] : v[k];
-      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * half);
-    }
+// The forward's view of the backward's operands: for stage 1 as they are,
+// for stage 2 with dy in place of x and C in place of B.
+Args fwd_view(const BwdArgs& a, bool grad) {
+  Args f;
+  f.batch = a.batch; f.heads = a.heads; f.groups = a.groups; f.seqlen = a.seqlen;
+  f.p = a.p; f.n = a.n; f.chunk = a.chunk; f.hpg = a.hpg; f.nc = a.nc; f.ntile = a.ntile;
+  f.cpad = a.cpad; f.np = a.np; f.pp = a.pp;
+  f.x = grad ? a.dy : a.x;
+  f.dt = a.dt;
+  f.a_log = a.a_log;
+  f.b = grad ? a.c : a.b;
+  f.c = a.c;
+  f.y = nullptr;
+  f.cb = a.cb;
+  f.states = a.gstates;
+  f.decay = a.decay;
+  for (int i = 0; i < 3; ++i) {
+    f.sx[i] = grad ? a.sdy[i] : a.sx[i];
+    f.sdt[i] = a.sdt[i];
+    f.sb[i] = grad ? a.sc[i] : a.sb[i];
+    f.sc[i] = a.sc[i];
+    f.sy[i] = 0;
   }
-  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  f.x16 = grad ? a.dy16 : a.x16;
+  f.bc16 = a.bc16;
+  return f;
 }
 
-__global__ void __launch_bounds__(kBwdStateThreads) bwd_dstate_kernel(BwdArgs a) {
-  __shared__ float cs[kBwdStateT][kMaxN];
-  __shared__ float dys[kBwdStateT][kBwdStateCols];
-  __shared__ float als[kBwdStateT];
-  const int bh = blockIdx.x, bi = bh / a.heads, h = bh % a.heads, g = h / a.hpg;
-  const int p0 = blockIdx.y * kBwdStateCols;
-  const int n = threadIdx.x;
-  const float A = -expf(a.a_log[h]);
-  const float* cp = a.c + bi * a.sc[0] + g * a.sc[1];
-  const float* dyp = a.dy + bi * a.sdy[0] + h * a.sdy[1];
-  const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1];
-  float* ge = a.gexit + static_cast<long long>(bh) * a.nc * a.n * a.p;
-  float carry[kBwdStateCols];
-#pragma unroll
-  for (int j = 0; j < kBwdStateCols; ++j) carry[j] = 0.0f;
-  for (int t1 = a.seqlen; t1 > 0; t1 -= kBwdStateT) {
-    const int t0 = max(0, t1 - kBwdStateT), cnt = t1 - t0;
-    __syncthreads();  // every thread is done with the last tile
-    for (int i = threadIdx.x; i < cnt * a.n; i += kBwdStateThreads) {
-      const int r = i / a.n, k = i % a.n;
-      cs[r][k] = cp[(t0 + r) * a.sc[2] + k];
-    }
-    for (int i = threadIdx.x; i < cnt * kBwdStateCols; i += kBwdStateThreads) {
-      const int r = i / kBwdStateCols, j = i % kBwdStateCols;
-      dys[r][j] = p0 + j < a.p ? dyp[(t0 + r) * a.sdy[2] + p0 + j] : 0.0f;
-    }
-    for (int r = threadIdx.x; r < cnt; r += kBwdStateThreads)
-      als[r] = expf(dtp[(t0 + r) * a.sdt[2]] * A);
-    __syncthreads();
-    if (n < a.n) {
-      for (int r = cnt - 1; r >= 0; --r) {
-        const int t = t0 + r;
-        if ((t + 1) % a.chunk == 0 || t == a.seqlen - 1) {  // the last row of its chunk
-          float* dst = ge + (static_cast<long long>(t / a.chunk) * a.n + n) * a.p + p0;
-#pragma unroll
-          for (int j = 0; j < kBwdStateCols; ++j)
-            if (p0 + j < a.p) dst[j] = carry[j];
-        }
-        const float cn = cs[r][n], al = als[r];
-#pragma unroll
-        for (int j = 0; j < kBwdStateCols; ++j) carry[j] = al * fmaf(cn, dys[r][j], carry[j]);
-      }
-    }
+// Stage 3: G_c in place of dS^loc_c, in reverse order. One thread a float4
+// of the (Np, Pp) state of one (batch, head).
+__global__ void __launch_bounds__(kPassThreads) bwd_state_pass_kernel(Args a) {
+  const long long per = static_cast<long long>(a.np) * a.pp / 4;
+  const long long blocks_per = (per + kPassThreads - 1) / kPassThreads;
+  const long long bh = blockIdx.x / blocks_per;
+  const long long e = (blockIdx.x % blocks_per) * kPassThreads + threadIdx.x;
+  if (e >= per) return;
+  float4* st = reinterpret_cast<float4*>(a.states) + bh * a.nc * per + e;
+  const float* dec = a.decay + bh * a.nc;
+  float4 g = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int ci = a.nc - 1; ci >= 0; --ci) {
+    const float4 d = st[ci * per];
+    st[ci * per] = g;
+    const float k = dec[ci];
+    g = make_float4(fmaf(k, g.x, d.x), fmaf(k, g.y, d.y), fmaf(k, g.z, d.z), fmaf(k, g.w, d.w));
   }
 }
 
-// Shared memory of bwd_chunk, in floats from the base: B, C (kBwdT, 128);
-// x, dy (kBwdT, 32 kPL); dt, alpha, the x.dxdt sums (kBwdT); row results
-// (kBwdT, 128); dxdt partials (kBwdT, 8, 32 kPL); dcum's warp partials
-// (kBwdT, 8); then in float64 dcum's first term for the chunk's rows
-// (chunk), dcum (kBwdT) and X partials (8).
-__host__ __device__ constexpr size_t bwd_chunk_floats(int kpw) {
-  return static_cast<size_t>(kBwdT) * (3 * kMaxN + 2 * kpw + 3 + 8 * kpw + 8);
+// Shared memory of bwd_chunk_dc and bwd_chunk_db, in floats after the
+// float64 cum (cpad) and carry (32): dts (and w) (cpad each), the block's
+// own 64-row tile, then one region that holds first the state operands and
+// then the cp.async ring.
+__host__ __device__ constexpr int dc_ring_stage(int pp) {
+  return kBwdK * ld_gt(pp) + kBwdK * ld_2tg(kMaxN) + kTile * (kBwdK + 8);
 }
-size_t bwd_chunk_smem(int pp, int chunk) {
-  const int kpw = pp <= 32 ? 32 : pp <= 64 ? 64 : 128;
-  return (bwd_chunk_floats(kpw) + 1) / 2 * 2 * sizeof(float) +
-         (static_cast<size_t>(chunk) + kBwdT + 8) * sizeof(double);
+__host__ __device__ constexpr int dc_region(int pp) {
+  return mx(kTile * (round_up(kMaxN, 32) + 8) + kMaxN * ld_gt(pp), kStages * dc_ring_stage(pp));
+}
+__host__ __device__ constexpr int db_ring_stage(int pp) {
+  return kBwdK * ld_gt(pp) + kBwdK * ld_2tg(kMaxN) + kBwdK * ld_gt(kTile);
+}
+__host__ __device__ constexpr int db_region(int pp) {
+  return mx(kTile * (round_up(kMaxN, 32) + 8) + kMaxN * ld_gt(pp), kStages * db_ring_stage(pp));
+}
+size_t dc_smem(int pp, int cpad) {
+  return (static_cast<size_t>(cpad) + 32) * sizeof(double) +
+         (static_cast<size_t>(cpad) + kTile * ld_gt(pp) + dc_region(pp)) * sizeof(float);
+}
+size_t db_smem(int pp, int cpad) {
+  return (static_cast<size_t>(cpad) + 32) * sizeof(double) +
+         (2 * static_cast<size_t>(cpad) + kTile * ld_gt(pp) + db_region(pp)) * sizeof(float);
 }
 
-template <int kPL>
-__global__ void __launch_bounds__(kBwdThreads) bwd_chunk_kernel(BwdArgs a) {
-  constexpr int kPW = 32 * kPL;
-  extern __shared__ __align__(16) double smem_bwd[];
-  float* bs = reinterpret_cast<float*>(smem_bwd);       // (kBwdT, 128)
-  float* cs = bs + kBwdT * kMaxN;                         // (kBwdT, 128)
-  float* xs = cs + kBwdT * kMaxN;                         // (kBwdT, kPW)
-  float* dys = xs + kBwdT * kPW;                          // (kBwdT, kPW)
-  float* dts = dys + kBwdT * kPW;                         // (kBwdT)
-  float* als = dts + kBwdT;                               // (kBwdT)
-  float* xdx = als + kBwdT;                               // (kBwdT)
-  float* rows = xdx + kBwdT;                              // (kBwdT, 128)
-  float* red = rows + kBwdT * kMaxN;                      // (kBwdT, 8, kPW)
-  float* offp = red + kBwdT * 8 * kPW;                    // (kBwdT, 8)
-  double* cdd = smem_bwd + (bwd_chunk_floats(kPW) + 1) / 2;  // (chunk)
-  double* dcum = cdd + a.chunk;                           // (kBwdT)
-  double* xsum = dcum + kBwdT;                            // (8)
+// The 8-position k-step k of an A fragment read at (row, column) from a
+// tile with row stride ld, rows ra and ra + 8: a0 (ra, k + t), a1 (ra + 8,
+// k + t), a2 (ra, k + t + 4), a3 (ra + 8, k + t + 4), each row scaled.
+__device__ __forceinline__ SplitA frag_gt(const float* tile, int ld, int ra, int k, int t,
+                                          float sa, float sb) {
+  const float* p = tile + ra * ld + k + t;
+  const float f[4] = {p[0] * sa, p[8 * ld] * sb, p[4] * sa, p[8 * ld + 4] * sb};
+  return SplitA(f);
+}
 
+// A score tile x (16 rows, columns 8n .. 8n + 7) in the accumulator layout
+// as the A operand of step n: k-index t is column 2t, t + 4 is 2t + 1.
+__device__ __forceinline__ SplitA frag_acc(const float (&x)[4]) {
+  const float f[4] = {x[0], x[2], x[1], x[3]};
+  return SplitA(f);
+}
+
+// Stage 4: dC rows [64 it, 64 it + 64) of one (batch, head, chunk), and the
+// rows' dcum terms. Blocks: (tile, chunk, batch x head), heaviest tiles first.
+template <int kPP>
+__global__ void __launch_bounds__(kBwdThreads) bwd_chunk_dc_kernel(BwdArgs a) {
+  constexpr int kLdY = ld_gt(kPP);                       // dy (64, Pp): (g, t)
+  constexpr int kLdC = round_up(kMaxN, 32) + 8;          // C (64, N): float2 at (g, 2t)
+  constexpr int kLdS = ld_gt(kPP);                       // S_c (N, Pp): (g, t)
+  constexpr int kLdX = ld_gt(kPP);                       // x (32, Pp): (g, t)
+  constexpr int kLdB = ld_2tg(kMaxN);                    // B (32, N): (2t, g)
+  constexpr int kLdCB = kBwdK + 8;                       // C B^T (64, 32): float2 at (g, 2t)
+  constexpr int kStage = dc_ring_stage(kPP);
+  extern __shared__ __align__(16) double smem_dc[];
+  double* cum = smem_dc;                                     // (cpad)
+  double* carry = cum + a.cpad;                              // (32)
+  float* dts = reinterpret_cast<float*>(carry + 32);         // (cpad)
+  float* dyt = dts + a.cpad;                                 // (64, kLdY)
+  float* region = dyt + kTile * kLdY;
+  float* ct = region;                                        // phase 1: C (64, kLdC)
+  float* stile = ct + kTile * kLdC;                          //          S_c (N, kLdS)
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
   const int bhs = a.batch * a.heads;
-  const int bh = blockIdx.x % bhs, ci = blockIdx.x / bhs;
-  const int bi = bh / a.heads, h = bh % a.heads, g = h / a.hpg;
+  const int bh = blockIdx.x % bhs;
+  const int ci = (blockIdx.x / bhs) % a.nc;
+  const int it = a.ntile - 1 - static_cast<int>(blockIdx.x / bhs / a.nc);
   const long long c0 = static_cast<long long>(ci) * a.chunk;
   const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
+  const int i0 = it * kTile;
+  if (i0 >= len) return;
+  const int bi = bh / a.heads, h = bh % a.heads, gi = h / a.hpg;
   const float A = -expf(a.a_log[h]);
   const float* xp = a.x + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
   const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
-  const float* bp = a.b + bi * a.sb[0] + g * a.sb[1] + c0 * a.sb[2];
-  const float* cp = a.c + bi * a.sc[0] + g * a.sc[1] + c0 * a.sc[2];
-  const float* dyp = a.dy + bi * a.sdy[0] + h * a.sdy[1] + c0 * a.sdy[2];
-  float* dxp = a.dx + bi * a.sdx[0] + h * a.sdx[1] + c0 * a.sdx[2];
-  float* ddtp = a.ddt + bi * a.sddt[0] + h * a.sddt[1] + c0 * a.sddt[2];
-  float* dbp = a.db + bi * a.sdb[0] + g * a.sdb[1] + c0 * a.sdb[2];
-  float* dcp = a.dc + bi * a.sdc[0] + g * a.sdc[1] + c0 * a.sdc[2];
+  const float* bp = a.b + bi * a.sb[0] + gi * a.sb[1] + c0 * a.sb[2];
+  const float* cp = a.c + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
+  const float* dyp = a.dy + bi * a.sdy[0] + h * a.sdy[1] + (c0 + i0) * a.sdy[2];
+  const float* cbp = a.cb + ((static_cast<long long>(bi) * a.groups + gi) * a.nc + ci) *
+                                a.cpad * a.cpad + static_cast<long long>(i0) * a.cpad;
+  const float* sp = a.states + (static_cast<long long>(bh) * a.nc + ci) * a.np * kPP;
+  const int ntn = a.np / 8;  // n-tiles over N
 
-  // Positions [t0, t0 + cnt) of the chunk into shared memory; zero past N and P.
-  auto stage = [&](int t0, int cnt) {
-    for (int i = threadIdx.x; i < cnt * kMaxN; i += kBwdThreads) {
-      const int r = i / kMaxN, k = i % kMaxN;
-      const bool ok = k < a.n;
-      bs[i] = ok ? bp[(t0 + r) * a.sb[2] + k] : 0.0f;
-      cs[i] = ok ? cp[(t0 + r) * a.sc[2] + k] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < cnt * kPW; i += kBwdThreads) {
-      const int r = i / kPW, k = i % kPW;
-      const bool ok = k < a.p;
-      xs[i] = ok ? xp[(t0 + r) * a.sx[2] + k] : 0.0f;
-      dys[i] = ok ? dyp[(t0 + r) * a.sdy[2] + k] : 0.0f;
-    }
-    for (int r = threadIdx.x; r < cnt; r += kBwdThreads) {
-      const float d = dtp[(t0 + r) * a.sdt[2]];
-      dts[r] = d;
-      als[r] = expf(d * A);
-    }
-  };
-
-  // The entering state, S[k][j] = S[16 warp + k][lane + 32 j].
-  float S[16][kPL];
-  const float* st = a.states + (static_cast<long long>(bh) * a.nc + ci) * a.np * a.pp;
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-#pragma unroll
-    for (int j = 0; j < kPL; ++j) {
-      const int n = 16 * warp + k, p = lane + 32 * j;
-      S[k][j] = n < a.n && p < a.p ? st[n * a.pp + p] : 0.0f;
-    }
-
-  // A thread's part of a step's dcum term -> the warp's, into offp[r][warp].
-  auto warp_part = [&](float part, int r) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) offp[r * 8 + warp] = part;
-  };
-  auto block_part = [&](int r) {
-    double sum = 0.0;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) sum += offp[r * 8 + w];
-    return sum;
-  };
-
-  // Forward sweep: S_t, dC_t = S_t dy_t, alpha_t C_t^T S_{t-1} dy_t.
-  for (int t0 = 0; t0 < len; t0 += kBwdT) {
-    const int cnt = min(kBwdT, len - t0);
-    __syncthreads();
-    stage(t0, cnt);
-    __syncthreads();
-    for (int r = 0; r < cnt; ++r) {
-      const float al = als[r], dtv = dts[r];
-      float xdt[kPL], dyv[kPL];
-#pragma unroll
-      for (int j = 0; j < kPL; ++j) {
-        xdt[j] = xs[r * kPW + lane + 32 * j] * dtv;
-        dyv[j] = dys[r * kPW + lane + 32 * j];
-      }
-      float v[16], part = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const float bn = bs[r * kMaxN + 16 * warp + k], cn = cs[r * kMaxN + 16 * warp + k];
-        float sum = 0.0f, prev = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kPL; ++j) {
-          const float decayed = al * S[k][j];
-          prev = fmaf(decayed, dyv[j], prev);
-          S[k][j] = fmaf(bn, xdt[j], decayed);
-          sum = fmaf(S[k][j], dyv[j], sum);
-        }
-        v[k] = sum;
-        part = fmaf(cn, prev, part);
-      }
-      reduce16(v, lane);
-      if ((lane & 1) == 0) rows[r * kMaxN + 16 * warp + lane / 2] = v[0];
-      warp_part(part, r);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt * a.n; i += kBwdThreads) {
-      const int r = i / a.n, k = i % a.n;
-      atomicAdd(dcp + (t0 + r) * a.sdc[2] + k, rows[r * kMaxN + k]);
-    }
-    for (int r = threadIdx.x; r < cnt; r += kBwdThreads) cdd[t0 + r] = block_part(r);
+  load_rows<kTile, kPP, kBwdThreads>(dyt, kLdY, dyp, a.sdy[2], len - i0, a.p, a.dy16 != 0);
+  if (ci > 0) {
+    load_rows<kTile, kMaxN, kBwdThreads>(ct, kLdC, cp, a.sc[2], len - i0, a.n, a.bc16 != 0);
+    load_dense<kMaxN, kPP, kBwdThreads>(stile, kLdS, sp, kPP, a.np);
   }
-
-  // X = <G_exit, S_last>; S becomes the carried G.
-  const float* ge = a.gexit + (static_cast<long long>(bh) * a.nc + ci) * a.n * a.p;
-  float xpart = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k)
-#pragma unroll
-    for (int j = 0; j < kPL; ++j) {
-      const int n = 16 * warp + k, p = lane + 32 * j;
-      const float gv = n < a.n && p < a.p ? ge[n * a.p + p] : 0.0f;
-      xpart = fmaf(gv, S[k][j], xpart);
-      S[k][j] = gv;
-    }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) xpart += __shfl_xor_sync(0xffffffffu, xpart, off);
-  if (lane == 0) xsum[warp] = xpart;
+  cp_async_commit();
+  chunk_cum<kBwdThreads>(cum, carry, dts, dtp, a.sdt[2], len, i0 + kTile, A);
+  cp_async_wait_all();
   __syncthreads();
-  double acc = 0.0, da = 0.0;  // thread 0's: the running ddA and sum ddA dt
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kBwdThreads / 32; ++w) acc += xsum[w];
 
-  // Reverse sweep: G_t, dB_t = G_t xdt_t, dxdt_t = G_t^T B_t.
-  for (int t1 = len; t1 > 0; t1 -= kBwdT) {
-    const int t0 = max(0, t1 - kBwdT), cnt = t1 - t0;
-    __syncthreads();
-    stage(t0, cnt);
-    __syncthreads();
-    for (int r = cnt - 1; r >= 0; --r) {
-      const float al = als[r], dtv = dts[r];
-      float xdt[kPL], dyv[kPL], u[kPL];
+  const int ra = 16 * warp + g, rb = ra + 8;  // this lane's rows in the tile
+  const int ia = i0 + ra, ib = i0 + rb;       // ... in the chunk
+  const double cum_a = cum[ia], cum_b = cum[ib];
+  float acc[kMaxNT][4];
 #pragma unroll
-      for (int j = 0; j < kPL; ++j) {
-        xdt[j] = xs[r * kPW + lane + 32 * j] * dtv;
-        dyv[j] = dys[r * kPW + lane + 32 * j];
-        u[j] = 0.0f;
-      }
-      float v[16], part = 0.0f;
+  for (int j = 0; j < kMaxNT; ++j)
 #pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const float cn = cs[r * kMaxN + 16 * warp + k], bn = bs[r * kMaxN + 16 * warp + k];
-        float sum = 0.0f, later = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float row_a = 0.0f, row_b = 0.0f;  // this lane's part of the rows' dcum terms
+  if (ci > 0) {
+    // acc = exp(cum_i) (dy S_c^T)_i, then y^off_i.dy_i = C_i . acc_i.
 #pragma unroll
-        for (int j = 0; j < kPL; ++j) {
-          later = fmaf(S[k][j], xdt[j], later);  // S holds alpha_{t+1} G_{t+1}
-          const float gk = fmaf(cn, dyv[j], S[k][j]);
-          sum = fmaf(gk, xdt[j], sum);
-          u[j] = fmaf(gk, bn, u[j]);
-          S[k][j] = al * gk;
+    for (int k = 0; k < kPP; k += 8) {
+      const SplitA as = frag_gt(dyt, kLdY, ra, k, t, 1.0f, 1.0f);
+#pragma unroll
+      for (int j = 0; j < kMaxNT; ++j) {
+        if (j < ntn) {
+          const float* sb = stile + (8 * j + g) * kLdS + k + t;
+          as.mma(acc[j], SplitB(sb[0], sb[4]));
         }
-        v[k] = sum;
-        part = fmaf(bn, later, part);
-      }
-      reduce16(v, lane);
-      if ((lane & 1) == 0) rows[r * kMaxN + 16 * warp + lane / 2] = v[0];
-#pragma unroll
-      for (int j = 0; j < kPL; ++j) red[(r * 8 + warp) * kPW + lane + 32 * j] = u[j];
-      warp_part(part, r);
-    }
-    __syncthreads();
-    // dxdt over the warps -> dx; x.dxdt partials in red[r][0].
-    for (int i = threadIdx.x; i < cnt * a.p; i += kBwdThreads) {
-      const int r = i / a.p, k = i % a.p;
-      float sum = 0.0f;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) sum += red[(r * 8 + w) * kPW + k];
-      dxp[(t0 + r) * a.sdx[2] + k] = sum * dts[r];
-      red[r * 8 * kPW + k] = sum * xs[r * kPW + k];
-    }
-    for (int i = threadIdx.x; i < cnt * a.n; i += kBwdThreads) {
-      const int r = i / a.n, k = i % a.n;
-      atomicAdd(dbp + (t0 + r) * a.sdb[2] + k, rows[r * kMaxN + k]);
-    }
-    __syncthreads();
-    for (int r = warp; r < cnt; r += kBwdThreads / 32) {
-      float sx = 0.0f;
-      for (int k = lane; k < a.p; k += 32) sx += red[r * 8 * kPW + k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sx += __shfl_xor_sync(0xffffffffu, sx, off);
-      if (lane == 0) {
-        xdx[r] = sx;
-        dcum[r] = cdd[t0 + r] - block_part(r);
       }
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int r = cnt - 1; r >= 0; --r) {
-        acc += dcum[r];
-        ddtp[(t0 + r) * a.sddt[2]] = xdx[r] + static_cast<float>(acc * A);
-        da += acc * dts[r];
+    const float ea = exp2f(static_cast<float>(cum_a)), eb = exp2f(static_cast<float>(cum_b));
+#pragma unroll
+    for (int j = 0; j < kMaxNT; ++j) {
+      acc[j][0] *= ea;
+      acc[j][1] *= ea;
+      acc[j][2] *= eb;
+      acc[j][3] *= eb;
+      if (j < ntn) {
+        const float2 ca = *reinterpret_cast<const float2*>(ct + ra * kLdC + 8 * j + 2 * t);
+        const float2 cb = *reinterpret_cast<const float2*>(ct + rb * kLdC + 8 * j + 2 * t);
+        row_a = fmaf(ca.x, acc[j][0], fmaf(ca.y, acc[j][1], row_a));
+        row_b = fmaf(cb.x, acc[j][2], fmaf(cb.y, acc[j][3], row_b));
       }
     }
   }
-  if (threadIdx.x == 0 && len > 0) atomicAdd(a.da_log + h, static_cast<float>(da * A));
+  __syncthreads();  // the region now takes the ring
+
+  // Stages: the kBwdK-column slices of R left of and on the diagonal.
+  const int nstage = (min(len, i0 + kTile) - 1) / kBwdK + 1;
+  auto load = [&](int s) {
+    if (s < nstage) {
+      float* dst = region + (s % kStages) * kStage;
+      const int j0 = s * kBwdK;
+      load_rows<kBwdK, kPP, kBwdThreads>(dst, kLdX, xp + j0 * a.sx[2], a.sx[2], len - j0, a.p,
+                                         a.x16 != 0);
+      load_rows<kBwdK, kMaxN, kBwdThreads>(dst + kBwdK * kLdX, kLdB, bp + j0 * a.sb[2], a.sb[2],
+                                           len - j0, a.n, a.bc16 != 0);
+      load_dense<kTile, kBwdK, kBwdThreads>(dst + kBwdK * kLdX + kBwdK * kLdB, kLdCB, cbp + j0,
+                                            a.cpad, kTile);
+    }
+    cp_async_commit();
+  };
+  load(0);
+  const int w_hi = i0 + 16 * warp + 15;  // the warp's last chunk row
+  for (int s = 0; s < nstage; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s visible; the other stage free
+    load(s + 1);
+    const int j0 = s * kBwdK;
+    if (j0 > w_hi) continue;  // right of all the warp's rows (warp-uniform)
+    const float* xs = region + (s % kStages) * kStage;
+    const float* bs = xs + kBwdK * kLdX;
+    const float* cbs = bs + kBwdK * kLdB;
+    // R = dy_i . xdt_j over this stage's columns.
+    float r[kBwdK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBwdK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[n][e] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPP; k += 8) {
+      const SplitA as = frag_gt(dyt, kLdY, ra, k, t, 1.0f, 1.0f);
+#pragma unroll
+      for (int n = 0; n < kBwdK / 8; ++n) {
+        if (j0 + 8 * n <= w_hi) {
+          const float* xb = xs + (8 * n + g) * kLdX + k + t;
+          const float d = dts[j0 + 8 * n + g];
+          as.mma(r[n], SplitB(xb[0] * d, xb[4] * d));
+        }
+      }
+    }
+    // R o L, masked before the exp; sum_{j<i} M_ij; dC += (R o L) B.
+#pragma unroll
+    for (int n = 0; n < kBwdK / 8; ++n) {
+      if (j0 + 8 * n > w_hi) continue;
+      const int j = j0 + 8 * n + 2 * t;
+      const float2 cba = *reinterpret_cast<const float2*>(cbs + ra * kLdCB + 8 * n + 2 * t);
+      const float2 cbb = *reinterpret_cast<const float2*>(cbs + rb * kLdCB + 8 * n + 2 * t);
+      const double cj0 = cum[j], cj1 = cum[j + 1];
+      r[n][0] = j <= ia ? r[n][0] * exp2f(static_cast<float>(cum_a - cj0)) : 0.0f;
+      r[n][1] = j + 1 <= ia ? r[n][1] * exp2f(static_cast<float>(cum_a - cj1)) : 0.0f;
+      r[n][2] = j <= ib ? r[n][2] * exp2f(static_cast<float>(cum_b - cj0)) : 0.0f;
+      r[n][3] = j + 1 <= ib ? r[n][3] * exp2f(static_cast<float>(cum_b - cj1)) : 0.0f;
+      row_a += (j < ia ? r[n][0] * cba.x : 0.0f) + (j + 1 < ia ? r[n][1] * cba.y : 0.0f);
+      row_b += (j < ib ? r[n][2] * cbb.x : 0.0f) + (j + 1 < ib ? r[n][3] * cbb.y : 0.0f);
+      const SplitA as = frag_acc(r[n]);
+      const float* bb = bs + (8 * n + 2 * t) * kLdB + g;
+#pragma unroll
+      for (int jn = 0; jn < kMaxNT; ++jn)
+        if (jn < ntn) as.mma(acc[jn], SplitB(bb[8 * jn], bb[kLdB + 8 * jn]));
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    row_a += __shfl_xor_sync(0xffffffffu, row_a, off);
+    row_b += __shfl_xor_sync(0xffffffffu, row_b, off);
+  }
+  float* dcp = a.dc + bi * a.sdc[0] + gi * a.sdc[1] + c0 * a.sdc[2];
+  float* rows = a.rowterms + (static_cast<long long>(bh) * a.nc + ci) * a.cpad;
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int row = r2 == 0 ? ia : ib;
+    if (row >= len) continue;
+    if (t == 0) rows[row] = r2 == 0 ? row_a : row_b;
+#pragma unroll
+    for (int j = 0; j < kMaxNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (col < a.n) atomicAdd(dcp + row * a.sdc[2] + col, acc[j][2 * r2 + e]);
+      }
+  }
 }
 
-// ptrs: x, dt, a_log, b, c, dy, states, gexit, dx, ddt, da_log, db, dc;
-// strides (batch, head or group, seq) of x, dt, b, c, dy, dx, ddt, db, dc.
+// Stage 5: dB, dx and the column terms of rows [64 jt, 64 jt + 64) of one
+// (batch, head, chunk). Blocks: (tile, chunk, batch x head), heaviest (the
+// first) tiles first.
+template <int kPP>
+__global__ void __launch_bounds__(kBwdThreads) bwd_chunk_db_kernel(BwdArgs a) {
+  constexpr int kNT = kPP / 8;
+  constexpr int kLdX = ld_gt(kPP);                       // x (64, Pp): (g, t)
+  constexpr int kLdBt = round_up(kMaxN, 32) + 8;         // B (64, N): float2 at (g, 2t)
+  constexpr int kLdG = ld_gt(kPP);                       // G_c (N, Pp): (g, t) and (2t, g)
+  constexpr int kLdY = ld_gt(kPP);                       // dy (32, Pp): (g, t) and (2t, g)
+  constexpr int kLdC = ld_2tg(kMaxN);                    // C (32, N): (2t, g)
+  constexpr int kLdCB = ld_gt(kTile);                    // C B^T (32 i, 64 j): (2t, g)
+  constexpr int kStage = db_ring_stage(kPP);
+  extern __shared__ __align__(16) double smem_db[];
+  double* cum = smem_db;                                     // (cpad)
+  double* carry = cum + a.cpad;                              // (32)
+  float* dts = reinterpret_cast<float*>(carry + 32);         // (cpad)
+  float* w = dts + a.cpad;                                   // (cpad)
+  float* xt = w + a.cpad;                                    // (64, kLdX)
+  float* region = xt + kTile * kLdX;
+  float* bt = region;                                        // phase 1: B (64, kLdBt)
+  float* gt = bt + kTile * kLdBt;                            //          G_c (N, kLdG)
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bhs = a.batch * a.heads;
+  const int bh = blockIdx.x % bhs;
+  const int ci = (blockIdx.x / bhs) % a.nc;
+  const int jt = static_cast<int>(blockIdx.x / bhs / a.nc);
+  const long long c0 = static_cast<long long>(ci) * a.chunk;
+  const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
+  const int j0 = jt * kTile;
+  if (j0 >= len) return;
+  const int bi = bh / a.heads, h = bh % a.heads, gi = h / a.hpg;
+  const float A = -expf(a.a_log[h]);
+  const float* xp = a.x + bi * a.sx[0] + h * a.sx[1] + (c0 + j0) * a.sx[2];
+  const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
+  const float* bp = a.b + bi * a.sb[0] + gi * a.sb[1] + (c0 + j0) * a.sb[2];
+  const float* cp = a.c + bi * a.sc[0] + gi * a.sc[1] + c0 * a.sc[2];
+  const float* dyp = a.dy + bi * a.sdy[0] + h * a.sdy[1] + c0 * a.sdy[2];
+  const float* cbp = a.cb + ((static_cast<long long>(bi) * a.groups + gi) * a.nc + ci) *
+                                a.cpad * a.cpad + j0;
+  const float* gp = a.gstates + (static_cast<long long>(bh) * a.nc + ci) * a.np * kPP;
+  const bool has_g = ci + 1 < a.nc;  // G of the last chunk is 0
+  const int ntn = a.np / 8;
+
+  load_rows<kTile, kPP, kBwdThreads>(xt, kLdX, xp, a.sx[2], len - j0, a.p, a.x16 != 0);
+  if (has_g) {
+    load_rows<kTile, kMaxN, kBwdThreads>(bt, kLdBt, bp, a.sb[2], len - j0, a.n, a.bc16 != 0);
+    load_dense<kMaxN, kPP, kBwdThreads>(gt, kLdG, gp, kPP, a.np);
+  }
+  cp_async_commit();
+  chunk_cum<kBwdThreads>(cum, carry, dts, dtp, a.sdt[2], len, a.cpad, A);
+  const double last = cum[len - 1];
+  for (int r = threadIdx.x; r < a.cpad; r += kBwdThreads)
+    w[r] = r < len ? exp2f(static_cast<float>(last - cum[r])) : 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int ra = 16 * warp + g, rb = ra + 8;  // this lane's rows in the tile
+  const int ja = j0 + ra, jb = j0 + rb;       // ... in the chunk
+  const float dta = dts[ja], dtb = dts[jb];
+  const double cum_a = cum[ja], cum_b = cum[jb];
+  float dbacc[kMaxNT][4], dxdt[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kMaxNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbacc[j][e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dxdt[j][e] = 0.0f;
+  float u_a = 0.0f, u_b = 0.0f;
+  if (has_g) {
+    // dB = diag(w) xdt G_c^T.
+#pragma unroll
+    for (int k = 0; k < kPP; k += 8) {
+      const SplitA as = frag_gt(xt, kLdX, ra, k, t, dta, dtb);
+#pragma unroll
+      for (int jn = 0; jn < kMaxNT; ++jn) {
+        if (jn < ntn) {
+          const float* gb = gt + (8 * jn + g) * kLdG + k + t;
+          as.mma(dbacc[jn], SplitB(gb[0], gb[4]));
+        }
+      }
+    }
+    // dxdt = diag(w) B G_c: k-index t is state row k + 2t, t + 4 is k + 2t + 1.
+#pragma unroll
+    for (int kn = 0; kn < kMaxNT; ++kn) {
+      if (kn < ntn) {
+        const int k = 8 * kn;
+        const float2 lo = *reinterpret_cast<const float2*>(bt + ra * kLdBt + k + 2 * t);
+        const float2 hi = *reinterpret_cast<const float2*>(bt + rb * kLdBt + k + 2 * t);
+        const float af[4] = {lo.x, hi.x, lo.y, hi.y};
+        const SplitA as(af);
+        const float* gb = gt + (k + 2 * t) * kLdG + g;
+#pragma unroll
+        for (int jp = 0; jp < kNT; ++jp) as.mma(dxdt[jp], SplitB(gb[8 * jp], gb[kLdG + 8 * jp]));
+      }
+    }
+    // u_j = w_j xdt_j . (B G_c)_j, and the w scaling.
+    const float wa = w[ja], wb = w[jb];
+#pragma unroll
+    for (int jp = 0; jp < kNT; ++jp) {
+      const float2 xa = *reinterpret_cast<const float2*>(xt + ra * kLdX + 8 * jp + 2 * t);
+      const float2 xb = *reinterpret_cast<const float2*>(xt + rb * kLdX + 8 * jp + 2 * t);
+      u_a = fmaf(xa.x, dxdt[jp][0], fmaf(xa.y, dxdt[jp][1], u_a));
+      u_b = fmaf(xb.x, dxdt[jp][2], fmaf(xb.y, dxdt[jp][3], u_b));
+      dxdt[jp][0] *= wa;
+      dxdt[jp][1] *= wa;
+      dxdt[jp][2] *= wb;
+      dxdt[jp][3] *= wb;
+    }
+    u_a *= dta * wa;
+    u_b *= dtb * wb;
+#pragma unroll
+    for (int jn = 0; jn < kMaxNT; ++jn) {
+      dbacc[jn][0] *= wa;
+      dbacc[jn][1] *= wa;
+      dbacc[jn][2] *= wb;
+      dbacc[jn][3] *= wb;
+    }
+  }
+  __syncthreads();  // the region now takes the ring
+
+  // Stages: the kBwdK-row slices of i from j0 to the chunk's end.
+  const int nstage = (len - j0 + kBwdK - 1) / kBwdK;
+  auto load = [&](int s) {
+    if (s < nstage) {
+      float* dst = region + (s % kStages) * kStage;
+      const int i0 = j0 + s * kBwdK;
+      load_rows<kBwdK, kPP, kBwdThreads>(dst, kLdY, dyp + i0 * a.sdy[2], a.sdy[2], len - i0,
+                                         a.p, a.dy16 != 0);
+      load_rows<kBwdK, kMaxN, kBwdThreads>(dst + kBwdK * kLdY, kLdC, cp + i0 * a.sc[2], a.sc[2],
+                                           len - i0, a.n, a.bc16 != 0);
+      load_dense<kBwdK, kTile, kBwdThreads>(dst + kBwdK * kLdY + kBwdK * kLdC, kLdCB,
+                                            cbp + static_cast<long long>(i0) * a.cpad, a.cpad,
+                                            kBwdK);
+    }
+    cp_async_commit();
+  };
+  load(0);
+  const int w_lo = j0 + 16 * warp;  // the warp's first chunk row
+  float col_a = 0.0f, col_b = 0.0f;  // this lane's part of sum_{i>j} M_ij
+  for (int s = 0; s < nstage; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s visible; the other stage free
+    load(s + 1);
+    const int i0 = j0 + s * kBwdK;
+    if (i0 + kBwdK - 1 < w_lo) continue;  // above all the warp's rows (warp-uniform)
+    const float* ys = region + (s % kStages) * kStage;
+    const float* cs = ys + kBwdK * kLdY;
+    const float* cbs = cs + kBwdK * kLdC;
+    // R^T = xdt_j . dy_i over this stage's rows i.
+    float r[kBwdK / 8][4], q[kBwdK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBwdK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[n][e] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPP; k += 8) {
+      const SplitA as = frag_gt(xt, kLdX, ra, k, t, dta, dtb);
+#pragma unroll
+      for (int n = 0; n < kBwdK / 8; ++n) {
+        const float* yb = ys + (8 * n + g) * kLdY + k + t;
+        as.mma(r[n], SplitB(yb[0], yb[4]));
+      }
+    }
+    // E = L_ij (masked before the exp), R^T o E, (C B^T o E)^T, sum_{i>j} M_ij.
+#pragma unroll
+    for (int n = 0; n < kBwdK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ii = 8 * n + 2 * t + (e & 1);   // row of the stage
+        const int i = i0 + ii, j = e < 2 ? ja : jb;
+        const bool ok = i >= j && i < len;
+        const float cbv = cbs[ii * kLdCB + (e < 2 ? ra : rb)];
+        const float el = ok ? exp2f(static_cast<float>(cum[i] - (e < 2 ? cum_a : cum_b))) : 0.0f;
+        r[n][e] = ok ? r[n][e] * el : 0.0f;
+        q[n][e] = ok ? cbv * el : 0.0f;
+        const float m = i > j && ok ? r[n][e] * cbv : 0.0f;
+        if (e < 2) col_a += m; else col_b += m;
+      }
+    // dB += (R^T o E) C_i, dxdt += (C B^T o E)^T dy_i.
+#pragma unroll
+    for (int n = 0; n < kBwdK / 8; ++n) {
+      const SplitA ar = frag_acc(r[n]), aq = frag_acc(q[n]);
+      const float* cb = cs + (8 * n + 2 * t) * kLdC + g;
+#pragma unroll
+      for (int jn = 0; jn < kMaxNT; ++jn)
+        if (jn < ntn) ar.mma(dbacc[jn], SplitB(cb[8 * jn], cb[kLdC + 8 * jn]));
+      const float* yb = ys + (8 * n + 2 * t) * kLdY + g;
+#pragma unroll
+      for (int jp = 0; jp < kNT; ++jp) aq.mma(dxdt[jp], SplitB(yb[8 * jp], yb[kLdY + 8 * jp]));
+    }
+  }
+
+  // dx = dxdt dt, dxdt.x, and the quad sums of the column terms.
+  float xd_a = 0.0f, xd_b = 0.0f;
+#pragma unroll
+  for (int jp = 0; jp < kNT; ++jp) {
+    const float2 xa = *reinterpret_cast<const float2*>(xt + ra * kLdX + 8 * jp + 2 * t);
+    const float2 xb = *reinterpret_cast<const float2*>(xt + rb * kLdX + 8 * jp + 2 * t);
+    xd_a = fmaf(xa.x, dxdt[jp][0], fmaf(xa.y, dxdt[jp][1], xd_a));
+    xd_b = fmaf(xb.x, dxdt[jp][2], fmaf(xb.y, dxdt[jp][3], xd_b));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    col_a += __shfl_xor_sync(0xffffffffu, col_a, off);
+    col_b += __shfl_xor_sync(0xffffffffu, col_b, off);
+    u_a += __shfl_xor_sync(0xffffffffu, u_a, off);
+    u_b += __shfl_xor_sync(0xffffffffu, u_b, off);
+    xd_a += __shfl_xor_sync(0xffffffffu, xd_a, off);
+    xd_b += __shfl_xor_sync(0xffffffffu, xd_b, off);
+  }
+  float* dxp = a.dx + bi * a.sdx[0] + h * a.sdx[1] + c0 * a.sdx[2];
+  float* dbp = a.db + bi * a.sdb[0] + gi * a.sdb[1] + c0 * a.sdb[2];
+  float* cols = a.colterms + (static_cast<long long>(bh) * a.nc + ci) * a.cpad * 3;
+#pragma unroll
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int row = r2 == 0 ? ja : jb;
+    if (row >= len) continue;
+    const float d = r2 == 0 ? dta : dtb;
+    if (t == 0) {
+      cols[3 * row] = r2 == 0 ? col_a : col_b;
+      cols[3 * row + 1] = r2 == 0 ? u_a : u_b;
+      cols[3 * row + 2] = r2 == 0 ? xd_a : xd_b;
+    }
+#pragma unroll
+    for (int jp = 0; jp < kNT; ++jp)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jp + 2 * t + e;
+        if (col < a.p) dxp[row * a.sdx[2] + col] = dxdt[jp][2 * r2 + e] * d;
+      }
+#pragma unroll
+    for (int jn = 0; jn < kMaxNT; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * jn + 2 * t + e;
+        if (col < a.n) atomicAdd(dbp + row * a.sdb[2] + col, dbacc[jn][2 * r2 + e]);
+      }
+  }
+}
+
+// In-place inclusive prefix sums of v[0, count) (float64, shared memory): a
+// run of rows a thread, then warp-shuffle scans of the runs. Ends with a
+// barrier.
+template <int kThreads>
+__device__ void block_scan(double* v, double* carry, int count) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int per = (count + kThreads - 1) / kThreads;
+  const int lo = threadIdx.x * per;
+  double run = 0.0;
+  for (int k = 0; k < per; ++k)
+    if (lo + k < count) {
+      run += v[lo + k];
+      v[lo + k] = run;
+    }
+  double incl = run;
+  for (int off = 1; off < 32; off <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == 31) carry[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    double c = lane < kThreads / 32 ? carry[lane] : 0.0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, c, off);
+      if (lane >= off) c += u;
+    }
+    if (lane < kThreads / 32) carry[lane] = c;
+  }
+  __syncthreads();
+  const double offset = (incl - run) + (warp > 0 ? carry[warp - 1] : 0.0);
+  for (int k = 0; k < per; ++k)
+    if (lo + k < count) v[lo + k] += offset;
+  __syncthreads();
+}
+
+// A block-wide float64 sum; every thread gets it. `red` holds 32 doubles.
+template <int kThreads>
+__device__ double block_sum(double v, double* red) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double s = 0.0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// Stage 6: ddt and the chunk's part of dA_log, per (batch, head, chunk).
+// Shared: the reverse sums and the prefix sums (cpad float64 each), 32 for
+// the carries and 32 for the block sums.
+__global__ void __launch_bounds__(kDdtThreads) bwd_ddt_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) double smem_dd[];
+  double* suf = smem_dd;          // reversed: suf[len - 1 - s] = dcum_s, then its prefix sums
+  double* pre = suf + a.cpad;     // u_j, then its prefix sums
+  double* carry = pre + a.cpad;   // (32)
+  double* red = carry + 32;       // (32)
+  const int bhs = a.batch * a.heads;
+  const int bh = blockIdx.x % bhs, ci = blockIdx.x / bhs;
+  const int bi = bh / a.heads, h = bh % a.heads;
+  const long long c0 = static_cast<long long>(ci) * a.chunk;
+  const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
+  const float A = -expf(a.a_log[h]);
+  const long long cidx = static_cast<long long>(bh) * a.nc + ci;
+  const float* rows = a.rowterms + cidx * a.cpad;
+  const float* cols = a.colterms + cidx * a.cpad * 3;
+  const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
+  float* ddtp = a.ddt + bi * a.sddt[0] + h * a.sddt[1] + c0 * a.sddt[2];
+  for (int r = threadIdx.x; r < len; r += kDdtThreads) {
+    suf[len - 1 - r] = static_cast<double>(rows[r]) - static_cast<double>(cols[3 * r]);
+    pre[r] = cols[3 * r + 1];
+  }
+  // <G_c, S_c> over the (Np, Pp) state; 0 for the last chunk (G = 0).
+  const long long per = static_cast<long long>(a.np) * a.pp;
+  const float* gs = a.gstates + cidx * per;
+  const float* ss = a.states + cidx * per;
+  double dot = 0.0;
+  for (long long e = threadIdx.x; e < per; e += kDdtThreads)
+    dot += static_cast<double>(gs[e]) * static_cast<double>(ss[e]);
+  dot = block_sum<kDdtThreads>(dot, red);  // (its barriers publish suf and pre)
+  block_scan<kDdtThreads>(suf, carry, len);
+  block_scan<kDdtThreads>(pre, carry, len);
+  const double state = static_cast<double>(a.decay[cidx]) * dot;
+  double da = 0.0;
+  for (int r = threadIdx.x; r < len; r += kDdtThreads) {
+    const double dda = suf[len - 1 - r] + state + (pre[r] - static_cast<double>(cols[3 * r + 1]));
+    ddtp[r * a.sddt[2]] = static_cast<float>(cols[3 * r + 2] + static_cast<double>(A) * dda);
+    da += dda * static_cast<double>(dtp[r * a.sdt[2]]);
+  }
+  da = block_sum<kDdtThreads>(da, red);
+  if (threadIdx.x == 0) a.dalog[cidx] = da * static_cast<double>(A);
+}
+
+size_t ddt_smem(int cpad) { return (2 * static_cast<size_t>(cpad) + 64) * sizeof(double); }
+
+// ptrs: x, dt, a_log, b, c, dy, states, cb, gstates, decay, rowterms,
+// colterms, dalog, dx, ddt, db, dc; strides (batch, head or group, seq) of
+// x, dt, b, c, dy, dx, ddt, db, dc.
 bool make_bwd_args(BwdArgs& a, void* const* ptrs, const long long* strides, const int* dims) {
   Args f;
   if (!set_sizes(f, dims) || f.n > kMaxN) return false;
   a.batch = f.batch; a.heads = f.heads; a.groups = f.groups; a.seqlen = f.seqlen;
-  a.p = f.p; a.n = f.n; a.chunk = f.chunk; a.hpg = f.hpg; a.nc = f.nc; a.np = f.np; a.pp = f.pp;
+  a.p = f.p; a.n = f.n; a.chunk = f.chunk; a.hpg = f.hpg; a.nc = f.nc; a.ntile = f.ntile;
+  a.cpad = f.cpad; a.np = f.np; a.pp = f.pp;
   a.x = static_cast<const float*>(ptrs[0]);
   a.dt = static_cast<const float*>(ptrs[1]);
   a.a_log = static_cast<const float*>(ptrs[2]);
@@ -1111,16 +1440,63 @@ bool make_bwd_args(BwdArgs& a, void* const* ptrs, const long long* strides, cons
   a.c = static_cast<const float*>(ptrs[4]);
   a.dy = static_cast<const float*>(ptrs[5]);
   a.states = static_cast<const float*>(ptrs[6]);
-  a.gexit = static_cast<float*>(ptrs[7]);
-  a.dx = static_cast<float*>(ptrs[8]);
-  a.ddt = static_cast<float*>(ptrs[9]);
-  a.da_log = static_cast<float*>(ptrs[10]);
-  a.db = static_cast<float*>(ptrs[11]);
-  a.dc = static_cast<float*>(ptrs[12]);
+  a.cb = static_cast<float*>(ptrs[7]);
+  a.gstates = static_cast<float*>(ptrs[8]);
+  a.decay = static_cast<float*>(ptrs[9]);
+  a.rowterms = static_cast<float*>(ptrs[10]);
+  a.colterms = static_cast<float*>(ptrs[11]);
+  a.dalog = static_cast<double*>(ptrs[12]);
+  a.dx = static_cast<float*>(ptrs[13]);
+  a.ddt = static_cast<float*>(ptrs[14]);
+  a.db = static_cast<float*>(ptrs[15]);
+  a.dc = static_cast<float*>(ptrs[16]);
   long long* dst[9] = {a.sx, a.sdt, a.sb, a.sc, a.sdy, a.sdx, a.sddt, a.sdb, a.sdc};
   for (int t = 0; t < 9; ++t)
     for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  bool bc16 = a.n % 4 == 0 && aligned16(a.b) && aligned16(a.c);
+  bool x16 = a.p % 4 == 0 && aligned16(a.x);
+  bool dy16 = a.p % 4 == 0 && aligned16(a.dy);
+  for (int i = 0; i < 3; ++i) {
+    bc16 = bc16 && a.sb[i] % 4 == 0 && a.sc[i] % 4 == 0;
+    x16 = x16 && a.sx[i] % 4 == 0;
+    dy16 = dy16 && a.sdy[i] % 4 == 0;
+  }
+  a.bc16 = bc16 ? 1 : 0;
+  a.x16 = x16 ? 1 : 0;
+  a.dy16 = dy16 ? 1 : 0;
   return true;
+}
+
+// Launch shape of backward kernel 0..5 (BWD order): dynamic shared memory,
+// blocks, threads.
+void bwd_shape(int kernel, const BwdArgs& a, long long* out) {
+  const Args f = fwd_view(a, kernel == 1);
+  const long long bhc = static_cast<long long>(a.batch) * a.heads * a.nc;
+  switch (kernel) {
+    case 0: out[0] = stage_smem(0, f); out[1] = stage_blocks(0, f); out[2] = kCbThreads; break;
+    case 1: out[0] = stage_smem(1, f); out[1] = stage_blocks(1, f); out[2] = kStateThreads; break;
+    case 2: out[0] = 0; out[1] = stage_blocks(2, f); out[2] = kPassThreads; break;
+    case 3: out[0] = dc_smem(a.pp, a.cpad); out[1] = bhc * a.ntile; out[2] = kBwdThreads; break;
+    case 4: out[0] = db_smem(a.pp, a.cpad); out[1] = bhc * a.ntile; out[2] = kBwdThreads; break;
+    default: out[0] = ddt_smem(a.cpad); out[1] = bhc; out[2] = kDdtThreads;
+  }
+}
+
+template <typename Kernel>
+int launch_bwd(Kernel kernel, int which, const BwdArgs& a, void* stream) {
+  long long shape[3];
+  bwd_shape(which, a, shape);
+  if (shape[1] > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (shape[1] == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(shape[0]));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(shape[1]), static_cast<int>(shape[2]), shape[0],
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1164,11 +1540,11 @@ extern "C" int ssd_chunk_state(void* const* ptrs, const long long* strides, cons
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
   switch (a.pp) {
-    case 8: return launch(chunk_state_kernel<8>, 1, a, stream);
-    case 16: return launch(chunk_state_kernel<16>, 1, a, stream);
-    case 32: return launch(chunk_state_kernel<32>, 1, a, stream);
-    case 64: return launch(chunk_state_kernel<64>, 1, a, stream);
-    default: return launch(chunk_state_kernel<128>, 1, a, stream);
+    case 8: return launch(chunk_state_kernel<8, false>, 1, a, stream);
+    case 16: return launch(chunk_state_kernel<16, false>, 1, a, stream);
+    case 32: return launch(chunk_state_kernel<32, false>, 1, a, stream);
+    case 64: return launch(chunk_state_kernel<64, false>, 1, a, stream);
+    default: return launch(chunk_state_kernel<128, false>, 1, a, stream);
   }
 }
 
@@ -1192,63 +1568,100 @@ extern "C" int ssd_chunk_scan(void* const* ptrs, const long long* strides, const
   }
 }
 
-// Backward kernel 0 (bwd_dstate) or 1 (bwd_chunk): dynamic shared memory
-// bytes a block, blocks and threads a block into out[3]; the scratch
-// elements of G_exit into out[3] as well for kernel 0 (out has 4 entries).
-extern "C" int ssd_bwd_shape(int kernel, const int* dims, long long* out) {
-  Args f;
-  if (kernel < 0 || kernel > 1 || !set_sizes(f, dims) || f.n > kMaxN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long bh = static_cast<long long>(f.batch) * f.heads;
-  if (kernel == 0) {
-    out[0] = 0;
-    out[1] = bh * ((f.p + kBwdStateCols - 1) / kBwdStateCols);
-    out[2] = kBwdStateThreads;
-  } else {
-    out[0] = static_cast<long long>(bwd_chunk_smem(f.pp, f.chunk));
-    out[1] = bh * f.nc;
-    out[2] = kBwdThreads;
-  }
-  out[3] = bh * f.nc * f.n * f.p;
+// Elements of the backward's scratches, (C B^T, G, decay, row terms,
+// column terms, dA_log parts (float64)), into out[6]; returns
+// cudaErrorInvalidValue for sizes the backward does not take (N > 128).
+extern "C" int ssd_bwd_scratch_elems(const int* dims, long long* out) {
+  Args a;
+  if (!set_sizes(a, dims) || a.n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = static_cast<long long>(a.batch) * a.nc;
+  out[0] = chunks * a.groups * a.cpad * a.cpad;
+  out[1] = chunks * a.heads * a.np * a.pp;
+  out[2] = chunks * a.heads;
+  out[3] = chunks * a.heads * a.cpad;
+  out[4] = 3 * out[3];
+  out[5] = chunks * a.heads;
   return 0;
 }
 
-// G_exit of every chunk into the scratch. Launch first, on the stream of the
-// forward; never synchronises.
-extern "C" int ssd_bwd_dstate(void* const* ptrs, const long long* strides, const int* dims,
-                              void* stream) {
+// Launch shape of backward kernel 0..5 (bwd_chunk_cb, bwd_chunk_state,
+// bwd_state_pass, bwd_chunk_dc, bwd_chunk_db, bwd_ddt) into out[3]: dynamic
+// shared memory bytes a block, blocks, threads a block.
+extern "C" int ssd_bwd_shape(int kernel, const int* dims, long long* out) {
+  Args f;
+  if (kernel < 0 || kernel > 5 || !set_sizes(f, dims) || f.n > kMaxN)
+    return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
-  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long bh = static_cast<long long>(a.batch) * a.heads;
-  if (bh == 0 || a.seqlen == 0) return 0;
-  if (bh > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(bh), (a.p + kBwdStateCols - 1) / kBwdStateCols);
-  bwd_dstate_kernel<<<grid, kBwdStateThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.batch = f.batch; a.heads = f.heads; a.groups = f.groups; a.seqlen = f.seqlen;
+  a.p = f.p; a.n = f.n; a.chunk = f.chunk; a.hpg = f.hpg; a.nc = f.nc; a.ntile = f.ntile;
+  a.cpad = f.cpad; a.np = f.np; a.pp = f.pp;
+  a.x16 = a.bc16 = a.dy16 = 0;
+  bwd_shape(kernel, a, out);
+  return 0;
 }
 
-template <typename Kernel>
-int launch_bwd_chunk(Kernel kernel, const BwdArgs& a, void* stream) {
-  const long long blocks = static_cast<long long>(a.batch) * a.heads * a.nc;
-  if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = bwd_chunk_smem(a.pp, a.chunk);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kBwdThreads, bytes,
-           static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dx, ddt (written whole), and dB, dC, dA_log added into zeroed outputs.
-// Launch after ssd_bwd_dstate.
-extern "C" int ssd_bwd_chunk(void* const* ptrs, const long long* strides, const int* dims,
-                             void* stream) {
+// The six backward kernels, each returning the cudaError_t of
+// cudaFuncSetAttribute or of its launch (0 = success); none synchronises.
+// Launch them in this order on the stream of the forward. dx and ddt are
+// written whole, dB and dC added into zeroed outputs, dA_log's parts
+// written to their scratch.
+extern "C" int ssd_bwd_chunk_cb(void* const* ptrs, const long long* strides, const int* dims,
+                                void* stream) {
   BwdArgs a;
   if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  if (a.seqlen == 0) return 0;
-  if (a.p <= 32) return launch_bwd_chunk(bwd_chunk_kernel<1>, a, stream);
-  if (a.p <= 64) return launch_bwd_chunk(bwd_chunk_kernel<2>, a, stream);
-  return launch_bwd_chunk(bwd_chunk_kernel<4>, a, stream);
+  return launch(chunk_cb_kernel, 0, fwd_view(a, false), stream);
+}
+
+extern "C" int ssd_bwd_chunk_state(void* const* ptrs, const long long* strides, const int* dims,
+                                   void* stream) {
+  BwdArgs a;
+  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args f = fwd_view(a, true);
+  switch (a.pp) {
+    case 8: return launch(chunk_state_kernel<8, true>, 1, f, stream);
+    case 16: return launch(chunk_state_kernel<16, true>, 1, f, stream);
+    case 32: return launch(chunk_state_kernel<32, true>, 1, f, stream);
+    case 64: return launch(chunk_state_kernel<64, true>, 1, f, stream);
+    default: return launch(chunk_state_kernel<128, true>, 1, f, stream);
+  }
+}
+
+extern "C" int ssd_bwd_state_pass(void* const* ptrs, const long long* strides, const int* dims,
+                                  void* stream) {
+  BwdArgs a;
+  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(bwd_state_pass_kernel, 2, fwd_view(a, true), stream);
+}
+
+extern "C" int ssd_bwd_chunk_dc(void* const* ptrs, const long long* strides, const int* dims,
+                                void* stream) {
+  BwdArgs a;
+  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.pp) {
+    case 8: return launch_bwd(bwd_chunk_dc_kernel<8>, 3, a, stream);
+    case 16: return launch_bwd(bwd_chunk_dc_kernel<16>, 3, a, stream);
+    case 32: return launch_bwd(bwd_chunk_dc_kernel<32>, 3, a, stream);
+    case 64: return launch_bwd(bwd_chunk_dc_kernel<64>, 3, a, stream);
+    default: return launch_bwd(bwd_chunk_dc_kernel<128>, 3, a, stream);
+  }
+}
+
+extern "C" int ssd_bwd_chunk_db(void* const* ptrs, const long long* strides, const int* dims,
+                                void* stream) {
+  BwdArgs a;
+  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.pp) {
+    case 8: return launch_bwd(bwd_chunk_db_kernel<8>, 4, a, stream);
+    case 16: return launch_bwd(bwd_chunk_db_kernel<16>, 4, a, stream);
+    case 32: return launch_bwd(bwd_chunk_db_kernel<32>, 4, a, stream);
+    case 64: return launch_bwd(bwd_chunk_db_kernel<64>, 4, a, stream);
+    default: return launch_bwd(bwd_chunk_db_kernel<128>, 4, a, stream);
+  }
+}
+
+extern "C" int ssd_bwd_ddt(void* const* ptrs, const long long* strides, const int* dims,
+                           void* stream) {
+  BwdArgs a;
+  if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(bwd_ddt_kernel, 5, a, stream);
 }

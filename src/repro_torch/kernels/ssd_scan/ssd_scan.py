@@ -27,14 +27,19 @@ Training: when a gradient is wanted (grad mode on and an input that
 requires one), :func:`ssd_scan` goes through :class:`SSDScanFunction`,
 whose forward is the four stage kernels and keeps their ``states`` scratch
 (the state entering each chunk, (B, H, nc, Np, Pp) float32), and whose
-backward is two more kernels of the same source, launched in order
-(:data:`BWD_STAGES`): ``bwd_dstate`` (the state's gradient at each chunk's
-end, by the reverse recurrence) and ``bwd_chunk`` (every input's gradient,
-chunk-parallel; design and bound in ``csrc/ssd_scan.cu``). dB, dC and
-dA_log are sums over heads, batches and chunks taken with float32 atomics,
-so their order varies from run to run. Each backward launch adds one to
-:data:`BWD_LAUNCHES`. No path differentiates the plain version for a CUDA
-tensor. The backward takes N <= 128.
+backward is six more kernels of the same source in the Mamba2 authors'
+chunked matrix form, launched in order (:data:`BWD_STAGES`):
+``bwd_chunk_cb`` (the forward's C·Bᵀ again), ``bwd_chunk_state`` (each
+chunk's local state gradient), ``bwd_state_pass`` (the state's gradient
+carried back over the chunks, the one sequential part), ``bwd_chunk_dc``
+and ``bwd_chunk_db`` (dC, dB, dx and the terms of ddA, chunk-parallel on
+3xTF32 ``mma.sync``) and ``bwd_ddt`` (ddA's float64 scans, ddt and
+dA_log's parts; design and bound in ``csrc/ssd_scan.cu``). dB and dC are
+sums over the heads of a group taken with float32 atomics, so their order
+varies from run to run; dA_log is the sum of one float64 part a (batch,
+head, chunk). Each backward launch adds one to :data:`BWD_LAUNCHES`. No
+path differentiates the plain version for a CUDA tensor. The backward
+takes N <= 128.
 
 The shared library is built with ``nvcc`` at first use into ``_build/``
 beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
@@ -56,7 +61,8 @@ __all__ = ["LAUNCHES", "KERNEL_LAUNCHES", "BWD_LAUNCHES", "STAGES", "BWD_STAGES"
 _SRC = Path(__file__).parent / "csrc" / "ssd_scan.cu"
 MAX_HEAD_DIM = 128
 STAGES = ("chunk_cb", "chunk_state", "state_pass", "chunk_scan")
-BWD_STAGES = ("bwd_dstate", "bwd_chunk")
+BWD_STAGES = ("bwd_chunk_cb", "bwd_chunk_state", "bwd_state_pass", "bwd_chunk_dc",
+              "bwd_chunk_db", "bwd_ddt")
 MAX_BWD_STATE_DIM = 128
 
 # Calls of the entry point, counted where it launches its kernels.
@@ -101,6 +107,8 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ssd_bwd_shape.argtypes = [ctypes.c_int, ptr, ptr]
     lib.ssd_bwd_shape.restype = ctypes.c_int
+    lib.ssd_bwd_scratch_elems.argtypes = [ptr, ptr]
+    lib.ssd_bwd_scratch_elems.restype = ctypes.c_int
     _lib = lib
     return lib
 
@@ -200,7 +208,7 @@ def ssd_scan_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def ssd_scan_backward(x, dt, a_log, b, c, states, dy, *, chunk: int):
-    """The two backward kernels -> (dx, ddt, da_log, db, dc), the gradients
+    """The six backward kernels -> (dx, ddt, da_log, db, dc), the gradients
     of the loss with respect to the operands of :func:`ssd_scan_forward`,
     given ``dy`` and the forward's ``states``. dx is laid out as x, the rest
     contiguous; db and dc sum over the heads of each group. A failed launch
@@ -217,19 +225,20 @@ def ssd_scan_backward(x, dt, a_log, b, c, states, dy, *, chunk: int):
     else:
         dx = x.new_empty(bsz, h, l, p)
     ddt = x.new_empty(bsz, h, l)
-    da_log = torch.zeros_like(a_log)
     db = x.new_zeros(bsz, g, l, n)
     dc = x.new_zeros(bsz, g, l, n)
     if dx.numel() == 0:
-        return dx, ddt, da_log, db, dc
+        return dx, ddt, torch.zeros_like(a_log), db, dc
     lib = build()
     dims = _dims(bsz, h, g, l, p, n, chunk)
-    shape = (ctypes.c_longlong * 4)()
-    if lib.ssd_bwd_shape(0, dims, shape) != 0:
+    elems = (ctypes.c_longlong * 6)()
+    if lib.ssd_bwd_scratch_elems(dims, elems) != 0:
         raise ValueError(f"ssd_scan's backward does not take {tuple(dims)}")
-    gexit = x.new_empty(shape[3])
-    ptrs = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in (
-        x, dt, a_log, b, c, dy, states, gexit, dx, ddt, da_log, db, dc)))
+    cb, gstates, decay, rowterms, colterms = (x.new_empty(k) for k in elems[:5])
+    dalog = x.new_empty(elems[5], dtype=torch.float64)
+    ptrs = (ctypes.c_void_p * 17)(*(t.data_ptr() for t in (
+        x, dt, a_log, b, c, dy, states, cb, gstates, decay, rowterms, colterms, dalog, dx, ddt,
+        db, dc)))
     strides = (ctypes.c_longlong * 27)(*(t.stride(i) for t in (x, dt, b, c, dy, dx, ddt,
                                                                db, dc) for i in range(3)))
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
@@ -237,18 +246,21 @@ def ssd_scan_backward(x, dt, a_log, b, c, states, dy, *, chunk: int):
         for i, name in enumerate(BWD_STAGES):
             err = getattr(lib, f"ssd_{name}")(ptrs, strides, dims, stream)
             if err != 0:
+                shape = (ctypes.c_longlong * 3)()
                 lib.ssd_bwd_shape(i, dims, shape)
                 raise RuntimeError(f"ssd_scan's {name} kernel failed with cudaError_t "
                                    f"{err} (dynamic shared memory {shape[0]} bytes x "
                                    f"{shape[1]} blocks)")
             BWD_LAUNCHES[name] += 1
+    # One float64 part a (batch, head, chunk), summed in a fixed order.
+    da_log = dalog.view(bsz, h, -1).sum((0, 2)).to(a_log.dtype)
     return dx, ddt, da_log, db, dc
 
 
 class SSDScanFunction(torch.autograd.Function):
     """The SSD scan with its gradient from the backward kernels: the forward
-    keeps the operands and the entering states; the backward launches
-    ``bwd_dstate`` and ``bwd_chunk``."""
+    keeps the operands and the entering states; the backward launches the
+    six kernels of :data:`BWD_STAGES`."""
 
     @staticmethod
     def forward(ctx, x, dt, a_log, b, c, chunk: int):

@@ -248,3 +248,97 @@ def test_single_pass_tf32_breaks_the_kernel_tolerance(l, window):
     three = _attention_tf32(q, k, v, causal=True, window=window, passes=3)
     assert _tol_ratio(one_pass, plain) > 2.0
     assert _tol_ratio(three, plain) < 0.5
+
+
+# ------------------------------------------------------------- the backward
+GRAD_TOL = 2e-4          # of each gradient's largest magnitude, as the card holds it
+
+
+def _mm_tf32_bwd(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """:func:`_mm_tf32` as the backward kernels take it: the B operand's
+    small part goes to the tensor core unrounded, which reads its top 19
+    bits (a truncation)."""
+    if passes == 1:
+        return _mm_tf32(a, b, 1)
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small = _tf32(a - a_big)
+    b_small = ((b - b_big).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _attention_backward_tf32(q, k, v, do, *, causal, window, passes):
+    """The backward kernels' arithmetic on CPU tensors (csrc/block_attn.cu):
+    D = rowsum(dO o O) and lse log2(e) once a row (attn_bwd_dot), P =
+    exp2(S scale log2(e) - lse log2(e)) masked before the exp and 0 for a
+    row that attends no key, dS = P (dP - D), and all five products (S, dP,
+    dV, dK, dQ) through :func:`_mm_tf32_bwd`; dK and dV summed over each KV
+    group. O and the log-sum-exp are the plain forward's."""
+    from repro_torch.kernels.block_attn.ref import attention_lse_plain
+
+    b, lq, h, hd = q.shape
+    lk, group = k.shape[1], h // k.shape[2]
+    o = block_attention_plain(q, k, v, causal=causal, window=window)
+    lse2 = attention_lse_plain(q, k, causal=causal, window=window) * math.log2(math.e)
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    scale_log2 = torch.tensor(1.0 / math.sqrt(hd) * math.log2(math.e), dtype=torch.float32)
+    i, j = torch.arange(lq)[:, None], torch.arange(lk)[None, :]
+    ok = torch.ones(lq, lk, dtype=torch.bool)
+    if causal:
+        ok &= j <= i
+    if window > 0:
+        ok &= (i - j) < window
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for hh in range(h):
+            qh, doh = q[bi, :, hh], do[bi, :, hh]
+            kh, vh = k[bi, :, hh // group], v[bi, :, hh // group]
+            d = (doh * o[bi, :, hh]).sum(-1)
+            l2 = lse2[bi, hh][:, None]
+            live = ok & (l2 != -math.inf)
+            s = _mm_tf32_bwd(qh, kh.T, passes) * scale_log2
+            p = torch.where(live, torch.exp2(s - torch.where(live, l2, 0.0)), 0.0)
+            ds = p * (_mm_tf32_bwd(doh, vh.T, passes) - d[:, None])
+            dv[bi, :, hh // group] += _mm_tf32_bwd(p.T, doh, passes)
+            dk[bi, :, hh // group] += _mm_tf32_bwd(ds.T, qh, passes) * scale
+            dq[bi, :, hh] = _mm_tf32_bwd(ds, kh, passes) * scale
+    return dq, dk, dv
+
+
+def _grad_ratio(got, want):
+    """The worst over the gradients of max|got - want| / max|want|."""
+    return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
+
+# (Lq, Lk, causal, window): Yi-6B's hd 128 causal and with a window, and a
+# non-causal cross-attention with rows past the window that attend no key.
+BWD_TF32_CASES = [(256, 256, True, 0), (256, 256, True, 100), (96, 200, False, 0),
+                  (120, 60, False, 24)]
+
+
+def _bwd_tf32_inputs(lq, lk, seed):
+    q, k, v = _qkv(1, lq, lk, 4, 2, 128, seed=seed)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    return [torch.from_numpy(a) for a in (q * 2.0, k, v, do)]
+
+
+@pytest.mark.parametrize("lq,lk,causal,window", BWD_TF32_CASES)
+def test_backward_tf32_split_meets_the_grad_tolerance(lq, lk, causal, window):
+    """The backward kernels' 3xTF32 arithmetic within a tenth of GRAD_TOL
+    of autograd through the fp32 plain version, gradient by gradient."""
+    q, k, v, do = _bwd_tf32_inputs(lq, lk, seed=13)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(block_attention_plain(*ins, causal=causal, window=window), ins, do)
+    got = _attention_backward_tf32(q, k, v, do, causal=causal, window=window, passes=3)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _grad_ratio(got, want) < 0.1 * GRAD_TOL
+
+
+@pytest.mark.parametrize("lq,lk,causal,window", BWD_TF32_CASES)
+def test_backward_single_pass_tf32_breaks_the_grad_tolerance(lq, lk, causal, window):
+    """One TF32 product a term misses GRAD_TOL on the same inputs: the
+    backward kernels keep the 3xTF32 split."""
+    q, k, v, do = _bwd_tf32_inputs(lq, lk, seed=13)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(block_attention_plain(*ins, causal=causal, window=window), ins, do)
+    got = _attention_backward_tf32(q, k, v, do, causal=causal, window=window, passes=1)
+    assert _grad_ratio(got, want) > GRAD_TOL

@@ -28,7 +28,7 @@ autograd through the plain versions, gradient by gradient, within
 ``GRAD_TOL`` of the largest magnitude of that gradient: each gradient is a
 sum over the sequence whose terms cancel, so its float32 error scales with
 the terms and not with the element (ddt reaches ~1e3 at mamba2-130m's
-layer), and dB, dC and dA_log are summed with atomics in a varying order.
+layer), and dQ, dB and dC are summed with atomics in a varying order.
 """
 import numpy as np
 import pytest
@@ -479,7 +479,7 @@ def test_block_attn_refuses_what_it_cannot_take(cuda):
     # Inputs that require a gradient run the forward with its log-sum-exp
     # and then the two backward kernels, never the plain version.
     assert bk.LAUNCHES["block_attn"] == 1
-    assert bk.BWD_LAUNCHES == {"attn_bwd_dkdv": 1, "attn_bwd_dq": 1}
+    assert bk.BWD_LAUNCHES == {"attn_bwd_dot": 1, "attn_bwd_dkdvq": 1}
     assert w.grad is not None and torch.isfinite(w.grad).all()
 
 
@@ -578,6 +578,7 @@ def test_mla_and_encdec_smoke_on_card_match_cpu(cuda, arch_id):
     (2, 130, 130, 6, 2, 18, True, 40),      # hd 18, window
     (1, 150, 40, 4, 2, 64, True, 0),        # Lq > Lk causal
     (1, 100, 60, 2, 1, 32, False, 20),      # non-causal window: rows 79+ see no key
+    (2, 333, 333, 8, 2, 128, True, 100),    # GQA at hd 128 with a window, ragged
 ])
 def test_block_attn_backward_matches_autograd_of_plain(cuda, b, lq, lk, h, kv, hd, causal,
                                                        window):
@@ -595,7 +596,7 @@ def test_block_attn_backward_matches_autograd_of_plain(cuda, b, lq, lk, h, kv, h
                               (q, k, v), do)
     torch.cuda.synchronize()
     assert bk.LAUNCHES["block_attn"] == 1
-    assert bk.BWD_LAUNCHES == {"attn_bwd_dkdv": 1, "attn_bwd_dq": 1}
+    assert bk.BWD_LAUNCHES == {"attn_bwd_dot": 1, "attn_bwd_dkdvq": 1}
     want = torch.autograd.grad(block_attention_plain(q, k, v, causal=causal, window=window),
                                (q, k, v), do)
     _assert_grads_close(got, want, ("dq", "dk", "dv"))
@@ -612,9 +613,10 @@ def test_block_attn_backward_matches_autograd_of_plain(cuda, b, lq, lk, h, kv, h
     (1, 2, 300, 128, 128, 128, 1),     # P = 128
     (2, 3, 200, 18, 50, 64, 3),        # P 18, N 50, G = H
     (2, 4, 90, 64, 128, 256, 2),       # L under one chunk
+    (2, 8, 700, 64, 128, 256, 4),      # ragged L over three chunks, G = 4
 ])
 def test_ssd_scan_backward_matches_autograd_of_plain(cuda, b, h, l, p, n, chunk, g):
-    """The two backward kernels against autograd through ``ssd_chunked_plain``,
+    """The six backward kernels against autograd through ``ssd_chunked_plain``,
     with the model's transposed (B, L, H, P) views as operands."""
     ops_in = _ssd_inputs(b, h, l, p, n, g, cuda)
     views = [t.transpose(1, 2).contiguous().transpose(1, 2) if t.dim() > 1 else t.clone()
@@ -626,7 +628,29 @@ def test_ssd_scan_backward_matches_autograd_of_plain(cuda, b, h, l, p, n, chunk,
     got = torch.autograd.grad(ssd_chunked(*views, chunk=chunk), views, dy)
     torch.cuda.synchronize()
     assert sk.LAUNCHES["ssd_scan"] == 1
-    assert sk.BWD_LAUNCHES == {"bwd_dstate": 1, "bwd_chunk": 1}
+    assert sk.BWD_LAUNCHES == dict.fromkeys(sk.BWD_STAGES, 1)
     plain_in = [t.detach().clone().requires_grad_() for t in ops_in]
+    want = torch.autograd.grad(ssd_chunked_plain(*plain_in, chunk)[0], plain_in, dy)
+    _assert_grads_close(got, want, ("dx", "ddt", "da_log", "db", "dc"))
+
+
+@pytest.mark.parametrize("l,chunk", [(512, 256), (300, 128)])
+def test_ssd_scan_backward_with_underflowing_decay(cuda, l, chunk):
+    """dt |A| of 10 to 15 a step: exp(cum_i - cum_j) underflows a few
+    positions off the diagonal and |cum| reaches thousands inside a chunk.
+    Every gradient, dA_log included, within GRAD_TOL of autograd through
+    ``ssd_chunked_plain``."""
+    b, h, p, n, g = 2, 4, 64, 128, 1
+    x, _, a_log, bb, cc = _ssd_inputs(b, h, l, p, n, g, cuda, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    dt = ((10.0 + 5.0 * torch.rand(b, h, l, generator=gen)).to(cuda)
+          / torch.exp(a_log)[None, :, None])
+    ins = [t.clone().requires_grad_() for t in (x, dt, a_log, bb, cc)]
+    dy = torch.randn(b, h, l, p, generator=gen).to(cuda)
+    sk.reset_launch_counts()
+    got = torch.autograd.grad(ssd_chunked(*ins, chunk=chunk), ins, dy)
+    torch.cuda.synchronize()
+    assert sk.BWD_LAUNCHES == dict.fromkeys(sk.BWD_STAGES, 1)
+    plain_in = [t.detach().clone().requires_grad_() for t in ins]
     want = torch.autograd.grad(ssd_chunked_plain(*plain_in, chunk)[0], plain_in, dy)
     _assert_grads_close(got, want, ("dx", "ddt", "da_log", "db", "dc"))

@@ -18,7 +18,12 @@ arithmetic here stage for stage (C B^T per group, the chunk states, the
 sequential state pass, the chunk scan, float64 prefix sums), and the
 ``tf32`` tests hold it within half the tolerance, 1e-4, of the Pallas
 kernel, and show that one TF32 product a term does not meet 2e-4.
+The six backward kernels' arithmetic (the chunked matrix form of the
+gradient, tests/test_torch_train.py ``_ssd_backward_as_the_kernels``) runs
+with every product through :func:`_mm_tf32`, held within GRAD_TOL of
+autograd through the plain version, where one TF32 product a term is not.
 """
+import functools
 import math
 
 import numpy as np
@@ -37,6 +42,8 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 from repro_torch.kernels.ssd_scan.ssd_scan import (
     KERNEL_LAUNCHES, LAUNCHES, STAGES, reset_launch_counts,
 )
+
+from test_torch_train import _ssd_backward_as_the_kernels
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -184,3 +191,59 @@ def test_single_pass_tf32_breaks_the_tolerance(case):
         j_ssd_chunked(*map(jnp.asarray, arrays), chunk=chunk, interpret=True)))
     assert _tol_ratio(_ssd_tf32(*tensors, chunk, passes=1), y_ker) > 2.0
     assert _tol_ratio(_ssd_tf32(*tensors, chunk, passes=3), y_ker) < 0.1
+
+
+# The backward (B, H, L, P, N, G, chunk, large): "large" draws dt |A| from 10
+# to 15 a step, so |cum| reaches thousands inside a chunk and L underflows a
+# few positions off the diagonal.
+BWD_CASES = {
+    "small": (1, 2, 64, 16, 16, 1, 32, False),
+    "ragged-g2": (2, 4, 80, 8, 16, 2, 32, False),
+    "p64-n128": (1, 2, 96, 64, 128, 1, 32, False),
+    "large-cum": (1, 2, 256, 8, 16, 1, 256, True),
+    "large-cum-2-chunks": (1, 3, 512, 16, 32, 1, 256, True),
+}
+GRAD_TOL = 2e-4          # of each gradient's largest magnitude, as the card holds it
+
+
+def _bwd_inputs(case):
+    b, h, l, p, n, g, chunk, large = BWD_CASES[case]
+    x, dt, a_log, bb, cc = (torch.from_numpy(a) for a in _inputs(b, h, l, p, n, g, seed=5))
+    if large:
+        gen = torch.Generator().manual_seed(1)
+        dt = (10.0 + 5.0 * torch.rand(b, h, l, generator=gen)) / torch.exp(a_log)[None, :, None]
+    dy = torch.from_numpy(np.random.default_rng(9).standard_normal((b, h, l, p))
+                          .astype(np.float32))
+    return (x, dt, a_log, bb, cc, dy), chunk
+
+
+def _bwd_ratio(case, passes):
+    """The worst over dx, ddt, dA_log, dB, dC of max|d| / max|want| against
+    autograd through ``ssd_chunked_plain`` (float32)."""
+    (x, dt, a_log, bb, cc, dy), chunk = _bwd_inputs(case)
+    ins = [t.clone().requires_grad_() for t in (x, dt, a_log, bb, cc)]
+    want = torch.autograd.grad(ssd_chunked_plain(*ins, chunk)[0], ins, dy)
+    got = _ssd_backward_as_the_kernels(x, dt, a_log, bb, cc, dy, chunk,
+                                       mm=functools.partial(_mm_tf32, passes=passes))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    return max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
+
+def test_large_cum_case_reaches_thousands():
+    (_, dt, a_log, *_), chunk = _bwd_inputs("large-cum")
+    cum = torch.cumsum((dt * -torch.exp(a_log)[None, :, None]).double()[..., :chunk], -1)
+    assert float(cum.abs().max()) > 2000.0
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_backward_tf32_split_meets_the_grad_tolerance(case):
+    """The backward kernels' 3xTF32 arithmetic within a tenth of GRAD_TOL
+    of autograd through the plain version, every gradient, dA_log too."""
+    assert _bwd_ratio(case, passes=3) < 0.1 * GRAD_TOL
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_backward_single_pass_tf32_breaks_the_grad_tolerance(case):
+    """One TF32 product a term misses GRAD_TOL on the same inputs: the
+    backward kernels keep the 3xTF32 split."""
+    assert _bwd_ratio(case, passes=1) > GRAD_TOL

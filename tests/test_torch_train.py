@@ -28,10 +28,9 @@ Contracts, with their tolerances:
   own largest magnitude;
 - the backward kernels' algorithms, written out in torch as
   ``csrc/block_attn.cu`` and ``csrc/ssd_scan.cu`` compute them (P from
-  the log-sum-exp, D = rowsum(dO o O); the state's reverse recurrence and
-  ddA from C.dC - B.dB less the pair both hold), in float64 against
-  autograd through the plain versions: 1e-5 of each gradient's largest
-  magnitude;
+  the log-sum-exp, D = rowsum(dO o O); the SSD gradient's chunked matrix
+  form, ddA from a strictly lower M = R o CB), in float64 against autograd
+  through the plain versions: 1e-5 of each gradient's largest magnitude;
 - ``remat=True`` against ``remat=False`` in the port: loss and gradient
   bit for bit (the recomputed forward is the same float32 arithmetic); a
   checkpoint a block and an encoder layer when a gradient is taken, none
@@ -192,53 +191,85 @@ def test_attention_backward_algorithm_matches_autograd(lq, lk, causal, window):
         _assert_normwise(g.numpy(), w.double().numpy(), 1e-5, name)
 
 
-def _ssd_backward_as_the_kernels(x, dt, a_log, b, c, dy, chunk):
-    """csrc/ssd_scan.cu's backward in torch, step by step: bwd_dstate's
-    reverse recurrence G_t = C_t dy_t^T + alpha_{t+1} G_{t+1} keeping G at
-    each chunk's end; bwd_chunk's forward sweep from the entering state
-    (dC_t = S_t dy_t) and reverse sweep from that G (dB_t, dxdt_t), and ddA_r
-    = X_c + sum_{s >= r in the chunk} dcum_s, X_c = <G_exit, S_last>, with
-    dcum_s = C_s.dC_s - B_s.dB_s less the pair (s, s) that both terms hold:
-    alpha_s C_s^T S_{s-1} dy_s - B_s^T (alpha_{s+1} G_{s+1}) xdt_s. B/C per
-    head; the caller sums dB/dC over each group."""
+def _ssd_backward_as_the_kernels(x, dt, a_log, b, c, dy, chunk, mm=torch.matmul):
+    """csrc/ssd_scan.cu's backward in torch, in its chunked matrix form
+    (positions i, j of a chunk; L_ij = exp(cum_i - cum_j), j <= i; w_j =
+    exp(cum_last - cum_j); S_c the state entering chunk c; G_c = dloss/dS_{c+1}),
+    kernel by kernel: C B^T (bwd_chunk_cb); dS^loc_c = (C o exp(cum))^T dy
+    and G carried back over the chunks (bwd_chunk_state, bwd_state_pass);
+    with R = (dy xdt^T) o L, dC = R B + diag(exp cum) dy S_c^T and the rows'
+    dcum terms (bwd_chunk_dc); dB = R^T C + diag(w) xdt G_c^T, dxdt = (CB o
+    L)^T dy + (B o w) G_c and the columns' terms from R^T (bwd_chunk_db);
+    ddA the reverse cumulative sum of dcum_s = sum_{j<s} M_sj - sum_{i>s}
+    M_is + y^off_s.dy_s (M = R o CB strictly lower), plus exp(cum_last)
+    <G_c, S_c> + sum_{j<r} w_j B_j^T G_c xdt_j, then ddt and dA_log, in
+    float64 (bwd_ddt). B/C (B, G, L, N); dB/dC summed over each group. A
+    ragged last chunk is padded with dt = 0.
+
+    Every product goes through ``mm`` (tests/test_torch_ssd.py passes its
+    3xTF32 emulation). cum is float64 in units of log2; each difference is
+    rounded to the inputs' dtype once and raised with exp2, masked before
+    the exp, as the kernels do."""
     bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[3]
+    pad = (-l) % chunk
+    x, b, c, dy = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (x, b, c, dy))
+    dt = torch.nn.functional.pad(dt, (0, pad))
+    nc = (l + pad) // chunk
     a = -torch.exp(a_log)
-    alpha = torch.exp(dt * a[:, None])
-    xdt = x * dt[..., None]
-    nc = -(-l // chunk)
-    s = torch.zeros(bsz, h, b.shape[-1], p, dtype=x.dtype)
-    entering = []
-    for t in range(l):
-        if t % chunk == 0:
-            entering.append(s)
-        s = alpha[:, :, t, None, None] * s + b[:, :, t, :, None] * xdt[:, :, t, None, :]
-    carry, gexit = torch.zeros_like(s), [None] * nc
-    for t in range(l - 1, -1, -1):
-        if (t + 1) % chunk == 0 or t == l - 1:
-            gexit[t // chunk] = carry
-        carry = alpha[:, :, t, None, None] * (c[:, :, t, :, None] * dy[:, :, t, None, :] + carry)
-    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
-    db, dc, da = torch.zeros_like(b), torch.zeros_like(c), torch.zeros_like(a)
-    for ci in range(nc):
-        t0, t1 = ci * chunk, min((ci + 1) * chunk, l)
-        s, earlier = entering[ci], {}
-        for t in range(t0, t1):
-            decayed = alpha[:, :, t, None, None] * s
-            earlier[t] = torch.einsum("bhn,bhnp,bhp->bh", c[:, :, t], decayed, dy[:, :, t])
-            s = decayed + b[:, :, t, :, None] * xdt[:, :, t, None, :]
-            dc[:, :, t] = torch.einsum("bhnp,bhp->bhn", s, dy[:, :, t])
-        acc, g = (gexit[ci] * s).sum((-1, -2)), gexit[ci]
-        for t in range(t1 - 1, t0 - 1, -1):
-            later = torch.einsum("bhn,bhnp,bhp->bh", b[:, :, t], g, xdt[:, :, t])
-            g = g + c[:, :, t, :, None] * dy[:, :, t, None, :]
-            db[:, :, t] = torch.einsum("bhnp,bhp->bhn", g, xdt[:, :, t])
-            dxdt = torch.einsum("bhnp,bhn->bhp", g, b[:, :, t])
-            acc = acc + earlier[t] - later
-            dx[:, :, t] = dxdt * dt[:, :, t, None]
-            ddt[:, :, t] = (dxdt * x[:, :, t]).sum(-1) + acc * a
-            da = da + (acc * dt[:, :, t]).sum(0)
-            g = alpha[:, :, t, None, None] * g
-    return dx, ddt, da * a, db, dc
+    dtc = dt.reshape(bsz, h, nc, chunk)
+    cum = torch.cumsum((dtc * a[:, None, None]).double(), -1) * np.log2(np.e)
+    group = torch.arange(h) // (h // g)
+    bc, cc = (t.reshape(bsz, g, nc, chunk, n)[:, group] for t in (b, c))
+    xc, dyc = (t.reshape(bsz, h, nc, chunk, p) for t in (x, dy))
+    xdt = xc * dtc[..., None]
+    last = cum[..., -1:]
+    w = torch.exp2((last - cum).to(x.dtype))
+    decay = torch.exp2(last[..., 0].to(x.dtype))
+    ecum = torch.exp2(cum.to(x.dtype))
+    lower = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    diff = (cum[..., :, None] - cum[..., None, :]).to(x.dtype)
+    el = torch.exp2(diff.masked_fill(~lower, float("-inf")))
+    # The forward's entering states S_c, as its kernels leave them.
+    ds = mm((bc * (dtc * w)[..., None]).transpose(-1, -2), xc)
+    s, entering = torch.zeros_like(ds[:, :, 0]), []
+    for z in range(nc):
+        entering.append(s)
+        s = decay[:, :, z, None, None] * s + ds[:, :, z]
+    st = torch.stack(entering, 2)
+    # 1-2. dS^loc per chunk, then G carried back: G_{nc-1} = 0.
+    loc = mm((cc * ecum[..., None]).transpose(-1, -2), dyc)
+    carry, gs = torch.zeros_like(loc[:, :, 0]), [None] * nc
+    for z in range(nc - 1, -1, -1):
+        gs[z] = carry
+        carry = decay[:, :, z, None, None] * carry + loc[:, :, z]
+    gc = torch.stack(gs, 2)
+    cb = mm(cc, bc.transpose(-1, -2))
+    # 3. The chunk-tile products: bwd_chunk_dc, then bwd_chunk_db.
+    dc_off = ecum[..., None] * mm(dyc, st.transpose(-1, -2))
+    r = mm(dyc, xdt.transpose(-1, -2)) * el
+    dc = dc_off + mm(r, bc)
+    rows = (r * cb).tril(-1).sum(-1) + (cc * dc_off).sum(-1)
+    bg = mm(bc, gc)
+    u = (xc * bg).sum(-1) * dtc * w
+    rt = mm(xdt, dyc.transpose(-1, -2)) * el.transpose(-1, -2)
+    db = w[..., None] * mm(xdt, gc.transpose(-1, -2)) + mm(rt, cc)
+    dxdt = w[..., None] * bg + mm((cb * el).transpose(-1, -2), dyc)
+    cols = (rt * cb.transpose(-1, -2)).triu(1).sum(-1)
+    xdx = (dxdt * xc).sum(-1)
+    # 4. bwd_ddt: ddA, ddt, dA_log in float64.
+    dcum = rows.double() - cols.double()
+    u64 = u.double()
+    state = decay.double() * (gc.double() * st.double()).sum((-1, -2))
+    dda = dcum.flip(-1).cumsum(-1).flip(-1) + state[..., None] + u64.cumsum(-1) - u64
+    ddt = (xdx.double() + a.double()[:, None, None] * dda).to(x.dtype)
+    da = (a.double() * (dda * dtc.double()).sum((0, 2, 3))).to(x.dtype)
+
+    def cut(t):
+        return t.reshape(bsz, h, nc * chunk, *t.shape[4:])[:, :, :l]
+
+    db, dc = (cut(t).reshape(bsz, g, h // g, l, n).sum(2) for t in (db, dc))
+    return cut(dxdt * dtc[..., None]), cut(ddt), da, db, dc
 
 
 @pytest.mark.parametrize("b,h,l,p,n,g,chunk", [
@@ -247,9 +278,10 @@ def _ssd_backward_as_the_kernels(x, dt, a_log, b, c, dy, chunk):
     (1, 2, 96, 16, 16, 2, 32),            # G = H
 ])
 def test_ssd_backward_algorithm_matches_autograd(b, h, l, p, n, g, chunk):
-    """The kernels' recurrences and the dcum identity (float64) against
+    """The kernels' chunked stages and the dcum identity (float64) against
     autograd through ``ssd_chunked_plain`` (float32): the algorithm, not its
-    float32 rounding, which the card holds (tests/test_torch_gpu.py)."""
+    float32 rounding (tests/test_torch_ssd.py emulates that; the card holds
+    the kernels, tests/test_torch_gpu.py)."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
 
     rng = np.random.default_rng(4)
@@ -261,10 +293,7 @@ def test_ssd_backward_algorithm_matches_autograd(b, h, l, p, n, g, chunk):
     # The plain version is float32 (its prefix sums float64) by design.
     ins = [t.float().requires_grad_() for t in (x, dt, a_log, bb, cc)]
     want = torch.autograd.grad(ssd_chunked_plain(*ins, chunk)[0], ins, dy.float())
-    rep = h // g
-    got = list(_ssd_backward_as_the_kernels(x, dt, a_log, bb.repeat_interleave(rep, 1),
-                                            cc.repeat_interleave(rep, 1), dy, chunk))
-    got[3], got[4] = (t.reshape(b, g, rep, l, n).sum(2) for t in got[3:])
+    got = _ssd_backward_as_the_kernels(x, dt, a_log, bb, cc, dy, chunk)
     for name, gt, w in zip(("dx", "ddt", "da_log", "db", "dc"), got, want):
         _assert_normwise(gt.numpy(), w.double().numpy(), 1e-5, name)
 
