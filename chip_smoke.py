@@ -141,7 +141,19 @@ or of the JAX package ``repro``. Phases, in order:
    tokens/s, peak memory, a profiled step, the launches a step (B9 48
    forward calls and 24 backward, 6 kernels each; B10 144 and 72, 2
    kernels each) and layer 0's backward call on
-   its own inputs against the plain version; (f)
+   its own inputs against the plain version; (j) serving, see
+   :func:`serve_smoke_phase` and :func:`serve_phase`: the SMOKE
+   ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
+   (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
+   bit for bit the decode step on the card), then
+   ``seamless-m4t-large-v2`` and ``yi-6b`` at full width and depth through
+   ``ServeEngine`` (16 requests, 8 slots, SERVE_RUNS): gen and total
+   tokens/s, TTFT, TPOT, the counters, peak memory, B10's launches (24 an
+   admission, 24 a prefill chunk and a decode step for Seamless), the two
+   shortest requests against ``sequential_reference`` token for token (a
+   near-tie aside), B10 held on the engine's first call of each serve mode
+   (encoder, prefill cross at Lq = chunk, decode cross), and the idle
+   share of a profiled window of engine steps; (f)
    ``deepseek-v2-lite-16b`` at full width and depth (27 layers, 16.21 B
    parameters, 64.84 GB), last, see :func:`deepseek_phase`: SMOKE on the
    CPU and the card with equal routing, MLA layer 0 on the card against the
@@ -151,7 +163,7 @@ or of the JAX package ``repro``. Phases, in order:
 14. one JSON line of kernel numbers (all ten kernels; B1 and B2 with their
    launches on each path, ``ssd_scan`` and ``block_attn`` with theirs on
    each LM path, training's included, ``block_attn`` with each
-   encoder-decoder mode; ``ssd_scan`` and ``block_attn`` with a
+   encoder-decoder mode and serve mode; ``ssd_scan`` and ``block_attn`` with a
    ``backward`` object: its kernels' ms, bound, plain and library ms at the
    main shape, its launches on each training path and every case of (g)),
    and last the device line.
@@ -341,6 +353,19 @@ TRAIN_TOL = 2e-4               # max|d| / max|want| of each gradient, parameter,
 # each (the first warms up, the last runs under the profiler).
 POD_RUNS = [("mamba2-130m", 8, 2048), ("seamless-m4t-large-v2", 2, 1024)]
 POD_STEPS = 4
+# Serving, launch.serve's workload at temperature 0 with --mixed: (arch,
+# --requests, --max-concurrency, --prompt-len, --gen, --chunk, --arrival).
+# The SMOKE models run Yi-6B's workload on the CPU and on the card; the
+# SERVE_VERIFIED shortest requests of each full-width run are held against
+# sequential_reference; SERVE_PROFILED_STEPS engine steps after the first
+# SERVE_WARM_STEPS run under the profiler.
+SERVE_RUNS = [("seamless-m4t-large-v2", 16, 8, 256, 64, 64, 0.5),
+              ("yi-6b", 16, 8, 512, 64, 128, 0.5)]
+SERVE_SMOKE = ("mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-lite-16b")
+SERVE_VERIFIED = 2
+SERVE_WARM_STEPS, SERVE_PROFILED_STEPS = 8, 16
+SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
+                  "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
 
 
 def _ulps(a, b):
@@ -369,7 +394,8 @@ def _time_ms(fn, iters, warmup=3):
 
 def _profile(label, run, top=12):
     """Device busy time and idle share of ``run()`` under torch.profiler, and
-    its largest device items by name."""
+    its largest device items by name. Returns the idle share (None when the
+    trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -395,8 +421,9 @@ def _profile(label, run, top=12):
               f"idle_share={1 - busy_us / wall_us:.4f} device_events={len(spans)}")
         for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
             print(f"profile: {tot:10.1f} us x{cnt:<4d} {name[:100]}")
-    else:
-        print(f"profile {label}: no device time in the trace (not measured)")
+        return 1 - busy_us / wall_us
+    print(f"profile {label}: no device time in the trace (not measured)")
+    return None
 
 
 def _fail(message):
@@ -1424,6 +1451,243 @@ def deepseek_phase(smi):
         YI_DECODE_BATCH, PROMPT).cuda()
     _decode_phase(no_drops, params, prompts, n_params, ba, tag)
     return launches
+
+
+def _serve_workload(run, cfg):
+    """``launch.serve.build_requests`` for one of SERVE_RUNS: the
+    reference's numpy draws from seed 0 (an encoder-decoder's frame
+    embeddings too), temperature 0, no EOS."""
+    import argparse
+
+    from repro_torch.launch.serve import build_requests
+
+    _, requests, _, prompt_len, gen, _, arrival = run
+    return build_requests(argparse.Namespace(
+        seed=0, requests=requests, prompt_len=prompt_len, gen=gen, mixed=True,
+        arrival=arrival, eos_id=-1, temperature=0.0), cfg)
+
+
+def _serve_config(run):
+    from repro_torch.serve import EngineConfig
+
+    _, _, slots, prompt_len, gen, chunk, _ = run
+    return EngineConfig(max_concurrency=slots, max_len=prompt_len + gen, chunk=chunk)
+
+
+def _serve_counters(eng):
+    summary = eng.metrics.summary()
+    return {key: summary[key] for key in SERVE_COUNTERS}
+
+
+def _hold_mamba_prefill(cfg, params, tag):
+    """``mamba_prefill`` over a chunk on the card against ``mamba_decode``
+    token at a time on the same rows (n_valid 128, 37 and 0): outputs and
+    state equal, bit for bit."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    slot = cfg.block_pattern.index("mamba")
+    p = {k: v[0].cuda() for k, v in params["blocks"][f"slot{slot}"]["mixer"].items()}
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(3, 128, cfg.d_model, generator=gen).cuda()
+    cache = {k: torch.randn(v[0].shape, generator=gen).cuda() for k, v in
+             T.init_cache(cfg, 3, 8, device="cpu")["slots"][f"slot{slot}"].items()}
+    n_valid = torch.tensor([128, 37, 0], device="cuda")
+    with torch.inference_mode():
+        y, got = L.mamba_prefill(p, x, cache, n_valid, cfg)
+        same, want = True, cache
+        for t in range(x.shape[1]):
+            yt, want = L.mamba_decode(p, x[:, t:t + 1].clone(), want, cfg, active=t < n_valid)
+            same &= torch.equal(y[:, t], yt[:, 0])
+    same &= all(torch.equal(got[k], want[k]) for k in got)
+    print(f"{cfg.name} serve smoke {tag}: mamba_prefill over 128 tokens (n_valid 128, 37, 0) "
+          f"against mamba_decode token at a time on the card: bit for bit {same}")
+    if not same:
+        _fail(f"{cfg.name}: mamba_prefill differs from the decode step on the card")
+
+
+def serve_smoke_phase(arch_id, tag):
+    """A SMOKE model served on the CPU and on the card from the same weights,
+    Yi-6B's workload of SERVE_RUNS: the token streams and the
+    ``EngineMetrics`` counters must be equal."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+
+    run = SERVE_RUNS[-1]
+    small = get_smoke(arch_id)
+    on_cpu = T.init_params(small, torch.Generator().manual_seed(2), device="cpu")
+    reqs = _serve_workload(run, small)
+    if "mamba" in small.block_pattern:
+        _hold_mamba_prefill(small, on_cpu, tag)
+    out = {}
+    for dev, params in (("cpu", on_cpu), ("cuda", _tree_to(on_cpu, "cuda"))):
+        eng = ServeEngine(small, params, _serve_config(run), device=dev)
+        t0 = time.perf_counter()
+        streams = [st.generated for st in eng.run(reqs)]
+        out[dev] = (streams, _serve_counters(eng), time.perf_counter() - t0)
+    same = out["cpu"][0] == out["cuda"][0]
+    differ = sum(a != b for a, b in zip(out["cpu"][0], out["cuda"][0]))
+    print(f"{small.name} serve smoke {tag}: {len(reqs)} requests, {run[2]} slots, prompts "
+          f"<= {run[3]}, gen <= {run[4]}, chunk {run[5]}: counters cpu {out['cpu'][1]} card "
+          f"{out['cuda'][1]}; token streams equal={same} ({differ} of {len(reqs)} differ; "
+          f"{sum(map(len, out['cuda'][0]))} tokens); wall cpu {out['cpu'][2]:.2f}s card "
+          f"{out['cuda'][2]:.2f}s")
+    if not same or out["cpu"][1] != out["cuda"][1]:
+        _fail(f"serving the SMOKE {arch_id} differs between the CPU and the card")
+
+
+def serve_phase(run, smi):
+    """One of SERVE_RUNS at full width and depth, random weights drawn on
+    the card: the workload through ``ServeEngine`` (what ``launch.serve
+    --full`` runs) with the kernel counts from 0; gen and total tokens/s,
+    mean TTFT and TPOT, the engine's counters, peak memory and B10's
+    launches (an encoder-decoder: n_enc_layers a request's admission and
+    n_blocks cross calls a prefill chunk and a decode step; attention over
+    the cache is plain torch, as the reference's). Then the SERVE_VERIFIED
+    shortest requests against ``sequential_reference`` token for token (a
+    difference only at a near-tie: the top-2 logit gap below FLIP_GAP in
+    either run at the first differing position); ``block_attn`` held
+    against its plain version on the engine's own first call of each mode
+    (the encoder at an admission, a prefill chunk's cross layer, a decode
+    step's cross layer); the idle share of a profiled window of engine
+    steps. Returns (B10's launches, the modes' entries, the run's numbers)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.launch.serve import sequential_reference
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as serve_engine
+
+    tag = f"[{smi}]"
+    cfg = get_arch(run[0])
+    params, _ = _init_on_card(cfg, tag)
+    reqs = _serve_workload(run, cfg)
+    econf = _serve_config(run)
+    eng = ServeEngine(cfg, params, econf)
+    first, calls, step_gaps, emitted = {}, dict.fromkeys(
+        ("encoder", "prefill_cross", "decode_cross"), 0), [], {}
+    real_attn, real_greedy = attn_ops.block_attention, serve_engine._greedy_tokens
+    real_emit = ServeEngine._emit_token
+
+    def attn_spy(q, k, v, **kw):
+        mode = ("decode_cross" if q.shape[1] == 1 else "encoder" if q.shape[0] == 1
+                else "prefill_cross")
+        calls[mode] += 1
+        first.setdefault(mode, (q, k, v, kw))
+        return real_attn(q, k, v, **kw)
+
+    def greedy_spy(logits):                 # each step's top-2 gaps, left on the card
+        top = torch.topk(logits, 2, dim=-1).values
+        step_gaps.append(top[:, 0] - top[:, 1])
+        return real_greedy(logits)
+
+    def emit_spy(self, st, tok, finished, first=False):
+        emitted.setdefault(st.request.rid, []).append((len(step_gaps) - 1, st.slot))
+        return real_emit(self, st, tok, finished, first)
+
+    attn_ops.block_attention, serve_engine._greedy_tokens = attn_spy, greedy_spy
+    ServeEngine._emit_token = emit_spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ba.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ba.LAUNCHES["block_attn"]
+    finally:
+        attn_ops.block_attention, serve_engine._greedy_tokens = real_attn, real_greedy
+        ServeEngine._emit_token = real_emit
+    peak = torch.cuda.max_memory_allocated()
+    summary = eng.metrics.summary()
+    counters = _serve_counters(eng)
+    want_calls = ({"encoder": cfg.n_enc_layers * len(reqs),
+                   "prefill_cross": cfg.n_blocks * counters["prefill_chunks"],
+                   "decode_cross": cfg.n_blocks * counters["decode_steps"]} if cfg.enc_dec
+                  else dict.fromkeys(calls, 0))
+    stats = {"requests": len(reqs), "slots": run[2], "prompt_len": run[3], "gen": run[4],
+             "chunk": eng.chunk, "arrival": run[6], "wall_s": wall,
+             "gen_tok_s": summary["tok_s"], "total_tok_s": summary["total_tok_s"],
+             "mean_ttft_ms": summary["mean_ttft_s"] * 1e3,
+             "p50_ttft_ms": summary["p50_ttft_s"] * 1e3,
+             "mean_tpot_ms": summary["mean_tpot_s"] * 1e3, **counters,
+             "peak_memory_allocated": peak, "block_attn_launches": launches,
+             "block_attn_calls": calls}
+    print(f"{cfg.name} serve {tag}: {len(reqs)} requests (prompts {run[3] // 2}-{run[3]}, "
+          f"gen {max(run[4] // 4, 1)}-{run[4]}, Poisson {run[6]} a step), {run[2]} slots, "
+          f"chunk {eng.chunk}, max_len {econf.max_len}: {summary['tok_s']:.2f} gen tok/s, "
+          f"{summary['total_tok_s']:.2f} total tok/s, mean TTFT "
+          f"{summary['mean_ttft_s'] * 1e3:.2f} ms (p50 {summary['p50_ttft_s'] * 1e3:.2f}), "
+          f"mean TPOT {summary['mean_tpot_s'] * 1e3:.2f} ms, wall {wall:.3f}s; {counters}; "
+          f"peak_memory_allocated={peak} bytes; block_attn launches={launches} calls "
+          f"{calls} (want {want_calls})")
+    if (counters["requests_finished"] != len(reqs) or calls != want_calls
+            or launches != sum(want_calls.values())):
+        _fail(f"{cfg.name} serve: {counters['requests_finished']} of {len(reqs)} finished, "
+              f"block_attn calls {calls} and {launches} launches (want {want_calls})")
+
+    gaps = torch.stack(step_gaps).cpu()
+    by_rid = {st.request.rid: st for st in results}
+    shortest = sorted(reqs, key=lambda r: (len(r.prompt) + r.max_tokens, r.rid))
+    with torch.inference_mode():
+        for req in shortest[:SERVE_VERIFIED]:
+            seq_gaps = []
+            t0 = time.perf_counter()
+            want = sequential_reference(cfg, eng.params, req, econf.max_len, "cuda", seq_gaps)
+            got = by_rid[req.rid].generated
+            eng_gaps = [float(gaps[step, slot]) for step, slot in emitted[req.rid]]
+            diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            tie = diff is not None and min(seq_gaps[diff], eng_gaps[diff]) < FLIP_GAP
+            print(f"{cfg.name} serve verify {tag}: request {req.rid} (prompt {len(req.prompt)}, "
+                  f"{req.max_tokens} tokens) against sequential_reference "
+                  f"({time.perf_counter() - t0:.2f}s): "
+                  + ("equal token for token" if diff is None and len(got) == len(want) else
+                     f"first difference at {diff}: top-2 gaps {seq_gaps[diff]:.3e} "
+                     f"(sequential), {eng_gaps[diff]:.3e} (engine), a near-tie below "
+                     f"{FLIP_GAP}: {tie}")
+                  + f"; smallest top-2 gap before it {min(seq_gaps[:diff] or [math.inf]):.3e}")
+            if len(got) != len(want) or (diff is not None and not tie):
+                _fail(f"{cfg.name} serve: request {req.rid} differs from the sequential "
+                      f"decode away from a near-tie")
+
+    modes = {}
+    for mode in ("encoder", "prefill_cross", "decode_cross"):
+        if mode in first:
+            q, k, v, kw = first[mode]
+            modes[f"serve_{mode}"] = _hold_attn_mode(f"serve {mode} (the engine's first call)",
+                                                     q, k, v, kw["causal"], tag)
+    first.clear()
+
+    eng.reset()
+    for req in reqs:
+        eng.submit(req)
+    eng.metrics.start()
+    with torch.inference_mode():
+        for _ in range(SERVE_WARM_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+
+        def window():
+            for _ in range(SERVE_PROFILED_STEPS):
+                eng.step()
+
+        before = eng.metrics.prefill_chunks, eng.metrics.decode_steps
+        stats["idle_share"] = _profile(
+            f"{cfg.name} serve engine steps {SERVE_WARM_STEPS}-"
+            f"{SERVE_WARM_STEPS + SERVE_PROFILED_STEPS - 1} {tag}", window)
+    stats["profiled"] = {"prefill_chunks": eng.metrics.prefill_chunks - before[0],
+                         "decode_steps": eng.metrics.decode_steps - before[1]}
+    print(f"{cfg.name} serve {tag}: the profiled window ran {stats['profiled']}")
+    del eng, params
+    return launches, modes, stats
 
 
 def obs_phase(tag, fleet_stream):
@@ -3104,6 +3368,17 @@ def main() -> int:
     obs_phase(f"[{smi}]", fleet_stream)
     gc.collect()
     torch.cuda.empty_cache()
+    for arch in SERVE_SMOKE:                                         # (j) serving
+        serve_smoke_phase(arch, f"[{smi}]")
+    serving = {}
+    for run in SERVE_RUNS:
+        served, serve_modes, serving[run[0]] = serve_phase(run, smi)
+        attn["modes"].update(serve_modes)
+        if served:
+            attn_by_path[f"{run[0]} serve"] = served
+        gc.collect()                     # each model goes before the next
+        torch.cuda.empty_cache()
+    print(f"serve summary [{smi}]: {json.dumps(serving)}")
     attn_by_path["deepseek-v2-lite-16b"] = deepseek_phase(smi)    # (f), last: the largest
     for entry, paths in ((attn, attn_by_path), (ssd, ssd_by_path)):
         entry["launches"] = sum(paths.values())

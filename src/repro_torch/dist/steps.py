@@ -1,15 +1,23 @@
-"""The training step of one pod, the port of ``repro.dist.steps.make_train_step``.
+"""Step builders of one device, the port of ``repro.dist.steps``'s
+``make_train_step``, ``make_serve_step`` and ``make_prefill_step``.
 
-``step_fn(params, vel, batch, step)`` takes the gradient of ``T.loss_fn``
-(autograd; on the card through the backward kernels of ``block_attn`` and
-``ssd_scan``), the paper's decreasing learning rate ``decreasing_lr(step +
-1, r=lr_r)`` and a heavy-ball momentum step (``optim.momentum_sgd``), as the
-reference's ``jax.value_and_grad`` followed by ``momentum_sgd``.
+``make_train_step``'s ``step_fn(params, vel, batch, step)`` takes the
+gradient of ``T.loss_fn`` (autograd; on the card through the backward
+kernels of ``block_attn`` and ``ssd_scan``), the paper's decreasing
+learning rate ``decreasing_lr(step + 1, r=lr_r)`` and a heavy-ball
+momentum step (``optim.momentum_sgd``), as the reference's
+``jax.value_and_grad`` followed by ``momentum_sgd``.
 
-There is no mesh and no ``p_specs``: the model, its gradients and its
-velocity live on one device, so the builder returns the step alone.
-Sharding, and the federated step built on this one's pieces
-(``make_fed_train_step``), are ROADMAP.md queue A, item 11.
+``make_serve_step`` builds the batched decode step over the cache
+(``slots=True``: the serve engine's per-slot variant) and
+``make_prefill_step`` the chunked batched prefill into it
+(``T.prefill_chunk``).
+
+There is no mesh and no ``p_specs``: the model, its gradients, its
+velocity and the cache live on one device, so each builder returns its
+step alone. Sharding (``param_specs``, ``cache_specs``,
+``serve_arg_specs``), and the federated step built on the train step's
+pieces (``make_fed_train_step``), are ROADMAP.md queue A, item 11.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.sgd import decreasing_lr, momentum_sgd
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
 
 
 def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
@@ -48,3 +56,30 @@ def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
         return params, vel, loss.detach()
 
     return step_fn
+
+
+def make_serve_step(cfg: ArchConfig, *, slots: bool = False):
+    """serve_fn(params, cache, token) -> (logits, new_cache), one batched
+    decode step (``T.decode_step``). ``slots=True`` builds the
+    continuous-batching variant ``serve_fn(params, cache, token, positions,
+    active)``: every cache row is a request slot at its own absolute
+    position, and ``active`` freezes free and retired rows."""
+    if slots:
+        def serve_fn(params, cache, token, positions, active):
+            return T.decode_step(cfg, params, cache, token, positions=positions,
+                                 active=active)
+    else:
+        def serve_fn(params, cache, token):
+            return T.decode_step(cfg, params, cache, token)
+    return serve_fn
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """prefill_fn(params, cache, tokens (B,C), positions (B,), n_valid (B,))
+    -> (logits (B,C,V), new_cache): the chunked batched prefill into the
+    decode cache at per-row offsets (``T.prefill_chunk``)."""
+
+    def prefill_fn(params, cache, tokens, positions, n_valid):
+        return T.prefill_chunk(cfg, params, cache, tokens, positions, n_valid)
+
+    return prefill_fn

@@ -104,6 +104,10 @@ class ArchConfig:
                              f"pattern {len(self.block_pattern)}")
         return self.n_layers // len(self.block_pattern)
 
+    @property
+    def has_attention(self) -> bool:
+        return any(k == "attn" for k in self.block_pattern)
+
     def ffn_kind(self, slot: int) -> str:
         if len(self.ffn_pattern) == 1:
             return self.ffn_pattern[0]

@@ -15,8 +15,10 @@ CPU): the SSD scan (``mamba_train`` -> ``kernels.ssd_scan.ssd_chunked``;
 attention (``attn_train`` -> ``kernels.block_attn.block_attention``, where
 the reference's ``attn_train`` materializes the softmax; the causal,
 non-causal and cross-attention calls alike). Decode's one-token attention
-over the ring cache and MLA's latent attention are plain torch, as the
-reference computes them outside any kernel.
+over the ring cache, the chunked prefill's (``attn_prefill``: a mask over
+the ring snapshot and the chunk) and MLA's latent attention are plain
+torch, as the reference computes them outside any kernel; ``mamba_prefill``
+is the recurrent decode step over the chunk, as the reference's.
 
 Precision: float32 throughout; ``cfg.attn_logits_bf16`` raises. The causal
 depthwise convolution is the reference's sum of shifted products, not
@@ -46,11 +48,13 @@ __all__ = [
     "init_attn",
     "attn_train",
     "attn_decode",
+    "attn_prefill",
     "init_cache_attn",
     "init_mla",
     "mla_train",
     "init_cache_mla",
     "mla_decode",
+    "mla_prefill",
     "init_ffn",
     "ffn_apply",
     "init_moe",
@@ -60,7 +64,10 @@ __all__ = [
     "mamba_train",
     "init_cache_mamba",
     "mamba_decode",
+    "mamba_prefill",
 ]
+
+_NEG = -1e30
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -138,8 +145,9 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
 
 
 def _sdpa(q, k, v, mask, n_rep: int):
-    """The reference's materialized attention for decode's one-token query:
-    q (B,Lq,H,hd), k/v (B,Lk,KV,hd); mask (B|1, 1, Lq, Lk) additive f32."""
+    """The reference's materialized attention, for decode's one-token query
+    and the chunked prefill: q (B,Lq,H,hd), k/v (B,Lk,KV,hd); mask (B|1, 1,
+    Lq, Lk) additive f32."""
     b, lq, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, lq, kv, n_rep, hd)
@@ -234,6 +242,97 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
     cv = cache["v"].index_put((rows, slot), v_new)
     out = _sdpa(q, ck, cv, _ring_mask(pos, size), h // kv)
     return out.reshape(b, 1, h * hd) @ p["wo"], {"k": ck, "v": cv}
+
+
+def _prefill_write_slots(tok_pos: torch.Tensor, n_valid: torch.Tensor, size: int) -> torch.Tensor:
+    """(B,C) ring slots for a chunk write, the reference's: a real token
+    (j < n_valid) goes to tok_pos % size, a padding token to ``size``,
+    past the end."""
+    c = tok_pos.shape[1]
+    valid = torch.arange(c, device=tok_pos.device)[None, :] < n_valid[:, None]
+    return torch.where(valid, torch.remainder(tok_pos, size), torch.full_like(tok_pos, size))
+
+
+def _prefill_mask(pos: torch.Tensor, n_valid: torch.Tensor, c: int, size: int,
+                  window: int) -> torch.Tensor:
+    """(B,1,C,S+C) additive float32 mask over [pre-chunk cache snapshot |
+    chunk keys], the reference's bit for bit (0 or ``_NEG``).
+
+    Chunk token j of row r sits at absolute position pos[r] + j. Snapshot
+    slot s holds absolute position a_s = P - ((P - s) mod S), P = pos - 1
+    (a_s < 0: never written); it is visible when written and, with a
+    window, when tok_pos - a_s < window. Chunk keys are causal over the
+    real tokens, and every query keeps its own key, so a padding query's
+    softmax stays finite."""
+    dev = pos.device
+    b = pos.shape[0]
+    j = torch.arange(c, device=dev)
+    tok_pos = pos[:, None] + j[None, :]                              # (B,C)
+    valid_tok = j[None, :] < n_valid[:, None]                        # (B,C)
+    idx = torch.arange(size, device=dev)
+    last = pos[:, None] - 1
+    a_s = last - torch.remainder(last - idx[None, :], size)          # (B,S)
+    cache_ok = (a_s >= 0)[:, None, :].expand(b, c, size)             # (B,C,S)
+    if window > 0:
+        cache_ok = cache_ok & ((tok_pos[:, :, None] - a_s[:, None, :]) < window)
+    self_k = j[None, None, :] == j[None, :, None]                    # (1,C,C)
+    chunk_ok = (j[None, None, :] <= j[None, :, None]) & (valid_tok[:, None, :] | self_k)
+    if window > 0:
+        chunk_ok = chunk_ok & ((j[None, :, None] - j[None, None, :]) < window)
+    ok = torch.cat([cache_ok, chunk_ok.expand(b, c, c)], dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.where(ok, zero, zero + _NEG)[:, None]
+
+
+def _check_chunk(c: int, size: int) -> None:
+    if c > size:
+        raise ValueError(f"prefill chunk {c} exceeds ring buffer {size}")
+
+
+def _prefill_write(cache: torch.Tensor, new: torch.Tensor, tok_pos: torch.Tensor,
+                   n_valid: torch.Tensor) -> torch.Tensor:
+    """Write a chunk's (B,C,...) rows into the (B,S,...) ring ``cache`` out
+    of place, as the reference's scatter with ``mode="drop"``. A padding
+    token is not written: it writes back what its slot held. Its slot
+    cannot collide with a real token's, since the C slots tok_pos % S of a
+    row are distinct for C <= S, so no index repeats and the write order
+    is fixed."""
+    b, c = tok_pos.shape
+    size = cache.shape[1]
+    rows = torch.arange(b, device=cache.device)[:, None].expand(b, c)
+    written = _prefill_write_slots(tok_pos, n_valid, size) < size
+    slot = torch.remainder(tok_pos, size).long()
+    keep = written.reshape(b, c, *([1] * (new.dim() - 2)))
+    return cache.index_put((rows, slot), torch.where(keep, new, cache[rows, slot]))
+
+
+def attn_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                 n_valid: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """Chunked batched prefill into the decode ring cache, the reference's.
+    x (B,C,d), a chunk of C tokens a row; ``pos`` (B,) the absolute
+    position of each row's first chunk token; ``n_valid`` (B,) the real
+    tokens of each row (0: the row's cache is untouched). Queries attend
+    the pre-chunk snapshot (the given cache, which is not modified) and the
+    chunk's own keys, through :func:`_prefill_mask`; the attention is the
+    plain materialized ``_sdpa``, as the reference's (``block_attention``
+    takes no mask over a wrapped ring). Needs C <= the ring size."""
+    _check_attn(cfg)
+    b, c, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    size = cache["k"].shape[1]
+    _check_chunk(c, size)
+    q, k, v = _qkv(p, x, cfg)
+    tok_pos = pos[:, None] + torch.arange(c, device=x.device)[None, :]
+    cos, sin = rope_freqs(tok_pos, hd, cfg.rope_theta)              # (B,C,hd/2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    ck = _prefill_write(cache["k"], k, tok_pos, n_valid)
+    cv = _prefill_write(cache["v"], v, tok_pos, n_valid)
+    mask = _prefill_mask(pos, n_valid, c, size, cfg.sliding_window)
+    kk = torch.cat([cache["k"], k], dim=1)                          # snapshot + chunk
+    vv = torch.cat([cache["v"], v], dim=1)
+    out = _sdpa(q, kk, vv, mask, h // kv)
+    return out.reshape(b, c, h * hd) @ p["wo"], {"k": ck, "v": cv}
 
 
 # ------------------------------------------------------------ MLA attention
@@ -340,6 +439,25 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
     cc = cache["c_kv"].index_put((rows, slot), c_new)
     cr = cache["k_rope"].index_put((rows, slot), r_new)
     y = _mla_attend(p, q_nope, q_rope, cc, cr, _ring_mask(pos, size), cfg)
+    return y, {"c_kv": cc, "k_rope": cr}
+
+
+def mla_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                n_valid: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """Chunked MLA prefill into the compressed ring cache, with
+    :func:`attn_prefill`'s chunk, snapshot and padding semantics."""
+    b, c, _ = x.shape
+    size = cache["c_kv"].shape[1]
+    _check_chunk(c, size)
+    tok_pos = pos[:, None] + torch.arange(c, device=x.device)[None, :]
+    cos, sin = rope_freqs(tok_pos, cfg.mla.qk_rope_dim, cfg.rope_theta)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, cos, sin)
+    cc = _prefill_write(cache["c_kv"], c_kv, tok_pos, n_valid)
+    cr = _prefill_write(cache["k_rope"], k_rope, tok_pos, n_valid)
+    mask = _prefill_mask(pos, n_valid, c, size, cfg.sliding_window)
+    ckv_all = torch.cat([cache["c_kv"], c_kv], dim=1)
+    kr_all = torch.cat([cache["k_rope"], k_rope], dim=1)
+    y = _mla_attend(p, q_nope, q_rope, ckv_all, kr_all, mask, cfg)
     return y, {"c_kv": cc, "k_rope": cr}
 
 
@@ -552,3 +670,20 @@ def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig,
         new_conv_cache = torch.where(active[:, None, None], new_conv_cache, cache["conv"])
         st = torch.where(active[:, None, None, None], st, cache["ssm"])
     return y @ p["out_proj"], {"conv": new_conv_cache, "ssm": st}
+
+
+def mamba_prefill(p: dict, x: torch.Tensor, cache: dict, n_valid: torch.Tensor,
+                  cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+    """Chunked prefill for the recurrent mixer, the reference's: the O(1)
+    step :func:`mamba_decode` over the chunk's tokens in order, each row's
+    state advancing only for its first n_valid tokens (``active=t <
+    n_valid``), so it is bit for bit the decode step run token at a time.
+    x (B,C,d) -> (y (B,C,d), new cache). Each token goes in as its own
+    contiguous (B,1,d) tensor, as decode gives it: a strided view of the
+    chunk takes another BLAS path, a few ulps apart."""
+    ys = []
+    for t in range(x.shape[1]):
+        xt = x[:, t:t + 1].contiguous()
+        y, cache = mamba_decode(p, xt, cache, cfg, active=t < n_valid)
+        ys.append(y[:, 0])
+    return torch.stack(ys, dim=1), cache

@@ -26,7 +26,8 @@ when no gradient is taken. Embeddings are tied when ``cfg.tie_embeddings``
 (head = embed.T).
 
 Public API: init_params / forward_train / loss_fn / init_cache /
-decode_step, and ``_run_encoder`` under the reference's name. Float32
+decode_step / prefill_chunk (the serve engine's chunked prefill), and
+``_run_encoder`` under the reference's name. Float32
 throughout, with TF32 off (``repro_torch.device``).
 """
 from __future__ import annotations
@@ -38,7 +39,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
-__all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "decode_step"]
+__all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "decode_step",
+           "prefill_chunk"]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -168,15 +170,21 @@ def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int):
-    """The slot's FFN on the residual x -> (x + ffn(norm2(x)), aux)."""
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, per_token: bool = False):
+    """The slot's FFN on the residual x -> (x + ffn(norm2(x)), aux).
+    ``per_token`` dispatches a MoE FFN in groups of one token (the chunked
+    prefill's, so its capacity is decode's: a group over the chunk could
+    drop a choice that decode keeps)."""
     fk = cfg.ffn_kind(slot)
     if fk == "none":
         return x, None
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     if fk == "moe":
+        b, l, d = h.shape
+        if per_token:
+            h = h.reshape(b * l, 1, d)
         h, aux = L.moe_apply(p["ffn"], h, cfg)
-        return x + h, aux
+        return x + h.reshape(b, l, d), aux
     return x + L.ffn_apply(p["ffn"], h), None
 
 
@@ -316,6 +324,32 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
     return cache
 
 
+def _cached_pass(cfg: ArchConfig, params: dict, cache: dict, x: torch.Tensor, mix,
+                 per_token: bool):
+    """The blocks over the cache: each slot's mixer is ``mix(kind, mixer
+    params, normed x, the slot's cache)`` -> (out, new slot cache), then its
+    FFN, then an encoder-decoder's cross layer over ``cache["enc_out"]`` (its
+    K/V projected anew each call, as the reference does) -> (logits, new
+    cache); cache["pos"] is carried over as it is."""
+    new_slots = {f"slot{i}": [] for i in range(len(cfg.block_pattern))}
+    slots = {k: _unstack(v, cfg.n_blocks) for k, v in cache["slots"].items()}
+    crosses = _unstack(params["cross"], cfg.n_blocks) if cfg.enc_dec else None
+    for blk, bp in enumerate(_unstack(params["blocks"], cfg.n_blocks)):
+        for i, kind in enumerate(cfg.block_pattern):
+            p = bp[f"slot{i}"]
+            hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+            out, nc = mix(kind, p["mixer"], hn, slots[f"slot{i}"][blk])
+            x = x + out
+            new_slots[f"slot{i}"].append(nc)
+            x, _ = _ffn(p, x, cfg, i, per_token)
+        if cfg.enc_dec:
+            x = _cross(crosses[blk], x, cfg, cache["enc_out"])
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    new_cache = dict(cache)
+    new_cache["slots"] = {k: _stack(v) for k, v in new_slots.items()}
+    return x @ _head(cfg, params), new_cache
+
+
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
                 positions: torch.Tensor | None = None,
                 active: torch.Tensor | None = None):
@@ -328,30 +362,43 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
     layers attend ``cache["enc_out"]``, its K/V projected anew every step,
     as the reference does."""
     _check_supported(cfg)
-    x = params["embed"][token]
     pos = cache["pos"] if positions is None else positions
-    new_slots = {f"slot{i}": [] for i in range(len(cfg.block_pattern))}
-    slots = {k: _unstack(v, cfg.n_blocks) for k, v in cache["slots"].items()}
-    crosses = _unstack(params["cross"], cfg.n_blocks) if cfg.enc_dec else None
-    for blk, bp in enumerate(_unstack(params["blocks"], cfg.n_blocks)):
-        for i, kind in enumerate(cfg.block_pattern):
-            p = bp[f"slot{i}"]
-            hn = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-            c = slots[f"slot{i}"][blk]
-            if kind == "mamba":
-                out, nc = L.mamba_decode(p["mixer"], hn, c, cfg, active=active)
-            elif cfg.attn_type == "mla":
-                out, nc = L.mla_decode(p["mixer"], hn, c, pos, cfg, active=active)
-            else:
-                out, nc = L.attn_decode(p["mixer"], hn, c, pos, cfg, active=active)
-            x = x + out
-            new_slots[f"slot{i}"].append(nc)
-            x, _ = _ffn(p, x, cfg, i)
-        if cfg.enc_dec:
-            x = _cross(crosses[blk], x, cfg, cache["enc_out"])
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    new_cache = dict(cache)
-    new_cache["slots"] = {k: _stack(v) for k, v in new_slots.items()}
+
+    def mix(kind, p, hn, c):
+        if kind == "mamba":
+            return L.mamba_decode(p, hn, c, cfg, active=active)
+        if cfg.attn_type == "mla":
+            return L.mla_decode(p, hn, c, pos, cfg, active=active)
+        return L.attn_decode(p, hn, c, pos, cfg, active=active)
+
+    logits, new_cache = _cached_pass(cfg, params, cache, params["embed"][token], mix, False)
     if positions is None:
         new_cache["pos"] = cache["pos"] + 1
-    return x @ _head(cfg, params), new_cache
+    return logits, new_cache
+
+
+def prefill_chunk(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor,
+                  positions: torch.Tensor, n_valid: torch.Tensor):
+    """Chunked batched prefill into the decode cache, the reference's.
+
+    tokens (B, C) int, the next chunk of each row's prompt, right-padded;
+    ``positions`` (B,) the absolute position of each row's first chunk
+    token; ``n_valid`` (B,) the real tokens of each row (0: the row, a
+    decoding or free slot, is untouched). Returns (logits (B, C, V), new
+    cache); logits at j >= n_valid[r] are finite and meaningless, and
+    cache["pos"] is not read (the caller keeps each row's position).
+    Attention slots go through ``attn_prefill``/``mla_prefill``, Mamba2
+    slots through ``mamba_prefill`` (bit for bit the decode step), a MoE
+    FFN dispatches one token at a time (decode's capacity), and an
+    encoder-decoder's cross layers attend ``cache["enc_out"]`` through
+    ``block_attention`` (Lq = C)."""
+    _check_supported(cfg)
+
+    def mix(kind, p, hn, c):
+        if kind == "mamba":
+            return L.mamba_prefill(p, hn, c, n_valid, cfg)
+        if cfg.attn_type == "mla":
+            return L.mla_prefill(p, hn, c, positions, n_valid, cfg)
+        return L.attn_prefill(p, hn, c, positions, n_valid, cfg)
+
+    return _cached_pass(cfg, params, cache, params["embed"][tokens], mix, True)

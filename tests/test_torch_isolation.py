@@ -235,6 +235,46 @@ def test_port_trains_without_jax():
     assert "ok" in proc.stdout and "done" in proc.stdout
 
 
+def test_port_serves_without_jax():
+    """The serving slice (``repro_torch.serve``, ``launch.serve``,
+    ``transformer.prefill_chunk``, ``dist``'s serve and prefill steps) on the
+    CPU with imports of jax and repro refused: the launcher verifies the
+    engine against the sequential decode for a Mamba2 and an
+    encoder-decoder SMOKE model."""
+    proc = _run("""
+        import sys
+        import torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.dist import make_prefill_step, make_serve_step
+        from repro_torch.launch.serve import main
+        from repro_torch.models import transformer as T
+        from repro_torch.serve import EngineConfig, Request, ServeEngine
+
+        for arch in ("mamba2-130m", "seamless-m4t-large-v2"):
+            main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "4",
+                  "--max-concurrency", "2", "--prompt-len", "6", "--gen", "4", "--mixed",
+                  "--verify"])
+        cfg = get_smoke("deepseek-v2-lite-16b")
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        cache = T.init_cache(cfg, 2, 8, device="cpu")
+        logits, cache = make_prefill_step(cfg)(params, cache, torch.zeros(2, 4, dtype=torch.long),
+                                               torch.zeros(2, dtype=torch.int32),
+                                               torch.tensor([4, 1], dtype=torch.int32))
+        step, _ = make_serve_step(cfg, slots=True)(params, cache, torch.zeros(2, 1, dtype=torch.long),
+                                                   torch.tensor([4, 1]), torch.tensor([True, False]))
+        assert logits.shape == (2, 4, cfg.vocab) and step.shape == (2, 1, cfg.vocab)
+        eng = ServeEngine(cfg, params, EngineConfig(max_concurrency=2, max_len=8), device="cpu")
+        out = eng.run([Request(rid=i, prompt=[1, 2, 3], max_tokens=2) for i in range(3)])
+        assert [len(st.generated) for st in out] == [2, 2, 2]
+        assert "repro_torch.serve.engine" in sys.modules
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ok" in proc.stdout and proc.stdout.count("verify: all 4 requests identical") == 2
+
+
 def test_port_runs_the_simulator_without_jax():
     """The simulator slice (sim, obs, launch.sim) on the CPU with JAX and the
     JAX package refused: a scenario with telemetry and a recorded trace on
@@ -352,6 +392,18 @@ def test_entry_points_default_to_cuda():
             T.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_params_from_numpy({"embed": np.zeros((2, 2))})
+
+    from repro_torch.launch.serve import main as serve_main, sequential_reference
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_smoke("mamba2-130m")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sequential_reference(cfg, params, Request(rid=0, prompt=[1], max_tokens=1), 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--arch", "mamba2-130m", "--requests", "1"])
 
 
 def test_only_cpu_tensors_take_the_plain_path():
