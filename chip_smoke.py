@@ -147,10 +147,11 @@ or of the JAX package ``repro``. Phases, in order:
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
    bit for bit the decode step on the card), then
    ``seamless-m4t-large-v2`` and ``yi-6b`` at full width and depth through
-   ``ServeEngine`` (16 requests, 8 slots, SERVE_RUNS): gen and total
-   tokens/s, TTFT, TPOT, the counters, peak memory, B10's launches (24 an
-   admission, 24 a prefill chunk and a decode step for Seamless), the two
-   shortest requests against ``sequential_reference`` token for token (a
+   ``ServeEngine`` (16 requests, 8 slots, SERVE_RUNS), SERVE_TIMED timed
+   runs with nothing wrapped: gen and total tokens/s, TTFT, TPOT and their
+   spread, the counters, peak memory, B10's launches (24 an admission, 24
+   a prefill chunk and a decode step for Seamless); then, in a run that is
+   not timed, the two shortest requests against ``sequential_reference`` token for token (a
    near-tie aside), B10 held on the engine's first call of each serve mode
    (encoder, prefill cross at Lq = chunk, decode cross), and the idle
    share of a profiled window of engine steps; (f)
@@ -356,13 +357,16 @@ POD_STEPS = 4
 # Serving, launch.serve's workload at temperature 0 with --mixed: (arch,
 # --requests, --max-concurrency, --prompt-len, --gen, --chunk, --arrival).
 # The SMOKE models run Yi-6B's workload on the CPU and on the card; the
-# SERVE_VERIFIED shortest requests of each full-width run are held against
-# sequential_reference; SERVE_PROFILED_STEPS engine steps after the first
+# full-width workloads run SERVE_TIMED times with nothing wrapped (tokens/s,
+# TTFT, TPOT and their spread), then once more, not timed, keeping each
+# step's top-2 logit gaps: its SERVE_VERIFIED shortest requests are held
+# against sequential_reference; SERVE_PROFILED_STEPS engine steps after the first
 # SERVE_WARM_STEPS run under the profiler.
 SERVE_RUNS = [("seamless-m4t-large-v2", 16, 8, 256, 64, 64, 0.5),
               ("yi-6b", 16, 8, 512, 64, 128, 0.5)]
 SERVE_SMOKE = ("mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-lite-16b")
 SERVE_VERIFIED = 2
+SERVE_TIMED = 3
 SERVE_WARM_STEPS, SERVE_PROFILED_STEPS = 8, 16
 SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
                   "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
@@ -1543,19 +1547,25 @@ def serve_smoke_phase(arch_id, tag):
 
 def serve_phase(run, smi):
     """One of SERVE_RUNS at full width and depth, random weights drawn on
-    the card: the workload through ``ServeEngine`` (what ``launch.serve
-    --full`` runs) with the kernel counts from 0; gen and total tokens/s,
-    mean TTFT and TPOT, the engine's counters, peak memory and B10's
-    launches (an encoder-decoder: n_enc_layers a request's admission and
-    n_blocks cross calls a prefill chunk and a decode step; attention over
-    the cache is plain torch, as the reference's). Then the SERVE_VERIFIED
-    shortest requests against ``sequential_reference`` token for token (a
-    difference only at a near-tie: the top-2 logit gap below FLIP_GAP in
-    either run at the first differing position); ``block_attn`` held
-    against its plain version on the engine's own first call of each mode
-    (the encoder at an admission, a prefill chunk's cross layer, a decode
-    step's cross layer); the idle share of a profiled window of engine
-    steps. Returns (B10's launches, the modes' entries, the run's numbers)."""
+    the card: the workload through ``ServeEngine`` as ``launch.serve
+    --full`` runs it, SERVE_TIMED times with nothing wrapped, each with the
+    kernel counts from 0: gen and total tokens/s, mean TTFT and TPOT, the
+    engine's counters, peak memory and B10's launches (an encoder-decoder:
+    n_enc_layers a request's admission and n_blocks cross calls a prefill
+    chunk and a decode step; attention over the cache is plain torch, as
+    the reference's), each run's and their median, least and most; every
+    run must give the same tokens and counters. Then one run that is not
+    timed, with B10's calls counted by mode and each step's top-2 logit
+    gaps kept: the SERVE_VERIFIED shortest requests against
+    ``sequential_reference`` token for token (a difference only at a
+    near-tie: the top-2 logit gap below FLIP_GAP in either run at the first
+    differing position); ``block_attn`` held against its plain version on
+    the engine's own first call of each mode (the encoder at an admission,
+    a prefill chunk's cross layer, a decode step's cross layer); the idle
+    share of a profiled window of engine steps. Returns (B10's launches in
+    the first timed run, the modes' entries, the runs' numbers)."""
+    import statistics
+
     import torch
 
     from repro_torch.configs import get_arch
@@ -1571,8 +1581,52 @@ def serve_phase(run, smi):
     reqs = _serve_workload(run, cfg)
     econf = _serve_config(run)
     eng = ServeEngine(cfg, params, econf)
+    timed, streams = [], None
+    for i in range(SERVE_TIMED):
+        if i:
+            eng.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ba.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ba.LAUNCHES["block_attn"]
+        summary, counters = eng.metrics.summary(), _serve_counters(eng)
+        want = (cfg.n_enc_layers * len(reqs) + cfg.n_blocks * (
+            counters["prefill_chunks"] + counters["decode_steps"]) if cfg.enc_dec else 0)
+        timed.append({"wall_s": wall, "gen_tok_s": summary["tok_s"],
+                      "total_tok_s": summary["total_tok_s"],
+                      "mean_ttft_ms": summary["mean_ttft_s"] * 1e3,
+                      "p50_ttft_ms": summary["p50_ttft_s"] * 1e3,
+                      "mean_tpot_ms": summary["mean_tpot_s"] * 1e3,
+                      "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "block_attn_launches": launches})
+        print(f"{cfg.name} serve {tag}: timed run {i + 1} of {SERVE_TIMED}: {len(reqs)} requests "
+              f"(prompts {run[3] // 2}-{run[3]}, gen {max(run[4] // 4, 1)}-{run[4]}, Poisson "
+              f"{run[6]} a step), {run[2]} slots, chunk {eng.chunk}, max_len {econf.max_len}: "
+              f"{timed[-1]}; {counters} (block_attn launches want {want})")
+        got = [st.generated for st in results]
+        if streams is None:
+            streams, first_counters = got, counters
+        if (got != streams or counters != first_counters or launches != want
+                or counters["requests_finished"] != len(reqs)):
+            _fail(f"{cfg.name} serve: timed run {i + 1} finished {counters['requests_finished']} "
+                  f"of {len(reqs)}, with {launches} block_attn launches (want {want}), its "
+                  f"tokens and counters equal to run 1's: {got == streams}, "
+                  f"{counters == first_counters}")
+    spread = {key: {"median": statistics.median(r[key] for r in timed),
+                    "min": min(r[key] for r in timed), "max": max(r[key] for r in timed)}
+              for key in ("gen_tok_s", "total_tok_s", "mean_ttft_ms", "mean_tpot_ms", "wall_s")}
+    print(f"{cfg.name} serve {tag}: over the {SERVE_TIMED} timed runs {spread}")
+
     first, calls, step_gaps, emitted = {}, dict.fromkeys(
         ("encoder", "prefill_cross", "decode_cross"), 0), [], {}
+    want_calls = ({"encoder": cfg.n_enc_layers * len(reqs),
+                   "prefill_cross": cfg.n_blocks * first_counters["prefill_chunks"],
+                   "decode_cross": cfg.n_blocks * first_counters["decode_steps"]}
+                  if cfg.enc_dec else dict.fromkeys(calls, 0))
     real_attn, real_greedy = attn_ops.block_attention, serve_engine._greedy_tokens
     real_emit = ServeEngine._emit_token
 
@@ -1592,47 +1646,23 @@ def serve_phase(run, smi):
         emitted.setdefault(st.request.rid, []).append((len(step_gaps) - 1, st.slot))
         return real_emit(self, st, tok, finished, first)
 
+    eng.reset()
     attn_ops.block_attention, serve_engine._greedy_tokens = attn_spy, greedy_spy
     ServeEngine._emit_token = emit_spy
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ba.reset_launch_counts()
-        t0 = time.perf_counter()
         results = eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ba.LAUNCHES["block_attn"]
     finally:
         attn_ops.block_attention, serve_engine._greedy_tokens = real_attn, real_greedy
         ServeEngine._emit_token = real_emit
-    peak = torch.cuda.max_memory_allocated()
-    summary = eng.metrics.summary()
-    counters = _serve_counters(eng)
-    want_calls = ({"encoder": cfg.n_enc_layers * len(reqs),
-                   "prefill_cross": cfg.n_blocks * counters["prefill_chunks"],
-                   "decode_cross": cfg.n_blocks * counters["decode_steps"]} if cfg.enc_dec
-                  else dict.fromkeys(calls, 0))
+    same = [st.generated for st in results] == streams
+    print(f"{cfg.name} serve {tag}: the run that keeps gaps (not timed): block_attn calls "
+          f"{calls} (want {want_calls}); tokens equal to the timed runs' {same}")
+    if calls != want_calls or not same:
+        _fail(f"{cfg.name} serve: block_attn calls {calls} (want {want_calls}), tokens equal "
+              f"to the timed runs' {same}")
     stats = {"requests": len(reqs), "slots": run[2], "prompt_len": run[3], "gen": run[4],
-             "chunk": eng.chunk, "arrival": run[6], "wall_s": wall,
-             "gen_tok_s": summary["tok_s"], "total_tok_s": summary["total_tok_s"],
-             "mean_ttft_ms": summary["mean_ttft_s"] * 1e3,
-             "p50_ttft_ms": summary["p50_ttft_s"] * 1e3,
-             "mean_tpot_ms": summary["mean_tpot_s"] * 1e3, **counters,
-             "peak_memory_allocated": peak, "block_attn_launches": launches,
-             "block_attn_calls": calls}
-    print(f"{cfg.name} serve {tag}: {len(reqs)} requests (prompts {run[3] // 2}-{run[3]}, "
-          f"gen {max(run[4] // 4, 1)}-{run[4]}, Poisson {run[6]} a step), {run[2]} slots, "
-          f"chunk {eng.chunk}, max_len {econf.max_len}: {summary['tok_s']:.2f} gen tok/s, "
-          f"{summary['total_tok_s']:.2f} total tok/s, mean TTFT "
-          f"{summary['mean_ttft_s'] * 1e3:.2f} ms (p50 {summary['p50_ttft_s'] * 1e3:.2f}), "
-          f"mean TPOT {summary['mean_tpot_s'] * 1e3:.2f} ms, wall {wall:.3f}s; {counters}; "
-          f"peak_memory_allocated={peak} bytes; block_attn launches={launches} calls "
-          f"{calls} (want {want_calls})")
-    if (counters["requests_finished"] != len(reqs) or calls != want_calls
-            or launches != sum(want_calls.values())):
-        _fail(f"{cfg.name} serve: {counters['requests_finished']} of {len(reqs)} finished, "
-              f"block_attn calls {calls} and {launches} launches (want {want_calls})")
+             "chunk": eng.chunk, "arrival": run[6], "timed_runs": timed, "spread": spread,
+             **first_counters, "block_attn_calls": calls}
 
     gaps = torch.stack(step_gaps).cpu()
     by_rid = {st.request.rid: st for st in results}
@@ -1687,7 +1717,7 @@ def serve_phase(run, smi):
                          "decode_steps": eng.metrics.decode_steps - before[1]}
     print(f"{cfg.name} serve {tag}: the profiled window ran {stats['profiled']}")
     del eng, params
-    return launches, modes, stats
+    return timed[0]["block_attn_launches"], modes, stats
 
 
 def obs_phase(tag, fleet_stream):

@@ -8,8 +8,9 @@ learning rate ``decreasing_lr(step + 1, r=lr_r)`` and a heavy-ball
 momentum step (``optim.momentum_sgd``), as the reference's
 ``jax.value_and_grad`` followed by ``momentum_sgd``.
 
-``make_serve_step`` builds the batched decode step over the cache
-(``slots=True``: the serve engine's per-slot variant) and
+``make_serve_step`` builds the serve engine's per-slot decode step over
+the cache (the reference's ``slots=True`` variant; its ``slots=False``
+variant serves only ``launch/dryrun.py``, which is not ported) and
 ``make_prefill_step`` the chunked batched prefill into it
 (``T.prefill_chunk``).
 
@@ -58,19 +59,15 @@ def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
     return step_fn
 
 
-def make_serve_step(cfg: ArchConfig, *, slots: bool = False):
-    """serve_fn(params, cache, token) -> (logits, new_cache), one batched
-    decode step (``T.decode_step``). ``slots=True`` builds the
-    continuous-batching variant ``serve_fn(params, cache, token, positions,
-    active)``: every cache row is a request slot at its own absolute
-    position, and ``active`` freezes free and retired rows."""
-    if slots:
-        def serve_fn(params, cache, token, positions, active):
-            return T.decode_step(cfg, params, cache, token, positions=positions,
-                                 active=active)
-    else:
-        def serve_fn(params, cache, token):
-            return T.decode_step(cfg, params, cache, token)
+def make_serve_step(cfg: ArchConfig):
+    """serve_fn(params, cache, token, positions, active) -> (logits,
+    new_cache), the continuous-batching decode step (``T.decode_step``):
+    every cache row is a request slot at its own absolute position, and
+    ``active`` freezes free and retired rows."""
+
+    def serve_fn(params, cache, token, positions, active):
+        return T.decode_step(cfg, params, cache, token, positions=positions, active=active)
+
     return serve_fn
 
 

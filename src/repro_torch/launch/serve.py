@@ -95,8 +95,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true", default=True,
-                    help="use the reduced smoke config (default; see --full)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="does nothing: kept for the reference's command line; "
+                         "the reduced smoke config is the default and --full "
+                         "alone chooses the full-size one")
     ap.add_argument("--full", action="store_true",
                     help="use the full-size architecture config, in float32 (the "
                          "reference runs bf16 here; bf16 is ROADMAP.md A10)")

@@ -10,7 +10,7 @@ step is one call of one of two step functions:
   *every* prefilling slot by up to ``chunk`` tokens, writing k/v (or
   recurrent state) at each slot's own offset; slots that finish their
   prompt get their first token sampled from the same call's logits.
-* **decode step** — otherwise one `make_serve_step(slots=True)` call
+* **decode step** — otherwise one `make_serve_step` call
   decodes every in-flight slot at its own position, and the few
   prefilling slots (trickled admissions) *piggyback* on it, streaming
   their next prompt token at their own position. Retired and free rows
@@ -137,7 +137,7 @@ class ServeEngine:
         self.params = _to(params, self.device)
         self.cache = T.init_cache(cfg, b, s, self.engine.dtype, device=self.device,
                                   enc_len=cfg.frontend_tokens if cfg.enc_dec else 0)
-        self._serve_fn = make_serve_step(cfg, slots=True)
+        self._serve_fn = make_serve_step(cfg)
         self._prefill_fn = make_prefill_step(cfg)
         self._recurrent = "mamba" in cfg.block_pattern
         self.reset()

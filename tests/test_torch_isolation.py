@@ -260,7 +260,7 @@ def test_port_serves_without_jax():
         logits, cache = make_prefill_step(cfg)(params, cache, torch.zeros(2, 4, dtype=torch.long),
                                                torch.zeros(2, dtype=torch.int32),
                                                torch.tensor([4, 1], dtype=torch.int32))
-        step, _ = make_serve_step(cfg, slots=True)(params, cache, torch.zeros(2, 1, dtype=torch.long),
+        step, _ = make_serve_step(cfg)(params, cache, torch.zeros(2, 1, dtype=torch.long),
                                                    torch.tensor([4, 1]), torch.tensor([True, False]))
         assert logits.shape == (2, 4, cfg.vocab) and step.shape == (2, 1, cfg.vocab)
         eng = ServeEngine(cfg, params, EngineConfig(max_concurrency=2, max_len=8), device="cpu")

@@ -223,7 +223,7 @@ def test_prefill_chunk_matches_jax(name, monkeypatch):
 @pytest.mark.parametrize("name", list(CASES))
 def test_prefill_chunk_matches_token_decode(name):
     """The port's chunked prefill against its own token-at-a-time slot
-    decode of the same rows (``make_serve_step(slots=True)``, inactive rows
+    decode of the same rows (``make_serve_step``, inactive rows
     frozen), 2e-3 on the logits of the real tokens; for Mamba2 the cache
     bit for bit."""
     _, cfg, _, tp = _params(name)
@@ -234,7 +234,7 @@ def test_prefill_chunk_matches_token_decode(name):
     dcache = T.init_cache(cfg, b, max_len, device="cpu")
     if cfg.enc_dec:
         pcache["enc_out"] = dcache["enc_out"] = torch.from_numpy(_enc_out(cfg, b))
-    serve = make_serve_step(cfg, slots=True)
+    serve = make_serve_step(cfg)
     for pos, nv in _plan(lens, chunk):
         buf = np.zeros((b, chunk), np.int32)
         for r in range(b):
