@@ -146,7 +146,8 @@ or of the JAX package ``repro``. Phases, in order:
    ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
    bit for bit the decode step on the card), then
-   ``seamless-m4t-large-v2`` and ``yi-6b`` at full width and depth through
+   ``seamless-m4t-large-v2`` and ``yi-6b`` at full width, their depth cut
+   by SERVE_F32_DEPTH_CUT in float32 (bf16 serves them whole in (k4)), through
    ``ServeEngine`` (16 requests, 8 slots, SERVE_RUNS), SERVE_TIMED timed
    runs with nothing wrapped: gen and total tokens/s, TTFT, TPOT and their
    spread, the counters, peak memory, B10's launches (24 an admission, 24
@@ -161,7 +162,25 @@ or of the JAX package ``repro``. Phases, in order:
    CPU, each MoE layer's aux, load and drops, ``loss_fn`` on 2 x 2,048
    tokens (no kernel: MLA is plain torch, as in the reference), decode at
    ``capacity_factor = e / k``;
-14. one JSON line of kernel numbers (all ten kernels; B1 and B2 with their
+   (k) the bf16 slice, ``launch.serve --full``'s dtype, each model's
+   weights drawn in bf16 on the card: (k1) ``ssd_scan``'s bf16 mode on
+   ``mamba2-130m``'s layer 0 and at SSD_SMALL against its plain bf16
+   version (within 1 bf16 ulp, :func:`_bf16_ulps`), timed beside the
+   float32 kernel on the same values, and ``loss_fn`` at 8 x 2,048 in bf16
+   held against the float32 forward at the same weights (BF16_LOSS_RTOL,
+   BF16_RMS_TOL); (k2) ``block_attn``'s bf16 mode on Yi-6B's layer 0 and
+   at ATTN_SMALL, an odd hd and an unaligned K, beside bf16
+   ``scaled_dot_product_attention``, and Yi's bf16 forward the same way;
+   (k3) Seamless's bf16 encoder, decoder and cross calls and its bf16
+   forward; (k4) ``serve_phase`` in bf16 for SERVE_RUNS (the encoder at
+   admission in float32, the cross layers in bf16; tokens against
+   ``sequential_reference`` up to a bf16 near-tie, BF16_TIE); (k5)
+   ``qwen2.5-32b`` at full width and depth (65.53 GB), last: layer 0,
+   ``loss_fn`` on 1 x 2,048 with its peak memory, decode against the
+   forward, and serving;
+14. one JSON line of kernel numbers (all ten kernels, and the bf16 modes of
+   ``ssd_scan`` and ``block_attn`` as ``ssd_scan (bf16)`` and
+   ``block_attn (bf16)`` with their launches on the bf16 paths; B1 and B2 with their
    launches on each path, ``ssd_scan`` and ``block_attn`` with theirs on
    each LM path, training's included, ``block_attn`` with each
    encoder-decoder mode and serve mode; ``ssd_scan`` and ``block_attn`` with a
@@ -170,7 +189,7 @@ or of the JAX package ``repro``. Phases, in order:
    and last the device line.
 
 The three kernel sources are built at the start, one ``nvcc`` each, in
-parallel.
+parallel. Each phase ends with an ``elapsed after ...`` line.
 """
 from __future__ import annotations
 
@@ -193,6 +212,7 @@ from concurrent.futures import ThreadPoolExecutor
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory bandwidth
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 494.7e12      # H100 SXM dense TF32 on the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 # Integer and float operations per element of one qdq pass, counted from
 # csrc/qdq_rows.cu: 18 for the counter hash, 14 for the grid arithmetic.
 OPS_PER_ELEMENT = 32
@@ -276,12 +296,17 @@ DECODE_TOL = 2e-3              # abs and rel: decode vs forward (tests/test_deco
 # probabilities are this close in both runs: a near-tie that the two GEMM
 # shapes' summation orders split either way.
 FLIP_GAP = 1e-5
+# A bf16 near-tie of served logits: a top-2 gap below 2 bf16 ulps of the top
+# logit (the head's bf16 product rounds each logit to 8 bits of mantissa, so
+# two entries can be equal).
+BF16_TIE = 2 * 2.0 ** -8
 LM_BATCH, LM_SEQ, LM_FORWARDS = 8, 2048, 5
 PROMPT, GENERATE = 64, 32
 ATTN_REPLACES = "src/repro/kernels/block_attn/block_attn.py:32 _attn_kernel"
 ATTN_SOURCE = "src/repro_torch/kernels/block_attn/csrc/block_attn.cu"
 ATTN_TOL = 1e-4                # abs and rel: 3xTF32 + online vs fp32 materialized softmax
 ATTN_TF32_PASSES = 3           # TF32 products the kernel runs for each product term
+ATTN_BF16_PASSES = 1.5         # bf16: one TF32 product for Q K^T, two for P V
 YI_BATCH, YI_SEQ, YI_FORWARDS = 2, 4096, 3     # Yi-6B's published context length
 YI_DECODE_BATCH = 8
 # (B, Lq, Lk, H, KV, hd, causal, window): ragged L, MQA, hd 64 and 16,
@@ -364,10 +389,41 @@ POD_STEPS = 4
 # SERVE_WARM_STEPS run under the profiler.
 SERVE_RUNS = [("seamless-m4t-large-v2", 16, 8, 256, 64, 64, 0.5),
               ("yi-6b", 16, 8, 512, 64, 128, 0.5)]
+# The float32 serving runs, an earlier path since launch.serve --full serves
+# bf16 (phase (k4) runs SERVE_RUNS at full depth in bf16), keep their widths
+# and workloads with the depth cut by this factor: Yi-6B 32 -> 8 layers,
+# Seamless 24 + 24 -> 6 + 6; the script stays inside its time limit.
+SERVE_F32_DEPTH_CUT = 4
 SERVE_SMOKE = ("mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-lite-16b")
 SERVE_VERIFIED = 2
 SERVE_TIMED = 3
 SERVE_WARM_STEPS, SERVE_PROFILED_STEPS = 8, 16
+# The bf16 slice (launch.serve --full's dtype): a bf16 forward is held against
+# the float32 forward at the same (bf16) weights, and Qwen2.5-32B's bf16
+# decode against its bf16 kernel forward, by the loss, a mean over every
+# position, within BF16_LOSS_RTOL, and normwise by the logits, rms(d) /
+# rms(want), within each model's limit. The dense models read 0.01727 (Yi),
+# 0.01743 (Seamless) and 0.02679 (Qwen's decode), the same to four digits on
+# three machines: each limit is twice its reading. tools/bf16_fault_study.py
+# plants bf16-only faults at cut widths: a dropped QKV bias reads ~1.3, an
+# fp8 cast of the frame embeddings or of the decode cache 2.8-2.9 times the
+# sound drift, all caught; a norm or a softmax P computed in bf16 reads
+# 1.02-1.2 times it, which no normwise limit separates (the kernels' 1-ulp
+# holds and the CPU parity tests cover those). Mamba2's random weights
+# amplify each rounding: the reference's own bf16 forward of mamba2-130m is
+# 0.218 of rms(want) from its float32 forward (the port reads 0.2028;
+# tests/test_torch_bf16.py holds the port's drift to the reference's), so
+# its limit is a sanity bound that uncorrelated logits (~1.4) cannot meet.
+BF16_RMS_TOL = {"mamba2-130m": 0.5, "yi-6b": 0.035, "seamless-m4t-large-v2": 0.035}
+QWEN_DECODE_RMS_TOL = 0.055
+BF16_LOSS_RTOL = 1e-3
+# Qwen2.5-32B at full width and depth in bf16 (65.53 GB of weights): a 1 x
+# 2,048 forward keeps its bf16 logits (0.62 GB) and the loss's float32
+# log-softmax (1.25 GB) beside them; decode of 4 prompts; a smaller serving
+# workload than SERVE_RUNS' (each of its steps reads 65.5 GB of weights).
+QWEN_BATCH, QWEN_SEQ, QWEN_FORWARDS = 1, 2048, 3
+QWEN_DECODE_BATCH, QWEN_PROMPT, QWEN_GENERATE = 4, 32, 16
+QWEN_SERVE_RUN = ("qwen2.5-32b", 8, 8, 256, 32, 128, 0.5)
 SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
                   "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
 
@@ -1033,7 +1089,7 @@ def dense_phases(smi):
         kx, vx = (t.repeat_interleave(h // k.shape[2], dim=2) for t in (k, v))
         _, fused_ms, fused_err = _time_sdpa(q, kx, vx, got, ("EFFICIENT_ATTENTION",))
         del kx, vx
-    print(f"block_attn {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(hd)} "
+    print(f"block_attn {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(hd, 0)} "
           f"bytes a block (of 232,448), {bsz * h * -(-l // ba.QUERY_TILE)} blocks")
     for fn, regs, st, ld in _ptxas_report(ba.BUILD_INFO.get("log", "")):
         print(f"block_attn {tag}: ptxas {fn}: {regs} registers, spill stores {st} bytes, "
@@ -1103,26 +1159,29 @@ def _hold_layer0_attention(cfg, params, batch, tag):
     return q, k, v, got, want
 
 
-def _init_on_card(cfg, tag, note=""):
-    """Random weights drawn on the card from a seed. Returns (params,
-    parameter count)."""
+def _init_on_card(cfg, tag, note="", dtype=None):
+    """Random weights drawn on the card from a seed, float32 unless
+    ``dtype`` says bf16. Returns (params, parameter count)."""
     import torch
 
     from repro_torch.models import transformer as T
 
+    dtype = dtype or torch.float32
     t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(0), dtype)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     moe = "" if cfg.moe is None else (
         f" experts={cfg.moe.n_experts} top_k={cfg.moe.top_k} d_expert={cfg.moe.d_expert} "
         f"capacity_factor={cfg.moe.capacity_factor}")
     print(f"{cfg.name} {tag}: n_layers={cfg.n_layers}{note} d_model={cfg.d_model} "
           f"heads={cfg.n_heads} kv_heads={cfg.n_kv_heads} hd={cfg.head_dim_} d_ff={cfg.d_ff} "
           f"vocab={cfg.vocab} qkv_bias={cfg.qkv_bias} frontend={cfg.frontend}{moe} "
-          f"params={n_params} ({4 * n_params} bytes float32; param_count "
+          f"params={n_params} ({n_bytes} bytes, {str(dtype).split('.')[-1]}; param_count "
           f"{cfg.param_count()}) init on the card {time.perf_counter() - t0:.2f}s "
-          f"memory_allocated={torch.cuda.memory_allocated()} bytes")
+          f"memory_allocated={torch.cuda.memory_allocated()} bytes "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
     return params, n_params
 
 
@@ -1211,48 +1270,96 @@ def grok_phase(smi):
     return launches
 
 
+def _bf16_ulps(got, want, scale):
+    """The largest |got - want| of two bf16 tensors in bf16 ulps, each at
+    the element's magnitude but no finer than at 2^-8 * ``scale`` (the
+    operands' largest magnitude): an output that cancels below that is set
+    by the order of the float32 sums, not by the one rounding."""
+    import torch
+
+    g, w = got.float(), want.float()
+    mag = torch.clamp_min(torch.maximum(g.abs(), w.abs()), 2.0 ** -8 * scale)
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _attn_bound(q, k, causal, window=0):
+    """(bound ms, bound_by, FLOP, bytes, ops ms, design ms) of block_attn on
+    these shapes: the function's 4 hd FLOP a pair the mask allows, and one
+    read of q, k, v and one write of o in their dtype. float32: the FLOP at
+    the rate of the 3 TF32 products the kernel issues for each (its
+    3xTF32 design, tighter than the card's float32 peak). bf16: the FLOP at
+    the card's dense bf16 peak; the design's rate (one TF32 product for
+    Q K^T, two for P V: 1.5 a FLOP at TF32) is returned beside it as
+    information only."""
+    from repro_torch.kernels.block_attn.ref import attention_pairs
+
+    bsz, lq, h, hd = q.shape
+    flop = 4 * hd * attention_pairs(lq, k.shape[1], causal=causal, window=window) * bsz * h
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    if q.element_size() == 4:
+        ops_ms = design_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    else:
+        ops_ms = flop / BF16_OPS_PER_S * 1e3
+        design_ms = ATTN_BF16_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flop,
+            nbytes, ops_ms, design_ms)
+
+
 def _hold_attn_mode(label, q, k, v, causal, tag):
     """``block_attn`` on one call's own q/k/v against its plain version
-    within ATTN_TOL, timed beside the plain version and fp32
-    ``scaled_dot_product_attention`` on the same shapes (the library
-    yardstick), with its bound: the larger of the 3xTF32 products over the
-    pairs the mask allows and the bytes (q, k, v read once, o written
-    once). Returns the mode's entry of the kernels line."""
+    (float32: within ATTN_TOL; bf16: within 1 bf16 ulp, :func:`_bf16_ulps`),
+    timed beside the plain version and ``scaled_dot_product_attention`` in
+    the same dtype on the same shapes (the library yardstick) and, for
+    bf16, the float32 kernel on the same values, with its bound
+    (:func:`_attn_bound`). Returns the mode's entry of the kernels line."""
     import torch
 
     from repro_torch.kernels.block_attn import block_attn as ba
-    from repro_torch.kernels.block_attn.ref import attention_pairs, block_attention_plain
+    from repro_torch.kernels.block_attn.ref import block_attention_plain
 
-    bsz, lq, h, hd = q.shape
-    lk = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
     with torch.inference_mode():
         got = ba.block_attn(q, k, v, causal=causal)
         want = block_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        ratio = _tol_ratio(got, want, ATTN_TOL)
+        ratio = (_bf16_ulps(got, want, float(v.float().abs().max())) if bf16
+                 else _tol_ratio(got, want, ATTN_TOL))
         ms = statistics.median(_time_ms(lambda: ba.block_attn(q, k, v, causal=causal),
                                         iters=10) for _ in range(3))
         plain_ms = _time_ms(lambda: block_attention_plain(q, k, v, causal=causal),
                             iters=2, warmup=1)
         backend, library_ms, library_err = _time_sdpa(q, k, v, got, causal=causal)
-    flop = 4 * hd * attention_pairs(lq, lk, causal=causal) * bsz * h
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    bound_ops_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(bound_ops_ms, bound_bytes_ms)
-    max_abs = float((got - want).abs().max())
-    print(f"block_attn {tag}: {label} q{tuple(q.shape)} k/v{tuple(k.shape)} causal={causal}: "
-          f"vs plain max|d|={max_abs:.3e} ratio={ratio:.4f} (tol {ATTN_TOL}); ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (3xTF32: {ATTN_TF32_PASSES} x "
-          f"{flop} FLOP = {bound_ops_ms:.4f} ms; bytes {nbytes} = {bound_bytes_ms:.4f} ms) "
-          f"= {bound_ms / ms:.3f} of it; library fp32 scaled_dot_product_attention "
-          f"backend={backend} ms={library_ms} max|d| vs kernel={library_err}")
+        f32_ms = None
+        if bf16:
+            qf, kf, vf = (t.float() for t in (q, k, v))
+            f32_ms = statistics.median(_time_ms(lambda: ba.block_attn(qf, kf, vf, causal=causal),
+                                                iters=10) for _ in range(3))
+            del qf, kf, vf
+    bound_ms, bound_by, flop, nbytes, ops_ms, design_ms = _attn_bound(q, k, causal)
+    max_abs = float((got.float() - want.float()).abs().max())
+    held = f"ulps={ratio:.3f} (at most 1)" if bf16 else f"ratio={ratio:.4f} (tol {ATTN_TOL})"
+    ops = (f"{flop} FLOP at the bf16 peak {BF16_OPS_PER_S:.4g}/s = {ops_ms:.4f} ms; for "
+           f"information, the design's {ATTN_BF16_PASSES} TF32 products a FLOP = "
+           f"{design_ms:.4f} ms" if bf16 else
+           f"{ATTN_TF32_PASSES} x {flop} FLOP at TF32 {TF32_OPS_PER_S:.4g}/s = {ops_ms:.4f} ms")
+    print(f"block_attn {tag}: {label} {str(q.dtype).split('.')[-1]} q{tuple(q.shape)} "
+          f"k/v{tuple(k.shape)} causal={causal}: vs plain max|d|={max_abs:.3e} {held}; "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (by {bound_by}; "
+          f"operations {ops}; bytes {nbytes} = "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms) = {bound_ms / ms:.3f} of it"
+          f"{f'; float32 kernel on the same values ms={f32_ms:.4f}' if bf16 else ''}; library "
+          f"scaled_dot_product_attention backend={backend} ms={library_ms} max|d| vs "
+          f"kernel={library_err}")
     if not (ratio <= 1.0 and torch.isfinite(got).all()):
-        _fail(f"block_attn disagrees with its plain version on {label} (ratio {ratio:.4f})")
-    return {"q": list(q.shape), "kv": list(k.shape), "causal": causal, "max_abs_err": max_abs,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-            "library_ms": library_ms, "library_backend": backend}
+        _fail(f"block_attn disagrees with its plain version on {label} ({held})")
+    entry = {"q": list(q.shape), "kv": list(k.shape), "causal": causal,
+             "dtype": str(q.dtype).split(".")[-1], "max_abs_err": max_abs,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms, "library_backend": backend}
+    if bf16:
+        entry["float32_ms"] = f32_ms
+    return entry
 
 
 def seamless_phase(smi):
@@ -1471,11 +1578,14 @@ def _serve_workload(run, cfg):
         arrival=arrival, eos_id=-1, temperature=0.0), cfg)
 
 
-def _serve_config(run):
+def _serve_config(run, dtype=None):
+    import torch
+
     from repro_torch.serve import EngineConfig
 
     _, _, slots, prompt_len, gen, chunk, _ = run
-    return EngineConfig(max_concurrency=slots, max_len=prompt_len + gen, chunk=chunk)
+    return EngineConfig(max_concurrency=slots, max_len=prompt_len + gen, chunk=chunk,
+                        dtype=dtype or torch.float32)
 
 
 def _serve_counters(eng):
@@ -1545,10 +1655,12 @@ def serve_smoke_phase(arch_id, tag):
         _fail(f"serving the SMOKE {arch_id} differs between the CPU and the card")
 
 
-def serve_phase(run, smi):
-    """One of SERVE_RUNS at full width and depth, random weights drawn on
-    the card: the workload through ``ServeEngine`` as ``launch.serve
-    --full`` runs it, SERVE_TIMED times with nothing wrapped, each with the
+def serve_phase(run, smi, dtype=None, params=None, depth_cut=1):
+    """One of SERVE_RUNS (or QWEN_SERVE_RUN) at full width, and at full depth
+    unless ``depth_cut`` divides it, random weights drawn on the card (or
+    ``params``) in ``dtype`` (float32 by default; bf16 is what ``launch.serve
+    --full`` serves in): the workload through ``ServeEngine``, SERVE_TIMED
+    times with nothing wrapped, each with the
     kernel counts from 0: gen and total tokens/s, mean TTFT and TPOT, the
     engine's counters, peak memory and B10's launches (an encoder-decoder:
     n_enc_layers a request's admission and n_blocks cross calls a prefill
@@ -1558,8 +1670,11 @@ def serve_phase(run, smi):
     timed, with B10's calls counted by mode and each step's top-2 logit
     gaps kept: the SERVE_VERIFIED shortest requests against
     ``sequential_reference`` token for token (a difference only at a
-    near-tie: the top-2 logit gap below FLIP_GAP in either run at the first
-    differing position); ``block_attn`` held against its plain version on
+    near-tie: the top-2 logit gap in either run at the first differing
+    position below FLIP_GAP in float32, below BF16_TIE times the top logit
+    in bf16); in bf16, the encoder at an admission runs the float32 kernel
+    (float32 frame embeddings, as the reference's engine) and the cross
+    layers its bf16 mode; ``block_attn`` held against its plain version on
     the engine's own first call of each mode (the encoder at an admission,
     a prefill chunk's cross layer, a decode step's cross layer); the idle
     share of a profiled window of engine steps. Returns (B10's launches in
@@ -1577,9 +1692,18 @@ def serve_phase(run, smi):
 
     tag = f"[{smi}]"
     cfg = get_arch(run[0])
-    params, _ = _init_on_card(cfg, tag)
+    note = ""
+    if depth_cut > 1:
+        note = (f" (depth cut {cfg.n_layers} -> {cfg.n_layers // depth_cut}"
+                f"{f', encoder {cfg.n_enc_layers} -> {cfg.n_enc_layers // depth_cut}' if cfg.enc_dec else ''})")
+        cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers // depth_cut,
+                                  n_enc_layers=cfg.n_enc_layers // depth_cut)
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    if params is None:
+        params, _ = _init_on_card(cfg, tag, note, dtype=dtype)
     reqs = _serve_workload(run, cfg)
-    econf = _serve_config(run)
+    econf = _serve_config(run, dtype)
     eng = ServeEngine(cfg, params, econf)
     timed, streams = [], None
     for i in range(SERVE_TIMED):
@@ -1592,25 +1716,29 @@ def serve_phase(run, smi):
         results = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = ba.LAUNCHES["block_attn"]
+        launches, bf16_launches = ba.LAUNCHES["block_attn"], ba.BF16_LAUNCHES["block_attn"]
         summary, counters = eng.metrics.summary(), _serve_counters(eng)
-        want = (cfg.n_enc_layers * len(reqs) + cfg.n_blocks * (
-            counters["prefill_chunks"] + counters["decode_steps"]) if cfg.enc_dec else 0)
+        cross = (cfg.n_blocks * (counters["prefill_chunks"] + counters["decode_steps"])
+                 if cfg.enc_dec else 0)
+        want = (cfg.n_enc_layers * len(reqs) if cfg.enc_dec else 0) + cross
         timed.append({"wall_s": wall, "gen_tok_s": summary["tok_s"],
                       "total_tok_s": summary["total_tok_s"],
                       "mean_ttft_ms": summary["mean_ttft_s"] * 1e3,
                       "p50_ttft_ms": summary["p50_ttft_s"] * 1e3,
                       "mean_tpot_ms": summary["mean_tpot_s"] * 1e3,
                       "peak_memory_allocated": torch.cuda.max_memory_allocated(),
-                      "block_attn_launches": launches})
+                      "block_attn_launches": launches,
+                      "block_attn_bf16_launches": bf16_launches})
         print(f"{cfg.name} serve {tag}: timed run {i + 1} of {SERVE_TIMED}: {len(reqs)} requests "
               f"(prompts {run[3] // 2}-{run[3]}, gen {max(run[4] // 4, 1)}-{run[4]}, Poisson "
               f"{run[6]} a step), {run[2]} slots, chunk {eng.chunk}, max_len {econf.max_len}: "
-              f"{timed[-1]}; {counters} (block_attn launches want {want})")
+              f"{timed[-1]}; {counters} (block_attn launches want {want}, in bf16 "
+              f"{cross if bf16 else 0})")
         got = [st.generated for st in results]
         if streams is None:
             streams, first_counters = got, counters
         if (got != streams or counters != first_counters or launches != want
+                or bf16_launches != (cross if bf16 else 0)
                 or counters["requests_finished"] != len(reqs)):
             _fail(f"{cfg.name} serve: timed run {i + 1} finished {counters['requests_finished']} "
                   f"of {len(reqs)}, with {launches} block_attn launches (want {want}), its "
@@ -1621,8 +1749,8 @@ def serve_phase(run, smi):
               for key in ("gen_tok_s", "total_tok_s", "mean_ttft_ms", "mean_tpot_ms", "wall_s")}
     print(f"{cfg.name} serve {tag}: over the {SERVE_TIMED} timed runs {spread}")
 
-    first, calls, step_gaps, emitted = {}, dict.fromkeys(
-        ("encoder", "prefill_cross", "decode_cross"), 0), [], {}
+    first, calls, step_gaps, step_tops, emitted = {}, dict.fromkeys(
+        ("encoder", "prefill_cross", "decode_cross"), 0), [], [], {}
     want_calls = ({"encoder": cfg.n_enc_layers * len(reqs),
                    "prefill_cross": cfg.n_blocks * first_counters["prefill_chunks"],
                    "decode_cross": cfg.n_blocks * first_counters["decode_steps"]}
@@ -1640,6 +1768,7 @@ def serve_phase(run, smi):
     def greedy_spy(logits):                 # each step's top-2 gaps, left on the card
         top = torch.topk(logits, 2, dim=-1).values
         step_gaps.append(top[:, 0] - top[:, 1])
+        step_tops.append(top[:, 0].abs())
         return real_greedy(logits)
 
     def emit_spy(self, st, tok, finished, first=False):
@@ -1661,10 +1790,11 @@ def serve_phase(run, smi):
         _fail(f"{cfg.name} serve: block_attn calls {calls} (want {want_calls}), tokens equal "
               f"to the timed runs' {same}")
     stats = {"requests": len(reqs), "slots": run[2], "prompt_len": run[3], "gen": run[4],
-             "chunk": eng.chunk, "arrival": run[6], "timed_runs": timed, "spread": spread,
-             **first_counters, "block_attn_calls": calls}
+             "chunk": eng.chunk, "arrival": run[6], "dtype": str(dtype).split(".")[-1],
+             "timed_runs": timed, "spread": spread, **first_counters,
+             "block_attn_calls": calls}
 
-    gaps = torch.stack(step_gaps).cpu()
+    gaps, tops = torch.stack(step_gaps).cpu(), torch.stack(step_tops).cpu()
     by_rid = {st.request.rid: st for st in results}
     shortest = sorted(reqs, key=lambda r: (len(r.prompt) + r.max_tokens, r.rid))
     with torch.inference_mode():
@@ -1674,15 +1804,17 @@ def serve_phase(run, smi):
             want = sequential_reference(cfg, eng.params, req, econf.max_len, "cuda", seq_gaps)
             got = by_rid[req.rid].generated
             eng_gaps = [float(gaps[step, slot]) for step, slot in emitted[req.rid]]
+            eng_tops = [float(tops[step, slot]) for step, slot in emitted[req.rid]]
             diff = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
-            tie = diff is not None and min(seq_gaps[diff], eng_gaps[diff]) < FLIP_GAP
+            limit = (BF16_TIE * eng_tops[diff] if bf16 and diff is not None else FLIP_GAP)
+            tie = diff is not None and min(seq_gaps[diff], eng_gaps[diff]) < limit
             print(f"{cfg.name} serve verify {tag}: request {req.rid} (prompt {len(req.prompt)}, "
                   f"{req.max_tokens} tokens) against sequential_reference "
                   f"({time.perf_counter() - t0:.2f}s): "
                   + ("equal token for token" if diff is None and len(got) == len(want) else
                      f"first difference at {diff}: top-2 gaps {seq_gaps[diff]:.3e} "
                      f"(sequential), {eng_gaps[diff]:.3e} (engine), a near-tie below "
-                     f"{FLIP_GAP}: {tie}")
+                     f"{limit:.3e}: {tie}")
                   + f"; smallest top-2 gap before it {min(seq_gaps[:diff] or [math.inf]):.3e}")
             if len(got) != len(want) or (diff is not None and not tie):
                 _fail(f"{cfg.name} serve: request {req.rid} differs from the sequential "
@@ -1717,7 +1849,361 @@ def serve_phase(run, smi):
                          "decode_steps": eng.metrics.decode_steps - before[1]}
     print(f"{cfg.name} serve {tag}: the profiled window ran {stats['profiled']}")
     del eng, params
-    return timed[0]["block_attn_launches"], modes, stats
+    return timed[0]["block_attn_bf16_launches" if bf16 else "block_attn_launches"], modes, stats
+
+
+def _tree_float(tree):
+    """The tree with every leaf in float32 (a bf16 model's weights, exactly)."""
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def _rel_rms(got, want):
+    """rms(got - want) / rms(want), in float64 sums."""
+    d = (got.double() - want.double()).square().mean().sqrt()
+    return float(d / want.double().square().mean().sqrt())
+
+
+def _hold_bf16_forward(cfg, params, batch, tag):
+    """The bf16 forward against the float32 forward at the same weights (the
+    bf16 ones, exact in float32): the logits within the model's BF16_RMS_TOL
+    of rms(want)
+    and the loss within BF16_LOSS_RTOL; prints max|d| and the share of
+    positions whose argmax agrees."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    params32 = _tree_float(params)
+    with torch.inference_mode():
+        got, _ = T.forward_train(cfg, params, batch["tokens"], batch.get("embeds"))
+        loss = float(T.loss_fn(cfg, params, batch))
+        want, _ = T.forward_train(cfg, params32, batch["tokens"], batch.get("embeds"))
+        want_loss = float(T.loss_fn(cfg, params32, batch))
+    del params32
+    rel, tol = _rel_rms(got, want), BF16_RMS_TOL[cfg.name]
+    max_abs = float((got.float() - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    print(f"{cfg.name} bf16 forward {tag}: logits{tuple(got.shape)} {got.dtype} against the "
+          f"float32 forward at the same weights: rms(d)/rms(want)={rel:.4e} (tol "
+          f"{tol:.4e}) max|d|={max_abs:.4e} max|want|={float(want.abs().max()):.4e} "
+          f"argmax agrees at {agree:.4f} of positions; loss bf16 {loss:.6f} float32 "
+          f"{want_loss:.6f} rel {loss_rel:.3e} (tol {BF16_LOSS_RTOL})")
+    del got, want
+    if not (rel <= tol and loss_rel <= BF16_LOSS_RTOL and math.isfinite(loss)):
+        _fail(f"{cfg.name}: the bf16 forward strays from the float32 one (rms {rel:.4e}, "
+              f"loss rel {loss_rel:.3e})")
+
+
+def _bf16_forward_run(cfg, params, batch, forwards, km, tag):
+    """:func:`_forward_phase` on a bf16 model, whose kernel launches must all
+    be its bf16 mode. Returns the launches."""
+    launches = _forward_phase(cfg, params, batch, forwards, km, tag)
+    (name,) = km.LAUNCHES
+    if km.BF16_LAUNCHES[name] != km.LAUNCHES[name]:     # the profiled forward's too
+        _fail(f"{cfg.name}: {km.BF16_LAUNCHES[name]} of {km.LAUNCHES[name]} {name} launches "
+              f"in bf16")
+    return launches
+
+
+def bf16_mamba_phase(smi):
+    """(k1) ``ssd_scan``'s bf16 mode at ``mamba2-130m``'s full width (bf16
+    weights drawn on the card): the kernel on layer 0's own bf16 inputs
+    against its plain bf16 version (within 1 bf16 ulp, :func:`_bf16_ulps`),
+    timed beside the plain version and the float32 kernel on the same
+    values, with its bound (the bytes of bf16 x, B, C and y and float32 dt;
+    the function's FLOP at the card's bf16 peak; the design's rate, one TF32
+    product a C B^T term and two for the others, printed beside it); the
+    SSD_SMALL shapes in
+    bf16; ``loss_fn`` on LM_BATCH x LM_SEQ tokens in bf16 (24 calls a
+    forward, all in bf16), held against the float32 forward at the same
+    weights. Returns (the kernels line's ``ssd_scan (bf16)`` entry)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    cfg = get_arch("mamba2-130m")
+    params, _ = _init_on_card(cfg, tag, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ + 1),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    with torch.inference_mode():
+        (x, dt, a_log, b, c), kw, calls = _first_call(
+            ssd_ops, "ssd_chunked", lambda: T.loss_fn(cfg, params, batch))
+    if calls != cfg.n_layers or x.dtype != torch.bfloat16 or dt.dtype != torch.float32:
+        _fail(f"the bf16 forward called ssd_chunked {calls} times (want {cfg.n_layers}) "
+              f"with x {x.dtype}, dt {dt.dtype}")
+    chunk = kw["chunk"]
+    bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[3]
+    with torch.inference_mode():
+        got = sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
+        want, _ = ssd_chunked_plain(x, dt, a_log, b, c, chunk)
+        torch.cuda.synchronize()
+        ulps = _bf16_ulps(got, want, float(want.float().abs().max()))
+        max_abs = float((got.float() - want.float()).abs().max())
+        ms = statistics.median(_time_ms(lambda: sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk),
+                                        iters=10) for _ in range(5))
+        xf, bf, cf = x.float(), b.float(), c.float()
+        f32_ms = statistics.median(_time_ms(lambda: sk.ssd_scan(xf, dt, a_log, bf, cf,
+                                                                chunk=chunk), iters=10)
+                                   for _ in range(5))
+        del xf, bf, cf
+        plain_ms = statistics.median(_time_ms(lambda: ssd_chunked_plain(x, dt, a_log, b, c, chunk),
+                                              iters=3, warmup=1) for _ in range(3))
+
+        def five_calls():
+            for _ in range(5):
+                sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
+
+        stage_ms = _kernel_device_ms(five_calls, [f"{s_}_kernel" for s_ in sk.STAGES])
+    lens = [min(chunk, l - k_) for k_ in range(0, l, chunk)]
+    flop_cb = bsz * g * sum(c_ * (c_ + 1) * n for c_ in lens)
+    flop_rest = bsz * h * sum(c_ * (c_ + 1) * p + 4 * c_ * n * p for c_ in lens)
+    nbytes = 2 * (2 * bsz * h * l * p + 2 * bsz * g * l * n) + 4 * (bsz * h * l + h)
+    ops_ms = (flop_cb + flop_rest) / BF16_OPS_PER_S * 1e3
+    design_ms = (flop_cb + 2 * flop_rest) / TF32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"ssd_scan bf16 {tag}: layer 0 x{tuple(x.shape)} {x.dtype} strides {x.stride()} "
+          f"B/C{tuple(b.shape)} chunk={chunk}: vs plain max|d|={max_abs:.3e} ulps={ulps:.3f} "
+          f"(at most 1); ms={ms:.4f} float32 kernel on the same values ms={f32_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (operations: {flop_cb} C.B^T + "
+          f"{flop_rest} FLOP at the bf16 peak {BF16_OPS_PER_S:.4g}/s = {ops_ms:.4f} ms; for "
+          f"information, the design's one TF32 product a C.B^T FLOP and two for the others = "
+          f"{design_ms:.4f} ms; bytes {nbytes} = {bytes_ms:.4f} ms) = "
+          f"{bound_ms / ms:.3f} of it; stage device ms {stage_ms}")
+    if not (ulps <= 1.0 and torch.isfinite(got.float()).all()):
+        _fail(f"ssd_scan's bf16 mode disagrees with its plain version ({ulps:.3f} ulps)")
+    del x, dt, b, c, got, want
+    gen = torch.Generator("cuda").manual_seed(6)
+    for b_, h_, l_, p_, n_, chunk_, g_ in SSD_SMALL:
+        xs = (torch.randn(b_, h_, l_, p_, generator=gen, device="cuda") * 0.8).bfloat16()
+        dts = torch.nn.functional.softplus(torch.randn(b_, h_, l_, generator=gen, device="cuda"))
+        als = torch.log(torch.linspace(1.0, 16.0, h_, device="cuda"))
+        bs, cs = ((torch.randn(b_, g_, l_, n_, generator=gen, device="cuda") * 0.5).bfloat16()
+                  for _ in range(2))
+        sk.reset_launch_counts()
+        with torch.inference_mode():
+            ys = sk.ssd_scan(xs, dts, als, bs, cs, chunk=chunk_)
+            ref, _ = ssd_chunked_plain(xs, dts, als, bs, cs, chunk_)
+        torch.cuda.synchronize()
+        u = _bf16_ulps(ys, ref, float(ref.float().abs().max()))
+        print(f"ssd_scan bf16 {tag}: B={b_} H={h_} L={l_} P={p_} N={n_} chunk={chunk_} G={g_}: "
+              f"max|d|={float((ys.float() - ref.float()).abs().max()):.3e} ulps={u:.3f} "
+              f"bf16 launches {sk.BF16_LAUNCHES['ssd_scan']}")
+        if not (u <= 1.0 and sk.BF16_LAUNCHES["ssd_scan"] == 1):
+            _fail(f"ssd_scan's bf16 mode disagrees with its plain version at B={b_} H={h_} "
+                  f"L={l_} P={p_} N={n_} chunk={chunk_} G={g_} ({u:.3f} ulps)")
+    del xs, dts, bs, cs, ys, ref
+    entry = {"name": "ssd_scan (bf16)", "route": "cuda", "source": SSD_SOURCE,
+             "replaces": SSD_REPLACES, "launches": None, "max_abs_err": max_abs,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+             "float32_ms": f32_ms}
+    launches = _bf16_forward_run(cfg, params, batch, LM_FORWARDS, sk, tag)
+    _hold_bf16_forward(cfg, params, batch, tag)
+    return entry, launches
+
+
+def _attn_cases_bf16(tag):
+    """``block_attn``'s bf16 mode at the ATTN_SMALL shapes, an odd head dim
+    (plain loads) and a K view one element off 16-byte alignment, each
+    within 1 bf16 ulp of its plain version."""
+    import torch
+
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn.ref import block_attention_plain
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    cases = [(*case, False) for case in ATTN_SMALL] + [(1, 300, 300, 4, 2, 17, True, 0, False),
+                                                      (1, 500, 500, 8, 2, 128, True, 0, True)]
+    for b_, lq, lk, h_, kv_, hd_, causal, window, shifted in cases:
+        qs, vs = (torch.randn(b_, n, heads, hd_, generator=gen, device="cuda").bfloat16()
+                  for n, heads in ((lq, h_), (lk, kv_)))
+        ks = torch.randn(b_ * lk * kv_ * hd_ + 1, generator=gen, device="cuda").bfloat16()
+        ks = ks[1:] if shifted else ks[:-1]
+        ks = ks.view(b_, lk, kv_, hd_)
+        ba.reset_launch_counts()
+        with torch.inference_mode():
+            o = ba.block_attn(qs, ks, vs, causal=causal, window=window)
+            ref = block_attention_plain(qs, ks, vs, causal=causal, window=window)
+        torch.cuda.synchronize()
+        u = _bf16_ulps(o, ref, float(vs.float().abs().max()))
+        print(f"block_attn bf16 {tag}: B={b_} Lq={lq} Lk={lk} H={h_} KV={kv_} hd={hd_} "
+              f"causal={causal} window={window}{' K one element off 16 bytes' if shifted else ''}"
+              f": max|d|={float((o.float() - ref.float()).abs().max()):.3e} ulps={u:.3f} "
+              f"bf16 launches {ba.BF16_LAUNCHES['block_attn']}")
+        if not (u <= 1.0 and torch.isfinite(o.float()).all()
+                and ba.BF16_LAUNCHES["block_attn"] == 1):
+            _fail(f"block_attn's bf16 mode disagrees with its plain version at B={b_} Lq={lq} "
+                  f"Lk={lk} H={h_} KV={kv_} hd={hd_} causal={causal} window={window} "
+                  f"({u:.3f} ulps)")
+
+
+def _layer0_attention(cfg, params, batch):
+    """(q, k, v) of the first ``block_attention`` call of one ``loss_fn``."""
+    import torch
+
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        (q, k, v), kw, calls = _first_call(attn_ops, "block_attention",
+                                           lambda: T.loss_fn(cfg, params, batch))
+    if calls != _kernel_calls(cfg)["block_attn"] or q.dtype != torch.bfloat16:
+        _fail(f"{cfg.name}: the bf16 forward called block_attention {calls} times (want "
+              f"{_kernel_calls(cfg)['block_attn']}) with {q.dtype}")
+    return q, k, v, kw
+
+
+def bf16_dense_phase(smi):
+    """(k2) ``block_attn``'s bf16 mode at ``yi-6b``'s full width (bf16
+    weights drawn on the card): layer 0's own bf16 q/k/v (B 2, L 4,096, 32/4
+    heads, hd 128) against the plain bf16 version, timed beside the float32
+    kernel on the same values, bf16 ``scaled_dot_product_attention`` (the
+    library yardstick) and the plain version (:func:`_hold_attn_mode`); the
+    small shapes (:func:`_attn_cases_bf16`); ``loss_fn`` on YI_BATCH x
+    YI_SEQ tokens in bf16 (32 bf16 launches a forward), held against the
+    float32 forward at the same weights. Returns (the kernels line's
+    ``block_attn (bf16)`` entry, the forward's launches)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+
+    tag = f"[{smi}]"
+    cfg = get_arch("yi-6b")
+    params, _ = _init_on_card(cfg, tag, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (YI_BATCH, YI_SEQ + 1),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    q, k, v, _ = _layer0_attention(cfg, params, batch)
+    mode = _hold_attn_mode("yi-6b layer 0 (bf16)", q, k, v, True, tag)
+    del q, k, v
+    _attn_cases_bf16(tag)
+    print(f"block_attn bf16 {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(128, 1)} "
+          f"bytes a block at hd 128 (float32: {ba.build().block_attn_smem_bytes(128, 0)})")
+    entry = {"name": "block_attn (bf16)", "route": "cuda", "source": ATTN_SOURCE,
+             "replaces": ATTN_REPLACES, "launches": None,
+             **{key: mode[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "float32_ms")},
+             "modes": {"yi-6b layer 0": mode}}
+    launches = _bf16_forward_run(cfg, params, batch, YI_FORWARDS, ba, tag)
+    _hold_bf16_forward(cfg, params, batch, tag)
+    return entry, launches
+
+
+def bf16_seamless_phase(smi):
+    """(k3) ``seamless-m4t-large-v2`` at full width and depth in bf16: B10's
+    bf16 mode on layer 0's own encoder, decoder and cross calls
+    (:func:`_hold_attn_mode`); ``loss_fn`` on SEAMLESS_BATCH x SEAMLESS_TEXT
+    tokens over as many rows of float32 stub frames (cast to bf16 before the
+    encoder, as the reference's forward does; 72 bf16 launches a forward),
+    held against the float32 forward at the same weights. Returns (the
+    modes' entries, the forward's launches)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    cfg = get_arch("seamless-m4t-large-v2")
+    params, _ = _init_on_card(cfg, tag, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (SEAMLESS_BATCH, SEAMLESS_TEXT + 1), generator=gen)
+    embeds = torch.randn(SEAMLESS_BATCH, cfg.frontend_tokens, cfg.d_model, generator=gen).cuda()
+    batch = {"tokens": tokens[:, :-1].cuda(), "labels": tokens[:, 1:].cuda(), "embeds": embeds}
+    n_enc = cfg.n_enc_layers
+    with torch.inference_mode():
+        kept, calls = _kept_calls(attn_ops, "block_attention",
+                                  lambda: T.loss_fn(cfg, params, batch),
+                                  keep=(0, n_enc, n_enc + 1))
+    if calls != _kernel_calls(cfg)["block_attn"]:
+        _fail(f"{cfg.name}: the bf16 forward called block_attention {calls} times")
+    modes = {f"bf16 {name}": _hold_attn_mode(f"{name} layer 0 (bf16)", *kept[i][0],
+                                             kept[i][1]["causal"], tag)
+             for name, i in (("encoder", 0), ("decoder", n_enc), ("cross", n_enc + 1))}
+    del kept
+    launches = _bf16_forward_run(cfg, params, batch, SEAMLESS_FORWARDS, ba, tag)
+    _hold_bf16_forward(cfg, params, batch, tag)
+    return modes, launches
+
+
+def qwen_phase(smi):
+    """(k5) ``qwen2.5-32b`` at full width and depth (64 layers, 40/8 heads, hd
+    128, 32,763,876,352 parameters, 65.53 GB in bf16; float32 would not fit
+    one card), bf16 weights drawn on the card: B10's bf16 mode on layer 0's
+    own q/k/v; ``loss_fn`` on QWEN_BATCH x QWEN_SEQ tokens (64 bf16 launches
+    a forward), peak memory; greedy decode of QWEN_DECODE_BATCH prompts of
+    QWEN_PROMPT tokens and QWEN_GENERATE more, held against the kernel
+    forward over the same sequence within QWEN_DECODE_RMS_TOL; then serving
+    (QWEN_SERVE_RUN, :func:`serve_phase` in bf16). Returns (layer 0's mode
+    entry, the forward's launches, the serve numbers)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    cfg = get_arch("qwen2.5-32b")
+    print(f"{cfg.name} {tag}: before init memory_allocated={torch.cuda.memory_allocated()} bytes")
+    torch.cuda.reset_peak_memory_stats()
+    params, _ = _init_on_card(cfg, tag, dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (QWEN_BATCH, QWEN_SEQ + 1),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    q, k, v, _ = _layer0_attention(cfg, params, batch)
+    mode = _hold_attn_mode("qwen2.5-32b layer 0 (bf16)", q, k, v, True, tag)
+    del q, k, v
+    launches = _bf16_forward_run(cfg, params, batch, QWEN_FORWARDS, ba, tag)
+
+    prompts = tokens[0, :QWEN_DECODE_BATCH * QWEN_PROMPT].reshape(QWEN_DECODE_BATCH, QWEN_PROMPT)
+    seq, step_ms, logits = [prompts], [], []
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, QWEN_DECODE_BATCH, QWEN_PROMPT + QWEN_GENERATE, torch.bfloat16)
+        nxt = None
+        for t in range(QWEN_PROMPT + QWEN_GENERATE):
+            tok = prompts[:, t:t + 1] if t < QWEN_PROMPT else nxt
+            if t >= QWEN_PROMPT:
+                seq.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = T.decode_step(cfg, params, cache, tok)
+            nxt = lg[:, -1].float().argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg[:, 0])
+        del cache
+        fwd, _ = T.forward_train(cfg, params, torch.cat(seq, dim=1))
+    dec = torch.stack(logits, dim=1)
+    rel = _rel_rms(dec, fwd)
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    weight_ms = sum(t.numel() * t.element_size() for t in _leaves(params)) / HBM_BYTES_PER_S * 1e3
+    print(f"{cfg.name} decode {tag}: {QWEN_DECODE_BATCH} prompts x {QWEN_PROMPT} tokens + "
+          f"{QWEN_GENERATE} greedy, bf16: ms/step median={statistics.median(step_ms[2:]):.3f} "
+          f"(bf16 weight-read bound {weight_ms:.3f} ms); decode vs kernel forward "
+          f"rms(d)/rms(want)={rel:.4e} (tol {QWEN_DECODE_RMS_TOL:.4e}) "
+          f"max|d|={float((dec.float() - fwd.float()).abs().max()):.4e} argmax agrees at "
+          f"{agree:.4f}; peak_memory_allocated since init {torch.cuda.max_memory_allocated()} "
+          f"bytes")
+    if not (rel <= QWEN_DECODE_RMS_TOL and torch.isfinite(dec.float()).all()):
+        _fail(f"{cfg.name}: bf16 decode strays from the kernel forward (rms {rel:.4e})")
+    del dec, fwd, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, serving = serve_phase(QWEN_SERVE_RUN, smi, torch.bfloat16, params)
+    return mode, launches, serving
 
 
 def obs_phase(tag, fleet_stream):
@@ -3123,6 +3609,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
+    started = time.perf_counter()
+
+    def elapsed(label):
+        print(f"elapsed after {label}: {time.perf_counter() - started:.1f}s")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -3132,6 +3622,7 @@ def main() -> int:
         for done in [pool.submit(qk.build), pool.submit(sk.build), pool.submit(ba.build)]:
             done.result()
     print(f"build: three sources in parallel, {time.perf_counter() - t0:.2f}s wall")
+    elapsed("build")
     for info in (qk.BUILD_INFO, sk.BUILD_INFO, ba.BUILD_INFO):
         print(f"build: {info['seconds']:.2f}s {info['path']}")
         for line in info["log"].splitlines():
@@ -3223,6 +3714,7 @@ def main() -> int:
                 }
 
     wire = wire_phase(agg_w, spec, k * m, f"[{smi}]")
+    elapsed("the wire phase")
 
     # --------------------------------------------- small CPU-vs-card check
     xs, ys = synthetic_image_classification(n_samples=2000, seed=0, noise=1.0)
@@ -3332,6 +3824,7 @@ def main() -> int:
     gc.collect()                         # the LSTM's state goes before the LM phases
     torch.cuda.empty_cache()
     by_path["simulator"], sim_held, fleet_stream = sim_phases(f"[{smi}]")
+    elapsed("the simulator")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3342,9 +3835,11 @@ def main() -> int:
         results[name]["fleet_metro_n100000"] = {
             key: sim_held[name][key] for key in ("rows", "ms", "bound_ms", "plain_ms")}
     ssd = mamba_phases(smi)
+    elapsed("mamba2")
     gc.collect()                         # the Mamba2 weights and caches go first
     torch.cuda.empty_cache()
     attn = dense_phases(smi)
+    elapsed("yi-6b")
     gc.collect()                         # Yi-6B's weights go before InternVL2's
     torch.cuda.empty_cache()
     attn_by_path = {"yi-6b": attn["launches"], "internvl2-1b": vlm_phase(smi)}
@@ -3357,14 +3852,17 @@ def main() -> int:
     attn_by_path["jamba-smoke"] = jamba["block_attn"]
     ssd_by_path = {"mamba2-130m": ssd["launches"], "jamba-smoke": jamba["ssd_scan"]}
     fwd, steps, attn["modes"] = seamless_phase(smi)                 # (e)
+    elapsed("seamless")
     attn_by_path["seamless-m4t-large-v2"] = fwd
     attn_by_path["seamless-m4t-large-v2 decode"] = steps
     gc.collect()                         # Seamless's 8.14 GB go before DeepSeek's 64.84 GB
     torch.cuda.empty_cache()
     bwd_attn, bwd_ssd = backward_phase(smi)                          # (g)
+    elapsed("the backward kernels")
     train_launches = {arch: train_smoke_phase(arch, f"[{smi}]") for arch in TRAIN_ARCHS}  # (h)
     pods = {arch: pod_phase(arch, b_, s_, POD_STEPS, f"[{smi}]")   # (i)
             for arch, b_, s_ in POD_RUNS}
+    elapsed("training")
     gc.collect()
     torch.cuda.empty_cache()
     bwd_by_path = {"attn": {}, "ssd": {}}
@@ -3396,25 +3894,60 @@ def main() -> int:
     entry_train = {arch: stats for arch, (_, stats) in pods.items()}
     print(f"train pod summary [{smi}]: {json.dumps(entry_train)}")
     obs_phase(f"[{smi}]", fleet_stream)
+    elapsed("obs")
     gc.collect()
     torch.cuda.empty_cache()
     for arch in SERVE_SMOKE:                                         # (j) serving
         serve_smoke_phase(arch, f"[{smi}]")
     serving = {}
     for run in SERVE_RUNS:
-        served, serve_modes, serving[run[0]] = serve_phase(run, smi)
+        served, serve_modes, serving[run[0]] = serve_phase(run, smi,
+                                                           depth_cut=SERVE_F32_DEPTH_CUT)
         attn["modes"].update(serve_modes)
         if served:
-            attn_by_path[f"{run[0]} serve"] = served
+            attn_by_path[f"{run[0]} serve (depth / {SERVE_F32_DEPTH_CUT})"] = served
         gc.collect()                     # each model goes before the next
         torch.cuda.empty_cache()
     print(f"serve summary [{smi}]: {json.dumps(serving)}")
-    attn_by_path["deepseek-v2-lite-16b"] = deepseek_phase(smi)    # (f), last: the largest
-    for entry, paths in ((attn, attn_by_path), (ssd, ssd_by_path)):
+    elapsed("float32 serving")
+    attn_by_path["deepseek-v2-lite-16b"] = deepseek_phase(smi)    # (f): 64.84 GB
+    elapsed("deepseek")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (k) the bf16 slice, Qwen2.5-32B last: the largest.
+    ssd16, launches16 = bf16_mamba_phase(smi)                       # (k1)
+    elapsed("mamba2 bf16")
+    ssd16_by_path = {"mamba2-130m bf16": launches16}
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn16, launches16 = bf16_dense_phase(smi)                      # (k2)
+    elapsed("yi-6b bf16")
+    attn16_by_path = {"yi-6b bf16": launches16}
+    gc.collect()
+    torch.cuda.empty_cache()
+    modes16, attn16_by_path["seamless-m4t-large-v2 bf16"] = bf16_seamless_phase(smi)  # (k3)
+    attn16["modes"].update(modes16)
+    elapsed("seamless bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving16 = {}
+    for run in SERVE_RUNS:                                           # (k4) launch.serve --full
+        served, serve_modes, serving16[run[0]] = serve_phase(run, smi, torch.bfloat16)
+        attn16["modes"].update({f"bf16 {key}": val for key, val in serve_modes.items()})
+        if served:
+            attn16_by_path[f"{run[0]} serve bf16"] = served
+        gc.collect()
+        torch.cuda.empty_cache()
+    attn16["modes"]["qwen2.5-32b layer 0"], attn16_by_path["qwen2.5-32b bf16"], \
+        serving16["qwen2.5-32b"] = qwen_phase(smi)                  # (k5)
+    print(f"serve bf16 summary [{smi}]: {json.dumps(serving16)}")
+    elapsed("bf16 serving and qwen2.5-32b")
+    for entry, paths in ((attn, attn_by_path), (ssd, ssd_by_path), (attn16, attn16_by_path),
+                         (ssd16, ssd16_by_path)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
     print(json.dumps({"kernels": [results["qdq_delta_rows_rng"], results["qdq_rows_rng"],
-                                  *wire.values(), ssd, attn]}))
+                                  *wire.values(), ssd, attn, ssd16, attn16]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

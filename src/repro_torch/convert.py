@@ -23,11 +23,24 @@ def flat_from_numpy(matrix, device: str | torch.device = "cuda") -> torch.Tensor
                         device=resolve_device(device))
 
 
+def _leaf(a: np.ndarray) -> torch.Tensor:
+    """A numpy array -> a CPU tensor of its dtype, on a copy of its data. A
+    bfloat16 array (the ``ml_dtypes`` type that ``np.asarray`` of a JAX
+    bf16 array has, which torch does not take) goes through its uint16
+    view: bit for bit."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
     """A language model's nested dict/list/tuple of numpy arrays (a JAX
     ``init_params`` or LSTM ``init`` pytree after
     ``jax.tree_util.tree_map(np.asarray, ...)``) -> the same nesting, each
-    list and tuple as it was, of float32 tensors on ``device``."""
+    list and tuple as it was, of tensors on ``device``, each leaf in its
+    own dtype (a bf16 tree's float32 leaves, ``A_log``, ``D``, ``dt_bias``
+    and a MoE ``router``, stay float32)."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -35,6 +48,6 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
-        return torch.tensor(np.asarray(node), dtype=torch.float32, device=dev)
+        return _leaf(np.asarray(node)).to(dev)
 
     return conv(tree)

@@ -7,7 +7,9 @@ it with ``device="cpu"`` (as the tests do).
 
 Float32 is full float32, as the JAX package computes it: TF32 is switched
 off for matrix products and for cuDNN once, when this module is imported
-(the round engine and the LM model import it first).
+(the round engine and the LM model import it first). A bf16 matrix product
+sums in float32 to the end, as XLA's does: cuBLAS may otherwise reduce the
+partial sums of a split-K product in bf16.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ __all__ = ["resolve_device"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

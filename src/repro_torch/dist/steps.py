@@ -12,7 +12,8 @@ momentum step (``optim.momentum_sgd``), as the reference's
 the cache (the reference's ``slots=True`` variant; its ``slots=False``
 variant serves only ``launch/dryrun.py``, which is not ported) and
 ``make_prefill_step`` the chunked batched prefill into it
-(``T.prefill_chunk``).
+(``T.prefill_chunk``). Both run in the parameters' and the cache's dtype,
+float32 or bf16, and return logits in it.
 
 There is no mesh and no ``p_specs``: the model, its gradients, its
 velocity and the cache live on one device, so each builder returns its

@@ -10,7 +10,11 @@ accumulator), which keeps float32-level error; the K/V tiles arrive through
 a two-stage ``cp.async`` ring. Its bound is the 3xTF32 operation count at
 the card's TF32 rate. The design notes (fragment and shared-memory layout,
 the ring, the split's accuracy) are in ``csrc/block_attn.cu``. It takes
-CUDA float32 tensors only; :func:`repro_torch.kernels.block_attn.block_attention`
+CUDA float32 or bf16 tensors (all three of one type); bf16 is the same
+kernel, a template over the type, with bf16 tiles, one TF32 product for
+Q K^T and two for P V (a bf16 value is exact in TF32), float32 softmax
+state and ``o`` rounded once to bf16. Its launches also add one to
+:data:`BF16_LAUNCHES`. :func:`repro_torch.kernels.block_attn.block_attention`
 is the entry point that sends a CPU tensor to the plain version instead.
 
 The operands are ``(B, L, heads, hd)`` tensors, possibly strided views with
@@ -33,7 +37,9 @@ registers, summed over the query heads of each KV group inside one block;
 and each query tile's dQ added to a zeroed dq by float32 atomics, whose
 order varies from run to run; design and bound in ``csrc/block_attn.cu``).
 Each backward launch adds one to :data:`BWD_LAUNCHES`. No path
-differentiates the plain version for a CUDA tensor.
+differentiates the plain version for a CUDA tensor. The backward kernels
+are float32: a bf16 input that requires a gradient raises
+``NotImplementedError`` (the reference trains in float32; ROADMAP.md A11).
 
 The shared library is built with ``nvcc`` at first use into ``_build/``
 beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
@@ -49,17 +55,20 @@ import torch
 
 from repro_torch.kernels._build import build_library
 
-__all__ = ["LAUNCHES", "BWD_LAUNCHES", "BUILD_INFO", "MAX_HEAD_DIM", "reset_launch_counts",
-           "build", "block_attn", "block_attn_forward", "block_attn_backward",
-           "BlockAttnFunction"]
+__all__ = ["LAUNCHES", "BF16_LAUNCHES", "BWD_LAUNCHES", "BUILD_INFO", "MAX_HEAD_DIM",
+           "reset_launch_counts", "build", "block_attn", "block_attn_forward",
+           "block_attn_backward", "BlockAttnFunction"]
 
 _SRC = Path(__file__).parent / "csrc" / "block_attn.cu"
 MAX_HEAD_DIM = 128
 QUERY_TILE = 128               # query rows of one block
 MAX_QUERY_TILES = 65535        # the grid's y dimension
 
-# Kernel launches, counted where the wrapper launches the kernel.
+# Kernel launches, counted where the wrapper launches the kernel: all of
+# them, and those in bf16.
 LAUNCHES = {"block_attn": 0}
+BF16_LAUNCHES = {"block_attn": 0}
+_TYPES = (torch.float32, torch.bfloat16)
 # The backward kernels, in launch order.
 BWD_LAUNCHES = {"attn_bwd_dot": 0, "attn_bwd_dkdvq": 0}
 
@@ -69,6 +78,7 @@ BUILD_INFO: dict = {}
 
 def reset_launch_counts() -> None:
     LAUNCHES["block_attn"] = 0
+    BF16_LAUNCHES["block_attn"] = 0
     for name in BWD_LAUNCHES:
         BWD_LAUNCHES[name] = 0
 
@@ -82,10 +92,10 @@ def build() -> ctypes.CDLL:
         return _lib
     lib = build_library(_SRC, BUILD_INFO)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.block_attn.argtypes = ([ptr] * 4 + [i64] * 12 + [i32] * 8
+    lib.block_attn.argtypes = ([ptr] * 4 + [i64] * 12 + [i32] * 9
                                + [ptr, ctypes.c_float, ptr])
     lib.block_attn.restype = ctypes.c_int
-    lib.block_attn_smem_bytes.argtypes = [i32]
+    lib.block_attn_smem_bytes.argtypes = [i32, i32]
     lib.block_attn_smem_bytes.restype = ctypes.c_longlong
     for name in BWD_LAUNCHES:
         fn = getattr(lib, f"block_{name}")
@@ -101,9 +111,11 @@ def _check(q, k, v, window):
     if q.device.type != "cuda":
         raise ValueError(f"block_attn takes CUDA tensors, got {q.device}")
     named = {"q": q, "k": k, "v": v}
+    if q.dtype not in _TYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dim() != 4:
@@ -128,27 +140,33 @@ def _check(q, k, v, window):
 def block_attn_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int = 0, with_lse: bool = False):
     """The forward kernel on checked operands -> (o, lse): o (B, Lq, H, hd)
-    contiguous; lse (B, H, Lq) float32, each row's natural log-sum-exp of
-    its scaled, masked scores (-inf for a row that attends no key), or None
-    when ``with_lse`` is False (the kernel then writes none)."""
+    contiguous, in q's dtype; lse (B, H, Lq) float32, each row's natural
+    log-sum-exp of its scaled, masked scores (-inf for a row that attends no
+    key), or None when ``with_lse`` is False (the kernel then writes none;
+    bf16 operands write none)."""
     _check(q, k, v, window)
     bsz, lq, h, hd = q.shape
     lk, kv = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and with_lse:
+        raise ValueError("the log-sum-exp (the training path) is float32 only")
     o = q.new_empty(bsz, lq, h, hd)
-    lse = q.new_empty(bsz, h, lq) if with_lse else None
+    lse = torch.empty(bsz, h, lq, dtype=torch.float32, device=q.device) if with_lse else None
     lib = build()
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
     with torch.cuda.device(q.device):
         err = lib.block_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                              *strides, bsz, h, kv, lq, lk, hd, int(causal), int(window),
-                             lse.data_ptr() if lse is not None else None,
+                             int(bf16), lse.data_ptr() if lse is not None else None,
                              1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(
             f"block_attn launch failed with cudaError_t {err} (dynamic shared "
-            f"memory {lib.block_attn_smem_bytes(hd)} bytes)")
+            f"memory {lib.block_attn_smem_bytes(hd, int(bf16))} bytes)")
     LAUNCHES["block_attn"] += 1
+    if bf16:
+        BF16_LAUNCHES["block_attn"] += 1
     return o, lse
 
 
@@ -160,6 +178,9 @@ def block_attn_backward(q, k, v, o, lse, do, *, causal: bool = True, window: int
     if do.stride(3) != 1:
         do = do.contiguous()
     _check(q, k, v, window)
+    if q.dtype != torch.float32:
+        raise NotImplementedError(f"block_attn's backward kernels take float32, got {q.dtype} "
+                                  f"(ROADMAP.md A11)")
     bsz, lq, h, hd = q.shape
     lk, kv = k.shape[1], k.shape[2]
     if tuple(do.shape) != tuple(o.shape) or tuple(lse.shape) != (bsz, h, lq):
@@ -212,10 +233,15 @@ class BlockAttnFunction(torch.autograd.Function):
 def block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Lq, H, hd), k/v (B, Lk, KV, hd) with H % KV == 0, all float32
-    on one card -> o (B, Lq, H, hd), contiguous. Any Lq and Lk: the kernel
-    masks the ragged last tiles itself. When a gradient is wanted the call
-    goes through :class:`BlockAttnFunction` (the backward kernels)."""
+    or all bf16 on one card -> o (B, Lq, H, hd) in their dtype, contiguous.
+    Any Lq and Lk: the kernel masks the ragged last tiles itself. When a
+    gradient is wanted the call goes through :class:`BlockAttnFunction`
+    (the backward kernels, float32 only: bf16 raises)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         _check(q, k, v, window)
+        if q.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "block_attn's backward kernels are float32: a bf16 input that requires a "
+                "gradient has no backward (the reference trains in float32; ROADMAP.md A11)")
         return BlockAttnFunction.apply(q, k, v, causal, window)
     return block_attn_forward(q, k, v, causal=causal, window=window)[0]

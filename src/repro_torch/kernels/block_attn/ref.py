@@ -1,6 +1,9 @@
 """The plain PyTorch version of the blockwise-attention kernel: a
 materialized float32 softmax over the whole score matrix, as the JAX
 package's oracle ``src/repro/kernels/block_attn/ref.py:13`` computes it.
+bf16 operands are taken as the TPU kernel takes them: each is upcast to
+float32, everything is computed in float32, and ``o`` is rounded once to
+``q.dtype``.
 
 It is the CPU path of :func:`repro_torch.kernels.block_attn.block_attention`
 and the kernel's oracle on the card, never a fallback for a CUDA tensor.
@@ -29,8 +32,9 @@ def _allowed(lq: int, lk: int, causal: bool, window: int, device) -> torch.Tenso
 
 def block_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Lq, H, hd), k/v (B, Lk, KV, hd) with H % KV == 0, float32 ->
-    o (B, Lq, H, hd).
+    """q (B, Lq, H, hd), k/v (B, Lk, KV, hd) with H % KV == 0, float32 or
+    bf16 -> o (B, Lq, H, hd) in q's dtype (computed in float32, rounded
+    once).
 
     Head h reads KV head h // (H/KV), by a grouped einsum with no repeat.
     Scores are q.k multiplied by 1/sqrt(hd), as the kernel scales them.

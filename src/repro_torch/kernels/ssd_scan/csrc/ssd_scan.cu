@@ -1,5 +1,6 @@
-// Mamba2 SSD chunked scan (arXiv:2405.21060, Alg. 1), float32 in and out,
-// chunk-parallel on the tensor cores through a 3xTF32 split, for sm_90a.
+// Mamba2 SSD chunked scan (arXiv:2405.21060, Alg. 1), float32 or bf16 in
+// and out, chunk-parallel on the tensor cores (TF32 mma.sync; a 3xTF32
+// split for float32 operands), for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel`
 // (src/repro/kernels/ssd_scan/ssd_scan.py:32). For each batch b and head h
@@ -102,7 +103,25 @@
 // fits two blocks an SM, not three, by shared memory or by registers, and
 // was slower in a trial, as were chunk_scan stages 64 wide (three blocks an
 // SM).
+//
+// bf16 operands. The three forward stages that read x, B and C (chunk_cb,
+// chunk_state, chunk_scan) are templates over their type T (float or
+// __nv_bfloat16), as the TPU kernel takes bf16 x, B and C and writes y in
+// x's type (ssd_scan.py:37-41, :64, :86); dt and A_log are float32 in
+// either mode. bf16 rows are converted to float32 as they are loaded (a
+// plain 16-byte load of 8 elements, or one element at a time where rows
+// are not 16-byte aligned), into the float32 tiles of the float32 path:
+// cp.async copies bytes and cannot convert, and the tiles, their
+// conflict-free strides and the fragment code stay one. A bf16 value is
+// exact in TF32, so an operand read from x, B or C enters its product
+// unsplit (FragA / FragB with kExact): C B^T, both bf16, takes one product
+// where float32 takes three; (C B^T o L) (x dt) and C S_c, with one
+// float32 side, take two. The scratches, the chunk states and the float64
+// prefix sums are as in float32; y is rounded once (__float2bfloat16_rn).
+// The backward kernels take float32 only.
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -119,21 +138,24 @@ constexpr int kScanThreads = 128;  // 4 warps x 16 rows = one 64-row tile
 constexpr int kScanK = 32;         // k (state rows or columns) of one chunk_scan stage
 constexpr double kLog2e = 1.4426950408889634;
 
+using bf16 = __nv_bfloat16;
+
 // The pointers, strides and sizes every stage reads.
 struct Args {
-  const float* x;      // (B, H, L, P) by strides sx
+  const void* x;       // (B, H, L, P) by strides sx, float32 or bf16
   const float* dt;     // (B, H, L) by strides sdt
   const float* a_log;  // (H,) contiguous
-  const float* b;      // (B, G, L, N) by strides sb
-  const float* c;      // (B, G, L, N) by strides sc
-  float* y;            // (B, H, L, P) by strides sy
+  const void* b;       // (B, G, L, N) by strides sb, x's type
+  const void* c;       // (B, G, L, N) by strides sc, x's type
+  void* y;             // (B, H, L, P) by strides sy, x's type
   float* cb;           // scratch (B, G, nc, Cp, Cp): C B^T, lower tiles
   float* states;       // scratch (B, H, nc, Np, Pp): dS_c, then S_c
   float* decay;        // scratch (B, H, nc): exp(cum_last)
   long long sx[3], sdt[3], sb[3], sc[3], sy[3];  // batch, head|group, seq
   int batch, heads, groups, seqlen, p, n, chunk;
   int hpg, nc, ntile, cpad, np, pp;  // heads a group, chunks, tiles a chunk, padded sizes
-  int x16, bc16;                     // 16-byte copies of x, of B and C
+  int x16, bc16;                     // 16-byte copies (loads) of x, of B and C
+  int bf16;                          // x, B, C and y are bf16
 };
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
@@ -204,6 +226,33 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
       const bool ok = r < rows_ok && k < cols;
       cp_async4(dst + r * ld + k, src + min(r, rows_ok - 1) * stride + min(k, cols - 1),
                 ok ? 4 : 0);
+    }
+  }
+}
+
+// The same from a bf16 operand, converted to float32 as it is loaded (by
+// plain loads: cp.async cannot convert). vec16: 16-byte loads of 8
+// elements (cols is a multiple of 8), else one element at a time.
+template <int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const bf16* src,
+                                          long long stride, int rows_ok, int cols,
+                                          bool vec16) {
+  if (vec16) {
+    constexpr int kChunks = kCols / 8;
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, k = (i % kChunks) * 8;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);  // bf16 zeros
+      if (r < rows_ok && k < cols) u = *reinterpret_cast<const uint4*>(src + r * stride + k);
+      float4* d = reinterpret_cast<float4*>(dst + r * ld + k);
+      d[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+      d[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xFFFF0000u),
+                         __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xFFFF0000u));
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
+      const int r = i / kCols, k = i % kCols;
+      dst[r * ld + k] = r < rows_ok && k < cols ? __bfloat162float(src[r * stride + k]) : 0.0f;
     }
   }
 }
@@ -284,35 +333,62 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A B fragment (b0 = B[t][g], b1 = B[t + 4][g]) split once.
-struct SplitB {
+// A B fragment (b0 = B[t][g], b1 = B[t + 4][g]) split once; kExact (a
+// bf16 value, exact in TF32): taken as it is, with no small half.
+template <bool kExact>
+struct FragB {
   uint32_t big0, small0, big1, small1;
-  __device__ __forceinline__ SplitB(float b0, float b1) {
-    split(b0, big0, small0);
-    split(b1, big1, small1);
+  __device__ __forceinline__ FragB(float b0, float b1) {
+    if constexpr (kExact) {
+      big0 = __float_as_uint(b0);
+      big1 = __float_as_uint(b1);
+      small0 = small1 = 0u;
+    } else {
+      split(b0, big0, small0);
+      split(b1, big1, small1);
+    }
   }
 };
 
 // An A fragment (rows g, g + 8 at k-indices t, t + 4: a0 (g, t), a1
-// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)) split once, for several
-// n-tiles: mma(d, b) is d += a b in 3xTF32, small.big, big.small, then
-// big.big.
-struct SplitA {
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)) split once (or, kExact,
+// taken as it is), for several n-tiles: mma(d, b) is d += a b, small.big,
+// big.small, then big.big, leaving out the products of an exact operand's
+// missing small half: 3xTF32 for two float32 operands, 2 for one, 1 for none.
+template <bool kExact>
+struct FragA {
   uint32_t big[4], small[4];
-  __device__ __forceinline__ explicit SplitA(const float (&a)[4]) {
+  __device__ __forceinline__ explicit FragA(const float (&a)[4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) split(a[i], big[i], small[i]);
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kExact) {
+        big[i] = __float_as_uint(a[i]);
+        small[i] = 0u;
+      } else {
+        split(a[i], big[i], small[i]);
+      }
+    }
   }
-  __device__ __forceinline__ void mma(float (&d)[4], const SplitB& b) const {
-    mma_tf32(d, small, b.big0, b.big1);
-    mma_tf32(d, big, b.small0, b.small1);
+  template <bool kExactB>
+  __device__ __forceinline__ void mma(float (&d)[4], const FragB<kExactB>& b) const {
+    if constexpr (!kExact) mma_tf32(d, small, b.big0, b.big1);
+    if constexpr (!kExactB) mma_tf32(d, big, b.small0, b.small1);
     mma_tf32(d, big, b.big0, b.big1);
   }
 };
 
+using SplitA = FragA<false>;
+using SplitB = FragB<false>;
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // Stage 1: one 64 x 64 tile (it, jt), jt <= it, of C B^T for one (batch,
 // group, chunk). Blocks: (tile pair, chunk, batch x group), pairs slowest.
+// T: the type of B and C.
+template <typename T>
 __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int kLd = ld_gt(kNK);
   constexpr int kStage = 2 * kTile * kLd;
   extern __shared__ __align__(16) float smem[];
@@ -330,8 +406,8 @@ __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
   const int i0 = it * kTile, j0 = jt * kTile;
   if (i0 >= len) return;  // past a ragged last chunk: never read
   const int bi = bg / a.groups, gi = bg % a.groups;
-  const float* cp = a.c + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
-  const float* bp = a.b + bi * a.sb[0] + gi * a.sb[1] + (c0 + j0) * a.sb[2];
+  const T* cp = static_cast<const T*>(a.c) + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
+  const T* bp = static_cast<const T*>(a.b) + bi * a.sb[0] + gi * a.sb[1] + (c0 + j0) * a.sb[2];
   const int nk = (a.n + kNK - 1) / kNK;
   const bool vec16 = a.bc16 != 0;
 
@@ -366,12 +442,12 @@ __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
     for (int k = 0; k < kNK; k += 8) {
       const float* ca = cs + (16 * warp + g) * kLd + k + t;
       const float af[4] = {ca[0], ca[8 * kLd], ca[4], ca[8 * kLd + 4]};
-      const SplitA as(af);
+      const FragA<kBf16> as(af);
 #pragma unroll
       for (int j = 0; j < kTile / 8; ++j) {
         if (j <= jmax) {
           const float* bb = bs + (8 * j + g) * kLd + k + t;
-          as.mma(acc[j], SplitB(bb[0], bb[4]));
+          as.mma(acc[j], FragB<kBf16>(bb[0], bb[4]));
         }
       }
     }
@@ -390,9 +466,11 @@ __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
 // Stage 2: dS_c rows [128 ns, 128 ns + 128) for one (batch, head, chunk),
 // and exp(cum_last). Blocks: (chunk, batch x head, N slice), slices fastest.
 // kGrad: the backward's dS^loc_c = (C o exp(cum))^T dy, the caller passing
-// C as B and dy as x; the weight of position j is then exp(cum_j).
-template <int kPP, bool kGrad>
+// C as B and dy as x; the weight of position j is then exp(cum_j). T: the
+// type of x and B.
+template <typename T, int kPP, bool kGrad>
 __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int kNT = kPP / 8;
   constexpr int kLdB = ld_tg(kStateRows), kLdX = ld_tg(kPP);
   constexpr int kStage = state_stage(kPP);
@@ -413,9 +491,10 @@ __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
   const long long c0 = static_cast<long long>(ci) * a.chunk;
   const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
   const float A = -expf(a.a_log[h]);
-  const float* xp = a.x + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
+  const T* xp = static_cast<const T*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
   const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
-  const float* bp = a.b + bi * a.sb[0] + gi * a.sb[1] + c0 * a.sb[2] + ns * kStateRows;
+  const T* bp = static_cast<const T*>(a.b) + bi * a.sb[0] + gi * a.sb[1] + c0 * a.sb[2] +
+                ns * kStateRows;
   const int nj = (len + kStateJ - 1) / kStateJ;
 
   auto load = [&](int s) {
@@ -468,7 +547,7 @@ __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
       const float* xb = xs + (k + t) * kLdX + g;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        const SplitB sb(xb[8 * j], xb[4 * kLdX + 8 * j]);
+        const FragB<kBf16> sb(xb[8 * j], xb[4 * kLdX + 8 * j]);
         as0.mma(acc0[j], sb);
         as1.mma(acc1[j], sb);
       }
@@ -512,8 +591,10 @@ __global__ void __launch_bounds__(kPassThreads) state_pass_kernel(Args a) {
 
 // Stage 4: y rows [64 it, 64 it + 64) of one (batch, head, chunk). Blocks:
 // (tile, chunk, batch x head), the heaviest tiles first.
-template <int kPP>
+// T: the type of x, C and y.
+template <typename T, int kPP>
 __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_kernel(Args a) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int kNT = kPP / 8;
   constexpr int kLdC = ld_gt(kScanK), kLdS = ld_tg(kPP);  // C (64, 32), S (32, Pp)
   constexpr int kLdCB = kScanK + 8, kLdX = ld_2tg(kPP);   // C B^T (64, 32), x (32, Pp)
@@ -535,9 +616,9 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
   if (i0 >= len) return;  // past a ragged last chunk
   const int bi = bh / a.heads, h = bh % a.heads, gi = h / a.hpg;
   const float A = -expf(a.a_log[h]);
-  const float* xp = a.x + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
+  const T* xp = static_cast<const T*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
   const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
-  const float* cp = a.c + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
+  const T* cp = static_cast<const T*>(a.c) + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
   const float* cbp = a.cb + ((static_cast<long long>(bi) * a.groups + gi) * a.nc + ci) *
                                 a.cpad * a.cpad + static_cast<long long>(i0) * a.cpad;
   const float* sp = a.states + (static_cast<long long>(bh) * a.nc + ci) * a.np * kPP;
@@ -586,7 +667,7 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
       for (int k = 0; k < kScanK; k += 8) {
         const float* ca = st + ra * kLdC + k + t;
         const float af[4] = {ca[0], ca[8 * kLdC], ca[4], ca[8 * kLdC + 4]};
-        const SplitA as(af);
+        const FragA<kBf16> as(af);
         const float* sb = ss + (k + t) * kLdS + g;
 #pragma unroll
         for (int j = 0; j < kNT; ++j) as.mma(acc[j], SplitB(sb[8 * j], sb[4 * kLdS + 8 * j]));
@@ -627,12 +708,12 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
         const SplitA as(af);
         const float* xb = xs + (8 * kk + 2 * t) * kLdX + g;
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) as.mma(acc[n], SplitB(xb[8 * n], xb[kLdX + 8 * n]));
+        for (int n = 0; n < kNT; ++n) as.mma(acc[n], FragB<kBf16>(xb[8 * n], xb[kLdX + 8 * n]));
       }
     }
   }
 
-  float* yp = a.y + bi * a.sy[0] + h * a.sy[1] + c0 * a.sy[2];
+  T* yp = static_cast<T*>(a.y) + bi * a.sy[0] + h * a.sy[1] + c0 * a.sy[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = i0 + (r == 0 ? ra : rb);
@@ -642,7 +723,7 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t + e;
-        if (col < a.p) yp[row * a.sy[2] + col] = acc[j][2 * r + e];
+        if (col < a.p) store(yp + row * a.sy[2] + col, acc[j][2 * r + e]);
       }
   }
 }
@@ -709,15 +790,17 @@ int launch(Kernel kernel, int stage, const Args& a, void* stream) {
 }
 
 // ptrs = (x, dt, a_log, b, c, y, cb, states, decay); strides = 15 element
-// strides, (batch, head or group, seq) for x, dt, B, C and y.
+// strides, (batch, head or group, seq) for x, dt, B, C and y; dims[7] = 1
+// when x, B, C and y are bf16.
 bool make_args(Args& a, void* const* ptrs, const long long* strides, const int* dims) {
   if (!set_sizes(a, dims)) return false;
-  a.x = static_cast<const float*>(ptrs[0]);
+  a.bf16 = dims[7] != 0;
+  a.x = ptrs[0];
   a.dt = static_cast<const float*>(ptrs[1]);
   a.a_log = static_cast<const float*>(ptrs[2]);
-  a.b = static_cast<const float*>(ptrs[3]);
-  a.c = static_cast<const float*>(ptrs[4]);
-  a.y = static_cast<float*>(ptrs[5]);
+  a.b = ptrs[3];
+  a.c = ptrs[4];
+  a.y = ptrs[5];
   a.cb = static_cast<float*>(ptrs[6]);
   a.states = static_cast<float*>(ptrs[7]);
   a.decay = static_cast<float*>(ptrs[8]);
@@ -728,15 +811,38 @@ bool make_args(Args& a, void* const* ptrs, const long long* strides, const int* 
     a.sc[i] = strides[9 + i];
     a.sy[i] = strides[12 + i];
   }
-  bool bc16 = a.n % 4 == 0 && aligned16(a.b) && aligned16(a.c);
-  bool x16 = a.p % 4 == 0 && aligned16(a.x);
+  const int e = a.bf16 ? 8 : 4;  // elements in 16 bytes
+  bool bc16 = a.n % e == 0 && aligned16(a.b) && aligned16(a.c);
+  bool x16 = a.p % e == 0 && aligned16(a.x);
   for (int i = 0; i < 3; ++i) {
-    bc16 = bc16 && a.sb[i] % 4 == 0 && a.sc[i] % 4 == 0;
-    x16 = x16 && a.sx[i] % 4 == 0;
+    bc16 = bc16 && a.sb[i] % e == 0 && a.sc[i] % e == 0;
+    x16 = x16 && a.sx[i] % e == 0;
   }
   a.bc16 = bc16 ? 1 : 0;
   a.x16 = x16 ? 1 : 0;
   return true;
+}
+
+template <typename T>
+int launch_state(const Args& a, void* stream) {
+  switch (a.pp) {
+    case 8: return launch(chunk_state_kernel<T, 8, false>, 1, a, stream);
+    case 16: return launch(chunk_state_kernel<T, 16, false>, 1, a, stream);
+    case 32: return launch(chunk_state_kernel<T, 32, false>, 1, a, stream);
+    case 64: return launch(chunk_state_kernel<T, 64, false>, 1, a, stream);
+    default: return launch(chunk_state_kernel<T, 128, false>, 1, a, stream);
+  }
+}
+
+template <typename T>
+int launch_scan(const Args& a, void* stream) {
+  switch (a.pp) {
+    case 8: return launch(chunk_scan_kernel<T, 8>, 3, a, stream);
+    case 16: return launch(chunk_scan_kernel<T, 16>, 3, a, stream);
+    case 32: return launch(chunk_scan_kernel<T, 32>, 3, a, stream);
+    case 64: return launch(chunk_scan_kernel<T, 64>, 3, a, stream);
+    default: return launch(chunk_scan_kernel<T, 128>, 3, a, stream);
+  }
 }
 
 
@@ -840,6 +946,7 @@ Args fwd_view(const BwdArgs& a, bool grad) {
   }
   f.x16 = grad ? a.dy16 : a.x16;
   f.bc16 = a.bc16;
+  f.bf16 = 0;
   return f;
 }
 
@@ -1532,20 +1639,15 @@ extern "C" int ssd_chunk_cb(void* const* ptrs, const long long* strides, const i
                             void* stream) {
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(chunk_cb_kernel, 0, a, stream);
+  return a.bf16 ? launch(chunk_cb_kernel<bf16>, 0, a, stream)
+                : launch(chunk_cb_kernel<float>, 0, a, stream);
 }
 
 extern "C" int ssd_chunk_state(void* const* ptrs, const long long* strides, const int* dims,
                                void* stream) {
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (a.pp) {
-    case 8: return launch(chunk_state_kernel<8, false>, 1, a, stream);
-    case 16: return launch(chunk_state_kernel<16, false>, 1, a, stream);
-    case 32: return launch(chunk_state_kernel<32, false>, 1, a, stream);
-    case 64: return launch(chunk_state_kernel<64, false>, 1, a, stream);
-    default: return launch(chunk_state_kernel<128, false>, 1, a, stream);
-  }
+  return a.bf16 ? launch_state<bf16>(a, stream) : launch_state<float>(a, stream);
 }
 
 extern "C" int ssd_state_pass(void* const* ptrs, const long long* strides, const int* dims,
@@ -1559,13 +1661,7 @@ extern "C" int ssd_chunk_scan(void* const* ptrs, const long long* strides, const
                               void* stream) {
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (a.pp) {
-    case 8: return launch(chunk_scan_kernel<8>, 3, a, stream);
-    case 16: return launch(chunk_scan_kernel<16>, 3, a, stream);
-    case 32: return launch(chunk_scan_kernel<32>, 3, a, stream);
-    case 64: return launch(chunk_scan_kernel<64>, 3, a, stream);
-    default: return launch(chunk_scan_kernel<128>, 3, a, stream);
-  }
+  return a.bf16 ? launch_scan<bf16>(a, stream) : launch_scan<float>(a, stream);
 }
 
 // Elements of the backward's scratches, (C B^T, G, decay, row terms,
@@ -1609,7 +1705,7 @@ extern "C" int ssd_bwd_chunk_cb(void* const* ptrs, const long long* strides, con
                                 void* stream) {
   BwdArgs a;
   if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(chunk_cb_kernel, 0, fwd_view(a, false), stream);
+  return launch(chunk_cb_kernel<float>, 0, fwd_view(a, false), stream);
 }
 
 extern "C" int ssd_bwd_chunk_state(void* const* ptrs, const long long* strides, const int* dims,
@@ -1618,11 +1714,11 @@ extern "C" int ssd_bwd_chunk_state(void* const* ptrs, const long long* strides, 
   if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
   const Args f = fwd_view(a, true);
   switch (a.pp) {
-    case 8: return launch(chunk_state_kernel<8, true>, 1, f, stream);
-    case 16: return launch(chunk_state_kernel<16, true>, 1, f, stream);
-    case 32: return launch(chunk_state_kernel<32, true>, 1, f, stream);
-    case 64: return launch(chunk_state_kernel<64, true>, 1, f, stream);
-    default: return launch(chunk_state_kernel<128, true>, 1, f, stream);
+    case 8: return launch(chunk_state_kernel<float, 8, true>, 1, f, stream);
+    case 16: return launch(chunk_state_kernel<float, 16, true>, 1, f, stream);
+    case 32: return launch(chunk_state_kernel<float, 32, true>, 1, f, stream);
+    case 64: return launch(chunk_state_kernel<float, 64, true>, 1, f, stream);
+    default: return launch(chunk_state_kernel<float, 128, true>, 1, f, stream);
   }
 }
 

@@ -11,8 +11,11 @@
   kernel is held to on the card. No path hands it a CUDA tensor in place
   of the kernel.
 
-``ssd_chunked_plain`` keeps the within-chunk prefix sum of the log-decay in
-float64, as the kernel does: |cum| reaches thousands when dt*|A| is large,
+``ssd_chunked_plain`` takes bf16 ``x``, ``b`` and ``c`` as the TPU kernel
+does: upcast to float32, computed in float32 (``dt`` and ``a_log`` are
+float32 in either mode), and ``y`` rounded once to ``x``'s dtype. It keeps
+the within-chunk prefix sum of the log-decay in float64, as the kernel
+does: |cum| reaches thousands when dt*|A| is large,
 and exp(cum_i - cum_j) of nearby positions then loses ulp(|cum|) to the
 cancellation in float32. The products stay float32.
 """
@@ -53,9 +56,12 @@ def _segsum_exp(cum):
 
 def ssd_chunked_plain(x, dt, a_log, b, c, chunk: int):
     """Chunked SSD. x (B,H,L,P), dt (B,H,L) post-softplus, a_log (H,)
-    (A = -exp(a_log)), b/c (B,G,L,N) with H % G == 0. L is padded to a
-    multiple of ``chunk`` with dt = 0 (a no-op step). Returns y (B,H,L,P)
-    and the final state (B,H,P,N)."""
+    (A = -exp(a_log)), b/c (B,G,L,N) with H % G == 0; x, b and c float32 or
+    bf16, computed in float32. L is padded to a multiple of ``chunk`` with
+    dt = 0 (a no-op step). Returns y (B,H,L,P) in x's dtype and the final
+    state (B,H,P,N) in float32."""
+    out_dtype = x.dtype
+    x, b, c = x.float(), b.float(), c.float()
     bsz, h, l, p = x.shape
     g, n = b.shape[1], b.shape[3]
     if h % g:
@@ -94,4 +100,4 @@ def ssd_chunked_plain(x, dt, a_log, b, c, chunk: int):
     # Across chunks: y_i += exp(cum_i) C_i S_entering.
     y_off = torch.einsum("bhzin,bhzi,bhzpn->bhzip", ch, torch.exp(cum).float(), s_prev)
     y = (y_diag + y_off).reshape(bsz, h, nc * chunk, p)[:, :, :l]
-    return y, state
+    return y.to(out_dtype), state

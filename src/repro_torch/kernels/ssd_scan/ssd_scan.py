@@ -11,7 +11,12 @@ Every product runs on the tensor cores as ``mma.sync`` m16n8k8 TF32 tiles
 with a 3xTF32 split, which keeps float32-level error; the log-decay prefix
 sums and their differences are float64. What bounds it is the 3xTF32
 operation count at the card's TF32 rate; the design notes are in
-``csrc/ssd_scan.cu``. It takes CUDA float32 tensors only;
+``csrc/ssd_scan.cu``. It takes CUDA tensors: ``dt`` and ``a_log`` float32,
+``x``, ``b`` and ``c`` float32 or all three bf16. bf16 is the same stage
+kernels, templates over the type: the rows are converted to float32 as
+they are loaded, a bf16 operand enters its product unsplit (exact in
+TF32), the scratches and prefix sums are as in float32, and ``y`` is
+rounded once to bf16; its calls also add one to :data:`BF16_LAUNCHES`.
 :func:`repro_torch.kernels.ssd_scan.ssd_chunked` is the entry point that
 sends a CPU tensor to the plain version instead.
 
@@ -39,7 +44,9 @@ sums over the heads of a group taken with float32 atomics, so their order
 varies from run to run; dA_log is the sum of one float64 part a (batch,
 head, chunk). Each backward launch adds one to :data:`BWD_LAUNCHES`. No
 path differentiates the plain version for a CUDA tensor. The backward
-takes N <= 128.
+takes N <= 128, and float32 only: a bf16 input that requires a gradient
+raises ``NotImplementedError`` (the reference trains in float32; ROADMAP.md
+A11).
 
 The shared library is built with ``nvcc`` at first use into ``_build/``
 beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
@@ -54,7 +61,8 @@ import torch
 
 from repro_torch.kernels._build import build_library
 
-__all__ = ["LAUNCHES", "KERNEL_LAUNCHES", "BWD_LAUNCHES", "STAGES", "BWD_STAGES",
+__all__ = ["LAUNCHES", "BF16_LAUNCHES", "KERNEL_LAUNCHES", "BWD_LAUNCHES", "STAGES",
+           "BWD_STAGES",
            "BUILD_INFO", "reset_launch_counts", "build", "stage_report", "ssd_scan",
            "ssd_scan_forward", "ssd_scan_backward", "SSDScanFunction"]
 
@@ -65,8 +73,10 @@ BWD_STAGES = ("bwd_chunk_cb", "bwd_chunk_state", "bwd_state_pass", "bwd_chunk_dc
               "bwd_chunk_db", "bwd_ddt")
 MAX_BWD_STATE_DIM = 128
 
-# Calls of the entry point, counted where it launches its kernels.
+# Calls of the entry point, counted where it launches its kernels: all of
+# them, and those in bf16.
 LAUNCHES = {"ssd_scan": 0}
+BF16_LAUNCHES = {"ssd_scan": 0}
 # Launches of each stage kernel, counted where the wrapper launches it.
 KERNEL_LAUNCHES = dict.fromkeys(STAGES, 0)
 # Launches of each backward kernel, counted where the wrapper launches it.
@@ -78,6 +88,7 @@ BUILD_INFO: dict = {}
 
 def reset_launch_counts() -> None:
     LAUNCHES["ssd_scan"] = 0
+    BF16_LAUNCHES["ssd_scan"] = 0
     for name in STAGES:
         KERNEL_LAUNCHES[name] = 0
     for name in BWD_STAGES:
@@ -113,8 +124,8 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def _dims(batch, heads, groups, seqlen, p, n, chunk):
-    return (ctypes.c_int * 7)(batch, heads, groups, seqlen, p, n, chunk)
+def _dims(batch, heads, groups, seqlen, p, n, chunk, bf16=False):
+    return (ctypes.c_int * 8)(batch, heads, groups, seqlen, p, n, chunk, int(bf16))
 
 
 def stage_report(batch: int, heads: int, groups: int, seqlen: int, p: int, n: int,
@@ -139,9 +150,12 @@ def _check(x, dt, a_log, b, c, chunk):
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan takes CUDA tensors, got {x.device}")
     named = {"x": x, "dt": dt, "a_log": a_log, "b": b, "c": c}
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = x.dtype if name in ("x", "b", "c") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if x.dim() != 4 or b.dim() != 4 or c.dim() != 4 or dt.dim() != 3:
@@ -183,11 +197,12 @@ def ssd_scan_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         LAUNCHES["ssd_scan"] += 1
         return y, x.new_empty(0)
     lib = build()
-    dims = _dims(bsz, h, g, l, p, n, chunk)
+    bf16 = x.dtype == torch.bfloat16
+    dims = _dims(bsz, h, g, l, p, n, chunk, bf16)
     elems = (ctypes.c_longlong * 3)()
     if lib.ssd_scratch_elems(dims, elems) != 0:
-        raise ValueError(f"ssd_scan does not take {tuple(dims)}")
-    cb, states, decay = (x.new_empty(k) for k in elems)
+        raise ValueError(f"ssd_scan does not take {tuple(dims)[:7]}")
+    cb, states, decay = (torch.empty(k, dtype=torch.float32, device=x.device) for k in elems)
     ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in (x, dt, a_log, b, c, y, cb,
                                                           states, decay)))
     strides = (ctypes.c_longlong * 15)(*(t.stride(i) for t in (x, dt, b, c, y)
@@ -204,6 +219,8 @@ def ssd_scan_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                                    f"{err} (dynamic shared memory a block: {shapes})")
             KERNEL_LAUNCHES[name] += 1
     LAUNCHES["ssd_scan"] += 1
+    if bf16:
+        BF16_LAUNCHES["ssd_scan"] += 1
     return y, states
 
 
@@ -214,6 +231,9 @@ def ssd_scan_backward(x, dt, a_log, b, c, states, dy, *, chunk: int):
     contiguous; db and dc sum over the heads of each group. A failed launch
     raises."""
     _check(x, dt, a_log, b, c, chunk)
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"ssd_scan's backward kernels take float32, got {x.dtype} "
+                                  f"(ROADMAP.md A11)")
     bsz, h, l, p = x.shape
     g, n = b.shape[1], b.shape[3]
     if n > MAX_BWD_STATE_DIM:
@@ -278,12 +298,17 @@ class SSDScanFunction(torch.autograd.Function):
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int) -> torch.Tensor:
     """x (B,H,L,P), dt (B,H,L) post-softplus, a_log (H,), b/c (B,G,L,N) with
-    H % G == 0, all float32 on one card -> y (B,H,L,P). Any L: the kernels
-    mask the ragged last chunk themselves. ``y`` is a (B,H,L,P) view of
-    (B,L,H,P) memory when ``x`` is one, else contiguous. When a gradient is
-    wanted the call goes through :class:`SSDScanFunction` (the backward
-    kernels)."""
+    H % G == 0, on one card: dt and a_log float32, x, b and c float32 or
+    all bf16 -> y (B,H,L,P) in x's dtype. Any L: the kernels mask the
+    ragged last chunk themselves. ``y`` is a (B,H,L,P) view of (B,L,H,P)
+    memory when ``x`` is one, else contiguous. When a gradient is wanted the
+    call goes through :class:`SSDScanFunction` (the backward kernels,
+    float32 only: bf16 raises)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a_log, b, c)):
         _check(x, dt, a_log, b, c, chunk)
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "ssd_scan's backward kernels are float32: a bf16 input that requires a "
+                "gradient has no backward (the reference trains in float32; ROADMAP.md A11)")
         return SSDScanFunction.apply(x, dt, a_log, b, c, chunk)
     return ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)[0]

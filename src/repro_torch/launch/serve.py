@@ -13,9 +13,9 @@ each request's TTFT/TPOT and the engine's throughput, on the card unless
       --requests 16 --max-concurrency 8 --prompt-len 512 --gen 64 --chunk 128 \\
       --arrival 0.5 --mixed
 
-``--full`` runs float32 (the reference runs bf16 there; bf16 is ROADMAP.md
-A10), and ``--mesh-model`` > 1 (tensor-parallel serving) is not ported yet
-(ROADMAP.md A11).
+``--full`` serves in bf16 (weights, cache and activations) and the smoke
+configuration in float32, as the reference's launcher chooses. ``--mesh-model``
+> 1 (tensor-parallel serving) is not ported yet (ROADMAP.md A11).
 """
 from __future__ import annotations
 
@@ -57,9 +57,13 @@ def build_requests(args, cfg):
 def sequential_reference(cfg, params, req, max_len: int, device="cuda", gaps=None):
     """The pre-engine serving semantics: one request, token-at-a-time
     prefill through ``T.decode_step``, then greedy (temperature-0) decode.
-    At temperature 0 the engine's tokens for the request are these. With a
-    list ``gaps``, the gap between the two largest logits that each token
-    was taken from is appended to it (a near-tie is a small gap)."""
+    At temperature 0 the engine's tokens for the request are these. The
+    cache is in the parameters' dtype, as the engine's (the reference's
+    builds a float32 one), and an encoder-decoder's encoder runs on the
+    float32 embeddings with its output rounded to that dtype, as the
+    engine's admission does. With a list ``gaps``, the gap between the two
+    largest logits that each token was taken from is appended to it (a
+    near-tie is a small gap)."""
     import torch
 
     from repro_torch.device import resolve_device
@@ -67,18 +71,19 @@ def sequential_reference(cfg, params, req, max_len: int, device="cuda", gaps=Non
 
     dev = resolve_device(device)
     with torch.no_grad():
-        cache = T.init_cache(cfg, 1, max_len, device=dev,
+        dtype = params["embed"].dtype
+        cache = T.init_cache(cfg, 1, max_len, dtype, device=dev,
                              enc_len=cfg.frontend_tokens if cfg.enc_dec else 0)
         if cfg.enc_dec:
             emb = torch.as_tensor(req.embeds, dtype=torch.float32, device=dev)[None]
-            cache["enc_out"] = T._run_encoder(cfg, params, emb, remat=False)
+            cache["enc_out"] = T._run_encoder(cfg, params, emb, remat=False).to(dtype)
         prompt = torch.as_tensor(req.prompt, device=dev)
         logits = None
         for t in range(len(req.prompt)):
             logits, cache = T.decode_step(cfg, params, cache, prompt[None, t:t + 1])
         out = []
         for _ in range(req.max_tokens):
-            row = logits[0, -1]
+            row = logits[0, -1].float()
             tok = int(torch.argmax(row))
             if gaps is not None:
                 top = torch.topk(row, 2).values
@@ -100,8 +105,8 @@ def main(argv=None) -> None:
                          "the reduced smoke config is the default and --full "
                          "alone chooses the full-size one")
     ap.add_argument("--full", action="store_true",
-                    help="use the full-size architecture config, in float32 (the "
-                         "reference runs bf16 here; bf16 is ROADMAP.md A10)")
+                    help="use the full-size architecture config, in bf16 (the smoke "
+                         "config runs float32)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-concurrency", type=int, default=8,
                     help="engine cache slots (max in-flight requests)")
@@ -150,7 +155,8 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch) if args.full else get_smoke(args.arch)
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    dtype = torch.bfloat16 if args.full else torch.float32
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype, device=dev)
     max_len = args.max_len or (args.prompt_len + args.gen)
     obs = None
     if args.obs:
@@ -160,7 +166,7 @@ def main(argv=None) -> None:
     reqs = build_requests(args, cfg)
     eng = ServeEngine(cfg, params, EngineConfig(
         max_concurrency=args.max_concurrency, max_len=max_len,
-        chunk=args.chunk, seed=args.seed), device=dev, obs=obs)
+        chunk=args.chunk, dtype=dtype, seed=args.seed), device=dev, obs=obs)
     results = eng.run(reqs)
 
     summary = eng.metrics.summary()

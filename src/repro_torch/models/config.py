@@ -2,9 +2,11 @@
 ``repro.models.config``: the same dataclasses, fields and defaults, so a
 configuration carries across field by field.
 
-Fields that only steer XLA or a device mesh (``attn_logits_bf16``,
-``attn_bp_axes``, ``attn_batch_parallel``) are kept for that equality and
-read by nothing here. So is ``use_pallas_ssd``: the port's Mamba2 mixer
+Fields that only steer XLA or a device mesh (``attn_bp_axes``,
+``attn_batch_parallel``) are kept for that equality and read by nothing
+here. ``attn_logits_bf16`` is read by ``models.layers._sdpa``: it keeps the
+materialized (decode and chunked-prefill) attention scores in the
+activations' dtype, as the reference's; ``block_attention`` ignores it. So is ``use_pallas_ssd``: the port's Mamba2 mixer
 always calls ``repro_torch.kernels.ssd_scan.ssd_chunked``, which launches
 the hand-written kernel on a CUDA tensor and takes its plain version on a
 CPU tensor.

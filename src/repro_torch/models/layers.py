@@ -20,15 +20,26 @@ the ring snapshot and the chunk) and MLA's latent attention are plain
 torch, as the reference computes them outside any kernel; ``mamba_prefill``
 is the recurrent decode step over the chunk, as the reference's.
 
-Precision: float32 throughout; ``cfg.attn_logits_bf16`` raises. The causal
-depthwise convolution is the reference's sum of shifted products, not
-``F.conv1d`` (which cuDNN runs in TF32 by default on the card), and
-softplus is ``jax.nn.softplus``'s ``max(x, 0) + log1p(exp(-|x|))``
-(``F.softplus`` switches to ``x`` above a threshold of 20).
+Precision: the parameters' dtype, float32 or bf16, with the reference's
+dtype flow op for op: activations in the parameters' dtype, norm and
+softmax statistics, RoPE, the SSD's ``dt`` and decay, and the MoE router
+in float32 (``A_log``, ``D``, ``dt_bias`` and ``router`` are float32
+leaves in either mode). A product takes operands of one dtype: where JAX
+promotes a float32 activation against bf16 weights (the encoder run on
+the serve engine's float32 frame embeddings), the caller upcasts the
+weights (``transformer._run_encoder``). ``cfg.attn_logits_bf16`` keeps the
+materialized (decode and chunked-prefill) attention scores in the
+activations' dtype, as the reference's ``_sdpa``; ``block_attention``
+ignores it, as the reference's Pallas kernel would. The causal depthwise
+convolution is the reference's sum of shifted products, not ``F.conv1d``
+(which cuDNN runs in TF32 by default on the card), and softplus is
+``jax.nn.softplus``'s ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus``
+switches to ``x`` above a threshold of 20).
 
 Random init draws on the generator's own device (``_dense``): a CUDA
 generator fills a full-width model on the card, a CPU generator draws on
-the host and moves the result.
+the host and moves the result. Each leaf is drawn in float32, scaled and
+cast to the asked dtype (round to nearest even, as XLA's ``astype``).
 """
 from __future__ import annotations
 
@@ -81,12 +92,17 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _dense(gen: torch.Generator, shape, device, scale=None) -> torch.Tensor:
-    """normal * scale (1/sqrt(fan_in) by default), drawn from ``gen`` on
-    the generator's own device and moved to ``device``."""
+def _dense(gen: torch.Generator, shape, device, dtype=torch.float32,
+           scale=None) -> torch.Tensor:
+    """normal * scale (1/sqrt(fan_in) by default), drawn in float32 from
+    ``gen`` on the generator's own device, then cast to ``dtype`` on
+    ``device`` (the reference's ``_dense``); on the meta device, an empty
+    tensor and no draw."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     # Scaled in place: one full-size temporary less (a Grok expert leaf is 6.4 GB).
-    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(device)
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale).to(device, dtype)
 
 
 # --------------------------------------------------------------------- RoPE
@@ -110,24 +126,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 # ------------------------------------------------------------ GQA attention
-def _check_attn(cfg: ArchConfig) -> None:
-    if cfg.attn_logits_bf16:
-        raise NotImplementedError("attn_logits_bf16: the port's LM path is float32 only")
-
-
-def init_attn(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
-    """The reference's shapes and scales; the draws are ``gen``'s, not
-    JAX's. QKV biases start at zero, as the reference's."""
+def init_attn(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32) -> dict:
+    """The reference's shapes, scales and dtypes; the draws are ``gen``'s,
+    not JAX's. QKV biases start at zero, as the reference's."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {
-        "wq": _dense(gen, (d, h * hd), device),
-        "wk": _dense(gen, (d, kv * hd), device),
-        "wv": _dense(gen, (d, kv * hd), device),
-        "wo": _dense(gen, (h * hd, d), device),
+        "wq": _dense(gen, (d, h * hd), device, dtype),
+        "wk": _dense(gen, (d, kv * hd), device, dtype),
+        "wv": _dense(gen, (d, kv * hd), device, dtype),
+        "wo": _dense(gen, (h * hd, d), device, dtype),
     }
     if cfg.qkv_bias:
         for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
-            p[name] = torch.zeros(width, dtype=torch.float32, device=device)
+            p[name] = torch.zeros(width, dtype=dtype, device=device)
     return p
 
 
@@ -144,16 +155,29 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
     return q.reshape(b, l, h, hd), k.reshape(b, l, kv, hd), v.reshape(b, l, kv, hd)
 
 
-def _sdpa(q, k, v, mask, n_rep: int):
+def _sdpa(q, k, v, mask, n_rep: int, logits_bf16: bool = False):
     """The reference's materialized attention, for decode's one-token query
     and the chunked prefill: q (B,Lq,H,hd), k/v (B,Lk,KV,hd); mask (B|1, 1,
-    Lq, Lk) additive f32."""
+    Lq, Lk) additive f32.
+
+    ``logits_bf16`` (``cfg.attn_logits_bf16``) keeps the (Lq x Lk) scores
+    in the scores' own dtype (bf16 for a bf16 model), the mask cast to it,
+    and takes ``jax.nn.softmax``'s steps in that dtype: the row max, exp of
+    the difference, and the division by the row sum (summed in float32 and
+    rounded, as ``jnp.sum`` of bf16). Otherwise the scores go to float32
+    first."""
     b, lq, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, lq, kv, n_rep, hd)
-    logits = torch.einsum("bqgrh,bkgh->bgrqk", qg, k).to(torch.float32)
-    logits = logits / math.sqrt(hd) + mask[:, :, None]
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    if logits_bf16:
+        logits = torch.einsum("bqgrh,bkgh->bgrqk", qg, k)
+        logits = logits / math.sqrt(hd) + mask[:, :, None].to(logits.dtype)
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        w = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+    else:
+        logits = torch.einsum("bqgrh,bkgh->bgrqk", qg, k).to(torch.float32)
+        logits = logits / math.sqrt(hd) + mask[:, :, None]
+        w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bgrqk,bkgh->bqgrh", w, v)
     return out.reshape(b, lq, h, hd)
 
@@ -168,7 +192,6 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin, causal: bool
     ``causal=False`` (an encoder) masks nothing. Cross-attention takes its
     keys and values from ``kv_override`` (B, Lk, d), an encoder's output:
     no RoPE, no QKV bias and no mask, as the reference's."""
-    _check_attn(cfg)
     b, l, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if kv_override is None:
@@ -222,7 +245,6 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
     reference sends it to slot ``size`` with ``mode="drop"``; torch would
     raise on that index, so those rows write back what their slot held).
     Returns new cache tensors; the given cache is not modified."""
-    _check_attn(cfg)
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     size = cache["k"].shape[1]
@@ -240,7 +262,7 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
         v_new = torch.where(keep, v_new, cache["v"][rows, slot])
     ck = cache["k"].index_put((rows, slot), k_new)
     cv = cache["v"].index_put((rows, slot), v_new)
-    out = _sdpa(q, ck, cv, _ring_mask(pos, size), h // kv)
+    out = _sdpa(q, ck, cv, _ring_mask(pos, size), h // kv, cfg.attn_logits_bf16)
     return out.reshape(b, 1, h * hd) @ p["wo"], {"k": ck, "v": cv}
 
 
@@ -316,7 +338,6 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     chunk's own keys, through :func:`_prefill_mask`; the attention is the
     plain materialized ``_sdpa``, as the reference's (``block_attention``
     takes no mask over a wrapped ring). Needs C <= the ring size."""
-    _check_attn(cfg)
     b, c, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     size = cache["k"].shape[1]
@@ -331,21 +352,22 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     mask = _prefill_mask(pos, n_valid, c, size, cfg.sliding_window)
     kk = torch.cat([cache["k"], k], dim=1)                          # snapshot + chunk
     vv = torch.cat([cache["v"], v], dim=1)
-    out = _sdpa(q, kk, vv, mask, h // kv)
+    out = _sdpa(q, kk, vv, mask, h // kv, cfg.attn_logits_bf16)
     return out.reshape(b, c, h * hd) @ p["wo"], {"k": ck, "v": cv}
 
 
 # ------------------------------------------------------------ MLA attention
-def init_mla(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
-    """The reference's leaves, shapes and scales; the draws are ``gen``'s."""
+def init_mla(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32) -> dict:
+    """The reference's leaves, shapes, scales and dtypes; the draws are
+    ``gen``'s."""
     d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
     return {
-        "wq": _dense(gen, (d, h * (m.qk_nope_dim + m.qk_rope_dim)), device),
-        "w_dkv": _dense(gen, (d, m.kv_lora_rank + m.qk_rope_dim), device),
-        "w_uk": _dense(gen, (m.kv_lora_rank, h * m.qk_nope_dim), device),
-        "w_uv": _dense(gen, (m.kv_lora_rank, h * m.v_head_dim), device),
-        "wo": _dense(gen, (h * m.v_head_dim, d), device),
-        "kv_norm": torch.ones(m.kv_lora_rank, dtype=torch.float32, device=device),
+        "wq": _dense(gen, (d, h * (m.qk_nope_dim + m.qk_rope_dim)), device, dtype),
+        "w_dkv": _dense(gen, (d, m.kv_lora_rank + m.qk_rope_dim), device, dtype),
+        "w_uk": _dense(gen, (m.kv_lora_rank, h * m.qk_nope_dim), device, dtype),
+        "w_uv": _dense(gen, (m.kv_lora_rank, h * m.v_head_dim), device, dtype),
+        "wo": _dense(gen, (h * m.v_head_dim, d), device, dtype),
+        "kv_norm": torch.ones(m.kv_lora_rank, dtype=dtype, device=device),
     }
 
 
@@ -462,11 +484,11 @@ def mla_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
 
 
 # -------------------------------------------------------------- SwiGLU FFN
-def init_ffn(gen: torch.Generator, d: int, ff: int, device) -> dict:
+def init_ffn(gen: torch.Generator, d: int, ff: int, device, dtype=torch.float32) -> dict:
     return {
-        "w_gate": _dense(gen, (d, ff), device),
-        "w_up": _dense(gen, (d, ff), device),
-        "w_down": _dense(gen, (ff, d), device),
+        "w_gate": _dense(gen, (d, ff), device, dtype),
+        "w_up": _dense(gen, (d, ff), device, dtype),
+        "w_down": _dense(gen, (ff, d), device, dtype),
     }
 
 
@@ -475,22 +497,23 @@ def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- MoE
-def init_moe(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+def init_moe(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32) -> dict:
     """The reference's leaves in its order (router, w_gate, w_up, w_down,
-    then the shared experts' FFN), shapes and scales; the draws are
-    ``gen``'s, not JAX's. The expert weights are scaled by 1/sqrt of their
-    leading (expert) dimension, as the reference's ``_dense`` does."""
+    then the shared experts' FFN), shapes, scales and dtypes (the router
+    float32 in either mode); the draws are ``gen``'s, not JAX's. The expert
+    weights are scaled by 1/sqrt of their leading (expert) dimension, as
+    the reference's ``_dense`` does."""
     mo = cfg.moe
     d = cfg.d_model
     de = mo.d_expert or cfg.d_ff
     p = {
         "router": _dense(gen, (d, mo.n_experts), device),
-        "w_gate": _dense(gen, (mo.n_experts, d, de), device),
-        "w_up": _dense(gen, (mo.n_experts, d, de), device),
-        "w_down": _dense(gen, (mo.n_experts, de, d), device),
+        "w_gate": _dense(gen, (mo.n_experts, d, de), device, dtype),
+        "w_up": _dense(gen, (mo.n_experts, d, de), device, dtype),
+        "w_down": _dense(gen, (mo.n_experts, de, d), device, dtype),
     }
     if mo.n_shared > 0:
-        p["shared"] = init_ffn(gen, d, mo.n_shared * de, device)
+        p["shared"] = init_ffn(gen, d, mo.n_shared * de, device, dtype)
     return p
 
 
@@ -573,8 +596,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, 
 
 
 # ------------------------------------------------------------------ Mamba2
-def init_mamba(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
-    """The reference's shapes and scales; the draws are ``gen``'s, not JAX's."""
+def init_mamba(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32) -> dict:
+    """The reference's shapes, scales and dtypes (``A_log``, ``D`` and
+    ``dt_bias`` float32 in either mode); the draws are ``gen``'s, not JAX's."""
     s = cfg.ssm
     d = cfg.d_model
     d_in = s.expand * d
@@ -582,14 +606,15 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     conv_dim = d_in + 2 * s.n_groups * s.state_dim
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "in_proj": _dense(gen, (d, 2 * d_in + 2 * s.n_groups * s.state_dim + n_h), device),
-        "conv_w": _dense(gen, (s.d_conv, conv_dim), device, scale=0.5),
-        "conv_b": torch.zeros(conv_dim, **f32),
+        "in_proj": _dense(gen, (d, 2 * d_in + 2 * s.n_groups * s.state_dim + n_h), device,
+                          dtype),
+        "conv_w": _dense(gen, (s.d_conv, conv_dim), device, dtype, scale=0.5),
+        "conv_b": torch.zeros(conv_dim, dtype=dtype, device=device),
         "A_log": torch.log(torch.linspace(1.0, 16.0, n_h)).to(device),
         "D": torch.ones(n_h, **f32),
         "dt_bias": torch.zeros(n_h, **f32),
-        "norm": torch.ones(d_in, **f32),
-        "out_proj": _dense(gen, (d_in, d), device),
+        "norm": torch.ones(d_in, dtype=dtype, device=device),
+        "out_proj": _dense(gen, (d_in, d), device, dtype),
     }
 
 

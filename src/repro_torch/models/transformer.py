@@ -25,10 +25,19 @@ it changes the memory a gradient takes, not the numbers, and does nothing
 when no gradient is taken. Embeddings are tied when ``cfg.tie_embeddings``
 (head = embed.T).
 
-Public API: init_params / forward_train / loss_fn / init_cache /
-decode_step / prefill_chunk (the serve engine's chunked prefill), and
-``_run_encoder`` under the reference's name. Float32
-throughout, with TF32 off (``repro_torch.device``).
+Public API: init_params / abstract_params / forward_train / loss_fn /
+init_cache / decode_step / prefill_chunk (the serve engine's chunked
+prefill), and ``_run_encoder`` under the reference's name. The parameters'
+dtype, float32 (the default here) or bf16 (the reference's default), sets
+the activations' (``models.layers`` keeps the reference's float32 islands):
+the embedding rows are in it, as the reference's ``embed[tokens]`` cast to
+the embedding's dtype; frontend embeddings are cast to it before the
+blocks or the encoder; the logits come out in it and ``loss_fn`` takes its
+log-softmax in float32. ``_run_encoder`` computes in its input's dtype: the
+serve engine hands it float32 frame embeddings, as the reference's engine
+does, and a bf16 model's weights are then upcast layer by layer, as JAX
+promotes them. float32 products run with TF32 off, bf16 ones with float32
+sums (``repro_torch.device``).
 """
 from __future__ import annotations
 
@@ -39,8 +48,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 
-__all__ = ["init_params", "forward_train", "loss_fn", "init_cache", "decode_step",
-           "prefill_chunk"]
+__all__ = ["init_params", "abstract_params", "forward_train", "loss_fn", "init_cache",
+           "decode_step", "prefill_chunk"]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -71,37 +80,37 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _init_slot(gen: torch.Generator, cfg: ArchConfig, slot: int, dev) -> dict:
-    ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)  # noqa: E731
+def _init_slot(gen: torch.Generator, cfg: ArchConfig, slot: int, dev, dtype) -> dict:
+    ones = lambda: torch.ones(cfg.d_model, dtype=dtype, device=dev)  # noqa: E731
     p = {"norm1": ones()}
     if cfg.block_pattern[slot] == "mamba":
-        p["mixer"] = L.init_mamba(gen, cfg, dev)
+        p["mixer"] = L.init_mamba(gen, cfg, dev, dtype)
     elif cfg.attn_type == "mla":
-        p["mixer"] = L.init_mla(gen, cfg, dev)
+        p["mixer"] = L.init_mla(gen, cfg, dev, dtype)
     else:
-        p["mixer"] = L.init_attn(gen, cfg, dev)
+        p["mixer"] = L.init_attn(gen, cfg, dev, dtype)
     fk = cfg.ffn_kind(slot)
     if fk != "none":
         p["norm2"] = ones()
     if fk == "moe":
-        p["ffn"] = L.init_moe(gen, cfg, dev)
+        p["ffn"] = L.init_moe(gen, cfg, dev, dtype)
     elif fk == "dense":
-        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dev)
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, dev, dtype)
     return p
 
 
-def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig, dev) -> dict:
+def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig, dev, dtype) -> dict:
     """An encoder layer: GQA self-attention (non-causal at run time) and a
     dense SwiGLU FFN, each behind its RMS norm."""
-    ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)  # noqa: E731
-    return {"norm1": ones(), "norm2": ones(), "mixer": L.init_attn(gen, cfg, dev),
-            "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, dev)}
+    ones = lambda: torch.ones(cfg.d_model, dtype=dtype, device=dev)  # noqa: E731
+    return {"norm1": ones(), "norm2": ones(), "mixer": L.init_attn(gen, cfg, dev, dtype),
+            "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, dev, dtype)}
 
 
-def _init_cross_layer(gen: torch.Generator, cfg: ArchConfig, dev) -> dict:
+def _init_cross_layer(gen: torch.Generator, cfg: ArchConfig, dev, dtype) -> dict:
     """A decoder block's cross-attention over the encoder's output."""
-    return {"norm": torch.ones(cfg.d_model, dtype=torch.float32, device=dev),
-            "mixer": L.init_attn(gen, cfg, dev)}
+    return {"norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+            "mixer": L.init_attn(gen, cfg, dev, dtype)}
 
 
 def _into(stacked, tree, i: int) -> None:
@@ -122,8 +131,9 @@ def _expand(tree, n: int):
 
 def _init_stacked(make, n: int):
     """``make()`` called n times, one after another, each result written
-    into tensors stacked along a leading dim of n: at most one layer
-    exists twice."""
+    into tensors stacked along a leading dim of n, in each leaf's own dtype:
+    at most one layer exists twice (and only one leaf's float32 draw, in
+    ``layers._dense``), so a bf16 stack never has a float32 copy."""
     first = make()
     stacked = _expand(first, n)
     _into(stacked, first, 0)
@@ -133,37 +143,63 @@ def _init_stacked(make, n: int):
     return stacked
 
 
+def _normal(gen: torch.Generator, shape, dev, dtype) -> torch.Tensor:
+    """0.02 * normal, drawn in float32 on the generator's device (scaled in
+    place: one float32 temporary), then cast: the embedding and the head.
+    On the meta device, an empty tensor and no draw."""
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(0.02).to(dev, dtype)
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
                 device: str | torch.device = "cuda") -> dict:
-    """Random init with the reference's tree, shapes and scales, drawn from
-    ``gen`` on the generator's own device (its draws are not JAX's bits): a
-    ``torch.Generator("cuda")`` fills a full-width model on the card, a CPU
-    generator draws on the host. The blocks are drawn first, one after
-    another, in the same order whatever the device, then the embedding and
-    the head, then the encoder layers and the cross layers of an
-    encoder-decoder; each stack is written layer by layer into its tensors."""
+    """Random init with the reference's tree, shapes, scales and dtypes,
+    drawn from ``gen`` on the generator's own device (its draws are not
+    JAX's bits): a ``torch.Generator("cuda")`` fills a full-width model on
+    the card, a CPU generator draws on the host. ``dtype`` is float32 or
+    bf16; every leaf is in it but the float32 ones the reference keeps
+    (``A_log``, ``D``, ``dt_bias``, a MoE ``router``), each drawn in float32
+    and cast. The blocks are drawn first, one after another, in the same
+    order whatever the device or dtype, then the embedding and the head,
+    then the encoder layers and the cross layers of an encoder-decoder; each
+    stack is written layer by layer into its tensors. On ``device="meta"``
+    every leaf is empty and nothing is drawn (``gen`` may be None)."""
     _check_supported(cfg)
-    if dtype != torch.float32:
-        raise NotImplementedError("the port's LM path is float32 only")
-    dev = resolve_device(device)
-    blocks = _init_stacked(lambda: {f"slot{i}": _init_slot(gen, cfg, i, dev)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype {dtype}: the LM path runs float32 or bfloat16")
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
+    blocks = _init_stacked(lambda: {f"slot{i}": _init_slot(gen, cfg, i, dev, dtype)
                                     for i in range(len(cfg.block_pattern))}, cfg.n_blocks)
     params = {
-        "embed": (0.02 * torch.randn(cfg.vocab, cfg.d_model, generator=gen,
-                                     device=gen.device)).to(dev),
+        "embed": _normal(gen, (cfg.vocab, cfg.d_model), dev, dtype),
         "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
         "blocks": blocks,
     }
     if not cfg.tie_embeddings:
-        params["head"] = (0.02 * torch.randn(cfg.d_model, cfg.vocab, generator=gen,
-                                             device=gen.device)).to(dev)
+        params["head"] = _normal(gen, (cfg.d_model, cfg.vocab), dev, dtype)
     if cfg.enc_dec:
-        params["encoder"] = _init_stacked(lambda: _init_enc_layer(gen, cfg, dev),
+        params["encoder"] = _init_stacked(lambda: _init_enc_layer(gen, cfg, dev, dtype),
                                           cfg.n_enc_layers)
-        params["cross"] = _init_stacked(lambda: _init_cross_layer(gen, cfg, dev),
+        params["cross"] = _init_stacked(lambda: _init_cross_layer(gen, cfg, dev, dtype),
                                         cfg.n_blocks)
         params["enc_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=dev)
     return params
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16) -> dict:
+    """The tree ``init_params(cfg, gen, dtype)`` builds, as tensors on the
+    meta device: its shapes and dtypes with no memory and no draw (the
+    reference's ``jax.eval_shape`` of its ``init_params``)."""
+    return init_params(cfg, None, dtype, device="meta")
 
 
 def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
@@ -230,6 +266,10 @@ def _run_encoder(cfg: ArchConfig, params: dict, embeds: torch.Tensor,
                             cfg.head_dim_, cfg.rope_theta)
     h = embeds
     for lp in _unstack(params["encoder"], cfg.n_enc_layers):
+        if h.dtype == torch.float32:
+            # JAX promotes a bf16 model's weights against float32 frames (the
+            # serve engine's, at admission): upcast each layer's as it is used.
+            lp = _tree_map(torch.Tensor.float, lp)
         h = _remat(lambda lp, h: _enc_layer(cfg, lp, h, cos, sin), remat, lp, h)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 

@@ -27,8 +27,12 @@ no ``trace_counts``: its ``prefill_chunks`` and ``decode_steps`` counters
 count the step calls run. Each engine step moves its sampled tokens to
 the host once (one device-to-host copy, as the reference's
 ``np.asarray(tok)``). There is no mesh: the parameters and the cache live
-on ``device`` (sharded serving, ``--mesh-model``, is ROADMAP.md A11), and
-the LM path is float32 only (bf16 is ROADMAP.md A10).
+on ``device`` (sharded serving, ``--mesh-model``, is ROADMAP.md A11). The
+cache is in ``EngineConfig.dtype`` (float32 or bf16, the parameters'
+dtype); the last logits are cast to float32 before sampling, and an
+encoder-decoder's encoder runs on float32 frame embeddings, its output
+rounded to the cache's dtype as it is written, as the reference's engine
+does.
 """
 from __future__ import annotations
 
@@ -66,10 +70,9 @@ class EngineConfig:
     seed: int = 0
 
     def __post_init__(self):
-        if self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"EngineConfig.dtype {self.dtype}: the port's LM path is float32 only "
-                f"(bf16 is ROADMAP.md A10)")
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"EngineConfig.dtype {self.dtype}: the cache is float32 or "
+                             f"bfloat16")
 
 
 def _sample_tokens(logits: torch.Tensor, gen: torch.Generator,
@@ -170,7 +173,10 @@ class ServeEngine:
 
     def _admit_enc(self, st: RequestState) -> None:
         """enc-dec: run the encoder for the admitted request and write its
-        output into the slot's row of the shared ``enc_out`` cache."""
+        output into the slot's row of the shared ``enc_out`` cache. The
+        encoder runs on the request's float32 embeddings, as the
+        reference's (a bf16 model's weights are promoted), and its output is
+        rounded to the cache's dtype as it is written."""
         if not self.cfg.enc_dec:
             return
         emb = self._dev(np.asarray(st.request.embeds, np.float32)[None])  # (1, F, d)

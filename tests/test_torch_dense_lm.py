@@ -223,21 +223,37 @@ def test_attn_train_always_calls_block_attention(monkeypatch, over):
 
 
 def test_unported_attention_options_raise():
-    """``attn_logits_bf16`` still raises (the LM path is float32); the
-    cross-attention path (``kv_override``) is ported and equals the
-    reference's: q from x, k/v from the override, no RoPE, no QKV bias."""
+    """The two attention options the port once refused, now against the
+    reference's: ``attn_logits_bf16`` (``_sdpa(logits_bf16=True)``, the
+    scores kept in the activations' dtype, on bf16 and on float32 q/k/v over
+    a ring mask with masked slots) and cross-attention (``kv_override``: q
+    from x, k/v from the override, no RoPE, no QKV bias). bf16: 2e-2
+    absolute and relative, a few bf16 ulps, since each framework rounds its
+    bf16 softmax steps at other places; float32: 1e-5."""
     from repro.models import layers as JL
     from repro_torch.models import layers as L
 
-    cfg = _port_cfg(J_CASES["mqa"], attn_logits_bf16=True)
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 3, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 9, 2, 16)).astype(np.float32) for _ in range(2))
+    pos = np.array([4, 11], np.int32)
+    mask_t = L._ring_mask(torch.from_numpy(pos), 9)
+    mask_j = JL._ring_mask(jnp.asarray(pos), 9)
+    np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
+    for dt, jdt, tol in ((torch.bfloat16, jnp.bfloat16, dict(atol=2e-2, rtol=2e-2)),
+                         (torch.float32, jnp.float32, dict(atol=1e-5, rtol=1e-5))):
+        got = L._sdpa(*(torch.from_numpy(a).to(dt) for a in (q, k, v)), mask_t, 2,
+                      logits_bf16=True)
+        want = JL._sdpa(*(jnp.asarray(a, jdt) for a in (q, k, v)), mask_j, 2,
+                        logits_bf16=True)
+        assert got.dtype == dt and tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
     jp, tp = _params("dense-gqa-bias")
-    with pytest.raises(NotImplementedError, match="float32"):
-        T.forward_train(cfg, _params("mqa")[1], torch.from_numpy(_tokens(cfg)))
     jcfg = J_CASES["dense-gqa-bias"]
     base = _port_cfg(jcfg)
     mixer = {k: v[0] for k, v in tp["blocks"]["slot0"]["mixer"].items()}
     j_mixer = {k: v[0] for k, v in jp["blocks"]["slot0"]["mixer"].items()}
-    rng = np.random.default_rng(9)
     x = rng.standard_normal((2, 4, base.d_model)).astype(np.float32)
     enc = rng.standard_normal((2, 7, base.d_model)).astype(np.float32)
     got = L.attn_train(mixer, torch.from_numpy(x), base, None, None,

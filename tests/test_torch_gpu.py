@@ -23,6 +23,13 @@ and Seamless (encoder-decoder) models on the card within 2e-4 of the CPU. QDFedA
 chain-mode rounds on the card stay within 0.05 * scale + 1e-4 of the CPU's
 (tests/test_flat_engine.py's bound).
 
+The bf16 modes of ``block_attn`` and ``ssd_scan`` are held within 1 bf16
+ulp of their plain bf16 versions (both compute in float32 and round once;
+ulps are taken no finer than at 2^-8 of the operands' largest magnitude,
+below which the order of the float32 sums decides); a bf16 input that
+requires a gradient raises; the SMOKE bf16 models on the card stay within
+0.05 absolute and relative of the CPU.
+
 The backward kernels of ``block_attn`` and ``ssd_scan`` are held against
 autograd through the plain versions, gradient by gradient, within
 ``GRAD_TOL`` of the largest magnitude of that gradient: each gradient is a
@@ -654,3 +661,99 @@ def test_ssd_scan_backward_with_underflowing_decay(cuda, l, chunk):
     plain_in = [t.detach().clone().requires_grad_() for t in ins]
     want = torch.autograd.grad(ssd_chunked_plain(*plain_in, chunk)[0], plain_in, dy)
     _assert_grads_close(got, want, ("dx", "ddt", "da_log", "db", "dc"))
+
+
+# ----------------------------------------------------------------- bf16
+def _bf16_ulps(got, want, scale):
+    """The largest |got - want| of two bf16 tensors in bf16 ulps, each at
+    the element's magnitude but no finer than at 2^-8 * ``scale`` (the
+    operands' largest magnitude): below that the float32 sums' order, not
+    the one rounding, decides."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                        torch.full_like(g, 2.0 ** -8 * scale))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("b,lq,lk,h,kv,hd,causal,window", [
+    (2, 300, 300, 8, 2, 128, True, 0),      # hd 128, ragged L: 16-byte copies of 8
+    (1, 96, 96, 4, 1, 64, True, 0),         # MQA
+    (1, 77, 130, 4, 2, 16, False, 0),       # Lq != Lk, non-causal
+    (2, 200, 200, 3, 3, 18, True, 0),       # hd 18: rows of 36 bytes, 4-byte copies of 2
+    (1, 100, 100, 2, 2, 17, True, 0),       # odd hd: plain loads
+    (2, 300, 300, 8, 4, 128, True, 64),     # sliding window
+    (8, 1, 1024, 16, 16, 64, False, 0),     # decode's cross-attention, Lq = 1
+])
+def test_block_attn_bf16_matches_plain(cuda, b, lq, lk, h, kv, hd, causal, window):
+    """Within 1 bf16 ulp: both compute in float32 and round o once."""
+    gen = torch.Generator().manual_seed(lq + hd)
+    q, k, v = (torch.randn(b, n, heads, hd, generator=gen).to(cuda, torch.bfloat16)
+               for n, heads in ((lq, h), (lk, kv), (lk, kv)))
+    bk.reset_launch_counts()
+    got = block_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["block_attn"] == 1 and bk.BF16_LAUNCHES["block_attn"] == 1
+    want = block_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got, want, float(v.float().abs().max())) <= 1
+
+
+@pytest.mark.parametrize("b,h,l,p,n,chunk,g", [
+    (2, 4, 512, 64, 128, 256, 4),      # the main path's P, N and chunk
+    (1, 8, 300, 32, 64, 128, 2),       # L not a chunk multiple, G < H
+    (2, 3, 200, 18, 64, 64, 3),        # P = 18: x rows loaded an element at a time
+    (1, 4, 200, 64, 50, 64, 2),        # N = 50: B/C rows loaded an element at a time
+])
+def test_ssd_scan_bf16_matches_plain(cuda, b, h, l, p, n, chunk, g):
+    """Within 1 bf16 ulp: both compute in float32 and round y once."""
+    x, dt, a_log, bb, cc = _ssd_inputs(b, h, l, p, n, g, cuda)
+    x, bb, cc = (t.to(torch.bfloat16) for t in (x, bb, cc))
+    sk.reset_launch_counts()
+    got = ssd_chunked(x, dt, a_log, bb, cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["ssd_scan"] == 1 and sk.BF16_LAUNCHES["ssd_scan"] == 1
+    assert sk.KERNEL_LAUNCHES == dict.fromkeys(sk.STAGES, 1)
+    want, _ = ssd_chunked_plain(x, dt, a_log, bb, cc, chunk)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got, want, float(want.float().abs().max())) <= 1
+
+
+def test_bf16_inputs_that_need_a_gradient_raise(cuda):
+    """The backward kernels are float32: bf16 raises, naming ROADMAP A11,
+    and nothing falls back."""
+    q = torch.zeros(1, 8, 2, 32, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A11"):
+        block_attention(q, q, q)
+    x, dt, a_log, bb, cc = _ssd_inputs(1, 2, 64, 16, 16, 1, cuda)
+    x = x.to(torch.bfloat16).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A11"):
+        ssd_chunked(x, dt, a_log, bb.to(torch.bfloat16), cc.to(torch.bfloat16), chunk=32)
+    with torch.no_grad():
+        ssd_chunked(x, dt, a_log, bb.to(torch.bfloat16), cc.to(torch.bfloat16), chunk=32)
+
+
+@pytest.mark.parametrize("arch_id", ["mamba2-130m", "yi-6b", "seamless-m4t-large-v2"])
+def test_bf16_smoke_on_card_matches_cpu(cuda, arch_id):
+    """The SMOKE model in bf16 on the card against the CPU, from the same
+    weights: logits within 0.05 absolute and relative (each device rounds
+    its bf16 products at other places), through the kernels' bf16 modes."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke(arch_id)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    embeds = (torch.randn(2, cfg.frontend_tokens, cfg.d_model, generator=gen)
+              if cfg.enc_dec else None)
+    with torch.no_grad():
+        want, _ = T.forward_train(cfg, params, tokens, embeds)
+        bk.reset_launch_counts()
+        sk.reset_launch_counts()
+        got, _ = T.forward_train(cfg, _to(params, cuda), tokens.to(cuda),
+                                 None if embeds is None else embeds.to(cuda))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert bk.BF16_LAUNCHES["block_attn"] + sk.BF16_LAUNCHES["ssd_scan"] > 0
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.05, rtol=0.05)

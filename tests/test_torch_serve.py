@@ -505,8 +505,9 @@ def test_submit_and_config_errors():
     with pytest.raises(ValueError, match="enc-dec arch needs embeds"):
         enc.submit(Request(rid=3, prompt=[1], max_tokens=1,
                            embeds=np.zeros((2, 2), np.float32)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-        EngineConfig(dtype=torch.bfloat16)
+    assert EngineConfig(dtype=torch.bfloat16).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        EngineConfig(dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         launch.main(["--arch", "mamba2-130m", "--device", "cpu", "--mesh-model", "2"])
     with pytest.raises(SystemExit, match="--trace requires --obs"):
