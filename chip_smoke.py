@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main path on one NVIDIA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --backward-ab OTHER   # B9b and B10b against OTHER's, in turns
+    python3 chip_smoke.py --backward-ab OTHER   # B9b and B10b against OTHER's, in turns;
+                                                # the float32 forwards bit for bit
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; exits
 non-zero without them, and on any failed phase. It imports nothing of JAX
@@ -163,14 +164,18 @@ or of the JAX package ``repro``. Phases, in order:
    tokens (no kernel: MLA is plain torch, as in the reference), decode at
    ``capacity_factor = e / k``;
    (k) the bf16 slice, ``launch.serve --full``'s dtype, each model's
-   weights drawn in bf16 on the card: (k1) ``ssd_scan``'s bf16 mode on
-   ``mamba2-130m``'s layer 0 and at SSD_SMALL against its plain bf16
-   version (within 1 bf16 ulp, :func:`_bf16_ulps`), timed beside the
-   float32 kernel on the same values, and ``loss_fn`` at 8 x 2,048 in bf16
-   held against the float32 forward at the same weights (BF16_LOSS_RTOL,
-   BF16_RMS_TOL); (k2) ``block_attn``'s bf16 mode on Yi-6B's layer 0 and
-   at ATTN_SMALL, an odd hd and an unaligned K, beside bf16
-   ``scaled_dot_product_attention``, and Yi's bf16 forward the same way;
+   weights drawn in bf16 on the card: (k1) ``ssd_scan``'s bf16 stage
+   kernels on ``mamba2-130m``'s layer 0 and at SSD_SMALL against their
+   plain bf16 version (within 1 bf16 ulp, :func:`_bf16_ulps`), timed beside
+   the float32 kernel on the same values, with their registers and spills
+   (a spill fails), and ``loss_fn`` at 8 x 2,048 in bf16 held against the
+   float32 forward at the same weights (BF16_LOSS_RTOL, BF16_RMS_TOL); (k2)
+   ``block_attn``'s bf16 kernel (``wgmma`` fed by TMA) on Yi-6B's layer 0
+   and at ATTN_SMALL, an odd hd and an unaligned K (the operands TMA cannot
+   read, copied: BF16_REPACKS), beside bf16
+   ``scaled_dot_product_attention``, with its registers and spills, and
+   Yi's bf16 forward the same way; every model phase of (k) fails if it
+   copied an operand for TMA;
    (k3) Seamless's bf16 encoder, decoder and cross calls and its bf16
    forward; (k4) ``serve_phase`` in bf16 for SERVE_RUNS (the encoder at
    admission in float32, the cross layers in bf16; tokens against
@@ -188,7 +193,7 @@ or of the JAX package ``repro``. Phases, in order:
    main shape, its launches on each training path and every case of (g)),
    and last the device line.
 
-The three kernel sources are built at the start, one ``nvcc`` each, in
+The four kernel sources are built at the start, one ``nvcc`` each, in
 parallel. Each phase ends with an ``elapsed after ...`` line.
 """
 from __future__ import annotations
@@ -306,7 +311,7 @@ ATTN_REPLACES = "src/repro/kernels/block_attn/block_attn.py:32 _attn_kernel"
 ATTN_SOURCE = "src/repro_torch/kernels/block_attn/csrc/block_attn.cu"
 ATTN_TOL = 1e-4                # abs and rel: 3xTF32 + online vs fp32 materialized softmax
 ATTN_TF32_PASSES = 3           # TF32 products the kernel runs for each product term
-ATTN_BF16_PASSES = 1.5         # bf16: one TF32 product for Q K^T, two for P V
+ATTN_BF16_PASSES = 1.5         # bf16: Q K^T once, P V twice (P's bf16 halves), bf16 rate
 YI_BATCH, YI_SEQ, YI_FORWARDS = 2, 4096, 3     # Yi-6B's published context length
 YI_DECODE_BATCH = 8
 # (B, Lq, Lk, H, KV, hd, causal, window): ragged L, MQA, hd 64 and 16,
@@ -669,7 +674,8 @@ def _kernel_device_ms(run, names, tries=3):
     """Device ms a launch of each kernel whose name contains one of
     ``names``, from ``torch.profiler`` over ``run()``: the mean over the
     launches the trace holds (it can miss the first ones), the run repeated
-    once when it holds none of them; None for a name with no device time."""
+    up to ``tries`` times while some name has no launch in it; None for a
+    name with no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -685,10 +691,10 @@ def _kernel_device_ms(run, names, tries=3):
                     if name in ev.name:
                         totals[name] += ev.time_range.elapsed_us()
                         counts[name] += 1
-        if any(counts.values()):
+        if all(counts.values()):
             break
         top = sorted(seen.items(), key=lambda kv: -kv[1])[:4]
-        print(f"profiler: none of {names} in the trace; its largest device items "
+        print(f"profiler: not all of {names} in the trace; its largest device items "
               f"{[(n[:60], round(us, 1)) for n, us in top]}")
     return {k: (totals[k] / counts[k] / 1e3 if counts[k] else None) for k in names}
 
@@ -1089,7 +1095,7 @@ def dense_phases(smi):
         kx, vx = (t.repeat_interleave(h // k.shape[2], dim=2) for t in (k, v))
         _, fused_ms, fused_err = _time_sdpa(q, kx, vx, got, ("EFFICIENT_ATTENTION",))
         del kx, vx
-    print(f"block_attn {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(hd, 0)} "
+    print(f"block_attn {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(hd)} "
           f"bytes a block (of 232,448), {bsz * h * -(-l // ba.QUERY_TILE)} blocks")
     for fn, regs, st, ld in _ptxas_report(ba.BUILD_INFO.get("log", "")):
         print(f"block_attn {tag}: ptxas {fn}: {regs} registers, spill stores {st} bytes, "
@@ -1289,8 +1295,8 @@ def _attn_bound(q, k, causal, window=0):
     the rate of the 3 TF32 products the kernel issues for each (its
     3xTF32 design, tighter than the card's float32 peak). bf16: the FLOP at
     the card's dense bf16 peak; the design's rate (one TF32 product for
-    Q K^T, two for P V: 1.5 a FLOP at TF32) is returned beside it as
-    information only."""
+    Q K^T, two for P V: 1.5 a FLOP at the bf16 rate) is returned beside it
+    as information only."""
     from repro_torch.kernels.block_attn.ref import attention_pairs
 
     bsz, lq, h, hd = q.shape
@@ -1300,7 +1306,7 @@ def _attn_bound(q, k, causal, window=0):
         ops_ms = design_ms = ATTN_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
     else:
         ops_ms = flop / BF16_OPS_PER_S * 1e3
-        design_ms = ATTN_BF16_PASSES * flop / TF32_OPS_PER_S * 1e3
+        design_ms = ATTN_BF16_PASSES * flop / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes", flop,
             nbytes, ops_ms, design_ms)
@@ -1320,7 +1326,9 @@ def _hold_attn_mode(label, q, k, v, causal, tag):
 
     bf16 = q.dtype == torch.bfloat16
     with torch.inference_mode():
+        ba.reset_launch_counts()
         got = ba.block_attn(q, k, v, causal=causal)
+        _no_repacks(label)
         want = block_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ratio = (_bf16_ulps(got, want, float(v.float().abs().max())) if bf16
@@ -1340,7 +1348,7 @@ def _hold_attn_mode(label, q, k, v, causal, tag):
     max_abs = float((got.float() - want.float()).abs().max())
     held = f"ulps={ratio:.3f} (at most 1)" if bf16 else f"ratio={ratio:.4f} (tol {ATTN_TOL})"
     ops = (f"{flop} FLOP at the bf16 peak {BF16_OPS_PER_S:.4g}/s = {ops_ms:.4f} ms; for "
-           f"information, the design's {ATTN_BF16_PASSES} TF32 products a FLOP = "
+           f"information, the design's {ATTN_BF16_PASSES} bf16 products a FLOP = "
            f"{design_ms:.4f} ms" if bf16 else
            f"{ATTN_TF32_PASSES} x {flop} FLOP at TF32 {TF32_OPS_PER_S:.4g}/s = {ops_ms:.4f} ms")
     print(f"block_attn {tag}: {label} {str(q.dtype).split('.')[-1]} q{tuple(q.shape)} "
@@ -1737,6 +1745,7 @@ def serve_phase(run, smi, dtype=None, params=None, depth_cut=1):
         got = [st.generated for st in results]
         if streams is None:
             streams, first_counters = got, counters
+        _no_repacks(f"{cfg.name} serve")
         if (got != streams or counters != first_counters or launches != want
                 or bf16_launches != (cross if bf16 else 0)
                 or counters["requests_finished"] != len(reqs)):
@@ -1900,12 +1909,27 @@ def _hold_bf16_forward(cfg, params, batch, tag):
 def _bf16_forward_run(cfg, params, batch, forwards, km, tag):
     """:func:`_forward_phase` on a bf16 model, whose kernel launches must all
     be its bf16 mode. Returns the launches."""
+    from repro_torch.kernels.block_attn import block_attn as ba
+
+    ba.reset_launch_counts()
     launches = _forward_phase(cfg, params, batch, forwards, km, tag)
+    _no_repacks(cfg.name)
     (name,) = km.LAUNCHES
     if km.BF16_LAUNCHES[name] != km.LAUNCHES[name]:     # the profiled forward's too
         _fail(f"{cfg.name}: {km.BF16_LAUNCHES[name]} of {km.LAUNCHES[name]} {name} launches "
               f"in bf16")
     return launches
+
+
+def _no_repacks(label):
+    """Fails if a model path copied a bf16 attention operand for TMA
+    (``BF16_REPACKS``): every model's q, k and v go to the kernel as they
+    are."""
+    from repro_torch.kernels.block_attn import block_attn as ba
+
+    if ba.BF16_REPACKS["block_attn"]:
+        _fail(f"{label}: {ba.BF16_REPACKS['block_attn']} bf16 operands repacked for TMA on a "
+              f"model path")
 
 
 def bf16_mamba_phase(smi):
@@ -1914,9 +1938,9 @@ def bf16_mamba_phase(smi):
     against its plain bf16 version (within 1 bf16 ulp, :func:`_bf16_ulps`),
     timed beside the plain version and the float32 kernel on the same
     values, with its bound (the bytes of bf16 x, B, C and y and float32 dt;
-    the function's FLOP at the card's bf16 peak; the design's rate, one TF32
-    product a C B^T term and two for the others, printed beside it); the
-    SSD_SMALL shapes in
+    the function's FLOP at the card's bf16 peak; the design's rate, one bf16
+    product a C B^T term and two for the others, printed beside it), and its
+    stage kernels' registers and spills; the SSD_SMALL shapes in
     bf16; ``loss_fn`` on LM_BATCH x LM_SEQ tokens in bf16 (24 calls a
     forward, all in bf16), held against the float32 forward at the same
     weights. Returns (the kernels line's ``ssd_scan (bf16)`` entry)."""
@@ -1963,13 +1987,16 @@ def bf16_mamba_phase(smi):
             for _ in range(5):
                 sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
 
-        stage_ms = _kernel_device_ms(five_calls, [f"{s_}_kernel" for s_ in sk.STAGES])
+        stage_ms = _kernel_device_ms(five_calls, [f"{s_}_bf16_kernel" for s_ in sk.STAGES])
+    report = sk.stage_report(bsz, h, g, l, p, n, chunk, bf16=True)
+    print(f"ssd_scan bf16 {tag}: stage kernels (dynamic shared memory bytes, blocks, threads) "
+          f"{ {k: tuple(v.values()) for k, v in report.items() if k in sk.STAGES} }")
     lens = [min(chunk, l - k_) for k_ in range(0, l, chunk)]
     flop_cb = bsz * g * sum(c_ * (c_ + 1) * n for c_ in lens)
     flop_rest = bsz * h * sum(c_ * (c_ + 1) * p + 4 * c_ * n * p for c_ in lens)
     nbytes = 2 * (2 * bsz * h * l * p + 2 * bsz * g * l * n) + 4 * (bsz * h * l + h)
     ops_ms = (flop_cb + flop_rest) / BF16_OPS_PER_S * 1e3
-    design_ms = (flop_cb + 2 * flop_rest) / TF32_OPS_PER_S * 1e3
+    design_ms = (flop_cb + 2 * flop_rest) / BF16_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     print(f"ssd_scan bf16 {tag}: layer 0 x{tuple(x.shape)} {x.dtype} strides {x.stride()} "
@@ -1977,9 +2004,10 @@ def bf16_mamba_phase(smi):
           f"(at most 1); ms={ms:.4f} float32 kernel on the same values ms={f32_ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (operations: {flop_cb} C.B^T + "
           f"{flop_rest} FLOP at the bf16 peak {BF16_OPS_PER_S:.4g}/s = {ops_ms:.4f} ms; for "
-          f"information, the design's one TF32 product a C.B^T FLOP and two for the others = "
+          f"information, the design's one bf16 product a C.B^T FLOP and two for the others = "
           f"{design_ms:.4f} ms; bytes {nbytes} = {bytes_ms:.4f} ms) = "
           f"{bound_ms / ms:.3f} of it; stage device ms {stage_ms}")
+    _print_registers("ssd_scan bf16", sk.BUILD_INFO, tag, "bf16")
     if not (ulps <= 1.0 and torch.isfinite(got.float()).all()):
         _fail(f"ssd_scan's bf16 mode disagrees with its plain version ({ulps:.3f} ulps)")
     del x, dt, b, c, got, want
@@ -2015,8 +2043,9 @@ def bf16_mamba_phase(smi):
 
 def _attn_cases_bf16(tag):
     """``block_attn``'s bf16 mode at the ATTN_SMALL shapes, an odd head dim
-    (plain loads) and a K view one element off 16-byte alignment, each
-    within 1 bf16 ulp of its plain version."""
+    and a K view one element off 16-byte alignment (the operands TMA cannot
+    read, copied first: three and one BF16_REPACKS), each within 1 bf16 ulp
+    of its plain version."""
     import torch
 
     from repro_torch.kernels.block_attn import block_attn as ba
@@ -2037,12 +2066,15 @@ def _attn_cases_bf16(tag):
             ref = block_attention_plain(qs, ks, vs, causal=causal, window=window)
         torch.cuda.synchronize()
         u = _bf16_ulps(o, ref, float(vs.float().abs().max()))
+        repacks = 3 if hd_ % 8 else int(shifted)
         print(f"block_attn bf16 {tag}: B={b_} Lq={lq} Lk={lk} H={h_} KV={kv_} hd={hd_} "
               f"causal={causal} window={window}{' K one element off 16 bytes' if shifted else ''}"
               f": max|d|={float((o.float() - ref.float()).abs().max()):.3e} ulps={u:.3f} "
-              f"bf16 launches {ba.BF16_LAUNCHES['block_attn']}")
+              f"bf16 launches {ba.BF16_LAUNCHES['block_attn']} repacks "
+              f"{ba.BF16_REPACKS['block_attn']} (want {repacks})")
         if not (u <= 1.0 and torch.isfinite(o.float()).all()
-                and ba.BF16_LAUNCHES["block_attn"] == 1):
+                and ba.BF16_LAUNCHES["block_attn"] == 1
+                and ba.BF16_REPACKS["block_attn"] == repacks):
             _fail(f"block_attn's bf16 mode disagrees with its plain version at B={b_} Lq={lq} "
                   f"Lk={lk} H={h_} KV={kv_} hd={hd_} causal={causal} window={window} "
                   f"({u:.3f} ulps)")
@@ -2089,8 +2121,10 @@ def bf16_dense_phase(smi):
     mode = _hold_attn_mode("yi-6b layer 0 (bf16)", q, k, v, True, tag)
     del q, k, v
     _attn_cases_bf16(tag)
-    print(f"block_attn bf16 {tag}: dynamic shared memory {ba.build().block_attn_smem_bytes(128, 1)} "
-          f"bytes a block at hd 128 (float32: {ba.build().block_attn_smem_bytes(128, 0)})")
+    _print_registers("block_attn bf16", ba.BF16_BUILD_INFO, tag)
+    print(f"block_attn bf16 {tag}: dynamic shared memory "
+          f"{ba.build_bf16().block_attn_bf16_smem_bytes(128)} bytes a block at hd 128 (float32: "
+          f"{ba.build().block_attn_smem_bytes(128)})")
     entry = {"name": "block_attn (bf16)", "route": "cuda", "source": ATTN_SOURCE,
              "replaces": ATTN_REPLACES, "launches": None,
              **{key: mode[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -3556,6 +3590,17 @@ def _ptxas_report(log):
     return rows
 
 
+def _print_registers(label, info, tag, only=""):
+    """Each entry function of a build's ``-Xptxas -v`` report whose name
+    holds ``only``: registers and spill bytes. Fails on a spill."""
+    for name, regs, stores, loads in _ptxas_report(info["log"]):
+        if only in name:
+            print(f"{label} {tag}: kernel {name}: {regs} registers, spill stores {stores} "
+                  f"bytes, spill loads {loads} bytes")
+            if stores or loads:
+                _fail(f"{label}: {name} spills ({stores} bytes stored, {loads} loaded)")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3618,12 +3663,13 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for done in [pool.submit(qk.build), pool.submit(sk.build), pool.submit(ba.build)]:
+    with ThreadPoolExecutor(4) as pool:
+        for done in [pool.submit(qk.build), pool.submit(sk.build), pool.submit(ba.build),
+                     pool.submit(ba.build_bf16)]:
             done.result()
-    print(f"build: three sources in parallel, {time.perf_counter() - t0:.2f}s wall")
+    print(f"build: four sources in parallel, {time.perf_counter() - t0:.2f}s wall")
     elapsed("build")
-    for info in (qk.BUILD_INFO, sk.BUILD_INFO, ba.BUILD_INFO):
+    for info in (qk.BUILD_INFO, sk.BUILD_INFO, ba.BUILD_INFO, ba.BF16_BUILD_INFO):
         print(f"build: {info['seconds']:.2f}s {info['path']}")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -3964,28 +4010,38 @@ def time_backward(src):
     """``--time-backward SRC``: the ms a call of ``block_attn_backward`` and
     ``ssd_scan_backward`` as the package under SRC (this checkout's or
     another's ``src``) has them, at AB_ATTN and AB_SSD, on the inputs that
-    phase (g) checks (:func:`_bwd_attn_inputs`, :func:`_ssd_bwd_inputs`);
-    one JSON line. Both functions take the same arguments in every checkout
-    that has them."""
+    phase (g) checks (:func:`_bwd_attn_inputs`, :func:`_ssd_bwd_inputs`),
+    and a SHA-256 of the float32 forward kernels' outputs there (o and the
+    log-sum-exp, y and the states: deterministic, so two checkouts whose
+    float32 forwards agree bit for bit give equal digests); one JSON line.
+    The functions take the same arguments in every checkout that has them."""
+    import hashlib
+
     sys.path.insert(0, os.path.abspath(src))
     from repro_torch.kernels.block_attn import block_attn as ba
     from repro_torch.kernels.ssd_scan import ssd_scan as sk
 
+    digest = hashlib.sha256()
     out = {"src": src, "attn": {}, "ssd": {}}
     for label, bsz, lq, lk, h, kv, hd, causal in AB_ATTN:
         q, k, v, do = _bwd_attn_inputs(bsz, lq, lk, h, kv, hd)
         o, lse = ba.block_attn_forward(q, k, v, causal=causal, with_lse=True)
+        for t in (o, lse, ba.block_attn_forward(q, k, v, causal=causal)[0]):
+            digest.update(t.detach().cpu().numpy().tobytes())
         out["attn"][label] = statistics.median(_time_ms(
             lambda: ba.block_attn_backward(q, k, v, o, lse, do, causal=causal), iters=5,
             warmup=1) for _ in range(3))
         del q, k, v, do, o, lse
     for label, bsz, h, l, p, n, chunk, g in AB_SSD:
         x, dt, a_log, b, c, dy = _ssd_bwd_inputs(bsz, h, l, p, n, g, False)
-        _, states = sk.ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)
+        y, states = sk.ssd_scan_forward(x, dt, a_log, b, c, chunk=chunk)
+        for t in (y, states):
+            digest.update(t.detach().cpu().numpy().tobytes())
         out["ssd"][label] = statistics.median(_time_ms(
             lambda: sk.ssd_scan_backward(x, dt, a_log, b, c, states, dy, chunk=chunk), iters=5,
             warmup=1) for _ in range(3))
         del x, dt, a_log, b, c, dy, states
+    out["float32_forward_sha256"] = digest.hexdigest()
     print(json.dumps(out))
     return 0
 
@@ -3994,20 +4050,25 @@ def backward_ab(other):
     """``--backward-ab OTHER``: :func:`time_backward` of OTHER's ``src`` (a
     ``git archive`` of another commit) and of this checkout's, in turns
     (other, this, this, other), each in a process of its own, on one card;
-    prints the card and the four JSON lines."""
+    prints the card, the four JSON lines and whether the float32 forward
+    digests are all equal; exits 1 if they are not."""
     here = os.path.dirname(os.path.abspath(__file__))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     order = [os.path.join(other, "src"), os.path.join(here, "src"),
              os.path.join(here, "src"), os.path.join(other, "src")]
+    digests = set()
     for src in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-backward", src],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-2000:], file=sys.stderr)
             return 1
-        print(proc.stdout.strip().splitlines()[-1])
-    return 0
+        line = proc.stdout.strip().splitlines()[-1]
+        digests.add(json.loads(line)["float32_forward_sha256"])
+        print(line)
+    print(f"float32 forward outputs bit-identical across the four runs: {len(digests) == 1}")
+    return 0 if len(digests) == 1 else 1
 
 
 if __name__ == "__main__":

@@ -1,37 +1,48 @@
-"""Blockwise softmax attention as a CUDA C++ kernel for ``sm_90a``.
+"""Blockwise softmax attention as CUDA C++ kernels for ``sm_90a``.
 
 :func:`block_attn` replaces the Pallas TPU kernel ``_attn_kernel``
-(``src/repro/kernels/block_attn/block_attn.py:32``). One block of 8 warps
-per (batch, head, 128-row query tile) loops over the 64-row K/V tiles up to
-the diagonal, with an online softmax in registers. Both products (Q K^T and
+(``src/repro/kernels/block_attn/block_attn.py:32``) with two kernels, one a
+dtype. float32 (``csrc/block_attn.cu``): one block of 8 warps per (batch,
+head, 128-row query tile) loops over the 64-row K/V tiles up to the
+diagonal, with an online softmax in registers; both products (Q K^T and
 P V) run on the tensor cores as ``mma.sync`` m16n8k8 TF32 tiles with a
 3xTF32 split (big + small operands, three products into one float32
 accumulator), which keeps float32-level error; the K/V tiles arrive through
 a two-stage ``cp.async`` ring. Its bound is the 3xTF32 operation count at
-the card's TF32 rate. The design notes (fragment and shared-memory layout,
-the ring, the split's accuracy) are in ``csrc/block_attn.cu``. It takes
-CUDA float32 or bf16 tensors (all three of one type); bf16 is the same
-kernel, a template over the type, with bf16 tiles, one TF32 product for
-Q K^T and two for P V (a bf16 value is exact in TF32), float32 softmax
-state and ``o`` rounded once to bf16. Its launches also add one to
-:data:`BF16_LAUNCHES`. :func:`repro_torch.kernels.block_attn.block_attention`
-is the entry point that sends a CPU tensor to the plain version instead.
+the card's TF32 rate. bf16 (``csrc/block_attn_bf16.cu``): one block of
+three warpgroups per (batch, head, 128-row query tile), a producer
+warpgroup issuing TMA loads of the Q tile and of 64-key K/V tiles into a
+ring of stages with ``mbarrier`` barriers, and two consumer warpgroups of
+64 query rows running ``wgmma`` on the bf16 tensor cores: S = Q K^T from shared
+memory, the online softmax in float32 registers, and P V from P's two bf16
+halves (hi = bf16(P), lo = bf16(P - hi)) in registers against V in shared
+memory, each tile's P V in a zeroed accumulator; o is rounded once to
+bf16. Its bound is the function's FLOP at the card's bf16 rate or its
+bytes. The design notes are in the sources. All three operands are float32
+or all bf16; bf16 launches also add one to :data:`BF16_LAUNCHES`.
+:func:`repro_torch.kernels.block_attn.block_attention` is the entry point
+that sends a CPU tensor to the plain version instead.
 
 The operands are ``(B, L, heads, hd)`` tensors, possibly strided views with
 the last dimension contiguous; K/V are read by group (``H % KV == 0``), and
-the output is allocated contiguous. Views whose rows are not 16-byte
-aligned (``hd`` not a multiple of 4, an odd offset) take the kernel's
-4-byte copies. Each launch adds one to :data:`LAUNCHES`; nothing here
-synchronises.
+the output is allocated contiguous. float32 views whose rows are not
+16-byte aligned (``hd`` not a multiple of 4, an odd offset) take the
+kernel's 4-byte copies. The bf16 kernel reads q, k and v through 4-D TMA
+tensor maps over their own strides; an operand a map cannot describe
+(:func:`tma_takes`: a base not 16-byte aligned, a stride not a multiple of
+8 elements, ``hd`` not a multiple of 8) is first copied into a padded
+contiguous tensor (:func:`repack_for_tma`), counted in
+:data:`BF16_REPACKS`; no model path needs one. Each launch adds one to
+:data:`LAUNCHES`; nothing here synchronises.
 
 Training: when a gradient is wanted (grad mode on and an input that
 requires one), :func:`block_attn` goes through :class:`BlockAttnFunction`.
-Its forward is the same kernel, which then also writes each row's
-log-sum-exp (B, H, Lq); its backward is two more kernels of the same
-source, FlashAttention-2's backward on the same 3xTF32 ``mma.sync``
-fragments: ``attn_bwd_dot`` (D = rowsum(dO o O) and the log-sum-exp in
-units of log2, once a row, into a (B, H, Lq, 2) scratch) and
-``attn_bwd_dkdvq`` (per key tile, dK and dV with the keys in the
+Its forward is the float32 kernel, which then also writes each row's
+log-sum-exp (B, H, Lq); its backward is two more kernels of
+``csrc/block_attn.cu``, FlashAttention-2's backward on the same 3xTF32
+``mma.sync`` fragments: ``attn_bwd_dot`` (D = rowsum(dO o O) and the
+log-sum-exp in units of log2, once a row, into a (B, H, Lq, 2) scratch)
+and ``attn_bwd_dkdvq`` (per key tile, dK and dV with the keys in the
 accumulators' rows, so that P^T and dS^T feed the next products from
 registers, summed over the query heads of each KV group inside one block;
 and each query tile's dQ added to a zeroed dq by float32 atomics, whose
@@ -41,9 +52,10 @@ differentiates the plain version for a CUDA tensor. The backward kernels
 are float32: a bf16 input that requires a gradient raises
 ``NotImplementedError`` (the reference trains in float32; ROADMAP.md A11).
 
-The shared library is built with ``nvcc`` at first use into ``_build/``
-beside this file (listed in ``.gitignore``) and bound with ``ctypes``;
-:data:`BUILD_INFO` keeps the ``-Xptxas -v`` report (registers, spills).
+Each source is built with ``nvcc`` at first use into ``_build/`` beside
+this file (listed in ``.gitignore``) and bound with ``ctypes``;
+:data:`BUILD_INFO` and :data:`BF16_BUILD_INFO` keep the ``-Xptxas -v``
+reports (registers, spills).
 """
 from __future__ import annotations
 
@@ -55,30 +67,38 @@ import torch
 
 from repro_torch.kernels._build import build_library
 
-__all__ = ["LAUNCHES", "BF16_LAUNCHES", "BWD_LAUNCHES", "BUILD_INFO", "MAX_HEAD_DIM",
-           "reset_launch_counts", "build", "block_attn", "block_attn_forward",
+__all__ = ["LAUNCHES", "BF16_LAUNCHES", "BF16_REPACKS", "BWD_LAUNCHES", "BUILD_INFO",
+           "BF16_BUILD_INFO", "MAX_HEAD_DIM", "reset_launch_counts", "build", "build_bf16",
+           "tma_takes", "repack_for_tma", "block_attn", "block_attn_forward",
            "block_attn_backward", "BlockAttnFunction"]
 
 _SRC = Path(__file__).parent / "csrc" / "block_attn.cu"
+_SRC_BF16 = Path(__file__).parent / "csrc" / "block_attn_bf16.cu"
 MAX_HEAD_DIM = 128
-QUERY_TILE = 128               # query rows of one block
+QUERY_TILE = 128               # query rows of one block, in both kernels
 MAX_QUERY_TILES = 65535        # the grid's y dimension
+TMA_ALIGN = 16                 # bytes: a TMA map's base and its strides
 
 # Kernel launches, counted where the wrapper launches the kernel: all of
-# them, and those in bf16.
+# them, and those of the bf16 kernel. BF16_REPACKS counts the operands the
+# bf16 path copied because TMA could not read them as they were.
 LAUNCHES = {"block_attn": 0}
 BF16_LAUNCHES = {"block_attn": 0}
+BF16_REPACKS = {"block_attn": 0}
 _TYPES = (torch.float32, torch.bfloat16)
 # The backward kernels, in launch order.
 BWD_LAUNCHES = {"attn_bwd_dot": 0, "attn_bwd_dkdvq": 0}
 
 _lib = None
+_lib_bf16 = None
 BUILD_INFO: dict = {}
+BF16_BUILD_INFO: dict = {}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["block_attn"] = 0
     BF16_LAUNCHES["block_attn"] = 0
+    BF16_REPACKS["block_attn"] = 0
     for name in BWD_LAUNCHES:
         BWD_LAUNCHES[name] = 0
 
@@ -92,10 +112,10 @@ def build() -> ctypes.CDLL:
         return _lib
     lib = build_library(_SRC, BUILD_INFO)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.block_attn.argtypes = ([ptr] * 4 + [i64] * 12 + [i32] * 9
+    lib.block_attn.argtypes = ([ptr] * 4 + [i64] * 12 + [i32] * 8
                                + [ptr, ctypes.c_float, ptr])
     lib.block_attn.restype = ctypes.c_int
-    lib.block_attn_smem_bytes.argtypes = [i32, i32]
+    lib.block_attn_smem_bytes.argtypes = [i32]
     lib.block_attn_smem_bytes.restype = ctypes.c_longlong
     for name in BWD_LAUNCHES:
         fn = getattr(lib, f"block_{name}")
@@ -105,6 +125,70 @@ def build() -> ctypes.CDLL:
     lib.block_attn_bwd_smem_bytes.restype = ctypes.c_longlong
     _lib = lib
     return lib
+
+
+def build_bf16() -> ctypes.CDLL:
+    """Compile ``csrc/block_attn_bf16.cu`` (the bf16 kernel: ``wgmma`` fed by
+    TMA) and load it, as :func:`build`; its report goes into
+    :data:`BF16_BUILD_INFO`."""
+    global _lib_bf16
+    if _lib_bf16 is not None:
+        return _lib_bf16
+    lib = build_library(_SRC_BF16, BF16_BUILD_INFO)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.block_attn_bf16.argtypes = [ptr] * 4 + [i64] * 12 + [i32] * 9 + [ctypes.c_float, ptr]
+    lib.block_attn_bf16.restype = ctypes.c_int
+    lib.block_attn_bf16_smem_bytes.argtypes = [i32]
+    lib.block_attn_bf16_smem_bytes.restype = ctypes.c_longlong
+    _lib_bf16 = lib
+    return lib
+
+
+def tma_takes(t: torch.Tensor) -> bool:
+    """Whether a (B, L, heads, hd) bf16 operand can be read by a TMA tensor
+    map as it is: its base 16-byte aligned, hd a multiple of 8 (16-byte
+    rows), and the batch, sequence and head strides multiples of 8 elements
+    (a dimension of size 1 is never stepped over, so its stride does not
+    matter). The last dimension is contiguous (checked by the caller)."""
+    step = TMA_ALIGN // t.element_size()
+    shape, strides = t.shape, t.stride()
+    return (t.data_ptr() % TMA_ALIGN == 0 and shape[3] % step == 0
+            and all(strides[i] % step == 0 or shape[i] == 1 for i in range(3)))
+
+
+def repack_for_tma(t: torch.Tensor, width: int) -> torch.Tensor:
+    """A contiguous (B, L, heads, width) copy of ``t`` whose columns past
+    its own hd are zeros: a tensor TMA can read (:func:`tma_takes`)."""
+    out = t.new_zeros(*t.shape[:3], width)
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def _bf16_forward(q, k, v, o, causal, window):
+    """Launches the bf16 kernel on checked operands, copying those TMA cannot
+    read (:func:`tma_takes`) into padded contiguous tensors first."""
+    hd = q.shape[3]
+    step = TMA_ALIGN // q.element_size()
+    width = -(-hd // step) * step
+    ops = []
+    for t in (q, k, v):
+        if width != hd or not tma_takes(t):
+            t = repack_for_tma(t, width)
+            BF16_REPACKS["block_attn"] += 1
+        ops.append(t)
+    lib = build_bf16()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.block_attn_bf16(*(t.data_ptr() for t in (*ops, o)),
+                                  *(t.stride(i) for t in (*ops, o) for i in range(3)),
+                                  q.shape[0], q.shape[2], k.shape[2], q.shape[1], k.shape[1],
+                                  width, hd, int(causal), int(window), 1.0 / math.sqrt(hd),
+                                  stream)
+    if err != 0:
+        raise RuntimeError(
+            f"block_attn's bf16 kernel failed with cudaError_t {err} (dynamic shared memory "
+            f"{lib.block_attn_bf16_smem_bytes(width)} bytes; q, k, v "
+            f"{[(tuple(t.shape), t.stride()) for t in ops]})")
 
 
 def _check(q, k, v, window):
@@ -147,10 +231,14 @@ def block_attn_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window)
     bsz, lq, h, hd = q.shape
     lk, kv = k.shape[1], k.shape[2]
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and with_lse:
-        raise ValueError("the log-sum-exp (the training path) is float32 only")
     o = q.new_empty(bsz, lq, h, hd)
+    if q.dtype == torch.bfloat16:
+        if with_lse:
+            raise ValueError("the log-sum-exp (the training path) is float32 only")
+        _bf16_forward(q, k, v, o, causal, window)
+        LAUNCHES["block_attn"] += 1
+        BF16_LAUNCHES["block_attn"] += 1
+        return o, None
     lse = torch.empty(bsz, h, lq, dtype=torch.float32, device=q.device) if with_lse else None
     lib = build()
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
@@ -158,15 +246,13 @@ def block_attn_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = lib.block_attn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                              *strides, bsz, h, kv, lq, lk, hd, int(causal), int(window),
-                             int(bf16), lse.data_ptr() if lse is not None else None,
+                             lse.data_ptr() if lse is not None else None,
                              1.0 / math.sqrt(hd), stream)
     if err != 0:
         raise RuntimeError(
             f"block_attn launch failed with cudaError_t {err} (dynamic shared "
-            f"memory {lib.block_attn_smem_bytes(hd, int(bf16))} bytes)")
+            f"memory {lib.block_attn_smem_bytes(hd)} bytes)")
     LAUNCHES["block_attn"] += 1
-    if bf16:
-        BF16_LAUNCHES["block_attn"] += 1
     return o, lse
 
 

@@ -1,6 +1,5 @@
-// Blockwise softmax attention with an online softmax, float32 or bf16 in
-// and out, on the tensor cores (TF32 mma.sync; a 3xTF32 split for float32
-// operands), for sm_90a.
+// Blockwise softmax attention with an online softmax, float32 in and out,
+// on the tensor cores through a 3xTF32 split, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel`
 // (src/repro/kernels/block_attn/block_attn.py:32). For each batch b, query
@@ -101,33 +100,12 @@
 // wants both operands K-major, so V transposed in shared memory, and the
 // split B operands as planes in shared memory) with a TMA producer warp
 // and mbarriers in place of cp.async; K/V shared by the H/KV query heads
-// of a group (each K/V tile is read from L2 once per query head today); a
-// bf16 path with its own tolerance.
-//
-// bf16 operands. The forward is one template over the operands' type T
-// (float or __nv_bfloat16), as the TPU kernel takes either and writes o in
-// the operands' type (block_attn.py:50-52, :70, :92). A bf16 value is exact
-// in TF32 and the product of two of them exact in float32, so Q K^T takes
-// one TF32 product a k-step where float32 takes three; P stays float32, as
-// the TPU kernel's p (block_attn.py:61), and P V takes P's big and small
-// halves against the exact V: two products. The softmax state and the
-// log-sum-exp stay float32; o is rounded once (__float2bfloat16_rn). The
-// tiles are bf16 in shared memory (108,544 B a block at hd = 128, half the
-// float32 tiles): 16-byte cp.async copies hold 8 elements, 4-byte ones 2,
-// and an odd hd, for which cp.async has no 2-byte copy, takes plain loads
-// and stores. Row strides in bf16 elements: Q and K 2 (round_up(hd_p / 2,
-// 32) + 8), 8 (mod 32) words, so the 8-byte fragment loads of a half warp
-// (rows g .. g + 3, 32 bytes a row) hit 32 distinct banks; V hd_p + 8, so
-// the 2-byte reads of V[2t][g] hit four distinct 4-word groups. Bound:
-// operations, 4 hd FLOP a pair at the dense bf16 rate (989 TFLOP/s), or
-// the bytes of bf16 q, k, v and o; the design issues 3 TF32 products of
-// 2 hd FLOP a pair (one for Q K^T, two for P V) at 494.7 TFLOP/s. The
-// backward kernels take float32 only.
+// of a group (each K/V tile is read from L2 once per query head today).
+// bf16 operands go to their own kernel, csrc/block_attn_bf16.cu (wgmma
+// on the bf16 tensor cores, fed by TMA).
 #include <cmath>
 #include <cstdint>
 #include <initializer_list>
-#include <type_traits>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -139,68 +117,40 @@ constexpr int kKTile = 64;           // keys of a K/V tile
 constexpr int kStages = 2;           // K/V tiles in the cp.async ring
 constexpr float kLog2e = 1.4426950408889634f;
 
-using bf16 = __nv_bfloat16;
-
 struct Args {
-  const void* q;   // (B, Lq, H, hd) by strides sq, float32 or bf16
-  const void* k;   // (B, Lk, KV, hd) by strides sk, q's type
-  const void* v;   // (B, Lk, KV, hd) by strides sv, q's type
-  void* o;         // (B, Lq, H, hd) by strides so, q's type
+  const float* q;  // (B, Lq, H, hd) by strides sq
+  const float* k;  // (B, Lk, KV, hd) by strides sk
+  const float* v;  // (B, Lk, KV, hd) by strides sv
+  float* o;        // (B, Lq, H, hd) by strides so
   float* lse;      // (B, H, Lq) contiguous, or null: the rows' log-sum-exp
   long long sq[3], sk[3], sv[3], so[3];  // batch, seq, head
-  int heads, heads_per_group, lq, lk, hd, causal, window;
-  int vec;         // elements a copy: 16 or 4 bytes of them, or 1 (plain loads)
+  int heads, heads_per_group, lq, lk, hd, causal, window, vec16;
   float scale_log2;  // 1/sqrt(hd) * log2(e)
 };
 
-// Row strides of the shared tiles, in elements of T, multiples of 16 bytes
-// (16-byte rows for cp.async). float32: Q and K 16 (mod 32), so the 8
-// lanes of a quarter warp that load 16 bytes each (rows g, g + 1, columns
-// 4t) hit 8 distinct 16-byte bank groups; V 4 (mod 8), so the 32 lanes that
-// load V[2t][g] (and V[2t + 1][g]) hit 32 distinct banks. bf16: see the
-// header.
-template <typename T>
-__host__ __device__ constexpr int qk_stride(int hdp) {
-  return sizeof(T) == 4 ? (hdp + 31) / 32 * 32 + 16 : 2 * ((hdp / 2 + 31) / 32 * 32 + 8);
-}
-template <typename T>
-__host__ __device__ constexpr int v_stride(int hdp) { return sizeof(T) == 4 ? hdp + 4 : hdp + 8; }
+// Row strides of the shared tiles, in floats, both multiples of 4 (16-byte
+// rows for cp.async). Q and K: 16 (mod 32), so the 8 lanes of a quarter
+// warp that load 16 bytes each (rows g, g + 1, columns 4t) hit 8 distinct
+// 16-byte bank groups. V: 4 (mod 8), so the 32 lanes that load V[2t][g]
+// (and V[2t + 1][g]) hit 32 distinct banks.
+__host__ __device__ constexpr int qk_stride(int hdp) { return (hdp + 31) / 32 * 32 + 16; }
+__host__ __device__ constexpr int v_stride(int hdp) { return hdp + 4; }
 
-template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int hdp) {
-  return (static_cast<size_t>(kQTile + kStages * kKTile) * qk_stride<T>(hdp) +
-          static_cast<size_t>(kStages * kKTile) * v_stride<T>(hdp)) * sizeof(T);
+  return (static_cast<size_t>(kQTile + kStages * kKTile) * qk_stride(hdp) +
+          static_cast<size_t>(kStages * kKTile) * v_stride(hdp)) * sizeof(float);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(bytes));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                "r"(bytes));
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16_rn(x); }
-
-// Four consecutive elements of a shared tile (8- or 16-byte aligned) as floats.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);  // element 0 in the low half
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -214,36 +164,26 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows [r0, r0 + rows) of a (len, hd) operand with row stride `stride` into
-// a (rows, kLd) tile, `vec` elements a copy: by cp.async when they are 16 or
-// 4 bytes, else (bf16 at an odd hd: cp.async has no 2-byte copy) by plain
-// loads and stores. Zero past len and past hd (up to hd_p); the source of a
-// zero-filled copy is clamped to a valid element.
-template <typename T, int kHD, int kLd>
-__device__ __forceinline__ void load_rows(T* tile, const T* src, long long stride, int r0,
-                                          int rows, int len, int hd, int vec) {
-  constexpr int k16 = 16 / sizeof(T), k4 = 4 / sizeof(T);
-  if (vec == k16) {
-    constexpr int kChunks = kHD / k16;
+// a (rows, kLd) tile by cp.async; zero past len and past hd (up to hd_p). The
+// source of a zero-filled copy is clamped to a valid element.
+template <int kHD, int kLd>
+__device__ __forceinline__ void load_rows(float* tile, const float* src,
+                                          long long stride, int r0, int rows,
+                                          int len, int hd, bool vec16) {
+  if (vec16) {
+    constexpr int kChunks = kHD / 4;
     for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * k16;
+      const int r = i / kChunks, c = (i % kChunks) * 4;
       const bool ok = r0 + r < len && c < hd;
       const long long rr = min(r0 + r, len - 1);
-      cp_async16(tile + r * kLd + c, src + rr * stride + min(c, hd - k16), ok ? 16 : 0);
-    }
-  } else if (vec == k4) {
-    constexpr int kChunks = kHD / k4;
-    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * k4;
-      const bool ok = r0 + r < len && c < hd;
-      const long long rr = min(r0 + r, len - 1);
-      cp_async4(tile + r * kLd + c, src + rr * stride + min(c, hd - k4), ok ? 4 : 0);
+      cp_async16(tile + r * kLd + c, src + rr * stride + min(c, hd - 4), ok ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < rows * kHD; i += kThreads) {
       const int r = i / kHD, c = i % kHD;
       const bool ok = r0 + r < len && c < hd;
       const long long rr = min(r0 + r, len - 1);
-      tile[r * kLd + c] = ok ? src[rr * stride + c] : from_float<T>(0.0f);
+      cp_async4(tile + r * kLd + c, src + rr * stride + min(c, hd - 1), ok ? 4 : 0);
     }
   }
 }
@@ -294,29 +234,28 @@ struct SplitA {
   }
 };
 
-// T: the operands' type (float or bf16). kLse: write each row's
-// log-sum-exp (the training path, float32 only). Template parameters, so
-// each path compiles as if the other were not there.
-template <typename T, int kHD, bool kLse>
+// kLse: write each row's log-sum-exp (the training path). A template
+// parameter, so the inference path compiles as if the write were not there.
+template <int kHD, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  constexpr int kLdQK = qk_stride<T>(kHD), kLdV = v_stride<T>(kHD);
+  constexpr int kLdQK = qk_stride(kHD), kLdV = v_stride(kHD);
   constexpr int kN = kHD / 8;     // n-tiles of the output
   constexpr int kKN = kKTile / 8; // n-tiles of S, k-steps of P V
-  constexpr int kStage = kKTile * (kLdQK + kLdV);  // elements of one K/V stage
-  extern __shared__ __align__(16) unsigned char smem_fwd[];
-  T* qs = reinterpret_cast<T*>(smem_fwd);  // (kQTile, kLdQK)
-  T* kv = qs + kQTile * kLdQK;             // kStages x [K (kKTile, kLdQK), V (kKTile, kLdV)]
+  constexpr int kStage = kKTile * (kLdQK + kLdV);  // floats of one K/V stage
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                   // (kQTile, kLdQK)
+  float* kv = qs + kQTile * kLdQK;    // kStages x [K (kKTile, kLdQK), V (kKTile, kLdV)]
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int bi = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
   const int kvh = h / a.heads_per_group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kQTile;  // heaviest first
-  const T* qp = static_cast<const T*>(a.q) + bi * a.sq[0] + h * a.sq[2];
-  const T* kp = static_cast<const T*>(a.k) + bi * a.sk[0] + kvh * a.sk[2];
-  const T* vp = static_cast<const T*>(a.v) + bi * a.sv[0] + kvh * a.sv[2];
-  T* op = static_cast<T*>(a.o) + bi * a.so[0] + h * a.so[2];
+  const float* qp = a.q + bi * a.sq[0] + h * a.sq[2];
+  const float* kp = a.k + bi * a.sk[0] + kvh * a.sk[2];
+  const float* vp = a.v + bi * a.sv[0] + kvh * a.sv[2];
+  float* op = a.o + bi * a.so[0] + h * a.so[2];
+  const bool vec16 = a.vec16 != 0;
 
   // The key tiles this query tile reaches.
   const int last_row = min(q0 + kQTile, a.lq) - 1;
@@ -344,15 +283,15 @@ __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
   // (empty past the last tile, so the waits below count alike).
   auto load_kv = [&](int tile) {
     if (tile < t_end) {
-      T* dst = kv + ((tile - t_begin) % kStages) * kStage;
-      load_rows<T, kHD, kLdQK>(dst, kp, a.sk[1], tile * kKTile, kKTile, a.lk, a.hd, a.vec);
-      load_rows<T, kHD, kLdV>(dst + kKTile * kLdQK, vp, a.sv[1], tile * kKTile, kKTile,
-                              a.lk, a.hd, a.vec);
+      float* dst = kv + ((tile - t_begin) % kStages) * kStage;
+      load_rows<kHD, kLdQK>(dst, kp, a.sk[1], tile * kKTile, kKTile, a.lk, a.hd, vec16);
+      load_rows<kHD, kLdV>(dst + kKTile * kLdQK, vp, a.sv[1], tile * kKTile, kKTile,
+                           a.lk, a.hd, vec16);
     }
     cp_async_commit();
   };
   if (t_begin < t_end) {
-    load_rows<T, kHD, kLdQK>(qs, qp, a.sq[1], q0, kQTile, a.lq, a.hd, a.vec);  // with tile 0
+    load_rows<kHD, kLdQK>(qs, qp, a.sq[1], q0, kQTile, a.lq, a.hd, vec16);  // with tile 0
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) load_kv(t_begin + i);
   }
@@ -369,12 +308,12 @@ __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
     if (skip) continue;  // warp-uniform
     const bool edge = k0 + kKTile > a.lk || (a.causal && k0 + kKTile - 1 > wr0) ||
                       (a.window > 0 && wr1 - k0 >= a.window);
-    const T* ks = kv + ((tile - t_begin) % kStages) * kStage;
-    const T* vs = ks + kKTile * kLdQK;
+    const float* ks = kv + ((tile - t_begin) % kStages) * kStage;
+    const float* vs = ks + kKTile * kLdQK;
 
     // S = Q K^T, 16 x kKTile for this warp, two k-steps a 16-column chunk:
     // k-indices t and t + 4 of the first are columns 4t and 4t + 1, of the
-    // second 4t + 2 and 4t + 3, so each lane loads 4 elements of a row.
+    // second 4t + 2 and 4t + 3, so each lane loads 16 bytes of a row.
     float s[kKN][4];
 #pragma unroll
     for (int j = 0; j < kKN; ++j)
@@ -382,30 +321,17 @@ __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
     for (int c = 0; c < kHD; c += 16) {
-      const T* qa = qs + (16 * warp + g) * kLdQK + c + 4 * t;
-      const float4 lo = load4(qa);
-      const float4 hi = load4(qa + 8 * kLdQK);
+      const float* qa = qs + (16 * warp + g) * kLdQK + c + 4 * t;
+      const float4 lo = *reinterpret_cast<const float4*>(qa);
+      const float4 hi = *reinterpret_cast<const float4*>(qa + 8 * kLdQK);
       const float f0[4] = {lo.x, hi.x, lo.y, hi.y}, f1[4] = {lo.z, hi.z, lo.w, hi.w};
-      if constexpr (kBf16) {
-        // bf16 values are exact in TF32: one product a k-step.
-        const uint32_t q_even[4] = {__float_as_uint(f0[0]), __float_as_uint(f0[1]),
-                                    __float_as_uint(f0[2]), __float_as_uint(f0[3])};
-        const uint32_t q_odd[4] = {__float_as_uint(f1[0]), __float_as_uint(f1[1]),
-                                   __float_as_uint(f1[2]), __float_as_uint(f1[3])};
+      const SplitA q_even(f0), q_odd(f1);
 #pragma unroll
-        for (int j = 0; j < kKN; ++j) {
-          const float4 kb = load4(ks + (8 * j + g) * kLdQK + c + 4 * t);
-          mma_tf32(s[j], q_even, __float_as_uint(kb.x), __float_as_uint(kb.y));
-          mma_tf32(s[j], q_odd, __float_as_uint(kb.z), __float_as_uint(kb.w));
-        }
-      } else {
-        const SplitA q_even(f0), q_odd(f1);
-#pragma unroll
-        for (int j = 0; j < kKN; ++j) {
-          const float4 kb = load4(ks + (8 * j + g) * kLdQK + c + 4 * t);
-          q_even.mma(s[j], kb.x, kb.y);
-          q_odd.mma(s[j], kb.z, kb.w);
-        }
+      for (int j = 0; j < kKN; ++j) {
+        const float4 kb =
+            *reinterpret_cast<const float4*>(ks + (8 * j + g) * kLdQK + c + 4 * t);
+        q_even.mma(s[j], kb.x, kb.y);
+        q_odd.mma(s[j], kb.z, kb.w);
       }
     }
 
@@ -452,24 +378,14 @@ __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 
-    // O += P V: k-index t is key 2t, k-index t + 4 is key 2t + 1. A bf16 V
-    // is exact in TF32: P's small and big halves against it, two products.
+    // O += P V: k-index t is key 2t, k-index t + 4 is key 2t + 1.
 #pragma unroll
     for (int kk = 0; kk < kKN; ++kk) {
       const float pf[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
       const SplitA psplit(pf);
-      const T* vb = vs + (8 * kk + 2 * t) * kLdV + g;
+      const float* vb = vs + (8 * kk + 2 * t) * kLdV + g;
 #pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        if constexpr (kBf16) {
-          const uint32_t v0 = __float_as_uint(to_float(vb[8 * j]));
-          const uint32_t v1 = __float_as_uint(to_float(vb[kLdV + 8 * j]));
-          mma_tf32(acc[j], psplit.small, v0, v1);
-          mma_tf32(acc[j], psplit.big, v0, v1);
-        } else {
-          psplit.mma(acc[j], vb[8 * j], vb[kLdV + 8 * j]);
-        }
-      }
+      for (int j = 0; j < kN; ++j) psplit.mma(acc[j], vb[8 * j], vb[kLdV + 8 * j]);
     }
   }
 
@@ -493,59 +409,30 @@ __global__ void __launch_bounds__(kThreads, 1) block_attn_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + 2 * t + e;
-        if (c < a.hd)
-          op[row * a.so[1] + c] = from_float<T>(l[r] > 0.0f ? acc[j][2 * r + e] * inv : 0.0f);
+        if (c < a.hd) op[row * a.so[1] + c] = l[r] > 0.0f ? acc[j][2 * r + e] * inv : 0.0f;
       }
   }
 }
 
-template <typename T, int kHD, bool kLse>
+template <int kHD, bool kLse>
 int launch(const Args& a, int batch, void* stream) {
-  const size_t bytes = smem_bytes<T>(kHD);
+  const size_t bytes = smem_bytes(kHD);
   cudaError_t err = cudaFuncSetAttribute(
-      block_attn_kernel<T, kHD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      block_attn_kernel<kHD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(block_attn_kernel<T, kHD, kLse>,
+  err = cudaFuncSetAttribute(block_attn_kernel<kHD, kLse>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(batch * a.heads, (a.lq + kQTile - 1) / kQTile);
-  block_attn_kernel<T, kHD, kLse>
-      <<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  block_attn_kernel<kHD, kLse><<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 int padded_hd(int hd) { return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-// Elements a copy for operands of `esize` bytes: 16 bytes of them when hd
-// and every stride are multiples of that and q, k, v are 16-byte aligned;
-// else 4 bytes of them on the same terms; else 1 (bf16 only: plain loads).
-int copy_elems(int esize, int hd, std::initializer_list<const void*> ptrs,
-               std::initializer_list<long long> strides) {
-  for (int bytes : {16, 4}) {
-    const int e = bytes / esize;
-    bool ok = hd % e == 0;
-    for (const void* p : ptrs) ok = ok && reinterpret_cast<uintptr_t>(p) % bytes == 0;
-    for (long long s : strides) ok = ok && s % e == 0;
-    if (ok) return e;
-  }
-  return 1;
-}
-
-template <typename T>
-int dispatch(const Args& a, int batch, void* stream) {
-  const bool lse = a.lse != nullptr;
-  switch (padded_hd(a.hd)) {
-    case 16: return lse ? launch<T, 16, true>(a, batch, stream) : launch<T, 16, false>(a, batch, stream);
-    case 32: return lse ? launch<T, 32, true>(a, batch, stream) : launch<T, 32, false>(a, batch, stream);
-    case 64: return lse ? launch<T, 64, true>(a, batch, stream) : launch<T, 64, false>(a, batch, stream);
-    default:
-      return lse ? launch<T, 128, true>(a, batch, stream) : launch<T, 128, false>(a, batch, stream);
-  }
-}
 
 
 // ------------------------------------------------------------------ backward
@@ -1027,27 +914,25 @@ int launch_dkdvq(const BwdArgs& a, void* stream) {
 }  // namespace
 
 // Dynamic shared memory one launch asks for, in bytes.
-extern "C" long long block_attn_smem_bytes(int hd, int is_bf16) {
-  const int hdp = padded_hd(hd);
-  return static_cast<long long>(is_bf16 ? smem_bytes<bf16>(hdp) : smem_bytes<float>(hdp));
+extern "C" long long block_attn_smem_bytes(int hd) {
+  return static_cast<long long>(smem_bytes(padded_hd(hd)));
 }
 
 // Returns the cudaError_t of cudaFuncSetAttribute or of the launch (0 =
-// success); never synchronises. q, k, v and o are float32, or bf16 when
-// is_bf16. Strides are in elements, (batch, seq, head) for each operand;
-// the head dimension's stride is 1. hd <= 128, H % KV == 0, at most 65,535
-// query tiles of 128 rows. `lse` (B, H, Lq) receives each row's natural
-// log-sum-exp when it is not null (the training path, float32 only).
-extern "C" int block_attn(const void* q, const void* k, const void* v,
-                          void* o, long long sq0, long long sq1, long long sq2,
+// success); never synchronises. Strides are in elements, (batch, seq, head)
+// for each operand; the head dimension's stride is 1. hd <= 128, H % KV == 0,
+// at most 65,535 query tiles of 128 rows. `lse` (B, H, Lq) receives each
+// row's natural log-sum-exp when it is not null (the training path).
+extern "C" int block_attn(const float* q, const float* k, const float* v,
+                          float* o, long long sq0, long long sq1, long long sq2,
                           long long sk0, long long sk1, long long sk2,
                           long long sv0, long long sv1, long long sv2,
                           long long so0, long long so1, long long so2,
                           int batch, int heads, int kv_heads, int lq, int lk,
-                          int hd, int causal, int window, int is_bf16, float* lse,
-                          float scale, void* stream) {
+                          int hd, int causal, int window, float* lse, float scale,
+                          void* stream) {
   if (hd < 1 || hd > 128 || kv_heads < 1 || heads % kv_heads != 0 ||
-      (lq + kQTile - 1) / kQTile > 65535 || (is_bf16 && lse != nullptr))
+      (lq + kQTile - 1) / kQTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || heads == 0 || lq == 0) return 0;
   Args a;
@@ -1059,10 +944,18 @@ extern "C" int block_attn(const void* q, const void* k, const void* v,
   a.heads = heads; a.heads_per_group = heads / kv_heads;
   a.lq = lq; a.lk = lk; a.hd = hd; a.causal = causal; a.window = window;
   a.scale_log2 = scale * kLog2e;
-  // Copies of 16 (or 4) bytes need every row start of q, k and v aligned to them.
-  a.vec = copy_elems(is_bf16 ? 2 : 4, hd, {q, k, v},
-                     {sq0, sq1, sq2, sk0, sk1, sk2, sv0, sv1, sv2});
-  return is_bf16 ? dispatch<bf16>(a, batch, stream) : dispatch<float>(a, batch, stream);
+  // 16-byte copies need every row start of q, k and v 16-byte aligned.
+  bool vec16 = hd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  for (long long s : {sq0, sq1, sq2, sk0, sk1, sk2, sv0, sv1, sv2})
+    vec16 = vec16 && s % 4 == 0;
+  a.vec16 = vec16 ? 1 : 0;
+  switch (padded_hd(hd)) {
+    case 16: return lse ? launch<16, true>(a, batch, stream) : launch<16, false>(a, batch, stream);
+    case 32: return lse ? launch<32, true>(a, batch, stream) : launch<32, false>(a, batch, stream);
+    case 64: return lse ? launch<64, true>(a, batch, stream) : launch<64, false>(a, batch, stream);
+    default:
+      return lse ? launch<128, true>(a, batch, stream) : launch<128, false>(a, batch, stream);
+  }
 }
 
 // Dynamic shared memory of a backward launch, in bytes: kernel 0 is

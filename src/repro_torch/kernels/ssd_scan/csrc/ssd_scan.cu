@@ -1,6 +1,6 @@
 // Mamba2 SSD chunked scan (arXiv:2405.21060, Alg. 1), float32 or bf16 in
-// and out, chunk-parallel on the tensor cores (TF32 mma.sync; a 3xTF32
-// split for float32 operands), for sm_90a.
+// and out, chunk-parallel on the tensor cores (float32: a 3xTF32 split on
+// TF32 mma.sync; bf16: bf16 mma.sync), for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel`
 // (src/repro/kernels/ssd_scan/ssd_scan.py:32). For each batch b and head h
@@ -104,23 +104,10 @@
 // was slower in a trial, as were chunk_scan stages 64 wide (three blocks an
 // SM).
 //
-// bf16 operands. The three forward stages that read x, B and C (chunk_cb,
-// chunk_state, chunk_scan) are templates over their type T (float or
-// __nv_bfloat16), as the TPU kernel takes bf16 x, B and C and writes y in
-// x's type (ssd_scan.py:37-41, :64, :86); dt and A_log are float32 in
-// either mode. bf16 rows are converted to float32 as they are loaded (a
-// plain 16-byte load of 8 elements, or one element at a time where rows
-// are not 16-byte aligned), into the float32 tiles of the float32 path:
-// cp.async copies bytes and cannot convert, and the tiles, their
-// conflict-free strides and the fragment code stay one. A bf16 value is
-// exact in TF32, so an operand read from x, B or C enters its product
-// unsplit (FragA / FragB with kExact): C B^T, both bf16, takes one product
-// where float32 takes three; (C B^T o L) (x dt) and C S_c, with one
-// float32 side, take two. The scratches, the chunk states and the float64
-// prefix sums are as in float32; y is rounded once (__float2bfloat16_rn).
-// The backward kernels take float32 only.
+// bf16 operands (x, B, C and y bf16; dt and A_log float32) have their own
+// forward stage kernels, the "bf16" section below: bf16 tiles by cp.async,
+// products on the bf16 tensor cores. The backward kernels take float32 only.
 #include <cstdint>
-#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -186,7 +173,7 @@ size_t scan_smem(int pp, int cpad) {
          (static_cast<size_t>(cpad) + kStages * scan_stage(pp)) * sizeof(float);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(bytes));
@@ -226,33 +213,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
       const bool ok = r < rows_ok && k < cols;
       cp_async4(dst + r * ld + k, src + min(r, rows_ok - 1) * stride + min(k, cols - 1),
                 ok ? 4 : 0);
-    }
-  }
-}
-
-// The same from a bf16 operand, converted to float32 as it is loaded (by
-// plain loads: cp.async cannot convert). vec16: 16-byte loads of 8
-// elements (cols is a multiple of 8), else one element at a time.
-template <int kRows, int kCols, int kThreads>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const bf16* src,
-                                          long long stride, int rows_ok, int cols,
-                                          bool vec16) {
-  if (vec16) {
-    constexpr int kChunks = kCols / 8;
-    for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-      const int r = i / kChunks, k = (i % kChunks) * 8;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);  // bf16 zeros
-      if (r < rows_ok && k < cols) u = *reinterpret_cast<const uint4*>(src + r * stride + k);
-      float4* d = reinterpret_cast<float4*>(dst + r * ld + k);
-      d[0] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
-                         __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
-      d[1] = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xFFFF0000u),
-                         __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xFFFF0000u));
-    }
-  } else {
-    for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
-      const int r = i / kCols, k = i % kCols;
-      dst[r * ld + k] = r < rows_ok && k < cols ? __bfloat162float(src[r * stride + k]) : 0.0f;
     }
   }
 }
@@ -333,62 +293,35 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A B fragment (b0 = B[t][g], b1 = B[t + 4][g]) split once; kExact (a
-// bf16 value, exact in TF32): taken as it is, with no small half.
-template <bool kExact>
-struct FragB {
+// A B fragment (b0 = B[t][g], b1 = B[t + 4][g]) split once.
+struct SplitB {
   uint32_t big0, small0, big1, small1;
-  __device__ __forceinline__ FragB(float b0, float b1) {
-    if constexpr (kExact) {
-      big0 = __float_as_uint(b0);
-      big1 = __float_as_uint(b1);
-      small0 = small1 = 0u;
-    } else {
-      split(b0, big0, small0);
-      split(b1, big1, small1);
-    }
+  __device__ __forceinline__ SplitB(float b0, float b1) {
+    split(b0, big0, small0);
+    split(b1, big1, small1);
   }
 };
 
 // An A fragment (rows g, g + 8 at k-indices t, t + 4: a0 (g, t), a1
-// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)) split once (or, kExact,
-// taken as it is), for several n-tiles: mma(d, b) is d += a b, small.big,
-// big.small, then big.big, leaving out the products of an exact operand's
-// missing small half: 3xTF32 for two float32 operands, 2 for one, 1 for none.
-template <bool kExact>
-struct FragA {
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)) split once, for several
+// n-tiles: mma(d, b) is d += a b in 3xTF32, small.big, big.small, then
+// big.big.
+struct SplitA {
   uint32_t big[4], small[4];
-  __device__ __forceinline__ explicit FragA(const float (&a)[4]) {
+  __device__ __forceinline__ explicit SplitA(const float (&a)[4]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (kExact) {
-        big[i] = __float_as_uint(a[i]);
-        small[i] = 0u;
-      } else {
-        split(a[i], big[i], small[i]);
-      }
-    }
+    for (int i = 0; i < 4; ++i) split(a[i], big[i], small[i]);
   }
-  template <bool kExactB>
-  __device__ __forceinline__ void mma(float (&d)[4], const FragB<kExactB>& b) const {
-    if constexpr (!kExact) mma_tf32(d, small, b.big0, b.big1);
-    if constexpr (!kExactB) mma_tf32(d, big, b.small0, b.small1);
+  __device__ __forceinline__ void mma(float (&d)[4], const SplitB& b) const {
+    mma_tf32(d, small, b.big0, b.big1);
+    mma_tf32(d, big, b.small0, b.small1);
     mma_tf32(d, big, b.big0, b.big1);
   }
 };
 
-using SplitA = FragA<false>;
-using SplitB = FragB<false>;
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
 // Stage 1: one 64 x 64 tile (it, jt), jt <= it, of C B^T for one (batch,
 // group, chunk). Blocks: (tile pair, chunk, batch x group), pairs slowest.
-// T: the type of B and C.
-template <typename T>
 __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int kLd = ld_gt(kNK);
   constexpr int kStage = 2 * kTile * kLd;
   extern __shared__ __align__(16) float smem[];
@@ -406,8 +339,10 @@ __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
   const int i0 = it * kTile, j0 = jt * kTile;
   if (i0 >= len) return;  // past a ragged last chunk: never read
   const int bi = bg / a.groups, gi = bg % a.groups;
-  const T* cp = static_cast<const T*>(a.c) + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
-  const T* bp = static_cast<const T*>(a.b) + bi * a.sb[0] + gi * a.sb[1] + (c0 + j0) * a.sb[2];
+  const float* cp = static_cast<const float*>(a.c) + bi * a.sc[0] + gi * a.sc[1] +
+                    (c0 + i0) * a.sc[2];
+  const float* bp = static_cast<const float*>(a.b) + bi * a.sb[0] + gi * a.sb[1] +
+                    (c0 + j0) * a.sb[2];
   const int nk = (a.n + kNK - 1) / kNK;
   const bool vec16 = a.bc16 != 0;
 
@@ -442,12 +377,12 @@ __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
     for (int k = 0; k < kNK; k += 8) {
       const float* ca = cs + (16 * warp + g) * kLd + k + t;
       const float af[4] = {ca[0], ca[8 * kLd], ca[4], ca[8 * kLd + 4]};
-      const FragA<kBf16> as(af);
+      const SplitA as(af);
 #pragma unroll
       for (int j = 0; j < kTile / 8; ++j) {
         if (j <= jmax) {
           const float* bb = bs + (8 * j + g) * kLd + k + t;
-          as.mma(acc[j], FragB<kBf16>(bb[0], bb[4]));
+          as.mma(acc[j], SplitB(bb[0], bb[4]));
         }
       }
     }
@@ -466,11 +401,9 @@ __global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_kernel(Args a) {
 // Stage 2: dS_c rows [128 ns, 128 ns + 128) for one (batch, head, chunk),
 // and exp(cum_last). Blocks: (chunk, batch x head, N slice), slices fastest.
 // kGrad: the backward's dS^loc_c = (C o exp(cum))^T dy, the caller passing
-// C as B and dy as x; the weight of position j is then exp(cum_j). T: the
-// type of x and B.
-template <typename T, int kPP, bool kGrad>
+// C as B and dy as x; the weight of position j is then exp(cum_j).
+template <int kPP, bool kGrad>
 __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int kNT = kPP / 8;
   constexpr int kLdB = ld_tg(kStateRows), kLdX = ld_tg(kPP);
   constexpr int kStage = state_stage(kPP);
@@ -491,10 +424,10 @@ __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
   const long long c0 = static_cast<long long>(ci) * a.chunk;
   const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
   const float A = -expf(a.a_log[h]);
-  const T* xp = static_cast<const T*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
+  const float* xp = static_cast<const float*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
   const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
-  const T* bp = static_cast<const T*>(a.b) + bi * a.sb[0] + gi * a.sb[1] + c0 * a.sb[2] +
-                ns * kStateRows;
+  const float* bp = static_cast<const float*>(a.b) + bi * a.sb[0] + gi * a.sb[1] +
+                    c0 * a.sb[2] + ns * kStateRows;
   const int nj = (len + kStateJ - 1) / kStateJ;
 
   auto load = [&](int s) {
@@ -547,7 +480,7 @@ __global__ void __launch_bounds__(kStateThreads) chunk_state_kernel(Args a) {
       const float* xb = xs + (k + t) * kLdX + g;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        const FragB<kBf16> sb(xb[8 * j], xb[4 * kLdX + 8 * j]);
+        const SplitB sb(xb[8 * j], xb[4 * kLdX + 8 * j]);
         as0.mma(acc0[j], sb);
         as1.mma(acc1[j], sb);
       }
@@ -591,10 +524,8 @@ __global__ void __launch_bounds__(kPassThreads) state_pass_kernel(Args a) {
 
 // Stage 4: y rows [64 it, 64 it + 64) of one (batch, head, chunk). Blocks:
 // (tile, chunk, batch x head), the heaviest tiles first.
-// T: the type of x, C and y.
-template <typename T, int kPP>
+template <int kPP>
 __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_kernel(Args a) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int kNT = kPP / 8;
   constexpr int kLdC = ld_gt(kScanK), kLdS = ld_tg(kPP);  // C (64, 32), S (32, Pp)
   constexpr int kLdCB = kScanK + 8, kLdX = ld_2tg(kPP);   // C B^T (64, 32), x (32, Pp)
@@ -616,9 +547,10 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
   if (i0 >= len) return;  // past a ragged last chunk
   const int bi = bh / a.heads, h = bh % a.heads, gi = h / a.hpg;
   const float A = -expf(a.a_log[h]);
-  const T* xp = static_cast<const T*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
+  const float* xp = static_cast<const float*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
   const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
-  const T* cp = static_cast<const T*>(a.c) + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
+  const float* cp = static_cast<const float*>(a.c) + bi * a.sc[0] + gi * a.sc[1] +
+                    (c0 + i0) * a.sc[2];
   const float* cbp = a.cb + ((static_cast<long long>(bi) * a.groups + gi) * a.nc + ci) *
                                 a.cpad * a.cpad + static_cast<long long>(i0) * a.cpad;
   const float* sp = a.states + (static_cast<long long>(bh) * a.nc + ci) * a.np * kPP;
@@ -667,7 +599,7 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
       for (int k = 0; k < kScanK; k += 8) {
         const float* ca = st + ra * kLdC + k + t;
         const float af[4] = {ca[0], ca[8 * kLdC], ca[4], ca[8 * kLdC + 4]};
-        const FragA<kBf16> as(af);
+        const SplitA as(af);
         const float* sb = ss + (k + t) * kLdS + g;
 #pragma unroll
         for (int j = 0; j < kNT; ++j) as.mma(acc[j], SplitB(sb[8 * j], sb[4 * kLdS + 8 * j]));
@@ -708,12 +640,12 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
         const SplitA as(af);
         const float* xb = xs + (8 * kk + 2 * t) * kLdX + g;
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) as.mma(acc[n], FragB<kBf16>(xb[8 * n], xb[kLdX + 8 * n]));
+        for (int n = 0; n < kNT; ++n) as.mma(acc[n], SplitB(xb[8 * n], xb[kLdX + 8 * n]));
       }
     }
   }
 
-  T* yp = static_cast<T*>(a.y) + bi * a.sy[0] + h * a.sy[1] + c0 * a.sy[2];
+  float* yp = static_cast<float*>(a.y) + bi * a.sy[0] + h * a.sy[1] + c0 * a.sy[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = i0 + (r == 0 ? ra : rb);
@@ -723,7 +655,560 @@ __global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 5 : 2) chunk_scan_ke
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * t + e;
-        if (col < a.p) store(yp + row * a.sy[2] + col, acc[j][2 * r + e]);
+        if (col < a.p) yp[row * a.sy[2] + col] = acc[j][2 * r + e];
+      }
+  }
+}
+
+// ------------------------------------------------------------------ bf16
+//
+// The bf16 mode's stage kernels: x, B and C bf16 (dt and A_log float32), y
+// rounded once to bf16, as _ssd_kernel takes them (ssd_scan.py:37-41, :64,
+// :86). bf16 rows of x, B and C arrive by 16-byte cp.async (8 elements) into
+// bf16 shared tiles, unconverted (where a row is not 16-byte aligned, by
+// plain 2-byte loads); the float32 scratches by cp.async as in float32.
+// Every product runs on the bf16 tensor cores, mma.sync m16n8k16 with float32
+// accumulators, its fragments loaded by ldmatrix (.trans where the tile's
+// rows are the product's k): a bf16 operand enters as it is, and a float32
+// side is split into hi = bf16_rn(v) and lo = bf16_rn(v - hi), hi + lo
+// within 2^-18 |v|, two products (a product of two bf16 values is exact in
+// float32). C B^T is one product; the masked scores C B^T o L o dt against x
+// (chunk_scan), the chunk states S_c against C (chunk_scan) and B o w
+// against x (chunk_state) are two. state_pass_bf16 writes S_c already split:
+// in each 8-column group of a state row, the 8 hi values, then the 8 lo
+// values, in the bytes that held those 8 float32 values.
+//
+// Bound: bytes. At mamba2-130m's layer (x (8, 24, 2048, 64), B and C (8, 1,
+// 2048, 128), chunk 256) the function reads bf16 x, B and C and float32 dt
+// and writes bf16 y, 110,624,864 bytes: 0.0330 ms at 3.35 TB/s; its
+// 19,891,486,720 FLOP take 0.0201 ms at the dense bf16 rate (989 TFLOP/s),
+// the design's products (two a term but C B^T) 0.0397 ms. What holds it
+// above that: the scratches' float32 traffic (C B^T, the chunk states), the
+// float64 decays and one ex2 a masked score in chunk_scan, and a barrier a
+// 32-wide stage.
+//
+// Why mma.sync and not wgmma: each warp forms its own 16-row A slices in
+// registers (the split masked scores with their float64-based decays, the
+// split B o w), and on a diagonal tile a warp skips the k-steps and n-tiles
+// wholly above its rows, up to half of the tile's products; a 64-row wgmma
+// would run every k-step of the tile's widest row on all four warps, and
+// would need its B operand (x, S_c) in a swizzled shared layout that
+// cp.async does not write. Each m16n8k16 is 4 times the k-depth of the
+// float32 path's m16n8k8 TF32, with half as many products a term.
+
+// Row strides of the bf16 tiles, in elements: a multiple of 8 (16-byte
+// rows) whose 16-byte units are odd, so the 8 rows an ldmatrix reads hit 8
+// distinct 16-byte bank groups.
+__host__ __device__ constexpr int ld16(int w) { return w + 8; }
+// The state tile of chunk_scan: a row of Pp hi/lo pairs (4 Pp bytes) and 16.
+__host__ __device__ constexpr int ld16s(int pp) { return 2 * pp + 8; }
+
+size_t cb16_smem() { return static_cast<size_t>(kStages) * 2 * kTile * ld16(kNK) * 2; }
+__host__ __device__ constexpr int state16_stage(int pp) {
+  return kStateJ * (ld16(kStateRows) + ld16(pp));  // bf16 elements
+}
+size_t state16_smem(int pp, int cpad) {
+  return (static_cast<size_t>(cpad) + 32) * sizeof(double) + 2 * static_cast<size_t>(cpad) * 4 +
+         static_cast<size_t>(kStages) * state16_stage(pp) * 2;
+}
+__host__ __device__ constexpr int scan16_stage(int pp) {  // bytes
+  return mx(kTile * ld16(kScanK) * 2 + kScanK * ld16s(pp) * 2,
+            kTile * (kScanK + 8) * 4 + kScanK * ld16(pp) * 2);
+}
+size_t scan16_smem(int pp, int cpad) {
+  return (static_cast<size_t>(cpad) + 32) * sizeof(double) + static_cast<size_t>(cpad) * 4 +
+         static_cast<size_t>(kStages) * scan16_stage(pp);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8q .. 8q + 7 giving the
+// rows of matrix q; lane (g, t) receives row g, columns 2t, 2t + 1 of each
+// (.trans: column g, rows 2t, 2t + 1).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+  r[2] = r[3] = 0u;
+}
+
+// d += a b on bf16 operands: a (16 x 16) a0 (g, 2t..2t+1), a1 (g + 8, ..),
+// a2 (g, 8 + 2t..), a3 (g + 8, 8 + 2t..); b (16 x 8) b0 (k 2t..2t+1, n g),
+// b1 (k 8 + 2t.., n g); the lower column or k in the lower half.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xFFFF0000u));
+}
+
+// (x0, x1) -> bf16x2 of their round-to-nearest values (x0 in the low half),
+// and of what that rounding left.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// kRows x kCols (a multiple of 8) of a bf16 sequence operand into a bf16
+// shared tile (row stride ld): row r is sequence row r of `src` (row
+// stride `stride`), valid while r < rows_ok; column k valid while k < cols.
+// vec16: 16-byte cp.async copies of 8 elements (cols a multiple of 8),
+// zero-filled from a clamped, valid address; else plain 2-byte loads.
+template <int kRows, int kCols, int kThreads>
+__device__ __forceinline__ void load_rows16(bf16* dst, int ld, const bf16* src, long long stride,
+                                            int rows_ok, int cols, bool vec16) {
+  if (vec16) {
+    constexpr int kChunks = kCols / 8;
+    for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, k = (i % kChunks) * 8;
+      const bool ok = r < rows_ok && k < cols;
+      cp_async16(dst + r * ld + k, src + min(r, rows_ok - 1) * stride + min(k, cols - 8),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
+      const int r = i / kCols, k = i % kCols;
+      dst[r * ld + k] = r < rows_ok && k < cols ? src[r * stride + k] : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+// Stage 1 in bf16: one 64 x 64 tile (it, jt), jt <= it, of C B^T, one
+// product a k-step of 16 state columns (C's rows by ldmatrix, B's rows as
+// the product's columns by ldmatrix, two n-tiles a load).
+__global__ void __launch_bounds__(kCbThreads, 4) chunk_cb_bf16_kernel(Args a) {
+  constexpr int kLd = ld16(kNK);
+  constexpr int kStage = 2 * kTile * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem_b = reinterpret_cast<bf16*>(smem_raw);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int q8 = lane % 8, q = lane / 8;  // the row within, and the matrix of, an ldmatrix
+  const int bgs = a.batch * a.groups;
+  const int bg = blockIdx.x % bgs;
+  const int ci = (blockIdx.x / bgs) % a.nc;
+  const int pair = blockIdx.x / bgs / a.nc;
+  int it = 0;
+  while ((it + 1) * (it + 2) / 2 <= pair) ++it;
+  const int jt = pair - it * (it + 1) / 2;
+  const long long c0 = static_cast<long long>(ci) * a.chunk;
+  const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
+  const int i0 = it * kTile, j0 = jt * kTile;
+  if (i0 >= len) return;  // past a ragged last chunk: never read
+  const int bi = bg / a.groups, gi = bg % a.groups;
+  const bf16* cp =
+      static_cast<const bf16*>(a.c) + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
+  const bf16* bp =
+      static_cast<const bf16*>(a.b) + bi * a.sb[0] + gi * a.sb[1] + (c0 + j0) * a.sb[2];
+  const int nk = (a.n + kNK - 1) / kNK;
+  const bool vec16 = a.bc16 != 0;
+
+  auto load = [=](int s) {
+    if (s < nk) {
+      bf16* dst = smem_b + (s % kStages) * kStage;
+      const int n0 = s * kNK;
+      load_rows16<kTile, kNK, kCbThreads>(dst, kLd, cp + n0, a.sc[2], len - i0, a.n - n0, vec16);
+      load_rows16<kTile, kNK, kCbThreads>(dst + kTile * kLd, kLd, bp + n0, a.sb[2], len - j0,
+                                          a.n - n0, vec16);
+    }
+    cp_async_commit();
+  };
+  load(0);
+
+  // On the diagonal, n-tiles right of this warp's last row are not needed.
+  const int jmax = it == jt ? 2 * warp + 1 : kTile / 8 - 1;
+  float acc[kTile / 8][4];
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s visible; the other stage free
+    load(s + 1);
+    const bf16* cs = smem_b + (s % kStages) * kStage;
+    const bf16* bs = cs + kTile * kLd;
+#pragma unroll
+    for (int k = 0; k < kNK; k += 16) {
+      uint32_t af[4];
+      ldsm_x4(af, cs + (16 * warp + q8 + (q & 1) * 8) * kLd + k + (q >> 1) * 8);
+#pragma unroll
+      for (int jp = 0; jp < kTile / 16; ++jp) {
+        if (2 * jp <= jmax) {
+          uint32_t bf[4];  // n-tiles 2 jp, 2 jp + 1: B's rows 16 jp ..
+          ldsm_x4(bf, bs + (16 * jp + q8 + (q >> 1) * 8) * kLd + k + (q & 1) * 8);
+          mma_bf16(acc[2 * jp], af, bf[0], bf[1]);
+          mma_bf16(acc[2 * jp + 1], af, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  float* out = a.cb + ((static_cast<long long>(bg) * a.nc + ci) * a.cpad + i0 + 16 * warp +
+                       lane / 4) * a.cpad + j0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+    if (j <= jmax) {
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(out + 8 * a.cpad + 8 * j) = make_float2(acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// Stage 2 in bf16: dS_c rows [128 ns, 128 ns + 128) = (B o w)^T x for one
+// (batch, head, chunk), and exp(cum_last). The A operand (state rows x chunk
+// positions) is B's tile read by ldmatrix.trans, scaled by w and split; x's
+// tile is the B operand (ldmatrix.trans), exact.
+template <int kPP>
+__global__ void __launch_bounds__(kStateThreads) chunk_state_bf16_kernel(Args a) {
+  constexpr int kNT = kPP / 8;
+  constexpr int kLdB = ld16(kStateRows), kLdX = ld16(kPP);
+  constexpr int kStage = state16_stage(kPP);
+  extern __shared__ __align__(16) double smem_d[];
+  double* cum = smem_d;                                    // (cpad)
+  double* carry = cum + a.cpad;                            // (32)
+  float* dts = reinterpret_cast<float*>(carry + 32);       // (cpad)
+  float* w = dts + a.cpad;                                 // (cpad)
+  bf16* ring = reinterpret_cast<bf16*>(w + a.cpad);        // kStages x [B (kStateJ, kLdB), x (kStateJ, kLdX)]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4, q8 = lane % 8, q = lane / 8;
+  const int nslices = (a.np + kStateRows - 1) / kStateRows;
+  const int bhs = a.batch * a.heads;
+  const int ns = blockIdx.x % nslices;
+  const int bh = (blockIdx.x / nslices) % bhs;
+  const int ci = blockIdx.x / nslices / bhs;
+  const int bi = bh / a.heads, h = bh % a.heads, gi = h / a.hpg;
+  const long long c0 = static_cast<long long>(ci) * a.chunk;
+  const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
+  const float A = -expf(a.a_log[h]);
+  const bf16* xp = static_cast<const bf16*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
+  const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
+  const bf16* bp = static_cast<const bf16*>(a.b) + bi * a.sb[0] + gi * a.sb[1] + c0 * a.sb[2] +
+                   ns * kStateRows;
+  const int nj = (len + kStateJ - 1) / kStateJ;
+
+  auto load = [&](int s) {
+    if (s < nj) {
+      bf16* dst = ring + (s % kStages) * kStage;
+      const int j0 = s * kStateJ;
+      load_rows16<kStateJ, kStateRows, kStateThreads>(dst, kLdB, bp + j0 * a.sb[2], a.sb[2],
+                                                      len - j0, a.n - ns * kStateRows,
+                                                      a.bc16 != 0);
+      load_rows16<kStateJ, kPP, kStateThreads>(dst + kStateJ * kLdB, kLdX, xp + j0 * a.sx[2],
+                                               a.sx[2], len - j0, a.p, a.x16 != 0);
+    }
+    cp_async_commit();
+  };
+  load(0);
+  chunk_cum<kStateThreads>(cum, carry, dts, dtp, a.sdt[2], len, len, A);
+  const double last = cum[len - 1];
+  for (int j = threadIdx.x; j < nj * kStateJ; j += kStateThreads)
+    w[j] = j < len ? dts[j] * exp2f(static_cast<float>(last - cum[j])) : 0.0f;
+  if (ns == 0 && threadIdx.x == 0)
+    a.decay[static_cast<long long>(bh) * a.nc + ci] = exp2f(static_cast<float>(last));
+
+  const int m0 = 32 * warp;  // this warp's state rows in the slice, two m-tiles
+  const bool active = ns * kStateRows + m0 < a.np;
+  const bool active1 = ns * kStateRows + m0 + 16 < a.np;
+  float acc[2][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  for (int s = 0; s < nj; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s (and w) visible; the other stage free
+    load(s + 1);
+    if (!active) continue;  // warp-uniform
+    const bf16* bs = ring + (s % kStages) * kStage;
+    const bf16* xs = bs + kStateJ * kLdB;
+    const float* ws = w + s * kStateJ;
+#pragma unroll
+    for (int k = 0; k < kStateJ; k += 16) {
+      const float w0 = ws[k + 2 * t], w1 = ws[k + 2 * t + 1];
+      const float w8 = ws[k + 8 + 2 * t], w9 = ws[k + 9 + 2 * t];
+      uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t r[4];  // (state row g or g + 8, positions 2t.. or 8 + 2t..) of B^T
+        ldsm_x4_t(r, bs + (k + q8 + (q >> 1) * 8) * kLdB + m0 + 16 * mt + (q & 1) * 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 v = unpack_bf16(r[i]);
+          split_bf16(v.x * (i < 2 ? w0 : w8), v.y * (i < 2 ? w1 : w9), hi[mt][i], lo[mt][i]);
+        }
+      }
+#pragma unroll
+      for (int jp = 0; jp < (kNT + 1) / 2; ++jp) {
+        uint32_t xb[4];  // b0, b1 of n-tiles 2 jp and 2 jp + 1
+        const bf16* xa = xs + (k + q8 + (q & 1) * 8) * kLdX + 16 * jp + (q >> 1) * 8;
+        if constexpr (kNT == 1) {
+          ldsm_x2_t(xb, xa);
+        } else {
+          ldsm_x4_t(xb, xa);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            if (2 * jp + h2 < kNT) {
+              mma_bf16(acc[mt][2 * jp + h2], lo[mt], xb[2 * h2], xb[2 * h2 + 1]);
+              mma_bf16(acc[mt][2 * jp + h2], hi[mt], xb[2 * h2], xb[2 * h2 + 1]);
+            }
+          }
+      }
+    }
+  }
+  if (!active) return;
+  float* out = a.states + ((static_cast<long long>(bh) * a.nc + ci) * a.np + ns * kStateRows +
+                           m0 + g) * kPP + 2 * t;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[0][j][0], acc[0][j][1]);
+    *reinterpret_cast<float2*>(out + 8 * kPP + 8 * j) = make_float2(acc[0][j][2], acc[0][j][3]);
+    if (active1) {
+      *reinterpret_cast<float2*>(out + 16 * kPP + 8 * j) = make_float2(acc[1][j][0], acc[1][j][1]);
+      *reinterpret_cast<float2*>(out + 24 * kPP + 8 * j) = make_float2(acc[1][j][2], acc[1][j][3]);
+    }
+  }
+}
+
+// Stage 3 in bf16: as state_pass, S_c written in place of dS_c already split
+// for chunk_scan: one thread an 8-column group of a state row, whose 32
+// bytes receive the 8 hi values, then the 8 lo values (each thread writes
+// only the bytes it read).
+__global__ void __launch_bounds__(kPassThreads) state_pass_bf16_kernel(Args a) {
+  const long long per = static_cast<long long>(a.np) * a.pp / 8;
+  const long long blocks_per = (per + kPassThreads - 1) / kPassThreads;
+  const long long bh = blockIdx.x / blocks_per;
+  const long long e = (blockIdx.x % blocks_per) * kPassThreads + threadIdx.x;
+  if (e >= per) return;
+  float4* st = reinterpret_cast<float4*>(a.states) + (bh * a.nc * per + e) * 2;
+  const float* dec = a.decay + bh * a.nc;
+  float s[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float4 d0 = st[0], d1 = st[1];
+  for (int ci = 0; ci < a.nc; ++ci) {
+    float4 n0 = d0, n1 = d1;
+    if (ci + 1 < a.nc) {
+      n0 = st[(ci + 1) * per * 2];
+      n1 = st[(ci + 1) * per * 2 + 1];
+    }
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_bf16(s[2 * i], s[2 * i + 1], hi[i], lo[i]);
+    uint4* out = reinterpret_cast<uint4*>(st + ci * per * 2);
+    out[0] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    out[1] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    const float k = dec[ci];
+    const float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = fmaf(k, s[i], d[i]);
+    d0 = n0;
+    d1 = n1;
+  }
+}
+
+// Stage 4 in bf16: y rows [64 it, 64 it + 64) of one (batch, head, chunk).
+// exp(cum_i) (C S_c)_i with C's rows by ldmatrix and S_c's hi and lo planes
+// by ldmatrix.trans, two products; then the masked scores, split in
+// registers, against x's rows by ldmatrix.trans, two products.
+template <int kPP>
+__global__ void __launch_bounds__(kScanThreads, kPP <= 64 ? 4 : 2)
+    chunk_scan_bf16_kernel(Args a) {
+  constexpr int kNT = kPP / 8;
+  constexpr int kLdC = ld16(kScanK), kLdS = ld16s(kPP);  // C (64, 32), S_c (32, 2 Pp) bf16
+  constexpr int kLdCB = kScanK + 8, kLdX = ld16(kPP);    // C B^T (64, 32) float32, x (32, Pp) bf16
+  constexpr int kStage = scan16_stage(kPP);              // bytes
+  extern __shared__ __align__(16) double smem_d[];
+  double* cum = smem_d;                                    // (cpad)
+  double* carry = cum + a.cpad;                            // (32)
+  float* dts = reinterpret_cast<float*>(carry + 32);       // (cpad)
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dts + a.cpad);  // kStages x kStage
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4, q8 = lane % 8, q = lane / 8;
+  const int bhs = a.batch * a.heads;
+  const int bh = blockIdx.x % bhs;
+  const int ci = (blockIdx.x / bhs) % a.nc;
+  const int it = a.ntile - 1 - static_cast<int>(blockIdx.x / bhs / a.nc);
+  const long long c0 = static_cast<long long>(ci) * a.chunk;
+  const int len = static_cast<int>(min(static_cast<long long>(a.chunk), a.seqlen - c0));
+  const int i0 = it * kTile;
+  if (i0 >= len) return;  // past a ragged last chunk
+  const int bi = bh / a.heads, h = bh % a.heads, gi = h / a.hpg;
+  const float A = -expf(a.a_log[h]);
+  const bf16* xp = static_cast<const bf16*>(a.x) + bi * a.sx[0] + h * a.sx[1] + c0 * a.sx[2];
+  const float* dtp = a.dt + bi * a.sdt[0] + h * a.sdt[1] + c0 * a.sdt[2];
+  const bf16* cp =
+      static_cast<const bf16*>(a.c) + bi * a.sc[0] + gi * a.sc[1] + (c0 + i0) * a.sc[2];
+  const float* cbp = a.cb + ((static_cast<long long>(bi) * a.groups + gi) * a.nc + ci) *
+                                a.cpad * a.cpad + static_cast<long long>(i0) * a.cpad;
+  const float* sp = a.states + (static_cast<long long>(bh) * a.nc + ci) * a.np * kPP;
+  // Stages: ceil(N / kScanK) of C S_c (none for the first chunk, S_0 = 0),
+  // then the kScanK-column slices of C B^T left of and on the diagonal.
+  const int n1 = ci > 0 ? (a.n + kScanK - 1) / kScanK : 0;
+  const int nstage = n1 + (min(len, i0 + kTile) - 1) / kScanK + 1;
+
+  auto load = [&](int s) {
+    if (s < nstage) {
+      unsigned char* dst = ring + (s % kStages) * kStage;
+      if (s < n1) {
+        const int n0 = s * kScanK;
+        bf16* cs = reinterpret_cast<bf16*>(dst);
+        load_rows16<kTile, kScanK, kScanThreads>(cs, kLdC, cp + n0, a.sc[2], len - i0,
+                                                 a.n - n0, a.bc16 != 0);
+        // S_c's rows as they are: Pp hi/lo pairs in the bytes of Pp float32 values.
+        load_dense<kScanK, kPP, kScanThreads>(reinterpret_cast<float*>(cs + kTile * kLdC),
+                                              kLdS / 2, sp + n0 * kPP, kPP, a.np - n0);
+      } else {
+        const int j0 = (s - n1) * kScanK;
+        float* cbs = reinterpret_cast<float*>(dst);
+        load_dense<kTile, kScanK, kScanThreads>(cbs, kLdCB, cbp + j0, a.cpad, kTile);
+        load_rows16<kScanK, kPP, kScanThreads>(reinterpret_cast<bf16*>(cbs + kTile * kLdCB),
+                                               kLdX, xp + j0 * a.sx[2], a.sx[2], len - j0, a.p,
+                                               a.x16 != 0);
+      }
+    }
+    cp_async_commit();
+  };
+  load(0);
+  chunk_cum<kScanThreads>(cum, carry, dts, dtp, a.sdt[2], len, i0 + kTile, A);
+
+  const int ra = 16 * warp + g, rb = ra + 8;  // this lane's rows in the tile
+  const double cum_a = cum[i0 + ra], cum_b = cum[i0 + rb];
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  for (int s = 0; s < nstage; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // stage s visible; the other stage free
+    load(s + 1);
+    const unsigned char* st = ring + (s % kStages) * kStage;
+    if (s < n1) {
+      // acc += C S_c over this stage's kScanK state rows: S_c's hi, then lo.
+      const bf16* cs = reinterpret_cast<const bf16*>(st);
+      const bf16* ss = cs + kTile * kLdC;
+#pragma unroll
+      for (int k = 0; k < kScanK; k += 16) {
+        uint32_t af[4];
+        ldsm_x4(af, cs + (16 * warp + q8 + (q & 1) * 8) * kLdC + k + (q >> 1) * 8);
+#pragma unroll
+        for (int jp = 0; jp < (kNT + 1) / 2; ++jp) {
+          // Column group 2 jp + (q >> 1): its 8 hi values, then its 8 lo.
+          const bf16* sa = ss + (k + q8 + (q & 1) * 8) * kLdS + 16 * (2 * jp + (q >> 1));
+          uint32_t bh_[4], bl_[4];
+          if constexpr (kNT == 1) {
+            ldsm_x2_t(bh_, sa);
+            ldsm_x2_t(bl_, sa + 8);
+          } else {
+            ldsm_x4_t(bh_, sa);
+            ldsm_x4_t(bl_, sa + 8);
+          }
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            if (2 * jp + h2 < kNT) {
+              mma_bf16(acc[2 * jp + h2], af, bl_[2 * h2], bl_[2 * h2 + 1]);
+              mma_bf16(acc[2 * jp + h2], af, bh_[2 * h2], bh_[2 * h2 + 1]);
+            }
+          }
+        }
+      }
+      continue;
+    }
+    if (s == n1 && n1 > 0) {  // (C o exp(cum)) S_c = exp(cum_i) (C S_c)_i
+      const float ea = exp2f(static_cast<float>(cum_a)), eb = exp2f(static_cast<float>(cum_b));
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        acc[j][0] *= ea;
+        acc[j][1] *= ea;
+        acc[j][2] *= eb;
+        acc[j][3] *= eb;
+      }
+    }
+    const int w_lo = i0 + 16 * warp;  // the warp's first chunk row
+    const float* cbs = reinterpret_cast<const float*>(st);
+    const bf16* xs = reinterpret_cast<const bf16*>(cbs + kTile * kLdCB);
+    const int ia = i0 + ra, ib = i0 + rb;
+#pragma unroll
+    for (int kk = 0; kk < kScanK / 16; ++kk) {
+      const int k0 = (s - n1) * kScanK + 16 * kk;  // the k-step's first chunk column
+      const bool diag = k0 + 15 > w_lo;            // some column right of some row: mask
+      if (k0 <= w_lo + 15) {                       // else right of all the warp's rows
+        // Scores of rows ra, rb at columns 2t, 2t + 1 and 8 + 2t, 9 + 2t of
+        // this k-step, times L (masked before the exp) and dt_j, split.
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int c = 16 * kk + 8 * half + 2 * t;  // the column in the stage
+          const int j = k0 + 8 * half + 2 * t;       // the chunk column
+          const float2 sa = *reinterpret_cast<const float2*>(cbs + ra * kLdCB + c);
+          const float2 sb = *reinterpret_cast<const float2*>(cbs + rb * kLdCB + c);
+          const double cj0 = cum[j], cj1 = cum[j + 1];
+          const float d0 = dts[j], d1 = dts[j + 1];
+          const float va0 =
+              !diag || j <= ia ? sa.x * exp2f(static_cast<float>(cum_a - cj0)) * d0 : 0.0f;
+          const float va1 =
+              !diag || j + 1 <= ia ? sa.y * exp2f(static_cast<float>(cum_a - cj1)) * d1 : 0.0f;
+          const float vb0 =
+              !diag || j <= ib ? sb.x * exp2f(static_cast<float>(cum_b - cj0)) * d0 : 0.0f;
+          const float vb1 =
+              !diag || j + 1 <= ib ? sb.y * exp2f(static_cast<float>(cum_b - cj1)) * d1 : 0.0f;
+          split_bf16(va0, va1, hi[2 * half], lo[2 * half]);
+          split_bf16(vb0, vb1, hi[2 * half + 1], lo[2 * half + 1]);
+        }
+#pragma unroll
+        for (int jp = 0; jp < (kNT + 1) / 2; ++jp) {
+          uint32_t xb[4];  // b0, b1 of n-tiles 2 jp and 2 jp + 1
+          const bf16* xa = xs + (16 * kk + q8 + (q & 1) * 8) * kLdX + 16 * jp + (q >> 1) * 8;
+          if constexpr (kNT == 1) {
+            ldsm_x2_t(xb, xa);
+          } else {
+            ldsm_x4_t(xb, xa);
+          }
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            if (2 * jp + h2 < kNT) {
+              mma_bf16(acc[2 * jp + h2], lo, xb[2 * h2], xb[2 * h2 + 1]);
+              mma_bf16(acc[2 * jp + h2], hi, xb[2 * h2], xb[2 * h2 + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  bf16* yp = static_cast<bf16*>(a.y) + bi * a.sy[0] + h * a.sy[1] + c0 * a.sy[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + (r == 0 ? ra : rb);
+    if (row >= len) continue;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (col < a.p) yp[row * a.sy[2] + col] = __float2bfloat16_rn(acc[j][2 * r + e]);
       }
   }
 }
@@ -734,7 +1219,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // chunk); false if they are outside what the kernels take.
 bool set_sizes(Args& a, const int* dims) {
   a.batch = dims[0]; a.heads = dims[1]; a.groups = dims[2]; a.seqlen = dims[3];
-  a.p = dims[4]; a.n = dims[5]; a.chunk = dims[6];
+  a.p = dims[4]; a.n = dims[5]; a.chunk = dims[6]; a.bf16 = dims[7] != 0;
   if (a.batch < 0 || a.heads < 0 || a.seqlen < 0 || a.p < 1 || a.p > 128 || a.n < 1 ||
       a.chunk < 1 || a.groups < 1 || a.heads % a.groups != 0)
     return false;
@@ -753,17 +1238,20 @@ long long stage_blocks(int stage, const Args& a) {
   switch (stage) {
     case 0: return static_cast<long long>(a.ntile) * (a.ntile + 1) / 2 * a.nc * a.batch * a.groups;
     case 1: return static_cast<long long>(a.nc) * bh * ((a.np + kStateRows - 1) / kStateRows);
-    case 2: return bh * ((static_cast<long long>(a.np) * a.pp / 4 + kPassThreads - 1) / kPassThreads);
+    case 2: {  // a thread a float4 (bf16: two, one 8-column group)
+      const long long per = static_cast<long long>(a.np) * a.pp / (a.bf16 ? 8 : 4);
+      return bh * ((per + kPassThreads - 1) / kPassThreads);
+    }
     default: return static_cast<long long>(a.ntile) * a.nc * bh;
   }
 }
 
 size_t stage_smem(int stage, const Args& a) {
   switch (stage) {
-    case 0: return cb_smem();
-    case 1: return state_smem(a.pp, a.cpad);
+    case 0: return a.bf16 ? cb16_smem() : cb_smem();
+    case 1: return a.bf16 ? state16_smem(a.pp, a.cpad) : state_smem(a.pp, a.cpad);
     case 2: return 0;
-    default: return scan_smem(a.pp, a.cpad);
+    default: return a.bf16 ? scan16_smem(a.pp, a.cpad) : scan_smem(a.pp, a.cpad);
   }
 }
 
@@ -794,7 +1282,6 @@ int launch(Kernel kernel, int stage, const Args& a, void* stream) {
 // when x, B, C and y are bf16.
 bool make_args(Args& a, void* const* ptrs, const long long* strides, const int* dims) {
   if (!set_sizes(a, dims)) return false;
-  a.bf16 = dims[7] != 0;
   a.x = ptrs[0];
   a.dt = static_cast<const float*>(ptrs[1]);
   a.a_log = static_cast<const float*>(ptrs[2]);
@@ -823,25 +1310,43 @@ bool make_args(Args& a, void* const* ptrs, const long long* strides, const int* 
   return true;
 }
 
-template <typename T>
 int launch_state(const Args& a, void* stream) {
   switch (a.pp) {
-    case 8: return launch(chunk_state_kernel<T, 8, false>, 1, a, stream);
-    case 16: return launch(chunk_state_kernel<T, 16, false>, 1, a, stream);
-    case 32: return launch(chunk_state_kernel<T, 32, false>, 1, a, stream);
-    case 64: return launch(chunk_state_kernel<T, 64, false>, 1, a, stream);
-    default: return launch(chunk_state_kernel<T, 128, false>, 1, a, stream);
+    case 8: return launch(chunk_state_kernel<8, false>, 1, a, stream);
+    case 16: return launch(chunk_state_kernel<16, false>, 1, a, stream);
+    case 32: return launch(chunk_state_kernel<32, false>, 1, a, stream);
+    case 64: return launch(chunk_state_kernel<64, false>, 1, a, stream);
+    default: return launch(chunk_state_kernel<128, false>, 1, a, stream);
   }
 }
 
-template <typename T>
 int launch_scan(const Args& a, void* stream) {
   switch (a.pp) {
-    case 8: return launch(chunk_scan_kernel<T, 8>, 3, a, stream);
-    case 16: return launch(chunk_scan_kernel<T, 16>, 3, a, stream);
-    case 32: return launch(chunk_scan_kernel<T, 32>, 3, a, stream);
-    case 64: return launch(chunk_scan_kernel<T, 64>, 3, a, stream);
-    default: return launch(chunk_scan_kernel<T, 128>, 3, a, stream);
+    case 8: return launch(chunk_scan_kernel<8>, 3, a, stream);
+    case 16: return launch(chunk_scan_kernel<16>, 3, a, stream);
+    case 32: return launch(chunk_scan_kernel<32>, 3, a, stream);
+    case 64: return launch(chunk_scan_kernel<64>, 3, a, stream);
+    default: return launch(chunk_scan_kernel<128>, 3, a, stream);
+  }
+}
+
+int launch_state_bf16(const Args& a, void* stream) {
+  switch (a.pp) {
+    case 8: return launch(chunk_state_bf16_kernel<8>, 1, a, stream);
+    case 16: return launch(chunk_state_bf16_kernel<16>, 1, a, stream);
+    case 32: return launch(chunk_state_bf16_kernel<32>, 1, a, stream);
+    case 64: return launch(chunk_state_bf16_kernel<64>, 1, a, stream);
+    default: return launch(chunk_state_bf16_kernel<128>, 1, a, stream);
+  }
+}
+
+int launch_scan_bf16(const Args& a, void* stream) {
+  switch (a.pp) {
+    case 8: return launch(chunk_scan_bf16_kernel<8>, 3, a, stream);
+    case 16: return launch(chunk_scan_bf16_kernel<16>, 3, a, stream);
+    case 32: return launch(chunk_scan_bf16_kernel<32>, 3, a, stream);
+    case 64: return launch(chunk_scan_bf16_kernel<64>, 3, a, stream);
+    default: return launch(chunk_scan_bf16_kernel<128>, 3, a, stream);
   }
 }
 
@@ -1639,29 +2144,29 @@ extern "C" int ssd_chunk_cb(void* const* ptrs, const long long* strides, const i
                             void* stream) {
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  return a.bf16 ? launch(chunk_cb_kernel<bf16>, 0, a, stream)
-                : launch(chunk_cb_kernel<float>, 0, a, stream);
+  return a.bf16 ? launch(chunk_cb_bf16_kernel, 0, a, stream) : launch(chunk_cb_kernel, 0, a, stream);
 }
 
 extern "C" int ssd_chunk_state(void* const* ptrs, const long long* strides, const int* dims,
                                void* stream) {
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  return a.bf16 ? launch_state<bf16>(a, stream) : launch_state<float>(a, stream);
+  return a.bf16 ? launch_state_bf16(a, stream) : launch_state(a, stream);
 }
 
 extern "C" int ssd_state_pass(void* const* ptrs, const long long* strides, const int* dims,
                               void* stream) {
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(state_pass_kernel, 2, a, stream);
+  return a.bf16 ? launch(state_pass_bf16_kernel, 2, a, stream)
+                : launch(state_pass_kernel, 2, a, stream);
 }
 
 extern "C" int ssd_chunk_scan(void* const* ptrs, const long long* strides, const int* dims,
                               void* stream) {
   Args a;
   if (!make_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  return a.bf16 ? launch_scan<bf16>(a, stream) : launch_scan<float>(a, stream);
+  return a.bf16 ? launch_scan_bf16(a, stream) : launch_scan(a, stream);
 }
 
 // Elements of the backward's scratches, (C B^T, G, decay, row terms,
@@ -1705,7 +2210,7 @@ extern "C" int ssd_bwd_chunk_cb(void* const* ptrs, const long long* strides, con
                                 void* stream) {
   BwdArgs a;
   if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(chunk_cb_kernel<float>, 0, fwd_view(a, false), stream);
+  return launch(chunk_cb_kernel, 0, fwd_view(a, false), stream);
 }
 
 extern "C" int ssd_bwd_chunk_state(void* const* ptrs, const long long* strides, const int* dims,
@@ -1714,11 +2219,11 @@ extern "C" int ssd_bwd_chunk_state(void* const* ptrs, const long long* strides, 
   if (!make_bwd_args(a, ptrs, strides, dims)) return static_cast<int>(cudaErrorInvalidValue);
   const Args f = fwd_view(a, true);
   switch (a.pp) {
-    case 8: return launch(chunk_state_kernel<float, 8, true>, 1, f, stream);
-    case 16: return launch(chunk_state_kernel<float, 16, true>, 1, f, stream);
-    case 32: return launch(chunk_state_kernel<float, 32, true>, 1, f, stream);
-    case 64: return launch(chunk_state_kernel<float, 64, true>, 1, f, stream);
-    default: return launch(chunk_state_kernel<float, 128, true>, 1, f, stream);
+    case 8: return launch(chunk_state_kernel<8, true>, 1, f, stream);
+    case 16: return launch(chunk_state_kernel<16, true>, 1, f, stream);
+    case 32: return launch(chunk_state_kernel<32, true>, 1, f, stream);
+    case 64: return launch(chunk_state_kernel<64, true>, 1, f, stream);
+    default: return launch(chunk_state_kernel<128, true>, 1, f, stream);
   }
 }
 

@@ -12,11 +12,14 @@ with a 3xTF32 split, which keeps float32-level error; the log-decay prefix
 sums and their differences are float64. What bounds it is the 3xTF32
 operation count at the card's TF32 rate; the design notes are in
 ``csrc/ssd_scan.cu``. It takes CUDA tensors: ``dt`` and ``a_log`` float32,
-``x``, ``b`` and ``c`` float32 or all three bf16. bf16 is the same stage
-kernels, templates over the type: the rows are converted to float32 as
-they are loaded, a bf16 operand enters its product unsplit (exact in
-TF32), the scratches and prefix sums are as in float32, and ``y`` is
-rounded once to bf16; its calls also add one to :data:`BF16_LAUNCHES`.
+``x``, ``b`` and ``c`` float32 or all three bf16. bf16 has stage kernels of
+its own in the same source: bf16 rows arrive by ``cp.async`` into bf16
+tiles, every product runs on the bf16 tensor cores (``mma.sync``
+m16n8k16, fragments by ``ldmatrix``), a bf16 operand enters as it is and a
+float32 side as two bf16 halves (hi = bf16(v), lo = bf16(v - hi));
+``state_pass`` hands the chunk states on already split; the scratches and
+prefix sums are as in float32, and ``y`` is rounded once to bf16. Its
+calls also add one to :data:`BF16_LAUNCHES`.
 :func:`repro_torch.kernels.ssd_scan.ssd_chunked` is the entry point that
 sends a CPU tensor to the plain version instead.
 
@@ -129,12 +132,13 @@ def _dims(batch, heads, groups, seqlen, p, n, chunk, bf16=False):
 
 
 def stage_report(batch: int, heads: int, groups: int, seqlen: int, p: int, n: int,
-                 chunk: int) -> dict:
+                 chunk: int, bf16: bool = False) -> dict:
     """What each stage kernel asks for at these sizes, from the library:
     ``{stage: {"smem_bytes", "blocks", "threads"}}``, and ``"scratch_bytes"``
-    of the three scratches (C·Bᵀ, states, decays)."""
+    of the three scratches (C·Bᵀ, states, decays); ``bf16`` for the bf16
+    mode's kernels."""
     lib = build()
-    dims = _dims(batch, heads, groups, seqlen, p, n, chunk)
+    dims = _dims(batch, heads, groups, seqlen, p, n, chunk, bf16)
     report = {}
     out = (ctypes.c_longlong * 3)()
     for i, name in enumerate(STAGES):
@@ -212,7 +216,7 @@ def ssd_scan_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         for name in STAGES:
             err = getattr(lib, f"ssd_{name}")(ptrs, strides, dims, stream)
             if err != 0:
-                report = stage_report(bsz, h, g, l, p, n, chunk)
+                report = stage_report(bsz, h, g, l, p, n, chunk, bf16)
                 shapes = ", ".join(f"{k} {report[k]['smem_bytes']} bytes x "
                                    f"{report[k]['blocks']} blocks" for k in STAGES)
                 raise RuntimeError(f"ssd_scan's {name} kernel failed with cudaError_t "

@@ -17,7 +17,11 @@ The card's kernel computes both products on the tensor cores with a 3xTF32
 split (csrc/block_attn.cu). :func:`_attention_tf32` emulates that
 arithmetic here, tile for tile as the kernel walks the keys, and the
 ``tf32`` tests hold it to the kernel's own tolerance, 1e-4 absolute and
-relative, and show that one TF32 product a term does not meet it.
+relative, and show that one TF32 product a term does not meet it. The bf16
+kernel (csrc/block_attn_bf16.cu) is emulated by :func:`_attention_bf16`
+and held within 1 bf16 ulp of the JAX kernel on bf16 inputs, where one
+bf16 rounding of P is not; the host's decision of what TMA can read
+(``tma_takes``) and the repack are tested on tensor metadata.
 """
 import math
 
@@ -342,3 +346,156 @@ def test_backward_single_pass_tf32_breaks_the_grad_tolerance(lq, lk, causal, win
     want = torch.autograd.grad(block_attention_plain(*ins, causal=causal, window=window), ins, do)
     got = _attention_backward_tf32(q, k, v, do, causal=causal, window=window, passes=1)
     assert _grad_ratio(got, want) > GRAD_TOL
+
+
+# ------------------------------------------------------------ the bf16 kernel
+# csrc/block_attn_bf16.cu: bf16 q, k, v on the bf16 tensor cores. S = Q K^T
+# is exact products summed in float32; P stays float32 for the row sums and
+# enters P V as two bf16 halves, hi = bf16(P) and lo = bf16(P - hi), each
+# 64-key tile's P V summed apart and added to the float32 output with the
+# online softmax's rescale; o is rounded once. The contract is the plain bf16
+# version's: within 1 bf16 ulp of the JAX kernel (tests/test_torch_bf16.py).
+BF = torch.bfloat16
+
+
+def _bf16_ulps(want, got, scale):
+    """The largest |got - want| in bf16 ulps, each at the element's magnitude
+    but no finer than at 2^-8 * ``scale`` (tests/test_torch_bf16.py)."""
+    w, g = np.asarray(want, np.float32), np.asarray(got, np.float32)
+    mag = np.maximum(np.maximum(np.abs(w), np.abs(g)), 2.0 ** -8 * scale)
+    return float((np.abs(g - w) / 2.0 ** (np.floor(np.log2(mag)) - 7)).max())
+
+
+def _attention_bf16(q, k, v, *, causal, window=0, split=True, k_tile=64):
+    """The bf16 kernel's arithmetic on CPU tensors (bf16 in, bf16 out): per
+    (batch, head) the 64-key tiles in order, raw scores masked to -inf, the
+    running max m of the scores times c = float32(1/sqrt(hd)) *
+    float32(log2 e), P = 2^(s c - m) with one rounding (the kernel's fma),
+    l summed from float32 P, each tile's P V from P's two bf16 halves
+    (``split``) or from one bf16 rounding of P, and o = acc * (1 / l). A
+    tile that masks every key of a row leaves the row as it was, so the
+    query tiling does not enter."""
+    b, lq, h, hd = q.shape
+    lk, group = k.shape[1], h // k.shape[2]
+    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+                  * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    rows = torch.arange(lq)[:, None]
+    out = torch.zeros(b, lq, h, hd, dtype=BF)
+    for bi in range(b):
+        for hh in range(h):
+            qh, kh, vh = (t.float() for t in (q[bi, :, hh], k[bi, :, hh // group],
+                                               v[bi, :, hh // group]))
+            m = torch.full((lq,), -math.inf)
+            l = torch.zeros(lq)
+            acc = torch.zeros(lq, hd)
+            for t0 in range(0, lk, k_tile):
+                cols = torch.arange(t0, min(t0 + k_tile, lk))[None]
+                s = qh @ kh[t0:t0 + k_tile].T
+                ok = torch.ones(lq, cols.shape[1], dtype=torch.bool)
+                if causal:
+                    ok &= cols <= rows
+                if window > 0:
+                    ok &= (rows - cols) < window
+                s = s.masked_fill(~ok, -math.inf)
+                m_new = torch.maximum(m, s.amax(1) * scale_log2)
+                alpha = torch.where(m == -math.inf, 0.0, torch.exp2(m - m_new))
+                arg = (s.double() * scale_log2.double() - m_new[:, None].double()).float()
+                p = torch.where(s == -math.inf, 0.0, torch.exp2(arg))
+                l = l * alpha + p.sum(1)
+                hi = p.to(BF).float()
+                vt = vh[t0:t0 + k_tile]
+                pv = (p - hi).to(BF).float() @ vt + hi @ vt if split else hi @ vt
+                acc = acc * alpha[:, None] + pv
+                m = m_new
+            inv = torch.where(l > 0, 1.0 / l, 0.0)
+            out[bi, :, hh] = (acc * inv[:, None]).to(BF)
+    return out
+
+
+BF16_ATTN_CASES = [  # (B, L, H, KV, hd, causal, window): JAX's blocks of 32
+    (2, 96, 4, 2, 32, True, 0),
+    (1, 64, 2, 2, 32, False, 0),
+    (2, 64, 4, 1, 16, True, 0),
+    (1, 128, 8, 2, 64, True, 0),
+    (1, 256, 4, 2, 128, True, 0),     # Yi-6B's head width, four key tiles
+    (1, 256, 4, 2, 128, True, 100),   # a window: against the plain version
+]
+
+
+@pytest.mark.parametrize("case", BF16_ATTN_CASES)
+def test_bf16_kernel_arithmetic_within_one_ulp_of_jax(case):
+    """The bf16 kernel's tile walk and split P V within 1 bf16 ulp of the
+    port's plain bf16 version and, without a window (which the Pallas kernel
+    does not take), of the Pallas kernel on bf16 inputs in interpret mode."""
+    b, l, h, kv, hd, causal, window = case
+    rng = np.random.default_rng(sum(case))
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, l, h, hd), (b, l, kv, hd), (b, l, kv, hd)))
+    tq, tk, tv = (torch.from_numpy(a).to(BF) for a in (q, k, v))
+    got = _attention_bf16(tq, tk, tv, causal=causal, window=window).float().numpy()
+    scale = float(np.abs(v).max())
+    plain = block_attention_plain(tq, tk, tv, causal=causal, window=window)
+    assert _bf16_ulps(plain.float().numpy(), got, scale) <= 1
+    if window == 0:
+        want = j_block_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), bq=32,
+                                 bk=32, causal=causal, interpret=True)
+        assert _bf16_ulps(np.asarray(want, np.float32), got, scale) <= 1
+
+
+def _rounding_biased_case(seed=5, lk=1024, hd=64):
+    """One query over 1,024 keys whose weights all lie in (0.6, 1] (small
+    scores), and v_j = +1 where bf16(P_j) rounds P_j up, -1 where it rounds
+    down: every weight's rounding error adds to o's, and o itself is small
+    (the signs are as good as random)."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy((0.1 * rng.standard_normal((1, 1, 1, hd))).astype(np.float32)).to(BF)
+    k = torch.from_numpy((0.1 * rng.standard_normal((1, lk, 1, hd))).astype(np.float32)).to(BF)
+    scale_log2 = (torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+                  * torch.tensor(math.log2(math.e), dtype=torch.float32))
+    s = q[0, :, 0].float() @ k[0, :, 0].float().T
+    p = torch.exp2((s.double() * scale_log2.double() - float(s.amax() * scale_log2)).float())[0]
+    v = torch.where(p.to(BF).float() >= p, 1.0, -1.0)
+    return q, k, v.reshape(1, lk, 1, 1).expand(1, lk, 1, hd).contiguous().to(BF)
+
+
+def test_one_bf16_rounding_of_p_breaks_the_contract():
+    """On the rounding-biased case, P rounded once to bf16 puts o more than
+    one bf16 ulp from the JAX reference, while the kernel's two halves stay
+    within 1: the kernel keeps P_lo."""
+    q, k, v = _rounding_biased_case()
+    want = np.asarray(j_block_attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                                          for t in (q, k, v)), bq=32, bk=32, causal=False,
+                                        interpret=True), np.float32)
+    one = _attention_bf16(q, k, v, causal=False, split=False)
+    two = _attention_bf16(q, k, v, causal=False, split=True)
+    assert _bf16_ulps(want, one.float().numpy(), 1.0) > 2.0
+    assert _bf16_ulps(want, two.float().numpy(), 1.0) <= 1
+
+
+@pytest.mark.parametrize("shape,strides_of,offset,takes", [
+    ((2, 300, 8, 128), None, 0, True),          # contiguous
+    ((2, 300, 8, 128), (300 * 12 * 128, 12 * 128, 128, 1), 0, True),   # a fused-QKV view
+    ((2, 300, 8, 128), None, 1, False),         # one element off 16 bytes
+    ((2, 300, 8, 17), None, 0, False),          # hd not a multiple of 8
+    ((2, 300, 8, 24), (300 * 8 * 24 + 4, 8 * 24, 24, 1), 0, False),  # a batch stride off 8
+    ((1, 1, 8, 64), (5, 3, 64, 1), 0, True),    # size-1 batch and sequence: strides unused
+])
+def test_tma_takes_what_a_tensor_map_can_read(shape, strides_of, offset, takes):
+    """The host's decision: base 16-byte aligned, hd a multiple of 8, the
+    strides of dimensions longer than 1 multiples of 8 elements."""
+    strides = strides_of or tuple(int(np.prod(shape[i + 1:])) for i in range(4))
+    size = offset + sum((n - 1) * st for n, st in zip(shape, strides)) + 1
+    t = torch.zeros(size + 8, dtype=BF)[offset:].as_strided(shape, strides)
+    assert bk.tma_takes(t) is takes
+
+
+def test_repack_for_tma_keeps_the_values():
+    """The repack is a contiguous copy, the columns past hd zeros, which TMA
+    takes; the kernel reads it hd_in wide and writes o hd wide."""
+    base = torch.from_numpy(np.random.default_rng(0).standard_normal(2 * 50 * 3 * 17 + 1)
+                            .astype(np.float32)).to(BF)
+    t = base[1:].view(2, 50, 3, 17)
+    packed = bk.repack_for_tma(t, 24)
+    assert packed.shape == (2, 50, 3, 24) and packed.is_contiguous()
+    assert torch.equal(packed[..., :17], t) and not packed[..., 17:].any()
+    assert bk.tma_takes(packed) and not bk.tma_takes(t)

@@ -677,16 +677,26 @@ def _bf16_ulps(got, want, scale):
 
 
 @pytest.mark.parametrize("b,lq,lk,h,kv,hd,causal,window", [
-    (2, 300, 300, 8, 2, 128, True, 0),      # hd 128, ragged L: 16-byte copies of 8
+    (2, 300, 300, 8, 2, 128, True, 0),      # hd 128 (two TMA boxes), ragged L
+    (1, 1000, 1000, 16, 2, 128, True, 0),   # GQA 8:1, L 1,000: ragged query and key tiles
     (1, 96, 96, 4, 1, 64, True, 0),         # MQA
-    (1, 77, 130, 4, 2, 16, False, 0),       # Lq != Lk, non-causal
-    (2, 200, 200, 3, 3, 18, True, 0),       # hd 18: rows of 36 bytes, 4-byte copies of 2
-    (1, 100, 100, 2, 2, 17, True, 0),       # odd hd: plain loads
+    (2, 300, 300, 8, 8, 64, True, 0),       # MHA at hd 64
+    (1, 77, 130, 4, 2, 16, False, 0),       # Lq != Lk, non-causal, hd 16 (a zero-filled box)
+    (2, 200, 200, 3, 3, 24, True, 0),       # hd 24: rows of 48 bytes
+    (2, 200, 200, 3, 3, 18, True, 0),       # hd 18: repacked to 24
+    (1, 100, 100, 2, 2, 17, True, 0),       # odd hd: repacked to 24
     (2, 300, 300, 8, 4, 128, True, 64),     # sliding window
+    (1, 300, 300, 4, 1, 128, True, 17),     # window shorter than a tile
+    (1, 100, 60, 2, 1, 32, False, 20),      # non-causal window: rows 79+ see no key
+    (2, 1000, 1000, 16, 16, 64, False, 0),  # an encoder over 1,000 frames
+    (2, 96, 1000, 16, 16, 64, False, 0),    # cross-attention over them
+    (8, 64, 1024, 16, 16, 64, False, 0),    # serve's prefill-cross chunk of 64 rows
     (8, 1, 1024, 16, 16, 64, False, 0),     # decode's cross-attention, Lq = 1
+    (2, 130, 130, 8, 2, 128, True, 0),      # a 2-row ragged last query tile
 ])
 def test_block_attn_bf16_matches_plain(cuda, b, lq, lk, h, kv, hd, causal, window):
-    """Within 1 bf16 ulp: both compute in float32 and round o once."""
+    """Within 1 bf16 ulp: both compute in float32 and round o once. Only hd
+    not a multiple of 8 is repacked."""
     gen = torch.Generator().manual_seed(lq + hd)
     q, k, v = (torch.randn(b, n, heads, hd, generator=gen).to(cuda, torch.bfloat16)
                for n, heads in ((lq, h), (lk, kv), (lk, kv)))
@@ -694,20 +704,51 @@ def test_block_attn_bf16_matches_plain(cuda, b, lq, lk, h, kv, hd, causal, windo
     got = block_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert bk.LAUNCHES["block_attn"] == 1 and bk.BF16_LAUNCHES["block_attn"] == 1
+    assert bk.BF16_REPACKS["block_attn"] == (0 if hd % 8 == 0 else 3)
     want = block_attention_plain(q, k, v, causal=causal, window=window)
     assert got.dtype == torch.bfloat16
     assert _bf16_ulps(got, want, float(v.float().abs().max())) <= 1
 
 
-@pytest.mark.parametrize("b,h,l,p,n,chunk,g", [
-    (2, 4, 512, 64, 128, 256, 4),      # the main path's P, N and chunk
-    (1, 8, 300, 32, 64, 128, 2),       # L not a chunk multiple, G < H
-    (2, 3, 200, 18, 64, 64, 3),        # P = 18: x rows loaded an element at a time
-    (1, 4, 200, 64, 50, 64, 2),        # N = 50: B/C rows loaded an element at a time
+@pytest.mark.parametrize("case", ["fused_qkv", "k_shifted_one_element", "fused_hd17"])
+def test_block_attn_bf16_takes_views(cuda, case):
+    """Views of a fused (B, L, H + 2 KV, hd) projection go to TMA as they are;
+    a K one element off 16 bytes, and every operand at an odd hd, are copied
+    first (BF16_REPACKS); each within 1 bf16 ulp of the plain version."""
+    gen = torch.Generator().manual_seed(3)
+    hd = 17 if case == "fused_hd17" else 128
+    fused = torch.randn(2, 300, 8 + 2 + 2, hd, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    repacks = {"fused_qkv": 0, "k_shifted_one_element": 1, "fused_hd17": 3}[case]
+    if case == "k_shifted_one_element":
+        k = torch.randn(2 * 300 * 2 * hd + 1, generator=gen).to(cuda, torch.bfloat16)[1:]
+        k = k.view(2, 300, 2, hd)
+    bk.reset_launch_counts()
+    got = block_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert bk.BF16_LAUNCHES["block_attn"] == 1
+    assert bk.BF16_REPACKS["block_attn"] == repacks
+    want = block_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+    assert _bf16_ulps(got, want, float(v.float().abs().max())) <= 1
+
+
+@pytest.mark.parametrize("b,h,l,p,n,chunk,g,large", [
+    (2, 4, 512, 64, 128, 256, 4, False),     # the main path's P, N and chunk, G = 4
+    (1, 8, 300, 32, 64, 128, 2, False),      # L not a chunk multiple, G < H
+    (2, 4, 1000, 64, 128, 256, 1, False),    # a ragged last chunk of 232 rows
+    (1, 2, 300, 128, 128, 128, 1, False),    # P = 128
+    (2, 6, 96, 8, 16, 32, 1, False),         # P = 8: one n-tile; chunk under one 64-row tile
+    (2, 3, 200, 18, 64, 64, 3, False),       # P = 18: x rows loaded an element at a time
+    (1, 4, 200, 64, 50, 64, 2, False),       # N = 50: B/C rows loaded an element at a time
+    (2, 4, 512, 64, 128, 256, 1, True),      # dt |A| of 10 to 15 a step: |cum| in the thousands
 ])
-def test_ssd_scan_bf16_matches_plain(cuda, b, h, l, p, n, chunk, g):
+def test_ssd_scan_bf16_matches_plain(cuda, b, h, l, p, n, chunk, g, large):
     """Within 1 bf16 ulp: both compute in float32 and round y once."""
     x, dt, a_log, bb, cc = _ssd_inputs(b, h, l, p, n, g, cuda)
+    if large:
+        gen = torch.Generator().manual_seed(4)
+        dt = ((10.0 + 5.0 * torch.rand(b, h, l, generator=gen)).to(cuda)
+              / torch.exp(a_log)[None, :, None])
     x, bb, cc = (t.to(torch.bfloat16) for t in (x, bb, cc))
     sk.reset_launch_counts()
     got = ssd_chunked(x, dt, a_log, bb, cc, chunk=chunk)

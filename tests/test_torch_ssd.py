@@ -22,6 +22,10 @@ The six backward kernels' arithmetic (the chunked matrix form of the
 gradient, tests/test_torch_train.py ``_ssd_backward_as_the_kernels``) runs
 with every product through :func:`_mm_tf32`, held within GRAD_TOL of
 autograd through the plain version, where one TF32 product a term is not.
+The bf16 stage kernels' arithmetic (bf16 operands exact, each float32 side
+as two bf16 halves) is :func:`_ssd_bf16`, held within the bf16 plain
+version's tolerance of the Pallas kernel and within 1 bf16 ulp of the plain
+version.
 """
 import functools
 import math
@@ -247,3 +251,97 @@ def test_backward_single_pass_tf32_breaks_the_grad_tolerance(case):
     """One TF32 product a term misses GRAD_TOL on the same inputs: the
     backward kernels keep the 3xTF32 split."""
     assert _bwd_ratio(case, passes=1) > GRAD_TOL
+
+
+# ------------------------------------------------------------ the bf16 mode
+# ssd_scan.cu's bf16 stage kernels: bf16 x, B and C on the bf16 tensor cores.
+# A product of two bf16 values is exact in float32; C B^T is one product, and
+# each float32 side (the masked scores, the chunk states, B o w) goes in as
+# two bf16 halves, hi = bf16(v) and lo = bf16(v - hi). The states and the
+# prefix sums stay as in float32; y is rounded once to bf16.
+BF = torch.bfloat16
+BF16_SSD_TOL = dict(atol=1e-2, rtol=1e-2)   # tests/test_torch_bf16.py's SSD_TOL
+
+
+def _halves(v: torch.Tensor) -> tuple:
+    hi = v.to(BF).float()
+    return hi, (v - hi).to(BF).float()
+
+
+def _mm_split(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with a float32 split into bf16 halves and b exact in bf16: the
+    lo product, then the hi one, summed in float32."""
+    hi, lo = _halves(a)
+    return lo @ b + hi @ b
+
+
+def _ssd_bf16(x, dt, a_log, b, c, chunk):
+    """The bf16 stage kernels' arithmetic on CPU tensors (x, b, c bf16): C B^T
+    per group, one product (chunk_cb); dS_c = (B o w)^T x with B o w split
+    (chunk_state); S_c carried in float32 and handed on split (state_pass);
+    exp(cum_i) (C S_c)_i with S_c split, plus the split masked scores C B^T o
+    L o dt_j times x (chunk_scan); cum float64 in units of log2, each cum and
+    difference rounded to float32 once; y rounded once to bf16."""
+    bsz, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[3]
+    pad = (-l) % chunk
+    x, b, c = (F.pad(t.float(), (0, 0, 0, pad)) for t in (x, b, c))
+    dt = F.pad(dt, (0, pad))
+    nc = (l + pad) // chunk
+    dtc = dt.reshape(bsz, h, nc, chunk)
+    cum = torch.cumsum((dtc * -torch.exp(a_log)[:, None, None]).double(), -1)
+    cum = cum * math.log2(math.e)
+    bc, cc = (t.reshape(bsz, g, nc, chunk, n) for t in (b, c))
+    group = torch.arange(h) // (h // g)
+    xc = x.reshape(bsz, h, nc, chunk, p)
+
+    cb = cc @ bc.transpose(-1, -2)
+    last = cum[..., -1:]
+    w = dtc * torch.exp2((last - cum).float())
+    ds = _mm_split((bc[:, group] * w[..., None]).transpose(-1, -2), xc)
+    decay = torch.exp2(last[..., 0].float())
+    state, entering = torch.zeros(bsz, h, n, p), []
+    for z in range(nc):
+        entering.append(state)
+        state = decay[:, :, z, None, None] * state + ds[:, :, z]
+    s_hi, s_lo = _halves(torch.stack(entering, 2))
+    cg = cc[:, group]
+    y = torch.exp2(cum.float())[..., None] * (cg @ s_lo + cg @ s_hi)
+    mask = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    diff = (cum[..., :, None] - cum[..., None, :]).float().masked_fill(~mask, float("-inf"))
+    y = y + _mm_split(cb[:, group] * torch.exp2(diff) * dtc[..., None, :], xc)
+    return y.reshape(bsz, h, nc * chunk, p)[:, :, :l].to(BF)
+
+
+BF16_CASES = {  # (B, H, L, P, N, G, chunk)
+    "two_groups": (1, 2, 64, 32, 16, 2, 16),
+    "ragged": (2, 4, 50, 16, 8, 2, 16),          # L not a chunk multiple
+    "one_group": (2, 8, 96, 64, 32, 1, 32),      # one group for eight heads
+    "main_widths": (1, 4, 300, 64, 128, 2, 128),  # mamba2-130m's P and N, three chunks
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_bf16_kernel_arithmetic_matches_jax(case):
+    """The bf16 kernels' arithmetic within the bf16 plain version's tolerance
+    (1e-2) of the Pallas kernel on bf16 inputs in interpret mode, and within
+    1 bf16 ulp of the port's plain bf16 version (the card's contract; ulps no
+    finer than at 2^-8 of y's largest magnitude)."""
+    bsz, h, l, p, n, g, chunk = BF16_CASES[case]
+    rng = np.random.default_rng(sum(BF16_CASES[case]))
+    x = (0.8 * rng.standard_normal((bsz, h, l, p))).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((bsz, h, l)))).astype(np.float32)
+    a_log = np.log(np.linspace(1.0, 8.0, h)).astype(np.float32)
+    b = (0.5 * rng.standard_normal((bsz, g, l, n))).astype(np.float32)
+    c = (0.5 * rng.standard_normal((bsz, g, l, n))).astype(np.float32)
+    want = j_ssd_chunked(jnp.asarray(x, jnp.bfloat16), jnp.asarray(dt), jnp.asarray(a_log),
+                         jnp.asarray(b, jnp.bfloat16), jnp.asarray(c, jnp.bfloat16),
+                         chunk=chunk, interpret=True)
+    tx, tb, tc = (torch.from_numpy(a).to(BF) for a in (x, b, c))
+    tdt, ta = torch.from_numpy(dt), torch.from_numpy(a_log)
+    got = _ssd_bf16(tx, tdt, ta, tb, tc, chunk)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **BF16_SSD_TOL)
+    plain, _ = ssd_chunked_plain(tx, tdt, ta, tb, tc, chunk)
+    g32, p32 = got.float(), plain.float()
+    mag = torch.clamp_min(torch.maximum(g32.abs(), p32.abs()), 2.0 ** -8 * float(p32.abs().max()))
+    assert float(((g32 - p32).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max()) <= 1
