@@ -142,7 +142,19 @@ or of the JAX package ``repro``. Phases, in order:
    tokens/s, peak memory, a profiled step, the launches a step (B9 48
    forward calls and 24 backward, 6 kernels each; B10 144 and 72, 2
    kernels each) and layer 0's backward call on
-   its own inputs against the plain version; (j) serving, see
+   its own inputs against the plain version; (l) the DFedRW pod
+   deployment, see :func:`fed_phase`: B5 (``quantize_rows``) and B6
+   (``dequantize_rows``) at the gossip payload of ``mamba2-130m`` on 4 pods
+   (515,933,952 elements) against their plain versions (0 differing
+   elements) and their memory bounds; ``gossip_mix`` stacked on that payload
+   (B5 = B6 = 2 launches a gossip at bits 8, the pod mean kept at bits 32)
+   and at SMOKE size against the CPU; ``launch.train pod --fed`` at full
+   width through ``launch_main``, ``mamba2-130m`` on 4 pods at 4 x 1,024,
+   bits 8 and 32, and ``internvl2-1b`` on 2 pods at 2 x (256 + 768), bits
+   8: ms a step and a gossip, wire bytes, peak memory, the launches a step
+   (B9/B9b 24 a pod, B10/B10b 24 a pod, B5/B6 one an offset), a profiled
+   step; the scheduled step on ``gossip_flags()`` of a trace recorded on the
+   card, against the static step and the CPU; (j) serving, see
    :func:`serve_smoke_phase` and :func:`serve_phase`: the SMOKE
    ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
@@ -190,7 +202,9 @@ or of the JAX package ``repro``. Phases, in order:
    each LM path, training's included, ``block_attn`` with each
    encoder-decoder mode and serve mode; ``ssd_scan`` and ``block_attn`` with a
    ``backward`` object: its kernels' ms, bound, plain and library ms at the
-   main shape, its launches on each training path and every case of (g)),
+   main shape, its launches on each training path and every case of (g));
+   ``quantize_rows`` and ``dequantize_rows`` with their launches on the
+   wire path and on each fed run, and their numbers at the gossip payload),
    and last the device line.
 
 The four kernel sources are built at the start, one ``nvcc`` each, in
@@ -384,6 +398,15 @@ TRAIN_TOL = 2e-4               # max|d| / max|want| of each gradient, parameter,
 # each (the first warms up, the last runs under the profiler).
 POD_RUNS = [("mamba2-130m", 8, 2048), ("seamless-m4t-large-v2", 2, 1024)]
 POD_STEPS = 4
+# (l) the DFedRW pod deployment: the gossip payload of FED_PAYLOAD's model
+# copied to FED_PAYLOAD_PODS pods, and train pod --fed at full width:
+# (arch, --pods, --batch, --seq, --steps, the --bits of each run), gossip
+# every step on the ring. The scheduled step runs the SMOKE FED_SMOKE over
+# FED_SMOKE_PODS pods, on the gossip flags of FED_TRACE_WINDOWS recorded windows.
+FED_PAYLOAD, FED_PAYLOAD_PODS = "mamba2-130m", 4
+FED_RUNS = [("mamba2-130m", 4, 4, 1024, 4, (8, 32)), ("internvl2-1b", 2, 2, 768, 3, (8,))]
+FED_SMOKE, FED_SMOKE_PODS, FED_TRACE_WINDOWS = "mamba2-130m", 3, 2
+FED_SHARE = 1e-3               # elements a wire code flip may move, card against CPU
 # Serving, launch.serve's workload at temperature 0 with --mixed: (arch,
 # --requests, --max-concurrency, --prompt-len, --gen, --chunk, --arrival).
 # The SMOKE models run Yi-6B's workload on the CPU and on the card; the
@@ -3570,6 +3593,421 @@ def pod_phase(arch_id, bsz, seq, steps, tag):
                   "peak_bytes": peak}
 
 
+def _fed_pods(arch_id, pods):
+    """``arch_id`` at full width drawn on the card, copied to ``pods`` pods
+    (``convert.stack_pods``), each pod then scaled by its own perturbation
+    1 + 0.01 N(0, 1) so that the pods differ."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import stack_pods
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = stack_pods(T.init_params(get_arch(arch_id), gen), pods, "cuda")
+    for leaf in _leaves(params):
+        for p in range(pods):
+            leaf[p].mul_(1 + 0.01 * torch.randn(leaf.shape[1:], generator=gen, device="cuda"))
+    return params
+
+
+def _wire_numbers(name, rows, ms, plain_ms, differs, max_abs):
+    """One kernel's line of numbers at the gossip payload, with its bound."""
+    f32_planes, i8_planes, per_row, _ = WIRE_TRAFFIC[name]
+    nbytes = rows * (f32_planes * LANES_BYTES + i8_planes * 128 + per_row)
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = rows * 128 * WIRE_OPS[name] / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    return {"rows": rows, "differs": differs, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": nbytes,
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"}
+
+
+def fed_wire_phase(tag):
+    """(l0) B5 (``quantize_rows``) and B6 (``dequantize_rows``) at the
+    gossip payload of FED_PAYLOAD on FED_PAYLOAD_PODS pods (every leaf of
+    every pod, one wire tensor a (pod, leaf)) against their plain versions
+    on the card, 0 differing elements given the same (s, norm) and
+    uniforms, each timed beside its plain version and its memory bound;
+    then ``gossip_mix`` stacked on that payload: the launches of a gossip
+    (B5 = B6 = the offsets at bits 8, none at 32), the pod mean kept at
+    bits 32 within float32 rounding, and the wire bytes of a gossip against
+    float32. These launches are not the fed path's. Returns {kernel: its
+    numbers}."""
+    import torch
+
+    from repro_torch.core.flatten import flatten_tree, make_flat_spec, tree_leaves
+    from repro_torch.dist.gossip import GossipConfig, gossip_mix, gossip_wire_bits
+    from repro_torch.kernels.quantize import payload_side_info
+    from repro_torch.kernels.quantize import quantize as qk
+
+    pods = FED_PAYLOAD_PODS
+    params = _fed_pods(FED_PAYLOAD, pods)
+    spec = make_flat_spec(_first_pod(params))
+    flat = flatten_tree(params, spec)
+    w2d = flat.view(-1, 128)
+    rows = w2d.shape[0]
+    gen = torch.Generator("cuda").manual_seed(3)
+    u2d = torch.rand(w2d.shape, generator=gen, device="cuda")
+    s_rows, n_rows = payload_side_info(flat, spec, per_message=True, bits=8)
+    numbers = {}
+    codes = qk.quantize_rows(w2d, u2d, s_rows, n_rows, bits=8)
+    want = qk.quantize_rows_plain(w2d, u2d, s_rows, n_rows, bits=8)
+    torch.cuda.synchronize()
+    differs, _ = _differs(codes, want)
+    del want
+    ms = statistics.median(_time_ms(lambda: qk.quantize_rows(w2d, u2d, s_rows, n_rows, bits=8),
+                                    iters=10) for _ in range(3))
+    plain_ms = _time_ms(lambda: qk.quantize_rows_plain(w2d, u2d, s_rows, n_rows, bits=8),
+                        iters=2, warmup=1)
+    numbers["quantize_rows"] = _wire_numbers("quantize_rows", rows, ms, plain_ms, differs, 0.0)
+    del u2d
+    deq = qk.dequantize_rows(codes, s_rows, n_rows)
+    want = qk.dequantize_rows_plain(codes, s_rows, n_rows)
+    torch.cuda.synchronize()
+    differs, _ = _differs(deq, want)
+    max_abs = float((deq - want).abs().max())
+    del deq, want
+    ms = statistics.median(_time_ms(lambda: qk.dequantize_rows(codes, s_rows, n_rows), iters=10)
+                           for _ in range(3))
+    plain_ms = _time_ms(lambda: qk.dequantize_rows_plain(codes, s_rows, n_rows), iters=2,
+                        warmup=1)
+    numbers["dequantize_rows"] = _wire_numbers("dequantize_rows", rows, ms, plain_ms, differs,
+                                               max_abs)
+    del codes, flat, w2d
+    for name, entry in numbers.items():
+        print(f"fed wire kernel {name} {tag}: gossip payload of {FED_PAYLOAD} x {pods} pods, "
+              f"{spec.n_leaves} leaves a pod, d={spec.d} a pod ({spec.d * pods} elements, "
+              f"{rows} rows): differs={entry['differs']} max|d|={entry['max_abs_err']:.3e} "
+              f"ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
+              f"bound_ms={entry['bound_ms']:.4f} ({entry['bytes']} bytes, "
+              f"{entry['bound_by']}) = {entry['bound_ms'] / entry['ms']:.3f} of the bound")
+        if entry["differs"]:
+            _fail(f"{name} disagrees with its plain version at the gossip payload")
+    torch.cuda.empty_cache()
+    mean = [leaf.mean(0) for leaf in tree_leaves(params)]
+    for bits in (32, 8):
+        cfg = GossipConfig(quant_bits=bits)
+        offsets = len(cfg.offsets(pods))
+        qk.reset_launch_counts()
+        mixed = gossip_mix(params, cfg, generator=gen)
+        torch.cuda.synchronize()
+        launches = {k: qk.LAUNCHES[k] for k in ("quantize_rows", "dequantize_rows")}
+        others = sum(qk.LAUNCHES.values()) - sum(launches.values())
+        want_n = offsets if bits < 32 else 0
+        kept = max(float((leaf.mean(0) - m).abs().max() / m.abs().max().clamp_min(1e-30))
+                   for leaf, m in zip(tree_leaves(mixed), mean))
+        wire = gossip_wire_bits(spec, pods, cfg) / 8
+        f32 = gossip_wire_bits(spec, pods, GossipConfig()) / 8
+        print(f"fed gossip_mix {tag}: {FED_PAYLOAD} x {pods} pods ring bits={bits}: launches "
+              f"{launches} (want {want_n} each), others {others}; pod mean kept within "
+              f"{kept:.2e} of its largest magnitude; wire bytes a gossip {wire:.0f} "
+              f"({wire / f32:.4f} of float32's {f32:.0f})")
+        if launches != dict.fromkeys(launches, want_n) or others or (bits == 32 and kept > 1e-6):
+            _fail(f"gossip_mix at bits {bits}: launches {launches} or the pod mean moved {kept}")
+        del mixed
+    del params, mean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _first_pod(tree):
+    if isinstance(tree, dict):
+        return {k: _first_pod(v) for k, v in tree.items()}
+    return tree[0]
+
+
+def fed_gossip_card_vs_cpu(tag):
+    """(l0) ``gossip_mix`` stacked at SMOKE size on the card and on the CPU
+    with the same uniforms, at bits 32 (bit for bit) and 8: within one grid
+    cell times the mixing weight an offset, where a norm summed in another
+    order rounds a code the other way, on at most FED_SHARE of the elements
+    beyond 1e-6 of their leaf's largest magnitude (that norm's ulp moves
+    every element of its wire tensor by about an ulp)."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import stack_pods
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.dist.gossip import GossipConfig, gossip_mix, mixing_weights
+    from repro_torch.models import transformer as T
+
+    pods = 4
+    base = T.init_params(get_smoke("yi-6b"), torch.Generator().manual_seed(0), device="cpu")
+    on_cpu = stack_pods(base, pods, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for leaf in _leaves(on_cpu):
+        leaf.mul_(1 + 0.05 * torch.randn(leaf.shape, generator=gen))
+    on_card = _tree_to(on_cpu, "cuda")
+    shapes = [leaf.shape[1:] for leaf in tree_leaves(on_cpu)]
+
+    def uniforms(li, oi, pod):
+        g = torch.Generator().manual_seed(1000 * li + 100 * oi + pod)
+        return torch.rand(shapes[li], generator=g)
+
+    for topo in ("ring", "all"):
+        for bits in (32, 8):
+            cfg = GossipConfig(topology=topo, quant_bits=bits)
+            got = gossip_mix(on_card, cfg, uniforms=uniforms)
+            want = gossip_mix(on_cpu, cfg, uniforms=uniforms)
+            w = mixing_weights(pods, cfg)[1][1] * len(cfg.offsets(pods))
+            worst, differ, moved, total = 0.0, 0, 0, 0
+            for g_leaf, w_leaf in zip(tree_leaves(got), tree_leaves(want)):
+                d = (g_leaf.cpu() - w_leaf).abs()
+                scale = float(w_leaf.abs().max())
+                worst = max(worst, float(d.max()) / (scale / 127 * w) if bits < 32
+                            else float(d.max()))
+                differ += int((d > 0).sum())
+                moved += int((d > 1e-6 * scale).sum())
+                total += d.numel()
+            print(f"fed gossip_mix SMOKE yi-6b x {pods} pods {topo} bits={bits} {tag}: card vs "
+                  f"CPU {'max|d|' if bits == 32 else 'max|d| in grid cells x weights'} "
+                  f"{worst:.3e}; of {total} elements {differ} differ, {moved} by more than "
+                  f"1e-6 of their leaf's largest magnitude (a code rounded the other way)")
+            if (bits == 32 and differ) or worst > 1 + 1e-5 or moved > FED_SHARE * total:
+                _fail(f"gossip_mix {topo} bits {bits}: the card and the CPU disagree")
+
+
+def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag):
+    """(l1, l2) ``launch.train pod --fed`` at full width through
+    ``launch_main``: ``pods`` pods stacked on the card, float32, no remat,
+    gossip every step on the ring at ``bits``. Each step is timed (host
+    clock, synchronized), and so is its gossip (``dist.steps.mix_into``);
+    its kernel launches are counted; the last step runs under the profiler.
+    Returns ({kernel: launches over the steps}, the run's numbers)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.flatten import make_flat_spec
+    from repro_torch.dist import steps as dist_steps
+    from repro_torch.dist.gossip import GossipConfig, gossip_wire_bits
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.quantize import quantize as qk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.launch.train import main as launch_main
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch_id)
+    calls = _kernel_calls(cfg)
+    offsets = len(GossipConfig().offsets(pods))
+    wire_n = offsets if bits < 32 else 0
+    want = {"block_attn": pods * calls["block_attn"], "ssd_scan": pods * calls["ssd_scan"],
+            **dict.fromkeys(ba.BWD_LAUNCHES, pods * calls["block_attn"]),
+            **dict.fromkeys(sk.BWD_STAGES, pods * calls["ssd_scan"]),
+            "quantize_rows": wire_n, "dequantize_rows": wire_n}
+    record = {"ms": [], "gossip_ms": [], "loss": [], "launches": []}
+    real_make, real_mix = dist_steps.make_fed_train_step, dist_steps.mix_into
+
+    def timed_mix(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_mix(*args, **kw)
+        torch.cuda.synchronize()
+        record["gossip_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_make(cfg_, mesh, gossip, **kw):
+        step_fn, fed_abstract = real_make(cfg_, mesh, gossip, **kw)
+
+        def timed(params, vel, batch, step, **kw_):
+            out = None
+
+            def run():
+                nonlocal out
+                out = step_fn(params, vel, batch, step, **kw_)
+
+            for module in (ba, sk, qk):
+                module.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == steps - 1:
+                _profile(f"{cfg_.name} fed step {pods} pods {bsz}x{seq} bits={bits} {tag}", run)
+            else:
+                run()
+            torch.cuda.synchronize()
+            record["ms"].append((time.perf_counter() - t0) * 1e3)
+            record["loss"].append(float(out[2]))
+            record["launches"].append({
+                "block_attn": ba.LAUNCHES["block_attn"], "ssd_scan": sk.LAUNCHES["ssd_scan"],
+                **ba.BWD_LAUNCHES, **sk.BWD_LAUNCHES,
+                "quantize_rows": qk.LAUNCHES["quantize_rows"],
+                "dequantize_rows": qk.LAUNCHES["dequantize_rows"]})
+            return out
+
+        return timed, fed_abstract
+
+    dist_steps.make_fed_train_step, dist_steps.mix_into = timed_make, timed_mix
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            launch_main(["pod", "--arch", arch_id, "--fed", "--pods", str(pods), "--batch",
+                         str(bsz), "--seq", str(seq), "--steps", str(steps), "--bits", str(bits),
+                         "--gossip-every", "1"])
+    finally:
+        dist_steps.make_fed_train_step, dist_steps.mix_into = real_make, real_mix
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    printed = out.getvalue().strip().splitlines()
+    print("\n".join(f"  launcher: {line}" for line in printed))
+    spread = float(printed[-1].split("=")[1].rstrip(")"))
+    spec = make_flat_spec(T.abstract_params(cfg, torch.float32))
+    wire = gossip_wire_bits(spec, pods, GossipConfig(quant_bits=bits)) / 8
+    f32 = gossip_wire_bits(spec, pods, GossipConfig()) / 8
+    step_ms = statistics.median(record["ms"][1:-1] or record["ms"][1:])
+    gossip_ms = statistics.median(record["gossip_ms"][1:])
+    n_front = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    tokens = pods * bsz * (seq + n_front)
+    print(f"{cfg.name} train pod --fed {tag}: --pods {pods} --batch {bsz} --seq {seq} --steps "
+          f"{steps} --bits {bits} --gossip-every 1 (ring, {offsets} offsets; n_layers "
+          f"{cfg.n_layers}{f', {n_front} stub embeddings' if n_front else ''}; float32, no "
+          f"remat, TF32 off): ms/step median after the first={step_ms:.2f} "
+          f"all={[round(x, 2) for x in record['ms']]} (the last profiled) gossip ms median "
+          f"after the first={gossip_ms:.3f} all={[round(x, 3) for x in record['gossip_ms']]} "
+          f"training tokens/s={tokens / step_ms * 1e3:.1f} losses="
+          f"{[round(x, 5) for x in record['loss']]} inter-pod spread={spread} wire bytes a "
+          f"gossip={wire:.0f} ({wire / f32:.4f} of float32's {f32:.0f}) "
+          f"peak_memory_allocated={peak} bytes; launcher wall {wall:.1f}s; launches a step "
+          f"{record['launches'][0]} (want {want})")
+    if (not all(math.isfinite(x) for x in record["loss"]) or len(record["ms"]) != steps
+            or any(lc != want for lc in record["launches"]) or not math.isfinite(spread)):
+        _fail(f"train pod --fed {arch_id} bits {bits}: losses {record['loss']} or launches "
+              f"{record['launches']} (want {want} a step)")
+    counted = {k: sum(lc[k] for lc in record["launches"]) for k in want}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted, {"ms_per_step": step_ms, "gossip_ms": gossip_ms, "wire_bytes": wire,
+                     "float32_wire_bytes": f32, "peak_bytes": peak, "spread": spread,
+                     "tokens_per_s": tokens / step_ms * 1e3}
+
+
+def fed_scheduled_phase(tag):
+    """(l3) The scheduled federated step driven by ``gossip_flags()`` of a
+    short trace recorded by the port's simulator on the card. On the CPU,
+    with its deterministic kernels, it equals the static step of period
+    k_walk bit for bit. On the card it gossips at the same steps as the
+    static step, and both are held against the CPU: losses within
+    TRAIN_LOSS_TOL, each leaf within TRAIN_TOL of its largest magnitude plus
+    a grid cell a gossip offset where a wire code rounded the other way
+    (at most FED_SHARE of the elements beyond TRAIN_TOL). Two card runs are
+    not bit for bit: B9b's dB/dC and B10b's dQ add by float32 atomics in
+    run-to-run order."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.convert import stack_pods
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.dist import GossipConfig, make_fed_train_step, mixing_weights
+    from repro_torch.dist import steps as dist_steps
+    from repro_torch.launch.mesh import make_pod_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import momentum_init
+    from repro_torch.sim import build_scenario
+
+    setup = build_scenario("straggler_tail", n=12, seed=0, bits=8)
+    trace = setup.runner(device="cuda").run(
+        FED_TRACE_WINDOWS, torch.Generator().manual_seed(0), record=True).trace
+    flags = trace.gossip_flags()
+    k = trace.header["k_walk"]
+    cfg, pods = get_smoke(FED_SMOKE), FED_SMOKE_PODS
+    gossip = GossipConfig(every=k, quant_bits=8)
+    base = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab, size=(pods, 2, 65)) for _ in flags]
+    real_mix = dist_steps.mix_into
+
+    def run(device, scheduled):
+        dev = torch.device(device)
+        step_fn, _ = make_fed_train_step(cfg, make_pod_mesh(pods, device=dev), gossip,
+                                         lr_r=20.0, remat=False, scheduled=scheduled)
+        params = stack_pods(base, pods, dev)
+        vel = momentum_init(params).velocity
+        shapes = [leaf.shape[1:] for leaf in tree_leaves(params)]
+        losses, gossiped = [], []
+
+        def counted(*args, **kw):
+            gossiped[-1] = True
+            return real_mix(*args, **kw)
+
+        dist_steps.mix_into = counted
+        try:
+            for step, (toks, flag) in enumerate(zip(batches, flags)):
+                def uniforms(li, oi, pod, step=step):
+                    g = torch.Generator().manual_seed(10 ** 6 * step + 1000 * li + 100 * oi + pod)
+                    return torch.rand(shapes[li], generator=g)
+                batch = {"tokens": torch.as_tensor(toks[..., :-1], device=dev),
+                         "labels": torch.as_tensor(toks[..., 1:], device=dev)}
+                gossiped.append(False)
+                extra = (bool(flag),) if scheduled else ()
+                params, vel, loss = step_fn(params, vel, batch, step, *extra, uniforms=uniforms)
+                losses.append(float(loss))
+        finally:
+            dist_steps.mix_into = real_mix
+        return losses, params, gossiped
+
+    def held(got, want):
+        """(losses rel, the largest leaf's share of its bound, elements beyond TRAIN_TOL,
+        elements)."""
+        loss_r = max(abs(a - b) / abs(b) for a, b in zip(got[0], want[0]))
+        worst, moved, total = 0.0, 0, 0
+        for g, w in zip(tree_leaves(got[1]), tree_leaves(want[1])):
+            d = (g.cpu() - w.cpu()).abs()
+            scale = float(w.abs().max())
+            worst = max(worst, float(d.max()) / (TRAIN_TOL * scale + per_cell * scale / 127))
+            moved += int((d > TRAIN_TOL * scale).sum())
+            total += d.numel()
+        return loss_r, worst, moved, total
+
+    per_cell = int(flags.sum()) * len(gossip.offsets(pods)) * mixing_weights(pods, gossip)[1][1]
+    torch.use_deterministic_algorithms(True)
+    try:
+        cpu_sched, cpu_static = run("cpu", True), run("cpu", False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    card_sched, card_static = run("cuda", True), run("cuda", False)
+    cpu_equal = cpu_sched[0] == cpu_static[0] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(cpu_sched[1]), tree_leaves(cpu_static[1])))
+    same_steps = (card_sched[2] == card_static[2] == cpu_sched[2] == cpu_static[2]
+                  == [bool(f) for f in flags])
+    checks = {"card scheduled vs CPU": held(card_sched, cpu_sched),
+              "card static vs CPU": held(card_static, cpu_sched),
+              "card scheduled vs card static": held(card_sched, card_static)}
+    print(f"fed scheduled {tag}: {FED_SMOKE} SMOKE x {pods} pods, bits 8, {len(flags)} steps on "
+          f"gossip_flags() of {FED_TRACE_WINDOWS} windows recorded on the card (k_walk {k}, "
+          f"gossips at steps {[i for i, f in enumerate(flags) if f]}): scheduled == static "
+          f"every {k} on the CPU bit for bit: {cpu_equal}; the same gossip steps on both "
+          f"devices: {same_steps}; " + "; ".join(
+              f"{label}: losses rel {r:.2e}, leaves at most {w:.3f} of their bound, {m} of {t} "
+              f"beyond TRAIN_TOL" for label, (r, w, m, t) in checks.items()))
+    if not (cpu_equal and same_steps) or any(
+            r > TRAIN_LOSS_TOL or w > 1 or m > FED_SHARE * t for r, w, m, t in checks.values()):
+        _fail("the scheduled federated step disagrees with the static one or with the CPU")
+
+
+def fed_phase(smi):
+    """(l) The DFedRW pod deployment: B5/B6 at the gossip payload and
+    ``gossip_mix`` on the card (l0), ``launch.train pod --fed`` at full
+    width for FED_RUNS (l1: mamba2-130m, l2: internvl2-1b), the scheduled
+    step (l3). Returns (the B5/B6 numbers at the payload, {path: {kernel:
+    launches}}, {run: numbers})."""
+    tag = f"[{smi}]"
+    payload = fed_wire_phase(tag)
+    fed_gossip_card_vs_cpu(tag)
+    by_path, runs = {}, {}
+    for arch_id, pods, bsz, seq, steps, bits_list in FED_RUNS:
+        for bits in bits_list:
+            label = f"{arch_id} train pod --fed bits {bits}"
+            by_path[label], runs[label] = fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag)
+    fed_scheduled_phase(tag)
+    return payload, by_path, runs
+
+
 def _ptxas_report(log):
     """(kernel, registers, spill store bytes, spill load bytes) for each
     entry function of an ``-Xptxas -v`` report."""
@@ -3920,14 +4358,26 @@ def main() -> int:
             if counts[kernel]:
                 paths[f"{arch} train smoke"] = counts[kernel]
                 by_path[f"{arch} train smoke"] = counts[bwd]
-    for arch, (counted, _) in pods.items():
+    payload, fed_by_path, fed_runs = fed_phase(smi)                 # (l)
+    elapsed("fed pods")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pod_paths = {f"{arch} train pod": counted for arch, (counted, _) in pods.items()}
+    for path, counted in {**pod_paths, **fed_by_path}.items():
         for kernel, paths, by_path, bwd in (("block_attn", attn_by_path, bwd_by_path["attn"],
                                              "attn_bwd_dkdvq"),
                                             ("ssd_scan", ssd_by_path, bwd_by_path["ssd"],
                                              "bwd_chunk_dc")):
             if counted[kernel]:
-                paths[f"{arch} train pod"] = counted[kernel]
-                by_path[f"{arch} train pod"] = counted[bwd]
+                paths[path] = counted[kernel]
+                by_path[path] = counted[bwd]
+    for name, numbers in payload.items():
+        fed = {path: counted[name] for path, counted in fed_by_path.items()}
+        wire[name]["launches_by_path"] = {"wire path": wire[name]["launches"], **fed}
+        wire[name]["launches"] += sum(fed.values())
+        wire[name]["gossip_payload"] = {key: numbers[key] for key in ("rows", "ms", "bound_ms",
+                                                                      "plain_ms")}
+    print(f"fed pods summary [{smi}]: {json.dumps(fed_runs)}")
     for entry, cases, main_case, by_path, kernels in (
             (attn, bwd_attn, "yi-6b layer 0", bwd_by_path["attn"], ", ".join(ba.BWD_LAUNCHES)),
             (ssd, bwd_ssd, "mamba2-130m layer", bwd_by_path["ssd"], ", ".join(sk.BWD_STAGES))):

@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "flat_from_numpy", "lm_params_from_numpy"]
+__all__ = ["params_from_numpy", "flat_from_numpy", "lm_params_from_numpy", "stack_pods"]
 
 
 def params_from_numpy(params, device: str | torch.device = "cuda") -> list:
@@ -49,5 +49,23 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         return _leaf(np.asarray(node)).to(dev)
+
+    return conv(tree)
+
+
+def stack_pods(tree, g: int, device: str | torch.device = "cuda"):
+    """One model (numpy arrays, as :func:`lm_params_from_numpy` takes them,
+    or tensors) -> the federated tree of ``g`` pods on ``device``: each leaf
+    copied ``g`` times along a new leading pod dimension, in its own dtype,
+    as the reference's ``jnp.broadcast_to(l, (g, *l.shape)).copy()``."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        leaf = node if torch.is_tensor(node) else _leaf(np.asarray(node))
+        return leaf.to(dev).unsqueeze(0).repeat(g, *([1] * leaf.dim()))
 
     return conv(tree)

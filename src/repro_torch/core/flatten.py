@@ -32,6 +32,7 @@ __all__ = [
     "FlatSpec",
     "make_flat_spec",
     "tree_leaves",
+    "tree_from_leaves",
     "flatten_tree",
     "unflatten_tree",
     "elect_writers",
@@ -65,6 +66,12 @@ def _rebuild(structure: Any, leaves) -> Any:
     if isinstance(structure, (list, tuple)):
         return type(structure)(_rebuild(sub, leaves) for sub in structure)
     return next(leaves)
+
+
+def tree_from_leaves(spec: "FlatSpec", leaves) -> Any:
+    """The tree of ``spec``'s nesting whose leaves, in sorted-key order,
+    are ``leaves``."""
+    return _rebuild(spec.structure, iter(leaves))
 
 
 @dataclasses.dataclass(frozen=True)

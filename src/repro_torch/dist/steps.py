@@ -1,5 +1,6 @@
-"""Step builders of one device, the port of ``repro.dist.steps``'s
-``make_train_step``, ``make_serve_step`` and ``make_prefill_step``.
+"""Step builders, the port of ``repro.dist.steps``: ``make_train_step``,
+``make_serve_step``, ``make_prefill_step``, and the DFedRW pod deployment's
+``make_gossip_step`` and ``make_fed_train_step``.
 
 ``make_train_step``'s ``step_fn(params, vel, batch, step)`` takes the
 gradient of ``T.loss_fn`` (autograd; on the card through the backward
@@ -15,22 +16,33 @@ variant serves only ``launch/dryrun.py``, which is not ported) and
 (``T.prefill_chunk``). Both run in the parameters' and the cache's dtype,
 float32 or bf16, and return logits in it.
 
-There is no mesh and no ``p_specs``: the model, its gradients, its
-velocity and the cache live on one device, so each builder returns its
-step alone. Sharding (``param_specs``, ``cache_specs``,
-``serve_arg_specs``), and the federated step built on the train step's
-pieces (``make_fed_train_step``), are ROADMAP.md queue A, item 11.
+``make_gossip_step`` and ``make_fed_train_step`` run G pods, each with its
+own model, on the pod mesh of ``launch.mesh.make_pod_mesh``: stacked on one
+device (every leaf with a leading pod dimension, the reference's global
+view of its fed tree) or one pod a rank of a ``torch.distributed`` group.
+Each pod takes a local step of ``make_train_step``'s body on its own batch
+(no cross-pod traffic), and the pods gossip-average every ``gossip.every``
+steps (``dist.gossip``, quantized through the int8 wire kernels at
+``quant_bits < 32``).
+
+There is no ``p_specs``: a model, its gradients and its velocity live
+whole on one device, so each builder returns its step (and the fed tree's
+shapes) alone. Sharding a model over devices (``param_specs``,
+``cache_specs``, a pod with a data axis) is ROADMAP.md queue A, item 11b.
 """
 from __future__ import annotations
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+import torch.distributed as dist
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from repro_torch.dist.gossip import GossipConfig, mix_into
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.sgd import decreasing_lr, momentum_sgd
 
-__all__ = ["make_train_step", "make_serve_step", "make_prefill_step"]
+__all__ = ["make_train_step", "make_serve_step", "make_prefill_step", "make_gossip_step",
+           "make_fed_train_step"]
 
 
 def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
@@ -81,3 +93,82 @@ def make_prefill_step(cfg: ArchConfig):
         return T.prefill_chunk(cfg, params, cache, tokens, positions, n_valid)
 
     return prefill_fn
+
+
+def make_gossip_step(cfg: ArchConfig, mesh, gossip: GossipConfig, *,
+                     dtype=torch.float32):
+    """Cross-pod decentralized averaging of the pods' models.
+
+    Returns (gstep, fed_abstract): ``gstep(params, *, uniforms=None,
+    generator=None)`` mixes ``params`` in place with the doubly stochastic
+    ``dist.gossip.mixing_weights`` (the mean over the pods is preserved) and
+    returns them. ``params`` stacks one model a pod along a leading dimension
+    on ``mesh.device``, or is this rank's pod when ``mesh.group`` is a
+    process group. ``uniforms(li, oi, pod)`` or ``generator`` feed the
+    stochastic quantizer when ``gossip.quant_bits < 32``. ``fed_abstract``
+    is the stacked tree on the meta device: ``(pods, ...)`` of each leaf of
+    ``T.abstract_params(cfg, dtype)``."""
+    fed_abstract = tree_map(lambda l: torch.empty((mesh.pods, *l.shape), dtype=l.dtype,
+                                                  device="meta"),
+                            T.abstract_params(cfg, dtype))
+
+    def gstep(params, *, uniforms=None, generator=None):
+        return mix_into(params, gossip, group=mesh.group, uniforms=uniforms,
+                        generator=generator)
+
+    return gstep, fed_abstract
+
+
+def make_fed_train_step(cfg: ArchConfig, mesh, gossip: GossipConfig, *,
+                        lr_r: float = 5.0, beta: float = 0.9, remat: bool = True,
+                        dtype=torch.float32, scheduled: bool = False):
+    """The DFedRW pod deployment: ``step_fn(params, vel, batch, step, *,
+    uniforms=None, generator=None) -> (params, vel, mean_loss)``; returns
+    (step_fn, fed_abstract).
+
+    Stacked on one device, ``params``, ``vel`` and ``batch`` carry a
+    leading pod dimension; in a process group they are this rank's pod's.
+    Every step runs an independent local momentum-SGD step per pod, the
+    body of :func:`make_train_step` on the pod's views ``{leaf[i]}`` (one
+    pod after another: ``torch.func.vmap`` does not pass through the
+    kernels' autograd Functions), at ``decreasing_lr(step + 1, r=lr_r)``
+    for every pod; the loss is the mean of the pods' losses. Every
+    ``gossip.every``-th step the pods then gossip-average in place
+    (quantized when ``quant_bits < 32``, with ``uniforms`` or
+    ``generator``).
+
+    ``scheduled=True`` builds the trace-driven variant ``step_fn(params,
+    vel, batch, step, do_gossip, *, uniforms=None, generator=None)``: the
+    pods gossip when ``do_gossip`` (a host bool, one element of
+    ``SimTrace.gossip_flags()`` a step) is true, and ``gossip.every`` is
+    ignored."""
+    gstep, fed_abstract = make_gossip_step(cfg, mesh, gossip, dtype=dtype)
+    local = make_train_step(cfg, lr_r=lr_r, beta=beta, remat=remat)
+    every = max(int(gossip.every), 1)
+
+    def local_loss(params, vel, batch, step):
+        """Each pod's local step, in place; the mean of the pods' losses."""
+        if mesh.group is not None:
+            loss = local(params, vel, batch, step)[2].reshape(1)
+            losses = [torch.empty_like(loss) for _ in range(mesh.pods)]
+            dist.all_gather(losses, loss, group=mesh.group)
+        else:
+            losses = [local(*(tree_map(lambda l: l[i], tree) for tree in (params, vel, batch)),
+                            step)[2].reshape(1)
+                      for i in range(mesh.pods)]
+        return torch.cat(losses).mean()
+
+    def scheduled_fn(params, vel, batch, step, do_gossip, *, uniforms=None, generator=None):
+        loss = local_loss(params, vel, batch, step)
+        if do_gossip:
+            gstep(params, uniforms=uniforms, generator=generator)
+        return params, vel, loss
+
+    if scheduled:
+        return scheduled_fn, fed_abstract
+
+    def step_fn(params, vel, batch, step, *, uniforms=None, generator=None):
+        return scheduled_fn(params, vel, batch, step, (int(step) + 1) % every == 0,
+                            uniforms=uniforms, generator=generator)
+
+    return step_fn, fed_abstract

@@ -18,11 +18,12 @@ Two timeline engines share this window protocol: the per-event heap loop
 (fleet.py, ``SimConfig(engine="fleet")``). Both are numpy copies of the
 reference's, bit-identical timelines.
 
-The reference's live executor (``repro.sim.metal``: ``MetalReplay``,
-``MetalResult``, ``MetalConformanceError``, ``FaultInjector``,
-``LocalExchange``, ``conformance_diff``) and the trace's deployment export
-(``WindowSchedule``) are not ported here: they come with the sharded path
-of ROADMAP.md A11.
+The trace's deployment export (``WindowSchedule``, ``SimTrace.schedule``,
+``SimTrace.gossip_flags``) is here: the flags drive the scheduled federated
+step of ``repro_torch.dist``. The reference's live executor
+(``repro.sim.metal``: ``MetalReplay``, ``MetalResult``,
+``MetalConformanceError``, ``FaultInjector``, ``LocalExchange``,
+``conformance_diff``) and ``launch/replay.py`` are ROADMAP.md A11c.
 """
 from repro_torch.sim.adapt import (
     DEFAULT_WIDTHS,
@@ -59,6 +60,7 @@ from repro_torch.sim.trace import (
     TraceFormatError,
     TraceIntegrityError,
     TraceSchemaError,
+    WindowSchedule,
     WindowTrace,
 )
 
@@ -74,7 +76,7 @@ __all__ = [
     "SCENARIOS", "SimScenario", "SimSetup", "build_scenario", "get_scenario",
     "list_scenarios", "partitioned_topology", "register_scenario",
     "TRACE_SCHEMA", "TRACE_SCHEMA_VERSION", "TRACE_COMPAT_VERSIONS",
-    "SimTrace", "WindowTrace",
+    "SimTrace", "WindowTrace", "WindowSchedule",
     "TraceError", "TraceFormatError", "TraceSchemaError",
     "TraceIntegrityError",
 ]

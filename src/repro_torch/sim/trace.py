@@ -12,8 +12,11 @@ deployment-independent *schedule*.
 
 The port's copy of ``repro.sim.trace``: the same schema name and versions,
 so a trace recorded by either package loads and replays in the other. The
-reference's deployment export (``WindowSchedule``, ``SimTrace.schedule``,
-``SimTrace.gossip_flags``) comes with its live executor (ROADMAP.md A11).
+deployment export is here too: ``SimTrace.schedule`` (per-window
+``WindowSchedule`` plans) and ``SimTrace.gossip_flags``, which drives the
+scheduled federated step (``dist.make_fed_train_step(scheduled=True)``).
+The reference's live executor, which consumes the schedule, is ROADMAP.md
+A11c.
 
 JSONL schema (version 2)
 ------------------------
@@ -84,6 +87,7 @@ __all__ = [
     "TraceSchemaError",
     "TraceIntegrityError",
     "WindowTrace",
+    "WindowSchedule",
     "SimTrace",
     "make_header",
 ]
@@ -231,6 +235,71 @@ class WindowTrace:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class WindowSchedule:
+    """One window of a trace compiled into a deployment-ready plan.
+
+    ``SimTrace.schedule()`` exports these: the per-window arrays of the
+    recorded :class:`WindowTrace` plus everything a live executor needs
+    resolved up front — the effective wire width (v1 windows inherit the
+    header's static width), the cumulative global step ``kbar0`` the lr
+    schedule continues from, and the header shape constants. Shapes are
+    fixed across windows ((M, K) trajectories, padded aggregation plans), so
+    one compiled program executes the whole schedule. The reference's live
+    executor (``repro.sim.metal``, ROADMAP.md A11c) consumes this; the
+    fault-injection views (``stalled``,
+    ``dead_aggregators``) re-derive the sim's churn/straggler timeline so a
+    live run can reproduce — and verify — the same Eq. 11/14 degradation.
+    """
+
+    round: int
+    n: int                      # fleet size (header)
+    kbar0: int                  # global step count before this window (lr)
+    bits: int                   # effective wire width this window runs at
+    t_start: float
+    t_compute_end: float
+    t_end: float
+    events: int
+    devices: np.ndarray         # (M, K)
+    exec_mask: np.ndarray       # (M, K) steps the engine executed
+    account_mask: np.ndarray    # (M, K) steps Eq. 18 charges
+    timestamps: np.ndarray      # (M, K) completion instants (NaN = never)
+    bidx: np.ndarray            # (M, K, B)
+    agg_devices: np.ndarray     # (A,)  ids >= n are dropped by the scatter
+    agg_rows: np.ndarray        # (A, n_agg)
+    agg_weights: np.ndarray     # (A, n_agg) float32
+    k_planned: np.ndarray       # (M,)
+    k_done: np.ndarray          # (M,) lifetime completed steps
+    killed: np.ndarray          # (M,) churn kills
+    resumed: np.ndarray         # (M,) chains spanning past the trigger
+
+    @property
+    def m_chains(self) -> int:
+        return int(self.devices.shape[0])
+
+    @property
+    def k_exec(self) -> np.ndarray:
+        """(M,) steps each chain actually executed this window."""
+        return self.exec_mask.sum(axis=1).astype(np.int32)
+
+    @property
+    def stalled(self) -> np.ndarray:
+        """(M,) bool — chains the recorded timeline cut short (churn-killed
+        or deadline-truncated): the fault injector's stall set."""
+        return np.asarray(self.killed) | (
+            np.asarray(self.k_done) < np.asarray(self.k_planned))
+
+    @property
+    def dead_aggregators(self) -> np.ndarray:
+        """Original device ids of aggregators that were churned out when the
+        trigger fired. The runner redirects a down aggregator's scatter id
+        out of range as ``n + M + id`` (see ``_drop_down_aggregators``); this
+        inverts that encoding."""
+        ids = np.asarray(self.agg_devices)
+        oob = ids >= self.n + self.m_chains
+        return (ids[oob] - self.n - self.m_chains).astype(np.int32)
+
+
 @dataclasses.dataclass
 class SimTrace:
     """Header + per-window records; JSONL on disk (one object per line)."""
@@ -357,6 +426,43 @@ class SimTrace:
             if w.bits is not None and not (1 <= int(w.bits) <= 32):
                 raise bad(i, w, f"window bits {w.bits} outside [1, 32]")
         return self
+
+    def schedule(self) -> list["WindowSchedule"]:
+        """Compile the trace into per-window fixed-shape deployment plans
+        (validates first — a corrupted trace raises instead of exporting).
+        This is the contract between the simulator and the live executors
+        (the reference's ``repro.sim.metal`` and ``launch/replay.py``,
+        ROADMAP.md A11c)."""
+        self.validate()
+        h, k_walk = self.header, self.header["k_walk"]
+        out, kbar0 = [], 0
+        for w in self.windows:
+            out.append(WindowSchedule(
+                round=w.round, n=h["n"], kbar0=kbar0,
+                bits=h["bits"] if w.bits is None else int(w.bits),
+                t_start=w.t_start, t_compute_end=w.t_compute_end,
+                t_end=w.t_end, events=w.events, devices=w.devices,
+                exec_mask=w.exec_mask, account_mask=w.account_mask,
+                timestamps=w.timestamps, bidx=w.bidx,
+                agg_devices=w.agg_devices, agg_rows=w.agg_rows,
+                agg_weights=w.agg_weights, k_planned=w.k_planned,
+                k_done=w.k_done, killed=w.killed, resumed=w.resumed))
+            kbar0 += k_walk   # execute_round advances global_step by k_walk
+        return out
+
+    def gossip_flags(self) -> np.ndarray:
+        """(windows * k_walk,) bool — True at each window's final local
+        step, i.e. the steps where the recorded timeline fired an
+        aggregation trigger. This is the bridge onto the pod deployment:
+        feed it to a schedule-driven ``make_fed_train_step`` (dist/steps.py,
+        ``scheduled=True``) so the pods gossip exactly when the simulated
+        fleet aggregated."""
+        self.validate()
+        k = self.header["k_walk"]
+        flags = np.zeros(len(self.windows) * k, dtype=bool)
+        if k:
+            flags[k - 1::k] = True
+        return flags
 
     def save(self, path: str) -> None:
         with open(path, "w") as f:

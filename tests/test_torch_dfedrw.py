@@ -169,5 +169,7 @@ def test_launcher_cpu_round(capsys):
           "--devices", "8", "--chains", "2", "--epochs", "2"])
     out = capsys.readouterr().out
     assert "round    1" in out and "final:" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["pod", "--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--fed"])
+    main(["pod", "--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--fed", "--steps", "1",
+          "--batch", "1", "--seq", "32"])
+    out = capsys.readouterr().out
+    assert "fed pod mode: 1 pods" in out and "done (inter-pod param spread=0.00000)" in out

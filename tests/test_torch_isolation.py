@@ -235,6 +235,62 @@ def test_port_trains_without_jax():
     assert "ok" in proc.stdout and "done" in proc.stdout
 
 
+def test_port_runs_the_pod_deployment_without_jax():
+    """The pod deployment (``dist.gossip``, the fed step, ``launch.mesh``,
+    ``launch.train pod --fed``, ``convert.stack_pods``) and the trace's
+    deployment export on the CPU with imports of jax and repro refused."""
+    proc = _run("""
+        import sys
+        import torch
+        from repro_torch.configs import get_smoke
+        from repro_torch.convert import stack_pods
+        from repro_torch.dist import GossipConfig, gossip_mix, make_fed_train_step
+        from repro_torch.launch.mesh import make_pod_mesh
+        from repro_torch.launch.train import main
+        from repro_torch.models import transformer as T
+        from repro_torch.optim import momentum_init
+        from repro_torch.sim import WindowSchedule, build_scenario
+
+        cfg = get_smoke("yi-6b")
+        params = stack_pods(T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+                            2, device="cpu")
+        mixed = gossip_mix(params, GossipConfig(quant_bits=8),
+                           generator=torch.Generator().manual_seed(1))
+        step_fn, _ = make_fed_train_step(cfg, make_pod_mesh(2, device=torch.device("cpu")),
+                                         GossipConfig(quant_bits=8), remat=False)
+        toks = torch.randint(0, cfg.vocab, (2, 1, 17), generator=torch.Generator().manual_seed(2))
+        params, vel, loss = step_fn(params, momentum_init(params).velocity,
+                                    {"tokens": toks[..., :-1], "labels": toks[..., 1:]}, 0,
+                                    generator=torch.Generator().manual_seed(3))
+        assert torch.isfinite(loss)
+        res = build_scenario("straggler_tail", n=8, seed=0).runner(device="cpu").run(
+            1, torch.Generator().manual_seed(0), record=True)
+        assert isinstance(res.trace.schedule()[0], WindowSchedule)
+        assert res.trace.gossip_flags().sum() == 1
+        main(["pod", "--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--fed", "--pods",
+              "2", "--bits", "8", "--steps", "1", "--batch", "1", "--seq", "32"])
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ok" in proc.stdout and "inter-pod param spread" in proc.stdout
+
+
+def test_pod_deployment_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the CUDA default is valid here")
+    import numpy as np
+
+    from repro_torch.convert import stack_pods
+    from repro_torch.launch.train import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["pod", "--arch", "mamba2-130m", "--smoke", "--fed", "--pods", "2", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stack_pods({"embed": np.zeros((2, 2), np.float32)}, 2)
+
+
 def test_port_serves_without_jax():
     """The serving slice (``repro_torch.serve``, ``launch.serve``,
     ``transformer.prefill_chunk``, ``dist``'s serve and prefill steps) on the

@@ -40,7 +40,8 @@ Contracts, with their tolerances:
   the parameters and velocity after three steps within ``STEP_TOL`` of each
   leaf's largest magnitude;
 - ``launch.train pod --device cpu --smoke`` prints a finite loss a step and
-  ``done``; ``pod --fed`` raises, citing ROADMAP.md A11.
+  ``done``; ``pod --fed`` prints a loss a step and the inter-pod spread
+  (held against the reference in ``tests/test_torch_fed.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -418,5 +419,8 @@ def test_pod_launcher_on_the_cpu(capsys):
     for i, line in enumerate(lines[:2]):
         assert line.startswith(f"step {i:3d} loss=")
         assert np.isfinite(float(line.split("loss=")[1].split()[0]))
-    with pytest.raises(NotImplementedError, match="A11"):
-        main(["pod", "--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--fed"])
+    main(["pod", "--arch", "mamba2-130m", "--smoke", "--device", "cpu", "--fed", "--pods", "2",
+          "--steps", "1", "--batch", "1", "--seq", "32"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("fed pod mode: 2 pods") and lines[1].startswith("step   0 loss=")
+    assert lines[-1].startswith("done (inter-pod param spread=")
