@@ -154,7 +154,16 @@ or of the JAX package ``repro``. Phases, in order:
    8: ms a step and a gossip, wire bytes, peak memory, the launches a step
    (B9/B9b 24 a pod, B10/B10b 24 a pod, B5/B6 one an offset), a profiled
    step; the scheduled step on ``gossip_flags()`` of a trace recorded on the
-   card, against the static step and the CPU; (j) serving, see
+   card, against the static step and the CPU; (m) the sim-to-metal
+   deployment, see :func:`metal_phase`: traces of ``straggler_tail`` (n =
+   100, bits 32 and 8) and ``churn_dropout`` recorded on the card and
+   replayed by ``MetalReplay`` in process (one position bit for bit, five
+   within the chain-slice bound or the quantization band, the faults
+   verified, B1 and B2 on the first quantized window's payloads), by
+   ``launch.replay --processes 2 --check`` (two workers on the card, equal
+   digests, fp32 bit for bit), and ``fleet_metro`` at n = 100,000 (bits 8,
+   2 windows) by two workers with ``--fault-inject``: ms a window, the
+   exchange's ms and bytes, peak memory, conformance; (j) serving, see
    :func:`serve_smoke_phase` and :func:`serve_phase`: the SMOKE
    ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
@@ -165,7 +174,7 @@ or of the JAX package ``repro``. Phases, in order:
    runs with nothing wrapped: gen and total tokens/s, TTFT, TPOT and their
    spread, the counters, peak memory, B10's launches (24 an admission, 24
    a prefill chunk and a decode step for Seamless); then, in a run that is
-   not timed, the two shortest requests against ``sequential_reference`` token for token (a
+   not timed, the shortest request against ``sequential_reference`` token for token (a
    near-tie aside), B10 held on the engine's first call of each serve mode
    (encoder, prefill cross at Lq = chunk, decode cross), and the idle
    share of a profiled window of engine steps; (f)
@@ -204,8 +213,9 @@ or of the JAX package ``repro``. Phases, in order:
    ``backward`` object: its kernels' ms, bound, plain and library ms at the
    main shape, its launches on each training path and every case of (g));
    ``quantize_rows`` and ``dequantize_rows`` with their launches on the
-   wire path and on each fed run, and their numbers at the gossip payload),
-   and last the device line.
+   wire path and on each fed run, and their numbers at the gossip payload;
+   B1 and B2 with their launches on the metal paths, in process and in the
+   workers), and last the device line.
 
 The four kernel sources are built at the start, one ``nvcc`` each, in
 parallel. Each phase ends with an ``elapsed after ...`` line.
@@ -220,6 +230,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -284,6 +295,13 @@ SIM_ADAPTIVE_WINDOWS = 6
 SIM_CROSS_N = (200, 1_000)
 SIM_FLEET_N = 100_000
 SIM_FLEET_WINDOWS = 2
+METAL_N = 100                  # (m1), (m2): straggler_tail and churn_dropout at n = 100
+METAL_WINDOWS = 4
+METAL_POSITIONS = 5            # one chain a position at M = 5 (two would run as one)
+METAL_KEY = 7
+METAL_FLEET_N = 100_000        # (m3): fleet_metro as sim (c)
+METAL_FLEET_WINDOWS = 2
+METAL_TOLERANCE = 4.0          # bits < 32: x the simulator's spread under other seed words
 SIM_RECORD_FIELDS = ("round", "t_start", "t_compute_end", "t_end", "events", "k_planned",
                      "k_done", "k_exec", "killed", "agg_latency_s", "resumed", "bits")
 SPIN_CYCLES = 200_000_000      # ~0.1 s at the H100's clock: longer than queuing a timing loop
@@ -423,7 +441,7 @@ SERVE_RUNS = [("seamless-m4t-large-v2", 16, 8, 256, 64, 64, 0.5),
 # Seamless 24 + 24 -> 6 + 6; the script stays inside its time limit.
 SERVE_F32_DEPTH_CUT = 4
 SERVE_SMOKE = ("mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-lite-16b")
-SERVE_VERIFIED = 2
+SERVE_VERIFIED = 1             # cut from 2 when phase (m) came: the script's time limit
 SERVE_TIMED = 3
 SERVE_WARM_STEPS, SERVE_PROFILED_STEPS = 8, 16
 # The bf16 slice (launch.serve --full's dtype): a bf16 forward is held against
@@ -3990,6 +4008,247 @@ def fed_scheduled_phase(tag):
         _fail("the scheduled federated step disagrees with the static one or with the CPU")
 
 
+def _launcher_lines(cmd, label, timeout):
+    """Run a launcher of the port (``python -m ...``) in a process of its own
+    from this checkout's root with this checkout's ``src`` first on its
+    path; echo its output; fail on a non-zero exit. Returns its stdout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(root, "src")] + [
+        p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *cmd], cwd=root, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"{label}: {line}")
+    print(f"{label}: exit {proc.returncode} in {wall:.1f} s")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        _fail(f"{label}: exit code {proc.returncode}")
+    return proc.stdout
+
+
+def _metal_replay_run(trace_path, extra, label, want_launches, tag, timeout=600):
+    """``python -m repro_torch.launch.replay --trace T --processes 2 --check``
+    (and ``extra``) on the card: both workers share it. Fails unless it
+    exits 0, both ranks print equal digests, the conformance check passes
+    and each rank's launches (its own process, counted from 0, before the
+    check) are ``want_launches``. Returns {rank: timing}, the conformance
+    line and the fault lines."""
+    out = _launcher_lines(["repro_torch.launch.replay", "--trace", trace_path, "--processes",
+                           "2", "--check", *extra], f"metal {tag} {label}", timeout)
+    digests = dict(re.findall(r"metal\[(\d)\]: shards agree digest=(\w+)", out))
+    timing = {int(r): json.loads(t) for r, t in re.findall(r"metal\[(\d)\]: timing (.*)", out)}
+    conform = [ln for ln in out.splitlines() if ln.startswith("conformance:")]
+    if sorted(digests) != ["0", "1"] or len(set(digests.values())) != 1:
+        _fail(f"metal {label}: the ranks' digests differ or are missing: {digests}")
+    if len(conform) != 1 or not conform[0].endswith("-> OK"):
+        _fail(f"metal {label}: conformance {conform}")
+    for rank, t in timing.items():
+        if want_launches is not None and t["launches"] != want_launches:
+            _fail(f"metal {label}: rank {rank} launched {t['launches']}, want {want_launches}")
+    if sorted(timing) != [0, 1]:
+        _fail(f"metal {label}: timing lines of ranks {sorted(timing)}")
+    faults = [ln for ln in out.splitlines() if "faults verified" in ln]
+    return timing, conform[0], faults
+
+
+def metal_phase(smi, device="cuda"):
+    """(m) The sim-to-metal deployment (``repro_torch.sim.metal``,
+    ``launch.replay``) on the card, the counts from 0 before each metal run:
+
+    (m1) ``straggler_tail`` at n = METAL_N (the scenario's 2NN, d = 79,510,
+        M = K = 5), bits 32 and 8, METAL_WINDOWS windows recorded on the
+        card, then replayed in process: one position bit for bit the
+        recorded run; METAL_POSITIONS positions on the one card (one chain
+        each; two would run as one, the divisor rule) bit for bit or within
+        ``CHAIN_SLICE_TOL`` at bits 32, within METAL_TOLERANCE x the
+        simulator's spread under other seed words at bits 8; K B1 launches a
+        position and one B2 launch a quantized window; B1's hop and B2's
+        aggregation payload of the first quantized window against their
+        plain versions; ``churn_dropout`` under ``FaultInjector``, bit for
+        bit with the counters;
+    (m2) (m1)'s fp32 trace through ``launch.replay --processes 2 --check``:
+        two workers on the one card, equal digests, conformance 0.0;
+    (m3) ``fleet_metro`` at n = METAL_FLEET_N, bits 8, METAL_FLEET_WINDOWS
+        windows, recorded with ``launch.sim --engine fleet --record``, then
+        ``launch.replay --processes 2 --check --fault-inject``: ms a window
+        on each rank, the exchange's ms and bytes, peak memory, conformance
+        and the fault counters.
+
+    Returns the in-process metal runs' launches by kernel, the workers'
+    launches by kernel, and the numbers of (m3). ``device="cpu"`` rehearses
+    the phase without a card at a cut ``METAL_FLEET_N`` (the workers are
+    processes of their own, which no patch of this one reaches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DFedRW
+    from repro_torch.kernels.quantize import ops
+    from repro_torch.kernels.quantize import quantize as qk
+    from repro_torch.launch.sim import main as sim_main
+    from repro_torch.sim import (CHAIN_SLICE_TOL, FaultInjector, MetalReplay, build_scenario,
+                                 conformance_diff)
+
+    tag = f"[{smi}]"
+    counts = dict.fromkeys(qk.LAUNCHES, 0)
+    worker_counts = dict.fromkeys(qk.LAUNCHES, 0)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    def metal_run(setup, trace, positions, label, windows_q, fault=None, keep=None):
+        engine = DFedRW(setup.model, setup.data, setup.topo, setup.cfg, device=device)
+        metal = MetalReplay(engine, devices=[device] * positions)
+        real = (ops.qdq_delta_rows_rng, ops.qdq_rows_rng)
+        if keep is not None:
+            ops.qdq_delta_rows_rng = _capture_first(keep, "qdq_delta_rows_rng", real[0])
+            ops.qdq_rows_rng = _capture_first(keep, "qdq_rows_rng", real[1])
+        sync()
+        qk.reset_launch_counts()
+        try:
+            res = metal.run(trace, torch.Generator().manual_seed(METAL_KEY), setup.x_test,
+                            setup.y_test, eval_every=METAL_WINDOWS, fault=fault)
+        finally:
+            ops.qdq_delta_rows_rng, ops.qdq_rows_rng = real
+        sync()
+        got = dict(qk.LAUNCHES)
+        want = dict.fromkeys(qk.LAUNCHES, 0)
+        want.update(qdq_delta_rows_rng=setup.cfg.k_walk * metal.positions_used * windows_q,
+                    qdq_rows_rng=windows_q)
+        if got != want and device != "cpu":       # the CPU takes the plain versions
+            _fail(f"metal {label}: launches {got}, want {want}")
+        for name, n in got.items():
+            counts[name] += n
+        ms = [t["window_ms"] for t in metal.timings]
+        print(f"metal {tag} {label}: positions={metal.positions_used} ms/window "
+              f"{[round(v, 2) for v in ms]} loss={[round(v, 5) for v in res.history.train_loss]} "
+              f"acc={[round(v, 4) for v in res.history.test_accuracy]} launches={got}")
+        return res
+
+    def record(scenario, bits):
+        setup = build_scenario(scenario, n=METAL_N, seed=0, bits=bits, rounds=METAL_WINDOWS)
+        runner = setup.runner(device=device)
+        sim = runner.run(METAL_WINDOWS, torch.Generator().manual_seed(METAL_KEY), setup.x_test,
+                         setup.y_test, eval_every=METAL_WINDOWS, record=True)
+        sim.trace.header.update(scenario=scenario, build_seed=0, key_seed=METAL_KEY,
+                                eval_every=METAL_WINDOWS,
+                                build_overrides={"bits": bits, "rounds": METAL_WINDOWS})
+        return setup, runner, sim
+
+    # ------------------------------------------------------------------- (m1)
+    traces = {}
+    for bits in (32, 8):
+        setup, runner, sim = record("straggler_tail", bits)
+        k = setup.cfg.k_walk
+        wq = METAL_WINDOWS if bits < 32 else 0
+        kept = {} if bits < 32 else None
+        one = metal_run(setup, sim.trace, 1, f"straggler_tail n={METAL_N} bits={bits} "
+                        "one position", wq, keep=kept)
+        if not (torch.equal(one.state.device_params, sim.state.device_params)
+                and one.history.train_loss == sim.history.train_loss
+                and one.history.comm_bits == sim.history.comm_bits):
+            _fail(f"metal straggler_tail bits={bits}: one position is not the recorded run "
+                  f"bit for bit (max|d|={conformance_diff(sim, one):.3e})")
+        many = metal_run(setup, sim.trace, METAL_POSITIONS, f"straggler_tail n={METAL_N} "
+                         f"bits={bits} {METAL_POSITIONS} positions", wq)
+        diff = conformance_diff(sim, many)
+        scale = float(sim.state.device_params.abs().max())
+        if bits == 32:
+            tol = CHAIN_SLICE_TOL["atol"] + CHAIN_SLICE_TOL["rtol"] * scale
+            basis = "chain-slice bound atol {atol} + rtol {rtol} x max|w|".format(
+                **CHAIN_SLICE_TOL)
+        else:
+            params = setup.model.init(torch.Generator().manual_seed(METAL_KEY),
+                                      runner.engine.device)
+            alt = setup.runner(device=device).replay(
+                sim.trace, torch.Generator().manual_seed(METAL_KEY + 104729), params=params)
+            spread = conformance_diff(sim, alt)
+            tol = METAL_TOLERANCE * spread
+            basis = f"{METAL_TOLERANCE}x the simulator's other-words spread {spread:.3e}"
+        print(f"metal {tag} straggler_tail bits={bits}: one position bit for bit; "
+              f"{METAL_POSITIONS} positions max|d|={diff:.3e} ({diff / scale:.3e} of "
+              f"max|w| {scale:.4f}; bit for bit: {diff == 0.0}) tolerance={tol:.3e} ({basis})")
+        if not diff <= tol or not torch.isfinite(many.state.device_params).all():
+            _fail(f"metal straggler_tail bits={bits}: {METAL_POSITIONS} positions "
+                  f"max|d|={diff:.3e} > {tol:.3e}")
+        if bits < 32:
+            spec = runner.engine.flat_spec
+            for name, rows in (("qdq_delta_rows_rng", setup.cfg.m_chains * spec.rows),
+                               ("qdq_rows_rng", k * setup.cfg.m_chains * spec.rows)):
+                args, kw = kept[name]
+                if args[0].shape[0] != rows:
+                    _fail(f"metal: the {name} payload has {args[0].shape[0]} rows, want {rows}")
+                if device != "cpu":
+                    _hold_kernel(name, args, kw["bits"], f"metal straggler_tail n={METAL_N}")
+        traces[bits] = (setup, sim)
+
+    setup, runner, sim = record("churn_dropout", 32)
+    fault = FaultInjector(policy=setup.sim.policy)
+    res = metal_run(setup, sim.trace, 1, f"churn_dropout n={METAL_N} fault-injected", 0,
+                    fault=fault)
+    print(f"metal {tag} churn_dropout: faults verified stalls={fault.stalls_injected} "
+          f"steps_stalled={fault.steps_stalled} aggregators_dropped={fault.aggregators_dropped}"
+          f" max|d|={conformance_diff(sim, res):.3e}")
+    if not torch.equal(res.state.device_params, sim.state.device_params) or not (
+            fault.stalls_injected and fault.steps_stalled):
+        _fail("metal churn_dropout: the fault-injected replay is not the recorded run")
+    del runner, sim, res
+
+    # ------------------------------------------------------------------- (m2)
+    workdir = tempfile.mkdtemp(prefix="metal_")
+    fp32 = os.path.join(workdir, "straggler_tail_fp32.jsonl")
+    traces[32][1].trace.save(fp32)
+    dev_flag = ["--device", device]
+    timing, conform, _ = _metal_replay_run(fp32, dev_flag, "m2 straggler_tail bits=32 x2",
+                                           dict.fromkeys(qk.LAUNCHES, 0), tag)
+    for rank, t in sorted(timing.items()):
+        print(f"metal {tag} m2 rank {rank}: ms/window {[round(v, 2) for v in t['window_ms']]} "
+              f"exchange ms {[round(v, 2) for v in t['exchange_ms']]} exchange bytes "
+              f"{t['exchange_bytes']}")
+    if "max_abs_diff=0.000e+00" not in conform:
+        _fail(f"metal m2: the two-process fp32 run is not the simulator bit for bit: {conform}")
+    del traces
+    gc.collect()
+
+    # ------------------------------------------------------------------- (m3)
+    big = os.path.join(workdir, "fleet_metro.jsonl")
+    t0 = time.perf_counter()
+    qk.reset_launch_counts()
+    sim_main(["--scenario", "fleet_metro", "--engine", "fleet", "--n", str(METAL_FLEET_N),
+              "--rounds", str(METAL_FLEET_WINDOWS), "--bits", "8", "--eval-every",
+              str(METAL_FLEET_WINDOWS), "--record", big, "--device", device])
+    sync()
+    recorded = dict(qk.LAUNCHES)
+    print(f"metal {tag} m3: fleet_metro n={METAL_FLEET_N} recorded in "
+          f"{time.perf_counter() - t0:.1f} s ({os.path.getsize(big)} bytes of trace), "
+          f"launches {recorded}")
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    k = 8
+    want = dict.fromkeys(qk.LAUNCHES, 0)
+    want.update(qdq_delta_rows_rng=k * METAL_FLEET_WINDOWS, qdq_rows_rng=METAL_FLEET_WINDOWS)
+    timing, conform, faults = _metal_replay_run(
+        big, ["--fault-inject", *dev_flag], f"m3 fleet_metro n={METAL_FLEET_N} bits=8 x2",
+        want if device != "cpu" else None, tag, timeout=900)
+    for rank, t in sorted(timing.items()):
+        for name, n in t["launches"].items():
+            worker_counts[name] += n
+        print(f"metal {tag} m3 rank {rank}: ms/window {[round(v, 1) for v in t['window_ms']]} "
+              f"exchange ms {[round(v, 1) for v in t['exchange_ms']]} exchange bytes "
+              f"{t['exchange_bytes']} sent {t['bytes_sent']} received {t['bytes_received']} "
+              f"peak device {t.get('peak_device_bytes')} host rss {t['peak_rss_bytes']}")
+    summary = {"ranks": timing, "conformance": conform, "faults": faults}
+    print(f"metal summary {tag}: {json.dumps(summary)}")
+    for path in (fp32, big):
+        os.remove(path)
+    os.rmdir(workdir)
+    return counts, worker_counts, summary
+
+
 def fed_phase(smi):
     """(l) The DFedRW pod deployment: B5/B6 at the gossip payload and
     ``gossip_mix`` on the card (l0), ``launch.train pod --fed`` at full
@@ -4362,6 +4621,14 @@ def main() -> int:
     elapsed("fed pods")
     gc.collect()
     torch.cuda.empty_cache()
+    metal, metal_workers, _ = metal_phase(smi)                      # (m)
+    elapsed("metal")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in results:
+        for path, counted in (("metal replay", metal), ("metal replay workers", metal_workers)):
+            results[name]["launches"] += counted[name]
+            results[name]["launches_by_path"][path] = counted[name]
     pod_paths = {f"{arch} train pod": counted for arch, (counted, _) in pods.items()}
     for path, counted in {**pod_paths, **fed_by_path}.items():
         for kernel, paths, by_path, bwd in (("block_attn", attn_by_path, bwd_by_path["attn"],

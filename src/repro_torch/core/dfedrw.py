@@ -22,7 +22,10 @@ and one communication round runs, in the reference's order:
      with one matrix product.
 
 Everything that depends only on the plan (winner election, scatter indices)
-is computed on the host and sent to the device once per round.
+is computed on the host and sent to the device once per round. Step 2 is
+``_walk`` and steps 3-4 are ``_finalize``; the metal replay
+(repro_torch.sim.metal) runs the walk on slices of the chains and the
+finalize on the gathered trajectory, the same code on the same rows.
 
 The virtual-time simulator (repro_torch.sim) drives the same round through
 three seams: ``plan_walks(state, topo=, m=)``, ``plan_aggregation(plan,
@@ -242,27 +245,71 @@ class DFedRW(FlatRunner):
 
     # ------------------------------------------------------------ the round
     def _round_flat(self, device_flat, plan, bidx, agg, kbar0, bits, qseeds):
-        """One round of the flat engine (reference ``dfedrw.py:261-393``).
-        Returns (new device matrix, mean loss, gamma_hat) as device tensors."""
+        """One round of the flat engine (reference ``dfedrw.py:261-393``):
+        the walk over every chain, then the finalize. Returns (new device
+        matrix, mean loss, gamma_hat) as device tensors."""
+        dev = self.device
+        walk_mask = torch.from_numpy(plan.mask.copy()).to(device=dev)
+        bidx_t = torch.from_numpy(np.ascontiguousarray(bidx.swapaxes(0, 1))).to(device=dev)
+        chain_ids = torch.from_numpy(plan.devices[:, 0].astype(np.int64)).to(device=dev)
+        xb_all = self._x[bidx_t]                              # (K, M, B, ...)
+        yb_all = self._y[bidx_t]
+        traj, grad_sq = self._walk(device_flat[chain_ids], walk_mask, xb_all, yb_all,
+                                   kbar0, bits, qseeds)
+        return self._finalize(device_flat, traj, grad_sq, plan.devices, plan.mask, agg,
+                              (xb_all[-1], yb_all[-1]), bits,
+                              None if qseeds is None else qseeds[-1])
+
+    def _walk(self, chain, walk_mask, xb_all, yb_all, kbar0, bits, hop_seeds):
+        """The K-step chain SGD loop (Eq. 10) from the chain starts ``chain``
+        (m, d_pad), on the tensors' own device: masked steps at the globally
+        decreasing step size and, at bits < 32, the Eq. 13 hand-off, one hop
+        kernel call a step salted by ``hop_seeds[step]``. ``walk_mask`` is
+        (m, K) and ``xb_all``/``yb_all`` (K, m, B, ...). Every row reads only
+        its own chain. Returns the (K, m, d_pad) trajectory and the (K, m)
+        squared gradient norms."""
+        cfg, spec = self.cfg, self.flat_spec
+        traj, grad_sq = [], []
+        for step in range(walk_mask.shape[1]):
+            lr = decreasing_lr(kbar0 + step + 1, cfg.lr_r, cfg.lr_q)
+            grads = self._grad_fn(chain, xb_all[step], yb_all[step])   # (m, d_pad)
+            stepped = torch.where(walk_mask[:, step, None], chain - lr * grads, chain)
+            if bits < 32:
+                # Eq. 13: the hand-off transmits Q(w^{k+1} - w^k), one wire
+                # tensor per leaf; the receiver's w^k + deq(Q(diff)) is fused
+                # into the same kernel pass.
+                stepped = payload_quantize_dequantize(
+                    stepped - chain, spec, per_message=False, bits=bits,
+                    s=cfg.quant.s, seed=hop_seeds[step], base=chain)
+            traj.append(stepped)
+            grad_sq.append(torch.sum(grads * grads, dim=1))
+            chain = stepped
+        return torch.stack(traj), torch.stack(grad_sq)
+
+    def _finalize(self, device_flat, traj, grad_sq, devices, mask, agg, last_batch, bits,
+                  agg_seed):
+        """The round's second half over the whole (K, M, d_pad) trajectory:
+        the w^{t,last} scatter, the Eq. 11 or Eq. 14 aggregation (one
+        payload kernel call salted by ``agg_seed`` at bits < 32),
+        ``gamma_hat`` and the mean loss of the final chain models on
+        ``last_batch``. ``devices`` and ``mask`` are the (M, K) plan on the
+        host. Returns (new device matrix, mean loss, gamma_hat)."""
         cfg, spec, dev = self.cfg, self.flat_spec, self.device
-        quant_on = bits < 32
         n_dev = device_flat.shape[0]
-        m, k = plan.devices.shape
+        m, k = devices.shape
 
         # Plan-only work on the host: the last-writer election over the
         # step-major trajectory and the valid aggregators (torch has no
         # dropping scatter, so losers and padded ids >= n are filtered out).
-        devs_flat = torch.from_numpy(plan.devices.T.reshape(-1).astype(np.int64))
-        mask_flat = torch.from_numpy(plan.mask.T.reshape(-1).copy())
+        devs_flat = torch.from_numpy(devices.T.reshape(-1).astype(np.int64))
+        mask_flat = torch.from_numpy(mask.T.reshape(-1).copy())
         _, wins = elect_writers(devs_flat, mask_flat, n_dev)
         win_slots = torch.nonzero(wins).reshape(-1)
         agg_devices, agg_rows, agg_w = agg
         valid = np.nonzero(agg_devices < n_dev)[0]
-        # Everything the round indexes with goes to the device up front.
+        # Everything the finalize indexes with goes to the device up front.
         to = dict(device=dev)
-        walk_mask = torch.from_numpy(plan.mask.copy()).to(**to)
-        bidx_t = torch.from_numpy(np.ascontiguousarray(bidx.swapaxes(0, 1))).to(**to)
-        chain_ids = torch.from_numpy(plan.devices[:, 0].astype(np.int64)).to(**to)
+        walk_mask = torch.from_numpy(mask.copy()).to(**to)
         devs_dev = devs_flat.to(**to)
         wins_dev = wins.to(**to)
         win_slots_dev = win_slots.to(**to)
@@ -271,30 +318,11 @@ class DFedRW(FlatRunner):
         rows_dev = torch.from_numpy(agg_rows[valid].astype(np.int64)).to(**to)
         w_dev = torch.from_numpy(agg_w[valid]).to(**to)
 
-        chain = device_flat[chain_ids]                        # (M, d_pad)
-        xb_all = self._x[bidx_t]                              # (K, M, B, ...)
-        yb_all = self._y[bidx_t]
-        traj, grad_sq = [], []
-        for step in range(k):
-            lr = decreasing_lr(kbar0 + step + 1, cfg.lr_r, cfg.lr_q)
-            grads = self._grad_fn(chain, xb_all[step], yb_all[step])   # (M, d_pad)
-            stepped = torch.where(walk_mask[:, step, None], chain - lr * grads, chain)
-            if quant_on:
-                # Eq. 13: the hand-off transmits Q(w^{k+1} - w^k), one wire
-                # tensor per leaf; the receiver's w^k + deq(Q(diff)) is fused
-                # into the same kernel pass.
-                stepped = payload_quantize_dequantize(
-                    stepped - chain, spec, per_message=False, bits=bits,
-                    s=cfg.quant.s, seed=qseeds[step], base=chain)
-            traj.append(stepped)
-            grad_sq.append(torch.sum(grads * grads, dim=1))
-            chain = stepped
-
-        traj2 = torch.stack(traj).reshape(k * m, spec.d_pad)  # step-major
+        traj2 = traj.reshape(k * m, spec.d_pad)               # step-major
         dev_last = device_flat.index_copy(0, win_devs_dev, traj2[win_slots_dev])
-        gamma_hat = gamma_hat_from_traj(torch.stack(grad_sq), walk_mask)
+        gamma_hat = gamma_hat_from_traj(grad_sq, walk_mask)
 
-        if quant_on:
+        if bits < 32:
             # Eq. 14 payload: one message Q(w_l^{t,last} - w_l) per
             # walk-updated device; the aggregator weight matrix lands each
             # message on every aggregator listing the sender.
@@ -302,7 +330,7 @@ class DFedRW(FlatRunner):
             diffs = torch.where(wins_dev[:, None], traj2 - base_rows, 0.0)
             deq = payload_quantize_dequantize(
                 diffs, spec, per_message=True, bits=bits, s=cfg.quant.s,
-                seed=qseeds[k])
+                seed=agg_seed)
             hits = rows_dev[:, :, None] == devs_dev[None, None, :]
             w3 = (w_dev[:, :, None] * hits).sum(dim=1) * wins_dev[None, :]
             upd = w3 @ deq                                    # (A, d_pad)
@@ -314,7 +342,7 @@ class DFedRW(FlatRunner):
 
         # Mean train loss over the round's final chain models, on their last
         # batch (cheap monitoring signal).
-        losses = self._loss_fn(chain, xb_all[-1], yb_all[-1])
+        losses = self._loss_fn(traj[-1], *last_batch)
         return new_device_flat, losses.mean(), gamma_hat
 
     # ------------------------------------------------------------- host side

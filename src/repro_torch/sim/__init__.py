@@ -20,10 +20,9 @@ reference's, bit-identical timelines.
 
 The trace's deployment export (``WindowSchedule``, ``SimTrace.schedule``,
 ``SimTrace.gossip_flags``) is here: the flags drive the scheduled federated
-step of ``repro_torch.dist``. The reference's live executor
-(``repro.sim.metal``: ``MetalReplay``, ``MetalResult``,
-``MetalConformanceError``, ``FaultInjector``, ``LocalExchange``,
-``conformance_diff``) and ``launch/replay.py`` are ROADMAP.md A11c.
+step of ``repro_torch.dist``, and the schedule drives the live executor
+(metal.py: ``MetalReplay``, ``FaultInjector``, the ``Exchange`` seam and
+``conformance_diff``; ``repro_torch.launch.replay`` is its CLI).
 """
 from repro_torch.sim.adapt import (
     DEFAULT_WIDTHS,
@@ -40,6 +39,19 @@ from repro_torch.sim.hierarchy import HierarchicalLinkModel, HierLinkConfig
 from repro_torch.sim.links import (
     LinkModel, LinkModelConfig, make_link_model, segment_wire_bits,
     segment_wire_bits_table)
+from repro_torch.sim.metal import (
+    CHAIN_SLICE_TOL,
+    Exchange,
+    FaultInjector,
+    LocalExchange,
+    MetalConformanceError,
+    MetalReplay,
+    MetalResult,
+    conformance_diff,
+    position_seeds,
+    positions_for,
+    smallest_block,
+)
 from repro_torch.sim.runner import AsyncDFedRW, SimConfig, SimResult, SimRoundRecord
 from repro_torch.sim.scenarios import (
     SCENARIOS,
@@ -79,4 +91,7 @@ __all__ = [
     "SimTrace", "WindowTrace", "WindowSchedule",
     "TraceError", "TraceFormatError", "TraceSchemaError",
     "TraceIntegrityError",
+    "Exchange", "LocalExchange", "FaultInjector", "MetalConformanceError",
+    "MetalReplay", "MetalResult", "conformance_diff", "position_seeds",
+    "positions_for", "smallest_block", "CHAIN_SLICE_TOL",
 ]

@@ -15,8 +15,7 @@ so a trace recorded by either package loads and replays in the other. The
 deployment export is here too: ``SimTrace.schedule`` (per-window
 ``WindowSchedule`` plans) and ``SimTrace.gossip_flags``, which drives the
 scheduled federated step (``dist.make_fed_train_step(scheduled=True)``).
-The reference's live executor, which consumes the schedule, is ROADMAP.md
-A11c.
+The schedule drives the live executor (``repro_torch.sim.metal``).
 
 JSONL schema (version 2)
 ------------------------
@@ -245,10 +244,9 @@ class WindowSchedule:
     header's static width), the cumulative global step ``kbar0`` the lr
     schedule continues from, and the header shape constants. Shapes are
     fixed across windows ((M, K) trajectories, padded aggregation plans), so
-    one compiled program executes the whole schedule. The reference's live
-    executor (``repro.sim.metal``, ROADMAP.md A11c) consumes this; the
-    fault-injection views (``stalled``,
-    ``dead_aggregators``) re-derive the sim's churn/straggler timeline so a
+    one compiled program executes the whole schedule. The live executor
+    (``repro_torch.sim.metal``) consumes this; the fault-injection views
+    (``stalled``, ``dead_aggregators``) re-derive the sim's churn/straggler timeline so a
     live run can reproduce — and verify — the same Eq. 11/14 degradation.
     """
 
@@ -430,9 +428,8 @@ class SimTrace:
     def schedule(self) -> list["WindowSchedule"]:
         """Compile the trace into per-window fixed-shape deployment plans
         (validates first — a corrupted trace raises instead of exporting).
-        This is the contract between the simulator and the live executors
-        (the reference's ``repro.sim.metal`` and ``launch/replay.py``,
-        ROADMAP.md A11c)."""
+        This is the contract between the simulator and the live executor
+        (``repro_torch.sim.metal`` and ``launch/replay.py``)."""
         self.validate()
         h, k_walk = self.header, self.header["k_walk"]
         out, kbar0 = [], 0

@@ -364,6 +364,37 @@ def test_port_runs_the_simulator_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_port_runs_the_metal_deployment_without_jax(tmp_path):
+    """The metal replay (``repro_torch.sim.metal``) and its launcher
+    (``launch.replay``) with two workers on the CPU, with imports of jax and
+    repro refused in this process and, through a ``sitecustomize`` on the
+    ``PYTHONPATH`` the launcher hands on, in the workers it spawns."""
+    guard_dir = tmp_path / "guard"
+    guard_dir.mkdir()
+    (guard_dir / "sitecustomize.py").write_text(_GUARD)
+    trace = str(tmp_path / "t.jsonl")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(guard_dir), os.path.join(ROOT, "src")]))
+    proc = subprocess.run([sys.executable, "-c", _GUARD + textwrap.dedent(f"""
+        import sys
+        import torch
+        from repro_torch.launch.replay import main
+        from repro_torch.launch.sim import main as sim_main
+        from repro_torch.sim import MetalReplay, SimTrace
+
+        sim_main(["--scenario", "churn_dropout", "--n", "12", "--rounds", "2", "--seed", "2",
+                  "--device", "cpu", "--record", {trace!r}])
+        assert main(["--trace", {trace!r}, "--processes", "2", "--check", "--fault-inject",
+                     "--device", "cpu"]) == 0
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+        print("ok")
+    """)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "faults verified" in proc.stdout and "shards agree" in proc.stdout
+    assert proc.stdout.rstrip().endswith("ok")
+
+
 def test_simulator_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the CUDA default is valid here")
