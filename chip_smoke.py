@@ -163,7 +163,18 @@ or of the JAX package ``repro``. Phases, in order:
    ``launch.replay --processes 2 --check`` (two workers on the card, equal
    digests, fp32 bit for bit), and ``fleet_metro`` at n = 100,000 (bits 8,
    2 windows) by two workers with ``--fault-inject``: ms a window, the
-   exchange's ms and bytes, peak memory, conformance; (j) serving, see
+   exchange's ms and bytes, peak memory, conformance; (n) tensor-parallel
+   serving, see :func:`tp_phase`: ``yi-6b`` and ``seamless-m4t-large-v2``
+   at full width and depth in bf16 (TP_RUNS, 8 requests on 8 slots each)
+   served unsharded in this process (ms a decode step and a prefill chunk,
+   each step's top-2 logit gaps), B10 held against its plain version on
+   rank 0's heads (H/2, KV/2) of the engine's first call of each serve mode
+   and of Yi's layer 0, beside the whole-head call; then ``launch.serve
+   --full --mesh-model 2`` under ``torchrun``, two ranks on the one card
+   over gloo: equal digests, the unsharded token streams up to a bf16
+   near-tie (BF16_TIE), the unsharded counters, and per rank the ms a decode
+   step and a prefill chunk, the collectives' ms and bytes a step, peak
+   memory, the backend and B10's launches; (j) serving, see
    :func:`serve_smoke_phase` and :func:`serve_phase`: the SMOKE
    ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
@@ -215,7 +226,9 @@ or of the JAX package ``repro``. Phases, in order:
    ``quantize_rows`` and ``dequantize_rows`` with their launches on the
    wire path and on each fed run, and their numbers at the gossip payload;
    B1 and B2 with their launches on the metal paths, in process and in the
-   workers), and last the device line.
+   workers; ``block_attn`` with each rank's launches of (n), and its
+   local-head modes of (n) beside the whole-head ones), and last the device
+   line.
 
 The four kernel sources are built at the start, one ``nvcc`` each, in
 parallel. Each phase ends with an ``elapsed after ...`` line.
@@ -437,9 +450,10 @@ SERVE_RUNS = [("seamless-m4t-large-v2", 16, 8, 256, 64, 64, 0.5),
               ("yi-6b", 16, 8, 512, 64, 128, 0.5)]
 # The float32 serving runs, an earlier path since launch.serve --full serves
 # bf16 (phase (k4) runs SERVE_RUNS at full depth in bf16), keep their widths
-# and workloads with the depth cut by this factor: Yi-6B 32 -> 8 layers,
-# Seamless 24 + 24 -> 6 + 6; the script stays inside its time limit.
-SERVE_F32_DEPTH_CUT = 4
+# and workloads with the depth cut by this factor: Yi-6B 32 -> 4 layers,
+# Seamless 24 + 24 -> 3 + 3 (cut from 4 to 8 when phase (n) came); the
+# script stays inside its time limit.
+SERVE_F32_DEPTH_CUT = 8
 SERVE_SMOKE = ("mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-lite-16b")
 SERVE_VERIFIED = 1             # cut from 2 when phase (m) came: the script's time limit
 SERVE_TIMED = 3
@@ -470,6 +484,19 @@ BF16_LOSS_RTOL = 1e-3
 QWEN_BATCH, QWEN_SEQ, QWEN_FORWARDS = 1, 2048, 3
 QWEN_DECODE_BATCH, QWEN_PROMPT, QWEN_GENERATE = 4, 32, 16
 QWEN_SERVE_RUN = ("qwen2.5-32b", 8, 8, 256, 32, 128, 0.5)
+# (n) Tensor-parallel serving, ``launch.serve --full --mesh-model TP_RANKS``
+# under torchrun: the ranks share the one card, so their collectives go
+# through gloo (NCCL refuses two ranks on one device). Each run is
+# launch.serve's workload (arch, --requests, --max-concurrency,
+# --prompt-len, --gen, --chunk, --arrival) at full width and depth in bf16,
+# served first unsharded in this process from the same seeded weights; the
+# prompts and budgets are SERVE_RUNS' cut to 128 and 32 tokens (every
+# row-parallel sum of a prefill chunk crosses gloo in float32: the phase's
+# time).
+TP_RANKS = 2
+TP_RUNS = [("yi-6b", 8, 8, 128, 32, 64, 0.5),
+           ("seamless-m4t-large-v2", 8, 8, 128, 32, 64, 0.5)]
+TP_TIMEOUT = 420
 SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
                   "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
 
@@ -4249,6 +4276,219 @@ def metal_phase(smi, device="cuda"):
     return counts, worker_counts, summary
 
 
+def _timed_steps(eng):
+    """Wrap the engine's two step functions: each call timed with the card
+    synchronised before and after. Returns {"decode": [ms], "prefill": [ms]}."""
+    import torch
+
+    calls = {"decode": [], "prefill": []}
+
+    def timed(fn, kind):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls[kind].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    eng._serve_fn = timed(eng._serve_fn, "decode")
+    eng._prefill_fn = timed(eng._prefill_fn, "prefill")
+    return calls
+
+
+def _rank_heads(q, k, v, ranks=TP_RANKS):
+    """Rank 0's share of an attention call on a model axis of ``ranks``: its
+    H/ranks query heads and KV/ranks K/V heads, laid out as the rank's own
+    projections give them (contiguous)."""
+    return (q[:, :, :q.shape[2] // ranks].contiguous(),
+            k[:, :, :k.shape[2] // ranks].contiguous(),
+            v[:, :, :v.shape[2] // ranks].contiguous())
+
+
+def _layer0_qkv(cfg, params, prompt):
+    """Layer 0's own q/k/v (RoPE applied) over one prompt, whole heads."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    p = {key: leaf[0] for key, leaf in params["blocks"]["slot0"]["mixer"].items()}
+    tokens = torch.as_tensor(prompt, device="cuda")[None]
+    with torch.inference_mode():
+        x = L.rms_norm(params["embed"][tokens], params["blocks"]["slot0"]["norm1"][0],
+                       cfg.norm_eps)
+        q, k, v = L._qkv(L._heads(p, cfg), x, cfg)
+        cos, sin = L.rope_freqs(torch.arange(tokens.shape[1], device="cuda"), cfg.head_dim_,
+                                cfg.rope_theta)
+        return L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin), v
+
+
+def tp_serve_run(run, smi):
+    """(n) One of TP_RUNS: the workload served unsharded here (bf16, weights
+    drawn on the card from seed 0, each step timed, each step's top-2 logit
+    gaps kept, B10's first call of each serve mode kept), B10 held against
+    its plain version on rank 0's share of those calls (and of Yi's layer 0
+    over the longest prompt: Yi serves through no B10 call) beside the
+    whole-head call; then, the weights freed, ``launch.serve --full
+    --mesh-model TP_RANKS`` under torchrun, its ranks on this card. Fails
+    unless both ranks end with equal digests, on gloo, with rank 0's token
+    streams equal to the unsharded ones up to a bf16 near-tie (at the first
+    difference, the top-2 logit gap in either run below BF16_TIE times the
+    unsharded top logit, as :func:`serve_phase` holds the engine),
+    the unsharded counters, and B10 launched as the engine's modes want on
+    each rank. Returns ({path: float32 launches}, {path: bf16 launches},
+    {mode: entry} float32, {mode: entry} bf16, the run's numbers)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.serve import ServeEngine
+
+    tag = f"[{smi}]"
+    arch, requests, slots, prompt_len, gen, chunk, arrival = run
+    cfg = get_arch(arch)
+    params, _ = _init_on_card(cfg, tag, " (n) unsharded", dtype=torch.bfloat16)
+    reqs = _serve_workload(run, cfg)
+    eng = ServeEngine(cfg, params, _serve_config(run, torch.bfloat16), margins=True)
+    steps = _timed_steps(eng)
+    first = {}
+    real_attn = attn_ops.block_attention
+
+    def attn_spy(q, k, v, **kw):
+        mode = ("decode_cross" if q.shape[1] == 1 else "encoder" if q.shape[0] == 1
+                else "prefill_cross")
+        first.setdefault(mode, (q, k, v, kw))
+        return real_attn(q, k, v, **kw)
+
+    attn_ops.block_attention = attn_spy
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        results = eng.run(reqs)
+    finally:
+        attn_ops.block_attention = real_attn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters = _serve_counters(eng)
+    unsharded = {"wall_s": wall, "decode_ms": statistics.median(steps["decode"]),
+                 "prefill_ms": statistics.median(steps["prefill"]),
+                 "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+                 "digest": eng.digest, **counters}
+    print(f"tp {arch} {tag}: unsharded bf16, {len(reqs)} requests, {slots} slots, chunk "
+          f"{eng.chunk}: {unsharded}")
+    want_tokens = {st.request.rid: st.generated for st in results}
+    margins = eng.margins
+
+    modes16, modes32 = {}, {}
+    calls = dict(first)
+    if not cfg.enc_dec:
+        longest = max(reqs, key=lambda r: len(r.prompt))
+        calls["layer0"] = (*_layer0_qkv(cfg, params, longest.prompt), {"causal": True})
+    for mode, (q, k, v, kw) in calls.items():
+        for share, qkv in (("whole heads", (q, k, v)), (f"rank 0 of {TP_RANKS}",
+                                                       _rank_heads(q, k, v))):
+            entry = _hold_attn_mode(f"(n) {arch} {mode}, {share}", *qkv, kw["causal"], tag)
+            entry["heads"] = share
+            key = f"tp{TP_RANKS} {arch} {mode} {'local' if share != 'whole heads' else 'whole'}"
+            (modes16 if qkv[0].dtype == torch.bfloat16 else modes32)[key] = entry
+    first.clear()
+    calls.clear()
+    del eng, params, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp {arch} {tag}: the unsharded model freed, memory_allocated="
+          f"{torch.cuda.memory_allocated()} bytes")
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    tokens_path = os.path.join(workdir, "tokens.json")
+    out = _launcher_lines(
+        ["torch.distributed.run", "--standalone", "--nproc-per-node", str(TP_RANKS),
+         "-m", "repro_torch.launch.serve", "--arch", arch, "--full", "--mesh-model",
+         str(TP_RANKS), "--requests", str(requests), "--max-concurrency", str(slots),
+         "--prompt-len", str(prompt_len), "--gen", str(gen), "--chunk", str(chunk),
+         "--arrival", str(arrival), "--mixed", "--tokens", tokens_path],
+        f"tp {arch}", TP_TIMEOUT)
+    with open(tokens_path) as f:
+        served = {int(rid): got for rid, got in json.load(f).items()}
+    os.remove(tokens_path)
+    os.rmdir(workdir)
+    ranks = {int(r): (b, d) for r, b, d in re.findall(
+        r"rank (\d): backend=(\w+) mesh=\{'data': 1, 'model': \d+\} device=(\S+)", out)}
+    timing = {int(r): json.loads(t) for r, t in re.findall(r"rank (\d): timing (.*)", out)}
+    digests = {int(r): d for r, d in re.findall(r"rank (\d): digest=(\w+)", out)}
+    done = re.findall(r"(\d+) prefill chunks \+ (\d+) decode steps", out)
+    if sorted(ranks) != list(range(TP_RANKS)) or sorted(timing) != list(range(TP_RANKS)) \
+            or sorted(digests) != list(range(TP_RANKS)) or len(done) != 1:
+        _fail(f"tp {arch}: the launcher's rank lines are missing: backends {ranks}, timing "
+              f"{sorted(timing)}, digests {digests}")
+    one_card = torch.cuda.device_count() < TP_RANKS
+    if len(set(digests.values())) != 1 or (one_card and {b for b, _ in ranks.values()} != {
+            "gloo"}):
+        _fail(f"tp {arch}: digests {digests}, backends {ranks}")
+    sharded_counters = {"prefill_chunks": int(done[0][0]), "decode_steps": int(done[0][1])}
+    flips = []
+    for rid, want in want_tokens.items():
+        got = served.get(rid, {}).get("tokens")
+        if got == want:
+            continue
+        diff = next((i for i, (a, b) in enumerate(zip(got or [], want)) if a != b), None)
+        if got is None or diff is None:
+            _fail(f"tp {arch}: request {rid} served {got}, unsharded {want}")
+        gap, top = margins[rid][diff]
+        sharded_gap = served[rid]["margins"][diff][0]
+        flips.append({"rid": rid, "at": diff, "gap": gap, "sharded_gap": sharded_gap,
+                      "limit": BF16_TIE * top})
+        if min(gap, sharded_gap) >= BF16_TIE * top:
+            _fail(f"tp {arch}: request {rid} differs at token {diff} away from a near-tie "
+                  f"(top-2 gaps {gap:.4e} unsharded, {sharded_gap:.4e} sharded; limit "
+                  f"{BF16_TIE * top:.4e})")
+    want_f32 = cfg.n_enc_layers * len(reqs) if cfg.enc_dec else 0
+    want_bf16 = (cfg.n_blocks * (counters["prefill_chunks"] + counters["decode_steps"])
+                 if cfg.enc_dec else 0)
+    f32_paths, bf16_paths = {}, {}
+    for rank, t in sorted(timing.items()):
+        f32 = t["block_attn_launches"] - t["block_attn_bf16_launches"]
+        print(f"tp {arch} {tag} rank {rank}: backend {t['backend']} device {t['device']}: "
+              f"decode step {t['decode']['ms']:.2f} ms (collectives "
+              f"{t['decode']['collective_ms']:.2f} ms, {t['decode']['collective_bytes']:.0f} "
+              f"bytes, {t['decode']['collectives']:.0f} calls); prefill chunk "
+              f"{t['prefill']['ms']:.2f} ms (collectives {t['prefill']['collective_ms']:.2f} "
+              f"ms, {t['prefill']['collective_bytes']:.0f} bytes, "
+              f"{t['prefill']['collectives']:.0f} calls); peak {t['peak_bytes']} bytes; "
+              f"block_attn launches {f32} float32 (want {want_f32}) + "
+              f"{t['block_attn_bf16_launches']} bf16 (want {want_bf16})")
+        if f32 != want_f32 or t["block_attn_bf16_launches"] != want_bf16:
+            _fail(f"tp {arch}: rank {rank} launched block_attn {f32} + "
+                  f"{t['block_attn_bf16_launches']} times, want {want_f32} + {want_bf16}")
+        f32_paths[f"{arch} serve tp{TP_RANKS} rank {rank}"] = f32
+        bf16_paths[f"{arch} serve tp{TP_RANKS} rank {rank} bf16"] = \
+            t["block_attn_bf16_launches"]
+    if sharded_counters != {k: counters[k] for k in sharded_counters}:
+        _fail(f"tp {arch}: counters {sharded_counters}, unsharded {counters}")
+    print(f"tp {arch} {tag}: {len(want_tokens)} requests, "
+          f"{len(want_tokens) - len(flips)} token streams equal to the unsharded ones, "
+          f"{len(flips)} first differing at a bf16 near-tie {flips}; digests {digests}")
+    stats = {"unsharded": unsharded, "ranks": timing, "flips": flips,
+             "digest": digests[0], "counters": sharded_counters}
+    return f32_paths, bf16_paths, modes32, modes16, stats
+
+
+def tp_phase(smi):
+    """(n) Tensor-parallel serving: :func:`tp_serve_run` for each of
+    TP_RUNS. Returns the merged ({path: float32 launches}, {path: bf16
+    launches}, float32 modes, bf16 modes, {arch: numbers})."""
+    merged = ({}, {}, {}, {}, {})
+    for run in TP_RUNS:
+        *parts, stats = tp_serve_run(run, smi)
+        for into, part in zip(merged, parts):
+            into.update(part)
+        merged[4][run[0]] = stats
+        gc.collect()
+    print(f"tp summary [{smi}]: {json.dumps(merged[4])}")
+    return merged
+
+
 def fed_phase(smi):
     """(l) The DFedRW pod deployment: B5/B6 at the gossip payload and
     ``gossip_mix`` on the card (l0), ``launch.train pod --fed`` at full
@@ -4625,6 +4865,9 @@ def main() -> int:
     elapsed("metal")
     gc.collect()
     torch.cuda.empty_cache()
+    tp_f32, tp_bf16, tp_modes32, tp_modes16, _ = tp_phase(smi)      # (n)
+    elapsed("tensor-parallel serving")
+    torch.cuda.empty_cache()
     for name in results:
         for path, counted in (("metal replay", metal), ("metal replay workers", metal_workers)):
             results[name]["launches"] += counted[name]
@@ -4705,6 +4948,10 @@ def main() -> int:
         serving16["qwen2.5-32b"] = qwen_phase(smi)                  # (k5)
     print(f"serve bf16 summary [{smi}]: {json.dumps(serving16)}")
     elapsed("bf16 serving and qwen2.5-32b")
+    attn_by_path.update(tp_f32)                                      # (n)'s ranks
+    attn16_by_path.update(tp_bf16)
+    attn["modes"].update(tp_modes32)
+    attn16["modes"].update(tp_modes16)
     for entry, paths in ((attn, attn_by_path), (ssd, ssd_by_path), (attn16, attn16_by_path),
                          (ssd16, ssd16_by_path)):
         entry["launches"] = sum(paths.values())

@@ -7,7 +7,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "flat_from_numpy", "lm_params_from_numpy", "stack_pods"]
+__all__ = ["params_from_numpy", "flat_from_numpy", "lm_params_from_numpy", "shard_lm_params",
+           "stack_pods"]
 
 
 def params_from_numpy(params, device: str | torch.device = "cuda") -> list:
@@ -51,6 +52,19 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
         return _leaf(np.asarray(node)).to(dev)
 
     return conv(tree)
+
+
+def shard_lm_params(tree, specs, mesh, device: str | torch.device = "cuda",
+                    rank: int | None = None):
+    """A language model's numpy tree (as :func:`lm_params_from_numpy` takes
+    it) -> rank ``rank``'s block of it (``mesh.rank`` when None) on
+    ``device``: each leaf cut by its spec (``dist.sharding.param_specs``)
+    with ``dist.sharding.shard_tree``, then carried across in its own
+    dtype."""
+    from repro_torch.dist.sharding import shard_tree
+
+    block = shard_tree(tree, specs, mesh, rank)
+    return lm_params_from_numpy(block, device)
 
 
 def stack_pods(tree, g: int, device: str | torch.device = "cuda"):

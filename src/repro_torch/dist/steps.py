@@ -14,7 +14,12 @@ the cache (the reference's ``slots=True`` variant; its ``slots=False``
 variant serves only ``launch/dryrun.py``, which is not ported) and
 ``make_prefill_step`` the chunked batched prefill into it
 (``T.prefill_chunk``). Both run in the parameters' and the cache's dtype,
-float32 or bf16, and return logits in it.
+float32 or bf16, and return logits in it. Given a mesh
+(``launch.mesh.make_host_mesh``), each runs tensor-parallel on the mesh's
+model axis (``dist.parallel``) and returns ``(fn, p_specs)``, the
+reference's pair: ``fn`` takes this rank's blocks of the parameters and
+the cache, placed by ``p_specs`` (``dist.sharding.param_specs``) and
+``cache_specs``.
 
 ``make_gossip_step`` and ``make_fed_train_step`` run G pods, each with its
 own model, on the pod mesh of ``launch.mesh.make_pod_mesh``: stacked on one
@@ -25,10 +30,10 @@ Each pod takes a local step of ``make_train_step``'s body on its own batch
 steps (``dist.gossip``, quantized through the int8 wire kernels at
 ``quant_bits < 32``).
 
-There is no ``p_specs``: a model, its gradients and its velocity live
-whole on one device, so each builder returns its step (and the fed tree's
-shapes) alone. Sharding a model over devices (``param_specs``,
-``cache_specs``, a pod with a data axis) is ROADMAP.md queue A, item 11b.
+Training keeps a model, its gradients and its velocity whole on one device,
+so the training builders return no ``p_specs``: sharded training with
+``opt_specs`` and a pod with a data axis are ROADMAP.md A11b (the data
+axis).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.dist.gossip import GossipConfig, mix_into
+from repro_torch.dist.sharding import param_specs
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.sgd import decreasing_lr, momentum_sgd
@@ -72,27 +78,39 @@ def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
     return step_fn
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, mesh=None):
     """serve_fn(params, cache, token, positions, active) -> (logits,
     new_cache), the continuous-batching decode step (``T.decode_step``):
     every cache row is a request slot at its own absolute position, and
-    ``active`` freezes free and retired rows."""
+    ``active`` freezes free and retired rows. Without a mesh, the step
+    alone; with one, (serve_fn, p_specs) and the step runs on the mesh's
+    model axis, its logits whole on every rank."""
+    axis = mesh.axis if mesh is not None else None
 
     def serve_fn(params, cache, token, positions, active):
-        return T.decode_step(cfg, params, cache, token, positions=positions, active=active)
+        return T.decode_step(cfg, params, cache, token, positions=positions, active=active,
+                             axis=axis)
 
-    return serve_fn
+    if mesh is None:
+        return serve_fn
+    return serve_fn, param_specs(T.abstract_params(cfg), mesh)
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, mesh=None):
     """prefill_fn(params, cache, tokens (B,C), positions (B,), n_valid (B,))
     -> (logits (B,C,V), new_cache): the chunked batched prefill into the
-    decode cache at per-row offsets (``T.prefill_chunk``)."""
+    decode cache at per-row offsets (``T.prefill_chunk``). With a mesh,
+    (prefill_fn, p_specs), as :func:`make_serve_step`; ``prefill_fn(...,
+    last=True)`` returns each row's last logits alone, (B, 1, V)."""
+    axis = mesh.axis if mesh is not None else None
 
-    def prefill_fn(params, cache, tokens, positions, n_valid):
-        return T.prefill_chunk(cfg, params, cache, tokens, positions, n_valid)
+    def prefill_fn(params, cache, tokens, positions, n_valid, last=False):
+        return T.prefill_chunk(cfg, params, cache, tokens, positions, n_valid, axis=axis,
+                               last=last)
 
-    return prefill_fn
+    if mesh is None:
+        return prefill_fn
+    return prefill_fn, param_specs(T.abstract_params(cfg), mesh)
 
 
 def make_gossip_step(cfg: ArchConfig, mesh, gossip: GossipConfig, *,

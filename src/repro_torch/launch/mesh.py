@@ -1,32 +1,105 @@
 """The meshes of the port's deployments: the ports of
-``repro.launch.mesh.make_pod_mesh`` and ``make_metal_mesh``.
+``repro.launch.mesh``'s ``HW``, ``make_production_mesh``,
+``make_host_mesh``, ``make_pod_mesh`` and ``make_metal_mesh``.
 
-The reference lays its devices out as a ``(pod, data, model)`` mesh with one
-model replica a pod. The port places pods in one of two ways:
+The reference lays its devices out as a ``(data, model)`` mesh, with a
+leading ``pod`` axis for the DFedRW deployment. The port's meshes:
 
-- stacked: every pod on one device, each leaf of the fed tree with a
-  leading pod dimension (``group=None``); a card holds G pods this way;
-- one pod a rank of a ``torch.distributed`` process group (``torchrun``),
-  each rank holding its own pod on its own device.
-
-A pod spans one device: a pod with a data or model axis (``pods`` smaller
-than the group's world size) is ROADMAP.md A11b, as are the reference's
-production and host meshes (``HW``, ``make_production_mesh``,
-``make_host_mesh``).
-
-The metal deployment (``launch/replay.py``) walks a process's chain slice on
-its local *positions*, a list of devices in which one device may appear
-more than once; ``make_metal_mesh`` picks them and, with several
-processes, takes the deployment's census over a gloo process group.
+- ``make_production_mesh``: the reference's production shapes as a
+  :class:`~repro_torch.dist.sharding.MeshShape` with no devices, for the
+  sharding rules;
+- ``make_host_mesh``: the ranks of a ``torch.distributed`` group as a
+  ``(data, model)`` mesh (:class:`HostMesh`), one rank a device; the model
+  axis carries tensor-parallel serving (``launch.serve --mesh-model``). A
+  data axis of more than one rank is still refused (ROADMAP.md A11b, the
+  data axis);
+- ``make_pod_mesh``: pods stacked on one device (every leaf of the fed tree
+  with a leading pod dimension, ``group=None``; a card holds G pods this
+  way) or one pod a rank of a group. A pod spans one device: a pod with a
+  data or model axis (``pods`` smaller than the group's world size) is
+  refused, with the data axis (ROADMAP.md A11b);
+- ``make_metal_mesh``: the metal deployment (``launch/replay.py``) walks a
+  process's chain slice on its local *positions*, a list of devices in
+  which one device may appear more than once; with several processes it
+  takes the deployment's census over a gloo process group.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["PodMesh", "make_metal_mesh", "make_pod_mesh"]
+from repro_torch.dist.parallel import ModelAxis
+from repro_torch.dist.sharding import MeshShape
+
+__all__ = ["HW", "HostMesh", "PodMesh", "make_host_mesh", "make_metal_mesh", "make_pod_mesh",
+           "make_production_mesh"]
+
+
+class HW:
+    """The NVIDIA H100 SXM5 80GB's published constants, for rooflines."""
+
+    PEAK_FLOPS_BF16 = 989e12       # dense bf16 on the tensor cores, per card
+    PEAK_FLOPS_TF32 = 494.7e12     # dense TF32 on the tensor cores, per card
+    HBM_BW = 3.35e12               # HBM3 bytes/s per card
+    HBM_BYTES = 80e9               # HBM3 capacity
+    NVLINK_BW = 900e9              # NVLink bytes/s per card (all links, both directions)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production mesh shapes, ``(data=16, model=16)`` or
+    ``(pod=2, data=16, model=16)``, with no devices: what the sharding rules
+    need. On H100s a model axis of 16 spans two 8-card nodes, so its
+    collectives leave NVLink for the network between the nodes."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+@dataclasses.dataclass
+class HostMesh:
+    """A ``(data, model)`` mesh over the ranks of ``group`` (None: this
+    process alone), with this rank's ``device``. ``shape`` is the ``{axis:
+    size}`` dict the sharding rules read; ``axis`` is this rank's model
+    axis (its collectives and their counters)."""
+
+    data: int
+    model: int
+    device: torch.device
+    group: Any = None
+    rank: int = 0
+
+    def __post_init__(self):
+        self.axis = ModelAxis(self.group, self.rank % self.model, self.model)
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *, device, group=None) -> HostMesh:
+    """A mesh over the group's ranks (one rank a device; no group: this
+    process alone), clamped as the reference clamps its host mesh: the
+    model axis to [1, ranks], the data axis to [1, ranks // model]. The
+    mesh must take every rank; a data axis of more than one rank raises
+    NotImplementedError (ROADMAP.md A11b, the data axis)."""
+    n = dist.get_world_size(group) if group is not None else 1
+    model = max(1, min(model, n))
+    data = max(1, min(data, n // model))
+    if data > 1:
+        raise NotImplementedError(
+            f"a ({data}, {model}) mesh: a data axis of more than one rank is ROADMAP.md A11b "
+            f"(the data axis)")
+    if data * model != n:
+        raise ValueError(f"a ({data}, {model}) mesh over {n} ranks: the mesh must take them all")
+    rank = dist.get_rank(group) if group is not None else 0
+    return HostMesh(data, model, torch.device(device), group if n > 1 else None, rank)
 
 
 class PodMesh(NamedTuple):

@@ -1,8 +1,9 @@
 """Serving launcher (the port of ``repro.launch.serve``): the
-continuous-batching engine (``repro_torch.serve``) on one device. It makes
-a synthetic request workload, runs it through ``ServeEngine`` and reports
-each request's TTFT/TPOT and the engine's throughput, on the card unless
-``--device cpu`` is given.
+continuous-batching engine (``repro_torch.serve``) on one device, or
+tensor-parallel over ``--mesh-model N`` ranks. It makes a synthetic request
+workload, runs it through ``ServeEngine`` and reports each request's
+TTFT/TPOT and the engine's throughput, on the card unless ``--device cpu``
+is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --smoke \\
       --device cpu --requests 12 --max-concurrency 4 --prompt-len 8 --gen 8 \\
@@ -14,13 +15,30 @@ each request's TTFT/TPOT and the engine's throughput, on the card unless
       --arrival 0.5 --mixed
 
 ``--full`` serves in bf16 (weights, cache and activations) and the smoke
-configuration in float32, as the reference's launcher chooses. ``--mesh-model``
-> 1 (tensor-parallel serving) is not ported yet (ROADMAP.md A11).
+configuration in float32, as the reference's launcher chooses.
+
+``--mesh-model N`` > 1 serves tensor-parallel on a ``(data=1, model=N)``
+mesh of N ranks, started by ``torchrun --nproc-per-node N`` (world size N;
+a data axis is ROADMAP.md A11b). Every rank draws the same weights and
+keeps its block (``dist.sharding``). The ranks' collectives run over NCCL
+when every rank has a card of its own, else over gloo (ranks that share
+one card, and ``--device cpu``); each rank prints its backend, the mesh and
+its device, and at the end a ``timing`` JSON line (ms a decode step and a
+prefill chunk, the collectives' ms and bytes a step, peak device memory,
+``block_attn`` launches) and its token-stream digest; rank 0 prints the
+rest, and runs ``--verify`` against the unsharded sequential decode:
+
+  PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --arch yi-6b --smoke --device cpu --mesh-model 2 --requests 6 --verify
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import statistics
+import sys
+import time
 
 
 def build_requests(args, cfg):
@@ -123,11 +141,15 @@ def main(argv=None) -> None:
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="model-axis size: only 1 (sharded serving is ROADMAP.md A11)")
+                    help="model-axis size: N > 1 serves tensor-parallel over N ranks "
+                         "(torchrun --nproc-per-node N)")
     ap.add_argument("--verify", action="store_true",
                     help="replay each request through the sequential decode "
                          "path and require identical outputs (temp 0)")
     ap.add_argument("--json", default="", help="write the metrics summary here")
+    ap.add_argument("--tokens", default="",
+                    help="write each request's generated tokens here, each with its top-2 "
+                         "logit gap and top logit (JSON: request id -> {tokens, margins})")
     ap.add_argument("--obs", default="",
                     help="record a repro_torch.obs telemetry stream (JSONL) here "
                          "(report: python tools/obs_report.py <path>)")
@@ -138,10 +160,12 @@ def main(argv=None) -> None:
                     help="torch device: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh-model {args.mesh_model}: sharded serving is not ported yet "
-            f"(ROADMAP.md A11: distribution)")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.mesh_model > 1 and world != args.mesh_model:
+        raise SystemExit(
+            f"--mesh-model {args.mesh_model} runs as {args.mesh_model} ranks: start it with "
+            f"torchrun --nproc-per-node {args.mesh_model} (this process group has world size "
+            f"{world})")
     if args.trace and not args.obs:
         raise SystemExit("--trace requires --obs (it augments the obs "
                          "stream with tspan events)")
@@ -153,24 +177,39 @@ def main(argv=None) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.serve import EngineConfig, ServeEngine
 
+    mesh = None
     dev = resolve_device(args.device)
+    if args.mesh_model > 1:
+        dev, mesh = _join_model_axis(args, dev)
+    lead = mesh is None or mesh.rank == 0
     cfg = get_arch(args.arch) if args.full else get_smoke(args.arch)
     dtype = torch.bfloat16 if args.full else torch.float32
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype, device=dev)
     max_len = args.max_len or (args.prompt_len + args.gen)
     obs = None
-    if args.obs:
+    if args.obs and lead:
         from repro_torch.obs import PausableWallClock, Recorder
         obs = Recorder(clock=PausableWallClock(), trace=args.trace)
 
     reqs = build_requests(args, cfg)
     eng = ServeEngine(cfg, params, EngineConfig(
         max_concurrency=args.max_concurrency, max_len=max_len,
-        chunk=args.chunk, dtype=dtype, seed=args.seed), device=dev, obs=obs)
+        chunk=args.chunk, dtype=dtype, seed=args.seed), device=dev, obs=obs, mesh=mesh,
+        margins=bool(args.tokens))
+    if mesh is not None:
+        if not (args.verify and lead):
+            del params                   # this rank keeps its block (eng.params) alone
+        timing = _RankTiming(eng, dev)
     results = eng.run(reqs)
+    if mesh is not None:
+        timing.report(args, eng)
+        if not lead:
+            _leave_model_axis()
+            return
 
     summary = eng.metrics.summary()
-    print(f"arch={cfg.name} device={dev} slots={args.max_concurrency} "
+    where = f"device={dev}" if mesh is None else f"mesh={mesh.shape} ranks={mesh.size}"
+    print(f"arch={cfg.name} {where} slots={args.max_concurrency} "
           f"chunk={eng.chunk} requests={len(reqs)}")
     for st in results:
         m = eng.metrics.requests[st.request.rid]
@@ -188,9 +227,9 @@ def main(argv=None) -> None:
     if args.verify:
         if args.temperature > 0:
             raise SystemExit("--verify requires --temperature 0")
+        full = eng.params if mesh is None else params
         bad = [st.request.rid for st in results
-               if st.generated != sequential_reference(cfg, eng.params, st.request,
-                                                       max_len, dev)]
+               if st.generated != sequential_reference(cfg, full, st.request, max_len, dev)]
         if bad:
             raise SystemExit(f"VERIFY FAILED: engine != sequential decode for rids {bad}")
         print(f"verify: all {len(results)} requests identical to the "
@@ -200,6 +239,11 @@ def main(argv=None) -> None:
         with open(args.json, "w") as f:
             json.dump(summary, f, indent=2)
         print(f"wrote {args.json}")
+    if args.tokens:
+        with open(args.tokens, "w") as f:
+            json.dump({st.request.rid: {"tokens": st.generated,
+                                        "margins": eng.margins[st.request.rid]}
+                       for st in results}, f)
 
     if args.obs:
         from repro_torch.obs import provenance
@@ -207,6 +251,105 @@ def main(argv=None) -> None:
                  workload="serve", arch=cfg.name)
         print(f"obs: wrote {args.obs} "
               f"(report: python tools/obs_report.py {args.obs})")
+    if mesh is not None:
+        _leave_model_axis()
+
+
+def _join_model_axis(args, dev):
+    """This rank's device and mesh: the ranks that ``torchrun`` started
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, the
+    rendezvous in ``MASTER_ADDR``/``MASTER_PORT``) join one process group
+    as a (1, N) mesh. NCCL when every rank of the host has a card of its
+    own; gloo when they share cards (NCCL refuses two ranks on one device)
+    and on the CPU. A rank that finds no card raises (``resolve_device``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    backend = "gloo"
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        dev = torch.device("cuda", local_rank % cards)
+        torch.cuda.set_device(dev)
+        if cards >= local_world:
+            backend = "nccl"
+    dist.init_process_group(backend, init_method="env://",
+                            timeout=datetime.timedelta(seconds=600))
+    mesh = make_host_mesh(1, args.mesh_model, device=dev, group=dist.group.WORLD)
+    sys.stdout.write(f"rank {mesh.rank}: backend={backend} mesh={mesh.shape} device={dev}\n")
+    sys.stdout.flush()
+    return dev, mesh
+
+
+def _leave_model_axis() -> None:
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+class _RankTiming:
+    """Each step call of a tensor-parallel engine timed on this rank (the
+    device synchronised before and after), with its collectives' ms and
+    bytes (``ModelAxis.stats``); ``block_attn``'s launches counted from 0."""
+
+    def __init__(self, eng, dev):
+        import torch
+
+        from repro_torch.kernels.block_attn import block_attn
+
+        self.dev, self.axis, self.torch, self.ba = dev, eng.axis, torch, block_attn
+        self.calls = {"decode": [], "prefill": []}
+        eng._serve_fn = self._timed(eng._serve_fn, "decode")
+        eng._prefill_fn = self._timed(eng._prefill_fn, "prefill")
+        block_attn.reset_launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize(self.dev)
+
+    def _timed(self, fn, kind):
+        def run(*args, **kwargs):
+            self._sync()
+            before = dict(self.axis.stats)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._sync()
+            self.calls[kind].append((
+                (time.perf_counter() - t0) * 1e3,
+                (self.axis.stats["seconds"] - before["seconds"]) * 1e3,
+                self.axis.stats["bytes"] - before["bytes"],
+                self.axis.stats["calls"] - before["calls"]))
+            return out
+
+        return run
+
+    def report(self, args, eng) -> None:
+        out = {"rank": self.axis.rank, "backend": self.axis.backend, "device": str(self.dev),
+               "peak_bytes": (self.torch.cuda.max_memory_allocated(self.dev)
+                              if self.dev.type == "cuda" else None),
+               "block_attn_launches": self.ba.LAUNCHES["block_attn"],
+               "block_attn_bf16_launches": self.ba.BF16_LAUNCHES["block_attn"]}
+        for kind, calls in self.calls.items():
+            if calls:
+                ms, coll_ms, coll_bytes, coll_calls = zip(*calls)
+                out[kind] = {"steps": len(calls), "ms": statistics.median(ms),
+                             "collective_ms": statistics.median(coll_ms),
+                             "collective_bytes": statistics.median(coll_bytes),
+                             "collectives": statistics.median(coll_calls)}
+        # one write a line: the ranks share one standard output
+        for line in (f"rank {self.axis.rank}: timing {json.dumps(out)}",
+                     f"rank {self.axis.rank}: digest={eng.digest} (equal on all "
+                     f"{self.axis.size} ranks)"):
+            sys.stdout.write(line + "\n")
+            sys.stdout.flush()
 
 
 if __name__ == "__main__":

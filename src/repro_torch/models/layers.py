@@ -40,10 +40,22 @@ Random init draws on the generator's own device (``_dense``): a CUDA
 generator fills a full-width model on the card, a CPU generator draws on
 the host and moves the result. Each leaf is drawn in float32, scaled and
 cast to the asked dtype (round to nearest even, as XLA's ``astype``).
+
+Tensor parallelism: the attention, MLA, FFN and MoE functions take an
+optional ``axis`` (``dist.parallel.ModelAxis``), None by default, which
+changes nothing. On an axis their parameters are this rank's blocks by
+``dist.sharding``'s specs and the residual stream is whole on every rank:
+attention computes this rank's query and K/V heads (:func:`_heads`; MQA's
+K/V gathered whole), the FFN its columns, MoE its experts or each expert's
+columns with the routing global, and each row-parallel product is summed
+over the axis in float32 (:func:`_partial`); MLA and the Mamba mixer run
+whole, as the reference's split guard and ``_SSM_DATA_ONLY`` keep them.
+Attention still calls ``block_attention``, on the local heads.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -142,9 +154,86 @@ def init_attn(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32
     return p
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
+class _Heads(NamedTuple):
+    """How a rank of the model axis computes an attention layer."""
+
+    p: dict          # wq wk wv wo (and the QKV biases) as this rank uses them
+    h: int           # query heads computed here
+    kv: int          # K/V heads computed (and cached) here
+    take: object     # None, a slice or an index tensor: the K/V heads of those
+                     # that the local queries attend
+    n_rep: int       # query heads a K/V head of ``take``
+    reduce: bool     # the output projection is a partial sum over the axis
+
+
+def _heads(p: dict, cfg: ArchConfig, axis=None) -> _Heads:
+    """The attention layer's plan on ``axis`` (``dist.parallel.ModelAxis``;
+    None: one device, every head). Where the specs split ``wq`` and ``wo`` at
+    head boundaries, this rank computes its H/m query heads and its partial
+    output projection; its K/V heads too where ``wk``/``wv`` split at head
+    boundaries (KV % m == 0), else it computes every K/V head from the
+    gathered weights (MQA) and its queries attend the heads they map to.
+    Where the query heads do not split, every leaf is gathered and the layer
+    is computed whole, the same on every rank."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if axis is None or axis.size == 1:
+        return _Heads(p, h, kv, None, h // kv, False)
+    biases = {b: p[b] for b in ("bq", "bk", "bv") if b in p}
+    shapes = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd), "wo": (h * hd, d)}
+    if not (axis.splits("wq", shapes["wq"], 1, hd) and axis.splits("wo", shapes["wo"], 0, hd)):
+        w = {name: axis.whole(p[name], name, shape) for name, shape in shapes.items()}
+        return _Heads({**w, **biases}, h, kv, None, h // kv, False)
+    lo, hi = axis.span(h)
+    w = {"wq": p["wq"], "wo": p["wo"], **biases}
+    if "bq" in p:
+        w["bq"] = p["bq"][lo * hd:hi * hd]
+    if axis.splits("wk", shapes["wk"], 1, hd):
+        klo, khi = axis.span(kv)
+        w["wk"], w["wv"] = p["wk"], p["wv"]
+        if "bk" in p:
+            w["bk"], w["bv"] = p["bk"][klo * hd:khi * hd], p["bv"][klo * hd:khi * hd]
+        return _Heads(w, hi - lo, khi - klo, None, h // kv, True)
+    w["wk"] = axis.whole(p["wk"], "wk", shapes["wk"])
+    w["wv"] = axis.whole(p["wv"], "wv", shapes["wv"])
+    groups = [q // (h // kv) for q in range(lo, hi)]           # each local query's K/V head
+    n_kv = groups[-1] - groups[0] + 1
+    rep = (hi - lo) // n_kv
+    if rep * n_kv == hi - lo and all(g - groups[0] == i // rep for i, g in enumerate(groups)):
+        return _Heads(w, hi - lo, kv, slice(groups[0], groups[-1] + 1), rep, True)
+    return _Heads(w, hi - lo, kv, torch.tensor(groups), 1, True)
+
+
+def _take(hs: _Heads, k: torch.Tensor, v: torch.Tensor):
+    """The K/V heads (dim 2) the local queries attend."""
+    if hs.take is None:
+        return k, v
+    if isinstance(hs.take, slice):
+        return k[:, :, hs.take], v[:, :, hs.take]
+    idx = hs.take.to(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel block's product x @ w in float32, left unrounded: the
+    ranks' partials are summed in float32 and rounded once to the model's
+    dtype, as the whole product rounds once (a bf16 partial rounded on each
+    rank would round twice)."""
+    return x.float() @ w.float()
+
+
+def _out(hs: _Heads, out: torch.Tensor, axis) -> torch.Tensor:
+    """The output projection of the attention ``out`` (B, L, h, hd), summed
+    over the axis when it is partial."""
+    b, l = out.shape[:2]
+    if hs.reduce:
+        return axis.sum(_partial(out.reshape(b, l, -1), hs.p["wo"])).to(out.dtype)
+    return out.reshape(b, l, -1) @ hs.p["wo"]
+
+
+def _qkv(hs: _Heads, x: torch.Tensor, cfg: ArchConfig):
     b, l, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
+    p = hs.p
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -152,7 +241,7 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return q.reshape(b, l, h, hd), k.reshape(b, l, kv, hd), v.reshape(b, l, kv, hd)
+    return q.reshape(b, l, hs.h, hd), k.reshape(b, l, hs.kv, hd), v.reshape(b, l, hs.kv, hd)
 
 
 def _sdpa(q, k, v, mask, n_rep: int, logits_bf16: bool = False):
@@ -183,7 +272,7 @@ def _sdpa(q, k, v, mask, n_rep: int, logits_bf16: bool = False):
 
 
 def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin, causal: bool = True,
-               kv_override: torch.Tensor | None = None) -> torch.Tensor:
+               kv_override: torch.Tensor | None = None, axis=None) -> torch.Tensor:
     """Full-sequence attention through ``block_attention``, with q/k/v
     (B, L, heads, hd) as they are (K/V by group, no repeat).
 
@@ -191,26 +280,30 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin, causal: bool
     masks j > i and, with ``cfg.sliding_window > 0``, i - j >= window;
     ``causal=False`` (an encoder) masks nothing. Cross-attention takes its
     keys and values from ``kv_override`` (B, Lk, d), an encoder's output:
-    no RoPE, no QKV bias and no mask, as the reference's."""
+    no RoPE, no QKV bias and no mask, as the reference's. On a model
+    ``axis`` the kernel runs on this rank's heads (:func:`_heads`)."""
     b, l, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
+    hs = _heads(p, cfg, axis)
     if kv_override is None:
-        q, k, v = _qkv(p, x, cfg)
+        q, k, v = _qkv(hs, x, cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         window = cfg.sliding_window if causal else 0
     else:
         lk = kv_override.shape[1]
-        q = (x @ p["wq"]).reshape(b, l, h, hd)
-        k = (kv_override @ p["wk"]).reshape(b, lk, kv, hd)
-        v = (kv_override @ p["wv"]).reshape(b, lk, kv, hd)
+        q = (x @ hs.p["wq"]).reshape(b, l, hs.h, hd)
+        k = (kv_override @ hs.p["wk"]).reshape(b, lk, hs.kv, hd)
+        v = (kv_override @ hs.p["wv"]).reshape(b, lk, hs.kv, hd)
         causal, window = False, 0
+    k, v = _take(hs, k, v)
     out = attn_ops.block_attention(q, k, v, causal=causal, window=window)
-    return out.reshape(b, l, h * hd) @ p["wo"]
+    return _out(hs, out, axis)
 
 
 def init_cache_attn(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:
-    """Ring buffer of min(max_len, window) slots (max_len without a window)."""
+    """Ring buffer of min(max_len, window) slots (max_len without a window);
+    the whole K/V heads (``transformer.init_cache`` cuts a rank's block)."""
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
     return {
@@ -238,18 +331,21 @@ def _ring_mask(pos: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
-                active: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+                active: torch.Tensor | None = None, axis=None) -> tuple[torch.Tensor, dict]:
     """One-token decode. x (B,1,d); ``pos`` a scalar (every row in lockstep)
     or (B,) per-row absolute positions. The new k/v go to ring slot
     pos % size; ``active`` (B,) bool drops the write of inactive rows (the
     reference sends it to slot ``size`` with ``mode="drop"``; torch would
     raise on that index, so those rows write back what their slot held).
-    Returns new cache tensors; the given cache is not modified."""
+    On a model ``axis`` the cache holds this rank's K/V heads (or all of
+    them, see :func:`_heads`). Returns new cache tensors; the given cache is
+    not modified."""
     b = x.shape[0]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hd = cfg.head_dim_
     size = cache["k"].shape[1]
     pos = _slot_positions(pos, b, x.device)
-    q, k, v = _qkv(p, x, cfg)
+    hs = _heads(p, cfg, axis)
+    q, k, v = _qkv(hs, x, cfg)
     cos, sin = rope_freqs(pos[:, None], hd, cfg.rope_theta)     # (B, 1, hd/2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -262,8 +358,9 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
         v_new = torch.where(keep, v_new, cache["v"][rows, slot])
     ck = cache["k"].index_put((rows, slot), k_new)
     cv = cache["v"].index_put((rows, slot), v_new)
-    out = _sdpa(q, ck, cv, _ring_mask(pos, size), h // kv, cfg.attn_logits_bf16)
-    return out.reshape(b, 1, h * hd) @ p["wo"], {"k": ck, "v": cv}
+    kk, vv = _take(hs, ck, cv)
+    out = _sdpa(q, kk, vv, _ring_mask(pos, size), hs.n_rep, cfg.attn_logits_bf16)
+    return _out(hs, out, axis), {"k": ck, "v": cv}
 
 
 def _prefill_write_slots(tok_pos: torch.Tensor, n_valid: torch.Tensor, size: int) -> torch.Tensor:
@@ -329,7 +426,7 @@ def _prefill_write(cache: torch.Tensor, new: torch.Tensor, tok_pos: torch.Tensor
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                 n_valid: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+                 n_valid: torch.Tensor, cfg: ArchConfig, axis=None) -> tuple[torch.Tensor, dict]:
     """Chunked batched prefill into the decode ring cache, the reference's.
     x (B,C,d), a chunk of C tokens a row; ``pos`` (B,) the absolute
     position of each row's first chunk token; ``n_valid`` (B,) the real
@@ -337,12 +434,14 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     the pre-chunk snapshot (the given cache, which is not modified) and the
     chunk's own keys, through :func:`_prefill_mask`; the attention is the
     plain materialized ``_sdpa``, as the reference's (``block_attention``
-    takes no mask over a wrapped ring). Needs C <= the ring size."""
-    b, c, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    takes no mask over a wrapped ring). Needs C <= the ring size. On a model
+    ``axis``, this rank's heads (:func:`attn_decode`)."""
+    c = x.shape[1]
+    hd = cfg.head_dim_
     size = cache["k"].shape[1]
     _check_chunk(c, size)
-    q, k, v = _qkv(p, x, cfg)
+    hs = _heads(p, cfg, axis)
+    q, k, v = _qkv(hs, x, cfg)
     tok_pos = pos[:, None] + torch.arange(c, device=x.device)[None, :]
     cos, sin = rope_freqs(tok_pos, hd, cfg.rope_theta)              # (B,C,hd/2)
     q = apply_rope(q, cos, sin)
@@ -350,10 +449,10 @@ def attn_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     ck = _prefill_write(cache["k"], k, tok_pos, n_valid)
     cv = _prefill_write(cache["v"], v, tok_pos, n_valid)
     mask = _prefill_mask(pos, n_valid, c, size, cfg.sliding_window)
-    kk = torch.cat([cache["k"], k], dim=1)                          # snapshot + chunk
-    vv = torch.cat([cache["v"], v], dim=1)
-    out = _sdpa(q, kk, vv, mask, h // kv, cfg.attn_logits_bf16)
-    return out.reshape(b, c, h * hd) @ p["wo"], {"k": ck, "v": cv}
+    kk, vv = _take(hs, torch.cat([cache["k"], k], dim=1),           # snapshot + chunk
+                   torch.cat([cache["v"], v], dim=1))
+    out = _sdpa(q, kk, vv, mask, hs.n_rep, cfg.attn_logits_bf16)
+    return _out(hs, out, axis), {"k": ck, "v": cv}
 
 
 # ------------------------------------------------------------ MLA attention
@@ -369,6 +468,22 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32)
         "wo": _dense(gen, (h * m.v_head_dim, d), device, dtype),
         "kv_norm": torch.ones(m.kv_lora_rank, dtype=dtype, device=device),
     }
+
+
+def _mla_whole(p: dict, cfg: ArchConfig, axis) -> dict:
+    """MLA's leaves whole on a model ``axis``: its two fused splits (q's
+    nope|rope, w_dkv's latent|rope) are computed replicated, as the
+    reference's ``_split_guard`` keeps them, so the layer runs whole on every
+    rank."""
+    if axis is None or axis.size == 1:
+        return p
+    d, h, m = cfg.d_model, cfg.n_heads, cfg.mla
+    shapes = {"wq": (d, h * (m.qk_nope_dim + m.qk_rope_dim)),
+              "w_dkv": (d, m.kv_lora_rank + m.qk_rope_dim),
+              "w_uk": (m.kv_lora_rank, h * m.qk_nope_dim),
+              "w_uv": (m.kv_lora_rank, h * m.v_head_dim),
+              "wo": (h * m.v_head_dim, d)}
+    return {**p, **{name: axis.whole(p[name], name, shape) for name, shape in shapes.items()}}
 
 
 def _mla_qkv(p, x, cfg, cos, sin):
@@ -422,9 +537,11 @@ def _causal_mask(l: int, window: int, device) -> torch.Tensor:
     return torch.where(ok, zero, zero - 1e30)[None, None]
 
 
-def mla_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin) -> torch.Tensor:
+def mla_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin, axis=None) -> torch.Tensor:
     """Full-sequence causal MLA (sliding window when the config has one);
-    ``cos``/``sin`` at ``cfg.mla.qk_rope_dim``."""
+    ``cos``/``sin`` at ``cfg.mla.qk_rope_dim``; whole on a model ``axis``
+    (:func:`_mla_whole`)."""
+    p = _mla_whole(p, cfg, axis)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, cos, sin)
     mask = _causal_mask(x.shape[1], cfg.sliding_window, x.device)
     return _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, cfg)
@@ -442,10 +559,11 @@ def init_cache_mla(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> 
 
 
 def mla_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
-               active: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+               active: torch.Tensor | None = None, axis=None) -> tuple[torch.Tensor, dict]:
     """One-token MLA decode; ``pos`` and ``active`` as in :func:`attn_decode`
-    (inactive rows write back what their slot held). Returns new cache
-    tensors; the given cache is not modified."""
+    (inactive rows write back what their slot held); whole on a model
+    ``axis``. Returns new cache tensors; the given cache is not modified."""
+    p = _mla_whole(p, cfg, axis)
     b = x.shape[0]
     size = cache["c_kv"].shape[1]
     pos = _slot_positions(pos, b, x.device)
@@ -465,9 +583,11 @@ def mla_decode(p: dict, x: torch.Tensor, cache: dict, pos, cfg: ArchConfig,
 
 
 def mla_prefill(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                n_valid: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
+                n_valid: torch.Tensor, cfg: ArchConfig, axis=None) -> tuple[torch.Tensor, dict]:
     """Chunked MLA prefill into the compressed ring cache, with
-    :func:`attn_prefill`'s chunk, snapshot and padding semantics."""
+    :func:`attn_prefill`'s chunk, snapshot and padding semantics; whole on a
+    model ``axis``."""
+    p = _mla_whole(p, cfg, axis)
     b, c, _ = x.shape
     size = cache["c_kv"].shape[1]
     _check_chunk(c, size)
@@ -492,8 +612,21 @@ def init_ffn(gen: torch.Generator, d: int, ff: int, device, dtype=torch.float32)
     }
 
 
-def ffn_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def ffn_apply(p: dict, x: torch.Tensor, axis=None, ff: int = 0) -> torch.Tensor:
+    """SwiGLU. On a model ``axis`` (``dist.parallel.ModelAxis``) ``p`` holds
+    this rank's block and ``ff`` is the FFN's whole width: where the specs
+    split it on ``ff``, column-parallel ``w_gate``/``w_up`` and a
+    row-parallel ``w_down`` (:func:`_partial`) summed over the axis; else
+    the whole leaves, gathered."""
+    if axis is None or axis.size == 1:
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    d = x.shape[-1]
+    shapes = {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+    if axis.splits("w_gate", shapes["w_gate"], 1) and axis.splits("w_down", shapes["w_down"], 0):
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        return axis.sum(_partial(h, p["w_down"])).to(x.dtype)
+    w = {name: axis.whole(p[name], name, shape) for name, shape in shapes.items()}
+    return (F.silu(x @ w["w_gate"]) * (x @ w["w_up"])) @ w["w_down"]
 
 
 # --------------------------------------------------------------------- MoE
@@ -517,7 +650,7 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32)
     return p
 
 
-def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig):
+def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None):
     """The router of ``moe_apply`` over dispatch groups x (b, l, d), as the
     reference computes it: float32 logits, softmax, the top-k (ties to the
     lower expert index, as ``jax.lax.top_k``: a stable descending sort, since
@@ -531,13 +664,22 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig):
     ``cap = max(8, int(l * top_k * capacity_factor / e))`` is dropped and
     keeps a zero gate.
 
+    On a model ``axis`` the routing stays global: a router split on the
+    experts has its logits gathered before the top-k (one split on d is
+    gathered whole), so every rank routes every token as one device would.
+
     Returns (gate_vals (b, l, k) with dropped choices zeroed, gate_idx
     (b, l, k), slot (b, l, k), keep (b, l, k) bool, cap, aux)."""
     mo = cfg.moe
-    b, l, _ = x.shape
+    b, l, d = x.shape
     e, k = mo.n_experts, mo.top_k
     cap = max(8, int(l * k * mo.capacity_factor / e))
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)          # (b, l, e)
+    if axis is not None and axis.size > 1 and axis.splits("router", (d, e), 1):
+        logits = axis.all_gather(x.float() @ p["router"], -1)
+    else:
+        router = p["router"] if axis is None else axis.whole(p["router"], "router", (d, e))
+        logits = x.float() @ router
+    probs = torch.softmax(logits, dim=-1)                            # (b, l, e)
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = gate_vals[..., :k], gate_idx[..., :k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -553,7 +695,27 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig):
     return gate_vals * keep, gate_idx, slot, keep, cap, aux
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _expert_plan(p: dict, cfg: ArchConfig, d: int, axis):
+    """(expert weights as this rank uses them, its experts [lo, hi), mode):
+    "experts" (expert-parallel) where the specs split the expert stacks on
+    the experts, "columns" (tensor-parallel inside each expert) where they
+    split d_expert, else None: the whole stacks, gathered."""
+    e = cfg.moe.n_experts
+    w = {name: p[name] for name in ("w_gate", "w_up", "w_down")}
+    if axis is None or axis.size == 1:
+        return w, (0, e), None
+    de = cfg.moe.d_expert or cfg.d_ff
+    shapes = {"w_gate": (e, d, de), "w_up": (e, d, de), "w_down": (e, de, d)}
+    if axis.splits("w_gate", shapes["w_gate"], 0) and axis.splits("w_down", shapes["w_down"], 0):
+        return w, axis.span(e), "experts"
+    if axis.splits("w_gate", shapes["w_gate"], 2) and axis.splits("w_down", shapes["w_down"], 1):
+        return w, (0, e), "columns"
+    return ({name: axis.whole(w[name], name, shape) for name, shape in shapes.items()},
+            (0, e), None)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
+              axis=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k dispatch with capacity, the reference's ``moe_apply``. x (B, L, d)
     -> (out, aux loss). The routing is :func:`moe_route`'s.
 
@@ -567,14 +729,24 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, 
     outside any kernel too). Shared experts go through ``ffn_apply``.
 
     The dispatch groups are the batch rows, or rows of ``group_size`` tokens
-    when that divides L and is shorter."""
+    when that divides L and is shorter.
+
+    On a model ``axis`` the routing and the capacity are global (every rank
+    routes every token); a rank runs its own experts (expert-parallel, when
+    the axis divides the expert count) or its columns of every expert, and
+    the outputs are summed over the axis (:func:`_expert_plan`; the
+    columns' ``w_down`` products in float32, :func:`_partial`)."""
     b0, l0, d0 = x.shape
     gs = cfg.moe.group_size
     if gs and l0 > gs and l0 % gs == 0:
         x = x.reshape(b0 * (l0 // gs), gs, d0)
     b, l, d = x.shape
     e = cfg.moe.n_experts
-    gate_vals, gate_idx, slot, keep, cap, aux = moe_route(p, x, cfg)
+    if axis is None or axis.size == 1:
+        gate_vals, gate_idx, slot, keep, cap, aux = moe_route(p, x, cfg)
+    else:
+        gate_vals, gate_idx, slot, keep, cap, aux = moe_route(p, x, cfg, axis)
+    w, (lo, hi), mode = _expert_plan(p, cfg, d, axis)
     width = min(cap, l)
     # Row of each kept choice in the flattened (b, e, width) buffer; dropped
     # choices write to one spare row past the end, which nothing reads.
@@ -585,13 +757,26 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, 
     xe = x.new_zeros(spare + 1, d)
     xe.index_copy_(0, rows.reshape(-1), x.unsqueeze(2).expand(b, l, k, d).reshape(-1, d))
     xe = xe[:spare].view(b, e, width, d)
-    h = F.silu(torch.einsum("becd,edf->becf", xe, p["w_gate"]))
-    h = h * torch.einsum("becd,edf->becf", xe, p["w_up"])
-    ye = torch.einsum("becf,efd->becd", h, p["w_down"]).reshape(spare, d)
+    if (lo, hi) != (0, e):
+        xe = xe[:, lo:hi]
+    h = F.silu(torch.einsum("becd,edf->becf", xe, w["w_gate"]))
+    h = h * torch.einsum("becd,edf->becf", xe, w["w_up"])
+    if mode == "columns":
+        ye = torch.einsum("becf,efd->becd", h.float(), w["w_down"].float())
+    else:
+        ye = torch.einsum("becf,efd->becd", h, w["w_down"])
+    if (lo, hi) != (0, e):            # other ranks' experts: zero rows here
+        full = ye.new_zeros(b, e, width, d)
+        full[:, lo:hi] = ye
+        ye = full
+    ye = ye.reshape(spare, d)
     picked = ye[torch.where(keep, rows, 0)]                          # (b, l, k, d)
-    out = (picked * gate_vals.to(x.dtype)[..., None]).sum(2)
+    out = (picked * gate_vals.to(ye.dtype)[..., None]).sum(2)
+    if mode is not None:
+        out = axis.sum(out).to(x.dtype)
     if "shared" in p:
-        out = out + ffn_apply(p["shared"], x)
+        de = cfg.moe.d_expert or cfg.d_ff
+        out = out + ffn_apply(p["shared"], x, axis=axis, ff=cfg.moe.n_shared * de)
     return out.reshape(b0, l0, d0), aux
 
 

@@ -27,7 +27,10 @@ when no gradient is taken. Embeddings are tied when ``cfg.tie_embeddings``
 
 Public API: init_params / abstract_params / forward_train / loss_fn /
 init_cache / decode_step / prefill_chunk (the serve engine's chunked
-prefill), and ``_run_encoder`` under the reference's name. The parameters'
+prefill), and ``_run_encoder`` under the reference's name. Each takes an
+optional model ``axis`` (``dist.parallel.ModelAxis``): the parameters and
+the cache are then this rank's blocks, and the embedding lookup and the
+logits are whole on every rank (``_embed``, ``_logits``). The parameters'
 dtype, float32 (the default here) or bf16 (the reference's default), sets
 the activations' (``models.layers`` keeps the reference's float32 islands):
 the embedding rows are in it, as the reference's ``embed[tokens]`` cast to
@@ -206,7 +209,48 @@ def _head(cfg: ArchConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, per_token: bool = False):
+def _active(axis) -> bool:
+    return axis is not None and axis.size > 1
+
+
+def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor, axis=None) -> torch.Tensor:
+    """The embedding rows of ``tokens``. On a model ``axis``, an embedding
+    split on the vocab is a masked lookup of this rank's rows summed over
+    the axis (one non-zero term: exact), one split on d a lookup of this
+    rank's columns, gathered."""
+    emb = params["embed"]
+    if not _active(axis):
+        return emb[tokens]
+    dim = axis.model_dim("embed", (cfg.vocab, cfg.d_model))
+    if dim == 0:
+        lo, hi = axis.span(cfg.vocab)
+        local = tokens - lo
+        mine = (local >= 0) & (local < hi - lo)
+        rows = emb[local.clamp(0, hi - lo - 1)]
+        zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+        return axis.sum(torch.where(mine[..., None], rows, zero))
+    rows = emb[tokens]
+    return axis.all_gather(rows, -1) if dim == 1 else rows
+
+
+def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor, axis=None) -> torch.Tensor:
+    """x @ head. On a model ``axis`` the logits are whole on every rank: a
+    head split on the vocab gives this rank's columns, gathered; a head
+    split elsewhere (an odd vocab falls to d) is gathered before use."""
+    if not _active(axis):
+        return x @ _head(cfg, params)
+    v, d = cfg.vocab, cfg.d_model
+    if cfg.tie_embeddings:
+        if axis.model_dim("embed", (v, d)) == 0:
+            return axis.all_gather(x @ params["embed"].T, -1)
+        return x @ axis.whole(params["embed"], "embed", (v, d)).T
+    if axis.splits("head", (d, v), 1):
+        return axis.all_gather(x @ params["head"], -1)
+    return x @ axis.whole(params["head"], "head", (d, v))
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, per_token: bool = False,
+         axis=None):
     """The slot's FFN on the residual x -> (x + ffn(norm2(x)), aux).
     ``per_token`` dispatches a MoE FFN in groups of one token (the chunked
     prefill's, so its capacity is decode's: a group over the chunk could
@@ -219,27 +263,28 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, per_token: bool =
         b, l, d = h.shape
         if per_token:
             h = h.reshape(b * l, 1, d)
-        h, aux = L.moe_apply(p["ffn"], h, cfg)
+        h, aux = L.moe_apply(p["ffn"], h, cfg, axis=axis)
         return x + h.reshape(b, l, d), aux
-    return x + L.ffn_apply(p["ffn"], h), None
+    return x + L.ffn_apply(p["ffn"], h, axis=axis, ff=cfg.d_ff), None
 
 
-def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin):
+def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin, axis=None):
     """One slot of a block -> (x, aux loss of its MoE FFN, or None)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.block_pattern[slot] == "mamba":
         x = x + L.mamba_train(p["mixer"], h, cfg)
     elif cfg.attn_type == "mla":
-        x = x + L.mla_train(p["mixer"], h, cfg, cos, sin)
+        x = x + L.mla_train(p["mixer"], h, cfg, cos, sin, axis=axis)
     else:
-        x = x + L.attn_train(p["mixer"], h, cfg, cos, sin)
-    return _ffn(p, x, cfg, slot)
+        x = x + L.attn_train(p["mixer"], h, cfg, cos, sin, axis=axis)
+    return _ffn(p, x, cfg, slot, axis=axis)
 
 
-def _cross(cp: dict, x: torch.Tensor, cfg: ArchConfig, enc_out: torch.Tensor) -> torch.Tensor:
-    """A decoder block's cross layer: x + attention over ``enc_out``."""
+def _cross(cp: dict, x: torch.Tensor, cfg: ArchConfig, enc_out: torch.Tensor,
+           axis=None) -> torch.Tensor:
+    """A decoder block's cross layer: x + attention over ``enc_out`` (whole)."""
     hn = L.rms_norm(x, cp["norm"], cfg.norm_eps)
-    return x + L.attn_train(cp["mixer"], hn, cfg, None, None, kv_override=enc_out)
+    return x + L.attn_train(cp["mixer"], hn, cfg, None, None, kv_override=enc_out, axis=axis)
 
 
 def _remat(fn, remat: bool, *args):
@@ -250,18 +295,20 @@ def _remat(fn, remat: bool, *args):
     return fn(*args)
 
 
-def _enc_layer(cfg: ArchConfig, lp: dict, h: torch.Tensor, cos, sin) -> torch.Tensor:
+def _enc_layer(cfg: ArchConfig, lp: dict, h: torch.Tensor, cos, sin, axis=None) -> torch.Tensor:
     hn = L.rms_norm(h, lp["norm1"], cfg.norm_eps)
-    h = h + L.attn_train(lp["mixer"], hn, cfg, cos, sin, causal=False)
-    return h + L.ffn_apply(lp["ffn"], L.rms_norm(h, lp["norm2"], cfg.norm_eps))
+    h = h + L.attn_train(lp["mixer"], hn, cfg, cos, sin, causal=False, axis=axis)
+    return h + L.ffn_apply(lp["ffn"], L.rms_norm(h, lp["norm2"], cfg.norm_eps), axis=axis,
+                         ff=cfg.d_ff)
 
 
 def _run_encoder(cfg: ArchConfig, params: dict, embeds: torch.Tensor,
-                 remat: bool = True) -> torch.Tensor:
+                 remat: bool = True, axis=None) -> torch.Tensor:
     """The encoder over frame embeddings (B, F, d): per layer, non-causal
     self-attention with RoPE over positions 0..F-1 and a SwiGLU FFN, each
     behind its norm and added to the residual; then ``enc_norm``. With
-    ``remat`` each layer is recomputed in the backward pass."""
+    ``remat`` each layer is recomputed in the backward pass. On a model
+    ``axis`` the output is whole on every rank."""
     cos, sin = L.rope_freqs(torch.arange(embeds.shape[1], device=embeds.device),
                             cfg.head_dim_, cfg.rope_theta)
     h = embeds
@@ -270,25 +317,25 @@ def _run_encoder(cfg: ArchConfig, params: dict, embeds: torch.Tensor,
             # JAX promotes a bf16 model's weights against float32 frames (the
             # serve engine's, at admission): upcast each layer's as it is used.
             lp = _tree_map(torch.Tensor.float, lp)
-        h = _remat(lambda lp, h: _enc_layer(cfg, lp, h, cos, sin), remat, lp, h)
+        h = _remat(lambda lp, h: _enc_layer(cfg, lp, h, cos, sin, axis), remat, lp, h)
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
 def _block(cfg: ArchConfig, bp: dict, cp: dict | None, x: torch.Tensor, cos, sin,
-           enc_out: torch.Tensor | None):
+           enc_out: torch.Tensor | None, axis=None):
     """One block's slots, then its cross layer -> (x, aux of its MoE slots)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(len(cfg.block_pattern)):
-        x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin)
+        x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin, axis)
         if a is not None:
             aux = aux + a
     if cp is not None:
-        x = _cross(cp, x, cfg, enc_out)
+        x = _cross(cp, x, cfg, enc_out, axis)
     return x, aux
 
 
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-                  frontend_embeds: torch.Tensor | None = None, remat: bool = True):
+                  frontend_embeds: torch.Tensor | None = None, remat: bool = True, axis=None):
     """tokens (B, S) int -> (logits (B, S, V), aux loss: the sum of the MoE
     slots' over every block, 0 without them).
 
@@ -299,14 +346,18 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     RoPE runs over all F + S positions and the first F are cut after the
     final norm. RoPE is built at ``cfg.mla.qk_rope_dim`` for MLA, at the
     head dim otherwise. ``remat`` recomputes each block (with its cross
-    layer) and each encoder layer in the backward pass."""
+    layer) and each encoder layer in the backward pass.
+
+    On a model ``axis`` (``dist.parallel.ModelAxis``) ``params`` is this
+    rank's block (``sharding.param_specs``); the residual stream, the aux
+    loss and the logits are whole, the same on every rank."""
     _check_supported(cfg)
-    x = params["embed"][tokens]
+    x = _embed(cfg, params, tokens, axis)
     n_front, enc_out = 0, None
     if cfg.enc_dec:
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs frontend_embeds")
-        enc_out = _run_encoder(cfg, params, frontend_embeds.to(x.dtype), remat)
+        enc_out = _run_encoder(cfg, params, frontend_embeds.to(x.dtype), remat, axis)
     elif frontend_embeds is not None:
         n_front = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
@@ -317,35 +368,56 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     crosses = (_unstack(params["cross"], cfg.n_blocks) if enc_out is not None
                else [None] * cfg.n_blocks)
     for bp, cp in zip(_unstack(params["blocks"], cfg.n_blocks), crosses):
-        x, a = _remat(lambda bp, cp, x, enc_out: _block(cfg, bp, cp, x, cos, sin, enc_out),
+        x, a = _remat(lambda bp, cp, x, enc_out: _block(cfg, bp, cp, x, cos, sin, enc_out,
+                                                        axis),
                       remat, bp, cp, x, enc_out)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_front:
         x = x[:, n_front:]
-    return x @ _head(cfg, params), aux
+    return _logits(cfg, params, x, axis), aux
 
 
-def loss_fn(cfg: ArchConfig, params: dict, batch: dict, remat: bool = True) -> torch.Tensor:
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, remat: bool = True,
+            axis=None) -> torch.Tensor:
     """batch: {"tokens": (B,S), "labels": (B,S), optional "embeds": (B,F,d)}
     -> mean next-token NLL + aux."""
-    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("embeds"), remat)
+    logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("embeds"), remat,
+                                axis)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     return nll.mean() + aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
-               device: str | torch.device = "cuda", enc_len: int = 0) -> dict:
+               device: str | torch.device = "cuda", enc_len: int = 0, axis=None) -> dict:
     """Stacked (n_blocks-leading) cache: attention slots hold a ring buffer
     of min(max_len, window) k/v slots (MLA: its compressed c_kv and k_rope),
     Mamba2 slots their recurrent state (which ``max_len`` does not size).
     An encoder-decoder also holds ``enc_out`` (B, enc_len or
     frontend_tokens, d), zeros until the caller puts the encoder's output
-    there."""
+    there. On a model ``axis`` each leaf is this rank's block, at the local
+    shape ``sharding.cache_specs`` gives (the KV heads of k/v, d of
+    ``enc_out``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
+    if _active(axis):
+        whole = _init_cache(cfg, batch, max_len, dtype, torch.device("meta"), enc_len)
 
+        def local(name, leaf):
+            if isinstance(leaf, dict):
+                return {k: local(k, v) for k, v in leaf.items()}
+            shape = list(leaf.shape)
+            dim = axis.cache_dim(name, shape)
+            if dim is not None:
+                shape[dim] //= axis.size
+            return torch.zeros(shape, dtype=leaf.dtype, device=dev)
+
+        return {k: local(k, v) for k, v in whole.items()}
+    return _init_cache(cfg, batch, max_len, dtype, dev, enc_len)
+
+
+def _init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, dev, enc_len: int) -> dict:
     def one(i):
         if cfg.block_pattern[i] == "mamba":
             return L.init_cache_mamba(cfg, batch, dtype, dev)
@@ -365,15 +437,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
 
 
 def _cached_pass(cfg: ArchConfig, params: dict, cache: dict, x: torch.Tensor, mix,
-                 per_token: bool):
+                 per_token: bool, axis=None, rows: torch.Tensor | None = None):
     """The blocks over the cache: each slot's mixer is ``mix(kind, mixer
     params, normed x, the slot's cache)`` -> (out, new slot cache), then its
     FFN, then an encoder-decoder's cross layer over ``cache["enc_out"]`` (its
-    K/V projected anew each call, as the reference does) -> (logits, new
-    cache); cache["pos"] is carried over as it is."""
+    K/V projected anew each call, as the reference does; on a model ``axis``
+    a split ``enc_out`` is gathered once a call) -> (logits, new cache);
+    cache["pos"] is carried over as it is. ``rows`` (B,) takes one position
+    a row before the head: logits (B, 1, V)."""
     new_slots = {f"slot{i}": [] for i in range(len(cfg.block_pattern))}
     slots = {k: _unstack(v, cfg.n_blocks) for k, v in cache["slots"].items()}
     crosses = _unstack(params["cross"], cfg.n_blocks) if cfg.enc_dec else None
+    enc_out = cache.get("enc_out")
+    if cfg.enc_dec and _active(axis) and axis.cache_dim("enc_out", (
+            enc_out.shape[0], enc_out.shape[1], cfg.d_model)) == 2:
+        enc_out = axis.all_gather(enc_out, 2)
     for blk, bp in enumerate(_unstack(params["blocks"], cfg.n_blocks)):
         for i, kind in enumerate(cfg.block_pattern):
             p = bp[f"slot{i}"]
@@ -381,18 +459,20 @@ def _cached_pass(cfg: ArchConfig, params: dict, cache: dict, x: torch.Tensor, mi
             out, nc = mix(kind, p["mixer"], hn, slots[f"slot{i}"][blk])
             x = x + out
             new_slots[f"slot{i}"].append(nc)
-            x, _ = _ffn(p, x, cfg, i, per_token)
+            x, _ = _ffn(p, x, cfg, i, per_token, axis)
         if cfg.enc_dec:
-            x = _cross(crosses[blk], x, cfg, cache["enc_out"])
+            x = _cross(crosses[blk], x, cfg, enc_out, axis)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if rows is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), rows][:, None]
     new_cache = dict(cache)
     new_cache["slots"] = {k: _stack(v) for k, v in new_slots.items()}
-    return x @ _head(cfg, params), new_cache
+    return _logits(cfg, params, x, axis), new_cache
 
 
 def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
                 positions: torch.Tensor | None = None,
-                active: torch.Tensor | None = None):
+                active: torch.Tensor | None = None, axis=None):
     """token (B, 1) int -> (logits (B, 1, V), new cache).
 
     Lockstep mode (``positions=None``): every row is at cache["pos"], which
@@ -400,7 +480,8 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
     absolute position and cache["pos"] is left untouched. ``active`` (B,)
     bool freezes the cache of inactive rows. An encoder-decoder's cross
     layers attend ``cache["enc_out"]``, its K/V projected anew every step,
-    as the reference does."""
+    as the reference does. On a model ``axis``, ``params`` and ``cache`` are
+    this rank's blocks and the logits are whole."""
     _check_supported(cfg)
     pos = cache["pos"] if positions is None else positions
 
@@ -408,17 +489,19 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor,
         if kind == "mamba":
             return L.mamba_decode(p, hn, c, cfg, active=active)
         if cfg.attn_type == "mla":
-            return L.mla_decode(p, hn, c, pos, cfg, active=active)
-        return L.attn_decode(p, hn, c, pos, cfg, active=active)
+            return L.mla_decode(p, hn, c, pos, cfg, active=active, axis=axis)
+        return L.attn_decode(p, hn, c, pos, cfg, active=active, axis=axis)
 
-    logits, new_cache = _cached_pass(cfg, params, cache, params["embed"][token], mix, False)
+    logits, new_cache = _cached_pass(cfg, params, cache, _embed(cfg, params, token, axis), mix,
+                                     False, axis)
     if positions is None:
         new_cache["pos"] = cache["pos"] + 1
     return logits, new_cache
 
 
 def prefill_chunk(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tensor,
-                  positions: torch.Tensor, n_valid: torch.Tensor):
+                  positions: torch.Tensor, n_valid: torch.Tensor, axis=None,
+                  last: bool = False):
     """Chunked batched prefill into the decode cache, the reference's.
 
     tokens (B, C) int, the next chunk of each row's prompt, right-padded;
@@ -431,14 +514,20 @@ def prefill_chunk(cfg: ArchConfig, params: dict, cache: dict, tokens: torch.Tens
     slots through ``mamba_prefill`` (bit for bit the decode step), a MoE
     FFN dispatches one token at a time (decode's capacity), and an
     encoder-decoder's cross layers attend ``cache["enc_out"]`` through
-    ``block_attention`` (Lq = C)."""
+    ``block_attention`` (Lq = C). On a model ``axis``, as
+    :func:`decode_step`. ``last`` returns only each row's logits at its last
+    real token (position n_valid - 1, 0 for an empty row): (B, 1, V), the
+    head run on those rows alone (a tensor-parallel engine then gathers B
+    rows of logits, not B x C)."""
     _check_supported(cfg)
 
     def mix(kind, p, hn, c):
         if kind == "mamba":
             return L.mamba_prefill(p, hn, c, n_valid, cfg)
         if cfg.attn_type == "mla":
-            return L.mla_prefill(p, hn, c, positions, n_valid, cfg)
-        return L.attn_prefill(p, hn, c, positions, n_valid, cfg)
+            return L.mla_prefill(p, hn, c, positions, n_valid, cfg, axis=axis)
+        return L.attn_prefill(p, hn, c, positions, n_valid, cfg, axis=axis)
 
-    return _cached_pass(cfg, params, cache, params["embed"][tokens], mix, True)
+    rows = (n_valid - 1).clamp(0, tokens.shape[1] - 1).long() if last else None
+    return _cached_pass(cfg, params, cache, _embed(cfg, params, tokens, axis), mix, True, axis,
+                        rows)

@@ -26,22 +26,33 @@ PyTorch runs eagerly, so nothing is traced or compiled and the engine has
 no ``trace_counts``: its ``prefill_chunks`` and ``decode_steps`` counters
 count the step calls run. Each engine step moves its sampled tokens to
 the host once (one device-to-host copy, as the reference's
-``np.asarray(tok)``). There is no mesh: the parameters and the cache live
-on ``device`` (sharded serving, ``--mesh-model``, is ROADMAP.md A11). The
-cache is in ``EngineConfig.dtype`` (float32 or bf16, the parameters'
-dtype); the last logits are cast to float32 before sampling, and an
-encoder-decoder's encoder runs on float32 frame embeddings, its output
-rounded to the cache's dtype as it is written, as the reference's engine
-does.
+``np.asarray(tok)``). The cache is in ``EngineConfig.dtype`` (float32 or
+bf16, the parameters' dtype); the last logits are cast to float32 before
+sampling, and an encoder-decoder's encoder runs on float32 frame
+embeddings, its output rounded to the cache's dtype as it is written, as
+the reference's engine does.
+
+Without a mesh the parameters and the cache live whole on ``device``. With
+one (``launch.mesh.make_host_mesh``, a model axis over the ranks of a
+process group), the engine is tensor-parallel, as the reference's on its
+``("data", "model")`` mesh: each rank holds its block of the parameters
+(``param_specs``) and of the cache (``cache_specs``), and runs the same
+host loop (admission, scheduling, stops), which is deterministic, so the
+ranks agree; the logits are gathered whole before sampling, and every
+rank samples with the same seeded generator. ``run`` ends by comparing a
+digest of every rank's token streams (one ``all_gather``) and raises on a
+difference. A data axis (data-parallel slots) is ROADMAP.md A11b.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_tree
 from repro_torch.dist.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
@@ -124,24 +135,44 @@ class ServeEngine:
     land there as ``serve/*`` series with a duration per step, and with
     ``trace=True`` each request's ``admit -> prefill_chunk* -> decode*``
     span chain. Host-side only, between steps: token streams are the same
-    with obs on or off."""
+    with obs on or off.
+
+    ``mesh`` (a ``launch.mesh.HostMesh``) makes the engine one rank of a
+    tensor-parallel engine: ``params`` is the whole model, cut here to this
+    rank's block, and the mesh's device replaces ``device``.
+
+    ``margins=True`` keeps, for every emitted token, the gap between the two
+    largest logits it was taken from and the largest one's magnitude
+    (``self.margins[rid]``, a list of (gap, top)): how near a greedy choice
+    was to a tie. It costs one more device-to-host copy a step."""
 
     def __init__(self, cfg: ArchConfig, params, engine: EngineConfig | None = None,
-                 device: str | torch.device = "cuda", obs=None):
+                 device: str | torch.device = "cuda", obs=None, mesh=None,
+                 margins: bool = False):
         self.cfg = cfg
         self.engine = engine or EngineConfig()
         self.obs = obs
-        self.device = resolve_device(device)
+        self.keep_margins = margins
+        self.mesh = mesh
+        self.axis = mesh.axis if mesh is not None else None
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         b, s = self.engine.max_concurrency, self.engine.max_len
         ring = min(s, cfg.sliding_window) if cfg.sliding_window > 0 else s
         self.ring_size = ring
         self.chunk = min(self.engine.chunk, ring)
         self.min_prefill_rows = self.engine.min_prefill_rows  # 0 = auto
+        if mesh is None:
+            self._serve_fn = make_serve_step(cfg)
+            self._prefill_fn = make_prefill_step(cfg)
+        else:
+            self._serve_fn, self.param_spec_tree = make_serve_step(cfg, mesh)
+            self._prefill_fn, _ = make_prefill_step(cfg, mesh)
+            params = shard_tree(params, self.param_spec_tree, mesh)
         self.params = _to(params, self.device)
         self.cache = T.init_cache(cfg, b, s, self.engine.dtype, device=self.device,
-                                  enc_len=cfg.frontend_tokens if cfg.enc_dec else 0)
-        self._serve_fn = make_serve_step(cfg)
-        self._prefill_fn = make_prefill_step(cfg)
+                                  enc_len=cfg.frontend_tokens if cfg.enc_dec else 0,
+                                  axis=self.axis)
+        self.digest = None
         self._recurrent = "mamba" in cfg.block_pattern
         self.reset()
 
@@ -166,6 +197,8 @@ class ServeEngine:
                          and getattr(self.obs, "trace_enabled", False))
         self._trace_prev: dict[int, str] = {}
         self._trace_seq: dict[int, int] = {}
+        self.margins: dict[int, list[tuple[float, float]]] = {}
+        self._step_margins = None
 
     # ------------------------------------------------------------- lifecycle
     def _dev(self, x: np.ndarray) -> torch.Tensor:
@@ -181,8 +214,12 @@ class ServeEngine:
             return
         emb = self._dev(np.asarray(st.request.embeds, np.float32)[None])  # (1, F, d)
         with torch.no_grad():
-            one = T._run_encoder(self.cfg, self.params, emb, remat=False)
-            self.cache["enc_out"][st.slot] = one[0].to(self.cache["enc_out"].dtype)
+            one = T._run_encoder(self.cfg, self.params, emb, remat=False, axis=self.axis)[0]
+            rows = self.cache["enc_out"][st.slot]
+            if rows.shape[-1] != one.shape[-1]:         # a model axis splits enc_out on d
+                lo = self.axis.span(one.shape[-1])[0]
+                one = one[:, lo:lo + rows.shape[-1]]
+            rows.copy_(one.to(rows.dtype))
 
     def submit(self, req: Request) -> None:
         if req.rid in self.metrics.requests:
@@ -218,6 +255,10 @@ class ServeEngine:
         self._last_tok[st.slot] = tok
         now = self.metrics.now()
         rm = self.metrics.requests[st.request.rid]
+        if self.keep_margins:
+            gap, top = self._step_margins
+            self.margins.setdefault(st.request.rid, []).append(
+                (float(gap[st.slot]), float(top[st.slot])))
         if first:
             rm.first_token_wall = now
             rm.eligible_wall = self.scheduler.eligible_wall.get(st.request.rid, now)
@@ -245,6 +286,10 @@ class ServeEngine:
     def _pick(self, last: torch.Tensor, sampled: bool) -> np.ndarray:
         """Tokens from the last logits (B, V), moved to the host: the
         step's one device-to-host copy."""
+        if self.keep_margins:
+            top = torch.topk(last, 2, dim=-1).values
+            self._step_margins = ((top[:, 0] - top[:, 1]).cpu().numpy(),
+                                  top[:, 0].abs().cpu().numpy())
         if sampled:
             tok = _sample_tokens(last, self._gen, self._dev(self._temps.copy()))
         else:
@@ -254,9 +299,12 @@ class ServeEngine:
     @torch.no_grad()
     def _prefill(self, tokens: np.ndarray, n_valid: np.ndarray, sampled: bool) -> np.ndarray:
         cache = self._fresh(self.cache, (self.positions == 0) & (n_valid > 0))
-        logits, self.cache = self._prefill_fn(
-            self.params, cache, self._dev(tokens), self._dev(self.positions.copy()),
-            self._dev(n_valid))
+        args = (self.params, cache, self._dev(tokens), self._dev(self.positions.copy()),
+                self._dev(n_valid))
+        if self.mesh is not None:    # the head on each row's last token: B rows gathered
+            logits, self.cache = self._prefill_fn(*args, last=True)
+            return self._pick(logits[:, 0].float(), sampled)
+        logits, self.cache = self._prefill_fn(*args)
         idx = np.clip(n_valid - 1, 0, tokens.shape[1] - 1)
         last = logits[torch.arange(logits.shape[0], device=self.device), self._dev(idx)]
         return self._pick(last.float(), sampled)
@@ -406,7 +454,21 @@ class ServeEngine:
                 raise RuntimeError(
                     f"engine stalled: {self.in_flight()} in flight, "
                     f"{len(self.scheduler)} waiting after {self._step_count} steps")
-        return sorted(done, key=lambda st: st.request.rid)
+        done = sorted(done, key=lambda st: st.request.rid)
+        self._check_ranks_agree(done)
+        return done
+
+    def _check_ranks_agree(self, done: list[RequestState]) -> None:
+        """The digest of this run's token streams, held equal across the
+        model axis's ranks (one ``all_gather``); a difference raises."""
+        h = hashlib.sha256()
+        for st in done:
+            h.update(f"{st.request.rid}:{st.stop}:{st.generated};".encode())
+        self.digest = h.hexdigest()[:16]
+        if self.axis is not None and not self.axis.all_equal(
+                [int(self.digest[i:i + 8], 16) for i in (0, 8)]):
+            raise RuntimeError(f"the model axis's ranks served different token streams "
+                               f"(rank {self.axis.rank} digest {self.digest})")
 
 
 def _greedy_tokens(logits: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,7 @@ from repro_torch.core import (
 from repro_torch.core.heterogeneity import partition_similarity
 from repro_torch.data import FederatedDataset, synthetic_image_classification
 from repro_torch.models import make_fnn
+from _torch_threads import torch_threads  # noqa: F401
 
 N = 10
 # algo -> (JAX class, port class, config fields)

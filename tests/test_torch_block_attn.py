@@ -36,6 +36,7 @@ from repro.models import layers as JL
 from repro_torch.kernels.block_attn import block_attention
 from repro_torch.kernels.block_attn import block_attn as bk
 from repro_torch.kernels.block_attn.ref import attention_pairs, block_attention_plain
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 KERNEL_TOL = 1e-4       # abs and rel: the card's kernel against the fp32 versions

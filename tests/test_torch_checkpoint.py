@@ -22,6 +22,7 @@ from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core.flatten import tree_leaves
 from repro_torch.models import make_lstm_lm
+from _torch_threads import torch_threads  # noqa: F401
 
 SMALL = dict(vocab=200, embed=32, hidden=64, layers=2)
 

@@ -38,6 +38,7 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels.block_attn import block_attn as bk
 from repro_torch.models import ArchConfig
 from repro_torch.models import transformer as T
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)

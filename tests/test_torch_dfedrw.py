@@ -30,6 +30,7 @@ from repro_torch.core import DFedRW, DFedRWConfig, QuantConfig, StragglerModel, 
 from repro_torch.core.heterogeneity import partition_similarity
 from repro_torch.data import FederatedDataset, synthetic_image_classification
 from repro_torch.models import make_fnn
+from _torch_threads import torch_threads  # noqa: F401
 
 CASES = {
     # tests/test_flat_engine.py's setup: 10 devices, 2,000 samples, 2FNN-64

@@ -47,6 +47,7 @@ from repro_torch.kernels.block_attn import ops
 from repro_torch.models import ArchConfig, MLAConfig, MoEConfig, SSMConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 LAYER_TOL = dict(atol=1e-5, rtol=1e-5)

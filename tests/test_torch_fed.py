@@ -61,6 +61,7 @@ from repro_torch.launch.mesh import make_pod_mesh
 from repro_torch.models import transformer as T
 from repro_torch.optim import momentum_init
 from repro_torch.sim import SimTrace, build_scenario
+from _torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ARCHS = ("yi-6b", "mamba2-130m")

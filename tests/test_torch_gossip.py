@@ -46,6 +46,7 @@ from repro.dist import gossip as jg
 from repro_torch.core.flatten import make_flat_spec, tree_leaves
 from repro_torch.dist import gossip as tg
 from repro_torch.kernels.quantize import quantize as qk
+from _torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 PODS = 8

@@ -22,6 +22,7 @@ import textwrap
 
 import numpy as np
 import pytest
+from _torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 WORLD = 4

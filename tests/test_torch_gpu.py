@@ -693,6 +693,9 @@ def _bf16_ulps(got, want, scale):
     (8, 64, 1024, 16, 16, 64, False, 0),    # serve's prefill-cross chunk of 64 rows
     (8, 1, 1024, 16, 16, 64, False, 0),     # decode's cross-attention, Lq = 1
     (2, 130, 130, 8, 2, 128, True, 0),      # a 2-row ragged last query tile
+    (8, 64, 1024, 8, 8, 64, False, 0),      # a model-axis rank's heads (model = 2):
+    (8, 1, 1024, 8, 8, 64, False, 0),       # Seamless's serve cross calls,
+    (1, 512, 512, 16, 2, 128, True, 0),     # Yi's layer 0
 ])
 def test_block_attn_bf16_matches_plain(cuda, b, lq, lk, h, kv, hd, causal, window):
     """Within 1 bf16 ulp: both compute in float32 and round o once. Only hd

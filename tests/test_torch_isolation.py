@@ -1,6 +1,16 @@
 """The port stands alone: no module of repro_torch (nor chip_smoke.py)
 imports ``jax`` or the JAX package ``repro``, and its entry points run on
-the card unless the caller asks for the CPU."""
+the card unless the caller asks for the CPU.
+
+The tests that run the port with imports of jax and repro refused share one
+process (the ``isolated`` fixture): it installs the import guard, imports
+torch and numpy once, and runs each test's body (``_BODIES``) in a fork of
+itself, so that every body starts from the same clean module table; the
+guard also sits in a ``sitecustomize`` on the ``PYTHONPATH`` that the
+bodies hand on to the processes they start. Each test then reads its own
+body's exit status and output.
+"""
+import json
 import os
 import subprocess
 import sys
@@ -25,14 +35,59 @@ _GUARD = textwrap.dedent("""
 """)
 
 
-def _run(body: str) -> subprocess.CompletedProcess:
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    return subprocess.run([sys.executable, "-c", _GUARD + textwrap.dedent(body)],
-                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+_RUNNER = _GUARD + textwrap.dedent("""
+    import contextlib, io, json, os, traceback
+    import numpy, torch  # noqa: F401  (imported once, shared by every fork)
+
+    bodies, out = json.load(open(sys.argv[1])), sys.argv[2]
+    for name, body in bodies.items():
+        scratch = os.path.join(out, name)
+        os.makedirs(scratch)
+        pid = os.fork()
+        if pid == 0:
+            os.environ["ISOLATION_SCRATCH"] = scratch
+            stdout, stderr, rc = io.StringIO(), io.StringIO(), 0
+            try:
+                with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+                    exec(compile(body, name, "exec"), {"__name__": "__main__"})
+            except BaseException:
+                rc = 1
+                stderr.write(traceback.format_exc())
+            with open(scratch + ".json", "w") as f:
+                json.dump({"returncode": rc, "stdout": stdout.getvalue(),
+                           "stderr": stderr.getvalue()}, f)
+            os._exit(0)
+        os.waitpid(pid, 0)
+""")
+_BODIES: dict = {}
 
 
-def test_port_imports_no_jax_and_runs_a_round():
-    proc = _run("""
+@pytest.fixture(scope="module")
+def isolated(tmp_path_factory):
+    """{test name: its body's returncode, stdout and stderr}, every body run
+    in a fork of one guarded process."""
+    tmp = tmp_path_factory.mktemp("isolation")
+    (tmp / "guard").mkdir()
+    (tmp / "guard" / "sitecustomize.py").write_text(_GUARD)
+    (tmp / "bodies.json").write_text(json.dumps({k: textwrap.dedent(v)
+                                                 for k, v in _BODIES.items()}))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(tmp / "guard"), os.path.join(ROOT, "src")]))
+    proc = subprocess.run([sys.executable, "-c", _RUNNER, str(tmp / "bodies.json"),
+                           str(tmp / "out")], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    results = {}
+    for name in _BODIES:
+        path = tmp / "out" / f"{name}.json"
+        got = json.loads(path.read_text()) if path.exists() else {
+            "returncode": -1, "stdout": "", "stderr": f"no result ({proc.stderr[-2000:]})"}
+        results[name] = subprocess.CompletedProcess(name, got["returncode"], got["stdout"],
+                                                    got["stderr"])
+    return results
+
+
+_BODIES["test_port_imports_no_jax_and_runs_a_round"] = """
         import importlib, pkgutil, sys
         import numpy as np
         import repro_torch
@@ -58,15 +113,16 @@ def test_port_imports_no_jax_and_runs_a_round():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok", len(names))
-    """)
+    """
+
+
+def test_port_imports_no_jax_and_runs_a_round(isolated):
+    proc = isolated["test_port_imports_no_jax_and_runs_a_round"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
 
 
-def test_port_runs_mamba_smoke_without_jax():
-    """The Mamba2 slice, forward and decode, on the CPU with JAX and the JAX
-    package refused."""
-    proc = _run("""
+_BODIES["test_port_runs_mamba_smoke_without_jax"] = """
         import sys
         import torch
         from repro_torch.configs import get_smoke
@@ -87,15 +143,18 @@ def test_port_runs_mamba_smoke_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_runs_mamba_smoke_without_jax(isolated):
+    """The Mamba2 slice, forward and decode, on the CPU with JAX and the JAX
+    package refused."""
+    proc = isolated["test_port_runs_mamba_smoke_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
 
 
-def test_port_runs_dense_smoke_without_jax():
-    """The dense GQA slice, forward and decode, on the CPU with JAX and the
-    JAX package refused."""
-    proc = _run("""
+_BODIES["test_port_runs_dense_smoke_without_jax"] = """
         import sys
         import torch
         from repro_torch.configs import get_smoke
@@ -116,16 +175,18 @@ def test_port_runs_dense_smoke_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_runs_dense_smoke_without_jax(isolated):
+    """The dense GQA slice, forward and decode, on the CPU with JAX and the
+    JAX package refused."""
+    proc = isolated["test_port_runs_dense_smoke_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
 
 
-def test_port_runs_moe_smoke_and_renders_a_report_without_jax():
-    """The MoE slice (a Grok SMOKE forward and decode) and the renderers (a
-    traced simulator stream rendered with its critical path) on the CPU
-    with JAX and the JAX package refused."""
-    proc = _run("""
+_BODIES["test_port_runs_moe_smoke_and_renders_a_report_without_jax"] = """
         import sys
         import torch
         import repro_torch.obs as obs
@@ -155,17 +216,19 @@ def test_port_runs_moe_smoke_and_renders_a_report_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_runs_moe_smoke_and_renders_a_report_without_jax(isolated):
+    """The MoE slice (a Grok SMOKE forward and decode) and the renderers (a
+    traced simulator stream rendered with its critical path) on the CPU
+    with JAX and the JAX package refused."""
+    proc = isolated["test_port_runs_moe_smoke_and_renders_a_report_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
 
 
-def test_port_runs_mla_and_encdec_smoke_without_jax():
-    """The two families ported last, through the registry's config modules
-    (``configs.deepseek_v2_lite_16b``, ``configs.seamless_m4t_large_v2``):
-    MLA with MoE and the encoder-decoder over stub frames, forward and
-    decode, on the CPU with JAX and the JAX package refused."""
-    proc = _run("""
+_BODIES["test_port_runs_mla_and_encdec_smoke_without_jax"] = """
         import sys
         import torch
         from repro_torch.configs import get_arch, get_smoke
@@ -195,15 +258,20 @@ def test_port_runs_mla_and_encdec_smoke_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_runs_mla_and_encdec_smoke_without_jax(isolated):
+    """The two families ported last, through the registry's config modules
+    (``configs.deepseek_v2_lite_16b``, ``configs.seamless_m4t_large_v2``):
+    MLA with MoE and the encoder-decoder over stub frames, forward and
+    decode, on the CPU with JAX and the JAX package refused."""
+    proc = isolated["test_port_runs_mla_and_encdec_smoke_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
 
 
-def test_port_trains_without_jax():
-    """The training slice (``dist``, ``optim``, ``launch.train pod``) on the
-    CPU with imports of jax and repro refused."""
-    proc = _run("""
+_BODIES["test_port_trains_without_jax"] = """
         import sys
         import torch
         from repro_torch.configs import get_smoke
@@ -230,16 +298,18 @@ def test_port_trains_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_trains_without_jax(isolated):
+    """The training slice (``dist``, ``optim``, ``launch.train pod``) on the
+    CPU with imports of jax and repro refused."""
+    proc = isolated["test_port_trains_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ok" in proc.stdout and "done" in proc.stdout
 
 
-def test_port_runs_the_pod_deployment_without_jax():
-    """The pod deployment (``dist.gossip``, the fed step, ``launch.mesh``,
-    ``launch.train pod --fed``, ``convert.stack_pods``) and the trace's
-    deployment export on the CPU with imports of jax and repro refused."""
-    proc = _run("""
+_BODIES["test_port_runs_the_pod_deployment_without_jax"] = """
         import sys
         import torch
         from repro_torch.configs import get_smoke
@@ -272,7 +342,14 @@ def test_port_runs_the_pod_deployment_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_runs_the_pod_deployment_without_jax(isolated):
+    """The pod deployment (``dist.gossip``, the fed step, ``launch.mesh``,
+    ``launch.train pod --fed``, ``convert.stack_pods``) and the trace's
+    deployment export on the CPU with imports of jax and repro refused."""
+    proc = isolated["test_port_runs_the_pod_deployment_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ok" in proc.stdout and "inter-pod param spread" in proc.stdout
 
@@ -291,13 +368,7 @@ def test_pod_deployment_defaults_to_cuda():
         stack_pods({"embed": np.zeros((2, 2), np.float32)}, 2)
 
 
-def test_port_serves_without_jax():
-    """The serving slice (``repro_torch.serve``, ``launch.serve``,
-    ``transformer.prefill_chunk``, ``dist``'s serve and prefill steps) on the
-    CPU with imports of jax and repro refused: the launcher verifies the
-    engine against the sequential decode for a Mamba2 and an
-    encoder-decoder SMOKE model."""
-    proc = _run("""
+_BODIES["test_port_serves_without_jax"] = """
         import sys
         import torch
         from repro_torch.configs import get_smoke
@@ -326,16 +397,21 @@ def test_port_serves_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_serves_without_jax(isolated):
+    """The serving slice (``repro_torch.serve``, ``launch.serve``,
+    ``transformer.prefill_chunk``, ``dist``'s serve and prefill steps) on the
+    CPU with imports of jax and repro refused: the launcher verifies the
+    engine against the sequential decode for a Mamba2 and an
+    encoder-decoder SMOKE model."""
+    proc = isolated["test_port_serves_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ok" in proc.stdout and proc.stdout.count("verify: all 4 requests identical") == 2
 
 
-def test_port_runs_the_simulator_without_jax():
-    """The simulator slice (sim, obs, launch.sim) on the CPU with JAX and the
-    JAX package refused: a scenario with telemetry and a recorded trace on
-    each engine, and the launcher."""
-    proc = _run("""
+_BODIES["test_port_runs_the_simulator_without_jax"] = """
         import contextlib, io, os, sys, tempfile
         import torch
         import repro_torch.launch.sim as launcher
@@ -359,40 +435,92 @@ def test_port_runs_the_simulator_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_port_runs_the_simulator_without_jax(isolated):
+    """The simulator slice (sim, obs, launch.sim) on the CPU with JAX and the
+    JAX package refused: a scenario with telemetry and a recorded trace on
+    each engine, and the launcher."""
+    proc = isolated["test_port_runs_the_simulator_without_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
 
 
-def test_port_runs_the_metal_deployment_without_jax(tmp_path):
+_BODIES["test_port_runs_the_metal_deployment_without_jax"] = """
+    import os, sys
+    import torch
+    from repro_torch.launch.replay import main
+    from repro_torch.launch.sim import main as sim_main
+    from repro_torch.sim import MetalReplay, SimTrace
+
+    trace = os.path.join(os.environ["ISOLATION_SCRATCH"], "t.jsonl")
+    sim_main(["--scenario", "churn_dropout", "--n", "12", "--rounds", "2", "--seed", "2",
+              "--device", "cpu", "--record", trace])
+    assert main(["--trace", trace, "--processes", "2", "--check", "--fault-inject",
+                 "--device", "cpu"]) == 0
+    bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+    assert not bad, bad
+    print("ok")
+"""
+
+
+def test_port_runs_the_metal_deployment_without_jax(isolated):
     """The metal replay (``repro_torch.sim.metal``) and its launcher
     (``launch.replay``) with two workers on the CPU, with imports of jax and
-    repro refused in this process and, through a ``sitecustomize`` on the
+    repro refused in this process and, through the ``sitecustomize`` on the
     ``PYTHONPATH`` the launcher hands on, in the workers it spawns."""
-    guard_dir = tmp_path / "guard"
-    guard_dir.mkdir()
-    (guard_dir / "sitecustomize.py").write_text(_GUARD)
-    trace = str(tmp_path / "t.jsonl")
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([str(guard_dir), os.path.join(ROOT, "src")]))
-    proc = subprocess.run([sys.executable, "-c", _GUARD + textwrap.dedent(f"""
-        import sys
-        import torch
-        from repro_torch.launch.replay import main
-        from repro_torch.launch.sim import main as sim_main
-        from repro_torch.sim import MetalReplay, SimTrace
-
-        sim_main(["--scenario", "churn_dropout", "--n", "12", "--rounds", "2", "--seed", "2",
-                  "--device", "cpu", "--record", {trace!r}])
-        assert main(["--trace", {trace!r}, "--processes", "2", "--check", "--fault-inject",
-                     "--device", "cpu"]) == 0
-        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
-        assert not bad, bad
-        print("ok")
-    """)], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    proc = isolated["test_port_runs_the_metal_deployment_without_jax"]
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
     assert "faults verified" in proc.stdout and "shards agree" in proc.stdout
     assert proc.stdout.rstrip().endswith("ok")
+
+
+_BODIES["test_port_shards_without_jax"] = """
+    import sys
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_arch, get_smoke
+    from repro_torch.dist.parallel import ModelAxis
+    from repro_torch.dist.sharding import (cache_specs, gather_tree, opt_specs, param_specs,
+                                           shard_tree)
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+
+    for arch in ARCH_IDS:
+        tree = T.abstract_params(get_arch(arch))
+        for mesh in (make_production_mesh(), make_production_mesh(multi_pod=True)):
+            assert param_specs(tree, mesh).keys() == opt_specs(tree, mesh).keys()
+    cfg = get_smoke("yi-6b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    mesh = {"data": 1, "model": 2}
+    specs = param_specs(params, mesh)
+    back = gather_tree([shard_tree(params, specs, mesh, r) for r in range(2)], specs, mesh)
+    assert torch.equal(back["embed"], params["embed"])
+    assert cache_specs(T.init_cache(cfg, 2, 8, device="cpu"), mesh)["slots"]["slot0"]["k"] \\
+        == (None, "data", None, "model", None)
+    one = make_host_mesh(1, 2, device="cpu")
+    assert one.shape == {"data": 1, "model": 1} and isinstance(one.axis, ModelAxis)
+    eng = ServeEngine(cfg, params, EngineConfig(max_concurrency=2, max_len=8), mesh=one)
+    plain = ServeEngine(cfg, params, EngineConfig(max_concurrency=2, max_len=8), device="cpu")
+    reqs = [Request(rid=i, prompt=[1, 2, 3], max_tokens=2) for i in range(3)]
+    assert [st.generated for st in eng.run(reqs)] == [st.generated for st in plain.run(reqs)]
+    assert eng.digest == plain.digest
+    bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+    assert not bad, bad
+    print("ok")
+"""
+
+
+def test_port_shards_without_jax(isolated):
+    """The sharding rules (``dist.sharding``) on the production meshes, the
+    placement round trip, the host mesh and a one-rank mesh's engine on the
+    CPU with imports of jax and repro refused (the launcher's ranks under
+    ``torchrun`` are guarded in ``tests/test_torch_serve_sharded.py``)."""
+    proc = isolated["test_port_shards_without_jax"]
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
 
 
 def test_simulator_defaults_to_cuda():
@@ -409,10 +537,7 @@ def test_simulator_defaults_to_cuda():
             setup.runner(engine=engine)
 
 
-def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py's imports stand alone too. Told that there is a card,
-    it imports the whole port before its first call to the card fails."""
-    proc = _run("""
+_BODIES["test_chip_smoke_imports_no_jax"] = """
         import runpy, subprocess, sys
         import torch
         torch.cuda.is_available = lambda: True
@@ -429,7 +554,13 @@ def test_chip_smoke_imports_no_jax():
         bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
         assert not bad, bad
         print("ok")
-    """)
+    """
+
+
+def test_chip_smoke_imports_no_jax(isolated):
+    """chip_smoke.py's imports stand alone too. Told that there is a card,
+    it imports the whole port before its first call to the card fails."""
+    proc = isolated["test_chip_smoke_imports_no_jax"]
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 

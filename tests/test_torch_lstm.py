@@ -41,6 +41,7 @@ from repro_torch.core.heterogeneity import Partition, partition_similarity
 from repro_torch.data import FederatedDataset
 from repro_torch.data import synthetic_token_stream
 from repro_torch.models import make_fnn, make_lstm_lm
+from _torch_threads import torch_threads  # noqa: F401
 
 SMALL = dict(vocab=200, embed=32, hidden=64, layers=2)
 

@@ -37,6 +37,7 @@ from repro_torch.convert import lm_params_from_numpy
 from repro_torch.kernels.ssd_scan.ssd_scan import LAUNCHES, reset_launch_counts
 from repro_torch.models import ArchConfig, MLAConfig, MoEConfig, SSMConfig
 from repro_torch.models import transformer as T
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)

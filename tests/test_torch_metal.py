@@ -52,6 +52,7 @@ from repro_torch.sim import (
     build_scenario,
     conformance_diff,
 )
+from _torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 KEY_SEED = 7
@@ -59,17 +60,6 @@ WINDOWS = 2
 
 JAX_CASES = {"fp32": ("uniform_sync", 0, {}), "bits8": ("uniform_sync", 0, {"bits": 8}),
              "churn": ("churn_dropout", 2, {})}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads while this module runs: the suite runs files in
-    parallel processes, and the bits-8 plain versions are elementwise work
-    that more threads only contend for."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def metal_words(root, windows, k):

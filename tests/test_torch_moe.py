@@ -39,6 +39,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan as sk
 from repro_torch.models import ArchConfig, MLAConfig, MoEConfig, SSMConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 MOE_TOL = dict(atol=1e-5, rtol=1e-5)

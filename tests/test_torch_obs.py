@@ -24,6 +24,7 @@ from _torch_sim_pair import run_pair
 
 import repro_torch.obs as tobs
 from repro_torch.sim import build_scenario
+from _torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 

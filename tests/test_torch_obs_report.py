@@ -28,6 +28,7 @@ from repro.launch.train import main as j_train
 import repro_torch.obs as tobs
 from repro_torch.launch.train import main as t_train
 from repro_torch.sim import build_scenario
+from _torch_threads import torch_threads  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 STREAMS = ["obs_traced.jsonl", "obs_base.jsonl", "obs_regressed.jsonl"]

@@ -23,6 +23,7 @@ import torch
 from repro.optim import sgd as J
 
 from repro_torch import optim as O
+from _torch_threads import torch_threads  # noqa: F401
 
 STEP_TOL = dict(atol=1e-7, rtol=1e-6)
 ADAM_TOL = dict(atol=1e-7, rtol=1e-5)

@@ -50,6 +50,7 @@ from repro_torch.kernels.quantize.quantize import (
     qdq_rows_rng,
     reset_launch_counts,
 )
+from _torch_threads import torch_threads  # noqa: F401
 
 SEEDS = [(0, 0), (12345, 0xDEADBEEF), (0xFFFFFFFF, 7)]
 

@@ -64,6 +64,7 @@ from repro_torch.kernels.quantize.quantize import (
     quantize_rows,
     reset_launch_counts,
 )
+from _torch_threads import torch_threads  # noqa: F401
 
 ROWS = [37, 512]                  # a ragged count, and a multiple of the TPU's 512-row tile
 BITS = [2, 4, 8]

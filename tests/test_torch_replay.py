@@ -26,18 +26,9 @@ import torch
 
 from repro_torch.launch.replay import SocketExchange, _free_port, main
 from repro_torch.launch.sim import main as sim_main
+from _torch_threads import torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads while this module runs (the suite runs files in
-    parallel processes)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _record(path, scenario="uniform_sync", bits=32, seed=0):

@@ -60,6 +60,7 @@ from repro_torch.serve import EngineConfig, Phase, Request, RequestState, ServeE
 from repro_torch.serve import engine as serve_engine, scheduler as t_sched
 from repro_torch.serve.prefill import plan_chunk
 from repro_torch.serve.scheduler import FCFSScheduler, stop_reason
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 DECODE_TOL = dict(atol=2e-3, rtol=2e-3)
@@ -508,7 +509,7 @@ def test_submit_and_config_errors():
     assert EngineConfig(dtype=torch.bfloat16).dtype == torch.bfloat16
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         EngineConfig(dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         launch.main(["--arch", "mamba2-130m", "--device", "cpu", "--mesh-model", "2"])
     with pytest.raises(SystemExit, match="--trace requires --obs"):
         launch.main(["--arch", "mamba2-130m", "--device", "cpu", "--trace"])

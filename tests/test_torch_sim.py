@@ -18,6 +18,7 @@ from _torch_sim_pair import assert_params_close, assert_same_timeline, run_pair
 
 from repro_torch.core import DFedRW
 from repro_torch.sim import build_scenario
+from _torch_threads import torch_threads  # noqa: F401
 
 CASES = {
     # (scenario, windows, overrides)

@@ -42,6 +42,7 @@ from repro_torch.sim import (
     build_scenario,
 )
 from repro_torch.sim.hierarchy import HierarchicalLinkModel
+from _torch_threads import torch_threads  # noqa: F401
 
 SPARSE = [("ring", 50, {}), ("expander3", 200, {"seed": 4}),
           ("expander5", 97, {}), ("metro", 1000, {"devices_per_cell": 100,

@@ -22,6 +22,7 @@ from _torch_sim_pair import RECORD_FIELDS, assert_params_close, assert_same_valu
 
 from repro_torch.launch.sim import main
 from repro_torch.sim import SimTrace, TraceIntegrityError, build_scenario
+from _torch_threads import torch_threads  # noqa: F401
 
 CASES = {"straggler_bits8": ("straggler_tail", {"bits": 8}),
          "overlap_async": ("overlap_async", {}),

@@ -48,6 +48,7 @@ from repro_torch.kernels.ssd_scan.ssd_scan import (
 )
 
 from test_torch_train import _ssd_backward_as_the_kernels
+from _torch_threads import torch_threads  # noqa: F401
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 

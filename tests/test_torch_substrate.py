@@ -36,6 +36,7 @@ from repro_torch.core.flatten import (
 )
 from repro_torch.data import FederatedDataset, synthetic_image_classification
 from repro_torch.optim import decreasing_lr
+from _torch_threads import torch_threads  # noqa: F401
 
 TOPOLOGIES = ["complete", "ring", "expander3", "expander5", "star", "erdos_renyi"]
 

@@ -63,6 +63,7 @@ from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.kernels.ssd_scan import ssd_scan as sk
 from repro_torch.models import transformer as T
 from repro_torch.optim import momentum_init
+from _torch_threads import torch_threads  # noqa: F401
 
 ARCH_IDS = ["mamba2-130m", "yi-6b", "seamless-m4t-large-v2", "jamba-1.5-large-398b",
             "deepseek-v2-lite-16b"]
