@@ -174,7 +174,16 @@ or of the JAX package ``repro``. Phases, in order:
    over gloo: equal digests, the unsharded token streams up to a bf16
    near-tie (BF16_TIE), the unsharded counters, and per rank the ms a decode
    step and a prefill chunk, the collectives' ms and bytes a step, peak
-   memory, the backend and B10's launches; (j) serving, see
+   memory, the backend and B10's launches; (o) data-parallel training,
+   see :func:`dp_phase`: layer 0's B9 forward and B9b backward calls at
+   one rank's shape (4 x 2,048 of ``mamba2-130m``) against their plain
+   versions, timed beside them with their bounds; then ``launch.train
+   pod`` under ``torchrun --nproc-per-node 2`` on (i)'s Mamba2 run (8 x
+   2,048, POD_STEPS steps), two ranks on the one card over gloo: equal
+   digests of the ranks' gathered parameters, rank 0's reference lines,
+   its losses against (i)'s (DP_LOSS_RTOL), and per rank the ms a step,
+   the data collectives' calls, ms and bytes a step, peak memory, the
+   backend and B9/B9b's launches (48 and 24 a step); (j) serving, see
    :func:`serve_smoke_phase` and :func:`serve_phase`: the SMOKE
    ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
@@ -227,7 +236,9 @@ or of the JAX package ``repro``. Phases, in order:
    wire path and on each fed run, and their numbers at the gossip payload;
    B1 and B2 with their launches on the metal paths, in process and in the
    workers; ``block_attn`` with each rank's launches of (n), and its
-   local-head modes of (n) beside the whole-head ones), and last the device
+   local-head modes of (n) beside the whole-head ones; ``ssd_scan`` with
+   each rank's launches of (o), forward and backward, and (o)'s layer-0
+   calls at a rank's shape under ``data_parallel``), and last the device
    line.
 
 The four kernel sources are built at the start, one ``nvcc`` each, in
@@ -497,6 +508,15 @@ TP_RANKS = 2
 TP_RUNS = [("yi-6b", 8, 8, 128, 32, 64, 0.5),
            ("seamless-m4t-large-v2", 8, 8, 128, 32, 64, 0.5)]
 TP_TIMEOUT = 420
+# (o) Data-parallel training, ``launch.train pod`` under torchrun: DP_RANKS
+# ranks share the one card over gloo, on POD_RUNS' first run (mamba2-130m, 8
+# x 2,048, POD_STEPS steps), each rank on its 4 rows. Rank 0's losses are held
+# against (i)'s unsharded run from the same weights and batches within
+# DP_LOSS_RTOL, relative: the gradient is averaged over the ranks in another
+# order of sums, and B9b's dB/dC and the embedding's gradient add by atomics.
+DP_RANKS = 2
+DP_TIMEOUT = 300
+DP_LOSS_RTOL = 1e-4
 SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
                   "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
 
@@ -911,6 +931,17 @@ def _decode_phase(cfg, params, prompts, n_params, km, tag, embeds=None, step_flo
     return {"step_ms": step_med, "generate_ms": gen_med, "launches": step_launches}
 
 
+def _ssd_fwd_work(bsz, h, g, l, p, n, chunk):
+    """(FLOP, bytes) of the scan's forward: C.B^T once per (batch, group,
+    chunk) and (scores o L).xdt on the causal pairs j <= i of each chunk
+    (the upper triangle is zero), C.S_in and the state update on every row,
+    each chunk at its own length; x, dt, B, C read once, y written once."""
+    lens = [min(chunk, l - k) for k in range(0, l, chunk)]
+    flop = (bsz * g * sum(c_ * (c_ + 1) * n for c_ in lens)
+            + bsz * h * sum(c_ * (c_ + 1) * p + 4 * c_ * n * p for c_ in lens))
+    return flop, 4 * (2 * bsz * h * l * p + bsz * h * l + 2 * bsz * g * l * n + h)
+
+
 def mamba_phases(smi):
     """The Mamba2 slice on the card. Returns the ``ssd_scan`` entry of the
     kernels line; a failed phase exits non-zero."""
@@ -1000,10 +1031,8 @@ def mamba_phases(smi):
     # TF32 rate. Beside it, the earlier counts with C.B^T per head, at the
     # float32 SIMT rate and at the 3xTF32 rate.
     lens = [min(chunk, l - k) for k in range(0, l, chunk)]
-    flop = (bsz * g * sum(c_ * (c_ + 1) * n for c_ in lens)
-            + bsz * h * sum(c_ * (c_ + 1) * p + 4 * c_ * n * p for c_ in lens))
+    flop, nbytes = _ssd_fwd_work(bsz, h, g, l, p, n, chunk)
     flop_per_head = bsz * h * sum(c_ * (c_ + 1) * (n + p) + 4 * c_ * n * p for c_ in lens)
-    nbytes = 4 * (2 * bsz * h * l * p + bsz * h * l + 2 * bsz * g * l * n + h)
     bound_ops_ms = SSD_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
     old_simt_ms = flop_per_head / FP32_OPS_PER_S * 1e3
     old_tf32_ms = SSD_TF32_PASSES * flop_per_head / TF32_OPS_PER_S * 1e3
@@ -3361,6 +3390,23 @@ def _ssd_bwd_case(label, bsz, h, l, p, n, chunk, g, large, tag):
     plain_ms = _time_ms(lambda: torch.autograd.grad(y_plain, ins, dy, retain_graph=True),
                         iters=2, warmup=1)
     del y_plain, want, got, states
+    bound_ms, bound_by, counted = _ssd_bwd_bound(bsz, h, l, p, n, chunk, g)
+    print(f"ssd_scan backward {label} {tag}: x{(bsz, h, l, p)} B/C{(bsz, g, l, n)} "
+          f"chunk={chunk}{' dt|A| 10-15' if large else ''}: ms={ms:.4f} "
+          f"({' + '.join(sk.BWD_STAGES)}; profiler ms each {_fmt_ms(kernel_ms)}; "
+          f"shared memory a block: {', '.join(shapes)}) "
+          f"plain_ms={plain_ms:.4f} library_ms=None (no one call computes the scan's gradient) "
+          f"bound_ms={bound_ms:.4f} ({counted}) = {bound_ms / ms:.3f} of it")
+    return {"x": [bsz, h, l, p], "bc": [bsz, g, l, n], "chunk": chunk, "large_cum": large,
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "kernel_ms": kernel_ms}
+
+
+def _ssd_bwd_bound(bsz, h, l, p, n, chunk, g):
+    """(bound ms, "operations" or "bytes", how it was counted) of B9's
+    backward: the smaller of the chunked form's FLOP at 3xTF32 and the
+    recurrent form's at the float32 SIMT rate, beside the bytes (x, dt, B,
+    C, dy read, dx, ddt, dB, dC written, A_log and its gradient)."""
     flop_rec = SSD_BWD_FLOP_PER_NP * n * p * bsz * h * l
     flop, counted = _ssd_bwd_flop(bsz, h, l, p, n, chunk, g)
     nbytes = 4 * (3 * bsz * h * l * p + 2 * bsz * h * l + 4 * bsz * g * l * n + 2 * h)
@@ -3368,21 +3414,13 @@ def _ssd_bwd_case(label, bsz, h, l, p, n, chunk, g, large, tag):
     bound_simt_ms = flop_rec / FP32_OPS_PER_S * 1e3
     bound_ops_ms = min(bound_tf32_ms, bound_simt_ms)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(bound_ops_ms, bound_bytes_ms)
-    print(f"ssd_scan backward {label} {tag}: x{(bsz, h, l, p)} B/C{(bsz, g, l, n)} "
-          f"chunk={chunk}{' dt|A| 10-15' if large else ''}: ms={ms:.4f} "
-          f"({' + '.join(sk.BWD_STAGES)}; profiler ms each {_fmt_ms(kernel_ms)}; "
-          f"shared memory a block: {', '.join(shapes)}) "
-          f"plain_ms={plain_ms:.4f} library_ms=None (no one call computes the scan's gradient) "
-          f"bound_ms={bound_ms:.4f} (the smaller of: the chunked form at 3xTF32, "
-          f"{SSD_TF32_PASSES} x {flop} FLOP at {TF32_OPS_PER_S:.4g}/s = {bound_tf32_ms:.4f} ms, "
-          f"counting {counted}; the recurrent form at float32 SIMT, {SSD_BWD_FLOP_PER_NP} N P "
-          f"FLOP a position = {flop_rec} FLOP at {FP32_OPS_PER_S:.4g}/s = {bound_simt_ms:.4f} "
-          f"ms; bytes {nbytes} = {bound_bytes_ms:.4f} ms) = {bound_ms / ms:.3f} of it")
-    return {"x": [bsz, h, l, p], "bc": [bsz, g, l, n], "chunk": chunk, "large_cum": large,
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-            "library_ms": None, "kernel_ms": kernel_ms}
+    text = (f"the smaller of: the chunked form at 3xTF32, {SSD_TF32_PASSES} x {flop} FLOP at "
+            f"{TF32_OPS_PER_S:.4g}/s = {bound_tf32_ms:.4f} ms, counting {counted}; the "
+            f"recurrent form at float32 SIMT, {SSD_BWD_FLOP_PER_NP} N P FLOP a position = "
+            f"{flop_rec} FLOP at {FP32_OPS_PER_S:.4g}/s = {bound_simt_ms:.4f} ms; bytes "
+            f"{nbytes} = {bound_bytes_ms:.4f} ms")
+    return (max(bound_ops_ms, bound_bytes_ms),
+            "operations" if bound_ops_ms >= bound_bytes_ms else "bytes", text)
 
 
 def backward_phase(smi):
@@ -3631,11 +3669,12 @@ def pod_phase(arch_id, bsz, seq, steps, tag):
                          f"chunk {kw['chunk']}")
         del got, want_g, ins
     counted = {k: sum(lc[k] for lc in record["launches"]) for k in want}
+    losses = record["loss"]
     record.clear()
     gc.collect()
     torch.cuda.empty_cache()
     return counted, {"ms_per_step": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-                  "peak_bytes": peak}
+                     "peak_bytes": peak, "losses": losses}
 
 
 def _fed_pods(arch_id, pods):
@@ -4489,6 +4528,175 @@ def tp_phase(smi):
     return merged
 
 
+def _dp_layer0(arch_id, bsz, seq, tag):
+    """(o) Layer 0's B9 forward and B9b backward call at one data-parallel
+    rank's shape: one gradient of ``T.loss_fn`` (remat) on rank 0's rows of
+    the launcher's first global batch (``default_rng(0)``, ``bsz //
+    DP_RANKS`` of its ``bsz`` rows) from the launcher's weights, the first
+    forward call and the last backward call kept; each held against its
+    plain version on the same inputs (SSD_TOL; GRAD_TOL gradient by
+    gradient) and timed beside it, with its bound. Returns {"forward":
+    entry, "backward": entry}."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_plain
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch_id)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, size=(bsz, seq + 1))
+    toks = torch.as_tensor(toks[:bsz // DP_RANKS], device="cuda")
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves, last, real_bwd = tree_leaves(params), [], sk.ssd_scan_backward
+
+    def keep_last(*args, **kw):
+        last[:] = [(args, kw)]
+        return real_bwd(*args, **kw)
+
+    sk.ssd_scan_backward = keep_last
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    try:
+        fwd_args, kw, calls = _first_call(ssd_ops, "ssd_chunked", lambda: torch.autograd.grad(
+            T.loss_fn(cfg, params, batch, remat=True), leaves))
+    finally:
+        sk.ssd_scan_backward = real_bwd
+        for leaf in leaves:
+            leaf.requires_grad_(False)
+    del params, leaves
+    chunk = kw["chunk"]
+    x, dt, a_log, b, c = (t.detach() for t in fwd_args)
+    b_, h, l, p = x.shape
+    g, n = b.shape[1], b.shape[3]
+    label = f"(o) {arch_id} layer 0 at a rank's rows x{(b_, h, l, p)} B/C{(b_, g, l, n)} chunk={chunk}"
+    if calls != 2 * _kernel_calls(cfg)["ssd_scan"]:
+        _fail(f"{label}: one gradient called ssd_chunked {calls} times")
+    with torch.no_grad():
+        got = sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk)
+        want, _ = ssd_chunked_plain(x, dt, a_log, b, c, chunk)
+        ms = statistics.median(_time_ms(lambda: sk.ssd_scan(x, dt, a_log, b, c, chunk=chunk),
+                                        iters=10) for _ in range(3))
+        plain_ms = _time_ms(lambda: ssd_chunked_plain(x, dt, a_log, b, c, chunk), iters=3,
+                            warmup=1)
+    ratio = _tol_ratio(got, want, SSD_TOL)
+    flop, nbytes = _ssd_fwd_work(b_, h, g, l, p, n, chunk)
+    ops_ms = SSD_TF32_PASSES * flop / TF32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    forward = {"x": [b_, h, l, p], "bc": [b_, g, l, n], "chunk": chunk,
+               "max_abs_err": float((got - want).abs().max()), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None}
+    print(f"ssd_scan {label} {tag}: vs plain max|d|={forward['max_abs_err']:.3e} "
+          f"|d|/(tol+tol|y|)={ratio:.4f} (tol {SSD_TOL}); ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={forward['bound_ms']:.4f} ({SSD_TF32_PASSES} x {flop} FLOP at 3xTF32 "
+          f"{ops_ms:.4f} ms; bytes {nbytes} {bytes_ms:.4f} ms)")
+    if not (ratio <= 1.0 and torch.isfinite(got).all()):
+        _fail(f"ssd_scan {label}: disagrees with its plain version (ratio {ratio:.4f})")
+    del got, want
+    args, kw = last[0]
+    got = real_bwd(*args, **kw)
+    ins = [t.detach().requires_grad_() for t in args[:5]]
+    y_plain = ssd_chunked_plain(*ins, kw["chunk"])[0]
+    want = torch.autograd.grad(y_plain, ins, args[6], retain_graph=True)
+    max_abs = _grads_agree(("dx", "ddt", "da_log", "db", "dc"), got, want, tag,
+                           f"ssd_scan backward {label}")
+    ms = statistics.median(_time_ms(lambda: real_bwd(*args, **kw), iters=5, warmup=1)
+                           for _ in range(3))
+    plain_ms = _time_ms(lambda: torch.autograd.grad(y_plain, ins, args[6], retain_graph=True),
+                        iters=2, warmup=1)
+    bound_ms, bound_by, counted = _ssd_bwd_bound(b_, h, l, p, n, chunk, g)
+    backward = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+    print(f"ssd_scan backward {label} {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({counted}) = {bound_ms / ms:.3f} of it")
+    return {"forward": forward, "backward": backward}
+
+
+def dp_phase(smi, unsharded_losses):
+    """(o) Data-parallel training: layer 0's B9 and B9b at a rank's shape
+    (:func:`_dp_layer0`), then ``launch.train pod`` under ``torchrun
+    --nproc-per-node DP_RANKS`` on POD_RUNS' first run (the weights and
+    global batches of phase (i)), its ranks on this card. Fails unless
+    every rank prints its lines, the digests of their gathered parameters
+    are equal, the ranks share the card over gloo, rank 0 prints the
+    reference's lines, every rank's losses are rank 0's and within
+    DP_LOSS_RTOL of (i)'s ``unsharded_losses``, and each rank launched B9
+    twice a Mamba2 layer a step (remat) and B9b once. Returns ({path: B9
+    launches}, {path: B9b launches}, the layer-0 entries, the run's
+    numbers)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+
+    tag = f"[{smi}]"
+    arch_id, bsz, seq = POD_RUNS[0]
+    held = _dp_layer0(arch_id, bsz, seq, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = _launcher_lines(
+        ["torch.distributed.run", "--standalone", "--nproc-per-node", str(DP_RANKS), "-m",
+         "repro_torch.launch.train", "pod", "--arch", arch_id, "--batch", str(bsz), "--seq",
+         str(seq), "--steps", str(POD_STEPS)], f"dp {arch_id}", DP_TIMEOUT)
+    heads = {int(r): (b, m, d) for r, b, m, d in re.findall(
+        r"rank (\d+): backend=(\w+) mesh=(\{.*?\}) device=(\S+)", out)}
+    timing = {int(r): json.loads(t) for r, t in re.findall(r"rank (\d+): timing (.*)", out)}
+    digests = {int(r): d for r, d in re.findall(r"rank (\d+): digest=(\w+)", out)}
+    lines = [line for line in out.splitlines() if not line.startswith("rank ")]
+    ranks = list(range(DP_RANKS))
+    if sorted(heads) != ranks or sorted(timing) != ranks or sorted(digests) != ranks:
+        _fail(f"dp {arch_id}: the launcher's rank lines are missing: {sorted(heads)}, "
+              f"{sorted(timing)}, {digests}")
+    mesh = f"{{'data': {DP_RANKS}, 'model': 1}}"
+    one_card = torch.cuda.device_count() < DP_RANKS
+    if len(set(digests.values())) != 1 or any(m != mesh for _, m, _ in heads.values()) or (
+            one_card and {b for b, _, _ in heads.values()} != {"gloo"}):
+        _fail(f"dp {arch_id}: digests {digests}, ranks {heads}")
+    if (len(lines) != POD_STEPS + 1 or lines[-1] != "done"
+            or not all(re.fullmatch(rf"step {i:3d} loss=\d+\.\d{{4}} \(\d+\.\d\ds\)", line)
+                       for i, line in enumerate(lines[:-1]))):
+        _fail(f"dp {arch_id}: rank 0's lines are not the reference's: {lines}")
+    losses = timing[0]["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, unsharded_losses))
+    if (any(t["losses"] != losses for t in timing.values()) or len(losses) != POD_STEPS
+            or worst > DP_LOSS_RTOL):
+        _fail(f"dp {arch_id}: losses {[t['losses'] for t in timing.values()]} against the "
+              f"unsharded {unsharded_losses} (rtol {DP_LOSS_RTOL})")
+    calls = _kernel_calls(get_arch(arch_id))["ssd_scan"] * POD_STEPS
+    want = {"ssd_scan": 2 * calls, **dict.fromkeys(sk.BWD_STAGES, calls)}
+    fwd_paths, bwd_paths, ranks_out = {}, {}, {}
+    for rank, t in sorted(timing.items()):
+        got = {k: t["launches"][k] for k in want}
+        step_ms = statistics.median(t["ms"][1:]) if len(t["ms"]) > 1 else t["ms"][0]
+        coll = t["collectives"][1:] or t["collectives"]
+        ranks_out[rank] = {
+            "backend": t["backend"], "device": t["device"], "ms_per_step": step_ms,
+            "ms": t["ms"], "collective_ms_per_step": statistics.median(c["ms"] for c in coll),
+            "collective_bytes_per_step": statistics.median(c["bytes"] for c in coll),
+            "collectives_per_step": statistics.median(c["calls"] for c in coll),
+            "peak_bytes": t["peak_bytes"], "launches": got}
+        print(f"dp {arch_id} {tag} rank {rank}: backend {t['backend']} device {t['device']}: "
+              f"ms a step (median of steps 1..{POD_STEPS - 1}) {step_ms:.2f}, all "
+              f"{[round(x, 2) for x in t['ms']]}; data collectives a step "
+              f"{ranks_out[rank]['collectives_per_step']:.0f} calls, "
+              f"{ranks_out[rank]['collective_ms_per_step']:.2f} ms, "
+              f"{ranks_out[rank]['collective_bytes_per_step']:.0f} bytes; peak "
+              f"{t['peak_bytes']} bytes; launches {got} (want {want})")
+        if got != want:
+            _fail(f"dp {arch_id}: rank {rank} launched {got}, want {want}")
+        path = f"{arch_id} train pod dp{DP_RANKS} rank {rank}"
+        fwd_paths[path], bwd_paths[path] = got["ssd_scan"], got["bwd_chunk_dc"]
+    stats = {"ranks": ranks_out, "losses": losses, "unsharded_losses": unsharded_losses,
+             "max_rel_loss_diff": worst, "digest": digests[0]}
+    print(f"dp summary {tag}: {json.dumps(stats)}")
+    return fwd_paths, bwd_paths, held, stats
+
+
 def fed_phase(smi):
     """(l) The DFedRW pod deployment: B5/B6 at the gossip payload and
     ``gossip_mix`` on the card (l0), ``launch.train pod --fed`` at full
@@ -4868,6 +5076,12 @@ def main() -> int:
     tp_f32, tp_bf16, tp_modes32, tp_modes16, _ = tp_phase(smi)      # (n)
     elapsed("tensor-parallel serving")
     torch.cuda.empty_cache()
+    dp_fwd, dp_bwd, ssd["data_parallel"], _ = dp_phase(smi, pods[POD_RUNS[0][0]][1]["losses"])
+    elapsed("data-parallel training")                               # (o)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_by_path.update(dp_fwd)
+    bwd_by_path["ssd"].update(dp_bwd)
     for name in results:
         for path, counted in (("metal replay", metal), ("metal replay workers", metal_workers)):
             results[name]["launches"] += counted[name]

@@ -8,7 +8,7 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["params_from_numpy", "flat_from_numpy", "lm_params_from_numpy", "shard_lm_params",
-           "stack_pods"]
+           "shard_opt_state", "stack_pods"]
 
 
 def params_from_numpy(params, device: str | torch.device = "cuda") -> list:
@@ -38,10 +38,11 @@ def _leaf(a: np.ndarray) -> torch.Tensor:
 def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
     """A language model's nested dict/list/tuple of numpy arrays (a JAX
     ``init_params`` or LSTM ``init`` pytree after
-    ``jax.tree_util.tree_map(np.asarray, ...)``) -> the same nesting, each
-    list and tuple as it was, of tensors on ``device``, each leaf in its
-    own dtype (a bf16 tree's float32 leaves, ``A_log``, ``D``, ``dt_bias``
-    and a MoE ``router``, stay float32)."""
+    ``jax.tree_util.tree_map(np.asarray, ...)``) or of tensors -> the same
+    nesting, each list and tuple as it was, of tensors on ``device`` (a
+    tensor leaf copied), each leaf in its own dtype (a bf16 tree's float32
+    leaves, ``A_log``, ``D``, ``dt_bias`` and a MoE ``router``, stay
+    float32)."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -49,6 +50,8 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
+        if torch.is_tensor(node):
+            return node.to(dev, copy=True)
         return _leaf(np.asarray(node)).to(dev)
 
     return conv(tree)
@@ -56,8 +59,8 @@ def lm_params_from_numpy(tree, device: str | torch.device = "cuda"):
 
 def shard_lm_params(tree, specs, mesh, device: str | torch.device = "cuda",
                     rank: int | None = None):
-    """A language model's numpy tree (as :func:`lm_params_from_numpy` takes
-    it) -> rank ``rank``'s block of it (``mesh.rank`` when None) on
+    """A language model's tree (as :func:`lm_params_from_numpy` takes it)
+    -> rank ``rank``'s block of it (``mesh.rank`` when None) on
     ``device``: each leaf cut by its spec (``dist.sharding.param_specs``)
     with ``dist.sharding.shard_tree``, then carried across in its own
     dtype."""
@@ -65,6 +68,18 @@ def shard_lm_params(tree, specs, mesh, device: str | torch.device = "cuda",
 
     block = shard_tree(tree, specs, mesh, rank)
     return lm_params_from_numpy(block, device)
+
+
+def shard_opt_state(tree, mesh, device: str | torch.device = "cuda", rank: int | None = None):
+    """An optimizer-state mirror of a language model, whole (a momentum
+    velocity, as numpy arrays or tensors) -> rank ``rank``'s block of it on
+    ``device``, each leaf placed by ``dist.sharding.opt_specs`` (which may
+    split a leaf that the parameters' specs replicate): what
+    ``dist.steps.make_train_step(cfg, mesh)``'s step takes beside the
+    parameters' blocks."""
+    from repro_torch.dist.sharding import opt_specs
+
+    return shard_lm_params(tree, opt_specs(tree, mesh), mesh, device, rank)
 
 
 def stack_pods(tree, g: int, device: str | torch.device = "cuda"):

@@ -2,14 +2,16 @@
 engine's decode step and its chunked prefill step (on one device, or
 tensor-parallel on a mesh's model axis), the DFedRW pod deployment (gossip
 over the pods, ``dist.gossip``; the gossip step and the federated train
-step), the sharding rules (``dist.sharding``) and the model axis that
-carries them out (``dist.parallel``). A data axis (data-parallel serving,
-sharded training) is ROADMAP.md A11b."""
+step), the sharding rules (``dist.sharding``) and the mesh axes that
+carry them out (``dist.parallel``): the model axis (tensor-parallel
+serving) and the data axis (data-parallel training). Data-parallel serving
+slots are ROADMAP.md A11b.2, pods with a data axis A11b.3, tensor-parallel
+training A11b.4."""
 from repro_torch.dist.gossip import (
     GossipConfig, gossip_mix, make_expander_weights, make_ring_weights, mixing_weights,
     walk_permute_batch,
 )
-from repro_torch.dist.parallel import ModelAxis
+from repro_torch.dist.parallel import MeshAxis
 from repro_torch.dist.sharding import (
     MeshShape, batch_specs, cache_specs, gather_tree, opt_specs, param_specs, serve_arg_specs,
     shard_tree, spec_for_leaf,
@@ -21,6 +23,6 @@ from repro_torch.dist.steps import (
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step", "make_gossip_step",
            "make_fed_train_step", "GossipConfig", "gossip_mix", "mixing_weights",
-           "make_ring_weights", "make_expander_weights", "walk_permute_batch", "ModelAxis",
+           "make_ring_weights", "make_expander_weights", "walk_permute_batch", "MeshAxis",
            "MeshShape", "spec_for_leaf", "param_specs", "opt_specs", "batch_specs",
            "cache_specs", "serve_arg_specs", "shard_tree", "gather_tree"]

@@ -1,5 +1,5 @@
-"""The model axis of a tensor-parallel model: the work the reference leaves
-to XLA's partitioner, written out over a ``torch.distributed`` group.
+"""The axes of a ``("data", "model")`` mesh: the work the reference leaves
+to XLA's partitioner, written out over ``torch.distributed`` groups.
 
 The reference places its parameters and cache by ``dist.sharding``'s specs
 on a ``("data", "model")`` mesh and lets the partitioner insert the
@@ -8,10 +8,13 @@ collectives. Here every rank of the model axis holds its block of each leaf
 compute on it, Megatron-style, where a spec's split falls on a unit
 boundary (a head, an FFN column, an expert, a vocab row): column-parallel
 products give each rank its own heads or columns, and row-parallel products
-a partial sum that :meth:`ModelAxis.sum` adds up. Where a spec cuts inside
+a partial sum that :meth:`MeshAxis.sum` adds up. Where a spec cuts inside
 a unit (MQA's single K/V head, an odd vocab falling to d), the leaf is
-gathered whole before use (:meth:`ModelAxis.whole`): the sharded model
-computes the unsharded function either way.
+gathered whole before use (:meth:`MeshAxis.whole`): the sharded model
+computes the unsharded function either way. On the data axis each rank
+holds its block of the parameters and the velocity and its block of the
+batch; ``dist.steps.make_train_step`` gathers the parameters whole and
+averages the gradients over the axis (:meth:`MeshAxis.mean`).
 
 Two collectives carry it, both in rank order so that every rank holds the
 same bits whatever the backend's reduction order: ``all_gather`` (blocks
@@ -22,11 +25,14 @@ NCCL when every rank has a card of its own; gloo on the CPU and for ranks
 that share one card (NCCL refuses two ranks on one device). Gloo's
 ``all_gather`` is given host tensors: a CUDA operand is copied into a
 pinned host buffer, gathered into pinned buffers and copied back (the
-buffers are kept and grown, one set a dtype). ``ModelAxis(size=1)`` runs no
+buffers are kept and grown, one set a dtype). ``MeshAxis(size=1)`` runs no
 collective at all.
 
-Each collective adds to :attr:`ModelAxis.stats` (calls, bytes received, and
-wall seconds, host-synchronous).
+One class serves both axes (``name`` says which); each axis object keeps
+its own :attr:`MeshAxis.stats` (calls, bytes received, and wall seconds,
+host-synchronous), so a step reports its data collectives apart from its
+model collectives. The layout helpers (``model_dim``, ``cache_dim``,
+``span``, ``splits``, ``whole``) read the model axis's specs.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ import torch.distributed as dist
 
 from repro_torch.dist.sharding import cache_spec_for_leaf, spec_for_leaf
 
-__all__ = ["ModelAxis"]
+__all__ = ["MeshAxis"]
 
 
 @lru_cache(maxsize=None)
@@ -49,20 +55,22 @@ def _model_dim(name: str, full_shape: tuple, size: int, cache: bool) -> int | No
     return spec.index("model") if "model" in spec else None
 
 
-class ModelAxis:
-    """Rank ``rank`` of a model axis of ``size`` ranks over ``group`` (a
-    ``torch.distributed`` process group; None with size 1)."""
+class MeshAxis:
+    """Rank ``rank`` of the mesh axis ``name`` (``"model"`` or ``"data"``)
+    of ``size`` ranks over ``group`` (a ``torch.distributed`` process group
+    whose ranks are the axis's, in its order; None with size 1)."""
 
-    def __init__(self, group=None, rank: int = 0, size: int = 1):
+    def __init__(self, group=None, rank: int = 0, size: int = 1, name: str = "model"):
         if size > 1 and group is None:
-            raise ValueError(f"a model axis of {size} ranks needs a process group")
-        self.group, self.rank, self.size = group, rank, size
+            raise ValueError(f"a {name} axis of {size} ranks needs a process group")
+        self.group, self.rank, self.size, self.name = group, rank, size, name
         self.backend = dist.get_backend(group) if group is not None else None
         self.stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
         self._pinned: dict = {}
 
     def __repr__(self) -> str:
-        return f"ModelAxis(rank={self.rank}, size={self.size}, backend={self.backend})"
+        return (f"MeshAxis({self.name!r}, rank={self.rank}, size={self.size}, "
+                f"backend={self.backend})")
 
     # ------------------------------------------------------------ layout
     def model_dim(self, name: str, full_shape) -> int | None:
@@ -97,11 +105,24 @@ class ModelAxis:
         float32, rounded once to ``x.dtype``; the same bits on every rank."""
         if self.size == 1:
             return x
+        return self._sum_float(x).to(x.dtype)
+
+    def _sum_float(self, x: torch.Tensor) -> torch.Tensor:
         parts = self._gather(x)
         out = parts[0].float()
         for part in parts[1:]:
             out = out + part.float()
-        return out.to(x.dtype)
+        return out
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of every rank's ``x`` (the sum of :meth:`sum`, divided
+        by the size in float32, rounded once), the same bits on every rank.
+        Differentiable: the gradient of a rank's ``x`` is the mean of every
+        rank's upstream gradient, so the ranks' gradients, averaged, are
+        those of the mean as one device would take it."""
+        if self.size == 1:
+            return x
+        return _AxisMean.apply(x, self)
 
     def whole(self, leaf: torch.Tensor, name: str, full_shape) -> torch.Tensor:
         """The whole of a parameter leaf that the model axis may split:
@@ -151,3 +172,17 @@ class ModelAxis:
         self.stats["bytes"] += x.numel() * x.element_size() * self.size
         self.stats["seconds"] += time.perf_counter() - t0
         return parts
+
+
+class _AxisMean(torch.autograd.Function):
+    """:meth:`MeshAxis.mean` with its adjoint: the mean over the axis again."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return (axis._sum_float(x) / axis.size).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis = ctx.axis
+        return (axis._sum_float(grad) / axis.size).to(grad.dtype), None

@@ -48,6 +48,8 @@ __all__ = [
     "shard_tree",
     "gather_tree",
     "mesh_coords",
+    "block_slices",
+    "zip_specs",
 ]
 
 # Leaf names (last path component) keyed to their parallelism role.
@@ -320,14 +322,31 @@ def _block(entry, sizes: dict, coords: dict) -> tuple[int, int]:
     return n, idx
 
 
-def _zip_specs(fn, tree, specs):
+def zip_specs(fn, tree, specs):
     """``fn(leaf, spec)`` over ``tree`` with its mirroring spec tree (the
-    tree's nodes decide: a leaf is never a dict, list or tuple)."""
+    tree's nodes decide: a leaf is never a dict, list or tuple), leaf by
+    leaf in the tree's order; the same nesting back."""
     if isinstance(tree, dict):
-        return {k: _zip_specs(fn, v, specs[k]) for k, v in tree.items()}
+        return {k: zip_specs(fn, v, specs[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip_specs(fn, v, s) for v, s in zip(tree, specs))
+        return type(tree)(zip_specs(fn, v, s) for v, s in zip(tree, specs))
     return fn(tree, specs)
+
+
+def block_slices(shape, spec, mesh, rank: int) -> tuple:
+    """Rank ``rank``'s block of a leaf of ``shape`` placed by ``spec``: one
+    slice a dim, along every dim its spec names an axis the rank's
+    contiguous block of ``dim // size``."""
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} does not fit a leaf of shape {tuple(shape)}")
+    sizes, coords = _sizes(mesh), mesh_coords(mesh, rank)
+    index = []
+    for dim, entry in zip(shape, spec):
+        n, i = _block(entry, sizes, coords)
+        if dim % n:
+            raise ValueError(f"dim {dim} does not divide into {n} blocks (spec {spec})")
+        index.append(slice(i * (dim // n), (i + 1) * (dim // n)))
+    return tuple(index)
 
 
 def shard_tree(tree: Any, specs: Any, mesh, rank: int | None = None) -> Any:
@@ -338,24 +357,15 @@ def shard_tree(tree: Any, specs: Any, mesh, rank: int | None = None) -> Any:
     freed; a leaf that no axis cuts comes back as it is."""
     if rank is None:
         rank = mesh.rank
-    sizes, coords = _sizes(mesh), mesh_coords(mesh, rank)
 
     def one(leaf, spec):
-        if len(spec) != len(leaf.shape):
-            raise ValueError(f"spec {spec} does not fit a leaf of shape {tuple(leaf.shape)}")
-        index, cut = [], False
-        for dim, entry in zip(leaf.shape, spec):
-            n, i = _block(entry, sizes, coords)
-            if dim % n:
-                raise ValueError(f"dim {dim} does not divide into {n} blocks (spec {spec})")
-            index.append(slice(i * (dim // n), (i + 1) * (dim // n)))
-            cut = cut or n > 1
-        if not cut:
+        index = block_slices(leaf.shape, spec, mesh, rank)
+        if all(cut == slice(0, dim) for cut, dim in zip(index, leaf.shape)):
             return leaf
-        block = leaf[tuple(index)]
+        block = leaf[index]
         return block.clone() if hasattr(block, "clone") else block.copy()
 
-    return _zip_specs(one, tree, specs)
+    return zip_specs(one, tree, specs)
 
 
 def gather_tree(blocks: list, specs: Any, mesh) -> Any:

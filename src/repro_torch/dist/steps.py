@@ -7,7 +7,12 @@ gradient of ``T.loss_fn`` (autograd; on the card through the backward
 kernels of ``block_attn`` and ``ssd_scan``), the paper's decreasing
 learning rate ``decreasing_lr(step + 1, r=lr_r)`` and a heavy-ball
 momentum step (``optim.momentum_sgd``), as the reference's
-``jax.value_and_grad`` followed by ``momentum_sgd``.
+``jax.value_and_grad`` followed by ``momentum_sgd``. Given a mesh
+(``launch.mesh.make_host_mesh``) it trains data-parallel on the mesh's
+data axis and returns ``(step_fn, p_specs)``, the reference's pair: each
+rank stores its blocks of the parameters (``p_specs``) and of the
+velocity (``opt_specs`` or ``p_specs``) and takes its block of the batch
+(``batch_specs``); see :func:`make_train_step`.
 
 ``make_serve_step`` builds the serve engine's per-slot decode step over
 the cache (the reference's ``slots=True`` variant; its ``slots=False``
@@ -30,10 +35,10 @@ Each pod takes a local step of ``make_train_step``'s body on its own batch
 steps (``dist.gossip``, quantized through the int8 wire kernels at
 ``quant_bits < 32``).
 
-Training keeps a model, its gradients and its velocity whole on one device,
-so the training builders return no ``p_specs``: sharded training with
-``opt_specs`` and a pod with a data axis are ROADMAP.md A11b (the data
-axis).
+A serving step on a mesh with a data axis (data-parallel serving slots) is
+ROADMAP.md A11b.2, a pod with a data axis A11b.3 and training on a mesh
+with a model axis (tensor-parallel training) A11b.4: each raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,23 +47,100 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.dist.gossip import GossipConfig, mix_into
-from repro_torch.dist.sharding import param_specs
+from repro_torch.dist.sharding import block_slices, opt_specs, param_specs, zip_specs
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.sgd import decreasing_lr, momentum_sgd
 
 __all__ = ["make_train_step", "make_serve_step", "make_prefill_step", "make_gossip_step",
-           "make_fed_train_step"]
+           "make_fed_train_step", "whole_params"]
 
 
-def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
+def make_train_step(cfg: ArchConfig, mesh=None, *, lr_r: float = 5.0, beta: float = 0.9,
                     remat: bool = True):
     """step_fn(params, vel, batch, step) -> (params, vel, loss).
 
     ``vel`` is a zeros-like mirror of ``params`` (``optim.momentum_init``).
     Both are updated in place and returned; ``loss`` is the detached scalar
     of this step's batch, before the update. ``remat`` recomputes each block
-    in the backward pass (memory, not numbers)."""
+    in the backward pass (memory, not numbers).
+
+    Without a mesh, the step alone, on whole trees. With one, ``(step_fn,
+    p_specs)``: the step is data-parallel over ``mesh.data_axis`` and takes
+    this rank's blocks, ``params`` placed by ``p_specs``
+    (``sharding.param_specs``), ``vel`` by ``sharding.opt_specs`` or by
+    ``p_specs`` (leaf by leaf, told apart by the block's shape; the same
+    bits either way), and ``batch`` by ``sharding.batch_specs``: its rows,
+    or with ``batch_spec=`` (the spec tree ``batch_specs`` gave the global
+    batch) a share of a batch it does not cut by rows. In a step a rank
+    gathers every parameter leaf whole over the data axis, takes the
+    gradient of its share of the batch, averages each gradient over the
+    axis in rank order in float32 (:meth:`MeshAxis.mean`: the global
+    batch's gradient, the same bits on every rank), updates its velocity
+    block and the matching slice of the parameter, and gathers again a leaf
+    that ``p_specs`` replicates where its velocity is split. The loss is
+    the global batch's mean, the same on every rank. A rank's share:
+
+    - rows (``batch_specs`` cut dim 0): the NLL over its rows, and MoE aux
+      losses over the global batch (``moe_route``'s ``data_axis``);
+    - positions (a batch of 1, cut on the sequence): the whole rows are
+      gathered, and the NLL is over its own positions;
+    - the whole batch (``batch_specs`` replicated it): every rank runs it.
+
+    A mesh whose model axis has more than one rank raises
+    NotImplementedError: the model axis's collectives carry no gradient
+    (ROADMAP.md A11b.4, tensor-parallel training)."""
+    if mesh is None:
+        return _local_step(cfg, lr_r, beta, remat)
+    if mesh.model > 1:
+        raise NotImplementedError(
+            f"training on a ({mesh.data}, {mesh.model}) mesh: the model axis's collectives "
+            f"carry no gradient; tensor-parallel training is ROADMAP.md A11b.4")
+    abstract = T.abstract_params(cfg)
+    p_specs, o_specs = param_specs(abstract, mesh), opt_specs(abstract, mesh)
+    shapes = zip_specs(lambda leaf, _: tuple(leaf.shape), abstract, abstract)
+    data = mesh.data_axis
+
+    def block(shape, spec):
+        return tuple(cut.stop - cut.start for cut in block_slices(shape, spec, mesh, mesh.rank))
+
+    def step_fn(params: dict, vel: dict, batch: dict, step: int, batch_spec=None):
+        whole = whole_params(params, p_specs, mesh)
+        rows = _rows(params, vel, whole, shapes, p_specs, o_specs)
+        leaves = [row[2] for row in rows]
+        local, span = _share(data, batch, batch_spec)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = T.loss_fn(cfg, whole, local, remat=remat,
+                                 data_axis=data if span == "rows" else None,
+                                 span=span if isinstance(span, tuple) else None)
+                grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        lr = decreasing_lr(int(step) + 1, r=lr_r)
+        for (p, v, _, shape, p_spec, o_spec), g in zip(rows, grads):
+            g = data.mean(g)
+            spec = p_spec if tuple(v.shape) == block(shape, p_spec) else o_spec
+            if tuple(v.shape) != block(shape, spec):
+                raise ValueError(f"a velocity block of shape {tuple(v.shape)} for a leaf of "
+                                 f"shape {shape}: placed by neither p_specs {p_spec} nor "
+                                 f"opt_specs {o_spec}")
+            cut = block_slices(shape, spec, mesh, mesh.rank)
+            if spec == p_spec:
+                momentum_sgd([p], [v], [g[cut]], lr, beta)
+            else:                  # p_specs replicates the leaf, opt_specs splits it
+                momentum_sgd([p[cut]], [v], [g[cut]], lr, beta)
+                p.copy_(_gather(data, p[cut], spec))
+        return params, vel, data.mean(loss.detach())
+
+    return step_fn, p_specs
+
+
+def _local_step(cfg: ArchConfig, lr_r: float, beta: float, remat: bool):
+    """The step on one device, on whole trees."""
 
     def step_fn(params: dict, vel: dict, batch: dict, step: int):
         leaves, spec = tree_flatten(params)
@@ -78,6 +160,47 @@ def make_train_step(cfg: ArchConfig, *, lr_r: float = 5.0, beta: float = 0.9,
     return step_fn
 
 
+def _rows(tree, *mirrors) -> list[tuple]:
+    """(leaf, each mirror's entry at the leaf's place) for every leaf of
+    ``tree``, in ``zip_specs``'s order. A mirror has the tree's nesting
+    down to its leaves (a spec tree's tuples are entries)."""
+    if isinstance(tree, dict):
+        return [row for k, v in tree.items() for row in _rows(v, *(m[k] for m in mirrors))]
+    if isinstance(tree, (list, tuple)):
+        return [row for i, v in enumerate(tree) for row in _rows(v, *(m[i] for m in mirrors))]
+    return [(tree, *mirrors)]
+
+
+def whole_params(params, p_specs, mesh):
+    """The whole tree from this rank's blocks of a data-parallel step's
+    parameters (or of a velocity by its specs): each leaf gathered over the
+    mesh's data axis. Every rank of the axis makes the same calls."""
+    return zip_specs(lambda leaf, spec: _gather(mesh.data_axis, leaf, spec), params, p_specs)
+
+
+def _gather(axis, block: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """The whole of a leaf that ``spec`` may split on the data axis: its
+    ranks' blocks gathered along that dim, or the block itself."""
+    return axis.all_gather(block, spec.index("data")) if "data" in spec else block
+
+
+def _share(axis, batch: dict, batch_spec):
+    """(this rank's batch for the loss, its share): ``"rows"`` when the batch
+    is cut by rows (no ``batch_spec``, or one that cuts dim 0); ``(lo, hi)``
+    when it is cut on the sequence, the other leaves gathered whole and the
+    labels this rank's positions [lo, hi); ``"whole"`` when it is
+    replicated."""
+    spec = batch_spec["labels"] if batch_spec is not None else ("data",)
+    if axis.size == 1 or spec[0] == "data":
+        return batch, "rows"
+    if "data" not in spec:
+        return batch, "whole"
+    whole = {key: leaf if key == "labels" else _gather(axis, leaf, batch_spec[key])
+             for key, leaf in batch.items()}
+    s = batch["labels"].shape[1]
+    return whole, (axis.rank * s, (axis.rank + 1) * s)
+
+
 def make_serve_step(cfg: ArchConfig, mesh=None):
     """serve_fn(params, cache, token, positions, active) -> (logits,
     new_cache), the continuous-batching decode step (``T.decode_step``):
@@ -85,7 +208,7 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
     ``active`` freezes free and retired rows. Without a mesh, the step
     alone; with one, (serve_fn, p_specs) and the step runs on the mesh's
     model axis, its logits whole on every rank."""
-    axis = mesh.axis if mesh is not None else None
+    axis = _model_axis(mesh)
 
     def serve_fn(params, cache, token, positions, active):
         return T.decode_step(cfg, params, cache, token, positions=positions, active=active,
@@ -102,7 +225,7 @@ def make_prefill_step(cfg: ArchConfig, mesh=None):
     decode cache at per-row offsets (``T.prefill_chunk``). With a mesh,
     (prefill_fn, p_specs), as :func:`make_serve_step`; ``prefill_fn(...,
     last=True)`` returns each row's last logits alone, (B, 1, V)."""
-    axis = mesh.axis if mesh is not None else None
+    axis = _model_axis(mesh)
 
     def prefill_fn(params, cache, tokens, positions, n_valid, last=False):
         return T.prefill_chunk(cfg, params, cache, tokens, positions, n_valid, axis=axis,
@@ -111,6 +234,18 @@ def make_prefill_step(cfg: ArchConfig, mesh=None):
     if mesh is None:
         return prefill_fn
     return prefill_fn, param_specs(T.abstract_params(cfg), mesh)
+
+
+def _model_axis(mesh):
+    """A serving mesh's model axis (None without a mesh); a data axis of
+    more than one rank raises NotImplementedError."""
+    if mesh is None:
+        return None
+    if mesh.data > 1:
+        raise NotImplementedError(
+            f"serving on a ({mesh.data}, {mesh.model}) mesh: a data axis, data-parallel "
+            f"serving slots, is ROADMAP.md A11b.2")
+    return mesh.axis
 
 
 def make_gossip_step(cfg: ArchConfig, mesh, gossip: GossipConfig, *,

@@ -1,6 +1,8 @@
 """The meshes of the port's deployments: the ports of
 ``repro.launch.mesh``'s ``HW``, ``make_production_mesh``,
-``make_host_mesh``, ``make_pod_mesh`` and ``make_metal_mesh``.
+``make_host_mesh``, ``make_pod_mesh`` and ``make_metal_mesh``; and how a
+launcher's ranks join their process group under ``torchrun``
+(:func:`join_torchrun`, :func:`group_backend`).
 
 The reference lays its devices out as a ``(data, model)`` mesh, with a
 leading ``pod`` axis for the DFedRW deployment. The port's meshes:
@@ -9,15 +11,16 @@ leading ``pod`` axis for the DFedRW deployment. The port's meshes:
   :class:`~repro_torch.dist.sharding.MeshShape` with no devices, for the
   sharding rules;
 - ``make_host_mesh``: the ranks of a ``torch.distributed`` group as a
-  ``(data, model)`` mesh (:class:`HostMesh`), one rank a device; the model
-  axis carries tensor-parallel serving (``launch.serve --mesh-model``). A
-  data axis of more than one rank is still refused (ROADMAP.md A11b, the
-  data axis);
+  ``(data, model)`` mesh (:class:`HostMesh`), one rank a device, laid out
+  as ``sharding.mesh_coords`` lays them (row-major, model fastest); the
+  model axis carries tensor-parallel serving (``launch.serve
+  --mesh-model``), the data axis data-parallel training (``launch.train
+  pod`` under ``torchrun``, ``dist.steps.make_train_step(cfg, mesh)``);
 - ``make_pod_mesh``: pods stacked on one device (every leaf of the fed tree
   with a leading pod dimension, ``group=None``; a card holds G pods this
   way) or one pod a rank of a group. A pod spans one device: a pod with a
   data or model axis (``pods`` smaller than the group's world size) is
-  refused, with the data axis (ROADMAP.md A11b);
+  refused (ROADMAP.md A11b.3, pods with a data axis);
 - ``make_metal_mesh``: the metal deployment (``launch/replay.py``) walks a
   process's chain slice on its local *positions*, a list of devices in
   which one device may appear more than once; with several processes it
@@ -31,11 +34,11 @@ from typing import Any, NamedTuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.parallel import ModelAxis
+from repro_torch.dist.parallel import MeshAxis
 from repro_torch.dist.sharding import MeshShape
 
-__all__ = ["HW", "HostMesh", "PodMesh", "make_host_mesh", "make_metal_mesh", "make_pod_mesh",
-           "make_production_mesh"]
+__all__ = ["HW", "HostMesh", "PodMesh", "group_backend", "join_torchrun", "make_host_mesh",
+           "make_metal_mesh", "make_pod_mesh", "make_production_mesh"]
 
 
 class HW:
@@ -63,16 +66,21 @@ class HostMesh:
     """A ``(data, model)`` mesh over the ranks of ``group`` (None: this
     process alone), with this rank's ``device``. ``shape`` is the ``{axis:
     size}`` dict the sharding rules read; ``axis`` is this rank's model
-    axis (its collectives and their counters)."""
+    axis and ``data_axis`` its data axis (:class:`MeshAxis`, each with its
+    collectives and their counters) over ``model_group`` and
+    ``data_group``, the ranks that share this rank's data or model index."""
 
     data: int
     model: int
     device: torch.device
     group: Any = None
     rank: int = 0
+    model_group: Any = None
+    data_group: Any = None
 
     def __post_init__(self):
-        self.axis = ModelAxis(self.group, self.rank % self.model, self.model)
+        self.axis = MeshAxis(self.model_group, self.rank % self.model, self.model, "model")
+        self.data_axis = MeshAxis(self.data_group, self.rank // self.model, self.data, "data")
 
     @property
     def shape(self) -> dict:
@@ -87,19 +95,66 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device, group=None) -> Host
     """A mesh over the group's ranks (one rank a device; no group: this
     process alone), clamped as the reference clamps its host mesh: the
     model axis to [1, ranks], the data axis to [1, ranks // model]. The
-    mesh must take every rank; a data axis of more than one rank raises
-    NotImplementedError (ROADMAP.md A11b, the data axis)."""
+    mesh must take every rank (ValueError otherwise). Rank r sits at data
+    index r // model and model index r % model. Where both axes have more
+    than one rank, each axis's subgroups are made with ``dist.new_group``
+    (every rank makes every call, in the same order)."""
     n = dist.get_world_size(group) if group is not None else 1
     model = max(1, min(model, n))
     data = max(1, min(data, n // model))
-    if data > 1:
-        raise NotImplementedError(
-            f"a ({data}, {model}) mesh: a data axis of more than one rank is ROADMAP.md A11b "
-            f"(the data axis)")
     if data * model != n:
         raise ValueError(f"a ({data}, {model}) mesh over {n} ranks: the mesh must take them all")
     rank = dist.get_rank(group) if group is not None else 0
-    return HostMesh(data, model, torch.device(device), group if n > 1 else None, rank)
+    if n == 1:
+        return HostMesh(data, model, torch.device(device))
+    if data == 1 or model == 1:
+        return HostMesh(data, model, torch.device(device), group, rank,
+                        model_group=group if model > 1 else None,
+                        data_group=group if data > 1 else None)
+    ranks = dist.get_process_group_ranks(group)
+    rows = [dist.new_group([ranks[d * model + m] for m in range(model)])
+            for d in range(data)]
+    cols = [dist.new_group([ranks[d * model + m] for d in range(data)])
+            for m in range(model)]
+    return HostMesh(data, model, torch.device(device), group, rank,
+                    model_group=rows[rank // model], data_group=cols[rank % model])
+
+
+def group_backend(local_world: int, cards: int, device_type: str) -> str:
+    """The process group's backend: NCCL when the ranks run on cards and
+    every local rank has a card of its own; gloo when ranks share cards
+    (NCCL refuses two ranks on one device) and on the CPU."""
+    return "nccl" if device_type == "cuda" and cards >= local_world else "gloo"
+
+
+def join_torchrun(device: torch.device) -> tuple[torch.device, str]:
+    """Join the default process group of the ranks ``torchrun`` started
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, the
+    rendezvous in ``MASTER_ADDR``/``MASTER_PORT``) over
+    :func:`group_backend`'s backend. On the card a rank takes card
+    ``LOCAL_RANK`` modulo the cards. The ranks share one stdout, so each
+    line a rank prints leaves it in one write, also under ``python -u``
+    (which would write ``print``'s text and its newline apart, and another
+    rank's line could fall between them). Returns (this rank's device, the
+    backend)."""
+    import datetime
+    import os
+    import sys
+
+    if hasattr(sys.stdout, "reconfigure"):
+        sys.stdout.reconfigure(line_buffering=True, write_through=False)
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    cards = 0
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        device = torch.device("cuda", local_rank % cards)
+        torch.cuda.set_device(device)
+    backend = group_backend(local_world, cards, device.type)
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=datetime.timedelta(seconds=600))
+    return device, dist.get_backend()
 
 
 class PodMesh(NamedTuple):
@@ -123,7 +178,7 @@ def make_pod_mesh(pods: int = 0, *, device: torch.device, group=None) -> PodMesh
     world = dist.get_world_size(group)
     if pods and pods < world:
         raise NotImplementedError(
-            f"{pods} pods over {world} ranks: pods with a data axis are ROADMAP.md A11b")
+            f"{pods} pods over {world} ranks: pods with a data axis are ROADMAP.md A11b.3")
     if pods > world:
         raise ValueError(f"{pods} pods over {world} ranks: one pod a rank, so pods must be "
                          f"0 or {world}")

@@ -19,7 +19,8 @@ configuration in float32, as the reference's launcher chooses.
 
 ``--mesh-model N`` > 1 serves tensor-parallel on a ``(data=1, model=N)``
 mesh of N ranks, started by ``torchrun --nproc-per-node N`` (world size N;
-a data axis is ROADMAP.md A11b). Every rank draws the same weights and
+a data axis, data-parallel serving slots, is ROADMAP.md A11b.2). Every
+rank draws the same weights and
 keeps its block (``dist.sharding``). The ranks' collectives run over NCCL
 when every rank has a card of its own, else over gloo (ranks that share
 one card, and ``--device cpu``); each rank prints its backend, the mesh and
@@ -165,7 +166,8 @@ def main(argv=None) -> None:
         raise SystemExit(
             f"--mesh-model {args.mesh_model} runs as {args.mesh_model} ranks: start it with "
             f"torchrun --nproc-per-node {args.mesh_model} (this process group has world size "
-            f"{world})")
+            f"{world}; a data axis over the other ranks, data-parallel serving slots, is "
+            f"ROADMAP.md A11b.2)")
     if args.trace and not args.obs:
         raise SystemExit("--trace requires --obs (it augments the obs "
                          "stream with tspan events)")
@@ -256,30 +258,16 @@ def main(argv=None) -> None:
 
 
 def _join_model_axis(args, dev):
-    """This rank's device and mesh: the ranks that ``torchrun`` started
-    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, the
-    rendezvous in ``MASTER_ADDR``/``MASTER_PORT``) join one process group
-    as a (1, N) mesh. NCCL when every rank of the host has a card of its
-    own; gloo when they share cards (NCCL refuses two ranks on one device)
-    and on the CPU. A rank that finds no card raises (``resolve_device``)."""
-    import datetime
-
-    import torch
+    """This rank's device and mesh: the ranks that ``torchrun`` started join
+    one process group (``launch.mesh.join_torchrun``: NCCL when every rank
+    of the host has a card of its own, gloo when they share cards and on
+    the CPU) as a (1, N) mesh. A rank that finds no card raises
+    (``resolve_device``)."""
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import join_torchrun, make_host_mesh
 
-    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
-    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
-    backend = "gloo"
-    if dev.type == "cuda":
-        cards = torch.cuda.device_count()
-        dev = torch.device("cuda", local_rank % cards)
-        torch.cuda.set_device(dev)
-        if cards >= local_world:
-            backend = "nccl"
-    dist.init_process_group(backend, init_method="env://",
-                            timeout=datetime.timedelta(seconds=600))
+    dev, backend = join_torchrun(dev)
     mesh = make_host_mesh(1, args.mesh_model, device=dev, group=dist.group.WORLD)
     sys.stdout.write(f"rank {mesh.rank}: backend={backend} mesh={mesh.shape} device={dev}\n")
     sys.stdout.flush()
@@ -296,7 +284,7 @@ def _leave_model_axis() -> None:
 class _RankTiming:
     """Each step call of a tensor-parallel engine timed on this rank (the
     device synchronised before and after), with its collectives' ms and
-    bytes (``ModelAxis.stats``); ``block_attn``'s launches counted from 0."""
+    bytes (``MeshAxis.stats``); ``block_attn``'s launches counted from 0."""
 
     def __init__(self, eng, dev):
         import torch

@@ -15,7 +15,14 @@ remat) on batches of ``--batch`` x ``--seq`` tokens drawn from
 ``np.random.default_rng(0)`` as the reference's ``pod_main`` draws them (and
 stub frontend embeddings N(0, 1) for a model with a frontend), from weights
 drawn on the device by a seeded generator. It prints a ``step i loss=...``
-line a step, then ``done``.
+line a step, then ``done``. Under ``torchrun`` (``WORLD_SIZE`` > 1) it
+trains data-parallel, as the reference trains on a data axis over every
+device: a ``(data=world, model=1)`` mesh, ``dist.make_train_step(cfg,
+mesh)``, every rank keeping its blocks of the weights (``param_specs``),
+the velocity (``opt_specs``) and each global batch (``batch_specs``). Rank
+0 prints the same lines with the global batch's loss; every rank prints its
+backend, mesh and device, a ``timing`` JSON line and the digest of its
+gathered parameters, equal on every rank.
 
 ``pod --fed`` runs the DFedRW pod deployment (``dist.make_fed_train_step``,
 float32, no remat): one model initialised and copied to G pods with zero
@@ -23,8 +30,13 @@ velocities, a local step a pod on its own batch (drawn with a leading pod
 dimension from the same stream), and gossip averaging over ``--topology``
 every ``--gossip-every`` steps, quantized through the int8 wire kernels at
 ``--bits < 32``. Without ``torchrun`` the ``--pods`` pods stack on the one
-device; under ``torchrun`` (``WORLD_SIZE`` > 1) each rank is one pod (nccl
-on the card, gloo on the CPU) and draws every pod's batch to keep its own.
+device; under ``torchrun`` each rank is one pod and draws every pod's
+batch to keep its own.
+
+Under ``torchrun`` the ranks join one process group
+(``launch.mesh.join_torchrun``): NCCL when every rank has a card of its
+own, gloo when ranks share a card (NCCL refuses two ranks on one device)
+and on the CPU.
 It prints a line a step and the final inter-pod spread of the first leaf
 (in the reference's sorted-key order).
 
@@ -43,6 +55,8 @@ Examples:
       --pods 4 --bits 8 --gossip-every 2 --steps 3 --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train pod \
       --arch mamba2-130m --smoke --fed --bits 8 --steps 3 --device cpu
+  PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      pod --arch mamba2-130m --smoke --steps 2 --device cpu
 """
 from __future__ import annotations
 
@@ -116,6 +130,8 @@ def protocol_main(args) -> None:
 
 
 def pod_main(args) -> None:
+    import os
+
     import torch
 
     from repro_torch.configs import get_arch, get_smoke
@@ -125,8 +141,12 @@ def pod_main(args) -> None:
     from repro_torch.optim import momentum_init
 
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
-    group = _process_group(args) if args.fed else None
     dev = resolve_device(args.device)
+    backend = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:       # under torchrun
+        from repro_torch.launch.mesh import join_torchrun
+
+        dev, backend = join_torchrun(dev)
     rng = np.random.default_rng(0)
     b, s = args.batch, args.seq
 
@@ -141,35 +161,104 @@ def pod_main(args) -> None:
         return batch
 
     if args.fed:
-        fed_pod_main(args, cfg, dev, group, make_batch)
-        return
-    step_fn = make_train_step(cfg, lr_r=args.lr_r)
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    vel = momentum_init(params).velocity
-    for step in range(args.steps):
-        t0 = time.time()
-        params, vel, loss = step_fn(params, vel, make_batch(), step)
-        print(f"step {step:3d} loss={float(loss):.4f} ({time.time()-t0:.2f}s)")
-    print("done")
+        import torch.distributed as dist
+
+        fed_pod_main(args, cfg, dev, dist.group.WORLD if backend else None, make_batch)
+    elif backend:
+        data_pod_main(args, cfg, dev, backend, make_batch)
+    else:
+        step_fn = make_train_step(cfg, lr_r=args.lr_r)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        vel = momentum_init(params).velocity
+        for step in range(args.steps):
+            t0 = time.time()
+            params, vel, loss = step_fn(params, vel, make_batch(), step)
+            print(f"step {step:3d} loss={float(loss):.4f} ({time.time()-t0:.2f}s)")
+        print("done")
 
 
-def _process_group(args):
-    """The default process group when the launcher runs under ``torchrun``
-    (``WORLD_SIZE`` > 1; nccl on the card, gloo on the CPU), else None. On
-    the card each rank takes the card of its ``LOCAL_RANK``."""
-    import os
+def data_pod_main(args, cfg, dev, backend, make_batch) -> None:
+    """pod under torchrun: data-parallel training on a ``(data=world,
+    model=1)`` mesh (``dist.make_train_step(cfg, mesh)``), as the reference
+    trains on ``make_host_mesh(data=len(jax.devices()))``. Every rank draws
+    the same weights and the same global batches and keeps its blocks
+    (parameters by ``param_specs``, velocity by ``opt_specs``, batch by
+    ``batch_specs``). Rank 0 prints the reference's lines; every rank its
+    backend, mesh and device, a ``timing`` JSON line (ms a step, the data
+    collectives' calls, ms and bytes a step, peak memory, the kernels'
+    launches, each step's loss at full precision) and the digest of its
+    gathered parameters, which must be equal on every rank."""
+    import hashlib
+    import json
+    import sys
 
     import torch
     import torch.distributed as dist
+    from torch.utils._pytree import tree_leaves
 
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
-        return None
-    cuda = torch.device(args.device).type == "cuda"
+    from repro_torch.convert import shard_lm_params, shard_opt_state
+    from repro_torch.dist.sharding import batch_specs, shard_tree
+    from repro_torch.dist.steps import make_train_step, whole_params
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import momentum_init
+
+    mesh = make_host_mesh(data=dist.get_world_size(), device=dev, group=dist.group.WORLD)
+    data, cuda = mesh.data_axis, dev.type == "cuda"
+
+    def say_all(line):                       # one write a line: the ranks share stdout
+        sys.stdout.write(f"rank {mesh.rank}: {line}\n")
+        sys.stdout.flush()
+
+    say_all(f"backend={backend} mesh={mesh.shape} device={dev}")
+    step_fn, p_specs = make_train_step(cfg, mesh, lr_r=args.lr_r)
+    whole = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    vel = shard_opt_state(momentum_init(whole).velocity, mesh, dev)
+    params = shard_lm_params(whole, p_specs, mesh, dev)
+    del whole
+    ba.reset_launch_counts()
+    sk.reset_launch_counts()
     if cuda:
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    if not dist.is_initialized():
-        dist.init_process_group("nccl" if cuda else "gloo")
-    return dist.group.WORLD
+        torch.cuda.reset_peak_memory_stats(dev)
+    timing = {"rank": mesh.rank, "backend": backend, "device": str(dev), "ms": [],
+              "collectives": [], "losses": []}
+    for step in range(args.steps):
+        batch = make_batch()
+        b_spec = batch_specs(batch, mesh)
+        batch = shard_tree(batch, b_spec, mesh)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        before = dict(data.stats)
+        t0 = time.perf_counter()
+        params, vel, loss = step_fn(params, vel, batch, step, batch_spec=b_spec)
+        loss = float(loss)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        timing["ms"].append((time.perf_counter() - t0) * 1e3)
+        timing["collectives"].append({
+            "calls": data.stats["calls"] - before["calls"],
+            "ms": (data.stats["seconds"] - before["seconds"]) * 1e3,
+            "bytes": data.stats["bytes"] - before["bytes"]})
+        timing["losses"].append(loss)
+        if mesh.rank == 0:
+            print(f"step {step:3d} loss={loss:.4f} ({timing['ms'][-1] / 1e3:.2f}s)", flush=True)
+    timing["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+    timing["launches"] = {**ba.LAUNCHES, **ba.BWD_LAUNCHES, **sk.LAUNCHES, **sk.BWD_LAUNCHES}
+    say_all(f"timing {json.dumps(timing)}")
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(whole_params(params, p_specs, mesh)):
+        digest.update(leaf.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    digest = digest.hexdigest()[:16]
+    if not data.all_equal([int(digest[i:i + 8], 16) for i in (0, 8)]):
+        raise RuntimeError(f"the data axis's ranks hold different parameters (rank "
+                           f"{mesh.rank} digest {digest})")
+    say_all(f"digest={digest} (equal on all {mesh.size} ranks)")
+    if mesh.rank == 0:
+        print("done", flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def fed_pod_main(args, cfg, dev, group, make_batch) -> None:
@@ -240,8 +329,9 @@ def main(argv=None) -> None:
                    help="with --obs: mark the stream trace-capable (schema v2); the "
                         "protocol engine emits no causal spans: use the simulator "
                         "(launch.sim --trace) for causal span trees")
-    q = sub.add_parser("pod", help="train one LM of the registry on one device, or G "
-                                   "replicas of it with --fed")
+    q = sub.add_parser("pod", help="train one LM of the registry on one device, "
+                                   "data-parallel under torchrun, or G replicas of it "
+                                   "with --fed")
     q.add_argument("--arch", required=True)
     q.add_argument("--smoke", action="store_true")
     q.add_argument("--steps", type=int, default=10)

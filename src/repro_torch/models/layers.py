@@ -42,7 +42,7 @@ the host and moves the result. Each leaf is drawn in float32, scaled and
 cast to the asked dtype (round to nearest even, as XLA's ``astype``).
 
 Tensor parallelism: the attention, MLA, FFN and MoE functions take an
-optional ``axis`` (``dist.parallel.ModelAxis``), None by default, which
+optional ``axis`` (``dist.parallel.MeshAxis``), None by default, which
 changes nothing. On an axis their parameters are this rank's blocks by
 ``dist.sharding``'s specs and the residual stream is whole on every rank:
 attention computes this rank's query and K/V heads (:func:`_heads`; MQA's
@@ -167,7 +167,7 @@ class _Heads(NamedTuple):
 
 
 def _heads(p: dict, cfg: ArchConfig, axis=None) -> _Heads:
-    """The attention layer's plan on ``axis`` (``dist.parallel.ModelAxis``;
+    """The attention layer's plan on ``axis`` (``dist.parallel.MeshAxis``;
     None: one device, every head). Where the specs split ``wq`` and ``wo`` at
     head boundaries, this rank computes its H/m query heads and its partial
     output projection; its K/V heads too where ``wk``/``wv`` split at head
@@ -613,7 +613,7 @@ def init_ffn(gen: torch.Generator, d: int, ff: int, device, dtype=torch.float32)
 
 
 def ffn_apply(p: dict, x: torch.Tensor, axis=None, ff: int = 0) -> torch.Tensor:
-    """SwiGLU. On a model ``axis`` (``dist.parallel.ModelAxis``) ``p`` holds
+    """SwiGLU. On a model ``axis`` (``dist.parallel.MeshAxis``) ``p`` holds
     this rank's block and ``ff`` is the FFN's whole width: where the specs
     split it on ``ff``, column-parallel ``w_gate``/``w_up`` and a
     row-parallel ``w_down`` (:func:`_partial`) summed over the axis; else
@@ -650,7 +650,7 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, device, dtype=torch.float32)
     return p
 
 
-def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None):
+def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None, data_axis=None):
     """The router of ``moe_apply`` over dispatch groups x (b, l, d), as the
     reference computes it: float32 logits, softmax, the top-k (ties to the
     lower expert index, as ``jax.lax.top_k``: a stable descending sort, since
@@ -686,6 +686,8 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None):
 
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
+    if data_axis is not None and data_axis.size > 1:
+        me, ce = data_axis.mean(torch.cat([me, ce])).split(e)
     aux = e * torch.sum(me * ce) * mo.router_aux_weight
 
     sel = F.one_hot(gate_idx, e)                                     # (b, l, k, e)
@@ -714,8 +716,8 @@ def _expert_plan(p: dict, cfg: ArchConfig, d: int, axis):
             (0, e), None)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
-              axis=None) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None,
+              data_axis=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k dispatch with capacity, the reference's ``moe_apply``. x (B, L, d)
     -> (out, aux loss). The routing is :func:`moe_route`'s.
 
@@ -735,17 +737,17 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig,
     routes every token); a rank runs its own experts (expert-parallel, when
     the axis divides the expert count) or its columns of every expert, and
     the outputs are summed over the axis (:func:`_expert_plan`; the
-    columns' ``w_down`` products in float32, :func:`_partial`)."""
+    columns' ``w_down`` products in float32, :func:`_partial`). On a
+    ``data_axis`` the aux loss is the global batch's (:func:`moe_route`)."""
     b0, l0, d0 = x.shape
     gs = cfg.moe.group_size
     if gs and l0 > gs and l0 % gs == 0:
         x = x.reshape(b0 * (l0 // gs), gs, d0)
     b, l, d = x.shape
     e = cfg.moe.n_experts
-    if axis is None or axis.size == 1:
-        gate_vals, gate_idx, slot, keep, cap, aux = moe_route(p, x, cfg)
-    else:
-        gate_vals, gate_idx, slot, keep, cap, aux = moe_route(p, x, cfg, axis)
+    route = (p, x, cfg) if axis is None or axis.size == 1 else (p, x, cfg, axis)
+    data = {} if data_axis is None or data_axis.size == 1 else {"data_axis": data_axis}
+    gate_vals, gate_idx, slot, keep, cap, aux = moe_route(*route, **data)
     w, (lo, hi), mode = _expert_plan(p, cfg, d, axis)
     width = min(cap, l)
     # Row of each kept choice in the flattened (b, e, width) buffer; dropped

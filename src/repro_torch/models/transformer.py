@@ -28,9 +28,11 @@ when no gradient is taken. Embeddings are tied when ``cfg.tie_embeddings``
 Public API: init_params / abstract_params / forward_train / loss_fn /
 init_cache / decode_step / prefill_chunk (the serve engine's chunked
 prefill), and ``_run_encoder`` under the reference's name. Each takes an
-optional model ``axis`` (``dist.parallel.ModelAxis``): the parameters and
+optional model ``axis`` (``dist.parallel.MeshAxis``): the parameters and
 the cache are then this rank's blocks, and the embedding lookup and the
-logits are whole on every rank (``_embed``, ``_logits``). The parameters'
+logits are whole on every rank (``_embed``, ``_logits``). ``forward_train``
+and ``loss_fn`` also take a ``data_axis``, over which the MoE aux loss is
+the global batch's (``layers.moe_route``). The parameters'
 dtype, float32 (the default here) or bf16 (the reference's default), sets
 the activations' (``models.layers`` keeps the reference's float32 islands):
 the embedding rows are in it, as the reference's ``embed[tokens]`` cast to
@@ -250,7 +252,7 @@ def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor, axis=None) -> torch.
 
 
 def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, per_token: bool = False,
-         axis=None):
+         axis=None, data_axis=None):
     """The slot's FFN on the residual x -> (x + ffn(norm2(x)), aux).
     ``per_token`` dispatches a MoE FFN in groups of one token (the chunked
     prefill's, so its capacity is decode's: a group over the chunk could
@@ -263,12 +265,13 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, per_token: bool =
         b, l, d = h.shape
         if per_token:
             h = h.reshape(b * l, 1, d)
-        h, aux = L.moe_apply(p["ffn"], h, cfg, axis=axis)
+        h, aux = L.moe_apply(p["ffn"], h, cfg, axis=axis, data_axis=data_axis)
         return x + h.reshape(b, l, d), aux
     return x + L.ffn_apply(p["ffn"], h, axis=axis, ff=cfg.d_ff), None
 
 
-def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin, axis=None):
+def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin, axis=None,
+                data_axis=None):
     """One slot of a block -> (x, aux loss of its MoE FFN, or None)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.block_pattern[slot] == "mamba":
@@ -277,7 +280,7 @@ def _apply_slot(p: dict, x: torch.Tensor, cfg: ArchConfig, slot: int, cos, sin, 
         x = x + L.mla_train(p["mixer"], h, cfg, cos, sin, axis=axis)
     else:
         x = x + L.attn_train(p["mixer"], h, cfg, cos, sin, axis=axis)
-    return _ffn(p, x, cfg, slot, axis=axis)
+    return _ffn(p, x, cfg, slot, axis=axis, data_axis=data_axis)
 
 
 def _cross(cp: dict, x: torch.Tensor, cfg: ArchConfig, enc_out: torch.Tensor,
@@ -322,11 +325,11 @@ def _run_encoder(cfg: ArchConfig, params: dict, embeds: torch.Tensor,
 
 
 def _block(cfg: ArchConfig, bp: dict, cp: dict | None, x: torch.Tensor, cos, sin,
-           enc_out: torch.Tensor | None, axis=None):
+           enc_out: torch.Tensor | None, axis=None, data_axis=None):
     """One block's slots, then its cross layer -> (x, aux of its MoE slots)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(len(cfg.block_pattern)):
-        x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin, axis)
+        x, a = _apply_slot(bp[f"slot{i}"], x, cfg, i, cos, sin, axis, data_axis)
         if a is not None:
             aux = aux + a
     if cp is not None:
@@ -335,7 +338,8 @@ def _block(cfg: ArchConfig, bp: dict, cp: dict | None, x: torch.Tensor, cos, sin
 
 
 def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-                  frontend_embeds: torch.Tensor | None = None, remat: bool = True, axis=None):
+                  frontend_embeds: torch.Tensor | None = None, remat: bool = True, axis=None,
+                  data_axis=None):
     """tokens (B, S) int -> (logits (B, S, V), aux loss: the sum of the MoE
     slots' over every block, 0 without them).
 
@@ -348,9 +352,11 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     head dim otherwise. ``remat`` recomputes each block (with its cross
     layer) and each encoder layer in the backward pass.
 
-    On a model ``axis`` (``dist.parallel.ModelAxis``) ``params`` is this
+    On a model ``axis`` (``dist.parallel.MeshAxis``) ``params`` is this
     rank's block (``sharding.param_specs``); the residual stream, the aux
-    loss and the logits are whole, the same on every rank."""
+    loss and the logits are whole, the same on every rank. On a
+    ``data_axis`` the tokens are this rank's rows of the global batch and
+    the aux loss is the global batch's, the same on every rank."""
     _check_supported(cfg)
     x = _embed(cfg, params, tokens, axis)
     n_front, enc_out = 0, None
@@ -369,7 +375,7 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                else [None] * cfg.n_blocks)
     for bp, cp in zip(_unstack(params["blocks"], cfg.n_blocks), crosses):
         x, a = _remat(lambda bp, cp, x, enc_out: _block(cfg, bp, cp, x, cos, sin, enc_out,
-                                                        axis),
+                                                        axis, data_axis),
                       remat, bp, cp, x, enc_out)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -379,11 +385,16 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, remat: bool = True,
-            axis=None) -> torch.Tensor:
+            axis=None, data_axis=None, span: tuple[int, int] | None = None) -> torch.Tensor:
     """batch: {"tokens": (B,S), "labels": (B,S), optional "embeds": (B,F,d)}
-    -> mean next-token NLL + aux."""
+    -> mean next-token NLL + aux. ``data_axis``: as :func:`forward_train`'s.
+    ``span`` (lo, hi): the NLL over positions [lo, hi) alone, whose labels
+    ``batch["labels"]`` (B, hi - lo) then holds (a data-parallel rank's
+    share of a batch split on the sequence)."""
     logits, aux = forward_train(cfg, params, batch["tokens"], batch.get("embeds"), remat,
-                                axis)
+                                axis, data_axis)
+    if span is not None:
+        logits = logits[:, span[0]:span[1]]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     return nll.mean() + aux

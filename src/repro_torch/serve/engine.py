@@ -41,7 +41,8 @@ host loop (admission, scheduling, stops), which is deterministic, so the
 ranks agree; the logits are gathered whole before sampling, and every
 rank samples with the same seeded generator. ``run`` ends by comparing a
 digest of every rank's token streams (one ``all_gather``) and raises on a
-difference. A data axis (data-parallel slots) is ROADMAP.md A11b.
+difference. A mesh with a data axis (data-parallel slots) is refused:
+ROADMAP.md A11b.2.
 """
 from __future__ import annotations
 
@@ -139,7 +140,8 @@ class ServeEngine:
 
     ``mesh`` (a ``launch.mesh.HostMesh``) makes the engine one rank of a
     tensor-parallel engine: ``params`` is the whole model, cut here to this
-    rank's block, and the mesh's device replaces ``device``.
+    rank's block, and the mesh's device replaces ``device``. A mesh with a
+    data axis raises NotImplementedError (ROADMAP.md A11b.2).
 
     ``margins=True`` keeps, for every emitted token, the gap between the two
     largest logits it was taken from and the largest one's magnitude

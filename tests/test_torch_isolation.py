@@ -309,6 +309,73 @@ def test_port_trains_without_jax(isolated):
     assert "ok" in proc.stdout and "done" in proc.stdout
 
 
+_BODIES["test_port_trains_data_parallel_under_torchrun_without_jax"] = """
+        import contextlib, io, json, subprocess, sys
+        import repro_torch.dist.steps as steps
+        from repro_torch.launch.train import main
+
+        cmd = ["pod", "--arch", "mamba2-130m", "--smoke", "--steps", "2", "--device", "cpu"]
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             "2", "-m", "repro_torch.launch.train", *cmd],
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+        sys.stdout.write(proc.stdout)
+        losses, real = [], steps.make_train_step
+
+        def spy(*args, **kw):
+            step_fn = real(*args, **kw)
+
+            def run(*a):
+                out = step_fn(*a)
+                losses.append(float(out[2]))
+                return out
+            return run
+
+        steps.make_train_step = spy
+        with contextlib.redirect_stdout(io.StringIO()) as single:
+            main(cmd)
+        assert single.getvalue().rstrip().endswith("done")
+        print("single " + json.dumps(losses))
+        bad = [m for m in sys.modules if m.split(".")[0] == "repro" or m.startswith("jax")]
+        assert not bad, bad
+    """
+
+
+def test_port_trains_data_parallel_under_torchrun_without_jax(isolated):
+    """``torchrun --nproc-per-node 2 -m repro_torch.launch.train pod --arch
+    mamba2-130m --smoke --steps 2 --device cpu`` with imports of jax and repro
+    refused in the ranks too: both on gloo on a (2, 1) mesh, equal digests of
+    their gathered parameters, rank 0's lines in the reference's format
+    (``step k loss=...`` a step, then ``done``), and every rank's losses
+    within 1e-5 (relative) of the same call without torchrun."""
+    import re
+
+    import numpy as np
+
+    proc = isolated["test_port_trains_data_parallel_under_torchrun_without_jax"]
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    heads = re.findall(r"rank (\d): backend=(\w+) mesh=(\{.*?\}) device=(\w+)", out)
+    assert sorted(heads) == [(str(r), "gloo", "{'data': 2, 'model': 1}", "cpu")
+                             for r in range(2)]
+    digests = dict(re.findall(r"rank (\d): digest=(\w+) \(equal on all 2 ranks\)", out))
+    assert sorted(digests) == ["0", "1"] and len(set(digests.values())) == 1
+    lines = [line for line in out.splitlines() if not line.startswith(("rank ", "single "))]
+    assert len(lines) == 3 and lines[-1] == "done"
+    for step, line in enumerate(lines[:2]):
+        assert re.fullmatch(rf"step {step:3d} loss=\d+\.\d{{4}} \(\d+\.\d\ds\)", line), line
+    single = json.loads(out.split("single ")[1].splitlines()[0])
+    timing = {int(r): json.loads(t) for r, t in re.findall(r"rank (\d): timing (.*)", out)}
+    assert sorted(timing) == [0, 1] and len(single) == 2
+    for t in timing.values():
+        assert t["backend"] == "gloo" and len(t["ms"]) == 2
+        assert all(c["calls"] > 0 and c["bytes"] > 0 for c in t["collectives"])
+        np.testing.assert_allclose(t["losses"], single, rtol=1e-5, atol=0)
+    for step, line in enumerate(lines[:2]):
+        assert line.split("loss=")[1].split()[0] == f"{timing[0]['losses'][step]:.4f}"
+
+
 _BODIES["test_port_runs_the_pod_deployment_without_jax"] = """
         import sys
         import torch
@@ -481,7 +548,7 @@ _BODIES["test_port_shards_without_jax"] = """
     import numpy as np
     import torch
     from repro_torch.configs import ARCH_IDS, get_arch, get_smoke
-    from repro_torch.dist.parallel import ModelAxis
+    from repro_torch.dist.parallel import MeshAxis
     from repro_torch.dist.sharding import (cache_specs, gather_tree, opt_specs, param_specs,
                                            shard_tree)
     from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
@@ -501,7 +568,7 @@ _BODIES["test_port_shards_without_jax"] = """
     assert cache_specs(T.init_cache(cfg, 2, 8, device="cpu"), mesh)["slots"]["slot0"]["k"] \\
         == (None, "data", None, "model", None)
     one = make_host_mesh(1, 2, device="cpu")
-    assert one.shape == {"data": 1, "model": 1} and isinstance(one.axis, ModelAxis)
+    assert one.shape == {"data": 1, "model": 1} and isinstance(one.axis, MeshAxis)
     eng = ServeEngine(cfg, params, EngineConfig(max_concurrency=2, max_len=8), mesh=one)
     plain = ServeEngine(cfg, params, EngineConfig(max_concurrency=2, max_len=8), device="cpu")
     reqs = [Request(rid=i, prompt=[1, 2, 3], max_tokens=2) for i in range(3)]

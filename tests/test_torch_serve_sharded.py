@@ -107,7 +107,8 @@ _WORKER = textwrap.dedent("""
                          "counters": {k: v for k, v in eng.metrics.summary().items()
                                       if not k.endswith("_s") and "tok_s" not in k}}
         try:
-            make_host_mesh(2, 1, device=torch.device("cpu"), group=group)
+            ServeEngine(cfg, params, EngineConfig(**spec["engine"]),
+                        mesh=make_host_mesh(2, 1, device=torch.device("cpu"), group=group))
             res["data_axis"] = "no error"
         except NotImplementedError as err:
             res["data_axis"] = str(err)
@@ -219,9 +220,11 @@ def test_ranks_agree_and_communicate(served, arch):
 
 
 def test_a_data_axis_is_refused(served):
+    """A ``ServeEngine`` on a (2, 1) mesh is refused: data-parallel serving
+    slots are ROADMAP.md A11b.2."""
     _, ranks = served
     for rank in ranks:
-        assert "ROADMAP.md A11b" in rank["data_axis"] and "data axis" in rank["data_axis"]
+        assert "ROADMAP.md A11b.2" in rank["data_axis"] and "data axis" in rank["data_axis"]
 
 
 def test_launcher_serves_tensor_parallel_under_torchrun(tmp_path):
