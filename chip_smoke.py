@@ -183,7 +183,21 @@ or of the JAX package ``repro``. Phases, in order:
    digests of the ranks' gathered parameters, rank 0's reference lines,
    its losses against (i)'s (DP_LOSS_RTOL), and per rank the ms a step,
    the data collectives' calls, ms and bytes a step, peak memory, the
-   backend and B9/B9b's launches (48 and 24 a step); (j) serving, see
+   backend and B9/B9b's launches (48 and 24 a step); (p) data-parallel
+   serving slots, see :func:`dp_serve_phase`, on (n)'s Seamless workload
+   and its unsharded run (not served again): B10 bf16 held against its
+   plain version on (n)'s prefill-cross (4, 64 x 1,024) and decode-cross
+   (4, 1 x 1,024) calls cut to a data rank's 4 rows, all 16 heads and
+   model rank 0's 8, beside its bound and bf16 SDPA; then ``launch.serve
+   --full`` under ``torchrun`` on a (2, 1) mesh (two ranks, 4 slots each)
+   and a (2, 2) mesh (four ranks, 4 slots and 8 heads each), the ranks on
+   the one card over gloo: equal digests on every rank, the unsharded
+   token streams up to BF16_TIE, the unsharded counters, and per rank the
+   ms a decode step and a prefill chunk, each axis's collectives (calls, ms
+   and bytes a step), peak memory and B10's launches (float32, the
+   encoder at admission on the data row that holds the slot: 24 an
+   admission summed over the data ranks; bf16: 24 a prefill chunk and a
+   decode step on every rank); (j) serving, see
    :func:`serve_smoke_phase` and :func:`serve_phase`: the SMOKE
    ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
@@ -236,7 +250,8 @@ or of the JAX package ``repro``. Phases, in order:
    wire path and on each fed run, and their numbers at the gossip payload;
    B1 and B2 with their launches on the metal paths, in process and in the
    workers; ``block_attn`` with each rank's launches of (n), and its
-   local-head modes of (n) beside the whole-head ones; ``ssd_scan`` with
+   local-head modes of (n) beside the whole-head ones, each rank's
+   launches of (p) and its modes at a data rank's rows; ``ssd_scan`` with
    each rank's launches of (o), forward and backward, and (o)'s layer-0
    calls at a rank's shape under ``data_parallel``), and last the device
    line.
@@ -517,6 +532,13 @@ TP_TIMEOUT = 420
 DP_RANKS = 2
 DP_TIMEOUT = 300
 DP_LOSS_RTOL = 1e-4
+# (p) Data-parallel serving slots, ``launch.serve --full`` under torchrun on
+# (n)'s Seamless run (8 requests on 8 slots) over each (data, model) mesh
+# here, its ranks sharing the one card over gloo: (2, 1) gives each data rank
+# 4 slots, (2, 2) 4 slots and 8 of the 16 heads. Held against (n)'s
+# unsharded run of the same weights and workload, which is not served again.
+DP_SERVE_MESHES = [(2, 1), (2, 2)]
+DP_SERVE_TIMEOUT = 300
 SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
                   "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
 
@@ -4316,8 +4338,10 @@ def metal_phase(smi, device="cuda"):
 
 
 def _timed_steps(eng):
-    """Wrap the engine's two step functions: each call timed with the card
-    synchronised before and after. Returns {"decode": [ms], "prefill": [ms]}."""
+    """Wrap the engine's two step methods (the step call and the sampling
+    of its tokens, as ``launch.serve``'s ranks time them): each call timed
+    with the card synchronised before and after. Returns {"decode": [ms],
+    "prefill": [ms]}."""
     import torch
 
     calls = {"decode": [], "prefill": []}
@@ -4332,8 +4356,8 @@ def _timed_steps(eng):
             return out
         return run
 
-    eng._serve_fn = timed(eng._serve_fn, "decode")
-    eng._prefill_fn = timed(eng._prefill_fn, "prefill")
+    eng._decode = timed(eng._decode, "decode")
+    eng._prefill = timed(eng._prefill, "prefill")
     return calls
 
 
@@ -4377,7 +4401,9 @@ def tp_serve_run(run, smi):
     unsharded top logit, as :func:`serve_phase` holds the engine),
     the unsharded counters, and B10 launched as the engine's modes want on
     each rank. Returns ({path: float32 launches}, {path: bf16 launches},
-    {mode: entry} float32, {mode: entry} bf16, the run's numbers)."""
+    {mode: entry} float32, {mode: entry} bf16, the run's numbers, and the
+    unsharded run for phase (p): its token streams, margins, counters and
+    B10's first cross calls)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -4420,6 +4446,7 @@ def tp_serve_run(run, smi):
     margins = eng.margins
 
     modes16, modes32 = {}, {}
+    first_calls = dict(first)
     calls = dict(first)
     if not cfg.enc_dec:
         longest = max(reqs, key=lambda r: len(r.prompt))
@@ -4439,93 +4466,180 @@ def tp_serve_run(run, smi):
     print(f"tp {arch} {tag}: the unsharded model freed, memory_allocated="
           f"{torch.cuda.memory_allocated()} bytes")
 
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    tokens_path = os.path.join(workdir, "tokens.json")
-    out = _launcher_lines(
-        ["torch.distributed.run", "--standalone", "--nproc-per-node", str(TP_RANKS),
-         "-m", "repro_torch.launch.serve", "--arch", arch, "--full", "--mesh-model",
-         str(TP_RANKS), "--requests", str(requests), "--max-concurrency", str(slots),
-         "--prompt-len", str(prompt_len), "--gen", str(gen), "--chunk", str(chunk),
-         "--arrival", str(arrival), "--mixed", "--tokens", tokens_path],
-        f"tp {arch}", TP_TIMEOUT)
-    with open(tokens_path) as f:
-        served = {int(rid): got for rid, got in json.load(f).items()}
-    os.remove(tokens_path)
-    os.rmdir(workdir)
-    ranks = {int(r): (b, d) for r, b, d in re.findall(
-        r"rank (\d): backend=(\w+) mesh=\{'data': 1, 'model': \d+\} device=(\S+)", out)}
-    timing = {int(r): json.loads(t) for r, t in re.findall(r"rank (\d): timing (.*)", out)}
-    digests = {int(r): d for r, d in re.findall(r"rank (\d): digest=(\w+)", out)}
-    done = re.findall(r"(\d+) prefill chunks \+ (\d+) decode steps", out)
-    if sorted(ranks) != list(range(TP_RANKS)) or sorted(timing) != list(range(TP_RANKS)) \
-            or sorted(digests) != list(range(TP_RANKS)) or len(done) != 1:
-        _fail(f"tp {arch}: the launcher's rank lines are missing: backends {ranks}, timing "
-              f"{sorted(timing)}, digests {digests}")
-    one_card = torch.cuda.device_count() < TP_RANKS
-    if len(set(digests.values())) != 1 or (one_card and {b for b, _ in ranks.values()} != {
-            "gloo"}):
-        _fail(f"tp {arch}: digests {digests}, backends {ranks}")
-    sharded_counters = {"prefill_chunks": int(done[0][0]), "decode_steps": int(done[0][1])}
-    flips = []
-    for rid, want in want_tokens.items():
-        got = served.get(rid, {}).get("tokens")
-        if got == want:
-            continue
-        diff = next((i for i, (a, b) in enumerate(zip(got or [], want)) if a != b), None)
-        if got is None or diff is None:
-            _fail(f"tp {arch}: request {rid} served {got}, unsharded {want}")
-        gap, top = margins[rid][diff]
-        sharded_gap = served[rid]["margins"][diff][0]
-        flips.append({"rid": rid, "at": diff, "gap": gap, "sharded_gap": sharded_gap,
-                      "limit": BF16_TIE * top})
-        if min(gap, sharded_gap) >= BF16_TIE * top:
-            _fail(f"tp {arch}: request {rid} differs at token {diff} away from a near-tie "
-                  f"(top-2 gaps {gap:.4e} unsharded, {sharded_gap:.4e} sharded; limit "
-                  f"{BF16_TIE * top:.4e})")
+    reference = {"tokens": want_tokens, "margins": margins, "counters": counters,
+                 "calls": {mode: first_calls[mode] for mode in ("prefill_cross", "decode_cross")
+                           if mode in first_calls}}
+    timing, flips, sharded_counters, digests = _mesh_serve_launch(
+        run, TP_RANKS, TP_RANKS, f"tp {arch}", reference, tag, TP_TIMEOUT)
     want_f32 = cfg.n_enc_layers * len(reqs) if cfg.enc_dec else 0
     want_bf16 = (cfg.n_blocks * (counters["prefill_chunks"] + counters["decode_steps"])
                  if cfg.enc_dec else 0)
     f32_paths, bf16_paths = {}, {}
     for rank, t in sorted(timing.items()):
         f32 = t["block_attn_launches"] - t["block_attn_bf16_launches"]
-        print(f"tp {arch} {tag} rank {rank}: backend {t['backend']} device {t['device']}: "
-              f"decode step {t['decode']['ms']:.2f} ms (collectives "
-              f"{t['decode']['collective_ms']:.2f} ms, {t['decode']['collective_bytes']:.0f} "
-              f"bytes, {t['decode']['collectives']:.0f} calls); prefill chunk "
-              f"{t['prefill']['ms']:.2f} ms (collectives {t['prefill']['collective_ms']:.2f} "
-              f"ms, {t['prefill']['collective_bytes']:.0f} bytes, "
-              f"{t['prefill']['collectives']:.0f} calls); peak {t['peak_bytes']} bytes; "
-              f"block_attn launches {f32} float32 (want {want_f32}) + "
-              f"{t['block_attn_bf16_launches']} bf16 (want {want_bf16})")
         if f32 != want_f32 or t["block_attn_bf16_launches"] != want_bf16:
             _fail(f"tp {arch}: rank {rank} launched block_attn {f32} + "
                   f"{t['block_attn_bf16_launches']} times, want {want_f32} + {want_bf16}")
         f32_paths[f"{arch} serve tp{TP_RANKS} rank {rank}"] = f32
         bf16_paths[f"{arch} serve tp{TP_RANKS} rank {rank} bf16"] = \
             t["block_attn_bf16_launches"]
-    if sharded_counters != {k: counters[k] for k in sharded_counters}:
-        _fail(f"tp {arch}: counters {sharded_counters}, unsharded {counters}")
-    print(f"tp {arch} {tag}: {len(want_tokens)} requests, "
-          f"{len(want_tokens) - len(flips)} token streams equal to the unsharded ones, "
-          f"{len(flips)} first differing at a bf16 near-tie {flips}; digests {digests}")
     stats = {"unsharded": unsharded, "ranks": timing, "flips": flips,
              "digest": digests[0], "counters": sharded_counters}
-    return f32_paths, bf16_paths, modes32, modes16, stats
+    return f32_paths, bf16_paths, modes32, modes16, stats, reference
 
 
 def tp_phase(smi):
     """(n) Tensor-parallel serving: :func:`tp_serve_run` for each of
     TP_RUNS. Returns the merged ({path: float32 launches}, {path: bf16
-    launches}, float32 modes, bf16 modes, {arch: numbers})."""
-    merged = ({}, {}, {}, {}, {})
+    launches}, float32 modes, bf16 modes, {arch: numbers}, {arch: unsharded
+    run})."""
+    merged = ({}, {}, {}, {}, {}, {})
     for run in TP_RUNS:
-        *parts, stats = tp_serve_run(run, smi)
+        *parts, stats, reference = tp_serve_run(run, smi)
         for into, part in zip(merged, parts):
             into.update(part)
         merged[4][run[0]] = stats
+        merged[5][run[0]] = reference
         gc.collect()
     print(f"tp summary [{smi}]: {json.dumps(merged[4])}")
     return merged
+
+
+def _mesh_serve_launch(run, nproc, mesh_model, label, reference, tag, timeout):
+    """``launch.serve --full --mesh-model mesh_model`` under ``torchrun
+    --nproc-per-node nproc`` on ``run``'s workload, its ranks on this card,
+    a (nproc / mesh_model, mesh_model) mesh. Fails unless every rank prints
+    its lines on that mesh, the digests are equal on every rank, ranks that
+    share the card use gloo, the counters are ``reference``'s and each
+    token stream is ``reference``'s up to a bf16 near-tie (at the first
+    difference, the top-2 logit gap in either run below BF16_TIE times the
+    unsharded top logit). Prints each rank's step times, each axis's
+    collectives a step, peak memory and B10's launches. Returns ({rank:
+    timing}, the flips, the counters, {rank: digest})."""
+    import torch
+
+    arch, requests, slots, prompt_len, gen, chunk, arrival = run
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    tokens_path, json_path = (os.path.join(workdir, name) for name in ("tokens", "summary"))
+    out = _launcher_lines(
+        ["torch.distributed.run", "--standalone", "--nproc-per-node", str(nproc),
+         "-m", "repro_torch.launch.serve", "--arch", arch, "--full", "--mesh-model",
+         str(mesh_model), "--requests", str(requests), "--max-concurrency", str(slots),
+         "--prompt-len", str(prompt_len), "--gen", str(gen), "--chunk", str(chunk),
+         "--arrival", str(arrival), "--mixed", "--tokens", tokens_path, "--json", json_path],
+        label, timeout)
+    with open(tokens_path) as f:
+        served = {int(rid): got for rid, got in json.load(f).items()}
+    with open(json_path) as f:
+        summary = json.load(f)
+    for path in (tokens_path, json_path):
+        os.remove(path)
+    os.rmdir(workdir)
+    mesh = f"{{'data': {nproc // mesh_model}, 'model': {mesh_model}}}"
+    heads = {int(r): (b, m, d) for r, b, m, d in re.findall(
+        r"rank (\d+): backend=(\w+) mesh=(\{.*?\}) device=(\S+)", out)}
+    timing = {int(r): json.loads(t) for r, t in re.findall(r"rank (\d+): timing (.*)", out)}
+    digests = {int(r): d for r, d in re.findall(r"rank (\d+): digest=(\w+)", out)}
+    ranks = list(range(nproc))
+    if sorted(heads) != ranks or sorted(timing) != ranks or sorted(digests) != ranks:
+        _fail(f"{label}: the launcher's rank lines are missing: {heads}, timing "
+              f"{sorted(timing)}, digests {digests}")
+    one_card = torch.cuda.device_count() < nproc
+    if len(set(digests.values())) != 1 or any(m != mesh for _, m, _ in heads.values()) or (
+            one_card and {b for b, _, _ in heads.values()} != {"gloo"}):
+        _fail(f"{label}: digests {digests}, ranks {heads} (want the mesh {mesh})")
+    counters = {key: summary[key] for key in SERVE_COUNTERS}
+    if counters != reference["counters"]:
+        _fail(f"{label}: counters {counters}, unsharded {reference['counters']}")
+    flips = []
+    for rid, want in reference["tokens"].items():
+        got = served.get(rid, {}).get("tokens")
+        if got == want:
+            continue
+        diff = next((i for i, (a, b) in enumerate(zip(got or [], want)) if a != b), None)
+        if got is None or diff is None:
+            _fail(f"{label}: request {rid} served {got}, unsharded {want}")
+        gap, top = reference["margins"][rid][diff]
+        sharded_gap = served[rid]["margins"][diff][0]
+        flips.append({"rid": rid, "at": diff, "gap": gap, "sharded_gap": sharded_gap,
+                      "limit": BF16_TIE * top})
+        if min(gap, sharded_gap) >= BF16_TIE * top:
+            _fail(f"{label}: request {rid} differs at token {diff} away from a near-tie "
+                  f"(top-2 gaps {gap:.4e} unsharded, {sharded_gap:.4e} sharded; limit "
+                  f"{BF16_TIE * top:.4e})")
+    for rank, t in sorted(timing.items()):
+        f32 = t["block_attn_launches"] - t["block_attn_bf16_launches"]
+        axes = "; ".join(
+            f"{kind} {t[kind]['ms']:.2f} ms, " + ", ".join(
+                f"{name} axis {a['calls']:.0f} calls {a['ms']:.2f} ms {a['bytes']:.0f} bytes"
+                for name, a in t[kind]["axes"].items())
+            for kind in ("decode", "prefill"))
+        print(f"{label} {tag} rank {rank}: backend {t['backend']} device {t['device']}: "
+              f"a step median ({axes}); peak {t['peak_bytes']} bytes; block_attn launches "
+              f"{f32} float32 + {t['block_attn_bf16_launches']} bf16")
+    print(f"{label} {tag}: {len(reference['tokens'])} requests, "
+          f"{len(reference['tokens']) - len(flips)} token streams equal to the unsharded ones, "
+          f"{len(flips)} first differing at a bf16 near-tie {flips}; counters {counters}; "
+          f"digests {digests}")
+    return timing, flips, counters, digests
+
+
+def dp_serve_phase(smi, reference):
+    """(p) Data-parallel serving slots on (n)'s Seamless workload: B10 bf16
+    held against its plain version on (n)'s first prefill-cross and
+    decode-cross calls cut to data rank 0's rows (and at (2, 2) to model
+    rank 0's heads), beside its bound and bf16 SDPA; then ``launch.serve
+    --full`` under torchrun on each mesh of DP_SERVE_MESHES, its ranks on
+    this card (:func:`_mesh_serve_launch`, held against (n)'s unsharded run
+    ``reference``). Fails unless B10's float32 launches (the encoder at
+    admission, on the ranks of the data row that holds the slot) sum over
+    each model index's data ranks to 24 an admission, and every rank
+    launches B10 bf16 24 times a prefill chunk and a decode step (the cross
+    layers on its rows). Returns ({path: float32 launches}, {path: bf16
+    launches}, {mode: bf16 entry}, {mesh: numbers})."""
+    from repro_torch.configs import get_arch
+
+    tag = f"[{smi}]"
+    run = next(r for r in TP_RUNS if r[0] == "seamless-m4t-large-v2")
+    arch, requests, slots = run[:3]
+    cfg = get_arch(arch)
+    modes16, f32_paths, bf16_paths, stats = {}, {}, {}, {}
+    for data, model in DP_SERVE_MESHES:
+        name = f"dp{data}x{model}"
+        rows = slots // data
+        for mode, (q, k, v, kw) in reference["calls"].items():
+            qkv = tuple(t[:rows].contiguous() for t in (q, k, v))
+            share = f"data rank 0 of {data} ({rows} rows)"
+            if model > 1:
+                qkv = _rank_heads(*qkv, ranks=model)
+                share += f", model rank 0 of {model} (local heads)"
+            entry = _hold_attn_mode(f"(p) {arch} {mode}, {share}", *qkv, kw["causal"], tag)
+            entry["share"] = share
+            modes16[f"{name} {arch} {mode} local"] = entry
+        timing, flips, counters, digests = _mesh_serve_launch(
+            run, data * model, model, f"{name} {arch}", reference, tag, DP_SERVE_TIMEOUT)
+        want_bf16 = cfg.n_blocks * (counters["prefill_chunks"] + counters["decode_steps"])
+        by_model = {}
+        for rank, t in sorted(timing.items()):
+            f32 = t["block_attn_launches"] - t["block_attn_bf16_launches"]
+            by_model[rank % model] = by_model.get(rank % model, 0) + f32
+            if t["block_attn_bf16_launches"] != want_bf16:
+                _fail(f"{name} {arch}: rank {rank} launched block_attn bf16 "
+                      f"{t['block_attn_bf16_launches']} times, want {want_bf16}")
+            f32_paths[f"{arch} serve {name} rank {rank}"] = f32
+            bf16_paths[f"{arch} serve {name} rank {rank} bf16"] = t["block_attn_bf16_launches"]
+        want_f32 = cfg.n_enc_layers * requests
+        if any(got != want_f32 for got in by_model.values()):
+            _fail(f"{name} {arch}: block_attn float32 launches summed over the data ranks "
+                  f"{by_model} (by model index), want {want_f32}: {cfg.n_enc_layers} an "
+                  f"admission")
+        print(f"{name} {arch} {tag}: block_attn float32 launches summed over the data ranks "
+              f"{by_model} (want {want_f32}), bf16 {want_bf16} a rank")
+        stats[name] = {"ranks": timing, "flips": flips, "digest": digests[0],
+                       "counters": counters, "unsharded": reference["counters"]}
+        gc.collect()
+    print(f"dp serve summary {tag}: {json.dumps(stats)}")
+    return f32_paths, bf16_paths, modes16, stats
 
 
 def _dp_layer0(arch_id, bsz, seq, tag):
@@ -5073,11 +5187,17 @@ def main() -> int:
     elapsed("metal")
     gc.collect()
     torch.cuda.empty_cache()
-    tp_f32, tp_bf16, tp_modes32, tp_modes16, _ = tp_phase(smi)      # (n)
+    tp_f32, tp_bf16, tp_modes32, tp_modes16, _, tp_served = tp_phase(smi)  # (n)
     elapsed("tensor-parallel serving")
     torch.cuda.empty_cache()
     dp_fwd, dp_bwd, ssd["data_parallel"], _ = dp_phase(smi, pods[POD_RUNS[0][0]][1]["losses"])
     elapsed("data-parallel training")                               # (o)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_serve_f32, dp_serve_bf16, dp_serve_modes16, _ = dp_serve_phase(
+        smi, tp_served["seamless-m4t-large-v2"])                    # (p)
+    del tp_served
+    elapsed("data-parallel serving")
     gc.collect()
     torch.cuda.empty_cache()
     ssd_by_path.update(dp_fwd)
@@ -5166,6 +5286,9 @@ def main() -> int:
     attn16_by_path.update(tp_bf16)
     attn["modes"].update(tp_modes32)
     attn16["modes"].update(tp_modes16)
+    attn_by_path.update(dp_serve_f32)                                # (p)'s ranks
+    attn16_by_path.update(dp_serve_bf16)
+    attn16["modes"].update(dp_serve_modes16)
     for entry, paths in ((attn, attn_by_path), (ssd, ssd_by_path), (attn16, attn16_by_path),
                          (ssd16, ssd16_by_path)):
         entry["launches"] = sum(paths.values())

@@ -14,7 +14,10 @@ gathered whole before use (:meth:`MeshAxis.whole`): the sharded model
 computes the unsharded function either way. On the data axis each rank
 holds its block of the parameters and the velocity and its block of the
 batch; ``dist.steps.make_train_step`` gathers the parameters whole and
-averages the gradients over the axis (:meth:`MeshAxis.mean`).
+averages the gradients over the axis (:meth:`MeshAxis.mean`). In serving a
+data rank holds its rows of the cache's slots and the whole weights, and
+the engine gathers each step's sampled tokens over the axis
+(``serve.engine``).
 
 Two collectives carry it, both in rank order so that every rank holds the
 same bits whatever the backend's reduction order: ``all_gather`` (blocks

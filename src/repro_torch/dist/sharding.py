@@ -45,6 +45,8 @@ __all__ = [
     "cache_specs",
     "cache_spec_for_leaf",
     "serve_arg_specs",
+    "slot_rows",
+    "model_specs",
     "shard_tree",
     "gather_tree",
     "mesh_coords",
@@ -292,6 +294,36 @@ def serve_arg_specs(args: Any, mesh) -> Any:
         return tuple(spec)
 
     return _map_with_path(one, args)
+
+
+def slot_rows(batch: int, mesh, rank: int) -> tuple[int, int]:
+    """Rank ``rank``'s [lo, hi) of the serve engine's ``batch`` slots: its
+    data rank's contiguous block of ``batch // data``, the block that
+    :func:`serve_arg_specs` gives the per-step arrays' slot dim and
+    :func:`cache_specs` the cache's. Where ``data`` does not divide
+    ``batch`` every rank holds every slot, [0, batch). That includes
+    ``batch`` = 1, where ``cache_specs`` would fall back to the sequence
+    dim: that fallback is for the reference's dry-run shapes, and the serve
+    engine keeps such a cache whole on every rank. The one place that
+    splits the slots: the engine sizes its cache by it and cuts every
+    step's arguments by it."""
+    data = _sizes(mesh).get("data") or 1
+    if batch % data:
+        return 0, batch
+    d = mesh_coords(mesh, rank).get("data", 0)
+    return d * batch // data, (d + 1) * batch // data
+
+
+def model_specs(specs: Any) -> Any:
+    """``specs`` with every ``"data"`` entry dropped: a leaf's placement on
+    the model axis alone, whole along the data axis (the serving steps'
+    weights, see ``steps.make_serve_step``). A spec tree's tuples are its
+    leaves."""
+    if isinstance(specs, dict):
+        return {k: model_specs(v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [model_specs(v) for v in specs]
+    return tuple(None if ax == "data" else ax for ax in specs)
 
 
 # ------------------------------------------------------------- placement

@@ -20,11 +20,17 @@ variant serves only ``launch/dryrun.py``, which is not ported) and
 ``make_prefill_step`` the chunked batched prefill into it
 (``T.prefill_chunk``). Both run in the parameters' and the cache's dtype,
 float32 or bf16, and return logits in it. Given a mesh
-(``launch.mesh.make_host_mesh``), each runs tensor-parallel on the mesh's
-model axis (``dist.parallel``) and returns ``(fn, p_specs)``, the
-reference's pair: ``fn`` takes this rank's blocks of the parameters and
-the cache, placed by ``p_specs`` (``dist.sharding.param_specs``) and
-``cache_specs``.
+(``launch.mesh.make_host_mesh``), each returns ``(fn, p_specs)``, the
+reference's pair, and ``fn`` runs on this rank's share of the mesh: on the
+model axis, tensor-parallel (``dist.parallel``), with its blocks of the
+parameters and of the cache's heads or d; on the data axis, its slots,
+the rows that ``sharding.slot_rows`` gives it (its block of the cache's
+slot dim under ``cache_specs`` and of the step's arguments under
+``serve_arg_specs``). The step is row by row, so a rank's rows need nothing
+of another data rank's. ``p_specs`` is the placement ``fn`` takes: the
+parameters are whole along the data axis (``sharding.model_specs`` of
+``param_specs``), where the reference stores them split over it and
+gathers them inside every step.
 
 ``make_gossip_step`` and ``make_fed_train_step`` run G pods, each with its
 own model, on the pod mesh of ``launch.mesh.make_pod_mesh``: stacked on one
@@ -35,9 +41,8 @@ Each pod takes a local step of ``make_train_step``'s body on its own batch
 steps (``dist.gossip``, quantized through the int8 wire kernels at
 ``quant_bits < 32``).
 
-A serving step on a mesh with a data axis (data-parallel serving slots) is
-ROADMAP.md A11b.2, a pod with a data axis A11b.3 and training on a mesh
-with a model axis (tensor-parallel training) A11b.4: each raises
+A pod with a data axis is ROADMAP.md A11b.3 and training on a mesh with a
+model axis (tensor-parallel training) A11b.4: each raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -47,7 +52,8 @@ import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.dist.gossip import GossipConfig, mix_into
-from repro_torch.dist.sharding import block_slices, opt_specs, param_specs, zip_specs
+from repro_torch.dist.sharding import (block_slices, model_specs, opt_specs, param_specs,
+                                      zip_specs)
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.sgd import decreasing_lr, momentum_sgd
@@ -206,9 +212,12 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
     new_cache), the continuous-batching decode step (``T.decode_step``):
     every cache row is a request slot at its own absolute position, and
     ``active`` freezes free and retired rows. Without a mesh, the step
-    alone; with one, (serve_fn, p_specs) and the step runs on the mesh's
-    model axis, its logits whole on every rank."""
-    axis = _model_axis(mesh)
+    alone. With one, (serve_fn, p_specs): the step runs on the mesh's model
+    axis, its logits whole on every rank, over the rows that the caller
+    passes, this rank's slots on the data axis (``sharding.slot_rows``):
+    the cache's rows and the arguments' rows alike. ``p_specs`` places the
+    parameters that ``serve_fn`` takes (:func:`_serve_specs`)."""
+    axis = mesh.axis if mesh is not None else None
 
     def serve_fn(params, cache, token, positions, active):
         return T.decode_step(cfg, params, cache, token, positions=positions, active=active,
@@ -216,16 +225,17 @@ def make_serve_step(cfg: ArchConfig, mesh=None):
 
     if mesh is None:
         return serve_fn
-    return serve_fn, param_specs(T.abstract_params(cfg), mesh)
+    return serve_fn, _serve_specs(cfg, mesh)
 
 
 def make_prefill_step(cfg: ArchConfig, mesh=None):
     """prefill_fn(params, cache, tokens (B,C), positions (B,), n_valid (B,))
     -> (logits (B,C,V), new_cache): the chunked batched prefill into the
     decode cache at per-row offsets (``T.prefill_chunk``). With a mesh,
-    (prefill_fn, p_specs), as :func:`make_serve_step`; ``prefill_fn(...,
-    last=True)`` returns each row's last logits alone, (B, 1, V)."""
-    axis = _model_axis(mesh)
+    (prefill_fn, p_specs), as :func:`make_serve_step`, B being this rank's
+    rows; ``prefill_fn(..., last=True)`` returns each row's last logits
+    alone, (B, 1, V)."""
+    axis = mesh.axis if mesh is not None else None
 
     def prefill_fn(params, cache, tokens, positions, n_valid, last=False):
         return T.prefill_chunk(cfg, params, cache, tokens, positions, n_valid, axis=axis,
@@ -233,19 +243,14 @@ def make_prefill_step(cfg: ArchConfig, mesh=None):
 
     if mesh is None:
         return prefill_fn
-    return prefill_fn, param_specs(T.abstract_params(cfg), mesh)
+    return prefill_fn, _serve_specs(cfg, mesh)
 
 
-def _model_axis(mesh):
-    """A serving mesh's model axis (None without a mesh); a data axis of
-    more than one rank raises NotImplementedError."""
-    if mesh is None:
-        return None
-    if mesh.data > 1:
-        raise NotImplementedError(
-            f"serving on a ({mesh.data}, {mesh.model}) mesh: a data axis, data-parallel "
-            f"serving slots, is ROADMAP.md A11b.2")
-    return mesh.axis
+def _serve_specs(cfg: ArchConfig, mesh):
+    """The serving steps' parameter placement: ``param_specs`` on the model
+    axis, whole along the data axis (``sharding.model_specs``), so a decode
+    step gathers no weight across the data ranks."""
+    return model_specs(param_specs(T.abstract_params(cfg), mesh))
 
 
 def make_gossip_step(cfg: ArchConfig, mesh, gossip: GossipConfig, *,

@@ -15,7 +15,9 @@ leading ``pod`` axis for the DFedRW deployment. The port's meshes:
   as ``sharding.mesh_coords`` lays them (row-major, model fastest); the
   model axis carries tensor-parallel serving (``launch.serve
   --mesh-model``), the data axis data-parallel training (``launch.train
-  pod`` under ``torchrun``, ``dist.steps.make_train_step(cfg, mesh)``);
+  pod`` under ``torchrun``, ``dist.steps.make_train_step(cfg, mesh)``) and
+  data-parallel serving slots (``launch.serve`` under ``torchrun``, a
+  ``(world / N, N)`` mesh for ``--mesh-model N``);
 - ``make_pod_mesh``: pods stacked on one device (every leaf of the fed tree
   with a leading pod dimension, ``group=None``; a card holds G pods this
   way) or one pod a rank of a group. A pod spans one device: a pod with a
@@ -89,6 +91,13 @@ class HostMesh:
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    def all_equal(self, values: list[int]) -> bool:
+        """Whether every rank of the mesh, on both axes, passed the same
+        list of int64 values (one all-gather over ``group``)."""
+        if self.size == 1:
+            return True
+        return MeshAxis(self.group, self.rank, self.size, "mesh").all_equal(values)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, *, device, group=None) -> HostMesh:

@@ -1,7 +1,7 @@
 """Serving launcher (the port of ``repro.launch.serve``): the
-continuous-batching engine (``repro_torch.serve``) on one device, or
-tensor-parallel over ``--mesh-model N`` ranks. It makes a synthetic request
-workload, runs it through ``ServeEngine`` and reports each request's
+continuous-batching engine (``repro_torch.serve``) on one device, or on a
+``(data, model)`` mesh of the ranks that ``torchrun`` starts. It makes a
+synthetic request workload, runs it through ``ServeEngine`` and reports each request's
 TTFT/TPOT and the engine's throughput, on the card unless ``--device cpu``
 is given.
 
@@ -17,20 +17,26 @@ is given.
 ``--full`` serves in bf16 (weights, cache and activations) and the smoke
 configuration in float32, as the reference's launcher chooses.
 
-``--mesh-model N`` > 1 serves tensor-parallel on a ``(data=1, model=N)``
-mesh of N ranks, started by ``torchrun --nproc-per-node N`` (world size N;
-a data axis, data-parallel serving slots, is ROADMAP.md A11b.2). Every
-rank draws the same weights and
-keeps its block (``dist.sharding``). The ranks' collectives run over NCCL
+Under ``torchrun`` with world size W > 1 the ranks serve on a ``(data=W /
+N, model=N)`` mesh for ``--mesh-model N`` (default 1), as the reference
+gives the data axis every device that the model axis leaves: N must divide
+W. The model axis is tensor-parallel; the data axis splits the engine's
+slots (``--max-concurrency``) over its ranks, or replicates them where it
+does not divide them. Every rank draws the same weights and keeps its
+block (``dist.sharding``), whole along the data axis. ``--mesh-model N`` >
+1 without ``torchrun`` is refused. The ranks' collectives run over NCCL
 when every rank has a card of its own, else over gloo (ranks that share
 one card, and ``--device cpu``); each rank prints its backend, the mesh and
 its device, and at the end a ``timing`` JSON line (ms a decode step and a
-prefill chunk, the collectives' ms and bytes a step, peak device memory,
-``block_attn`` launches) and its token-stream digest; rank 0 prints the
-rest, and runs ``--verify`` against the unsharded sequential decode:
+prefill chunk, each axis's collectives' calls, ms and bytes a step, peak
+device memory, ``block_attn`` launches) and its token-stream digest; rank
+0 prints the rest, and runs ``--verify`` against the unsharded sequential
+decode:
 
   PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --arch yi-6b --smoke --device cpu --mesh-model 2 --requests 6 --verify
+  PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch yi-6b --smoke --device cpu --mesh-model 2 --requests 6 --verify   # (2, 2)
 """
 from __future__ import annotations
 
@@ -142,8 +148,8 @@ def main(argv=None) -> None:
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="model-axis size: N > 1 serves tensor-parallel over N ranks "
-                         "(torchrun --nproc-per-node N)")
+                    help="model-axis size: under torchrun with world size W the ranks "
+                         "serve on a (W / N, N) mesh; N > 1 needs torchrun")
     ap.add_argument("--verify", action="store_true",
                     help="replay each request through the sequential decode "
                          "path and require identical outputs (temp 0)")
@@ -162,12 +168,18 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.mesh_model > 1 and world != args.mesh_model:
+    if args.mesh_model < 1:
+        raise SystemExit(f"--mesh-model {args.mesh_model}: the model axis takes 1 rank or more")
+    if args.mesh_model > 1 and world == 1:
         raise SystemExit(
-            f"--mesh-model {args.mesh_model} runs as {args.mesh_model} ranks: start it with "
-            f"torchrun --nproc-per-node {args.mesh_model} (this process group has world size "
-            f"{world}; a data axis over the other ranks, data-parallel serving slots, is "
-            f"ROADMAP.md A11b.2)")
+            f"--mesh-model {args.mesh_model} runs on {args.mesh_model} ranks or a multiple: "
+            f"start it with torchrun --nproc-per-node {args.mesh_model} (this process has no "
+            f"process group)")
+    if world % args.mesh_model:
+        raise SystemExit(
+            f"--mesh-model {args.mesh_model} over {world} ranks: the (data, model) mesh is "
+            f"({world} // {args.mesh_model}, {args.mesh_model}), and {args.mesh_model} does "
+            f"not divide {world}")
     if args.trace and not args.obs:
         raise SystemExit("--trace requires --obs (it augments the obs "
                          "stream with tspan events)")
@@ -181,8 +193,8 @@ def main(argv=None) -> None:
 
     mesh = None
     dev = resolve_device(args.device)
-    if args.mesh_model > 1:
-        dev, mesh = _join_model_axis(args, dev)
+    if world > 1:
+        dev, mesh = _join_mesh(args, dev, world)
     lead = mesh is None or mesh.rank == 0
     cfg = get_arch(args.arch) if args.full else get_smoke(args.arch)
     dtype = torch.bfloat16 if args.full else torch.float32
@@ -206,7 +218,7 @@ def main(argv=None) -> None:
     if mesh is not None:
         timing.report(args, eng)
         if not lead:
-            _leave_model_axis()
+            _leave_mesh()
             return
 
     summary = eng.metrics.summary()
@@ -254,27 +266,28 @@ def main(argv=None) -> None:
         print(f"obs: wrote {args.obs} "
               f"(report: python tools/obs_report.py {args.obs})")
     if mesh is not None:
-        _leave_model_axis()
+        _leave_mesh()
 
 
-def _join_model_axis(args, dev):
+def _join_mesh(args, dev, world: int):
     """This rank's device and mesh: the ranks that ``torchrun`` started join
     one process group (``launch.mesh.join_torchrun``: NCCL when every rank
     of the host has a card of its own, gloo when they share cards and on
-    the CPU) as a (1, N) mesh. A rank that finds no card raises
+    the CPU) as a (world / N, N) mesh. A rank that finds no card raises
     (``resolve_device``)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import join_torchrun, make_host_mesh
 
     dev, backend = join_torchrun(dev)
-    mesh = make_host_mesh(1, args.mesh_model, device=dev, group=dist.group.WORLD)
+    mesh = make_host_mesh(world // args.mesh_model, args.mesh_model, device=dev,
+                          group=dist.group.WORLD)
     sys.stdout.write(f"rank {mesh.rank}: backend={backend} mesh={mesh.shape} device={dev}\n")
     sys.stdout.flush()
     return dev, mesh
 
 
-def _leave_model_axis() -> None:
+def _leave_mesh() -> None:
     import torch.distributed as dist
 
     dist.barrier()
@@ -282,19 +295,22 @@ def _leave_model_axis() -> None:
 
 
 class _RankTiming:
-    """Each step call of a tensor-parallel engine timed on this rank (the
-    device synchronised before and after), with its collectives' ms and
-    bytes (``MeshAxis.stats``); ``block_attn``'s launches counted from 0."""
+    """Each engine step's device work on this rank timed (the device
+    synchronised before and after): its step call, the sampling of its
+    rows and the gather of the step's tokens over the data axis; with each
+    axis's collectives' calls, ms and bytes (``MeshAxis.stats``);
+    ``block_attn``'s launches counted from 0."""
 
     def __init__(self, eng, dev):
         import torch
 
         from repro_torch.kernels.block_attn import block_attn
 
-        self.dev, self.axis, self.torch, self.ba = dev, eng.axis, torch, block_attn
+        self.dev, self.mesh, self.torch, self.ba = dev, eng.mesh, torch, block_attn
+        self.axes = {"model": eng.mesh.axis, "data": eng.mesh.data_axis}
         self.calls = {"decode": [], "prefill": []}
-        eng._serve_fn = self._timed(eng._serve_fn, "decode")
-        eng._prefill_fn = self._timed(eng._prefill_fn, "prefill")
+        eng._decode = self._timed(eng._decode, "decode")
+        eng._prefill = self._timed(eng._prefill, "prefill")
         block_attn.reset_launch_counts()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -306,36 +322,39 @@ class _RankTiming:
     def _timed(self, fn, kind):
         def run(*args, **kwargs):
             self._sync()
-            before = dict(self.axis.stats)
+            before = {name: dict(axis.stats) for name, axis in self.axes.items()}
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             self._sync()
-            self.calls[kind].append((
-                (time.perf_counter() - t0) * 1e3,
-                (self.axis.stats["seconds"] - before["seconds"]) * 1e3,
-                self.axis.stats["bytes"] - before["bytes"],
-                self.axis.stats["calls"] - before["calls"]))
+            call = {"ms": (time.perf_counter() - t0) * 1e3}
+            for name, axis in self.axes.items():
+                call[name] = {"calls": axis.stats["calls"] - before[name]["calls"],
+                              "ms": (axis.stats["seconds"] - before[name]["seconds"]) * 1e3,
+                              "bytes": axis.stats["bytes"] - before[name]["bytes"]}
+            self.calls[kind].append(call)
             return out
 
         return run
 
     def report(self, args, eng) -> None:
-        out = {"rank": self.axis.rank, "backend": self.axis.backend, "device": str(self.dev),
+        rank = self.mesh.rank
+        out = {"rank": rank, "backend": self.axes["model"].backend or self.axes["data"].backend,
+               "device": str(self.dev),
                "peak_bytes": (self.torch.cuda.max_memory_allocated(self.dev)
                               if self.dev.type == "cuda" else None),
                "block_attn_launches": self.ba.LAUNCHES["block_attn"],
                "block_attn_bf16_launches": self.ba.BF16_LAUNCHES["block_attn"]}
+        med = statistics.median
         for kind, calls in self.calls.items():
             if calls:
-                ms, coll_ms, coll_bytes, coll_calls = zip(*calls)
-                out[kind] = {"steps": len(calls), "ms": statistics.median(ms),
-                             "collective_ms": statistics.median(coll_ms),
-                             "collective_bytes": statistics.median(coll_bytes),
-                             "collectives": statistics.median(coll_calls)}
+                out[kind] = {"steps": len(calls), "ms": med(c["ms"] for c in calls),
+                             "axes": {name: {key: med(c[name][key] for c in calls)
+                                             for key in ("calls", "ms", "bytes")}
+                                      for name in self.axes}}
         # one write a line: the ranks share one standard output
-        for line in (f"rank {self.axis.rank}: timing {json.dumps(out)}",
-                     f"rank {self.axis.rank}: digest={eng.digest} (equal on all "
-                     f"{self.axis.size} ranks)"):
+        for line in (f"rank {rank}: timing {json.dumps(out)}",
+                     f"rank {rank}: digest={eng.digest} (equal on all "
+                     f"{self.mesh.size} ranks)"):
             sys.stdout.write(line + "\n")
             sys.stdout.flush()
 

@@ -409,7 +409,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
     frontend_tokens, d), zeros until the caller puts the encoder's output
     there. On a model ``axis`` each leaf is this rank's block, at the local
     shape ``sharding.cache_specs`` gives (the KV heads of k/v, d of
-    ``enc_out``)."""
+    ``enc_out``). ``batch`` is the rows this cache holds: on a data axis the
+    caller passes its rank's (``sharding.slot_rows``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     if _active(axis):

@@ -33,16 +33,33 @@ embeddings, its output rounded to the cache's dtype as it is written, as
 the reference's engine does.
 
 Without a mesh the parameters and the cache live whole on ``device``. With
-one (``launch.mesh.make_host_mesh``, a model axis over the ranks of a
-process group), the engine is tensor-parallel, as the reference's on its
-``("data", "model")`` mesh: each rank holds its block of the parameters
-(``param_specs``) and of the cache (``cache_specs``), and runs the same
-host loop (admission, scheduling, stops), which is deterministic, so the
-ranks agree; the logits are gathered whole before sampling, and every
-rank samples with the same seeded generator. ``run`` ends by comparing a
-digest of every rank's token streams (one ``all_gather``) and raises on a
-difference. A mesh with a data axis (data-parallel slots) is refused:
-ROADMAP.md A11b.2.
+one (``launch.mesh.make_host_mesh``, a ``(data, model)`` mesh over the
+ranks of a process group), the engine runs as the reference's does on its
+mesh:
+
+* on the model axis it is tensor-parallel: each rank holds its block of
+  the parameters (``param_specs``) and of the cache's heads or d
+  (``cache_specs``), and the logits are gathered whole before sampling;
+* on the data axis the ``max_concurrency`` = B slots are split: data rank d
+  of D holds the cache rows [d·B/D, (d+1)·B/D) (``sharding.slot_rows``,
+  its block under ``cache_specs``) and passes the step its rows of the
+  per-step arrays (``serve_arg_specs``); where D does not divide B every
+  rank holds and runs every row. The weights are whole along the data axis,
+  placed by the steps' ``p_specs`` (``sharding.model_specs`` of
+  ``param_specs``): the reference stores them split over it and gathers
+  them inside every step, which here would move every weight across the
+  axis a decode step, for the same numbers.
+
+Every rank runs the same host loop (admission, scheduling, stops), which
+is deterministic, so the ranks agree, and calls every step, also with no
+active row of its own. A data rank samples its rows and one ``all_gather``
+over the data axis gives every rank the step's B tokens (with their
+margins); a sampled row's noise is drawn at the whole (B, V) from the
+seeded generator, which so stays in step with the unsharded engine's. An
+encoder-decoder's encoder runs at admission on the ranks of the data row
+that holds the slot (its collectives within that row's model axis).
+``run`` ends by comparing a digest of every rank's token streams across
+the whole mesh (one ``all_gather``) and raises on a difference.
 """
 from __future__ import annotations
 
@@ -53,7 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard_tree
+from repro_torch.dist.sharding import shard_tree, slot_rows
 from repro_torch.dist.steps import make_prefill_step, make_serve_step
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ArchConfig
@@ -87,15 +104,17 @@ class EngineConfig:
                              f"bfloat16")
 
 
-def _sample_tokens(logits: torch.Tensor, gen: torch.Generator,
-                   temps: torch.Tensor) -> torch.Tensor:
-    """Per-row greedy/temperature sampling. logits (B, V) float32; temps
-    (B,), temp <= 0 meaning greedy (``argmax``, ties to the lowest index,
-    as the sequential reference takes it). A sampled row draws Gumbel noise
-    from ``gen`` (the reference's ``jax.random.categorical`` method; its
-    bits are the generator's, not JAX's)."""
+def _sample_tokens(logits: torch.Tensor, gen: torch.Generator, temps: torch.Tensor,
+                   rows: slice, slots: int) -> torch.Tensor:
+    """Per-row greedy/temperature sampling of ``rows`` of the engine's
+    ``slots``. logits (rows, V) float32; temps (rows,), temp <= 0 meaning
+    greedy (``argmax``, ties to the lowest index, as the sequential
+    reference takes it). A sampled row draws Gumbel noise from ``gen`` (the
+    reference's ``jax.random.categorical`` method; its bits are the
+    generator's, not JAX's), drawn at (slots, V) whatever the rows, so that
+    a data rank's draw is its rows of the unsharded engine's."""
     greedy = torch.argmax(logits, dim=-1)
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = torch.rand((slots, logits.shape[1]), generator=gen, device=logits.device)[rows]
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     scaled = logits / temps.clamp_min(1e-6)[:, None]
     sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
@@ -138,10 +157,11 @@ class ServeEngine:
     span chain. Host-side only, between steps: token streams are the same
     with obs on or off.
 
-    ``mesh`` (a ``launch.mesh.HostMesh``) makes the engine one rank of a
-    tensor-parallel engine: ``params`` is the whole model, cut here to this
-    rank's block, and the mesh's device replaces ``device``. A mesh with a
-    data axis raises NotImplementedError (ROADMAP.md A11b.2).
+    ``mesh`` (a ``launch.mesh.HostMesh``) makes the engine one rank of an
+    engine on a ``(data, model)`` mesh: ``params`` is the whole model, cut
+    here to this rank's block on the model axis (whole along the data
+    axis), the cache holds this rank's slots (``self.rows``) and heads, and
+    the mesh's device replaces ``device``.
 
     ``margins=True`` keeps, for every emitted token, the gap between the two
     largest logits it was taken from and the largest one's magnitude
@@ -157,8 +177,13 @@ class ServeEngine:
         self.keep_margins = margins
         self.mesh = mesh
         self.axis = mesh.axis if mesh is not None else None
+        self.data_axis = mesh.data_axis if mesh is not None else None
         self.device = resolve_device(mesh.device if mesh is not None else device)
         b, s = self.engine.max_concurrency, self.engine.max_len
+        # this rank's slots; on a data axis that splits them, every step's
+        # tokens are gathered over it
+        self.rows = slice(*(slot_rows(b, mesh, mesh.rank) if mesh is not None else (0, b)))
+        self._split = self.rows.stop - self.rows.start < b
         ring = min(s, cfg.sliding_window) if cfg.sliding_window > 0 else s
         self.ring_size = ring
         self.chunk = min(self.engine.chunk, ring)
@@ -171,7 +196,8 @@ class ServeEngine:
             self._prefill_fn, _ = make_prefill_step(cfg, mesh)
             params = shard_tree(params, self.param_spec_tree, mesh)
         self.params = _to(params, self.device)
-        self.cache = T.init_cache(cfg, b, s, self.engine.dtype, device=self.device,
+        self.cache = T.init_cache(cfg, self.rows.stop - self.rows.start, s, self.engine.dtype,
+                                  device=self.device,
                                   enc_len=cfg.frontend_tokens if cfg.enc_dec else 0,
                                   axis=self.axis)
         self.digest = None
@@ -206,18 +232,23 @@ class ServeEngine:
     def _dev(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
 
+    def _mine(self, x: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a per-slot host array, a copy on the device."""
+        return self._dev(x[self.rows].copy())
+
     def _admit_enc(self, st: RequestState) -> None:
         """enc-dec: run the encoder for the admitted request and write its
         output into the slot's row of the shared ``enc_out`` cache. The
         encoder runs on the request's float32 embeddings, as the
         reference's (a bf16 model's weights are promoted), and its output is
-        rounded to the cache's dtype as it is written."""
-        if not self.cfg.enc_dec:
+        rounded to the cache's dtype as it is written. On a data axis only
+        the ranks that hold the slot run it."""
+        if not self.cfg.enc_dec or not self.rows.start <= st.slot < self.rows.stop:
             return
         emb = self._dev(np.asarray(st.request.embeds, np.float32)[None])  # (1, F, d)
         with torch.no_grad():
             one = T._run_encoder(self.cfg, self.params, emb, remat=False, axis=self.axis)[0]
-            rows = self.cache["enc_out"][st.slot]
+            rows = self.cache["enc_out"][st.slot - self.rows.start]
             if rows.shape[-1] != one.shape[-1]:         # a model axis splits enc_out on d
                 lo = self.axis.span(one.shape[-1])[0]
                 one = one[:, lo:lo + rows.shape[-1]]
@@ -280,30 +311,40 @@ class ServeEngine:
 
     # ------------------------------------------------------------ programs
     def _fresh(self, cache: dict, fresh: np.ndarray) -> dict:
-        """Zero the recurrent state of the rows in ``fresh`` (host bool)."""
+        """Zero the recurrent state of this rank's rows in ``fresh`` (host
+        bool, every slot)."""
+        fresh = fresh[self.rows]
         if self._recurrent and fresh.any():
             return _zero_fresh_state(cache, self._dev(fresh))
         return cache
 
     def _pick(self, last: torch.Tensor, sampled: bool) -> np.ndarray:
-        """Tokens from the last logits (B, V), moved to the host: the
-        step's one device-to-host copy."""
-        if self.keep_margins:
-            top = torch.topk(last, 2, dim=-1).values
-            self._step_margins = ((top[:, 0] - top[:, 1]).cpu().numpy(),
-                                  top[:, 0].abs().cpu().numpy())
+        """Tokens (B,) from this rank's rows of the last logits (rows, V),
+        moved to the host: the step's one device-to-host copy. Where the
+        data axis splits the slots, every rank's tokens (and margins, their
+        float32 bits as int32) are gathered over it in one call first."""
         if sampled:
-            tok = _sample_tokens(last, self._gen, self._dev(self._temps.copy()))
+            tok = _sample_tokens(last, self._gen, self._mine(self._temps), self.rows,
+                                 len(self._slots))
         else:
             tok = _greedy_tokens(last)
-        return tok.to(torch.int32).cpu().numpy()
+        parts = [tok.to(torch.int32)]
+        if self.keep_margins:
+            top = torch.topk(last, 2, dim=-1).values
+            parts += [(top[:, 0] - top[:, 1]).view(torch.int32), top[:, 0].abs().view(torch.int32)]
+        if self._split:
+            parts = list(self.data_axis.all_gather(torch.stack(parts), 1))
+        if self.keep_margins:
+            self._step_margins = (parts[1].view(torch.float32).cpu().numpy(),
+                                  parts[2].view(torch.float32).cpu().numpy())
+        return parts[0].cpu().numpy()
 
     @torch.no_grad()
     def _prefill(self, tokens: np.ndarray, n_valid: np.ndarray, sampled: bool) -> np.ndarray:
         cache = self._fresh(self.cache, (self.positions == 0) & (n_valid > 0))
-        args = (self.params, cache, self._dev(tokens), self._dev(self.positions.copy()),
-                self._dev(n_valid))
-        if self.mesh is not None:    # the head on each row's last token: B rows gathered
+        args = (self.params, cache, self._mine(tokens), self._mine(self.positions),
+                self._mine(n_valid))
+        if self.mesh is not None:    # the head on each row's last token alone
             logits, self.cache = self._prefill_fn(*args, last=True)
             return self._pick(logits[:, 0].float(), sampled)
         logits, self.cache = self._prefill_fn(*args)
@@ -318,8 +359,8 @@ class ServeEngine:
         # never passes through the prefill step
         cache = self._fresh(self.cache, active & (self.positions == 0))
         logits, self.cache = self._serve_fn(
-            self.params, cache, self._dev(token[:, None]), self._dev(self.positions.copy()),
-            self._dev(active))
+            self.params, cache, self._mine(token[:, None]), self._mine(self.positions),
+            self._mine(active))
         return self._pick(logits[:, 0].float(), sampled)
 
     # ------------------------------------------------------------------ step
@@ -461,16 +502,17 @@ class ServeEngine:
         return done
 
     def _check_ranks_agree(self, done: list[RequestState]) -> None:
-        """The digest of this run's token streams, held equal across the
-        model axis's ranks (one ``all_gather``); a difference raises."""
+        """The digest of this run's token streams, held equal across every
+        rank of the mesh, both axes (one ``all_gather``); a difference
+        raises."""
         h = hashlib.sha256()
         for st in done:
             h.update(f"{st.request.rid}:{st.stop}:{st.generated};".encode())
         self.digest = h.hexdigest()[:16]
-        if self.axis is not None and not self.axis.all_equal(
+        if self.mesh is not None and not self.mesh.all_equal(
                 [int(self.digest[i:i + 8], 16) for i in (0, 8)]):
-            raise RuntimeError(f"the model axis's ranks served different token streams "
-                               f"(rank {self.axis.rank} digest {self.digest})")
+            raise RuntimeError(f"the mesh's ranks served different token streams "
+                               f"(rank {self.mesh.rank} digest {self.digest})")
 
 
 def _greedy_tokens(logits: torch.Tensor) -> torch.Tensor:

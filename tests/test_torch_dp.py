@@ -37,7 +37,11 @@ Contracts, with their tolerances:
 - the (2, 1) and (1, 2) meshes over two ranks and the (2, 2) mesh over
   four put each rank at the coordinates ``sharding.mesh_coords`` gives and
   gather each axis over the ranks that share the other index; the
-  refusals name their ROADMAP.md items.
+  refusals name their ROADMAP.md items; the serve step on the (2, 2) mesh
+  returns ``(fn, p_specs)``, its specs the placement ``fn`` takes (the
+  reference's, whole along the data axis), and ``fn`` on blocks placed by
+  them gives a data rank's rows of the unsharded step's logits within
+  atol = rtol = 1e-4.
 """
 import json
 import os
@@ -198,8 +202,10 @@ _MESH_WORKER = textwrap.dedent("""
     import torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.configs import get_smoke
-    from repro_torch.dist.steps import make_serve_step, make_train_step
+    from repro_torch.dist.sharding import model_specs, param_specs, shard_tree, slot_rows
+    from repro_torch.dist.steps import make_prefill_step, make_serve_step, make_train_step
     from repro_torch.launch.mesh import make_host_mesh, make_pod_mesh
+    from repro_torch.models import transformer as T
 
     def refusal(fn):
         try:
@@ -207,6 +213,26 @@ _MESH_WORKER = textwrap.dedent("""
         except (NotImplementedError, ValueError) as err:
             return f"{type(err).__name__}: {err}"
         return "no error"
+
+    def serve_pair():
+        # the pair's specs are the placement fn takes: on this rank's rows of
+        # four slots, fn on blocks placed by them gives the unsharded step's
+        # logits
+        fn, p_specs = make_serve_step(cfg, mesh)
+        ref = param_specs(T.abstract_params(cfg), mesh)
+        whole = T.init_params(cfg, torch.Generator().manual_seed(0), device=cpu)
+        lo, hi = slot_rows(4, mesh, rank)
+        token = torch.arange(3, 7)[:, None]
+        pos = torch.arange(4, dtype=torch.int32)
+        active = torch.ones(4, dtype=torch.bool)
+        want, _ = make_serve_step(cfg)(whole, T.init_cache(cfg, 4, 8, device=cpu), token,
+                                       pos, active)
+        got, _ = fn(shard_tree(whole, p_specs, mesh),
+                    T.init_cache(cfg, hi - lo, 8, device=cpu, axis=mesh.axis),
+                    token[lo:hi], pos[lo:hi], active[lo:hi])
+        return {"specs": [p_specs == model_specs(ref), p_specs != ref,
+                          make_prefill_step(cfg, mesh)[1] == p_specs],
+                "rows": [lo, hi], "got": got.tolist(), "want": want[lo:hi].tolist()}
 
     cpu = torch.device("cpu")
     dist.init_process_group("gloo", init_method="file://" + init, rank=rank, world_size=world)
@@ -222,7 +248,7 @@ _MESH_WORKER = textwrap.dedent("""
                "data_mean": mesh.data_axis.mean(mine).tolist(),
                "uneven": refusal(lambda: make_host_mesh(3, 1, device=cpu, group=group)),
                "train": refusal(lambda: make_train_step(cfg, mesh)),
-               "serve": refusal(lambda: make_serve_step(cfg, mesh)),
+               "serve": serve_pair(),
                "pods": refusal(lambda: make_pod_mesh(2, device=cpu, group=group))}
         json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
         dist.barrier()
@@ -424,8 +450,10 @@ def test_four_rank_mesh_and_refusals(runs):
     """(2, 2) over four ranks: rank r at (r // 2, r % 2), its model axis the
     ranks of its row and its data axis those of its column, each gathered
     in rank order; the data mean is the column's. A mesh that leaves a rank
-    out raises ValueError; training on a model axis names A11b.4, serving on
-    a data axis A11b.2, pods over fewer ranks A11b.3."""
+    out raises ValueError; training on a model axis names A11b.4 and pods
+    over fewer ranks A11b.3; serving on it gives (fn, p_specs), whose specs
+    place the weights fn runs on: this rank's two of four slots give the
+    unsharded step's logits."""
     for r, got in runs[2].items():
         assert got["shape"] == {"data": 2, "model": 2} and got["sizes"] == [2, 2]
         assert got["coords"] == [r // 2, r % 2]
@@ -433,9 +461,13 @@ def test_four_rank_mesh_and_refusals(runs):
         assert got["data_gather"] == [float(r % 2), float(r % 2 + 2)]
         assert got["data_mean"] == [r % 2 + 1.0]
         assert got["uneven"].startswith("ValueError") and "take them all" in got["uneven"]
-        for key, item in (("train", "A11b.4"), ("serve", "A11b.2"), ("pods", "A11b.3")):
+        for key, item in (("train", "A11b.4"), ("pods", "A11b.3")):
             assert got[key].startswith("NotImplementedError"), got[key]
             assert f"ROADMAP.md {item}" in got[key], got[key]
+        serve = got["serve"]
+        assert serve["specs"] == [True, True, True]
+        assert serve["rows"] == [2 * (r // 2), 2 * (r // 2) + 2]
+        np.testing.assert_allclose(serve["got"], serve["want"], atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("local_world, cards, device_type, want", [

@@ -19,7 +19,6 @@ Contracts:
   counter and request step equal the unsharded engine's;
 - both ranks end ``run`` with the same digest of their token streams, and
   hold the same tokens;
-- a mesh with a data axis of two ranks raises, naming ROADMAP.md A11b;
 - the launcher serves and passes ``--verify`` against the unsharded
   sequential decode, each rank printing its backend (gloo), its timing line
   and its digest, with imports of jax and repro refused in ``torchrun`` and
@@ -106,12 +105,6 @@ _WORKER = textwrap.dedent("""
                          "digest": eng.digest, "collectives": eng.axis.stats["calls"],
                          "counters": {k: v for k, v in eng.metrics.summary().items()
                                       if not k.endswith("_s") and "tok_s" not in k}}
-        try:
-            ServeEngine(cfg, params, EngineConfig(**spec["engine"]),
-                        mesh=make_host_mesh(2, 1, device=torch.device("cpu"), group=group))
-            res["data_axis"] = "no error"
-        except NotImplementedError as err:
-            res["data_axis"] = str(err)
         json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
         dist.barrier()
     finally:
@@ -219,14 +212,6 @@ def test_ranks_agree_and_communicate(served, arch):
     assert min(r[arch]["collectives"] for r in ranks) > 0
 
 
-def test_a_data_axis_is_refused(served):
-    """A ``ServeEngine`` on a (2, 1) mesh is refused: data-parallel serving
-    slots are ROADMAP.md A11b.2."""
-    _, ranks = served
-    for rank in ranks:
-        assert "ROADMAP.md A11b.2" in rank["data_axis"] and "data axis" in rank["data_axis"]
-
-
 def test_launcher_serves_tensor_parallel_under_torchrun(tmp_path):
     """``torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh-model 2
     --device cpu --verify``, jax and repro refused: both ranks on gloo, equal
@@ -249,7 +234,7 @@ def test_launcher_serves_tensor_parallel_under_torchrun(tmp_path):
     digests = dict(re.findall(r"rank (\d): digest=(\w+)", out))
     assert sorted(digests) == ["0", "1"] and len(set(digests.values())) == 1
     timing = [json.loads(t) for t in re.findall(r"rank \d: timing (.*)", out)]
-    assert len(timing) == 2 and all(t["decode"]["collectives"] > 0 for t in timing)
+    assert len(timing) == 2 and all(t["decode"]["axes"]["model"]["calls"] > 0 for t in timing)
 
 
 def test_launcher_refuses_mesh_model_without_its_ranks():

@@ -16,6 +16,9 @@ the reference). Contracts:
 - ``spec_for_leaf`` on the reference's edge cases (``tests/test_sharding_edges.py``:
   1-D leaves, GQA K/V narrower than the model axis, odd vocabs, expert
   stacks either side of divisibility) equals the reference's;
+- ``slot_rows`` is every rank's block of the slot dim under
+  ``serve_arg_specs`` and of a k/v cache leaf's batch dim under
+  ``cache_specs``, and every slot where ``data`` does not divide them;
 - ``shard_tree`` then ``gather_tree`` is the identity, on tensors and on
   numpy trees;
 - ``make_production_mesh`` and ``make_host_mesh`` have the reference's
@@ -175,6 +178,28 @@ def test_spec_for_leaf_edges_match_reference(path, shape, n_stack):
             tuple(JS.spec_for_leaf(path, shape, jm, n_stack)), mesh
     assert S.spec_for_leaf(path, shape, {"data": 16, "model": 16}, n_stack) == \
         S.spec_for_leaf(path, shape, S.MeshShape(("data", "model"), (16, 16)), n_stack)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_slot_rows_are_the_slot_blocks(mesh):
+    """The serve engine's slot split (``slot_rows``) is the block that the
+    per-step arrays' and the cache's specs give each rank where ``data``
+    divides the slots, and every slot where it does not (3 slots; 1 slot,
+    where the cache's specs fall back to the sequence dim)."""
+    m, _ = _meshes(mesh)
+    data = m.shape["data"]
+    for batch in (data, 4 * data, 3, 1):
+        rows = [S.slot_rows(batch, m, rank) for rank in range(m.size)]
+        if batch % data:
+            assert rows == [(0, batch)] * m.size, batch
+            continue
+        arg = S.serve_arg_specs({"t": np.zeros((batch, 1))}, m)["t"]
+        kv = (2, batch, 16, 4, 8)
+        for rank, (lo, hi) in enumerate(rows):
+            assert S.block_slices((batch, 1), arg, m, rank)[0] == slice(lo, hi), (batch, rank)
+            cut = S.block_slices(kv, S.cache_spec_for_leaf("k", kv, m), m, rank)
+            assert cut[1] == slice(lo, hi), (batch, rank)
+        assert {lo for lo, _ in rows} == set(range(0, batch, batch // data))
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "4x2", "2x16x16"])
