@@ -203,7 +203,7 @@ or of the JAX package ``repro``. Phases, in order:
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
    bit for bit the decode step on the card), then
    ``seamless-m4t-large-v2`` and ``yi-6b`` at full width, their depth cut
-   by SERVE_F32_DEPTH_CUT in float32 (bf16 serves them whole in (k4)), through
+   by SERVE_F32_DEPTH_CUT in float32 (bf16 serves them in (k4)), through
    ``ServeEngine`` (16 requests, 8 slots, SERVE_RUNS), SERVE_TIMED timed
    runs with nothing wrapped: gen and total tokens/s, TTFT, TPOT and their
    spread, the counters, peak memory, B10's launches (24 an admission, 24
@@ -232,7 +232,8 @@ or of the JAX package ``repro``. Phases, in order:
    Yi's bf16 forward the same way; every model phase of (k) fails if it
    copied an operand for TMA;
    (k3) Seamless's bf16 encoder, decoder and cross calls and its bf16
-   forward; (k4) ``serve_phase`` in bf16 for SERVE_RUNS (the encoder at
+   forward; (k4) ``serve_phase`` in bf16 for SERVE_RUNS, their depth cut
+   by SERVE_BF16_DEPTH_CUT (the encoder at
    admission in float32, the cross layers in bf16; tokens against
    ``sequential_reference`` up to a bf16 near-tie, BF16_TIE); (k5)
    ``qwen2.5-32b`` at full width and depth (65.53 GB), last: layer 0,
@@ -256,8 +257,10 @@ or of the JAX package ``repro``. Phases, in order:
    calls at a rank's shape under ``data_parallel``), and last the device
    line.
 
-The four kernel sources are built at the start, one ``nvcc`` each, in
-parallel. Each phase ends with an ``elapsed after ...`` line.
+The four kernel sources start building at the start, one ``nvcc`` each, in
+parallel; the phases up to the simulator need only ``qdq_rows`` and run
+while ``ssd_scan`` and ``block_attn`` go on building. Each phase ends with
+an ``elapsed after ...`` line.
 """
 from __future__ import annotations
 
@@ -475,14 +478,21 @@ FED_SHARE = 1e-3               # elements a wire code flip may move, card agains
 SERVE_RUNS = [("seamless-m4t-large-v2", 16, 8, 256, 64, 64, 0.5),
               ("yi-6b", 16, 8, 512, 64, 128, 0.5)]
 # The float32 serving runs, an earlier path since launch.serve --full serves
-# bf16 (phase (k4) runs SERVE_RUNS at full depth in bf16), keep their widths
-# and workloads with the depth cut by this factor: Yi-6B 32 -> 4 layers,
-# Seamless 24 + 24 -> 3 + 3 (cut from 4 to 8 when phase (n) came); the
-# script stays inside its time limit.
+# bf16 (phase (k4) runs SERVE_RUNS in bf16), keep their widths and workloads
+# with the depth cut by this factor: Yi-6B 32 -> 4 layers, Seamless 24 + 24
+# -> 3 + 3 (cut from 4 to 8 when phase (n) came); the script stays inside
+# its time limit.
 SERVE_F32_DEPTH_CUT = 8
+# The bf16 serving runs of (k4), launch.serve --full's dtype, keep their
+# widths and workloads with the depth cut by this factor: Yi-6B 32 -> 8
+# layers, Seamless 24 + 24 -> 6 + 6 (whole until phase (q) came: the
+# script took 1,156.6 s of its 1,200 with them whole; a host-bound serve
+# step costs its layers' launches; cut from 2 to 4 when a whole run of the
+# script with (q) went past 1,200 s on another machine).
+SERVE_BF16_DEPTH_CUT = 4
 SERVE_SMOKE = ("mamba2-130m", "jamba-1.5-large-398b", "deepseek-v2-lite-16b")
 SERVE_VERIFIED = 1             # cut from 2 when phase (m) came: the script's time limit
-SERVE_TIMED = 3
+SERVE_TIMED = 2                # cut from 3 with SERVE_BF16_DEPTH_CUT: the time limit
 SERVE_WARM_STEPS, SERVE_PROFILED_STEPS = 8, 16
 # The bf16 slice (launch.serve --full's dtype): a bf16 forward is held against
 # the float32 forward at the same (bf16) weights, and Qwen2.5-32B's bf16
@@ -539,6 +549,18 @@ DP_LOSS_RTOL = 1e-4
 # unsharded run of the same weights and workload, which is not served again.
 DP_SERVE_MESHES = [(2, 1), (2, 2)]
 DP_SERVE_TIMEOUT = 300
+# (q) Pods with a data axis, ``launch.train pod --fed --pods POD_DATA_RUN's
+# pods`` under torchrun with POD_DATA_RANKS ranks on the one card over gloo:
+# the reference's (pods, ranks // pods, 1) mesh, each pod data-parallel over
+# its ranks, the pods gossiping every step on the ring between the ranks of
+# one data index, each rank's blocks its own wire tensors. (arch, --pods,
+# --batch (a pod's rows), --seq, --steps); one run at each of POD_DATA_BITS.
+# Bits 32 is held within DP_LOSS_RTOL of the same pods stacked on the card
+# (data = 1) from the same weights and batches, run in this process.
+POD_DATA_RUN = ("mamba2-130m", 2, 4, 1024, 3)
+POD_DATA_RANKS = 4
+POD_DATA_BITS = (32, 8)
+POD_DATA_TIMEOUT = 300
 SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
                   "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
 
@@ -569,18 +591,20 @@ def _time_ms(fn, iters, warmup=3):
 
 def _profile(label, run, top=12):
     """Device busy time and idle share of ``run()`` under torch.profiler, and
-    its largest device items by name. Returns the idle share (None when the
+    its largest device items by name. Only device activity is traced: host
+    operator events would add their recording to the wall time and their
+    post-processing to the script's. Returns the idle share (None when the
     trace holds no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # Device-side events only (kernels, copies, fills), busy time as the
-    # union of their intervals; operator rows would count each kernel twice.
+    # union of their intervals.
     spans, by_name = [], {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -593,7 +617,8 @@ def _profile(label, run, top=12):
         reach = max(reach, b)
     if busy_us > 0:
         print(f"profile {label}: wall_us={wall_us:.1f} device_busy_us={busy_us:.1f} "
-              f"idle_share={1 - busy_us / wall_us:.4f} device_events={len(spans)}")
+              f"idle_share={1 - busy_us / wall_us:.4f} device_events={len(spans)} "
+              f"(trace read in {time.perf_counter() - t0 - wall_us / 1e6:.2f}s)")
         for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
             print(f"profile: {tot:10.1f} us x{cnt:<4d} {name[:100]}")
         return 1 - busy_us / wall_us
@@ -3729,6 +3754,52 @@ def _wire_numbers(name, rows, ms, plain_ms, differs, max_abs):
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"}
 
 
+def _hold_wire_pair(w2d, u2d, s_rows, n_rows, label, tag):
+    """B5 (``quantize_rows``) at bits 8 and B6 (``dequantize_rows``) on the
+    codes it made, each against its plain version on the same (R, 128)
+    payload, uniforms and per-row (s, norm) (0 differing elements), timed
+    beside its plain version and its memory bound; fails on a difference.
+    Returns {kernel: its numbers}."""
+    import torch
+
+    from repro_torch.kernels.quantize import quantize as qk
+
+    rows = w2d.shape[0]
+    numbers = {}
+    codes = qk.quantize_rows(w2d, u2d, s_rows, n_rows, bits=8)
+    want = qk.quantize_rows_plain(w2d, u2d, s_rows, n_rows, bits=8)
+    torch.cuda.synchronize()
+    differs, _ = _differs(codes, want)
+    del want
+    ms = statistics.median(_time_ms(lambda: qk.quantize_rows(w2d, u2d, s_rows, n_rows, bits=8),
+                                    iters=10) for _ in range(3))
+    plain_ms = _time_ms(lambda: qk.quantize_rows_plain(w2d, u2d, s_rows, n_rows, bits=8),
+                        iters=2, warmup=1)
+    numbers["quantize_rows"] = _wire_numbers("quantize_rows", rows, ms, plain_ms, differs, 0.0)
+    deq = qk.dequantize_rows(codes, s_rows, n_rows)
+    want = qk.dequantize_rows_plain(codes, s_rows, n_rows)
+    torch.cuda.synchronize()
+    differs, _ = _differs(deq, want)
+    max_abs = float((deq - want).abs().max())
+    del deq, want
+    ms = statistics.median(_time_ms(lambda: qk.dequantize_rows(codes, s_rows, n_rows), iters=10)
+                           for _ in range(3))
+    plain_ms = _time_ms(lambda: qk.dequantize_rows_plain(codes, s_rows, n_rows), iters=2,
+                        warmup=1)
+    numbers["dequantize_rows"] = _wire_numbers("dequantize_rows", rows, ms, plain_ms, differs,
+                                               max_abs)
+    del codes
+    for name, entry in numbers.items():
+        print(f"fed wire kernel {name} {tag}: {label}: differs={entry['differs']} "
+              f"max|d|={entry['max_abs_err']:.3e} ms={entry['ms']:.4f} "
+              f"plain_ms={entry['plain_ms']:.4f} bound_ms={entry['bound_ms']:.4f} "
+              f"({entry['bytes']} bytes, {entry['bound_by']}) = "
+              f"{entry['bound_ms'] / entry['ms']:.3f} of the bound")
+        if entry["differs"]:
+            _fail(f"{name} disagrees with its plain version at the {label}")
+    return numbers
+
+
 def fed_wire_phase(tag):
     """(l0) B5 (``quantize_rows``) and B6 (``dequantize_rows``) at the
     gossip payload of FED_PAYLOAD on FED_PAYLOAD_PODS pods (every leaf of
@@ -3756,40 +3827,11 @@ def fed_wire_phase(tag):
     gen = torch.Generator("cuda").manual_seed(3)
     u2d = torch.rand(w2d.shape, generator=gen, device="cuda")
     s_rows, n_rows = payload_side_info(flat, spec, per_message=True, bits=8)
-    numbers = {}
-    codes = qk.quantize_rows(w2d, u2d, s_rows, n_rows, bits=8)
-    want = qk.quantize_rows_plain(w2d, u2d, s_rows, n_rows, bits=8)
-    torch.cuda.synchronize()
-    differs, _ = _differs(codes, want)
-    del want
-    ms = statistics.median(_time_ms(lambda: qk.quantize_rows(w2d, u2d, s_rows, n_rows, bits=8),
-                                    iters=10) for _ in range(3))
-    plain_ms = _time_ms(lambda: qk.quantize_rows_plain(w2d, u2d, s_rows, n_rows, bits=8),
-                        iters=2, warmup=1)
-    numbers["quantize_rows"] = _wire_numbers("quantize_rows", rows, ms, plain_ms, differs, 0.0)
-    del u2d
-    deq = qk.dequantize_rows(codes, s_rows, n_rows)
-    want = qk.dequantize_rows_plain(codes, s_rows, n_rows)
-    torch.cuda.synchronize()
-    differs, _ = _differs(deq, want)
-    max_abs = float((deq - want).abs().max())
-    del deq, want
-    ms = statistics.median(_time_ms(lambda: qk.dequantize_rows(codes, s_rows, n_rows), iters=10)
-                           for _ in range(3))
-    plain_ms = _time_ms(lambda: qk.dequantize_rows_plain(codes, s_rows, n_rows), iters=2,
-                        warmup=1)
-    numbers["dequantize_rows"] = _wire_numbers("dequantize_rows", rows, ms, plain_ms, differs,
-                                               max_abs)
-    del codes, flat, w2d
-    for name, entry in numbers.items():
-        print(f"fed wire kernel {name} {tag}: gossip payload of {FED_PAYLOAD} x {pods} pods, "
-              f"{spec.n_leaves} leaves a pod, d={spec.d} a pod ({spec.d * pods} elements, "
-              f"{rows} rows): differs={entry['differs']} max|d|={entry['max_abs_err']:.3e} "
-              f"ms={entry['ms']:.4f} plain_ms={entry['plain_ms']:.4f} "
-              f"bound_ms={entry['bound_ms']:.4f} ({entry['bytes']} bytes, "
-              f"{entry['bound_by']}) = {entry['bound_ms'] / entry['ms']:.3f} of the bound")
-        if entry["differs"]:
-            _fail(f"{name} disagrees with its plain version at the gossip payload")
+    numbers = _hold_wire_pair(
+        w2d, u2d, s_rows, n_rows, f"gossip payload of {FED_PAYLOAD} x {pods} pods, "
+        f"{spec.n_leaves} leaves a pod, d={spec.d} a pod ({spec.d * pods} elements, "
+        f"{rows} rows)", tag)
+    del u2d, flat, w2d
     torch.cuda.empty_cache()
     mean = [leaf.mean(0) for leaf in tree_leaves(params)]
     for bits in (32, 8):
@@ -3875,13 +3917,14 @@ def fed_gossip_card_vs_cpu(tag):
                 _fail(f"gossip_mix {topo} bits {bits}: the card and the CPU disagree")
 
 
-def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag):
+def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag, profile=True):
     """(l1, l2) ``launch.train pod --fed`` at full width through
     ``launch_main``: ``pods`` pods stacked on the card, float32, no remat,
     gossip every step on the ring at ``bits``. Each step is timed (host
     clock, synchronized), and so is its gossip (``dist.steps.mix_into``);
-    its kernel launches are counted; the last step runs under the profiler.
-    Returns ({kernel: launches over the steps}, the run's numbers)."""
+    its kernel launches are counted; with ``profile`` the last step runs
+    under the profiler. Returns ({kernel: launches over the steps}, the
+    run's numbers, each step's loss among them)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3914,7 +3957,7 @@ def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag):
         return out
 
     def timed_make(cfg_, mesh, gossip, **kw):
-        step_fn, fed_abstract = real_make(cfg_, mesh, gossip, **kw)
+        step_fn, p_specs, fed_abstract = real_make(cfg_, mesh, gossip, **kw)
 
         def timed(params, vel, batch, step, **kw_):
             out = None
@@ -3927,7 +3970,7 @@ def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag):
                 module.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if step == steps - 1:
+            if profile and step == steps - 1:
                 _profile(f"{cfg_.name} fed step {pods} pods {bsz}x{seq} bits={bits} {tag}", run)
             else:
                 run()
@@ -3941,7 +3984,7 @@ def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag):
                 "dequantize_rows": qk.LAUNCHES["dequantize_rows"]})
             return out
 
-        return timed, fed_abstract
+        return timed, p_specs, fed_abstract
 
     dist_steps.make_fed_train_step, dist_steps.mix_into = timed_make, timed_mix
     gc.collect()
@@ -3973,7 +4016,8 @@ def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag):
           f"{steps} --bits {bits} --gossip-every 1 (ring, {offsets} offsets; n_layers "
           f"{cfg.n_layers}{f', {n_front} stub embeddings' if n_front else ''}; float32, no "
           f"remat, TF32 off): ms/step median after the first={step_ms:.2f} "
-          f"all={[round(x, 2) for x in record['ms']]} (the last profiled) gossip ms median "
+          f"all={[round(x, 2) for x in record['ms']]}{' (the last profiled)' * profile} "
+          f"gossip ms median "
           f"after the first={gossip_ms:.3f} all={[round(x, 3) for x in record['gossip_ms']]} "
           f"training tokens/s={tokens / step_ms * 1e3:.1f} losses="
           f"{[round(x, 5) for x in record['loss']]} inter-pod spread={spread} wire bytes a "
@@ -3989,7 +4033,7 @@ def fed_pod_run(arch_id, pods, bsz, seq, steps, bits, tag):
     torch.cuda.empty_cache()
     return counted, {"ms_per_step": step_ms, "gossip_ms": gossip_ms, "wire_bytes": wire,
                      "float32_wire_bytes": f32, "peak_bytes": peak, "spread": spread,
-                     "tokens_per_s": tokens / step_ms * 1e3}
+                     "tokens_per_s": tokens / step_ms * 1e3, "losses": record["loss"]}
 
 
 def fed_scheduled_phase(tag):
@@ -4030,8 +4074,8 @@ def fed_scheduled_phase(tag):
 
     def run(device, scheduled):
         dev = torch.device(device)
-        step_fn, _ = make_fed_train_step(cfg, make_pod_mesh(pods, device=dev), gossip,
-                                         lr_r=20.0, remat=False, scheduled=scheduled)
+        step_fn, _, _ = make_fed_train_step(cfg, make_pod_mesh(pods, device=dev), gossip,
+                                            lr_r=20.0, remat=False, scheduled=scheduled)
         params = stack_pods(base, pods, dev)
         vel = momentum_init(params).velocity
         shapes = [leaf.shape[1:] for leaf in tree_leaves(params)]
@@ -4811,6 +4855,154 @@ def dp_phase(smi, unsharded_losses):
     return fwd_paths, bwd_paths, held, stats
 
 
+def _rank_blocks(cfg, mesh, rank):
+    """The element count of each of ``rank``'s blocks of ``cfg``'s
+    parameters on the ``(data, model)`` mesh ``mesh`` (``param_specs``)."""
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.dist.sharding import block_slices, param_specs, zip_specs
+    from repro_torch.models import transformer as T
+
+    abstract = T.abstract_params(cfg)
+    return tree_leaves(zip_specs(
+        lambda leaf, spec: math.prod(c.stop - c.start
+                                     for c in block_slices(leaf.shape, spec, mesh, rank)),
+        abstract, param_specs(abstract, mesh)))
+
+
+def pod_data_phase(smi):
+    """(q) Pods with a data axis: B5 and B6 held against their plain
+    versions on one rank's block payload at bits 8 (rank 0 of the pod's
+    data axis: its blocks of every leaf, one wire tensor a (block, leaf)),
+    beside their memory bounds; then the same pods stacked on the card at
+    bits 32 (:func:`fed_pod_run`, data = 1), and ``launch.train pod --fed
+    --pods P`` under ``torchrun --nproc-per-node POD_DATA_RANKS`` at each of
+    POD_DATA_BITS, the ranks sharing the card over gloo. Fails unless every
+    rank prints its lines, the digests are equal within each pod (at bits
+    32 the two pods' ring average makes them equal across pods too), rank 0
+    prints the reference's lines, each rank's
+    losses are the same and, at bits 32, within DP_LOSS_RTOL of the stacked
+    run's, each rank launches B9 and B9b once a layer a step (no remat) and,
+    at bits 8, B5 and B6 once a gossip offset a step (none at 32), and each
+    rank's gossip sends, a step, the sum over its blocks of 64 + 8 d bits
+    at bits 8 (32 d at 32). Returns ({path: B9 launches}, {path: B9b
+    launches}, {path: {B5/B6: launches}}, B5/B6 numbers at the block
+    payload, the runs' numbers); the stacked run's launches are among the
+    paths."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.flatten import flatten_tree, make_flat_spec
+    from repro_torch.dist.gossip import GossipConfig
+    from repro_torch.dist.sharding import param_specs, shard_tree
+    from repro_torch.kernels.quantize import payload_side_info
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models import transformer as T
+
+    tag = f"[{smi}]"
+    arch_id, pods, bsz, seq, steps = POD_DATA_RUN
+    data = POD_DATA_RANKS // pods
+    host = {"data": data, "model": 1}
+    cfg = get_arch(arch_id)
+    blocks = shard_tree(T.init_params(cfg, torch.Generator("cuda").manual_seed(0)),
+                        param_specs(T.abstract_params(cfg), host), host, 0)
+    spec = make_flat_spec(blocks)
+    flat = flatten_tree(blocks, spec)[None]
+    del blocks
+    w2d = flat.view(-1, 128)
+    u2d = torch.rand(w2d.shape, generator=torch.Generator("cuda").manual_seed(3),
+                     device="cuda")
+    s_rows, n_rows = payload_side_info(flat, spec, per_message=True, bits=8)
+    payload = _hold_wire_pair(
+        w2d, u2d, s_rows, n_rows, f"block payload of {arch_id} on data rank 0 of {data} "
+        f"({spec.n_leaves} leaves, d={spec.d}, {w2d.shape[0]} rows)", tag)
+    del flat, w2d, u2d, s_rows, n_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted, stacked = fed_pod_run(arch_id, pods, bsz, seq, steps, 32, tag, profile=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = f"{arch_id} train pod --fed --pods {pods} stacked bits 32 (q)"
+    fwd_paths, bwd_paths = {path: counted["ssd_scan"]}, {path: counted["bwd_chunk_dc"]}
+    wire_paths = {path: {k: counted[k] for k in ("quantize_rows", "dequantize_rows")}}
+    offsets = len(GossipConfig().offsets(pods))
+    calls = _kernel_calls(cfg)["ssd_scan"] * steps
+    runs = {}
+    for bits in POD_DATA_BITS:
+        label = f"pod-data {arch_id} bits {bits}"
+        out = _launcher_lines(
+            ["torch.distributed.run", "--standalone", "--nproc-per-node", str(POD_DATA_RANKS),
+             "-m", "repro_torch.launch.train", "pod", "--arch", arch_id, "--fed", "--pods",
+             str(pods), "--batch", str(bsz), "--seq", str(seq), "--steps", str(steps),
+             "--bits", str(bits), "--gossip-every", "1"], label, POD_DATA_TIMEOUT)
+        heads = {int(r): (b, m, int(p), int(d)) for r, b, m, p, d in re.findall(
+            r"rank (\d+): backend=(\w+) mesh=(\{.*?\}) pod=(\d+) data=(\d+) device=\S+", out)}
+        timing = {int(r): json.loads(t) for r, t in re.findall(r"rank (\d+): timing (.*)", out)}
+        digests = {int(r): d for r, d in re.findall(r"rank (\d+): digest=(\w+)", out)}
+        lines = [line for line in out.splitlines() if not line.startswith("rank ")]
+        ranks = list(range(POD_DATA_RANKS))
+        if sorted(heads) != ranks or sorted(timing) != ranks or sorted(digests) != ranks:
+            _fail(f"{label}: the launcher's rank lines are missing: {sorted(heads)}, "
+                  f"{sorted(timing)}, {digests}")
+        mesh = f"{{'pod': {pods}, 'data': {data}, 'model': 1}}"
+        if any((m, p, d) != (mesh, r // data, r % data) for r, (_, m, p, d) in heads.items()):
+            _fail(f"{label}: the ranks' places {heads}")
+        by_pod = [{digests[r] for r in ranks if r // data == p} for p in range(pods)]
+        if any(len(group) != 1 for group in by_pod):
+            _fail(f"{label}: digests {digests}: not equal within each pod")
+        want_lines = [f"fed pod mode: {pods} pods x data={data} ({data} ranks a pod) "
+                      f"topology=ring every=1 bits={bits}"]
+        if (len(lines) != steps + 2 or lines[0] != want_lines[0]
+                or not re.fullmatch(r"done \(inter-pod param spread=\d+\.\d{5}\)", lines[-1])
+                or not all(re.fullmatch(rf"step {i:3d} loss=\d+\.\d{{4}} \(\d+\.\d\ds\)", line)
+                           for i, line in enumerate(lines[1:-1]))):
+            _fail(f"{label}: rank 0's lines are not the reference's: {lines}")
+        losses = timing[0]["losses"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, stacked["losses"]))
+        if (any(t["losses"] != losses for t in timing.values()) or len(losses) != steps
+                or not all(math.isfinite(x) for x in losses)
+                or (bits == 32 and worst > DP_LOSS_RTOL)):
+            _fail(f"{label}: losses {[t['losses'] for t in timing.values()]} against the "
+                  f"stacked {stacked['losses']} (rtol {DP_LOSS_RTOL} at bits 32)")
+        wire_n = offsets * steps if bits < 32 else 0
+        want = {"ssd_scan": calls, **dict.fromkeys(sk.BWD_STAGES, calls),
+                "quantize_rows": wire_n, "dequantize_rows": wire_n}
+        ranks_out = {}
+        for rank, t in sorted(timing.items()):
+            sizes = _rank_blocks(cfg, host, rank % data)
+            sent = (sum(64 + 8 * d for d in sizes) if bits < 32
+                    else sum(32 * d for d in sizes)) // 8 * offsets
+            got = {k: t["launches"][k] for k in want}
+            step_ms = statistics.median(t["ms"][1:]) if len(t["ms"]) > 1 else t["ms"][0]
+            per = {axis: {key: statistics.median(c[key] for c in t[axis][1:] or t[axis])
+                          for key in ("calls", "ms", "bytes")} for axis in ("data", "gossip")}
+            ranks_out[rank] = {"pod": t["pod"], "backend": t["backend"], "device": t["device"],
+                               "ms_per_step": step_ms, "ms": t["ms"], **per,
+                               "peak_bytes": t["peak_bytes"], "launches": got}
+            print(f"{label} {tag} rank {rank} (pod {t['pod']}, data {rank % data}): backend "
+                  f"{t['backend']}: ms a step (median of steps 1..{steps - 1}) {step_ms:.2f}, "
+                  f"all {[round(x, 2) for x in t['ms']]}; data axis a step "
+                  f"{per['data']['calls']:.0f} calls, {per['data']['ms']:.2f} ms, "
+                  f"{per['data']['bytes']:.0f} bytes; gossip a step {per['gossip']['calls']:.0f} "
+                  f"calls, {per['gossip']['ms']:.2f} ms, {per['gossip']['bytes']:.0f} bytes (want "
+                  f"{sent}); peak {t['peak_bytes']} bytes; launches {got} (want {want})")
+            if got != want:
+                _fail(f"{label}: rank {rank} launched {got}, want {want}")
+            if any(c["bytes"] != sent for c in t["gossip"]):
+                _fail(f"{label}: rank {rank}'s gossip sent {[c['bytes'] for c in t['gossip']]} "
+                      f"bytes a step, want {sent}")
+            path = f"{arch_id} train pod --fed --pods {pods} data{data} bits {bits} rank {rank}"
+            fwd_paths[path], bwd_paths[path] = got["ssd_scan"], got["bwd_chunk_dc"]
+            wire_paths[path] = {k: got[k] for k in ("quantize_rows", "dequantize_rows")}
+        runs[label] = {"ranks": ranks_out, "losses": losses, "stacked_losses": stacked["losses"],
+                       "max_rel_loss_diff": worst, "digests": sorted(set(digests.values())),
+                       "spread": float(lines[-1].split("=")[1].rstrip(")"))}
+        print(f"{label} {tag}: losses {losses}, stacked (data = 1) {stacked['losses']}, max rel "
+              f"{worst:.3e}; digests {by_pod}")
+        gc.collect()
+    print(f"pod-data summary {tag}: {json.dumps({'stacked': stacked, **runs})}")
+    return fwd_paths, bwd_paths, wire_paths, payload, runs
+
+
 def fed_phase(smi):
     """(l) The DFedRW pod deployment: B5/B6 at the gossip payload and
     ``gossip_mix`` on the card (l0), ``launch.train pod --fed`` at full
@@ -4921,18 +5113,27 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     # ---------------------------------------------------------------- build
+    # The four sources start building together, one nvcc each. The phases up
+    # to the simulator launch only qdq_rows' kernels, so they run once it is
+    # built while ssd_scan and block_attn go on building beside them; the
+    # rest are waited for before the first phase that launches them.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        for done in [pool.submit(qk.build), pool.submit(sk.build), pool.submit(ba.build),
-                     pool.submit(ba.build_bf16)]:
-            done.result()
-    print(f"build: four sources in parallel, {time.perf_counter() - t0:.2f}s wall")
+    builder = ThreadPoolExecutor(4)
+    builds = [builder.submit(fn) for fn in (qk.build, sk.build, ba.build, ba.build_bf16)]
+    built = [qk.BUILD_INFO, sk.BUILD_INFO, ba.BUILD_INFO, ba.BF16_BUILD_INFO]
+
+    def report_builds(done):
+        for info in done:
+            print(f"build: {info['seconds']:.2f}s {info['path']}")
+            for line in info["log"].splitlines():
+                if "registers" in line or "spill" in line or "Compiling" in line:
+                    print(f"ptxas: {line.strip()}")
+
+    builds[0].result()
+    print(f"build: qdq_rows built {time.perf_counter() - t0:.2f}s after the four sources "
+          "started in parallel")
     elapsed("build")
-    for info in (qk.BUILD_INFO, sk.BUILD_INFO, ba.BUILD_INFO, ba.BF16_BUILD_INFO):
-        print(f"build: {info['seconds']:.2f}s {info['path']}")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"ptxas: {line.strip()}")
+    report_builds(built[:1])
 
     # ------------------------------------------------------ configuration
     t0 = time.perf_counter()
@@ -5139,6 +5340,14 @@ def main() -> int:
                                              for path, counts in by_path.items()}
         results[name]["fleet_metro_n100000"] = {
             key: sim_held[name][key] for key in ("rows", "ms", "bound_ms", "plain_ms")}
+    t0 = time.perf_counter()
+    for done in builds[1:]:
+        done.result()
+    builder.shutdown()
+    print(f"build: ssd_scan and block_attn waited for {time.perf_counter() - t0:.2f}s after "
+          "the simulator")
+    report_builds(built[1:])
+    elapsed("the other builds")
     ssd = mamba_phases(smi)
     elapsed("mamba2")
     gc.collect()                         # the Mamba2 weights and caches go first
@@ -5200,8 +5409,14 @@ def main() -> int:
     elapsed("data-parallel serving")
     gc.collect()
     torch.cuda.empty_cache()
+    pd_fwd, pd_bwd, pd_wire, pd_payload, _ = pod_data_phase(smi)   # (q)
+    elapsed("pods with a data axis")
+    gc.collect()
+    torch.cuda.empty_cache()
     ssd_by_path.update(dp_fwd)
     bwd_by_path["ssd"].update(dp_bwd)
+    ssd_by_path.update(pd_fwd)
+    bwd_by_path["ssd"].update(pd_bwd)
     for name in results:
         for path, counted in (("metal replay", metal), ("metal replay workers", metal_workers)):
             results[name]["launches"] += counted[name]
@@ -5216,11 +5431,13 @@ def main() -> int:
                 paths[path] = counted[kernel]
                 by_path[path] = counted[bwd]
     for name, numbers in payload.items():
-        fed = {path: counted[name] for path, counted in fed_by_path.items()}
+        fed = {path: counted[name] for path, counted in {**fed_by_path, **pd_wire}.items()}
         wire[name]["launches_by_path"] = {"wire path": wire[name]["launches"], **fed}
         wire[name]["launches"] += sum(fed.values())
         wire[name]["gossip_payload"] = {key: numbers[key] for key in ("rows", "ms", "bound_ms",
                                                                       "plain_ms")}
+        wire[name]["block_payload"] = {key: pd_payload[name][key]
+                                       for key in ("rows", "ms", "bound_ms", "plain_ms")}
     print(f"fed pods summary [{smi}]: {json.dumps(fed_runs)}")
     for entry, cases, main_case, by_path, kernels in (
             (attn, bwd_attn, "yi-6b layer 0", bwd_by_path["attn"], ", ".join(ba.BWD_LAUNCHES)),
@@ -5248,6 +5465,7 @@ def main() -> int:
             attn_by_path[f"{run[0]} serve (depth / {SERVE_F32_DEPTH_CUT})"] = served
         gc.collect()                     # each model goes before the next
         torch.cuda.empty_cache()
+        elapsed(f"float32 serving of {run[0]}")
     print(f"serve summary [{smi}]: {json.dumps(serving)}")
     elapsed("float32 serving")
     attn_by_path["deepseek-v2-lite-16b"] = deepseek_phase(smi)    # (f): 64.84 GB
@@ -5272,12 +5490,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving16 = {}
     for run in SERVE_RUNS:                                           # (k4) launch.serve --full
-        served, serve_modes, serving16[run[0]] = serve_phase(run, smi, torch.bfloat16)
+        served, serve_modes, serving16[run[0]] = serve_phase(run, smi, torch.bfloat16,
+                                                             depth_cut=SERVE_BF16_DEPTH_CUT)
         attn16["modes"].update({f"bf16 {key}": val for key, val in serve_modes.items()})
         if served:
-            attn16_by_path[f"{run[0]} serve bf16"] = served
+            attn16_by_path[f"{run[0]} serve bf16 (depth / {SERVE_BF16_DEPTH_CUT})"] = served
         gc.collect()
         torch.cuda.empty_cache()
+        elapsed(f"bf16 serving of {run[0]}")
     attn16["modes"]["qwen2.5-32b layer 0"], attn16_by_path["qwen2.5-32b bf16"], \
         serving16["qwen2.5-32b"] = qwen_phase(smi)                  # (k5)
     print(f"serve bf16 summary [{smi}]: {json.dumps(serving16)}")

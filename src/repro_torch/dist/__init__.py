@@ -5,8 +5,8 @@ over the pods, ``dist.gossip``; the gossip step and the federated train
 step), the sharding rules (``dist.sharding``) and the mesh axes that
 carry them out (``dist.parallel``): the model axis (tensor-parallel
 serving) and the data axis (data-parallel training, and the serve engine's
-slots split over its ranks). Pods with a data axis are ROADMAP.md A11b.3,
-tensor-parallel training A11b.4."""
+slots split over its ranks; each pod's data-parallel step on a pod mesh
+with a data axis). Tensor-parallel training is ROADMAP.md A11b.4."""
 from repro_torch.dist.gossip import (
     GossipConfig, gossip_mix, make_expander_weights, make_ring_weights, mixing_weights,
     walk_permute_batch,

@@ -15,10 +15,17 @@ Two placements compute the same function:
   pod dimension n on one device, the reference's global view of its fed
   tree. "Receiver i takes sender (i + off) mod n" is ``torch.roll(x, -off,
   0)``.
-- **group**: a ``torch.distributed`` process group of n ranks, one pod a
-  rank, each holding its own pod's tree without the leading dimension. The
-  permute is ``dist.batch_isend_irecv``: send to (rank - off) mod n, receive
-  from (rank + off) mod n.
+- **group**: a ``torch.distributed`` process group of n ranks (or a
+  :class:`~repro_torch.dist.parallel.MeshAxis` over one, whose counters
+  then count the exchanges), one pod a rank, each holding its own pod's
+  tree without the leading dimension. The permute is
+  :meth:`MeshAxis.exchange`: send to (rank - off) mod n, receive from
+  (rank + off) mod n. On the reference's ``(pod, data, 1)`` mesh a rank
+  holds its blocks of its pod's tree (``sharding.param_specs``) and the
+  group is the pod mesh's gossip group, the ranks with its data index in
+  pod order (``launch.mesh.make_pod_mesh``): each rank mixes its blocks
+  with the same blocks of the other pods, as the reference's ``shard_map``
+  does.
 
 Both keep the reference's order of arithmetic, ``acc = w0 * x`` and then
 ``acc + w * payload`` for each offset in :func:`mixing_weights` order, so
@@ -26,21 +33,31 @@ they agree bit for bit given the same uniforms.
 
 With ``quant_bits < 32`` every transmitted payload is the Eq. 12 wire of the
 reference's ``quantize``: one wire tensor per (leaf, offset, pod), the
-sender's whole leaf, with the adaptive grid ``s = max|w| / (||w|| levels)``.
+sender's whole leaf, or its block on a mesh with a data axis (one wire
+tensor per (block, leaf, offset): a data-split leaf carries one header a
+data shard), with the adaptive grid ``s = max|w| / (||w|| levels)``.
 Each pod's leaves are laid out as 128-lane rows (``core.flatten``), the
 side information ``(s, ||w||)`` of each (pod, leaf) comes from
 ``payload_side_info(per_message=True)``, the sender quantizes with
 ``quantize_rows`` (int8 codes) and the receiver dequantizes with
 ``dequantize_rows``: one launch of each a gossip offset covers every leaf
 of every pod. The int8 codes and one ``(s, norm)`` pair a wire tensor are
-what moves between pods (what crosses the process group in the group
-placement).
+what moves between pods: in the group placement the codes of the leaves'
+live elements (their 128-lane padding stays home) and one ``(s, norm)``
+pair a leaf, ``64 + 8 d`` bits a wire tensor at bits 8, or the live
+float32 elements at bits 32, ``32 d``: what :func:`gossip_wire_bits`
+counts. Below 8 bits the wire still carries one int8 a code.
 
 The stochastic-rounding uniforms of wire tensor (leaf li, offset oi, sender
-pod) come from ``uniforms(li, oi, pod)`` (a tensor of the leaf's shape; the
-reference salts its key in that order, ``fold_in`` by li, oi, then the
-pod), or from a ``torch.Generator`` on the device. Leaves are numbered in
-the reference's sorted-key order (``core.flatten.tree_leaves``).
+pod) come from ``uniforms(li, oi, pod)`` (a tensor of the shape of the
+rank's block of the leaf, its whole shape at data = 1; the reference salts
+its key in that order, ``fold_in`` by li, oi, then the pod, and not by the
+data index: a pod's data ranks draw the same uniforms for their equal
+blocks), or from a ``torch.Generator`` on the device, which a pod's data
+ranks seed alike (by pod). A leaf that ``param_specs`` replicates over the
+data axis is then quantized whole on each data rank with the same uniforms
+and stays bit-equal across them. Leaves are numbered in the reference's
+sorted-key order (``core.flatten.tree_leaves``).
 """
 from __future__ import annotations
 
@@ -55,6 +72,7 @@ from repro_torch.core.flatten import (
     unflatten_tree,
 )
 from repro_torch.core.quantization import wire_bits
+from repro_torch.dist.parallel import MeshAxis
 from repro_torch.kernels.quantize import quantize as qk
 from repro_torch.kernels.quantize.ops import payload_side_info
 
@@ -127,12 +145,14 @@ def make_expander_weights(n: int, cfg: GossipConfig) -> list[tuple[int, float]]:
     return mixing_weights(n, dataclasses.replace(cfg, topology="expander"))
 
 
-def gossip_wire_bits(spec: FlatSpec, n: int, cfg: GossipConfig) -> int:
-    """Bits that cross between pods in one gossip round: every pod sends
-    each leaf to each offset, ``64 + b d`` bits a wire tensor (32 d at
-    bits 32, paper §IV-B)."""
-    per_pod = sum(wire_bits(d, cfg.quant_bits) for d in spec.sizes)
-    return n * len(cfg.offsets(n)) * per_pod
+def gossip_wire_bits(spec: FlatSpec, n: int, cfg: GossipConfig, data: int = 1) -> int:
+    """Bits that cross between the ``n`` pods in one gossip round: each of
+    the ``n * data`` ranks (one a pod at data = 1) sends each leaf of its
+    layout ``spec`` (its blocks on a data axis: a data-split leaf one
+    header a block, a replicated leaf once a data rank) to each offset,
+    ``64 + b d`` bits a wire tensor (32 d at bits 32, paper §IV-B)."""
+    per_rank = sum(wire_bits(d, cfg.quant_bits) for d in spec.sizes)
+    return n * data * len(cfg.offsets(n)) * per_rank
 
 
 # ------------------------------------------------------------------ the wire
@@ -185,21 +205,32 @@ def _wire_round_trip(x: torch.Tensor, bits: int, u: torch.Tensor) -> torch.Tenso
 # ---------------------------------------------------------------- placements
 
 
-def _peer(group, rank: int) -> int:
-    """The global rank of ``rank`` of ``group``."""
-    return rank if group is dist.group.WORLD else dist.get_global_rank(group, rank)
+def _axis(group) -> MeshAxis:
+    """``group`` as the pod axis: a :class:`MeshAxis` as it is, a process
+    group as a new one over its ranks."""
+    if isinstance(group, MeshAxis):
+        return group
+    return MeshAxis(group, dist.get_rank(group), dist.get_world_size(group), "pod")
 
 
-def _exchange(tensors, group, send_to: int, recv_from: int) -> list[torch.Tensor]:
-    """Send each tensor to rank ``send_to`` of ``group`` and receive one of
-    the same shape and dtype from rank ``recv_from``, in one batch."""
-    bufs = [torch.empty_like(t) for t in tensors]
-    ops = ([dist.P2POp(dist.isend, t.contiguous(), _peer(group, send_to), group)
-            for t in tensors]
-           + [dist.P2POp(dist.irecv, b, _peer(group, recv_from), group) for b in bufs])
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return bufs
+def _live(spec: FlatSpec) -> list[tuple[int, int]]:
+    """[start, end) of each leaf's live elements in the padded layout."""
+    return [(off, off + size) for off, size in zip(spec.offsets, spec.sizes)]
+
+
+def _pack(x: torch.Tensor, spec: FlatSpec) -> torch.Tensor:
+    """The live elements of a (1, d_pad) payload, (1, d): what crosses."""
+    return torch.cat([x[:, lo:hi] for lo, hi in _live(spec)], 1)
+
+
+def _unpack(x: torch.Tensor, spec: FlatSpec) -> torch.Tensor:
+    """A (1, d) payload back in the padded layout, zeros in the padding."""
+    out = x.new_zeros((x.shape[0], spec.d_pad))
+    start = 0
+    for lo, hi in _live(spec):
+        out[:, lo:hi] = x[:, start:start + hi - lo]
+        start += hi - lo
+    return out
 
 
 def _uniforms(spec, pods, oi, uniforms, generator, device) -> torch.Tensor:
@@ -221,7 +252,8 @@ def _mix_flat(flat: torch.Tensor, spec: FlatSpec, cfg: GossipConfig, group,
         n = flat.shape[0]
         pods = list(range(n))
     else:
-        n, pods = dist.get_world_size(group), [dist.get_rank(group)]
+        axis = _axis(group)
+        n, pods = axis.size, [axis.rank]
     bits = cfg.quant_bits
     quantized = bits < 32
     if quantized and uniforms is None and generator is None:
@@ -238,8 +270,10 @@ def _mix_flat(flat: torch.Tensor, spec: FlatSpec, cfg: GossipConfig, group,
             del u
         if group is None:       # receiver i takes the message of sender (i + off) mod n
             message = [t.roll(-off, 0) for t in message]
-        else:
-            message = _exchange(message, group, (pods[0] - off) % n, (pods[0] + off) % n)
+        else:                   # the live elements cross, and the headers
+            message = axis.exchange([_pack(message[0], spec), *message[1:]],
+                                    (pods[0] - off) % n, (pods[0] + off) % n)
+            message = [_unpack(message[0], spec), *message[1:]]
         payload = _decode(*message, spec) if quantized else message[0]
         del message             # each offset's temporaries go before the next's
         acc.add_(payload.mul_(w))
@@ -273,10 +307,12 @@ def gossip_mix(tree: Any, cfg: GossipConfig, *, group=None,
 
     ``group=None``: the stacked placement, every leaf ``(n, ...)`` on one
     device. Otherwise ``group`` is a ``torch.distributed`` process group of
-    n ranks and ``tree`` is this rank's pod. With ``cfg.quant_bits < 32``
-    every transmitted payload goes through the Eq. 12 wire (B5 quantizes,
-    B6 dequantizes), its uniforms from ``uniforms(li, oi, pod)`` or
-    ``generator``: one of the two is then required."""
+    n ranks (or a ``MeshAxis`` over one) and ``tree`` is this rank's pod, or
+    its blocks of the pod's tree on a pod mesh with a data axis. With
+    ``cfg.quant_bits < 32`` every transmitted payload goes through the Eq.
+    12 wire (B5 quantizes, B6 dequantizes), its uniforms from
+    ``uniforms(li, oi, pod)`` or ``generator``: one of the two is then
+    required."""
     spec, mixed, _ = _mixed(tree, cfg, group, uniforms, generator)
     return tree_from_leaves(spec, [leaf.contiguous() for leaf in tree_leaves(mixed)])
 
@@ -298,7 +334,10 @@ def walk_permute_batch(tree: Any, n_or_group, offset: int = 1) -> Any:
     """Move every pod's tensors one walk hop: receiver i takes the shard of
     (i - offset) mod n (shard j travels to j + offset). ``n_or_group`` is
     the pod count of a stacked tree (leaves ``(n, ...)``), or a process
-    group whose ranks hold one pod each; a new tree."""
+    group (or ``MeshAxis``) whose ranks hold one pod each: on a pod mesh
+    with a data axis, its gossip group, whose ranks hold their blocks of
+    their pods, each moved to pod + offset at the same data index; a new
+    tree."""
     leaves = tree_leaves(tree)
     if isinstance(n_or_group, int):
         for leaf in leaves:
@@ -307,6 +346,7 @@ def walk_permute_batch(tree: Any, n_or_group, offset: int = 1) -> Any:
                                  f"leading pod dimension {n_or_group}")
         moved = [leaf.roll(offset, 0) for leaf in leaves]
     else:
-        n, me = dist.get_world_size(n_or_group), dist.get_rank(n_or_group)
-        moved = _exchange(leaves, n_or_group, (me + offset) % n, (me - offset) % n)
+        axis = _axis(n_or_group)
+        n, me = axis.size, axis.rank
+        moved = axis.exchange(leaves, (me + offset) % n, (me - offset) % n)
     return tree_from_leaves(make_flat_spec(tree), moved)

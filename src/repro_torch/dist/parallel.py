@@ -31,7 +31,11 @@ pinned host buffer, gathered into pinned buffers and copied back (the
 buffers are kept and grown, one set a dtype). ``MeshAxis(size=1)`` runs no
 collective at all.
 
-One class serves both axes (``name`` says which); each axis object keeps
+The DFedRW pod mesh's gossip moves each rank's payload to another rank of
+its axis (:meth:`MeshAxis.exchange`, a batch of point-to-point sends and
+receives).
+
+One class serves every axis (``name`` says which); each axis object keeps
 its own :attr:`MeshAxis.stats` (calls, bytes received, and wall seconds,
 host-synchronous), so a step reports its data collectives apart from its
 model collectives. The layout helpers (``model_dim``, ``cache_dim``,
@@ -147,6 +151,33 @@ class MeshAxis:
         else:
             dist.all_gather(parts, mine, group=self.group)
         return all(torch.equal(p, parts[0]) for p in parts)
+
+    def exchange(self, tensors, send_to: int, recv_from: int) -> list[torch.Tensor]:
+        """Send each tensor to rank ``send_to`` of the axis and receive one of
+        the same shape and dtype from rank ``recv_from``, in one batch of
+        point-to-point operations; counts the bytes sent. Gloo is given host
+        tensors: a CUDA tensor is copied to the host and back."""
+        t0 = time.perf_counter()
+        tensors = [t.contiguous() for t in tensors]
+        staged = self.backend != "nccl" and any(t.is_cuda for t in tensors)
+        sends = [t.cpu() for t in tensors] if staged else tensors
+        bufs = [torch.empty_like(t) for t in sends]
+        ops = ([dist.P2POp(dist.isend, t, self._peer(send_to), self.group) for t in sends]
+               + [dist.P2POp(dist.irecv, b, self._peer(recv_from), self.group) for b in bufs])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if staged:
+            bufs = [b.to(t.device) for b, t in zip(bufs, tensors)]
+        self.stats["calls"] += 1
+        self.stats["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+        self.stats["seconds"] += time.perf_counter() - t0
+        return bufs
+
+    def _peer(self, rank: int) -> int:
+        """The global rank of rank ``rank`` of the axis's group."""
+        if self.group is None or self.group is dist.group.WORLD:
+            return rank
+        return dist.get_global_rank(self.group, rank)
 
     def _staging(self, n: int, dtype) -> list[torch.Tensor]:
         """size + 1 pinned host buffers of at least ``n`` elements of

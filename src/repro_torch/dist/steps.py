@@ -35,20 +35,22 @@ gathers them inside every step.
 ``make_gossip_step`` and ``make_fed_train_step`` run G pods, each with its
 own model, on the pod mesh of ``launch.mesh.make_pod_mesh``: stacked on one
 device (every leaf with a leading pod dimension, the reference's global
-view of its fed tree) or one pod a rank of a ``torch.distributed`` group.
-Each pod takes a local step of ``make_train_step``'s body on its own batch
-(no cross-pod traffic), and the pods gossip-average every ``gossip.every``
-steps (``dist.gossip``, quantized through the int8 wire kernels at
-``quant_bits < 32``).
+view of its fed tree), or the ranks of a ``torch.distributed`` group as the
+reference's ``(pod, data, 1)`` mesh, one pod a rank or a pod on several
+data ranks. Each pod takes a local step of ``make_train_step``'s body on
+its own batch (no cross-pod traffic; data-parallel over the pod's data
+ranks), and the pods gossip-average every ``gossip.every`` steps
+(``dist.gossip``, each rank's blocks over its gossip group, quantized
+through the int8 wire kernels at ``quant_bits < 32``). Both return the
+reference's triples, with ``p_specs = param_specs(abstract, mesh,
+fed_axis="pod")``, the placement of the stacked tree on the pod mesh.
 
-A pod with a data axis is ROADMAP.md A11b.3 and training on a mesh with a
-model axis (tensor-parallel training) A11b.4: each raises
-NotImplementedError.
+Training on a mesh with a model axis (tensor-parallel training) is
+ROADMAP.md A11b.4: it raises NotImplementedError.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.dist.gossip import GossipConfig, mix_into
@@ -257,76 +259,90 @@ def make_gossip_step(cfg: ArchConfig, mesh, gossip: GossipConfig, *,
                      dtype=torch.float32):
     """Cross-pod decentralized averaging of the pods' models.
 
-    Returns (gstep, fed_abstract): ``gstep(params, *, uniforms=None,
-    generator=None)`` mixes ``params`` in place with the doubly stochastic
-    ``dist.gossip.mixing_weights`` (the mean over the pods is preserved) and
-    returns them. ``params`` stacks one model a pod along a leading dimension
-    on ``mesh.device``, or is this rank's pod when ``mesh.group`` is a
-    process group. ``uniforms(li, oi, pod)`` or ``generator`` feed the
-    stochastic quantizer when ``gossip.quant_bits < 32``. ``fed_abstract``
-    is the stacked tree on the meta device: ``(pods, ...)`` of each leaf of
-    ``T.abstract_params(cfg, dtype)``."""
+    Returns (gstep, p_specs, fed_abstract): ``gstep(params, *,
+    uniforms=None, generator=None)`` mixes ``params`` in place with the
+    doubly stochastic ``dist.gossip.mixing_weights`` (the mean over the pods
+    is preserved) and returns them. ``params`` stacks one model a pod along
+    a leading dimension on ``mesh.device``, or, when ``mesh.group`` is a
+    process group, holds this rank's blocks of its pod's model (the whole
+    model at data = 1): they mix over the mesh's gossip group, a wire tensor
+    a (block, leaf, offset). ``uniforms(li, oi, pod)`` or ``generator``
+    feed the stochastic quantizer when ``gossip.quant_bits < 32``.
+    ``p_specs`` is ``param_specs(T.abstract_params(cfg, dtype), mesh,
+    fed_axis="pod")``, the placement of the stacked tree ``fed_abstract``
+    (on the meta device: ``(pods, ...)`` of each leaf) on the pod mesh."""
+    base = T.abstract_params(cfg, dtype)
+    p_specs = param_specs(base, mesh, fed_axis="pod")
     fed_abstract = tree_map(lambda l: torch.empty((mesh.pods, *l.shape), dtype=l.dtype,
-                                                  device="meta"),
-                            T.abstract_params(cfg, dtype))
+                                                  device="meta"), base)
+    group = None if mesh.group is None else mesh.gossip_axis
 
     def gstep(params, *, uniforms=None, generator=None):
-        return mix_into(params, gossip, group=mesh.group, uniforms=uniforms,
-                        generator=generator)
+        return mix_into(params, gossip, group=group, uniforms=uniforms, generator=generator)
 
-    return gstep, fed_abstract
+    return gstep, p_specs, fed_abstract
 
 
 def make_fed_train_step(cfg: ArchConfig, mesh, gossip: GossipConfig, *,
                         lr_r: float = 5.0, beta: float = 0.9, remat: bool = True,
                         dtype=torch.float32, scheduled: bool = False):
     """The DFedRW pod deployment: ``step_fn(params, vel, batch, step, *,
-    uniforms=None, generator=None) -> (params, vel, mean_loss)``; returns
-    (step_fn, fed_abstract).
+    uniforms=None, generator=None, batch_spec=None) -> (params, vel,
+    mean_loss)``; returns (step_fn, p_specs, fed_abstract), as
+    :func:`make_gossip_step`.
 
     Stacked on one device, ``params``, ``vel`` and ``batch`` carry a
-    leading pod dimension; in a process group they are this rank's pod's.
-    Every step runs an independent local momentum-SGD step per pod, the
-    body of :func:`make_train_step` on the pod's views ``{leaf[i]}`` (one
-    pod after another: ``torch.func.vmap`` does not pass through the
-    kernels' autograd Functions), at ``decreasing_lr(step + 1, r=lr_r)``
-    for every pod; the loss is the mean of the pods' losses. Every
+    leading pod dimension, and each pod runs the body of
+    :func:`make_train_step` on its views ``{leaf[i]}`` (one pod after
+    another: ``torch.func.vmap`` does not pass through the kernels'
+    autograd Functions). In a process group they are this rank's: at data
+    = 1 its pod's, and on a pod mesh with a data axis its blocks of its
+    pod's parameters (``param_specs`` on ``mesh.host``), of the velocity
+    (``opt_specs`` or ``param_specs``) and of the pod's batch
+    (``batch_specs``; ``batch_spec`` as ``make_train_step(cfg, mesh)``'s
+    step takes it): the pod's step is that data-parallel step on
+    ``mesh.host``, gradients averaged over the pod's data ranks. Every pod
+    steps at ``decreasing_lr(step + 1, r=lr_r)``; the loss is the mean over
+    the pods of each pod's global-batch loss, the same on every rank. Every
     ``gossip.every``-th step the pods then gossip-average in place
     (quantized when ``quant_bits < 32``, with ``uniforms`` or
     ``generator``).
 
     ``scheduled=True`` builds the trace-driven variant ``step_fn(params,
-    vel, batch, step, do_gossip, *, uniforms=None, generator=None)``: the
-    pods gossip when ``do_gossip`` (a host bool, one element of
-    ``SimTrace.gossip_flags()`` a step) is true, and ``gossip.every`` is
-    ignored."""
-    gstep, fed_abstract = make_gossip_step(cfg, mesh, gossip, dtype=dtype)
-    local = make_train_step(cfg, lr_r=lr_r, beta=beta, remat=remat)
+    vel, batch, step, do_gossip, *, uniforms=None, generator=None,
+    batch_spec=None)``: the pods gossip when ``do_gossip`` (a host bool, one
+    element of ``SimTrace.gossip_flags()`` a step) is true, and
+    ``gossip.every`` is ignored."""
+    gstep, p_specs, fed_abstract = make_gossip_step(cfg, mesh, gossip, dtype=dtype)
+    if mesh.data > 1:
+        local = make_train_step(cfg, mesh.host, lr_r=lr_r, beta=beta, remat=remat)[0]
+    else:
+        local = make_train_step(cfg, lr_r=lr_r, beta=beta, remat=remat)
     every = max(int(gossip.every), 1)
 
-    def local_loss(params, vel, batch, step):
+    def local_loss(params, vel, batch, step, batch_spec):
         """Each pod's local step, in place; the mean of the pods' losses."""
         if mesh.group is not None:
-            loss = local(params, vel, batch, step)[2].reshape(1)
-            losses = [torch.empty_like(loss) for _ in range(mesh.pods)]
-            dist.all_gather(losses, loss, group=mesh.group)
-        else:
-            losses = [local(*(tree_map(lambda l: l[i], tree) for tree in (params, vel, batch)),
-                            step)[2].reshape(1)
-                      for i in range(mesh.pods)]
+            kw = {"batch_spec": batch_spec} if mesh.data > 1 else {}
+            loss = local(params, vel, batch, step, **kw)[2].reshape(1)
+            return mesh.pod_axis.all_gather(loss, 0).mean()
+        losses = [local(*(tree_map(lambda l: l[i], tree) for tree in (params, vel, batch)),
+                        step)[2].reshape(1)
+                  for i in range(mesh.pods)]
         return torch.cat(losses).mean()
 
-    def scheduled_fn(params, vel, batch, step, do_gossip, *, uniforms=None, generator=None):
-        loss = local_loss(params, vel, batch, step)
+    def scheduled_fn(params, vel, batch, step, do_gossip, *, uniforms=None, generator=None,
+                     batch_spec=None):
+        loss = local_loss(params, vel, batch, step, batch_spec)
         if do_gossip:
             gstep(params, uniforms=uniforms, generator=generator)
         return params, vel, loss
 
     if scheduled:
-        return scheduled_fn, fed_abstract
+        return scheduled_fn, p_specs, fed_abstract
 
-    def step_fn(params, vel, batch, step, *, uniforms=None, generator=None):
+    def step_fn(params, vel, batch, step, *, uniforms=None, generator=None, batch_spec=None):
         return scheduled_fn(params, vel, batch, step, (int(step) + 1) % every == 0,
-                            uniforms=uniforms, generator=generator)
+                            uniforms=uniforms, generator=generator, batch_spec=batch_spec)
 
-    return step_fn, fed_abstract
+    return step_fn, p_specs, fed_abstract

@@ -20,9 +20,9 @@ leading ``pod`` axis for the DFedRW deployment. The port's meshes:
   ``(world / N, N)`` mesh for ``--mesh-model N``);
 - ``make_pod_mesh``: pods stacked on one device (every leaf of the fed tree
   with a leading pod dimension, ``group=None``; a card holds G pods this
-  way) or one pod a rank of a group. A pod spans one device: a pod with a
-  data or model axis (``pods`` smaller than the group's world size) is
-  refused (ROADMAP.md A11b.3, pods with a data axis);
+  way), or the ranks of a group as the reference's ``(pod, data, model)``
+  mesh: ``pods`` pods of ``world // pods`` data ranks each (:class:`PodMesh`:
+  one pod a rank when ``pods`` is the world size);
 - ``make_metal_mesh``: the metal deployment (``launch/replay.py``) walks a
   process's chain slice on its local *positions*, a list of devices in
   which one device may appear more than once; with several processes it
@@ -31,7 +31,7 @@ leading ``pod`` axis for the DFedRW deployment. The port's meshes:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -166,32 +166,76 @@ def join_torchrun(device: torch.device) -> tuple[torch.device, str]:
     return device, dist.get_backend()
 
 
-class PodMesh(NamedTuple):
-    """G pods on ``device``: stacked (``group`` None) or one a rank of
-    ``group``."""
+@dataclasses.dataclass
+class PodMesh:
+    """G pods on ``device``: stacked (``group`` None), or the ranks of
+    ``group`` laid out as the reference's ``(pods, data, 1)`` mesh, rank r
+    at pod ``r // data`` and data index ``r % data`` (``rank`` is r).
+
+    ``host`` is the pod's own ``(data, 1)`` :class:`HostMesh` over its data
+    ranks (its ``data_axis`` carries the pod's data-parallel step; one rank
+    alone at data = 1). ``gossip_group`` holds the ranks with this rank's
+    data index, ordered by pod, so that a rank's number in it is its pod:
+    ``pod_axis`` gathers over it (the step's loss) and ``gossip_axis`` makes
+    the gossip's exchanges over it, each :class:`MeshAxis` with its own
+    counters. ``shape`` is the ``{"pod", "data", "model"}`` dict the sharding
+    rules read (``param_specs(..., fed_axis="pod")``)."""
 
     pods: int
     device: torch.device
     group: Any = None
+    data: int = 1
+    rank: int = 0
+    gossip_group: Any = None
+    host: HostMesh | None = None
+
+    def __post_init__(self):
+        if self.host is None:
+            self.host = HostMesh(1, 1, self.device)
+        stacked = self.group is None
+        self.pod_axis = MeshAxis(None if stacked else self.gossip_group,
+                                 0 if stacked else self.pod, 1 if stacked else self.pods, "pod")
+        self.gossip_axis = MeshAxis(None if stacked else self.gossip_group,
+                                    0 if stacked else self.pod, 1 if stacked else self.pods,
+                                    "gossip")
+
+    @property
+    def pod(self) -> int:
+        return self.rank // self.data
+
+    @property
+    def shape(self) -> dict:
+        return {"pod": self.pods, "data": self.data, "model": 1}
 
 
 def make_pod_mesh(pods: int = 0, *, device: torch.device, group=None) -> PodMesh:
     """The pod mesh: ``pods=0`` puts one pod on each rank of ``group``, or
     one pod on ``device`` without a group (the reference on one device).
-    Without a group ``pods`` pods stack on ``device``; with one, ``pods``
-    must be 0 or the group's size."""
+    Without a group ``pods`` pods stack on ``device``. With one of W ranks,
+    ``pods`` must divide W (ValueError otherwise, as the reference's assert
+    refuses it) and the W // pods ranks a pod leaves over fold into its
+    data axis, the reference's ``(pods, W // pods, 1)`` mesh. Each pod's
+    data group and each data index's gossip group are made with
+    ``dist.new_group`` (every rank makes every call, in the same order); a
+    group that takes every rank is ``group`` itself."""
     if pods < 0:
         raise ValueError(f"pods must be >= 0, got {pods}")
     if group is None:
-        return PodMesh(pods or 1, device, None)
+        return PodMesh(pods or 1, device)
     world = dist.get_world_size(group)
-    if pods and pods < world:
-        raise NotImplementedError(
-            f"{pods} pods over {world} ranks: pods with a data axis are ROADMAP.md A11b.3")
-    if pods > world:
-        raise ValueError(f"{pods} pods over {world} ranks: one pod a rank, so pods must be "
-                         f"0 or {world}")
-    return PodMesh(world, device, group)
+    pods = pods or world
+    if pods > world or world % pods:
+        raise ValueError(f"{pods} pods over {world} ranks: the pods must divide the ranks")
+    data, rank = world // pods, dist.get_rank(group)
+    if data == 1:
+        return PodMesh(pods, device, group, 1, rank, group)
+    ranks = dist.get_process_group_ranks(group)
+    rows = [dist.new_group([ranks[p * data + d] for d in range(data)]) if pods > 1 else group
+            for p in range(pods)]
+    cols = [dist.new_group([ranks[p * data + d] for p in range(pods)]) for d in range(data)]
+    pod = rank // data
+    host = HostMesh(data, 1, device, rows[pod], rank % data, data_group=rows[pod])
+    return PodMesh(pods, device, group, data, rank, cols[rank % data], host)
 
 
 def make_metal_mesh(chains: int = 0, *, device, coordinator: str | None = None,

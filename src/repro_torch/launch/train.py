@@ -30,8 +30,13 @@ velocities, a local step a pod on its own batch (drawn with a leading pod
 dimension from the same stream), and gossip averaging over ``--topology``
 every ``--gossip-every`` steps, quantized through the int8 wire kernels at
 ``--bits < 32``. Without ``torchrun`` the ``--pods`` pods stack on the one
-device; under ``torchrun`` each rank is one pod and draws every pod's
-batch to keep its own.
+device. Under ``torchrun`` the ranks form the reference's ``(pods, W //
+pods, 1)`` mesh (``--pods`` 0: one pod a rank; a ``--pods`` that does not
+divide the ranks raises ValueError): each pod trains data-parallel over
+its data ranks, and the pods gossip between the ranks that hold the same
+data index, each rank's blocks a wire tensor each; every rank draws every
+pod's batch to keep its rows, and prints a ``timing`` line and the digest
+of its pod's parameters.
 
 Under ``torchrun`` the ranks join one process group
 (``launch.mesh.join_torchrun``): NCCL when every rank has a card of its
@@ -55,6 +60,8 @@ Examples:
       --pods 4 --bits 8 --gossip-every 2 --steps 3 --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train pod \
       --arch mamba2-130m --smoke --fed --bits 8 --steps 3 --device cpu
+  PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      pod --arch mamba2-130m --smoke --fed --pods 2 --bits 8 --steps 3 --device cpu
   PYTHONPATH=src OMP_NUM_THREADS=1 torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       pod --arch mamba2-130m --smoke --steps 2 --device cpu
 """
@@ -163,7 +170,8 @@ def pod_main(args) -> None:
     if args.fed:
         import torch.distributed as dist
 
-        fed_pod_main(args, cfg, dev, dist.group.WORLD if backend else None, make_batch)
+        fed_pod_main(args, cfg, dev, dist.group.WORLD if backend else None, make_batch,
+                     backend)
     elif backend:
         data_pod_main(args, cfg, dev, backend, make_batch)
     else:
@@ -188,13 +196,10 @@ def data_pod_main(args, cfg, dev, backend, make_batch) -> None:
     collectives' calls, ms and bytes a step, peak memory, the kernels'
     launches, each step's loss at full precision) and the digest of its
     gathered parameters, which must be equal on every rank."""
-    import hashlib
     import json
-    import sys
 
     import torch
     import torch.distributed as dist
-    from torch.utils._pytree import tree_leaves
 
     from repro_torch.convert import shard_lm_params, shard_opt_state
     from repro_torch.dist.sharding import batch_specs, shard_tree
@@ -207,12 +212,7 @@ def data_pod_main(args, cfg, dev, backend, make_batch) -> None:
 
     mesh = make_host_mesh(data=dist.get_world_size(), device=dev, group=dist.group.WORLD)
     data, cuda = mesh.data_axis, dev.type == "cuda"
-
-    def say_all(line):                       # one write a line: the ranks share stdout
-        sys.stdout.write(f"rank {mesh.rank}: {line}\n")
-        sys.stdout.flush()
-
-    say_all(f"backend={backend} mesh={mesh.shape} device={dev}")
+    _say_all(mesh.rank, f"backend={backend} mesh={mesh.shape} device={dev}")
     step_fn, p_specs = make_train_step(cfg, mesh, lr_r=args.lr_r)
     whole = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     vel = shard_opt_state(momentum_init(whole).velocity, mesh, dev)
@@ -237,35 +237,38 @@ def data_pod_main(args, cfg, dev, backend, make_batch) -> None:
         if cuda:
             torch.cuda.synchronize(dev)
         timing["ms"].append((time.perf_counter() - t0) * 1e3)
-        timing["collectives"].append({
-            "calls": data.stats["calls"] - before["calls"],
-            "ms": (data.stats["seconds"] - before["seconds"]) * 1e3,
-            "bytes": data.stats["bytes"] - before["bytes"]})
+        timing["collectives"].append(_since(data, before))
         timing["losses"].append(loss)
         if mesh.rank == 0:
             print(f"step {step:3d} loss={loss:.4f} ({timing['ms'][-1] / 1e3:.2f}s)", flush=True)
     timing["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
     timing["launches"] = {**ba.LAUNCHES, **ba.BWD_LAUNCHES, **sk.LAUNCHES, **sk.BWD_LAUNCHES}
-    say_all(f"timing {json.dumps(timing)}")
-    digest = hashlib.sha256()
-    for leaf in tree_leaves(whole_params(params, p_specs, mesh)):
-        digest.update(leaf.cpu().contiguous().view(torch.uint8).numpy().tobytes())
-    digest = digest.hexdigest()[:16]
-    if not data.all_equal([int(digest[i:i + 8], 16) for i in (0, 8)]):
-        raise RuntimeError(f"the data axis's ranks hold different parameters (rank "
-                           f"{mesh.rank} digest {digest})")
-    say_all(f"digest={digest} (equal on all {mesh.size} ranks)")
+    _say_all(mesh.rank, f"timing {json.dumps(timing)}")
+    digest = _agreed_digest(whole_params(params, p_specs, mesh), data, mesh.rank)
+    _say_all(mesh.rank, f"digest={digest} (equal on all {mesh.size} ranks)")
     if mesh.rank == 0:
         print("done", flush=True)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def fed_pod_main(args, cfg, dev, group, make_batch) -> None:
+def fed_pod_main(args, cfg, dev, group, make_batch, backend=None) -> None:
     """pod --fed: the DFedRW pod deployment, G pods stacked on one device or
-    one pod a rank of ``group``."""
+    the ranks of ``group`` (under torchrun) as the reference's ``(pods, W //
+    pods, 1)`` mesh (``launch.mesh.make_pod_mesh``; one pod a rank at
+    ``--pods`` 0 or W). Every rank draws every pod's tokens and keeps its
+    pod's rows, cut by ``batch_specs`` over the pod's data ranks; draws the
+    weights and keeps its blocks (``param_specs``; the velocity by
+    ``opt_specs``); and seeds the gossip's uniforms by its pod, so that a
+    pod's data ranks quantize alike. Rank 0 prints the reference's lines
+    (the mode, a loss a step, the inter-pod spread of leaf 0 gathered whole
+    over both groups); every rank in a group prints its backend, mesh and
+    place, a ``timing`` JSON line (ms a step, the data axis's and the
+    gossip's calls, ms and bytes a step, peak memory, the launches of B5,
+    B6, B9, B9b and B10, each step's loss at full precision) and the digest
+    of its pod's gathered parameters, which must be equal on the pod's data
+    ranks."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch.convert import stack_pods
     from repro_torch.core.flatten import tree_leaves
@@ -277,33 +280,131 @@ def fed_pod_main(args, cfg, dev, group, make_batch) -> None:
 
     mesh = make_pod_mesh(args.pods, device=dev, group=group)
     g = mesh.pods
-    rank = 0 if group is None else dist.get_rank(group)
     gossip = GossipConfig(topology=args.topology, every=args.gossip_every,
                           quant_bits=args.bits)
-    step_fn, _ = make_fed_train_step(cfg, mesh, gossip, lr_r=args.lr_r, remat=False)
+    step_fn, _, _ = make_fed_train_step(cfg, mesh, gossip, lr_r=args.lr_r, remat=False)
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    if group is None:
-        params = stack_pods(params, g, dev)
-    vel = momentum_init(params).velocity
-    wire = torch.Generator(device=dev).manual_seed(1 + rank)     # the gossip's uniforms
-    say = print if rank == 0 else (lambda *a, **k: None)
-    say(f"fed pod mode: {g} pods x data=1 "
-        f"({'stacked on ' + str(dev) if group is None else 'one a rank'}) "
+    wire = torch.Generator(device=dev).manual_seed(1 + mesh.pod)     # the gossip's uniforms
+    place = ("stacked on " + str(dev) if group is None
+             else "one a rank" if mesh.data == 1 else f"{mesh.data} ranks a pod")
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    say(f"fed pod mode: {g} pods x data={mesh.data} ({place}) "
         f"topology={gossip.topology} every={gossip.every} bits={gossip.quant_bits}")
+    if group is not None:
+        _fed_ranks(args, cfg, mesh, step_fn, params, wire, make_batch, backend)
+        return
+    params = stack_pods(params, g, dev)
+    vel = momentum_init(params).velocity
     for step in range(args.steps):
-        batch = make_batch(lead=(g,))
-        if group is not None:              # every rank draws all pods' tokens, keeps its own
-            batch = {k: v[rank] for k, v in batch.items()}
         t0 = time.time()
-        params, vel, loss = step_fn(params, vel, batch, step, generator=wire)
+        params, vel, loss = step_fn(params, vel, make_batch(lead=(g,)), step, generator=wire)
         say(f"step {step:3d} loss={float(loss):.4f} ({time.time()-t0:.2f}s)")
     leaf = tree_leaves(params)[0]
-    if group is not None:
-        pods = [torch.empty_like(leaf) for _ in range(g)]
-        dist.all_gather(pods, leaf, group=group)
-        leaf = torch.stack(pods)
     spread = float(torch.std(leaf.float(), dim=0, correction=0).max())
     say(f"done (inter-pod param spread={spread:.5f})")
+
+
+def _fed_ranks(args, cfg, mesh, step_fn, whole, wire, make_batch, backend) -> None:
+    """:func:`fed_pod_main` on the ranks of a process group, from the
+    weights ``whole``."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.convert import shard_lm_params, shard_opt_state
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.dist.sharding import batch_specs, param_specs, shard_tree
+    from repro_torch.dist.steps import whole_params
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.quantize import quantize as qk
+    from repro_torch.kernels.ssd_scan import ssd_scan as sk
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import momentum_init
+
+    host, dev = mesh.host, mesh.device
+    cuda = dev.type == "cuda"
+    _say_all(mesh.rank, f"backend={backend} mesh={mesh.shape} pod={mesh.pod} "
+             f"data={host.data_axis.rank} device={dev}")
+    specs = param_specs(T.abstract_params(cfg), host)
+    vel = shard_opt_state(momentum_init(whole).velocity, host, dev)
+    params = shard_lm_params(whole, specs, host, dev)
+    del whole
+    for module in (ba, qk, sk):
+        module.reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    axes = {"data": host.data_axis, "gossip": mesh.gossip_axis}
+    timing = {"rank": mesh.rank, "pod": mesh.pod, "backend": backend, "device": str(dev),
+              "ms": [], **{name: [] for name in axes}, "losses": []}
+    for step in range(args.steps):
+        batch = {k: v[mesh.pod] for k, v in make_batch(lead=(mesh.pods,)).items()}
+        b_spec = batch_specs(batch, host)
+        batch = shard_tree(batch, b_spec, host)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        before = {name: dict(axis.stats) for name, axis in axes.items()}
+        t0 = time.perf_counter()
+        params, vel, loss = step_fn(params, vel, batch, step, generator=wire, batch_spec=b_spec)
+        loss = float(loss)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        timing["ms"].append((time.perf_counter() - t0) * 1e3)
+        for name, axis in axes.items():
+            timing[name].append(_since(axis, before[name]))
+        timing["losses"].append(loss)
+        if mesh.rank == 0:
+            print(f"step {step:3d} loss={loss:.4f} ({timing['ms'][-1] / 1e3:.2f}s)", flush=True)
+    timing["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else None
+    timing["launches"] = {**ba.LAUNCHES, **ba.BWD_LAUNCHES, **sk.LAUNCHES, **sk.BWD_LAUNCHES,
+                          "quantize_rows": qk.LAUNCHES["quantize_rows"],
+                          "dequantize_rows": qk.LAUNCHES["dequantize_rows"]}
+    _say_all(mesh.rank, f"timing {json.dumps(timing)}")
+    whole = whole_params(params, specs, host)
+    digest = _agreed_digest(whole, host.data_axis, mesh.rank)
+    _say_all(mesh.rank, f"digest={digest} (equal on pod {mesh.pod}'s {mesh.data} ranks)")
+    pods = mesh.pod_axis.all_gather(tree_leaves(whole)[0][None], 0)
+    spread = float(torch.std(pods.float(), dim=0, correction=0).max())
+    dist.barrier(mesh.group)
+    if mesh.rank == 0:
+        print(f"done (inter-pod param spread={spread:.5f})", flush=True)
+    dist.barrier(mesh.group)
+    dist.destroy_process_group()
+
+
+def _say_all(rank: int, line: str) -> None:
+    """Print ``line`` as rank ``rank``'s, in one write: the ranks share
+    stdout."""
+    import sys
+
+    sys.stdout.write(f"rank {rank}: {line}\n")
+    sys.stdout.flush()
+
+
+def _since(axis, before: dict) -> dict:
+    """The calls, ms and bytes of ``axis``'s collectives since its stats
+    were ``before``."""
+    return {"calls": axis.stats["calls"] - before["calls"],
+            "ms": (axis.stats["seconds"] - before["seconds"]) * 1e3,
+            "bytes": axis.stats["bytes"] - before["bytes"]}
+
+
+def _agreed_digest(tree, axis, rank: int) -> str:
+    """The first 16 hex digits of the sha256 of ``tree``'s leaves' bytes;
+    raises unless every rank of ``axis`` holds the same."""
+    import hashlib
+
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        digest.update(leaf.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    digest = digest.hexdigest()[:16]
+    if not axis.all_equal([int(digest[i:i + 8], 16) for i in (0, 8)]):
+        raise RuntimeError(f"the {axis.name} axis's ranks hold different parameters (rank "
+                           f"{rank} digest {digest})")
+    return digest
 
 
 def main(argv=None) -> None:
@@ -342,7 +443,8 @@ def main(argv=None) -> None:
                    help="DFedRW: per-pod replicas + gossip averaging")
     q.add_argument("--pods", type=int, default=0,
                    help="pods (0 = one a rank under torchrun, else 1); without torchrun "
-                        "they stack on the one device")
+                        "they stack on the one device; under torchrun a divisor of the "
+                        "ranks, each pod data-parallel over the ranks it is given")
     q.add_argument("--gossip-every", type=int, default=1)
     q.add_argument("--bits", type=int, default=32,
                    help="gossip payload quantization bits (<32 = QDFedRW)")

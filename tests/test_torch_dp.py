@@ -37,11 +37,12 @@ Contracts, with their tolerances:
 - the (2, 1) and (1, 2) meshes over two ranks and the (2, 2) mesh over
   four put each rank at the coordinates ``sharding.mesh_coords`` gives and
   gather each axis over the ranks that share the other index; the
-  refusals name their ROADMAP.md items; the serve step on the (2, 2) mesh
-  returns ``(fn, p_specs)``, its specs the placement ``fn`` takes (the
-  reference's, whole along the data axis), and ``fn`` on blocks placed by
-  them gives a data rank's rows of the unsharded step's logits within
-  atol = rtol = 1e-4.
+  tensor-parallel refusal names its ROADMAP.md item, and two pods over the
+  four ranks make the reference's (2, 2, 1) pod mesh; the serve step on
+  the (2, 2) mesh returns ``(fn, p_specs)``, its specs the placement ``fn``
+  takes (the reference's, whole along the data axis), and ``fn`` on blocks
+  placed by them gives a data rank's rows of the unsharded step's logits
+  within atol = rtol = 1e-4.
 """
 import json
 import os
@@ -234,6 +235,13 @@ _MESH_WORKER = textwrap.dedent("""
                           make_prefill_step(cfg, mesh)[1] == p_specs],
                 "rows": [lo, hi], "got": got.tolist(), "want": want[lo:hi].tolist()}
 
+    def pod_mesh():
+        # two pods over the four ranks: the reference's (2, 2, 1) mesh
+        pm = make_pod_mesh(2, device=cpu, group=group)
+        return {"coords": [pm.pod, pm.host.data_axis.rank], "shape": pm.shape,
+                "gossip_gather": pm.pod_axis.all_gather(mine, 0).tolist(),
+                "data_gather": pm.host.data_axis.all_gather(mine, 0).tolist()}
+
     cpu = torch.device("cpu")
     dist.init_process_group("gloo", init_method="file://" + init, rank=rank, world_size=world)
     try:
@@ -249,7 +257,8 @@ _MESH_WORKER = textwrap.dedent("""
                "uneven": refusal(lambda: make_host_mesh(3, 1, device=cpu, group=group)),
                "train": refusal(lambda: make_train_step(cfg, mesh)),
                "serve": serve_pair(),
-               "pods": refusal(lambda: make_pod_mesh(2, device=cpu, group=group))}
+               "pods": pod_mesh(),
+               "three_pods": refusal(lambda: make_pod_mesh(3, device=cpu, group=group))}
         json.dump(res, open(os.path.join(out, f"rank{rank}.json"), "w"))
         dist.barrier()
     finally:
@@ -450,8 +459,11 @@ def test_four_rank_mesh_and_refusals(runs):
     """(2, 2) over four ranks: rank r at (r // 2, r % 2), its model axis the
     ranks of its row and its data axis those of its column, each gathered
     in rank order; the data mean is the column's. A mesh that leaves a rank
-    out raises ValueError; training on a model axis names A11b.4 and pods
-    over fewer ranks A11b.3; serving on it gives (fn, p_specs), whose specs
+    out raises ValueError; training on a model axis names A11b.4; two pods
+    over the four ranks put rank r at pod r // 2 and data index r % 2, with
+    its gossip group (its data index's ranks in pod order) and its pod's
+    data group, and three pods raise ValueError; serving on it gives (fn,
+    p_specs), whose specs
     place the weights fn runs on: this rank's two of four slots give the
     unsharded step's logits."""
     for r, got in runs[2].items():
@@ -461,9 +473,14 @@ def test_four_rank_mesh_and_refusals(runs):
         assert got["data_gather"] == [float(r % 2), float(r % 2 + 2)]
         assert got["data_mean"] == [r % 2 + 1.0]
         assert got["uneven"].startswith("ValueError") and "take them all" in got["uneven"]
-        for key, item in (("train", "A11b.4"), ("pods", "A11b.3")):
-            assert got[key].startswith("NotImplementedError"), got[key]
-            assert f"ROADMAP.md {item}" in got[key], got[key]
+        assert got["train"].startswith("NotImplementedError"), got["train"]
+        assert "ROADMAP.md A11b.4" in got["train"], got["train"]
+        pods = got["pods"]
+        assert pods["coords"] == [r // 2, r % 2]
+        assert pods["shape"] == {"pod": 2, "data": 2, "model": 1}
+        assert pods["gossip_gather"] == [float(r % 2), float(r % 2 + 2)]
+        assert pods["data_gather"] == [float(r - r % 2), float(r - r % 2 + 1)]
+        assert got["three_pods"].startswith("ValueError") and "divide" in got["three_pods"]
         serve = got["serve"]
         assert serve["specs"] == [True, True, True]
         assert serve["rows"] == [2 * (r // 2), 2 * (r // 2) + 2]

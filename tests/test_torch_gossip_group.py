@@ -12,8 +12,9 @@ placement of the same calls in the same process.
 Contracts: bit for bit, ``gossip_mix`` at bits 32 and 8 on the ring (two
 offsets) and the complete graph (offset 2 sends to the rank it receives
 from), ``walk_permute_batch``, and two steps of ``make_fed_train_step`` at
-bits 8 (parameters, velocities and the mean loss); ``make_pod_mesh`` with
-fewer pods than ranks raises, naming ROADMAP.md A11b.
+bits 8 (parameters, velocities and the mean loss); ``make_pod_mesh(2)``
+over the four ranks gives each rank its (pod, data) coordinates and its
+two groups, and three pods over four ranks raise ValueError.
 """
 import os
 import subprocess
@@ -83,8 +84,8 @@ _WORKER = textwrap.dedent("""
         return out
 
     def fed(mesh, params, pick):
-        step_fn, _ = make_fed_train_step(cfg, mesh, GossipConfig(quant_bits=8), lr_r=20.0,
-                                         remat=False)
+        step_fn, _, _ = make_fed_train_step(cfg, mesh, GossipConfig(quant_bits=8), lr_r=20.0,
+                                            remat=False)
         vel = momentum_init(params).velocity
         losses = []
         for step, batch in enumerate(batches(2)):
@@ -118,11 +119,16 @@ _WORKER = textwrap.dedent("""
                                                       device="cpu"),
                                   lambda b: {k: v[rank] for k, v in b.items()})
         results.update(fed_params=params, fed_vel=vel, fed_losses=np.array(losses))
+        pm = make_pod_mesh(2, device=cpu, group=group)
+        me = torch.tensor([float(rank)])
+        results["pod_mesh"] = np.array([pm.pod, pm.host.data_axis.rank, pm.pods, pm.data])
+        results["pod_gather"] = pm.pod_axis.all_gather(me, 0).numpy()
+        results["data_gather"] = pm.host.data_axis.all_gather(me, 0).numpy()
         try:
-            make_pod_mesh(2, device=cpu, group=group)
-            results["a11b"] = np.array("no error")
-        except NotImplementedError as err:
-            results["a11b"] = np.array(str(err))
+            make_pod_mesh(3, device=cpu, group=group)
+            results["three"] = np.array("no error")
+        except ValueError as err:
+            results["three"] = np.array(f"ValueError: {err}")
         save(f"group{rank}.npz", results)
         dist.barrier()
     finally:
@@ -206,6 +212,13 @@ def test_group_fed_steps_equal_stacked(placements):
 
 
 def test_pods_with_a_data_axis_raise(placements):
+    """``make_pod_mesh(2)`` over four ranks is the reference's ``(2, 2, 1)``
+    mesh: rank r at pod r // 2 and data index r % 2, its gossip group the
+    ranks with its data index in pod order, its pod's data group the pod's
+    two ranks; three pods over four ranks raise ValueError."""
     group, _ = placements
-    for g in group:
-        assert "A11b" in str(g["a11b"])
+    for r, g in enumerate(group):
+        assert g["pod_mesh"].tolist() == [r // 2, r % 2, 2, 2]
+        assert g["pod_gather"].tolist() == [float(r % 2), float(r % 2 + 2)]
+        assert g["data_gather"].tolist() == [float(r - r % 2), float(r - r % 2 + 1)]
+        assert str(g["three"]).startswith("ValueError") and "divide" in str(g["three"])

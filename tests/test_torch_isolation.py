@@ -393,8 +393,8 @@ _BODIES["test_port_runs_the_pod_deployment_without_jax"] = """
                             2, device="cpu")
         mixed = gossip_mix(params, GossipConfig(quant_bits=8),
                            generator=torch.Generator().manual_seed(1))
-        step_fn, _ = make_fed_train_step(cfg, make_pod_mesh(2, device=torch.device("cpu")),
-                                         GossipConfig(quant_bits=8), remat=False)
+        step_fn, _, _ = make_fed_train_step(cfg, make_pod_mesh(2, device=torch.device("cpu")),
+                                            GossipConfig(quant_bits=8), remat=False)
         toks = torch.randint(0, cfg.vocab, (2, 1, 17), generator=torch.Generator().manual_seed(2))
         params, vel, loss = step_fn(params, momentum_init(params).velocity,
                                     {"tokens": toks[..., :-1], "labels": toks[..., 1:]}, 0,
