@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --backward-ab OTHER   # B9b and B10b against OTHER's, in turns;
                                                 # the float32 forwards bit for bit
+    python3 -m torch.distributed.run --standalone --nproc-per-node 2 \
+        chip_smoke.py --tp-train                # phase (r)'s ranks alone
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; exits
 non-zero without them, and on any failed phase. It imports nothing of JAX
@@ -197,7 +199,22 @@ or of the JAX package ``repro``. Phases, in order:
    and bytes a step), peak memory and B10's launches (float32, the
    encoder at admission on the data row that holds the slot: 24 an
    admission summed over the data ranks; bf16: 24 a prefill chunk and a
-   decode step on every rank); (j) serving, see
+   decode step on every rank); (q) pods with a data axis, see
+   :func:`pod_data_phase`: B5/B6 at a rank's block payload, then
+   ``launch.train pod --fed --pods 2`` under ``torchrun`` on four ranks,
+   against the pods stacked; (r) tensor-parallel training, see
+   :func:`tp_train_phase`: B10b held against its plain version at a rank's
+   8 of Seamless's 16 heads in each mode (encoder, decoder, cross at 1,024
+   frames), timed beside its bound and fp32 SDPA's backward; then this
+   script's ``--tp-train`` worker under ``torch.distributed.run`` on two
+   ranks of the one card over gloo, ``make_train_step(cfg,
+   make_host_mesh(1, 2))`` on (i)'s Seamless run for TP_TRAIN_STEPS steps:
+   rank 0's losses against (i)'s (DP_LOSS_RTOL), each leaf's update norm
+   against (i)'s (TP_NORM_RTOL), equal digests of the parameters gathered
+   whole, and per rank the ms a step, the model axis's calls, ms and bytes
+   in the forward, the backward and the update apart, the ``enter``
+   adjoints run, peak memory and B10/B10b's launches (144 and 72 a step,
+   on 8 heads); (j) serving, see
    :func:`serve_smoke_phase` and :func:`serve_phase`: the SMOKE
    ``mamba2``, ``jamba`` and ``deepseek`` served on the CPU and on the card
    (equal token streams and ``EngineMetrics`` counters; ``mamba_prefill``
@@ -254,8 +271,9 @@ or of the JAX package ``repro``. Phases, in order:
    local-head modes of (n) beside the whole-head ones, each rank's
    launches of (p) and its modes at a data rank's rows; ``ssd_scan`` with
    each rank's launches of (o), forward and backward, and (o)'s layer-0
-   calls at a rank's shape under ``data_parallel``), and last the device
-   line.
+   calls at a rank's shape under ``data_parallel``; ``block_attn`` with each
+   rank's launches of (r), forward and backward, and (r)'s backward cases at
+   a rank's heads among its ``backward`` cases), and last the device line.
 
 The four kernel sources start building at the start, one ``nvcc`` each, in
 parallel; the phases up to the simulator need only ``qdq_rows`` and run
@@ -561,6 +579,20 @@ POD_DATA_RUN = ("mamba2-130m", 2, 4, 1024, 3)
 POD_DATA_RANKS = 4
 POD_DATA_BITS = (32, 8)
 POD_DATA_TIMEOUT = 300
+# (r) Tensor-parallel training: make_train_step(cfg, make_host_mesh(1, TP_RANKS))
+# in this script's --tp-train worker under torchrun, the ranks on the one card
+# over gloo, as the reference's dry run calls its step (launch.train pod has no
+# model-axis flag): (i)'s Seamless run (the same seeded weights and batches, at
+# launch.train pod's default --lr_r), remat on, float32, TF32 off,
+# TP_TRAIN_STEPS steps. Rank 0's losses are held against (i)'s within
+# DP_LOSS_RTOL, and each leaf's update norm after the steps, ||p_3 - p_0|| in
+# float64, against (i)'s within TP_NORM_RTOL (relative): a missing or doubled
+# adjoint moves some leaf's by 1.5x or more.
+TP_TRAIN_RUN = POD_RUNS[1]
+TP_TRAIN_STEPS = 3
+TP_TRAIN_LR_R = 100.0
+TP_TRAIN_TIMEOUT = 300
+TP_NORM_RTOL = 1e-3
 SERVE_COUNTERS = ("requests_finished", "engine_steps", "prefill_chunks", "decode_steps",
                   "idle_steps", "prompt_tokens", "piggyback_tokens", "generated_tokens")
 
@@ -3607,8 +3639,9 @@ def pod_phase(arch_id, bsz, seq, steps, tag):
     once); the last step runs under the profiler; the backward of layer 0's
     kernel call (the last backward call of the first step) is held on its
     own captured inputs and upstream gradient against autograd through the
-    plain version. Returns ({kernel: launches counted over the steps},
-    the step's numbers)."""
+    plain version; after TP_TRAIN_STEPS steps each leaf's update norm
+    ||p - p_0|| in float64 is kept for phase (r). Returns ({kernel: launches
+    counted over the steps}, the step's numbers)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3645,6 +3678,8 @@ def pod_phase(arch_id, bsz, seq, steps, tag):
                 nonlocal out
                 out = step_fn(params, vel, batch, step)
 
+            if step == 0:
+                record["p0"] = [t.detach().clone() for t in _leaves(params)]
             ba.reset_launch_counts()
             sk.reset_launch_counts()
             torch.cuda.synchronize()
@@ -3655,6 +3690,10 @@ def pod_phase(arch_id, bsz, seq, steps, tag):
                 run()
             torch.cuda.synchronize()
             record["ms"].append((time.perf_counter() - t0) * 1e3)
+            if step == TP_TRAIN_STEPS - 1:
+                record["update_norms"] = dict(zip(_leaf_names(params), (
+                    float(torch.linalg.vector_norm(p.double() - q.double()))
+                    for p, q in zip(_leaves(params), record.pop("p0")))))
             record["loss"].append(float(out[2]))
             record["launches"].append({"block_attn": ba.LAUNCHES["block_attn"],
                                        "ssd_scan": sk.LAUNCHES["ssd_scan"],
@@ -3716,12 +3755,12 @@ def pod_phase(arch_id, bsz, seq, steps, tag):
                          f"chunk {kw['chunk']}")
         del got, want_g, ins
     counted = {k: sum(lc[k] for lc in record["launches"]) for k in want}
-    losses = record["loss"]
+    losses, norms = record["loss"], record["update_norms"]
     record.clear()
     gc.collect()
     torch.cuda.empty_cache()
     return counted, {"ms_per_step": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-                     "peak_bytes": peak, "losses": losses}
+                     "peak_bytes": peak, "losses": losses, "update_norms": norms}
 
 
 def _fed_pods(arch_id, pods):
@@ -5003,6 +5042,239 @@ def pod_data_phase(smi):
     return fwd_paths, bwd_paths, wire_paths, payload, runs
 
 
+def _tp_train_batches(cfg, bsz, seq, device):
+    """launch.train pod's global batches, in its order of draws: tokens,
+    then the stub frames, from ``default_rng(0)`` (phase (i)'s)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    while True:
+        toks = rng.integers(0, cfg.vocab, size=(bsz, seq + 1))
+        batch = {"tokens": torch.as_tensor(toks[..., :-1], device=device),
+                 "labels": torch.as_tensor(toks[..., 1:], device=device)}
+        if cfg.frontend != "none":
+            batch["embeds"] = torch.as_tensor(rng.normal(
+                size=(bsz, cfg.frontend_tokens, cfg.d_model)), dtype=torch.float32,
+                device=device)
+        yield batch
+
+
+def _axis_delta(before, after):
+    return {"calls": after["calls"] - before["calls"],
+            "ms": (after["seconds"] - before["seconds"]) * 1e3,
+            "bytes": after["bytes"] - before["bytes"]}
+
+
+def tp_train_worker() -> int:
+    """``--tp-train``: one rank of phase (r) under ``torch.distributed.run``.
+    Joins the ranks' group (gloo when they share the card), draws
+    TP_TRAIN_RUN's weights on the card from (i)'s seed, keeps its blocks by
+    ``make_train_step(cfg, make_host_mesh(1, W))``'s ``p_specs`` and runs
+    TP_TRAIN_STEPS steps on (i)'s batches. Prints, as ``rank r: tp-train
+    {json}``, the ms of each step, the model axis's calls, ms and bytes in
+    the forward, the backward (remat's recomputed forwards included) and
+    the update apart, the ``enter`` adjoints run, each step's loss and B10
+    and B10b launches, the heads each ``block_attention`` call took, peak
+    memory, the backend and each leaf's update norm ||p - p_0|| in float64
+    (its blocks' squares summed over the axis); then ``rank r: digest=`` of
+    the parameters gathered whole over the model axis."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import shard_lm_params
+    from repro_torch.dist import parallel
+    from repro_torch.dist.steps import make_train_step
+    from repro_torch.kernels.block_attn import block_attn as ba
+    from repro_torch.kernels.block_attn import ops as attn_ops
+    from repro_torch.launch.mesh import join_torchrun, make_host_mesh
+    from repro_torch.launch.train import _say_all
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import momentum_init
+
+    arch_id, bsz, seq = TP_TRAIN_RUN
+    cfg = get_arch(arch_id)
+    dev, backend = join_torchrun(torch.device("cuda"))
+    mesh = make_host_mesh(1, dist.get_world_size(), device=dev, group=dist.group.WORLD)
+    axis, rank = mesh.axis, mesh.rank
+    step_fn, p_specs = make_train_step(cfg, mesh, lr_r=TP_TRAIN_LR_R)
+    whole = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = shard_lm_params(whole, p_specs, mesh, dev)
+    del whole
+    vel = momentum_init(params).velocity
+    p0 = [t.clone() for t in _leaves(params)]
+    batches = _tp_train_batches(cfg, bsz, seq, dev)
+
+    marks, heads, enters = {}, set(), [0]
+    real_grad, real_attn = torch.autograd.grad, attn_ops.block_attention
+    real_enter = parallel._AxisEnter.backward
+
+    def grad(*args, **kw):
+        marks["forward"] = dict(axis.stats)
+        out = real_grad(*args, **kw)
+        marks["backward"] = dict(axis.stats)
+        return out
+
+    def attn(q, k, v, **kw):
+        heads.add((q.shape[2], k.shape[2]))
+        return real_attn(q, k, v, **kw)
+
+    def enter_backward(ctx, g):
+        enters[0] += 1
+        return real_enter(ctx, g)
+
+    torch.autograd.grad, attn_ops.block_attention = grad, attn
+    parallel._AxisEnter.backward = staticmethod(enter_backward)
+    timing = {"rank": rank, "backend": backend, "device": str(dev), "mesh": mesh.shape,
+              "ms": [], "forward": [], "backward": [], "update": [], "enters": [],
+              "losses": [], "launches": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for step in range(TP_TRAIN_STEPS):
+        batch = next(batches)
+        ba.reset_launch_counts()
+        enters[0] = 0
+        torch.cuda.synchronize(dev)
+        before = dict(axis.stats)
+        t0 = time.perf_counter()
+        params, vel, loss = step_fn(params, vel, batch, step)
+        loss = float(loss)
+        torch.cuda.synchronize(dev)
+        timing["ms"].append((time.perf_counter() - t0) * 1e3)
+        timing["forward"].append(_axis_delta(before, marks["forward"]))
+        timing["backward"].append(_axis_delta(marks["forward"], marks["backward"]))
+        timing["update"].append(_axis_delta(marks["backward"], dict(axis.stats)))
+        timing["enters"].append(enters[0])
+        timing["losses"].append(loss)
+        timing["launches"].append({**ba.LAUNCHES, **ba.BWD_LAUNCHES})
+    torch.autograd.grad, attn_ops.block_attention = real_grad, real_attn
+    parallel._AxisEnter.backward = staticmethod(real_enter)
+    timing["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    timing["heads"] = sorted(heads)
+    specs = list(_leaves(p_specs))
+    split = torch.tensor(["model" in spec for spec in specs], device=dev)
+    squares = torch.stack([(p.double() - q.double()).square().sum()
+                           for p, q in zip(_leaves(params), p0)])
+    del p0
+    parts = axis.all_gather(squares[None], 0)
+    norms = torch.where(split, parts.sum(0), parts[0]).sqrt()
+    timing["update_norms"] = dict(zip(_leaf_names(params), norms.tolist()))
+    _say_all(rank, f"tp-train {json.dumps(timing)}")
+    digest = hashlib.sha256()
+    for leaf, spec in zip(_leaves(params), specs):
+        full = axis.all_gather(leaf, spec.index("model")) if "model" in spec else leaf
+        digest.update(full.cpu().contiguous().view(torch.uint8).numpy().tobytes())
+        del full
+    _say_all(rank, f"digest={digest.hexdigest()[:16]}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_train_phase(smi, unsharded):
+    """(r) Tensor-parallel training: B10b held against autograd through its
+    plain version at a rank's heads (H / TP_RANKS) on Seamless's layer-0
+    shapes in each mode (encoder, decoder, cross at Lk = the frames), timed
+    beside its plain version, fp32 SDPA's backward and its bound; then
+    :func:`tp_train_worker` on TP_RANKS ranks under ``torch.distributed.run``.
+    Fails unless every rank prints its lines, the ranks share the card over
+    gloo on a (1, TP_RANKS) mesh, every rank's losses are rank 0's and
+    within DP_LOSS_RTOL of (i)'s ``unsharded["losses"]``, each leaf's update
+    norm is within TP_NORM_RTOL of (i)'s ``unsharded["update_norms"]``, the
+    digests of the parameters gathered whole are equal, and each rank
+    launched B10 twice a layer a step (remat) and B10b once, on H /
+    TP_RANKS heads. Returns ({path: B10 launches}, {path: B10b calls}, {case:
+    B10b entry}, the run's numbers)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.block_attn import block_attn as ba
+
+    tag = f"[{smi}]"
+    arch_id, bsz, seq = TP_TRAIN_RUN
+    cfg = get_arch(arch_id)
+    h, hd, frames = cfg.n_heads // TP_RANKS, cfg.head_dim_, cfg.frontend_tokens
+    cases = {}
+    for mode, lq, lk, causal in (("encoder", frames, frames, False), ("decoder", seq, seq, True),
+                                 (f"cross Lk {frames}", seq, frames, False)):
+        q, k, v, do = _bwd_attn_inputs(bsz, lq, lk, h, h, hd)
+        label = f"(r) {arch_id} {mode} at a rank's {h} heads"
+        cases[label] = _bwd_attn_case(label, q, k, v, do, causal, 0, tag)
+        del q, k, v, do
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = _launcher_lines(
+        ["torch.distributed.run", "--standalone", "--nproc-per-node", str(TP_RANKS),
+         os.path.abspath(__file__), "--tp-train"], f"tp train {arch_id}", TP_TRAIN_TIMEOUT)
+    timing = {int(r): json.loads(t) for r, t in re.findall(r"rank (\d+): tp-train (.*)", out)}
+    digests = {int(r): d for r, d in re.findall(r"rank (\d+): digest=(\w+)", out)}
+    ranks = list(range(TP_RANKS))
+    if sorted(timing) != ranks or sorted(digests) != ranks:
+        _fail(f"tp train {arch_id}: the ranks' lines are missing: {sorted(timing)}, {digests}")
+    one_card = torch.cuda.device_count() < TP_RANKS
+    mesh = {"data": 1, "model": TP_RANKS}
+    if len(set(digests.values())) != 1 or any(t["mesh"] != mesh for t in timing.values()) or (
+            one_card and {t["backend"] for t in timing.values()} != {"gloo"}):
+        _fail(f"tp train {arch_id}: digests {digests}, meshes and backends "
+              f"{[(t['mesh'], t['backend']) for t in timing.values()]}")
+    losses = timing[0]["losses"]
+    want_losses = unsharded["losses"][:TP_TRAIN_STEPS]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    if (any(t["losses"] != losses for t in timing.values()) or len(losses) != TP_TRAIN_STEPS
+            or worst > DP_LOSS_RTOL):
+        _fail(f"tp train {arch_id}: losses {[t['losses'] for t in timing.values()]} against "
+              f"the unsharded {want_losses} (rtol {DP_LOSS_RTOL})")
+    norms, want_norms = timing[0]["update_norms"], unsharded["update_norms"]
+    if sorted(norms) != sorted(want_norms):
+        _fail(f"tp train {arch_id}: update norms of {sorted(norms)}, (i) kept "
+              f"{sorted(want_norms)}")
+    rel = {name: abs(norms[name] - w) / w if w else abs(norms[name])
+           for name, w in want_norms.items()}
+    leaf = max(rel, key=rel.get)
+    print(f"tp train {arch_id} {tag}: losses {losses} against (i)'s {want_losses}, worst rel "
+          f"{worst:.3e} (DP_LOSS_RTOL {DP_LOSS_RTOL}); update norms after {TP_TRAIN_STEPS} "
+          f"steps over {len(rel)} leaves, worst {leaf} {norms[leaf]} against "
+          f"{want_norms[leaf]} rel {rel[leaf]:.3e} (TP_NORM_RTOL {TP_NORM_RTOL}); "
+          f"digests {digests}")
+    if not all(math.isfinite(x) for x in norms.values()) or rel[leaf] > TP_NORM_RTOL:
+        _fail(f"tp train {arch_id}: update norms {norms} against (i)'s {want_norms}")
+    calls = _kernel_calls(cfg)["block_attn"]
+    want = {"block_attn": 2 * calls, **dict.fromkeys(ba.BWD_LAUNCHES, calls)}
+    fwd_paths, bwd_paths, ranks_out = {}, {}, {}
+    for rank, t in sorted(timing.items()):
+        got = [{k: lc[k] for k in want} for lc in t["launches"]]
+        ranks_out[rank] = {
+            "backend": t["backend"], "device": t["device"],
+            "ms_per_step": statistics.median(t["ms"][1:]), "ms": t["ms"],
+            "peak_bytes": t["peak_bytes"], "enters_per_step": t["enters"],
+            **{f"{part}_collectives_per_step": {
+                key: statistics.median(c[key] for c in t[part][1:])
+                for key in ("calls", "ms", "bytes")} for part in ("forward", "backward", "update")},
+            "launches_per_step": got[0], "heads": t["heads"]}
+        out_r = ranks_out[rank]
+        print(f"tp train {arch_id} {tag} rank {rank}: backend {t['backend']} device "
+              f"{t['device']}: ms a step (median of steps 1..{TP_TRAIN_STEPS - 1}) "
+              f"{out_r['ms_per_step']:.2f}, all {[round(x, 2) for x in t['ms']]}; model-axis "
+              f"collectives a step: forward {out_r['forward_collectives_per_step']}, backward "
+              f"(remat's forwards and {t['enters']} enters) "
+              f"{out_r['backward_collectives_per_step']}, update "
+              f"{out_r['update_collectives_per_step']}; peak {t['peak_bytes']} bytes; launches "
+              f"a step {got} (want {want}); (q, k/v) heads a call {t['heads']}")
+        if any(lc != want for lc in got) or t["heads"] != [[h, h]]:
+            _fail(f"tp train {arch_id}: rank {rank} launched {got} on heads {t['heads']}, "
+                  f"want {want} a step on {h}")
+        path = f"{arch_id} train tp{TP_RANKS} rank {rank}"
+        fwd_paths[path] = sum(lc["block_attn"] for lc in got)
+        bwd_paths[path] = sum(lc["attn_bwd_dkdvq"] for lc in got)
+    stats = {"ranks": ranks_out, "losses": losses, "unsharded_losses": want_losses,
+             "max_rel_loss_diff": worst, "max_rel_norm_diff": rel[leaf], "digest": digests[0]}
+    print(f"tp train summary {tag}: {json.dumps(stats)}")
+    return fwd_paths, bwd_paths, cases, stats
+
+
 def fed_phase(smi):
     """(l) The DFedRW pod deployment: B5/B6 at the gossip payload and
     ``gossip_mix`` on the card (l0), ``launch.train pod --fed`` at full
@@ -5413,6 +5685,13 @@ def main() -> int:
     elapsed("pods with a data axis")
     gc.collect()
     torch.cuda.empty_cache()
+    tp_fwd, tp_bwd, tp_cases, _ = tp_train_phase(smi, pods[TP_TRAIN_RUN[0]][1])   # (r)
+    elapsed("tensor-parallel training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_by_path.update(tp_fwd)
+    bwd_by_path["attn"].update(tp_bwd)
+    bwd_attn.update(tp_cases)
     ssd_by_path.update(dp_fwd)
     bwd_by_path["ssd"].update(dp_bwd)
     ssd_by_path.update(pd_fwd)
@@ -5593,6 +5872,8 @@ def backward_ab(other):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-train"]:
+        sys.exit(tp_train_worker())
     if sys.argv[1:2] == ["--time-backward"]:
         sys.exit(time_backward(sys.argv[2]))
     if sys.argv[1:2] == ["--backward-ab"]:

@@ -31,6 +31,19 @@ pinned host buffer, gathered into pinned buffers and copied back (the
 buffers are kept and grown, one set a dtype). ``MeshAxis(size=1)`` runs no
 collective at all.
 
+Training on the model axis differentiates through these collectives under
+one convention: the gradient of every tensor that is whole on every rank
+is complete, and the same bits, on every rank. Three operations carry it,
+each an autograd ``Function``: :meth:`MeshAxis.sum` (its adjoint is the
+identity: the partial's gradient is the sum's), :meth:`MeshAxis.all_gather`
+and :meth:`MeshAxis.whole` (this rank's slice of the upstream gradient
+along the gathered dim), and :meth:`MeshAxis.enter`, the identity where a
+tensor that is whole on every rank enters this rank's share (a product
+with its heads', columns' or experts' block), whose adjoint sums the
+ranks' gradients in rank order in float32, rounded once. Every rank makes
+the same collectives in the same order, forward and backward; a rank that
+does not meets its process group's timeout.
+
 The DFedRW pod mesh's gossip moves each rank's payload to another rank of
 its axis (:meth:`MeshAxis.exchange`, a batch of point-to-point sends and
 receives).
@@ -102,17 +115,30 @@ class MeshAxis:
 
     # -------------------------------------------------------- collectives
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along ``dim`` in rank order."""
+        """Every rank's ``x`` concatenated along ``dim`` in rank order.
+        Differentiable: the gradient of ``x`` is this rank's slice of the
+        upstream gradient along ``dim``."""
         if self.size == 1:
             return x
-        return torch.cat(self._gather(x), dim)
+        return _AxisGather.apply(x, self, dim)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x``: gathered, added in rank order in
-        float32, rounded once to ``x.dtype``; the same bits on every rank."""
+        float32, rounded once to ``x.dtype``; the same bits on every rank.
+        Differentiable: the gradient of ``x`` is the upstream gradient."""
         if self.size == 1:
             return x
-        return self._sum_float(x).to(x.dtype)
+        return _AxisSum.apply(x, self)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, whole on every rank, as it enters this rank's share of a
+        computation: the identity, whose gradient is the sum of every rank's
+        upstream gradient, in rank order in float32, rounded once to its
+        dtype (each rank's holds only its share's contribution). Where no
+        gradient is taken (serving), ``x`` itself."""
+        if self.size == 1 or not torch.is_grad_enabled():
+            return x
+        return _AxisEnter.apply(x, self)
 
     def _sum_float(self, x: torch.Tensor) -> torch.Tensor:
         parts = self._gather(x)
@@ -133,7 +159,8 @@ class MeshAxis:
 
     def whole(self, leaf: torch.Tensor, name: str, full_shape) -> torch.Tensor:
         """The whole of a parameter leaf that the model axis may split:
-        gathered along its split dim, or the leaf itself."""
+        gathered along its split dim (:meth:`all_gather`, differentiable),
+        or the leaf itself."""
         dim = self.model_dim(name, full_shape) if self.size > 1 else None
         return leaf if dim is None else self.all_gather(leaf, dim)
 
@@ -206,6 +233,44 @@ class MeshAxis:
         self.stats["bytes"] += x.numel() * x.element_size() * self.size
         self.stats["seconds"] += time.perf_counter() - t0
         return parts
+
+
+class _AxisSum(torch.autograd.Function):
+    """:meth:`MeshAxis.sum` with its adjoint, the identity."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._sum_float(x).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _AxisGather(torch.autograd.Function):
+    """:meth:`MeshAxis.all_gather` with its adjoint, this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.dim, ctx.lo, ctx.n = dim, axis.rank * x.shape[dim], x.shape[dim]
+        return torch.cat(axis._gather(x), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+class _AxisEnter(torch.autograd.Function):
+    """:meth:`MeshAxis.enter`: the identity, its adjoint the rank-order sum."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis._sum_float(grad).to(grad.dtype), None
 
 
 class _AxisMean(torch.autograd.Function):

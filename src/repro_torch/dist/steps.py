@@ -8,11 +8,12 @@ kernels of ``block_attn`` and ``ssd_scan``), the paper's decreasing
 learning rate ``decreasing_lr(step + 1, r=lr_r)`` and a heavy-ball
 momentum step (``optim.momentum_sgd``), as the reference's
 ``jax.value_and_grad`` followed by ``momentum_sgd``. Given a mesh
-(``launch.mesh.make_host_mesh``) it trains data-parallel on the mesh's
-data axis and returns ``(step_fn, p_specs)``, the reference's pair: each
-rank stores its blocks of the parameters (``p_specs``) and of the
-velocity (``opt_specs`` or ``p_specs``) and takes its block of the batch
-(``batch_specs``); see :func:`make_train_step`.
+(``launch.mesh.make_host_mesh``) it trains on both of the mesh's axes,
+data-parallel on the data axis and tensor-parallel on the model axis, and
+returns ``(step_fn, p_specs)``, the reference's pair: each rank stores its
+blocks of the parameters (``p_specs``) and of the velocity (``opt_specs``
+or ``p_specs``) and takes its block of the batch (``batch_specs``); see
+:func:`make_train_step`.
 
 ``make_serve_step`` builds the serve engine's per-slot decode step over
 the cache (the reference's ``slots=True`` variant; its ``slots=False``
@@ -44,9 +45,6 @@ ranks), and the pods gossip-average every ``gossip.every`` steps
 through the int8 wire kernels at ``quant_bits < 32``). Both return the
 reference's triples, with ``p_specs = param_specs(abstract, mesh,
 fed_axis="pod")``, the placement of the stacked tree on the pod mesh.
-
-Training on a mesh with a model axis (tensor-parallel training) is
-ROADMAP.md A11b.4: it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -74,43 +72,49 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, lr_r: float = 5.0, beta: floa
     in the backward pass (memory, not numbers).
 
     Without a mesh, the step alone, on whole trees. With one, ``(step_fn,
-    p_specs)``: the step is data-parallel over ``mesh.data_axis`` and takes
-    this rank's blocks, ``params`` placed by ``p_specs``
+    p_specs)``: the step is data-parallel over ``mesh.data_axis`` and
+    tensor-parallel over ``mesh.axis``, and takes this rank's blocks,
+    ``params`` placed by ``p_specs``
     (``sharding.param_specs``), ``vel`` by ``sharding.opt_specs`` or by
     ``p_specs`` (leaf by leaf, told apart by the block's shape; the same
     bits either way), and ``batch`` by ``sharding.batch_specs``: its rows,
     or with ``batch_spec=`` (the spec tree ``batch_specs`` gave the global
     batch) a share of a batch it does not cut by rows. In a step a rank
-    gathers every parameter leaf whole over the data axis, takes the
-    gradient of its share of the batch, averages each gradient over the
-    axis in rank order in float32 (:meth:`MeshAxis.mean`: the global
-    batch's gradient, the same bits on every rank), updates its velocity
-    block and the matching slice of the parameter, and gathers again a leaf
-    that ``p_specs`` replicates where its velocity is split. The loss is
-    the global batch's mean, the same on every rank. A rank's share:
+    gathers every parameter leaf over the data axis into its model block,
+    takes the gradient of its share of the batch through the model on the
+    model axis (``T.loss_fn(..., axis=mesh.axis)``; the adjoints of
+    ``dist.parallel``'s collectives make each block's gradient complete),
+    averages each gradient over the data axis in rank order in float32
+    (:meth:`MeshAxis.mean`: the global batch's gradient, the same bits on
+    every rank) and a leaf's that the model axis does not split over that
+    axis too (its ranks computed it alike, but the card's atomics may add
+    in another order: the mean keeps their copies equal), updates its
+    velocity block and the matching slice of the parameter (the data cut
+    within its model block), and gathers again a leaf that ``p_specs``
+    replicates where its velocity is split. The loss is the global batch's
+    mean, the same on every rank. A rank's share:
 
     - rows (``batch_specs`` cut dim 0): the NLL over its rows, and MoE aux
       losses over the global batch (``moe_route``'s ``data_axis``);
     - positions (a batch of 1, cut on the sequence): the whole rows are
       gathered, and the NLL is over its own positions;
     - the whole batch (``batch_specs`` replicated it): every rank runs it.
-
-    A mesh whose model axis has more than one rank raises
-    NotImplementedError: the model axis's collectives carry no gradient
-    (ROADMAP.md A11b.4, tensor-parallel training)."""
+    """
     if mesh is None:
         return _local_step(cfg, lr_r, beta, remat)
-    if mesh.model > 1:
-        raise NotImplementedError(
-            f"training on a ({mesh.data}, {mesh.model}) mesh: the model axis's collectives "
-            f"carry no gradient; tensor-parallel training is ROADMAP.md A11b.4")
     abstract = T.abstract_params(cfg)
     p_specs, o_specs = param_specs(abstract, mesh), opt_specs(abstract, mesh)
     shapes = zip_specs(lambda leaf, _: tuple(leaf.shape), abstract, abstract)
-    data = mesh.data_axis
+    data, model = mesh.data_axis, mesh.axis
 
     def block(shape, spec):
         return tuple(cut.stop - cut.start for cut in block_slices(shape, spec, mesh, mesh.rank))
+
+    def data_cut(shape, spec):
+        """This rank's data block within its model block of a leaf."""
+        inner = tuple(n // mesh.model if ax == "model" else n for n, ax in zip(shape, spec))
+        return block_slices(inner, tuple(ax if ax == "data" else None for ax in spec),
+                            {"data": mesh.data}, data.rank)
 
     def step_fn(params: dict, vel: dict, batch: dict, step: int, batch_spec=None):
         whole = whole_params(params, p_specs, mesh)
@@ -121,7 +125,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, lr_r: float = 5.0, beta: floa
             p.requires_grad_(True)
         try:
             with torch.enable_grad():
-                loss = T.loss_fn(cfg, whole, local, remat=remat,
+                loss = T.loss_fn(cfg, whole, local, remat=remat, axis=model,
                                  data_axis=data if span == "rows" else None,
                                  span=span if isinstance(span, tuple) else None)
                 grads = torch.autograd.grad(loss, leaves)
@@ -129,6 +133,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, lr_r: float = 5.0, beta: floa
             for p in leaves:
                 p.requires_grad_(False)
         lr = decreasing_lr(int(step) + 1, r=lr_r)
+        grads = _model_mean(model, grads, [row[4] for row in rows])
         for (p, v, _, shape, p_spec, o_spec), g in zip(rows, grads):
             g = data.mean(g)
             spec = p_spec if tuple(v.shape) == block(shape, p_spec) else o_spec
@@ -136,7 +141,7 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, lr_r: float = 5.0, beta: floa
                 raise ValueError(f"a velocity block of shape {tuple(v.shape)} for a leaf of "
                                  f"shape {shape}: placed by neither p_specs {p_spec} nor "
                                  f"opt_specs {o_spec}")
-            cut = block_slices(shape, spec, mesh, mesh.rank)
+            cut = data_cut(shape, spec)
             if spec == p_spec:
                 momentum_sgd([p], [v], [g[cut]], lr, beta)
             else:                  # p_specs replicates the leaf, opt_specs splits it
@@ -145,6 +150,21 @@ def make_train_step(cfg: ArchConfig, mesh=None, *, lr_r: float = 5.0, beta: floa
         return params, vel, data.mean(loss.detach())
 
     return step_fn, p_specs
+
+
+def _model_mean(axis, grads, specs) -> list:
+    """``grads`` with those of the leaves that ``specs`` do not split on
+    the model ``axis`` averaged over it in rank order: one
+    :meth:`MeshAxis.mean` of their concatenation in float32, each rounded
+    back to its dtype."""
+    grads = list(grads)
+    picks = [i for i, spec in enumerate(specs) if "model" not in spec]
+    if axis.size == 1 or not picks:
+        return grads
+    flat = axis.mean(torch.cat([grads[i].float().reshape(-1) for i in picks]))
+    for i, part in zip(picks, flat.split([grads[i].numel() for i in picks])):
+        grads[i] = part.view_as(grads[i]).to(grads[i].dtype)
+    return grads
 
 
 def _local_step(cfg: ArchConfig, lr_r: float, beta: float, remat: bool):

@@ -50,7 +50,13 @@ K/V gathered whole), the FFN its columns, MoE its experts or each expert's
 columns with the routing global, and each row-parallel product is summed
 over the axis in float32 (:func:`_partial`); MLA and the Mamba mixer run
 whole, as the reference's split guard and ``_SSM_DATA_ONLY`` keep them.
-Attention still calls ``block_attention``, on the local heads.
+Attention still calls ``block_attention``, on the local heads. Where a
+tensor that is whole on every rank meets this rank's share (the residual
+before a column-parallel product, a bias sliced to the local heads, K/V
+computed whole before the local queries take theirs, the MoE's gate
+values), it goes through ``axis.enter``, so that training sums the ranks'
+shares of its gradient (``dist.parallel``); the encoder's output enters
+once, where the caller makes it (``transformer.forward_train``).
 """
 from __future__ import annotations
 
@@ -164,6 +170,28 @@ class _Heads(NamedTuple):
                      # that the local queries attend
     n_rep: int       # query heads a K/V head of ``take``
     reduce: bool     # the output projection is a partial sum over the axis
+    axis: object = None
+
+
+def _shapes(cfg: ArchConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    return {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd), "wo": (h * hd, d)}
+
+
+def _split_heads(cfg: ArchConfig, axis) -> tuple[bool, bool]:
+    """(the query heads split at head boundaries on ``axis``, the K/V heads
+    too): :func:`_heads`' two choices."""
+    if axis is None or axis.size == 1:
+        return False, False
+    hd, shapes = cfg.head_dim_, _shapes(cfg)
+    q = axis.splits("wq", shapes["wq"], 1, hd) and axis.splits("wo", shapes["wo"], 0, hd)
+    return q, q and axis.splits("wk", shapes["wk"], 1, hd)
+
+
+def kv_local(cfg: ArchConfig, axis) -> bool:
+    """Whether an attention layer computes its K/V heads from this rank's
+    block on ``axis`` (so the K/V source enters the rank's share)."""
+    return _split_heads(cfg, axis)[1]
 
 
 def _heads(p: dict, cfg: ArchConfig, axis=None) -> _Heads:
@@ -175,38 +203,42 @@ def _heads(p: dict, cfg: ArchConfig, axis=None) -> _Heads:
     gathered weights (MQA) and its queries attend the heads they map to.
     Where the query heads do not split, every leaf is gathered and the layer
     is computed whole, the same on every rank."""
-    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if axis is None or axis.size == 1:
         return _Heads(p, h, kv, None, h // kv, False)
     biases = {b: p[b] for b in ("bq", "bk", "bv") if b in p}
-    shapes = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd), "wo": (h * hd, d)}
-    if not (axis.splits("wq", shapes["wq"], 1, hd) and axis.splits("wo", shapes["wo"], 0, hd)):
+    shapes = _shapes(cfg)
+    split_q, split_kv = _split_heads(cfg, axis)
+    if not split_q:
         w = {name: axis.whole(p[name], name, shape) for name, shape in shapes.items()}
-        return _Heads({**w, **biases}, h, kv, None, h // kv, False)
+        return _Heads({**w, **biases}, h, kv, None, h // kv, False, axis)
     lo, hi = axis.span(h)
     w = {"wq": p["wq"], "wo": p["wo"], **biases}
-    if "bq" in p:
-        w["bq"] = p["bq"][lo * hd:hi * hd]
-    if axis.splits("wk", shapes["wk"], 1, hd):
+    if "bq" in p:              # the biases are whole on every rank: sliced, they enter
+        w["bq"] = axis.enter(p["bq"])[lo * hd:hi * hd]
+    if split_kv:
         klo, khi = axis.span(kv)
         w["wk"], w["wv"] = p["wk"], p["wv"]
         if "bk" in p:
-            w["bk"], w["bv"] = p["bk"][klo * hd:khi * hd], p["bv"][klo * hd:khi * hd]
-        return _Heads(w, hi - lo, khi - klo, None, h // kv, True)
+            w["bk"] = axis.enter(p["bk"])[klo * hd:khi * hd]
+            w["bv"] = axis.enter(p["bv"])[klo * hd:khi * hd]
+        return _Heads(w, hi - lo, khi - klo, None, h // kv, True, axis)
     w["wk"] = axis.whole(p["wk"], "wk", shapes["wk"])
     w["wv"] = axis.whole(p["wv"], "wv", shapes["wv"])
     groups = [q // (h // kv) for q in range(lo, hi)]           # each local query's K/V head
     n_kv = groups[-1] - groups[0] + 1
     rep = (hi - lo) // n_kv
     if rep * n_kv == hi - lo and all(g - groups[0] == i // rep for i, g in enumerate(groups)):
-        return _Heads(w, hi - lo, kv, slice(groups[0], groups[-1] + 1), rep, True)
-    return _Heads(w, hi - lo, kv, torch.tensor(groups), 1, True)
+        return _Heads(w, hi - lo, kv, slice(groups[0], groups[-1] + 1), rep, True, axis)
+    return _Heads(w, hi - lo, kv, torch.tensor(groups), 1, True, axis)
 
 
 def _take(hs: _Heads, k: torch.Tensor, v: torch.Tensor):
-    """The K/V heads (dim 2) the local queries attend."""
+    """The K/V heads (dim 2) the local queries attend. K/V computed whole
+    enter this rank's share here."""
     if hs.take is None:
         return k, v
+    k, v = hs.axis.enter(k), hs.axis.enter(v)
     if isinstance(hs.take, slice):
         return k[:, :, hs.take], v[:, :, hs.take]
     idx = hs.take.to(k.device)
@@ -230,13 +262,20 @@ def _out(hs: _Heads, out: torch.Tensor, axis) -> torch.Tensor:
     return out.reshape(b, l, -1) @ hs.p["wo"]
 
 
+def _local_in(hs: _Heads, x: torch.Tensor) -> torch.Tensor:
+    """x, whole on every rank, as this rank's query heads take it."""
+    return hs.axis.enter(x) if hs.reduce else x
+
+
 def _qkv(hs: _Heads, x: torch.Tensor, cfg: ArchConfig):
     b, l, _ = x.shape
     hd = cfg.head_dim_
     p = hs.p
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    xq = _local_in(hs, x)
+    xkv = xq if hs.take is None else x         # K/V whole: computed alike on every rank
+    q = xq @ p["wq"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
     if "bq" in p:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -281,7 +320,10 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin, causal: bool
     ``causal=False`` (an encoder) masks nothing. Cross-attention takes its
     keys and values from ``kv_override`` (B, Lk, d), an encoder's output:
     no RoPE, no QKV bias and no mask, as the reference's. On a model
-    ``axis`` the kernel runs on this rank's heads (:func:`_heads`)."""
+    ``axis`` the kernel runs on this rank's heads (:func:`_heads`); where
+    its K/V heads are local (:func:`kv_local`), the caller has put
+    ``kv_override`` through ``axis.enter``, once for every layer that
+    reads it."""
     b, l, _ = x.shape
     hd = cfg.head_dim_
     hs = _heads(p, cfg, axis)
@@ -292,7 +334,7 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ArchConfig, cos, sin, causal: bool
         window = cfg.sliding_window if causal else 0
     else:
         lk = kv_override.shape[1]
-        q = (x @ hs.p["wq"]).reshape(b, l, hs.h, hd)
+        q = (_local_in(hs, x) @ hs.p["wq"]).reshape(b, l, hs.h, hd)
         k = (kv_override @ hs.p["wk"]).reshape(b, lk, hs.kv, hd)
         v = (kv_override @ hs.p["wv"]).reshape(b, lk, hs.kv, hd)
         causal, window = False, 0
@@ -623,7 +665,8 @@ def ffn_apply(p: dict, x: torch.Tensor, axis=None, ff: int = 0) -> torch.Tensor:
     d = x.shape[-1]
     shapes = {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
     if axis.splits("w_gate", shapes["w_gate"], 1) and axis.splits("w_down", shapes["w_down"], 0):
-        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+        xl = axis.enter(x)
+        h = F.silu(xl @ p["w_gate"]) * (xl @ p["w_up"])
         return axis.sum(_partial(h, p["w_down"])).to(x.dtype)
     w = {name: axis.whole(p[name], name, shape) for name, shape in shapes.items()}
     return (F.silu(x @ w["w_gate"]) * (x @ w["w_up"])) @ w["w_down"]
@@ -667,6 +710,7 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None, data_axis=No
     On a model ``axis`` the routing stays global: a router split on the
     experts has its logits gathered before the top-k (one split on d is
     gathered whole), so every rank routes every token as one device would.
+    ``x`` enters the rank's columns of a split router (``axis.enter``).
 
     Returns (gate_vals (b, l, k) with dropped choices zeroed, gate_idx
     (b, l, k), slot (b, l, k), keep (b, l, k) bool, cap, aux)."""
@@ -675,7 +719,7 @@ def moe_route(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None, data_axis=No
     e, k = mo.n_experts, mo.top_k
     cap = max(8, int(l * k * mo.capacity_factor / e))
     if axis is not None and axis.size > 1 and axis.splits("router", (d, e), 1):
-        logits = axis.all_gather(x.float() @ p["router"], -1)
+        logits = axis.all_gather(axis.enter(x).float() @ p["router"], -1)
     else:
         router = p["router"] if axis is None else axis.whole(p["router"], "router", (d, e))
         logits = x.float() @ router
@@ -749,6 +793,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None,
     data = {} if data_axis is None or data_axis.size == 1 else {"data_axis": data_axis}
     gate_vals, gate_idx, slot, keep, cap, aux = moe_route(*route, **data)
     w, (lo, hi), mode = _expert_plan(p, cfg, d, axis)
+    xl = x if mode is None else axis.enter(x)         # x enters the rank's experts
     width = min(cap, l)
     # Row of each kept choice in the flattened (b, e, width) buffer; dropped
     # choices write to one spare row past the end, which nothing reads.
@@ -757,7 +802,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None,
     rows = torch.where(keep, rows, spare)
     k = rows.shape[-1]
     xe = x.new_zeros(spare + 1, d)
-    xe.index_copy_(0, rows.reshape(-1), x.unsqueeze(2).expand(b, l, k, d).reshape(-1, d))
+    xe.index_copy_(0, rows.reshape(-1), xl.unsqueeze(2).expand(b, l, k, d).reshape(-1, d))
     xe = xe[:spare].view(b, e, width, d)
     if (lo, hi) != (0, e):
         xe = xe[:, lo:hi]
@@ -773,6 +818,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, axis=None,
         ye = full
     ye = ye.reshape(spare, d)
     picked = ye[torch.where(keep, rows, 0)]                          # (b, l, k, d)
+    if mode is not None:               # the gates are whole: they enter the rank's share
+        gate_vals = axis.enter(gate_vals)
     out = (picked * gate_vals.to(ye.dtype)[..., None]).sum(2)
     if mode is not None:
         out = axis.sum(out).to(x.dtype)

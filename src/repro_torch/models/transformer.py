@@ -237,17 +237,18 @@ def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor, axis=None) -> to
 
 def _logits(cfg: ArchConfig, params: dict, x: torch.Tensor, axis=None) -> torch.Tensor:
     """x @ head. On a model ``axis`` the logits are whole on every rank: a
-    head split on the vocab gives this rank's columns, gathered; a head
-    split elsewhere (an odd vocab falls to d) is gathered before use."""
+    head split on the vocab gives this rank's columns (x entering the
+    rank's share), gathered; a head split elsewhere (an odd vocab falls to
+    d) is gathered before use."""
     if not _active(axis):
         return x @ _head(cfg, params)
     v, d = cfg.vocab, cfg.d_model
     if cfg.tie_embeddings:
         if axis.model_dim("embed", (v, d)) == 0:
-            return axis.all_gather(x @ params["embed"].T, -1)
+            return axis.all_gather(axis.enter(x) @ params["embed"].T, -1)
         return x @ axis.whole(params["embed"], "embed", (v, d)).T
     if axis.splits("head", (d, v), 1):
-        return axis.all_gather(x @ params["head"], -1)
+        return axis.all_gather(axis.enter(x) @ params["head"], -1)
     return x @ axis.whole(params["head"], "head", (d, v))
 
 
@@ -356,7 +357,9 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     rank's block (``sharding.param_specs``); the residual stream, the aux
     loss and the logits are whole, the same on every rank. On a
     ``data_axis`` the tokens are this rank's rows of the global batch and
-    the aux loss is the global batch's, the same on every rank."""
+    the aux loss is the global batch's, the same on every rank. The
+    encoder's output enters the rank's share once for every cross layer
+    (``axis.enter``: one sum of its gradient, not one a layer)."""
     _check_supported(cfg)
     x = _embed(cfg, params, tokens, axis)
     n_front, enc_out = 0, None
@@ -364,6 +367,8 @@ def forward_train(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs frontend_embeds")
         enc_out = _run_encoder(cfg, params, frontend_embeds.to(x.dtype), remat, axis)
+        if L.kv_local(cfg, axis):
+            enc_out = axis.enter(enc_out)
     elif frontend_embeds is not None:
         n_front = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)

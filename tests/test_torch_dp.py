@@ -36,9 +36,10 @@ Contracts, with their tolerances:
   ranks (half of it at data = 2) misses;
 - the (2, 1) and (1, 2) meshes over two ranks and the (2, 2) mesh over
   four put each rank at the coordinates ``sharding.mesh_coords`` gives and
-  gather each axis over the ranks that share the other index; the
-  tensor-parallel refusal names its ROADMAP.md item, and two pods over the
-  four ranks make the reference's (2, 2, 1) pod mesh; the serve step on
+  gather each axis over the ranks that share the other index; a training
+  step on the (2, 2) mesh gives the single-rank step's loss (1e-5,
+  relative), and two pods over the four ranks make the reference's (2, 2,
+  1) pod mesh; the serve step on
   the (2, 2) mesh returns ``(fn, p_specs)``, its specs the placement ``fn``
   takes (the reference's, whole along the data axis), and ``fn`` on blocks
   placed by them gives a data rank's rows of the unsharded step's logits
@@ -193,7 +194,8 @@ _WORKER = textwrap.dedent("""
         dist.destroy_process_group()
 """)
 
-# Four ranks: the (2, 2) mesh's coordinates and groups, and the refusals.
+# Four ranks: the (2, 2) mesh's coordinates and groups, a training step on
+# it, and the refusals.
 _MESH_WORKER = textwrap.dedent("""
     import json, os, sys
     rank, world, init, out, src = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
@@ -203,10 +205,13 @@ _MESH_WORKER = textwrap.dedent("""
     import torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.configs import get_smoke
-    from repro_torch.dist.sharding import model_specs, param_specs, shard_tree, slot_rows
+    from repro_torch.convert import shard_opt_state
+    from repro_torch.dist.sharding import (batch_specs, model_specs, param_specs, shard_tree,
+                                           slot_rows)
     from repro_torch.dist.steps import make_prefill_step, make_serve_step, make_train_step
     from repro_torch.launch.mesh import make_host_mesh, make_pod_mesh
     from repro_torch.models import transformer as T
+    from repro_torch.optim import momentum_init
 
     def refusal(fn):
         try:
@@ -235,6 +240,24 @@ _MESH_WORKER = textwrap.dedent("""
                           make_prefill_step(cfg, mesh)[1] == p_specs],
                 "rows": [lo, hi], "got": got.tolist(), "want": want[lo:hi].tolist()}
 
+    def train_step():
+        # one training step on the (2, 2) mesh, from blocks of the weights
+        # and of the batch, against the single-rank step on the whole ones
+        def init():
+            return T.init_params(cfg, torch.Generator().manual_seed(0), device=cpu)
+
+        toks = torch.randint(0, cfg.vocab, (4, 9), generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        whole = init()
+        want = make_train_step(cfg)(whole, momentum_init(whole).velocity, batch, 0)[2]
+        whole = init()
+        step_fn, p_specs = make_train_step(cfg, mesh)
+        b_spec = batch_specs(batch, mesh)
+        got = step_fn(shard_tree(whole, p_specs, mesh),
+                      shard_opt_state(momentum_init(whole).velocity, mesh, cpu),
+                      shard_tree(batch, b_spec, mesh), 0, batch_spec=b_spec)[2]
+        return {"loss": float(got), "want": float(want)}
+
     def pod_mesh():
         # two pods over the four ranks: the reference's (2, 2, 1) mesh
         pm = make_pod_mesh(2, device=cpu, group=group)
@@ -255,7 +278,7 @@ _MESH_WORKER = textwrap.dedent("""
                "model_gather": mesh.axis.all_gather(mine, 0).tolist(),
                "data_mean": mesh.data_axis.mean(mine).tolist(),
                "uneven": refusal(lambda: make_host_mesh(3, 1, device=cpu, group=group)),
-               "train": refusal(lambda: make_train_step(cfg, mesh)),
+               "train": train_step(),
                "serve": serve_pair(),
                "pods": pod_mesh(),
                "three_pods": refusal(lambda: make_pod_mesh(3, device=cpu, group=group))}
@@ -459,7 +482,8 @@ def test_four_rank_mesh_and_refusals(runs):
     """(2, 2) over four ranks: rank r at (r // 2, r % 2), its model axis the
     ranks of its row and its data axis those of its column, each gathered
     in rank order; the data mean is the column's. A mesh that leaves a rank
-    out raises ValueError; training on a model axis names A11b.4; two pods
+    out raises ValueError; a training step on it gives the single-rank
+    step's loss within 1e-5, relative; two pods
     over the four ranks put rank r at pod r // 2 and data index r % 2, with
     its gossip group (its data index's ranks in pod order) and its pod's
     data group, and three pods raise ValueError; serving on it gives (fn,
@@ -473,8 +497,8 @@ def test_four_rank_mesh_and_refusals(runs):
         assert got["data_gather"] == [float(r % 2), float(r % 2 + 2)]
         assert got["data_mean"] == [r % 2 + 1.0]
         assert got["uneven"].startswith("ValueError") and "take them all" in got["uneven"]
-        assert got["train"].startswith("NotImplementedError"), got["train"]
-        assert "ROADMAP.md A11b.4" in got["train"], got["train"]
+        train = got["train"]
+        assert abs(train["loss"] - train["want"]) <= SELF_TOL * abs(train["want"]), train
         pods = got["pods"]
         assert pods["coords"] == [r // 2, r % 2]
         assert pods["shape"] == {"pod": 2, "data": 2, "model": 1}
