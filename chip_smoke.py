@@ -37,6 +37,14 @@ or of the JAX package ``repro``. Phases, in order:
    K*rounds and rounds at bits=8 (and none of the wire kernels);
 7. a profile of two rounds at bits=8 (device busy and idle share);
 8. the launcher, ``repro_torch.launch.train.main``, on the card;
+8b. (s) the seed engine (``DFedRWConfig(engine="reference")``) beside the
+   flat engine at the main path's configuration, see
+   :func:`seed_engine_phase`: one warm and SEED_ROUNDS timed rounds of each
+   from the same init and plans at bits 32 and 8 (ms a round, no claim),
+   their parameters held after every round (bits 32 within rtol 1e-6, the
+   count of differing elements printed; bits 8 within 0.05 * scale +
+   1e-4), Eq. 18 bits equal, no kernel launched by the seed engine, and
+   its card round against its CPU round;
 9. the baselines (§VI-B), see :func:`baselines_phase`: FedAvg, DFedAvg,
    DFedAvgM and DSGD on a small configuration on the CPU and on the card;
    then at the main path's setting (3FNN, n=100), bits 32 and 8, ms per
@@ -256,6 +264,11 @@ or of the JAX package ``repro``. Phases, in order:
    ``qwen2.5-32b`` at full width and depth (65.53 GB), last: layer 0,
    ``loss_fn`` on 1 x 2,048 with its peak memory, decode against the
    forward, and serving;
+13b. (t) the dry run, see :func:`dryrun_phase`: ``python -m
+   repro_torch.launch.dryrun`` for DRYRUN_RUNS in subprocesses that see no
+   card, started together: each exits 0, the ``--fed`` gossip program makes
+   pod-axis exchanges alone, its bits-8 bytes are the int8 wire of the
+   rank's blocks; the three roofline terms of each;
 14. one JSON line of kernel numbers (all ten kernels, and the bf16 modes of
    ``ssd_scan`` and ``block_attn`` as ``ssd_scan (bf16)`` and
    ``block_attn (bf16)`` with their launches on the bf16 paths; B1 and B2 with their
@@ -5324,6 +5337,199 @@ def _print_registers(label, info, tag, only=""):
                 _fail(f"{label}: {name} spills ({stores} bytes stored, {loads} loaded)")
 
 
+SEED_ROUNDS = 3                # timed rounds of each engine in (s), after one warm round
+DRYRUN_RUNS = [                # (t): (label, arguments, REPRO_FED_BITS)
+    ("yi-6b train_4k", ["--arch", "yi-6b", "--shape", "train_4k"], None),
+    ("mamba2-130m train_4k multi-pod", ["--arch", "mamba2-130m", "--shape", "train_4k",
+                                        "--multi-pod"], None),
+    ("mamba2-130m train_4k multi-pod fed bits 32", ["--arch", "mamba2-130m", "--shape",
+                                                    "train_4k", "--multi-pod", "--fed"], "32"),
+    ("mamba2-130m train_4k multi-pod fed bits 8", ["--arch", "mamba2-130m", "--shape",
+                                                   "train_4k", "--multi-pod", "--fed"], "8"),
+]
+
+
+def _seed_uniforms(spec, m, k, rows, gen):
+    """The seed engine's uniforms of one quantized round, drawn on the CPU
+    from ``gen`` (``execute_round(uniforms=)``'s nesting)."""
+    import torch
+
+    return {"hop": [[torch.rand((m, *shape), generator=gen) for shape in spec.shapes]
+                    for _ in range(k)],
+            "agg": [torch.rand((rows, *shape), generator=gen) for shape in spec.shapes]}
+
+
+def seed_engine_phase(model, data, topo, tag):
+    """(s) The seed engine, ``DFedRWConfig(engine="reference")``, on the card
+    at the main path's configuration (n = 100, complete graph, 3FNN, M = K
+    = 8, B = 50, seed 0), beside the flat engine from the same init and
+    plans: one warm and SEED_ROUNDS timed rounds of each, in turns, at bits
+    32 and 8. Holds the two engines' device parameters after every round
+    (bits 32: rtol 1e-6 / atol 1e-7, with the count of elements that differ
+    at all; bits 8: within 0.05 * scale + 1e-4, their uniforms differing by
+    design), Eq. 18 bits equal, and no kernel launched by the seed engine
+    (it runs the plain quantizer, as the reference's seed engine runs the
+    ``jnp`` one); then one seed-engine round on the CPU and on the card
+    from the same init, plans and uniforms, within the flat engine's
+    card-vs-CPU tolerance (bits 32: rtol 1e-4 / atol 1e-5; bits 8: 0.05 *
+    scale + 1e-4). Prints ms a round of each engine, the median and spread
+    of the timed rounds (no claim). Returns the flat rounds' launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import DFedRW, DFedRWConfig, QuantConfig
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels.quantize import quantize as qk
+
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    flat_launches = dict.fromkeys(qk.LAUNCHES, 0)
+    for bits in (32, 8):
+        cfg = DFedRWConfig(m_chains=8, k_walk=8, batch_size=50, quant=QuantConfig(bits=bits),
+                           seed=0)
+        runners = {e: DFedRW(model, data, topo, dataclasses.replace(cfg, engine=e))
+                   for e in ("reference", "flat")}
+        states = {e: r.state_from_params(params) for e, r in runners.items()}
+        keys = {e: torch.Generator().manual_seed(1) for e in runners}
+        times = {e: [] for e in runners}
+        worst, differ = 0.0, 0
+        for i in range(1 + SEED_ROUNDS):
+            met = {}
+            for e, r in runners.items():
+                before = dict(qk.LAUNCHES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[e], met[e] = r.run_round(states[e], keys[e])
+                torch.cuda.synchronize()
+                if i:
+                    times[e].append((time.perf_counter() - t0) * 1e3)
+                launched = {n: qk.LAUNCHES[n] - before[n] for n in before}
+                if e == "reference" and any(launched.values()):
+                    _fail(f"the seed engine launched kernels at bits={bits}: {launched}")
+                if e == "flat":
+                    for n, c in launched.items():
+                        flat_launches[n] += c
+            if (met["reference"].comm_bits_round != met["flat"].comm_bits_round
+                    or met["reference"].comm_bits_busiest_round
+                    != met["flat"].comm_bits_busiest_round):
+                _fail(f"seed and flat engines bill different Eq. 18 bits at bits={bits}")
+            seed = tree_leaves(runners["reference"].params_pytree(states["reference"]))
+            flat = tree_leaves(runners["flat"].params_pytree(states["flat"]))
+            scale = max(float(a.abs().max()) for a in flat)
+            diff = max(float((a - b).abs().max()) for a, b in zip(seed, flat))
+            worst = max(worst, diff)
+            differ = max(differ, sum(int((a != b).sum()) for a, b in zip(seed, flat)))
+            ok = (all(torch.allclose(a, b, rtol=1e-6, atol=1e-7) for a, b in zip(seed, flat))
+                  if bits == 32 else diff < 0.05 * scale + 1e-4)
+            if not ok or not all(torch.isfinite(a).all() for a in seed):
+                _fail(f"seed engine against flat engine at bits={bits}, round {i + 1}: "
+                      f"max|d|={diff:.3e} scale={scale:.3e}")
+        for e, ms in times.items():
+            print(f"seed engine phase {tag} bits={bits} {e}: ms/round "
+                  f"median={statistics.median(ms):.3f} min={min(ms):.3f} max={max(ms):.3f} "
+                  f"all={[round(t, 3) for t in ms]}")
+        print(f"seed engine phase {tag} bits={bits}: seed vs flat max|d|={worst:.3e} "
+              f"elements differing (most in a round)={differ} "
+              f"loss seed={met['reference'].train_loss:.6f} flat={met['flat'].train_loss:.6f}")
+        # the seed engine's card round against its CPU round
+        np_params = [tuple(t.numpy() for t in p) for p in params]
+        pair = []
+        for d in ("cpu", "cuda"):
+            r = DFedRW(model, data, topo, dataclasses.replace(cfg, engine="reference"),
+                       device=d)
+            pair.append([r, r.state_from_params(params_from_numpy(np_params, device=d))])
+        plans = [r.plan_walks(s) for r, s in pair]
+        aggs = [r.plan_aggregation(p) for (r, _), (p, _) in zip(pair, plans)]
+        uniforms = None
+        if bits < 32:
+            uniforms = _seed_uniforms(pair[0][0].flat_spec, cfg.m_chains, cfg.k_walk,
+                                      aggs[0][1].size, torch.Generator().manual_seed(2))
+        out = []
+        for (r, s), (plan, bidx), agg, d in zip(pair, plans, aggs, ("cpu", "cuda")):
+            u = None if uniforms is None else {
+                "hop": [[t.to(d) for t in step] for step in uniforms["hop"]],
+                "agg": [t.to(d) for t in uniforms["agg"]]}
+            s, _ = r.execute_round(s, plan, bidx, agg, None, uniforms=u)
+            out.append([t.cpu() for t in tree_leaves(s.device_params)])
+        scale = max(float(a.abs().max()) for a in out[0])
+        diff = max(float((a - b).abs().max()) for a, b in zip(*out))
+        ok = (all(torch.allclose(b, a, rtol=1e-4, atol=1e-5) for a, b in zip(*out))
+              if bits == 32 else diff < 0.05 * scale + 1e-4)
+        print(f"seed engine phase {tag} bits={bits}: card vs CPU round max|d|={diff:.3e}")
+        if not ok:
+            _fail(f"the seed engine's card and CPU rounds disagree at bits={bits}: "
+                  f"max|d|={diff:.3e}")
+    return flat_launches
+
+
+def dryrun_phase(tag):
+    """(t) The dry run (``python -m repro_torch.launch.dryrun``) in
+    subprocesses that see no card (``CUDA_VISIBLE_DEVICES`` empty), started
+    together, each with a timeout: DRYRUN_RUNS, ``pod_gossip_roofline.py``'s
+    variants. Holds that each exits 0, that the ``--fed`` programs count
+    only exchanges on the pod axis (no gather, no sum: the DFedRW claim),
+    and that bits 8's gossip bytes are the int8 wire of the rank's blocks
+    from the leaf shapes exactly (a code a live element, a float32 s and
+    norm a leaf). Prints each run's three roofline terms (the H100's
+    published peaks)."""
+    import torch
+
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.dist.sharding import param_specs, shard_tree
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    cfg = D.resolve_cfg("mamba2-130m", "train_4k")
+    mesh = D.ShapePodMesh(2, 16, 16)
+    base = T.abstract_params(cfg, torch.float32)
+    blocks = tree_leaves(shard_tree(base, param_specs(base, mesh), mesh, 0))
+    int8_wire = sum(b.numel() for b in blocks) + 8 * len(blocks)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = []
+        for i, (label, argv, fed_bits) in enumerate(DRYRUN_RUNS):
+            env = dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES="",
+                       OMP_NUM_THREADS="1")
+            if fed_bits is not None:
+                env["REPRO_FED_BITS"] = fed_bits
+            path = os.path.join(tmp, f"run{i}.json")
+            procs.append((path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--json", path],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)))
+        try:
+            outs = [proc.communicate(timeout=240) for _, proc in procs]
+        except subprocess.TimeoutExpired:
+            _fail("a dry run made no exit within 240 s")
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        print(f"dry run {tag}: {len(procs)} runs in parallel, "
+              f"{time.perf_counter() - t0:.1f}s")
+        for (label, _, fed_bits), (path, proc), (out, err) in zip(DRYRUN_RUNS, procs, outs):
+            if proc.returncode != 0:
+                _fail(f"dry run {label}: exit {proc.returncode}\n{out[-2000:]}{err[-2000:]}")
+            res = json.load(open(path))[0]
+            rl = res["roofline"]
+            print(f"dry run {tag} {label}: meta run {res['lower_compile_s']:.1f}s "
+                  f"compute={rl['compute_s'] * 1e3:.3f}ms memory={rl['memory_s'] * 1e3:.3f}ms "
+                  f"collective={rl['collective_s'] * 1e3:.3f}ms dominant={rl['dominant']} "
+                  f"flops/chip={rl['hlo_flops_per_chip']:.4e} "
+                  f"bytes/chip={rl['hlo_bytes_per_chip']:.4e} "
+                  f"collectives={rl['collectives']} calls={res['collective_calls']} "
+                  f"peak={res['bytes_per_device']['peak']}")
+            if fed_bits is not None:
+                if set(res["collective_calls"]) != {"gossip/exchange"}:
+                    _fail(f"dry run {label}: the gossip program makes "
+                          f"{res['collective_calls']}, not pod-axis exchanges alone")
+                if fed_bits == "8" and rl["collectives"]["gossip/exchange"] != int8_wire:
+                    _fail(f"dry run {label}: gossip bytes "
+                          f"{rl['collectives']['gossip/exchange']} != the int8 wire's "
+                          f"{int8_wire}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5592,8 +5798,12 @@ def main() -> int:
         print("FAIL: the launcher did not go through both kernels", file=sys.stderr)
         return 1
 
+    # --------------------------------------------------- (s) the seed engine
+    seed_flat = seed_engine_phase(model, data, topo, f"[{smi}]")
+    elapsed("the seed engine")
+
     # ------------------------------------- baselines, LSTM chain mode, checkpoint
-    by_path = {"3fnn_dfedrw": launches,
+    by_path = {"3fnn_dfedrw": launches, "seed engine phase (flat rounds)": seed_flat,
                "baselines": baselines_phase(model, data, topo, xt, yt, f"[{smi}]")}
     del profile_runner, state, runner
     gc.collect()
@@ -5792,6 +6002,8 @@ def main() -> int:
                          (ssd16, ssd16_by_path)):
         entry["launches"] = sum(paths.values())
         entry["launches_by_path"] = paths
+    dryrun_phase(f"[{smi}]")                                          # (t)
+    elapsed("the dry run")
     print(json.dumps({"kernels": [results["qdq_delta_rows_rng"], results["qdq_rows_rng"],
                                   *wire.values(), ssd, attn, ssd16, attn16]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

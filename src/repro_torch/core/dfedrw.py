@@ -35,13 +35,25 @@ reference's ``engine/*`` spans and counters.
 
 ``chain_mode=True`` is the paper's large-scale LM mode (§VI-F, the LSTM):
 the M chains persist across rounds (each starts where it ended) and the
-chain-end devices aggregate the M chain-end models. Only the flat engine
-is ported: ``engine="reference"`` raises ``NotImplementedError``
-(ROADMAP.md, queue A).
+chain-end devices aggregate the M chain-end models.
+
+``DFedRWConfig.engine`` selects the implementation, as in the reference:
+``"flat"`` (the default, above) or ``"reference"``, the port of the seed
+per-leaf engine (``DFedRW._build_round_fn_reference``), kept as the
+numerical oracle and the benchmark's baseline. Its device state is the
+model's tree with every leaf stacked ``(n, ...)``; it steps the chains on
+the stacked tree, quantizes each leaf as its own wire tensor with the plain
+``core.quantization`` oracle (never a hand-written kernel, on the CPU or on
+the card: the reference's seed engine calls the ``jnp`` quantizer, not
+Pallas), writes the chains into ``w^{t,last}`` one at a time in chain order
+and aggregates leaf by leaf. Both engines share the host planner, so seeded
+runs are comparable round by round; at bits 32 they give the same device
+parameters bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -51,10 +63,20 @@ from repro_torch.core.flatten import (
     elect_writers,
     flatten_tree,
     make_flat_spec,
+    tree_from_leaves,
+    tree_leaves,
+    tree_map,
     unflatten_tree,
 )
 from repro_torch.core.graph import Topology
-from repro_torch.core.quantization import QuantConfig, validate_wire_bits, wire_bits
+from repro_torch.core.quantization import (
+    QuantConfig,
+    dequantize,
+    quantize,
+    quantize_rows,
+    validate_wire_bits,
+    wire_bits,
+)
 from repro_torch.core.walk import StragglerModel, WalkPlan, sample_walks
 from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.device import resolve_device
@@ -79,13 +101,14 @@ class DFedRWConfig:
     straggler: StragglerModel = dataclasses.field(default_factory=StragglerModel)
     chain_mode: bool = False        # large-scale LM mode (§VI-F): aggregate the
                                     # M chain-end models; chains persist across rounds
-    engine: str = "flat"            # only "flat" is ported
+    engine: str = "flat"            # "flat" (vectorized + kernels) | "reference"
     seed: int = 0
 
 
 @dataclasses.dataclass
 class DFedRWState:
-    device_params: torch.Tensor     # (n, d_pad) float32 on the engine's device
+    device_params: Any              # flat engine: (n, d_pad) float32 matrix;
+                                    # reference engine: tree, leaves (n, ...)
     round: int = 0
     global_step: int = 0            # kbar counter
     chain_starts: np.ndarray | None = None  # chain mode: i_m^{t,0}
@@ -120,6 +143,16 @@ def gamma_hat_from_traj(grad_sq_traj: torch.Tensor, walk_mask: torch.Tensor) -> 
     alive = active_steps > 0
     ratios = torch.where(alive, g_last / g0, torch.zeros_like(g0))
     return ratios.sum() / torch.clamp(alive.sum(), min=1)
+
+
+def _sum_neighbors(t: torch.Tensor) -> torch.Tensor:
+    """The sum over dim 1 of ``t`` (A, n_agg, ...), added in neighbor order:
+    the order a torch sum over that dim takes for the flat engine's wide
+    rows, which it leaves for another on a narrow leaf (a 10-wide bias)."""
+    out = t[:, 0]
+    for j in range(1, t.shape[1]):
+        out = out + t[:, j]
+    return out
 
 
 class FlatRunner:
@@ -168,6 +201,10 @@ class FlatRunner:
     def init_state(self, key: torch.Generator) -> DFedRWState:
         return self.state_from_params(self.model.init(key, self.device))
 
+    def _mean_model(self, state: DFedRWState, sel: torch.Tensor):
+        """The model tree averaged over the devices ``sel``."""
+        return unflatten_tree(state.device_params[sel].mean(dim=0), self.flat_spec)
+
     @torch.no_grad()
     def evaluate(self, state: DFedRWState, x_test, y_test, max_batch: int = 2048) -> dict:
         """Accuracy/loss of the average over *participating* device models
@@ -176,7 +213,7 @@ class FlatRunner:
             sel = torch.from_numpy(np.nonzero(state.updated)[0]).to(self.device)
         else:
             sel = torch.arange(self.topo.n, device=self.device)
-        mean_params = unflatten_tree(state.device_params[sel].mean(dim=0), self.flat_spec)
+        mean_params = self._mean_model(state, sel)
         x_test = torch.as_tensor(np.asarray(x_test[:max_batch]), device=self.device)
         y_test = torch.as_tensor(np.asarray(y_test[:max_batch]), device=self.device)
         logits = self.model.predict(mean_params, x_test)
@@ -196,11 +233,17 @@ class DFedRW(FlatRunner):
         cfg: DFedRWConfig,
         device: str | torch.device = "cuda",
     ):
-        if cfg.engine != "flat":
-            raise NotImplementedError(
-                f"engine={cfg.engine!r}: the port has only the flat engine "
-                "(ROADMAP.md queue A, item 13: the reference engine)")
+        if cfg.engine not in ("flat", "reference"):
+            raise ValueError(f"unknown engine {cfg.engine!r}: 'flat' or 'reference'")
         super().__init__(model, data, topo, cfg, device)
+
+        def loss_tree(params, xb, yb):
+            return model.loss_fn(params, (xb, yb))
+
+        # The seed engine's per-chain gradients and losses on the stacked
+        # tree: the same batched products as the flat engine's on its rows.
+        self._tree_grad_fn = torch.func.vmap(torch.func.grad(loss_tree))
+        self._tree_loss_fn = torch.func.vmap(loss_tree)
         self.obs = None             # optional repro_torch.obs.Recorder (attach_obs)
         self._prepared: set[int] = {validate_wire_bits(cfg.quant.bits)}
         self._programs_run: set[int] = set()
@@ -240,8 +283,26 @@ class DFedRW(FlatRunner):
         starts = None
         if self.cfg.chain_mode:
             starts = self.rng.integers(0, self.topo.n, size=self.cfg.m_chains)
-        return DFedRWState(device_params=self._replicated(params), chain_starts=starts,
+        if self.cfg.engine == "flat":
+            device_params = self._replicated(params)
+        else:
+            n = self.topo.n
+            device_params = tree_map(
+                lambda p: p.to(self.device).expand(n, *p.shape).clone(), params)
+        return DFedRWState(device_params=device_params, chain_starts=starts,
                            updated=np.zeros(self.topo.n, dtype=bool))
+
+    def params_pytree(self, state: DFedRWState) -> Any:
+        """The stacked per-device model tree, leaves (n, ...), whichever the
+        engine."""
+        if self.cfg.engine == "flat":
+            return unflatten_tree(state.device_params, self.flat_spec)
+        return state.device_params
+
+    def _mean_model(self, state: DFedRWState, sel: torch.Tensor):
+        if self.cfg.engine == "flat":
+            return super()._mean_model(state, sel)
+        return tree_map(lambda p: p[sel].mean(dim=0), state.device_params)
 
     # ------------------------------------------------------------ the round
     def _round_flat(self, device_flat, plan, bidx, agg, kbar0, bits, qseeds):
@@ -344,6 +405,90 @@ class DFedRW(FlatRunner):
         # batch (cheap monitoring signal).
         losses = self._loss_fn(traj[-1], *last_batch)
         return new_device_flat, losses.mean(), gamma_hat
+
+    # ----------------------------------------------- reference (seed) engine
+    def _round_reference(self, device_params, plan, bidx, agg, kbar0, bits, uniforms,
+                         generator):
+        """One round of the seed engine (reference ``dfedrw.py:396-541``),
+        leaf by leaf on the stacked tree, with the plain Eq. 12 quantizer.
+        The uniforms of bits < 32 are ``uniforms["hop"][step][leaf]``, of
+        shape (M, *leaf), and ``uniforms["agg"][leaf]``, of shape
+        (A * n_agg, *leaf), or are drawn from ``generator`` in that order.
+        Returns (new device tree, mean loss, gamma_hat) as device tensors."""
+        cfg, dev = self.cfg, self.device
+        qcfg = dataclasses.replace(cfg.quant, bits=bits)
+        m, k = plan.devices.shape
+        n_dev = self.topo.n
+
+        def draw(given, shape):
+            """The given uniforms, or a draw from the generator."""
+            if given is not None:
+                return given
+            return torch.rand(shape, generator=generator, device=dev)
+
+        walk_mask = torch.from_numpy(plan.mask.copy()).to(device=dev)
+        bidx_t = torch.from_numpy(np.ascontiguousarray(bidx.swapaxes(0, 1))).to(device=dev)
+        chain_ids = torch.from_numpy(plan.devices[:, 0].astype(np.int64)).to(device=dev)
+        xb_all = self._x[bidx_t]                              # (K, M, B, ...)
+        yb_all = self._y[bidx_t]
+        start = tree_leaves(device_params)
+        chain = tree_map(lambda p: p[chain_ids], device_params)   # w_{i^{t,0}}
+        dev_last = [p.clone() for p in start]                 # w_l^{t,last}
+        grad_sq = []
+        for step in range(k):
+            lr = decreasing_lr(kbar0 + step + 1, cfg.lr_r, cfg.lr_q)
+            grads = tree_leaves(self._tree_grad_fn(chain, xb_all[step], yb_all[step]))
+            old = tree_leaves(chain)
+            # Straggler mask: inactive chains keep their params.
+            stepped = [torch.where(walk_mask[:, step].reshape((m,) + (1,) * (c.dim() - 1)),
+                                   c - lr * g, c) for c, g in zip(old, grads)]
+            if bits < 32:
+                # Eq. 13: the hand-off transmits Q(w^{k+1} - w^k), one wire
+                # tensor a leaf spanning all M chains; the received model is
+                # w^k + deq(Q(diff)). A step's uniforms are drawn even when
+                # every chain is masked, as the reference's scan draws them.
+                hop = [None] * len(old) if uniforms is None else uniforms["hop"][step]
+                stepped = [o + dequantize(quantize(s - o, qcfg, draw(u, s.shape)),
+                                          dtype=s.dtype)
+                           for s, o, u in zip(stepped, old, hop)]
+            # Each active chain's params go to its current device's
+            # w^{t,last} slot, in chain order: the last chain to visit wins.
+            for c in range(m):
+                if plan.mask[c, step]:
+                    d = int(plan.devices[c, step])
+                    for buf, leaf in zip(dev_last, stepped):
+                        buf[d] = leaf[c]
+            grad_sq.append(sum(torch.sum(g * g, dim=tuple(range(1, g.dim()))) for g in grads))
+            chain = tree_from_leaves(self.flat_spec, stepped)
+        gamma_hat = gamma_hat_from_traj(torch.stack(grad_sq), walk_mask)
+
+        # Decentralized aggregation (Eq. 11 / Eq. 14), leaf by leaf; padded
+        # aggregator ids (>= n) are dropped before the write.
+        agg_devices, agg_rows, agg_w = agg
+        valid = torch.from_numpy(np.nonzero(agg_devices < n_dev)[0]).to(device=dev)
+        agg_ids = torch.from_numpy(agg_devices.astype(np.int64)).to(device=dev)[valid]
+        rows = torch.from_numpy(agg_rows.astype(np.int64)).to(device=dev)   # (A, n_agg)
+        w = torch.from_numpy(agg_w).to(device=dev)
+        new_leaves = []
+        for li, (buf, base) in enumerate(zip(dev_last, start)):
+            wl = w.reshape(w.shape + (1,) * (buf.dim() - 1))
+            if bits < 32:
+                # Eq. 14: each (aggregator, neighbor) message row quantized
+                # on its own: one wire tensor a row, its own norm and s.
+                diffs = buf[rows] - base[rows]                # (A, n_agg, ...)
+                flat = diffs.reshape((-1,) + diffs.shape[2:])
+                u = draw(None if uniforms is None else uniforms["agg"][li], flat.shape)
+                qd = dequantize(quantize_rows(flat, qcfg, u)).reshape(diffs.shape)
+                new_rows = base[agg_ids] + _sum_neighbors(wl * qd)[valid]
+            else:
+                new_rows = _sum_neighbors(wl * buf[rows])[valid]
+            new_leaves.append(buf.index_copy_(0, agg_ids, new_rows))
+        new_params = tree_from_leaves(self.flat_spec, new_leaves)
+
+        # Mean train loss over the round's final chain models, on their last
+        # batch (cheap monitoring signal).
+        losses = self._tree_loss_fn(chain, xb_all[-1], yb_all[-1])
+        return new_params, losses.mean(), gamma_hat
 
     # ------------------------------------------------------------- host side
     def _plan_round(self, state: DFedRWState) -> tuple[WalkPlan, np.ndarray, tuple]:
@@ -536,29 +681,55 @@ class DFedRW(FlatRunner):
         account_plan: WalkPlan | None = None,
         bits: int | None = None,
         qseeds=None,
+        uniforms=None,
     ) -> tuple[DFedRWState, RoundMetrics]:
         """Run one planned round and update the protocol state.
 
         ``account_plan`` charges Eq. 18 comm for a different plan than the
         one computed; ``bits`` overrides the config's wire width for this
-        round. ``qseeds`` is a (K+1, 2) array of uint32 seed words for the K
-        hop payloads and the one aggregation payload; when None (and the
-        round is quantized) they are drawn from the generator ``key``."""
+        round. Flat engine: ``qseeds`` is a (K+1, 2) array of uint32 seed
+        words for the K hop payloads and the one aggregation payload; when
+        None (and the round is quantized) they are drawn from the generator
+        ``key``. Reference engine: ``uniforms`` is ``{"hop": hop, "agg":
+        agg}``, the stochastic-rounding uniforms in the reference's draw
+        order, ``hop[k][leaf]`` of shape (M, *leaf) and ``agg[leaf]`` of
+        shape (A * n_agg, *leaf); when None (and the round is quantized)
+        they are drawn from ``key``, or from a generator on the engine's
+        device seeded from ``key`` when ``key`` lies elsewhere."""
         cfg = self.cfg
         obs = self.obs
         t_obs = obs.clock.now() if obs is not None else 0.0
         bits_eff = validate_wire_bits(cfg.quant.bits if bits is None else int(bits))
-        if bits_eff < 32:
-            if qseeds is None:
+        if cfg.engine == "reference":
+            if qseeds is not None:
+                raise ValueError("qseeds salt the flat engine's kernels; the reference "
+                                 "engine takes uniforms")
+            gen = None
+            if bits_eff < 32 and uniforms is None:
                 if key is None:
-                    raise ValueError("a quantized round needs a generator or qseeds")
-                qseeds = torch.randint(0, 1 << 32, (cfg.k_walk + 1, 2),
-                                       generator=key, dtype=torch.int64)
-            qseeds = [(int(a), int(b)) for a, b in np.asarray(qseeds).tolist()]
-            if len(qseeds) != cfg.k_walk + 1:
-                raise ValueError(f"qseeds needs {cfg.k_walk + 1} rows, got {len(qseeds)}")
-        new_params, loss, gamma_hat = self._round_flat(
-            state.device_params, plan, bidx, agg, state.global_step, bits_eff, qseeds)
+                    raise ValueError("a quantized round needs a generator or uniforms")
+                gen = key
+                if torch.device(key.device).type != self.device.type:
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(int(torch.randint(0, 1 << 62, (1,), generator=key)))
+            new_params, loss, gamma_hat = self._round_reference(
+                state.device_params, plan, bidx, agg, state.global_step, bits_eff,
+                uniforms if bits_eff < 32 else None, gen)
+        else:
+            if uniforms is not None:
+                raise ValueError("uniforms feed the reference engine; the flat engine takes "
+                                 "qseeds")
+            if bits_eff < 32:
+                if qseeds is None:
+                    if key is None:
+                        raise ValueError("a quantized round needs a generator or qseeds")
+                    qseeds = torch.randint(0, 1 << 32, (cfg.k_walk + 1, 2),
+                                           generator=key, dtype=torch.int64)
+                qseeds = [(int(a), int(b)) for a, b in np.asarray(qseeds).tolist()]
+                if len(qseeds) != cfg.k_walk + 1:
+                    raise ValueError(f"qseeds needs {cfg.k_walk + 1} rows, got {len(qseeds)}")
+            new_params, loss, gamma_hat = self._round_flat(
+                state.device_params, plan, bidx, agg, state.global_step, bits_eff, qseeds)
         self._programs_run.add(bits_eff)
         acct = plan if account_plan is None else account_plan
         tot, busiest = self._comm_cost_bits(acct, agg, self.flat_spec.d, bits=bits_eff)

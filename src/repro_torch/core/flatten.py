@@ -33,6 +33,7 @@ __all__ = [
     "make_flat_spec",
     "tree_leaves",
     "tree_from_leaves",
+    "tree_map",
     "flatten_tree",
     "unflatten_tree",
     "elect_writers",
@@ -72,6 +73,14 @@ def tree_from_leaves(spec: "FlatSpec", leaves) -> Any:
     """The tree of ``spec``'s nesting whose leaves, in sorted-key order,
     are ``leaves``."""
     return _rebuild(spec.structure, iter(leaves))
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (with the leaves at the same places
+    of each tree of ``rest``), in :func:`tree_leaves` order; the same
+    nesting back."""
+    leaves = [fn(*xs) for xs in zip(tree_leaves(tree), *(tree_leaves(r) for r in rest))]
+    return _rebuild(_structure(tree), iter(leaves))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,7 @@ __all__ = [
     "partition_similarity",
     "partition_dirichlet",
     "partition_nonbalance",
+    "delta_squared",
 ]
 
 
@@ -141,3 +142,10 @@ def partition_nonbalance(
         client_indices.append(np.array(got[:per_client], dtype=np.int64))
     return Partition(client_indices=client_indices, n_clients=n_clients)
 
+
+def delta_squared(local_grad_sq_norms: np.ndarray, global_grad_sq_norm: float) -> float:
+    """Definition 1 estimator: E_i ||∇F_i(w)||^2 / ||∇f(w)||^2 (>= 1 iff
+    heterogeneous; ~1 for IID)."""
+    if global_grad_sq_norm <= 0:
+        return 1.0
+    return float(np.mean(local_grad_sq_norms) / global_grad_sq_norm)

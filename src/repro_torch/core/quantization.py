@@ -9,10 +9,16 @@ information, i.e. (64 + b*d) bits versus 32*d unquantized.
 
 Torch cannot reproduce ``jax.random`` streams, so :func:`quantize` takes
 its stochastic-rounding uniforms as an argument; handed the reference's
-uniforms it gives the reference's indices. The flat engine does not call
-this oracle: it runs the fused payload kernels of
+uniforms it gives the reference's indices. :func:`quantize_rows` quantizes
+each row of a tensor as its own wire tensor (the reference's vmapped
+``quantize``), and the pytree codec (:func:`quantize_pytree`,
+:func:`dequantize_pytree`, :func:`pytree_wire_bits`) one wire tensor a
+leaf, leaves in the reference's order (sorted dict keys). The flat engine
+does not call these oracles: it runs the fused payload kernels of
 ``repro_torch.kernels.quantize``, whose segment wire format is the one
-described in ``repro.core.quantization``.
+described in ``repro.core.quantization``. The per-leaf seed engine
+(``DFedRWConfig(engine="reference")``) calls them, plain PyTorch on
+whatever device it runs on.
 """
 from __future__ import annotations
 
@@ -20,14 +26,20 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.flatten import tree_leaves, tree_map
+
 __all__ = [
     "QuantConfig",
     "Quantized",
     "SUPPORTED_WIRE_WIDTHS",
     "validate_wire_bits",
     "quantize",
+    "quantize_rows",
     "dequantize",
+    "quantize_pytree",
+    "dequantize_pytree",
     "wire_bits",
+    "pytree_wire_bits",
 ]
 
 # Bit-widths the Eq. 12 wire format can carry (the signed index must fit
@@ -62,6 +74,11 @@ class QuantConfig:
         return (1 << (self.bits - 1)) - 1  # sign bit reserved
 
     @property
+    def interval(self) -> float:
+        """Static fallback interval (used when s is fixed)."""
+        return self.s if self.s is not None else 1.0 / max(self.levels, 1)
+
+    @property
     def enabled(self) -> bool:
         return self.bits < 32
 
@@ -80,21 +97,39 @@ def quantize(w: torch.Tensor, cfg: QuantConfig, u: torch.Tensor) -> Quantized:
     """Eq. 12: unbiased stochastic rounding of |w_v|/||w|| onto the s-grid,
     rounding up where ``u < phi`` (``u``: uniforms in [0, 1), w's shape)."""
     wf = w.to(torch.float32)
-    norm = torch.linalg.vector_norm(wf.reshape(-1))
+    return _round(wf, cfg, u, torch.linalg.vector_norm(wf.reshape(-1)), wf.abs().max())
+
+
+def quantize_rows(w: torch.Tensor, cfg: QuantConfig, u: torch.Tensor) -> Quantized:
+    """:func:`quantize` of each row ``w[r]`` on its own, with its own norm
+    and grid, as row-wise reductions over the whole tensor: ``s`` and
+    ``norm`` have shape (R, 1, ..., 1), so :func:`dequantize` takes the
+    result as it is."""
+    wf = w.to(torch.float32)
+    flat = wf.reshape(wf.shape[0], -1)
+    lead = (wf.shape[0],) + (1,) * (wf.dim() - 1)
+    return _round(wf, cfg, u, torch.linalg.vector_norm(flat, dim=1).reshape(lead),
+                  flat.abs().amax(dim=1).reshape(lead))
+
+
+def _round(wf: torch.Tensor, cfg: QuantConfig, u: torch.Tensor, norm: torch.Tensor,
+           absmax: torch.Tensor) -> Quantized:
+    """The Eq. 12 grid and rounding of ``wf`` given its norm and max |w_v|
+    (scalars, or one a row broadcast over the row)."""
     safe_norm = torch.where(norm > 0, norm, torch.ones_like(norm))
     if cfg.s is None:
         # Adaptive per-tensor grid: cover [0, max|w_v|/||w||] exactly.
-        xmax = wf.abs().max() / safe_norm
+        xmax = absmax / safe_norm
         s = torch.where(xmax > 0, xmax / max(cfg.levels, 1), torch.ones_like(xmax))
     else:
-        s = torch.tensor(cfg.s, dtype=torch.float32, device=w.device)
+        s = torch.full_like(norm, cfg.s)
     x = wf.abs() / safe_norm             # in [0, 1]
     ell = torch.floor(x / s)             # lower grid index
     phi = x / s - ell                    # relative position in the interval
     up = (u.to(torch.float32) < phi).to(torch.float32)
     idx = torch.clamp(ell + up, 0, cfg.levels).to(torch.int32)
     signed = idx * torch.sign(wf).to(torch.int32)
-    return Quantized(indices=signed, s=s, norm=norm, shape=tuple(w.shape))
+    return Quantized(indices=signed, s=s, norm=norm, shape=tuple(wf.shape))
 
 
 def dequantize(q: Quantized, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -102,8 +137,33 @@ def dequantize(q: Quantized, dtype: torch.dtype = torch.float32) -> torch.Tensor
     return w.to(dtype).reshape(q.shape)
 
 
+def quantize_pytree(tree, cfg: QuantConfig, *, uniforms=None,
+                    generator: torch.Generator | None = None):
+    """Each leaf of ``tree`` quantized as one wire tensor (:func:`quantize`);
+    a tree of :class:`Quantized` of the same nesting. ``uniforms`` lists one
+    tensor a leaf, in the reference's leaf order (sorted dict keys); without
+    it the uniforms are drawn from ``generator`` on each leaf's device."""
+    leaves = tree_leaves(tree)
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("quantize_pytree needs uniforms or a generator")
+        uniforms = [torch.rand(leaf.shape, generator=generator, device=leaf.device)
+                    for leaf in leaves]
+    if len(uniforms) != len(leaves):
+        raise ValueError(f"{len(uniforms)} uniforms for {len(leaves)} leaves")
+    return tree_map(lambda leaf, u: quantize(leaf, cfg, u), tree, list(uniforms))
+
+
+def dequantize_pytree(qtree, dtype: torch.dtype = torch.float32):
+    return tree_map(lambda q: dequantize(q, dtype), qtree)
+
+
 def wire_bits(d: int, bits: int) -> int:
     """Paper §IV-B: quantized vector costs 64 + b*d bits; fp32 costs 32*d."""
     if bits >= 32:
         return 32 * d
     return 64 + bits * d
+
+
+def pytree_wire_bits(tree, bits: int) -> int:
+    return sum(wire_bits(int(leaf.numel()), bits) for leaf in tree_leaves(tree))

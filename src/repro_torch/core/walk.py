@@ -20,6 +20,7 @@ __all__ = [
     "ChainResume",
     "sample_walks",
     "StragglerModel",
+    "gamma_inexactness",
 ]
 
 
@@ -215,3 +216,10 @@ def sample_walks(
     mask = np.arange(k)[None, :] < k_m[:, None]
     return WalkPlan(devices=devices, mask=mask, k_m=k_m)
 
+
+def gamma_inexactness(grad_norm_end: float, grad_norm_start: float) -> float:
+    """Empirical gamma-hat of Lemma 1: ||∇F(w^k)|| / ||∇F(w^{k-K})||, the
+    realized inexactness of one random-walk trajectory."""
+    if grad_norm_start <= 0.0:
+        return 1.0
+    return float(grad_norm_end / grad_norm_start)

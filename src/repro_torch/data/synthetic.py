@@ -33,6 +33,16 @@ class FederatedDataset:
     def client_sizes(self) -> np.ndarray:
         return self.client_mask.sum(axis=1)
 
+    def client_batch(
+        self, client: int, batch_size: int, rng: np.random.Generator
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``batch_size`` samples of ``client``'s index row, drawn with
+        replacement from ``rng`` as the reference draws them."""
+        row = self.client_idx[client]
+        take = rng.integers(0, row.shape[0], size=batch_size)
+        sel = row[take]
+        return self.x[sel], self.y[sel]
+
     @classmethod
     def from_partition(cls, x, y, part) -> "FederatedDataset":
         """part: repro_torch.core.heterogeneity.Partition (duck-typed to avoid

@@ -186,8 +186,8 @@ def _decode(codes, s, norm, spec):
     """B6: a (B, d_pad) float32 payload from its codes and its (B, leaves)
     headers."""
     counts = torch.as_tensor(_leaf_rows(spec)[1], device=codes.device)
-    s_rows = s.repeat_interleave(counts, dim=1).reshape(-1)
-    n_rows = norm.repeat_interleave(counts, dim=1).reshape(-1)
+    s_rows = s.repeat_interleave(counts, dim=1, output_size=spec.rows).reshape(-1)
+    n_rows = norm.repeat_interleave(counts, dim=1, output_size=spec.rows).reshape(-1)
     out = qk.dequantize_rows(codes.reshape(-1, LANES), s_rows, n_rows)
     return out.view(codes.shape)
 

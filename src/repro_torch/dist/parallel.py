@@ -53,6 +53,12 @@ its own :attr:`MeshAxis.stats` (calls, bytes received, and wall seconds,
 host-synchronous), so a step reports its data collectives apart from its
 model collectives. The layout helpers (``model_dim``, ``cache_dim``,
 ``span``, ``splits``, ``whole``) read the model axis's specs.
+
+:class:`ShapeAxis` is the shape-only axis of the dry run
+(``launch/dryrun.py``): rank ``rank`` of ``size`` ranks with no group, whose
+collectives move nothing and return outputs of the right shape and dtype
+(on the meta device when given meta tensors), counting calls and bytes as
+the real axis does.
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ import torch.distributed as dist
 
 from repro_torch.dist.sharding import cache_spec_for_leaf, spec_for_leaf
 
-__all__ = ["MeshAxis"]
+__all__ = ["MeshAxis", "ShapeAxis"]
 
 
 @lru_cache(maxsize=None)
@@ -233,6 +239,40 @@ class MeshAxis:
         self.stats["bytes"] += x.numel() * x.element_size() * self.size
         self.stats["seconds"] += time.perf_counter() - t0
         return parts
+
+
+class ShapeAxis(MeshAxis):
+    """A shape-only axis: rank ``rank`` of ``size`` ranks with no process
+    group. Its gathers and exchanges return tensors of the shapes and dtypes
+    the real collectives would (``torch.empty_like``: no data, nothing
+    sent) and count ``stats["calls"]`` and ``stats["bytes"]`` exactly as
+    :class:`MeshAxis` counts them; ``ops`` counts them apart by kind
+    (``"gather"``, every sum, mean and gather being one, and
+    ``"exchange"``), each ``[calls, bytes]``."""
+
+    def __init__(self, rank: int = 0, size: int = 1, name: str = "model"):
+        super().__init__(None, rank, 1, name)   # the real axis refuses size > 1 with no group
+        self.size = size
+        self.ops = {"gather": [0, 0], "exchange": [0, 0]}
+
+    def __repr__(self) -> str:
+        return f"ShapeAxis({self.name!r}, rank={self.rank}, size={self.size})"
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        self.stats["calls"] += 1
+        self.stats["bytes"] += nbytes
+        self.ops[kind][0] += 1
+        self.ops[kind][1] += nbytes
+
+    def exchange(self, tensors, send_to: int, recv_from: int) -> list[torch.Tensor]:
+        tensors = [t.contiguous() for t in tensors]
+        self._count("exchange", sum(t.numel() * t.element_size() for t in tensors))
+        return [torch.empty_like(t) for t in tensors]
+
+    def _gather(self, x: torch.Tensor) -> list[torch.Tensor]:
+        x = x.contiguous()
+        self._count("gather", x.numel() * x.element_size() * self.size)
+        return [torch.empty_like(x) for _ in range(self.size)]
 
 
 class _AxisSum(torch.autograd.Function):

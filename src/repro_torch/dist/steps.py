@@ -16,9 +16,10 @@ or ``p_specs``) and takes its block of the batch (``batch_specs``); see
 :func:`make_train_step`.
 
 ``make_serve_step`` builds the serve engine's per-slot decode step over
-the cache (the reference's ``slots=True`` variant; its ``slots=False``
-variant serves only ``launch/dryrun.py``, which is not ported) and
-``make_prefill_step`` the chunked batched prefill into it
+the cache (the reference's ``slots=True`` variant, the port's default;
+``slots=False`` is the reference's lockstep step, which only
+``launch/dryrun.py`` runs) and ``make_prefill_step`` the chunked batched
+prefill into it
 (``T.prefill_chunk``). Both run in the parameters' and the cache's dtype,
 float32 or bf16, and return logits in it. Given a mesh
 (``launch.mesh.make_host_mesh``), each returns ``(fn, p_specs)``, the
@@ -229,21 +230,29 @@ def _share(axis, batch: dict, batch_spec):
     return whole, (axis.rank * s, (axis.rank + 1) * s)
 
 
-def make_serve_step(cfg: ArchConfig, mesh=None):
+def make_serve_step(cfg: ArchConfig, mesh=None, *, slots: bool = True):
     """serve_fn(params, cache, token, positions, active) -> (logits,
     new_cache), the continuous-batching decode step (``T.decode_step``):
     every cache row is a request slot at its own absolute position, and
-    ``active`` freezes free and retired rows. Without a mesh, the step
-    alone. With one, (serve_fn, p_specs): the step runs on the mesh's model
-    axis, its logits whole on every rank, over the rows that the caller
-    passes, this rank's slots on the data axis (``sharding.slot_rows``):
-    the cache's rows and the arguments' rows alike. ``p_specs`` places the
-    parameters that ``serve_fn`` takes (:func:`_serve_specs`)."""
+    ``active`` freezes free and retired rows. ``slots=False`` builds the
+    reference's lockstep variant ``serve_fn(params, cache, token)``: every
+    row at ``cache["pos"]``, which advances by one (the reference's default;
+    the port's is the slot variant its serve engine calls). Without a mesh,
+    the step alone. With one, (serve_fn, p_specs): the step runs on the
+    mesh's model axis, its logits whole on every rank, over the rows that
+    the caller passes, this rank's slots on the data axis
+    (``sharding.slot_rows``): the cache's rows and the arguments' rows
+    alike. ``p_specs`` places the parameters that ``serve_fn`` takes
+    (:func:`_serve_specs`)."""
     axis = mesh.axis if mesh is not None else None
 
-    def serve_fn(params, cache, token, positions, active):
-        return T.decode_step(cfg, params, cache, token, positions=positions, active=active,
-                             axis=axis)
+    if slots:
+        def serve_fn(params, cache, token, positions, active):
+            return T.decode_step(cfg, params, cache, token, positions=positions,
+                                 active=active, axis=axis)
+    else:
+        def serve_fn(params, cache, token):
+            return T.decode_step(cfg, params, cache, token, axis=axis)
 
     if mesh is None:
         return serve_fn

@@ -18,11 +18,13 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CUDA tensor launches the hand-written kernel, which reads K/V by group
     and masks ragged lengths itself (no repeat, no padding), or raises. A
-    CPU tensor takes the plain version; any other device is refused. The
+    CPU tensor takes the plain version, and so does a meta tensor (shapes
+    only, nothing computed: the dry run's count, ``launch/dryrun.py``); any
+    other device is refused. The
     kernel's tiles (128 query rows, 64 keys) are its own: the reference's
     ``bq``/``bk`` and ``interpret`` have no counterpart."""
     if q.device.type == "cuda":
         return block_attn(q, k, v, causal=causal, window=window)
-    if q.device.type != "cpu":
-        raise ValueError(f"block_attention takes CPU or CUDA tensors, got {q.device}")
+    if q.device.type not in ("cpu", "meta"):
+        raise ValueError(f"block_attention takes CPU, CUDA or meta tensors, got {q.device}")
     return block_attention_plain(q, k, v, causal=causal, window=window)

@@ -27,8 +27,9 @@ operand, one write of the result; the design notes are in the ``.cu``
 source.
 
 A wrapper given CPU tensors runs the kernel's plain PyTorch version
-(``*_plain``); given CUDA tensors it launches the kernel on the current
-stream, or raises. A float32 qdq result is written over ``w2d`` (the TPU
+(``*_plain``), and so does one given meta tensors (shapes only, nothing
+computed: the dry run's count, ``launch/dryrun.py``); given CUDA tensors it
+launches the kernel on the current stream, or raises. A float32 qdq result is written over ``w2d`` (the TPU
 kernel aliases its payload to its output), so callers hand over a
 temporary; a bfloat16 or int8 result goes to a new tensor. Each launch adds
 one to :data:`LAUNCHES`; nothing here synchronises.
@@ -212,8 +213,8 @@ def _check(bits, planes, vectors=(), scalars=(), out_dtype=None):
     (name, tensor) of one-element float32 operands."""
     first = planes[0][1]
     device = first.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"qdq kernels take CPU or CUDA tensors, got {device}")
+    if device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"qdq kernels take CPU, CUDA or meta tensors, got {device}")
     if bits is not None and not 2 <= bits <= 8:
         raise ValueError(f"qdq kernels carry 2..8-bit wire widths, got {bits}")
     if out_dtype is not None and out_dtype not in OUT_DTYPES:
@@ -242,7 +243,7 @@ def _check(bits, planes, vectors=(), scalars=(), out_dtype=None):
 
 
 def _no_alias(base2d, w2d):
-    if base2d.data_ptr() == w2d.data_ptr():
+    if base2d.device.type != "meta" and base2d.data_ptr() == w2d.data_ptr():
         raise ValueError("base2d must not alias w2d")
 
 
@@ -266,7 +267,7 @@ def qdq_delta_rows_rng(w2d: torch.Tensor, base2d: torch.Tensor, seed,
     _check(bits, [("w2d", w2d, f32), ("base2d", base2d, f32)],
            [("s_rows", s_rows), ("norm_rows", norm_rows)])
     _no_alias(base2d, w2d)
-    if w2d.device.type == "cpu":
+    if w2d.device.type in ("cpu", "meta"):
         return qdq_delta_rows_rng_plain(w2d, base2d, seed, s_rows, norm_rows,
                                         bits=bits)
     _launch("qdq_delta_rows_rng",
@@ -283,7 +284,7 @@ def qdq_rows_rng(w2d: torch.Tensor, seed, s_rows: torch.Tensor,
     the CPU the plain version returns a new tensor."""
     _check(bits, [("w2d", w2d, torch.float32)],
            [("s_rows", s_rows), ("norm_rows", norm_rows)])
-    if w2d.device.type == "cpu":
+    if w2d.device.type in ("cpu", "meta"):
         return qdq_rows_rng_plain(w2d, seed, s_rows, norm_rows, bits=bits)
     _launch("qdq_rows_rng",
             (w2d.data_ptr(), s_rows.data_ptr(), norm_rows.data_ptr(),
@@ -309,7 +310,7 @@ def qdq_delta_rows(w2d: torch.Tensor, base2d: torch.Tensor, u2d: torch.Tensor,
     _check(bits, [("w2d", w2d, f32), ("base2d", base2d, f32), ("u2d", u2d, f32)],
            [("s_rows", s_rows), ("norm_rows", norm_rows)], out_dtype=out_dtype)
     _no_alias(base2d, w2d)
-    if w2d.device.type == "cpu":
+    if w2d.device.type in ("cpu", "meta"):
         return qdq_delta_rows_plain(w2d, base2d, u2d, s_rows, norm_rows, bits=bits,
                                     out_dtype=out_dtype)
     out = _qdq_out(w2d, out_dtype)
@@ -329,7 +330,7 @@ def qdq_rows(w2d: torch.Tensor, u2d: torch.Tensor, s_rows: torch.Tensor,
     f32 = torch.float32
     _check(bits, [("w2d", w2d, f32), ("u2d", u2d, f32)],
            [("s_rows", s_rows), ("norm_rows", norm_rows)], out_dtype=out_dtype)
-    if w2d.device.type == "cpu":
+    if w2d.device.type in ("cpu", "meta"):
         return qdq_rows_plain(w2d, u2d, s_rows, norm_rows, bits=bits,
                               out_dtype=out_dtype)
     out = _qdq_out(w2d, out_dtype)
@@ -347,7 +348,7 @@ def quantize_rows(w2d: torch.Tensor, u2d: torch.Tensor, s_rows: torch.Tensor,
     f32 = torch.float32
     _check(bits, [("w2d", w2d, f32), ("u2d", u2d, f32)],
            [("s_rows", s_rows), ("norm_rows", norm_rows)])
-    if w2d.device.type == "cpu":
+    if w2d.device.type in ("cpu", "meta"):
         return quantize_rows_plain(w2d, u2d, s_rows, norm_rows, bits=bits)
     out = torch.empty(w2d.shape, dtype=torch.int8, device=w2d.device)
     _launch("quantize_rows",
@@ -361,7 +362,7 @@ def dequantize_rows(q2d: torch.Tensor, s_rows: torch.Tensor, norm_rows: torch.Te
     """``q * s * norm`` per row of an (R, 128) int8 payload (a new tensor)."""
     _check(None, [("q2d", q2d, torch.int8)],
            [("s_rows", s_rows), ("norm_rows", norm_rows)], out_dtype=out_dtype)
-    if q2d.device.type == "cpu":
+    if q2d.device.type in ("cpu", "meta"):
         return dequantize_rows_plain(q2d, s_rows, norm_rows, out_dtype=out_dtype)
     out = torch.empty(q2d.shape, dtype=out_dtype, device=q2d.device)
     _launch("dequantize_rows",
@@ -377,7 +378,7 @@ def quantize(w2d: torch.Tensor, u2d: torch.Tensor, norm: torch.Tensor, *,
     interval ``s`` (a new tensor)."""
     f32 = torch.float32
     _check(bits, [("w2d", w2d, f32), ("u2d", u2d, f32)], scalars=[("norm", norm)])
-    if w2d.device.type == "cpu":
+    if w2d.device.type in ("cpu", "meta"):
         return quantize_plain(w2d, u2d, norm.reshape(()), s=s, bits=bits)
     out = torch.empty(w2d.shape, dtype=torch.int8, device=w2d.device)
     _launch("quantize",
@@ -392,7 +393,7 @@ def dequantize(q2d: torch.Tensor, norm: torch.Tensor, *, s: float,
     one-element tensor on q's device) and the fixed ``s`` (a new tensor)."""
     _check(None, [("q2d", q2d, torch.int8)], scalars=[("norm", norm)],
            out_dtype=out_dtype)
-    if q2d.device.type == "cpu":
+    if q2d.device.type in ("cpu", "meta"):
         return dequantize_plain(q2d, norm.reshape(()), s=s, out_dtype=out_dtype)
     out = torch.empty(q2d.shape, dtype=out_dtype, device=q2d.device)
     # float(float32(s)): the constant the reference multiplies by.

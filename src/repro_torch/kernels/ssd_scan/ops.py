@@ -19,9 +19,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     A CUDA tensor launches the hand-written kernel, which reads B/C by group
     and masks a ragged last chunk itself, or raises. A CPU tensor takes the
     plain version, which pads L to a chunk multiple with dt = 0 (a no-op
-    step); any other device is refused."""
+    step), and so does a meta tensor (shapes only, nothing computed: the
+    dry run's count, ``launch/dryrun.py``); any other device is refused."""
     if x.device.type == "cuda":
         return ssd_scan(x, dt, a_log, b, c, chunk=chunk)
-    if x.device.type != "cpu":
-        raise ValueError(f"ssd_chunked takes CPU or CUDA tensors, got {x.device}")
+    if x.device.type not in ("cpu", "meta"):
+        raise ValueError(f"ssd_chunked takes CPU, CUDA or meta tensors, got {x.device}")
     return ssd_chunked_plain(x, dt, a_log, b, c, chunk)[0]

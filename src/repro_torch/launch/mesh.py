@@ -51,6 +51,7 @@ class HW:
     HBM_BW = 3.35e12               # HBM3 bytes/s per card
     HBM_BYTES = 80e9               # HBM3 capacity
     NVLINK_BW = 900e9              # NVLink bytes/s per card (all links, both directions)
+    NVLINK_SEND_BW = 450e9         # NVLink bytes/s a card sends (half of NVLINK_BW)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:

@@ -107,8 +107,22 @@ class ArchConfig:
         return self.n_layers // len(self.block_pattern)
 
     @property
+    def is_ssm_only(self) -> bool:
+        return all(k == "mamba" for k in self.block_pattern)
+
+    @property
     def has_attention(self) -> bool:
         return any(k == "attn" for k in self.block_pattern)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when long-context decode is natively cheap: SSM/hybrid (the
+        cache does not grow with context for mamba layers) or an explicit
+        sliding window."""
+        return self.is_ssm_only or ("mamba" in self.block_pattern) or self.sliding_window > 0
+
+    def with_sliding_window(self, window: int) -> "ArchConfig":
+        return dataclasses.replace(self, sliding_window=window)
 
     def ffn_kind(self, slot: int) -> str:
         if len(self.ffn_pattern) == 1:
@@ -167,3 +181,14 @@ class ArchConfig:
             total += (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
                       + self.n_heads * hd * d + d) * self.n_layers
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        full = self.param_count()
+        mo = self.moe
+        de = mo.d_expert or self.d_ff
+        n_moe_slots = sum(1 for s in range(len(self.block_pattern)) if self.ffn_kind(s) == "moe")
+        inactive = (mo.n_experts - mo.top_k) * 3 * self.d_model * de
+        return int(full - inactive * n_moe_slots * self.n_blocks)

@@ -415,9 +415,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.float32,
     there. On a model ``axis`` each leaf is this rank's block, at the local
     shape ``sharding.cache_specs`` gives (the KV heads of k/v, d of
     ``enc_out``). ``batch`` is the rows this cache holds: on a data axis the
-    caller passes its rank's (``sharding.slot_rows``)."""
+    caller passes its rank's (``sharding.slot_rows``). ``device="meta"``
+    gives the cache's shapes and dtypes with no memory (the dry run's)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if torch.device(device).type == "meta" else resolve_device(device)
     if _active(axis):
         whole = _init_cache(cfg, batch, max_len, dtype, torch.device("meta"), enc_len)
 

@@ -24,6 +24,7 @@ bf16 rounding of P is not; the host's decision of what TMA can read
 (``tma_takes``) and the repack are tested on tensor metadata.
 """
 import math
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,11 +126,15 @@ def test_attention_pairs_counts_the_mask(lq, lk, causal, window):
 
 
 def test_other_devices_are_refused():
-    """Only a CPU tensor takes the plain version; any device other than the
-    CPU or a card is refused, not computed."""
+    """A CPU tensor takes the plain version, and a meta tensor its shapes
+    (the dry run's count, nothing computed); any device other than the CPU,
+    a card or meta is refused, not computed."""
     q, k, v = (torch.from_numpy(a).to("meta") for a in _qkv(1, 8, 8, 2, 2, 8))
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        block_attention(q, k, v)
+    o = block_attention(q, k, v)
+    assert o.device.type == "meta" and o.shape == q.shape and o.dtype == q.dtype
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="CPU, CUDA or meta"):
+        block_attention(other, k, v)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:

@@ -149,16 +149,6 @@ def test_run_round_draws_own_seeds_and_is_deterministic():
     assert np.isfinite(ma.train_loss)
 
 
-@pytest.mark.parametrize("kw", [{"engine": "reference"}])
-def test_unported_options_raise(kw):
-    x, y = synthetic_image_classification(n_samples=100, seed=0)
-    data = FederatedDataset.from_partition(
-        x, y, partition_similarity(y, 4, 50, np.random.default_rng(0)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DFedRW(make_fnn((8,)), data, make_topology("complete", 4),
-               DFedRWConfig(**kw), device="cpu")
-
-
 def test_launcher_cpu_round(capsys):
     from repro_torch.launch.train import main
 

@@ -692,19 +692,29 @@ def test_entry_points_default_to_cuda():
 
 
 def test_only_cpu_tensors_take_the_plain_path():
-    """The plain version runs only because the tensor lies on the CPU; a
-    tensor on any device other than the CPU or a card is refused."""
+    """The plain version runs only because the tensor lies on the CPU, or
+    shape-only on meta (the dry run's count, nothing computed, no launch); a
+    tensor on any other device is refused."""
+    import types
+
     from repro_torch.kernels.quantize import quantize as q
 
     w = torch.zeros(2, q.LANES)
     out = q.qdq_rows_rng(w, (0, 0), torch.ones(2), torch.ones(2), bits=8)
     assert out is not w and out.device.type == "cpu"
     meta = [t.to("meta") for t in (w, torch.ones(2), torch.ones(2))]
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        q.qdq_rows_rng(meta[0], (0, 0), meta[1], meta[2], bits=8)
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        q.qdq_delta_rows_rng(meta[0], torch.empty_like(meta[0]), (0, 0), meta[1], meta[2],
-                             bits=8)
+    q.reset_launch_counts()
+    out = q.qdq_rows_rng(meta[0], (0, 0), meta[1], meta[2], bits=8)
+    assert out.device.type == "meta" and out.shape == w.shape
+    out = q.qdq_delta_rows_rng(meta[0], torch.empty_like(meta[0]), (0, 0), meta[1], meta[2],
+                               bits=8)
+    assert out.device.type == "meta" and out.shape == w.shape
+    assert not any(q.LAUNCHES.values())
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="CPU, CUDA or meta"):
+        q.qdq_rows_rng(other, (0, 0), meta[1], meta[2], bits=8)
+    with pytest.raises(ValueError, match="CPU, CUDA or meta"):
+        q.qdq_delta_rows_rng(other, meta[0], (0, 0), meta[1], meta[2], bits=8)
 
 
 def test_block_attention_on_cpu_never_touches_the_kernel():
@@ -760,13 +770,20 @@ def _wire_calls(q, device):
 @pytest.mark.parametrize("name", ["qdq_delta_rows", "qdq_rows", "quantize_rows",
                                   "dequantize_rows", "quantize", "dequantize"])
 def test_wire_wrappers_take_the_plain_path_only_on_the_cpu(name):
-    """A CPU tensor takes the plain version (no build, no launch); a tensor
-    on any device other than the CPU or a card is refused."""
+    """A CPU tensor takes the plain version (no build, no launch), and so
+    does a meta tensor, shape-only (the dry run's count); a tensor on any
+    other device is refused."""
+    from unittest import mock
+
     from repro_torch.kernels.quantize import quantize as q
 
     q.reset_launch_counts()
     out = _wire_calls(q, "cpu")[name]()
     assert out.device.type == "cpu" and out.shape == (2, q.LANES)
+    out = _wire_calls(q, "meta")[name]()
+    assert out.device.type == "meta" and out.shape == (2, q.LANES)
     assert not any(q.LAUNCHES.values()) and name in q.LAUNCHES and q.BUILD_INFO == {}
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        _wire_calls(q, "meta")[name]()
+    calls = _wire_calls(q, "meta")
+    with mock.patch.object(torch.Tensor, "device", torch.device("xpu")), \
+            pytest.raises(ValueError, match="CPU, CUDA or meta"):
+        calls[name]()

@@ -29,6 +29,7 @@ version.
 """
 import functools
 import math
+import types
 
 import numpy as np
 import pytest
@@ -96,10 +97,14 @@ def test_ssd_chunked_matches_jax(case):
 
 
 def test_ssd_chunked_refuses_other_devices():
-    """The plain version runs only because the tensor lies on the CPU."""
+    """The plain version runs only because the tensor lies on the CPU, or
+    shape-only on meta (the dry run's count); any other device is refused."""
     meta = [torch.from_numpy(a).to("meta") for a in _inputs(1, 2, 16, 8, 8, 1)]
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        ssd_chunked(*meta, chunk=8)
+    y = ssd_chunked(*meta, chunk=8)
+    assert y.device.type == "meta" and y.shape == meta[0].shape
+    other = types.SimpleNamespace(device=torch.device("xpu"))
+    with pytest.raises(ValueError, match="CPU, CUDA or meta"):
+        ssd_chunked(other, *meta[1:], chunk=8)
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
